@@ -1,0 +1,56 @@
+"""scalellm_tpu_torch — the PyTorch/CUDA port of the scalellm_tpu package.
+
+Serves a Llama-family decoder on an NVIDIA GPU (Hopper): continuous batching
+over a paged KV cache with chunked prefill and the prefix cache, with the
+ragged paged attention as a hand-written CUDA kernel
+(csrc/ragged_paged_attention.cu). Modules mirror scalellm_tpu's paths and
+names. It imports torch, and neither jax nor the scalellm_tpu package.
+
+Public API:
+  - LLM: synchronous offline batch inference
+  - SamplingParams, Message, Priority, RequestOutput, ...
+"""
+
+from scalellm_tpu_torch.version import __version__
+
+from scalellm_tpu_torch.request.output import (
+    FinishReason,
+    LogProb,
+    LogProbData,
+    Priority,
+    RequestOutput,
+    SequenceOutput,
+    Status,
+    StatusCode,
+    Usage,
+)
+from scalellm_tpu_torch.sampling.params import SamplingParams
+from scalellm_tpu_torch.utils.chat import Message
+from scalellm_tpu_torch.errors import ValidationError
+
+
+def __getattr__(name):
+    # Lazy: `import scalellm_tpu_torch` loads no model, engine or kernel code.
+    if name == "LLM":
+        from scalellm_tpu_torch.llm import LLM
+
+        return LLM
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = [
+    "__version__",
+    "LLM",
+    "SamplingParams",
+    "Message",
+    "Priority",
+    "RequestOutput",
+    "SequenceOutput",
+    "Status",
+    "StatusCode",
+    "Usage",
+    "LogProb",
+    "LogProbData",
+    "FinishReason",
+    "ValidationError",
+]

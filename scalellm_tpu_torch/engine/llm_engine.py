@@ -1,0 +1,111 @@
+"""LLMEngine — owns the model executor, tokenizer and KV block manager
+(counterpart of scalellm_tpu/engine/llm_engine.py, synchronous path).
+
+Init: load the model onto the device -> size the KV cache from free device
+memory -> allocate blocks.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+
+import torch
+
+from scalellm_tpu_torch.engine.batch import Batch
+from scalellm_tpu_torch.engine.executor import Executor
+from scalellm_tpu_torch.memory.block_manager import BlockManager, BlockManagerOptions
+from scalellm_tpu_torch.model_loader.loader import HFModelLoader
+from scalellm_tpu_torch.models.registry import ModelRegistry
+from scalellm_tpu_torch.tokenizer.tokenizer import load_tokenizer
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class EngineOptions:
+    model_path: str = ""
+    # "cuda", "cuda:N" or "cpu"
+    device: str = "cuda"
+    block_size: int = 16
+    # Max KV cache size in bytes (0 = use memory utilization instead).
+    max_cache_size: int = 0
+    # Fraction of free device memory for KV.
+    max_memory_utilization: float = 0.9
+    enable_prefix_cache: bool = True
+    # Direct override for the number of KV blocks (tests / CPU).
+    num_blocks: int = 0
+    max_top_logprobs: int = 20
+
+
+class LLMEngine:
+    def __init__(self, options: EngineOptions):
+        import scalellm_tpu_torch.models  # noqa: F401  (registers the models)
+
+        self.options = options
+        self.device = torch.device(options.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' was asked for and CUDA is not available")
+        t0 = time.monotonic()
+        loader = HFModelLoader(options.model_path)
+        self.model_args = loader.model_args
+        self.tokenizer_args = loader.tokenizer_args
+        self.tokenizer = load_tokenizer(options.model_path, loader.tokenizer_args.chat_template)
+        factory = ModelRegistry.get_causal_lm_factory(self.model_args.model_type)
+        if factory is None:
+            raise ValueError(f"no causal LM for {self.model_args.model_type!r}")
+        self.model = loader.load_model(factory(self.model_args, device="meta"), self.device)
+        self.executor = Executor(self.model, self.device, options.max_top_logprobs)
+        logger.info(
+            "model %s loaded in %.1fs", self.model_args.model_type, time.monotonic() - t0
+        )
+
+        num_blocks = options.num_blocks or self._profile_num_blocks()
+        self.block_manager = BlockManager(
+            BlockManagerOptions(
+                num_blocks=num_blocks,
+                block_size=options.block_size,
+                enable_prefix_cache=options.enable_prefix_cache,
+            )
+        )
+        self.executor.init_kv_cache(num_blocks, options.block_size)
+        logger.info(
+            "kv cache: %d blocks x %d slots (%.2f GiB)", num_blocks, options.block_size,
+            self.executor.kv_cache_bytes(num_blocks, options.block_size) / 2**30,
+        )
+        self._step_counter = 0
+
+    def kv_cache_slot_size_in_bytes(self) -> int:
+        """Bytes per KV slot across all layers."""
+        shape = self.model.kv_cache_shape(1, 1)  # [L, 1, 1, 2*Hkv, Dh]
+        return shape[0] * shape[-2] * shape[-1] * self.model.dtype.itemsize
+
+    def _profile_num_blocks(self) -> int:
+        """Size the KV cache from the device's free memory (the CPU keeps a
+        256 MiB default)."""
+        opts = self.options
+        block_bytes = self.kv_cache_slot_size_in_bytes() * opts.block_size
+        if opts.max_cache_size > 0:
+            cache_bytes = opts.max_cache_size
+        elif self.device.type == "cuda":
+            torch.cuda.empty_cache()
+            free, _ = torch.cuda.mem_get_info(self.device)
+            cache_bytes = int(free * opts.max_memory_utilization)
+        else:
+            cache_bytes = 256 * 2**20
+        return int(max(cache_bytes // block_bytes, 16))
+
+    def execute_model(self, batch: Batch) -> None:
+        """Run one engine step for the batch and write its samples back."""
+        if not batch.entries:
+            return
+        self._step_counter += 1
+        mi, si, _ = batch.prepare_model_inputs(self.options.block_size, self._step_counter)
+        outs = self.executor.execute(mi, si)
+        next_tokens = outs.next_tokens.cpu().numpy()
+        want_lp = any(e.seq.sampling_params.logprobs for e in batch.entries)
+        logprobs = outs.logprobs.cpu().numpy() if want_lp else None
+        top_ids = outs.top_ids.cpu().numpy() if want_lp else None
+        top_lps = outs.top_logprobs.cpu().numpy() if want_lp else None
+        batch.process_sample_output(next_tokens, logprobs, top_ids, top_lps, self.tokenizer)

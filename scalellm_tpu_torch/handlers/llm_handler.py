@@ -1,0 +1,279 @@
+"""LLMHandler — the single front door
+(counterpart of scalellm_tpu/handlers/llm_handler.py).
+
+Builds the engine from the options, owns the scheduler loop thread and the
+request-handling thread pool, validates sampling params, applies chat
+templates and keeps tokenization off the scheduler's hot path.
+
+The options keep the reference package's field names. Those that ask for a
+feature this package has not ported yet (speculative decoding, tensor or
+sequence parallelism, multi-host serving, int8 KV, runtime quantization,
+KV swap, async scheduling, multi-step decode, LoRA, CUDA graphs, bucket
+warmup, model-args overrides) raise NotImplementedError; none is silently
+ignored. Per request, guided decoding and prompt logprobs are refused with
+an UNIMPLEMENTED status.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+
+from scalellm_tpu_torch.engine.batch import TOKEN_BUCKETS
+from scalellm_tpu_torch.engine.llm_engine import EngineOptions, LLMEngine
+from scalellm_tpu_torch.errors import ValidationError
+from scalellm_tpu_torch.request.output import Priority, RequestOutput, Status, StatusCode
+from scalellm_tpu_torch.request.request import OnOutput, Request
+from scalellm_tpu_torch.request.stopping import StoppingCriteria
+from scalellm_tpu_torch.sampling.params import SamplingParams
+from scalellm_tpu_torch.scheduler.continuous_scheduler import (
+    ContinuousScheduler,
+    SchedulerOptions,
+)
+from scalellm_tpu_torch.scheduler.response_handler import ResponseHandler
+from scalellm_tpu_torch.utils.chat import Message, apply_chat_template
+from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class LLMHandlerOptions:
+    model_path: str = ""
+    # "auto" = cuda; "cuda", "cuda:N" or "cpu" name the device.
+    devices: str = "auto"
+    draft_model_path: Optional[str] = None
+    block_size: int = 16
+    max_cache_size: int = 0
+    max_memory_utilization: float = 0.9
+    enable_prefix_cache: bool = True
+    enable_cuda_graph: bool = False  # CUDA graphs are not ported
+    max_tokens_per_batch: int = 512
+    max_seqs_per_batch: int = 128
+    num_speculative_tokens: int = 0
+    num_handling_threads: int = 4
+    tp_size: int = 1
+    sequence_parallel: bool = False
+    num_blocks: int = 0  # direct override (tests)
+    max_context_len: int = 0  # 0 = model's max_position_embeddings
+    kv_cache_dtype: str = "auto"
+    warmup_mode: str = "off"  # no compiled buckets to warm in eager mode
+    distributed: bool = False
+    quantize_lm_head: "bool | str" = False
+    quantize: str = ""
+    host_swap_bytes: int = 0
+    enable_async_scheduling: bool = False  # async scheduling is not ported
+    num_decode_steps: int = 1
+    lora_modules: "Optional[dict]" = None
+    model_args_overrides: "Optional[list]" = None
+
+    def device(self) -> str:
+        return "cuda" if self.devices == "auto" else self.devices
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError for options that ask for unported features."""
+        asks = {
+            "draft_model_path (speculative decoding)": bool(self.draft_model_path),
+            "num_speculative_tokens (speculative decoding)": self.num_speculative_tokens > 0,
+            "enable_cuda_graph (CUDA graphs)": self.enable_cuda_graph,
+            "tp_size (tensor parallelism)": self.tp_size != 1,
+            "sequence_parallel": self.sequence_parallel,
+            "kv_cache_dtype (int8 KV cache)": self.kv_cache_dtype != "auto",
+            "warmup_mode (bucket warmup)": self.warmup_mode != "off",
+            "distributed (multi-host serving)": self.distributed,
+            "quantize_lm_head (runtime quantization)": bool(self.quantize_lm_head),
+            "quantize (runtime quantization)": bool(self.quantize),
+            "host_swap_bytes (KV swap)": self.host_swap_bytes > 0,
+            "enable_async_scheduling": self.enable_async_scheduling,
+            "num_decode_steps (multi-step decode)": self.num_decode_steps != 1,
+            "lora_modules (LoRA)": bool(self.lora_modules),
+            "model_args_overrides": bool(self.model_args_overrides),
+        }
+        asked = [name for name, on in asks.items() if on]
+        if asked:
+            raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+
+
+class LLMHandler:
+    def __init__(self, options: LLMHandlerOptions):
+        options.check_ported()
+        self.options = options
+        self.engine = LLMEngine(
+            EngineOptions(
+                model_path=options.model_path,
+                device=options.device(),
+                block_size=options.block_size,
+                max_cache_size=options.max_cache_size,
+                max_memory_utilization=options.max_memory_utilization,
+                enable_prefix_cache=options.enable_prefix_cache,
+                num_blocks=options.num_blocks,
+            )
+        )
+        self.tokenizer = self.engine.tokenizer
+        self.model_args = self.engine.model_args
+
+        self._response_handler = ResponseHandler(self.tokenizer, threaded=True)
+        self.scheduler = ContinuousScheduler(
+            self.engine,
+            SchedulerOptions(
+                max_tokens_per_batch=options.max_tokens_per_batch,
+                max_seqs_per_batch=options.max_seqs_per_batch,
+            ),
+            response_handler=self._response_handler,
+        )
+        # Request-handling pool keeps tokenization/templating off the
+        # scheduler loop.
+        self._pool = ThreadPoolExecutor(
+            max_workers=options.num_handling_threads, thread_name_prefix="handler"
+        )
+        self._loop_thread: Optional[threading.Thread] = None
+        self._stop_event = threading.Event()
+        self._max_context_len = options.max_context_len or (
+            self.model_args.max_position_embeddings
+        )
+
+    # ------------------------------------------------------------- scheduling
+
+    def schedule_async(
+        self,
+        prompt: str,
+        sp: SamplingParams,
+        priority: Priority = Priority.NORMAL,
+        stream: bool = False,
+        callback: OnOutput = lambda out: True,
+    ) -> None:
+        """Validate, tokenize and enqueue, off the caller's thread."""
+        self._pool.submit(self._handle, prompt, None, sp, priority, stream, callback)
+
+    def schedule_chat_async(
+        self,
+        messages: Sequence[Message],
+        sp: SamplingParams,
+        priority: Priority = Priority.NORMAL,
+        stream: bool = False,
+        callback: OnOutput = lambda out: True,
+    ) -> None:
+        self._pool.submit(
+            self._handle, None, list(messages), sp, priority, stream, callback
+        )
+
+    def _handle(self, prompt, messages, sp, priority, stream, callback) -> None:
+        t0 = time.monotonic()
+        try:
+            sp.verify()
+            if sp.has_guided or sp.prompt_logprobs is not None:
+                raise ValidationError(
+                    StatusCode.UNIMPLEMENTED,
+                    "guided decoding and prompt logprobs are not ported yet",
+                )
+            if messages is not None:
+                prompt = self.apply_chat_template(messages)
+            prompt_tokens = self.tokenizer.encode(prompt)
+            if not prompt_tokens:
+                raise ValidationError(StatusCode.INVALID_ARGUMENT, "empty prompt")
+            if len(prompt_tokens) >= self._max_context_len:
+                raise ValidationError(
+                    StatusCode.INVALID_ARGUMENT,
+                    f"prompt ({len(prompt_tokens)} tokens) exceeds max context "
+                    f"length {self._max_context_len}",
+                )
+            if len(prompt_tokens) + sp.max_tokens > TOKEN_BUCKETS[-1]:
+                raise ValidationError(
+                    StatusCode.INVALID_ARGUMENT, "prompt + max_tokens exceeds engine limit"
+                )
+            kv_capacity = self.scheduler.max_seq_tokens
+            if len(prompt_tokens) + sp.max_tokens > kv_capacity:
+                raise ValidationError(
+                    StatusCode.RESOURCE_EXHAUSTED,
+                    f"prompt + max_tokens ({len(prompt_tokens) + sp.max_tokens}"
+                    f" tokens) exceeds KV cache capacity ({kv_capacity})",
+                )
+            request = Request(
+                prompt=prompt,
+                prompt_tokens=prompt_tokens,
+                sampling_params=sp,
+                stopping_criteria=self._build_stopping_criteria(sp),
+                on_output=callback,
+                stream=stream,
+                priority=priority,
+                enable_prefix_cache=self.options.enable_prefix_cache,
+            )
+            if not self.scheduler.schedule(request):
+                raise ValidationError(StatusCode.RESOURCE_EXHAUSTED, "request queue is full")
+            COUNTERS.inc("request_handling_total")
+            HISTOGRAMS.observe("request_handling_latency_seconds", time.monotonic() - t0)
+        except ValidationError as e:
+            callback(RequestOutput(status=Status(e.code, e.message), finished=True))
+        except Exception as e:  # report, don't kill the pool thread
+            logger.exception("request handling failed")
+            callback(RequestOutput(status=Status(StatusCode.UNKNOWN, str(e)), finished=True))
+
+    def _build_stopping_criteria(self, sp: SamplingParams) -> StoppingCriteria:
+        stop_sequences = [
+            self.tokenizer.encode(s, add_special_tokens=False) for s in sp.stop or []
+        ]
+        stop_ids = set(sp.stop_token_ids or [])
+        stop_ids.update(self.model_args.stop_token_ids)
+        return StoppingCriteria(
+            max_tokens=sp.max_tokens,
+            max_context_len=self._max_context_len,
+            eos_token_id=self.model_args.eos_token_id,
+            ignore_eos=sp.ignore_eos,
+            stop_token_ids=stop_ids,
+            stop_sequences=stop_sequences,
+        )
+
+    def apply_chat_template(self, messages: Sequence[Message]) -> str:
+        return apply_chat_template(
+            messages,
+            jinja_template=getattr(self.tokenizer, "chat_template", None),
+            model_type=self.model_args.model_type,
+        )
+
+    def encode(self, text: str) -> List[int]:
+        return self.tokenizer.encode(text)
+
+    def decode(self, tokens: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self.tokenizer.decode(tokens, skip_special_tokens)
+
+    # ------------------------------------------------------------- loop
+
+    def start(self) -> None:
+        """Start the scheduler loop thread."""
+        if self._loop_thread is not None:
+            return
+        self._stop_event.clear()
+
+        def loop():
+            while not self._stop_event.is_set():
+                try:
+                    self.scheduler.step(timeout_s=0.05)
+                except Exception:
+                    logger.exception("scheduler step failed")
+                    time.sleep(0.1)
+
+        self._loop_thread = threading.Thread(target=loop, name="scheduler", daemon=True)
+        self._loop_thread.start()
+
+    def stop(self) -> None:
+        """Stop the scheduler loop and release the handler's threads."""
+        if self._loop_thread is not None:
+            self._stop_event.set()
+            self._loop_thread.join(timeout=10)
+            self._loop_thread = None
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        self._response_handler.shutdown()
+
+    def run_until_complete(self) -> None:
+        """Drain all scheduled work (offline batch mode)."""
+        # Let the handling threads finish tokenizing and enqueueing first.
+        self._pool.shutdown(wait=True)
+        self._pool = ThreadPoolExecutor(
+            max_workers=self.options.num_handling_threads, thread_name_prefix="handler"
+        )
+        self.scheduler.run_until_complete()

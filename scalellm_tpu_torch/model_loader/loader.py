@@ -1,0 +1,168 @@
+"""HuggingFace model-folder loader
+(counterpart of scalellm_tpu/model_loader/loader.py:HFModelLoader).
+
+Reads config.json through the registry's per-model args loader and the
+model's *.safetensors files, one tensor at a time, straight into the model's
+state_dict on the target device, cast to the model's compute dtype. The
+safetensors format is read here without the safetensors package: an 8-byte
+little-endian header length, a JSON header naming each tensor's dtype, shape
+and byte range, then the raw bytes (read with torch.frombuffer over a
+memory map). F32, F16 and BF16 tensors are supported. Every parameter of the
+model must be filled, or loading fails.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import mmap
+import os
+import re
+import struct
+from typing import Any, Dict, Iterator, Tuple
+
+import torch
+
+from scalellm_tpu_torch.config import ModelArgs, QuantArgs, TokenizerArgs
+from scalellm_tpu_torch.models.common import FUSED_PROJECTIONS
+from scalellm_tpu_torch.models.registry import ModelRegistry
+
+logger = logging.getLogger(__name__)
+
+SAFETENSORS_DTYPES = {
+    "F32": torch.float32,
+    "F16": torch.float16,
+    "BF16": torch.bfloat16,
+}
+
+
+def read_safetensors(path: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Yield (name, tensor) for every tensor of a .safetensors file. Each
+    tensor is a view of a private copy-on-write memory map that lives until
+    the caller drops the tensor; copy it before keeping it."""
+    with open(path, "rb") as f:
+        (header_len,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(header_len))
+        if os.fstat(f.fileno()).st_size == 8 + header_len:
+            mm = None  # no tensor bytes (mmap refuses an empty range)
+        else:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    data_start = 8 + header_len
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise NotImplementedError(
+                f"{path}: tensor {name} has dtype {info['dtype']} "
+                f"(supported: {sorted(SAFETENSORS_DTYPES)})"
+            )
+        begin, end = info["data_offsets"]
+        shape = info["shape"]
+        numel = 1
+        for n in shape:
+            numel *= n
+        if numel * dtype.itemsize != end - begin:
+            raise ValueError(f"{path}: tensor {name} byte range does not match its shape")
+        if numel == 0:
+            yield name, torch.empty(shape, dtype=dtype)
+            continue
+        flat = torch.frombuffer(mm, dtype=dtype, count=numel, offset=data_start + begin)
+        yield name, flat.view(shape)
+
+
+class HFModelLoader:
+    def __init__(self, model_path: str):
+        if not os.path.isdir(model_path):
+            raise ValueError(f"not a model folder: {model_path}")
+        self.model_path = model_path
+        with open(os.path.join(model_path, "config.json")) as f:
+            self.hf_config: Dict[str, Any] = json.load(f)
+        self.model_type = self.hf_config.get("model_type", "")
+
+        loader = ModelRegistry.get_model_args_loader(self.model_type)
+        if loader is None:
+            raise ValueError(
+                f"unsupported model type {self.model_type!r}; supported: "
+                f"{ModelRegistry.supported_model_types()}"
+            )
+        self.model_args: ModelArgs = loader(self.hf_config)
+
+        qcfg = dict(self.hf_config)
+        for name in ("quantize_config.json", "quant_config.json"):
+            p = os.path.join(model_path, name)
+            if os.path.exists(p) and "quantization_config" not in qcfg:
+                with open(p) as f:
+                    qcfg["quantization_config"] = json.load(f)
+                break
+        self.quant_args = QuantArgs.from_hf_config(qcfg)
+        if self.quant_args.enabled:
+            raise NotImplementedError(
+                f"quantized checkpoints ({self.quant_args.quant_method}) are not ported"
+            )
+        self.tokenizer_args = self._load_tokenizer_args()
+        self.weight_files = sorted(
+            os.path.join(model_path, f)
+            for f in os.listdir(model_path)
+            if f.endswith(".safetensors")
+        )
+
+    def _load_tokenizer_args(self) -> TokenizerArgs:
+        args = TokenizerArgs()
+        tc_path = os.path.join(self.model_path, "tokenizer_config.json")
+        if os.path.exists(tc_path):
+            with open(tc_path) as f:
+                args.chat_template = json.load(f).get("chat_template")
+        return args
+
+    def load_state_dict(self, model: torch.nn.Module, device) -> Dict[str, torch.Tensor]:
+        """Read every checkpoint tensor the model's weight rules name, cast
+        to the model's dtype on `device`, with fused projections
+        concatenated."""
+        rules = [(re.compile(rx + r"$"), name) for rx, name in model.hf_weight_rules]
+        expected = dict(model.state_dict(keep_vars=True))
+        dtype = model.dtype
+        parts: Dict[str, torch.Tensor] = {}
+        sd: Dict[str, torch.Tensor] = {}
+        unmatched = []
+        for wf in self.weight_files:
+            for ckpt_name, raw in read_safetensors(wf):
+                for rx, target in rules:
+                    m = rx.match(ckpt_name)
+                    if m is not None:
+                        name = target.format(*m.groups())
+                        if name == "lm_head" and self.model_args.tie_word_embeddings:
+                            break
+                        t = raw.to(device=device, dtype=dtype, copy=True)
+                        (sd if name in expected else parts)[name] = t
+                        break
+                else:
+                    unmatched.append(ckpt_name)
+                del raw
+        if unmatched:
+            logger.warning(
+                "%d checkpoint tensors matched no weight rule (e.g. %s)",
+                len(unmatched), ", ".join(unmatched[:5]),
+            )
+        for name in expected:
+            prefix, _, leaf = name.rpartition(".")
+            if name in sd or leaf not in FUSED_PROJECTIONS:
+                continue
+            names = [f"{prefix}.{p}" for p in FUSED_PROJECTIONS[leaf]]
+            if all(n in parts for n in names):
+                sd[name] = torch.cat([parts.pop(n) for n in names], dim=0)
+        missing = [n for n in expected if n not in sd]
+        if missing:
+            raise ValueError(f"weights not fully loaded for: {missing[:8]}")
+        for name, param in expected.items():
+            if sd[name].shape != param.shape:
+                raise ValueError(
+                    f"{name}: checkpoint shape {tuple(sd[name].shape)} "
+                    f"!= model shape {tuple(param.shape)}"
+                )
+        return sd
+
+    def load_model(self, model: torch.nn.Module, device) -> torch.nn.Module:
+        """Fill a model built on the meta device with the checkpoint."""
+        model.load_state_dict(self.load_state_dict(model, device), assign=True)
+        return model

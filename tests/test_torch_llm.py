@@ -1,0 +1,58 @@
+"""scalellm_tpu_torch.LLM against scalellm_tpu.LLM end to end on the tiny
+Llama fixture with the char tokenizer, with chunked prefill (a 16-token
+batch budget, below the longest prompt) and the prefix cache on (two prompts
+share a prefix, and the second pass hits the cached blocks). Greedy token
+ids and texts must be equal."""
+
+import pytest
+
+import tests.fixtures as fixtures
+
+PROMPTS = [
+    "the quick brown fox jumps over",
+    "the quick brown fox sleeps",
+    "abc",
+    "hello world, hello world",
+]
+
+
+@pytest.fixture(scope="module")
+def tiny_model(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tiny_llama_torch_port")
+    return fixtures.make_tiny_llama(str(d), tokenizer=True)
+
+
+def _run(llm_cls, sp_cls, path, **kw):
+    llm = llm_cls(path, block_size=4, num_blocks=128, max_tokens_per_batch=16, **kw)
+    try:
+        sp = sp_cls(max_tokens=6, temperature=0.0, ignore_eos=True)
+        # The second pass re-reads the shared prompt blocks from the prefix cache.
+        return [llm.generate(PROMPTS, sp) for _ in range(2)]
+    finally:
+        llm.close()
+
+
+def test_greedy_outputs_match_jax(tiny_model):
+    from scalellm_tpu import LLM as JaxLLM
+    from scalellm_tpu import SamplingParams as JaxSamplingParams
+    from scalellm_tpu_torch import LLM, SamplingParams
+
+    want = _run(JaxLLM, JaxSamplingParams, tiny_model, enable_cuda_graph=False)
+    got = _run(LLM, SamplingParams, tiny_model, devices="cpu")
+    for got_pass, want_pass in zip(got, want):
+        assert len(got_pass) == len(PROMPTS)
+        for g, w in zip(got_pass, want_pass):
+            assert g.status.ok and g.finished
+            assert g.outputs[0].token_ids == w.outputs[0].token_ids
+            assert g.outputs[0].text == w.outputs[0].text
+            assert g.usage.num_generated_tokens == 6
+    assert got[0][0].outputs[0].token_ids == got[1][0].outputs[0].token_ids
+
+
+def test_unported_options_raise(tiny_model):
+    from scalellm_tpu_torch import LLM
+
+    with pytest.raises(NotImplementedError):
+        LLM(tiny_model, devices="cpu", enable_async_scheduling=True)
+    with pytest.raises(NotImplementedError):
+        LLM(tiny_model, devices="cpu", num_speculative_tokens=2)
