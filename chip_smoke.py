@@ -7,20 +7,36 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero, and the result line is not printed):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-  2. build: every CUDA kernel of the serving path, from csrc/ with nvcc.
-  3. kernels: the ragged paged attention kernel against its plain PyTorch
-     version in bf16 at four shapes of the serving path, with CUDA-event
-     timings of the kernel, the plain version and a library yardstick
-     (scaled_dot_product_attention on gathered contiguous K/V), beside the
-     least time the card could take (bytes over 3.35 TB/s, flops over
-     989 TFLOP/s bf16).
-  4. end to end: a TinyLlama-1.1B-shaped bf16 checkpoint (random weights
+  2. build: every CUDA kernel of the serving paths, from csrc/ with nvcc
+     (one nvcc per source, started together).
+  3. kernels: each kernel against its plain PyTorch version on the card,
+     with CUDA-event timings of the kernel, the plain version and a library
+     yardstick, beside the least time the card could take (bytes over
+     3.35 TB/s, operations over 989 TFLOP/s bf16 or 1979 TOP/s int8).
+     a. ragged paged attention in bf16 at five shapes of the serving paths
+        (yardstick: scaled_dot_product_attention on gathered K/V);
+     b. the quantized matmuls at the five Llama-3.1-8B projection shapes:
+        w4a8 at M = 1, 8, 16, 64, dequant and group at M = 512, and dequant
+        and group with the RMSNorm in their prologue at (K, N) = (2048, 2560),
+        M = 128 (yardstick: one bf16 matmul on weights dequantized ahead of
+        time).
+  4. end to end, bf16: a TinyLlama-1.1B-shaped checkpoint (random weights
      from a seed) served by scalellm_tpu_torch.LLM with chunked prefill and
      the prefix cache; every request must finish and every engine step must
-     go through the kernel. Then one prefill batch runs through the model
-     twice, with the kernel and with the plain attention, and the logits
-     must agree.
-  5. a `kernels` JSON line, then the result line.
+     go through the attention kernel. Then one prefill batch runs through
+     the model twice, with the kernel and with the plain attention, and the
+     logits must agree.
+  5. end to end, INT4: a GPTQ checkpoint of Llama-3.1-8B's widths (random
+     int4 weights from a seed, group 128, symmetric) served by
+     LLM(path, quantize_lm_head=True) with the same traffic. Every engine
+     step must launch the attention kernel once per layer and a quantized
+     matmul kernel four times per layer plus once for the lm_head: dequant
+     for the projections of steps with more than 64 tokens, w4a8 otherwise.
+     A short third run with variant="group" set on the model's quantized
+     matmul sends the same path through the group kernel. Then a prefill and a decode batch run through the
+     model twice, with the kernels and with the plain versions, and the
+     logits must agree. --int4-layers N cuts the depth (default 32).
+  6. a `kernels` JSON line, then the result line.
 
 It needs the repository (it fails in a directory that holds only this
 script) and a CUDA device (it fails where torch.cuda.is_available() is
@@ -30,6 +46,7 @@ beside every timing.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -42,14 +59,33 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
+# Quantized matmuls against their plain versions: the integer dots are exact
+# on both sides; the f32 sums run in another order and the output is rounded
+# to bf16, so: 1% of the output's largest magnitude, mean error 0.1% of it.
+QUANT_TOL_MAX, QUANT_TOL_MEAN = 1e-2, 1e-3
 KERNEL_TOL = 2e-2  # bf16 output (8-bit mantissa) of values of magnitude <~ 3
 # Logits of the 22-layer random-weight model (std ~1): the two attentions
 # round different f32 sums to bf16, and those 1-ulp differences pass through
 # 22 bf16 layers.
 LOGITS_TOL = 0.25
 TIMED_RUNS = 20
+SPIN_CYCLES = 1_000_000  # about 0.5 ms of device spin before each timed call
 SEED = 0
 DEVICE = "cuda"
+
+# meta-llama/Llama-3.1-8B config.json (bench.py preset "llama31-8b-int4"),
+# with the GPTQ quantization_config the preset stands for.
+LLAMA31_8B_INT4 = dict(
+    model_type="llama", architectures=["LlamaForCausalLM"], torch_dtype="bfloat16",
+    hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=8, vocab_size=128256,
+    max_position_embeddings=8192, rms_norm_eps=1e-5, rope_theta=500000.0,
+    hidden_act="silu", tie_word_embeddings=False, bos_token_id=128000, eos_token_id=128001,
+    quantization_config=dict(quant_method="gptq", bits=4, group_size=128, sym=True,
+                             desc_act=False),
+)
+GROUP = 128
 
 # TinyLlama/TinyLlama-1.1B-Chat-v1.0 config.json (bench.py preset
 # "tinyllama-1.1b").
@@ -194,16 +230,22 @@ def sdpa_inputs(torch, spec, inputs):
     return qs, ks.repeat_interleave(rep, 1).contiguous(), vs.repeat_interleave(rep, 1).contiguous(), mask
 
 
-def time_ms(torch, fn, flush):
-    """Median over TIMED_RUNS of one call, timed with CUDA events, with the
-    L2 cache flushed before each call (the engine reads each layer's KV
-    cold)."""
+def time_ms(torch, fn, flush, runs=TIMED_RUNS):
+    """Median over `runs` of one call's time on the device, from CUDA events,
+    with the L2 cache flushed before each call (the engine reads each
+    layer's KV and weights cold). A spin kernel ahead of the first event
+    keeps the device busy while the host enqueues the call, so the events
+    bracket the kernels' own time and not the host's time to launch them
+    (a wrapper's Python can take longer than its kernel runs)."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        # torch.cuda._sleep is a private API (a spin kernel of that many
+        # cycles); checked on torch 2.11.0+cu128.
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -232,6 +274,11 @@ def phase_kernels(torch, card):
         # A sliding window plus a logit soft cap on the mixed batch.
         "d_window_softcap": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
                                  S=8, T=512, H=32, Hkv=4, D=64, window=128, cap=50.0),
+        # The mixed batch at Llama-3.1-8B's heads: what a 512-token step of
+        # the INT4 run gives the kernel.
+        "e_mixed_d128_gqa4": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1],
+                                  kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                                  S=8, T=512, H=32, Hkv=8, D=128, window=None, cap=None),
     }
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
@@ -267,6 +314,125 @@ def phase_kernels(torch, card):
                   T=spec["T"], S=spec["S"], real_tokens=n_real, H=spec["H"], Hkv=spec["Hkv"], D=spec["D"],
                   window=spec["window"], soft_cap=spec["cap"], bytes=nbytes, flops=flops,
                   **results[name], card=card["nvidia_smi"]))
+    return results
+
+
+# ------------------------------------------------------------------ phase 3b
+
+# The Llama-3.1-8B projections: (K, N, bits, RMSNorm before it).
+QUANT_SHAPES = {
+    # TinyLlama-1.1B's fused qkv projection: one k-block spans K = 2048, so a
+    # 128-token step runs the RMSNorm in the tile kernel's prologue. At the
+    # 8B widths plan() never fuses it above M = 64 (K = 4096 is two k-blocks).
+    "qkv_proj_k2048": (2048, 2560, 4, True),
+    "qkv_proj": (4096, 6144, 4, True),
+    "o_proj": (4096, 4096, 4, False),
+    "gate_up_proj": (4096, 28672, 4, True),
+    "down_proj": (14336, 4096, 4, False),
+    "lm_head": (4096, 128256, 8, False),
+}
+
+
+def quant_operands(torch, gen, K, N, bits, asym):
+    """Random kernel-layout weights on the card: every nibble (byte) value,
+    f32 scales for the int4 projections (as a GPTQ checkpoint's f16 scales
+    load) and bf16 scales for the int8 lm_head (as the load-time quantizer
+    makes them), sized so that the dequantized weights have std ~0.02."""
+    rows = K // 2 if bits == 4 else K
+    qweight = torch.randint(-128, 128, (N, rows), generator=gen, device=DEVICE, dtype=torch.int8)
+    unit = 0.02 / (4.6 if bits == 4 else 74.0)
+    scales = (torch.rand(K // GROUP, N, generator=gen, device=DEVICE) + 0.5) * unit
+    if bits == 8:
+        scales = scales.to(torch.bfloat16)
+    zeros = None
+    if asym:
+        zeros = torch.randint(-8, 8, (K // GROUP, N), generator=gen, device=DEVICE, dtype=torch.int8)
+    return qweight, scales, zeros
+
+
+def phase_quant_kernels(torch, card):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+    wrappers = dict(w4a8=Q.quant_matmul_w4a8_cuda, group=Q.quant_matmul_group_cuda,
+                    dequant=Q.quant_matmul_dequant_cuda)
+    plains = dict(w4a8=Q.plain_w4a8, group=Q.plain_group, dequant=Q.plain_dequant)
+    # (kernel, M, asymmetric) per shape; one asymmetric case per kernel.
+    cases = [("w4a8", m, False) for m in (1, 8, 16, 64)] + [("dequant", 512, False), ("group", 512, False)]
+    extra = {"o_proj": [("w4a8", 16, True), ("dequant", 512, True), ("group", 512, True)]}
+    only = {"qkv_proj_k2048": [("dequant", 128, False), ("group", 128, False)]}
+    results = {name: {} for name in wrappers}
+    for shape, (K, N, bits, has_norm) in QUANT_SHAPES.items():
+        tile_n = Q.LM_HEAD_TILE_N if shape == "lm_head" else Q.DEFAULT_TILE_N
+        for kernel_name, M, asym in only.get(shape, cases + extra.get(shape, [])):
+            qweight, scales, zeros = quant_operands(torch, gen, K, N, bits, asym)
+            x = (torch.randn(M, K, generator=gen, device=DEVICE) + 0.25).to(torch.bfloat16)
+            gamma = None
+            if has_norm:
+                gamma = (torch.rand(K, generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
+            # As the dispatcher would call the kernel on the model's path:
+            # its block_k, and the norm in the prologue only where it fuses.
+            variant, block_k, fuse = Q.plan(M, K, N, bits, GROUP, scales.dtype.itemsize, has_norm,
+                                            variant=kernel_name, tile_n=tile_n)
+            if variant != kernel_name:
+                fail(f"{shape} M={M}: plan() turned {kernel_name} into {variant}")
+            if shape in only and not (fuse and kernel_name != "w4a8"):
+                fail(f"{shape} M={M}: plan() does not put the norm in {kernel_name}'s prologue")
+            if gamma is not None and not fuse:
+                x, gamma = Q.rms_prologue(x, gamma, 1e-5), None
+            args = (x, qweight, scales, zeros, bits) + ((block_k,) if kernel_name == "w4a8" else ())
+            kernel = lambda: wrappers[kernel_name](*args, gamma, 1e-5)
+            plain = lambda: plains[kernel_name](*args, gamma, 1e-5)
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain().to(torch.bfloat16)
+            if not torch.isfinite(got).all():
+                fail(f"{kernel_name} {shape} M={M}: kernel output is not finite")
+            diff = (got.float() - want.float()).abs()
+            top = want.float().abs().max().item()
+            err, mean_err = diff.max().item(), diff.mean().item()
+            del diff, want
+            if not (err <= QUANT_TOL_MAX * top and mean_err <= QUANT_TOL_MEAN * top):
+                fail(f"{kernel_name} {shape} M={M} asym={asym}: differs from the plain version by "
+                     f"{err} (mean {mean_err}) at output magnitude {top}")
+            ms = time_ms(torch, kernel, flush)
+            plain_ms = time_ms(torch, plain, flush, runs=3)
+            # Yardstick: one bf16 matmul on weights dequantized ahead of time
+            # (and x normalised ahead of time where the prologue runs).
+            wd = Q.unpack_signed(qweight, bits).to(torch.bfloat16)
+            group_of_k = torch.arange(K, device=DEVICE) // GROUP
+            if zeros is not None:
+                wd -= zeros.to(torch.bfloat16).T[:, group_of_k]
+            wd *= scales.to(torch.bfloat16).T[:, group_of_k]
+            xn = x if gamma is None else Q.rms_prologue(x, gamma, 1e-5)
+            library_ms = time_ms(torch, lambda: torch.matmul(xn, wd.T), flush)
+            del wd, group_of_k
+            nbytes = sum(t.numel() * t.element_size() for t in (x, qweight, scales, zeros, gamma)
+                         if t is not None) + M * N * 2
+            ops = 2 * M * K * N
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = ops / (INT8_OPS_PER_S if kernel_name == "w4a8" else BF16_FLOPS_PER_S)
+            r = dict(max_abs_err=err, mean_abs_err=mean_err, out_magnitude=top, ms=ms,
+                     plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
+            results[kernel_name][(shape, M, asym)] = r
+            emit(dict(phase="kernel", kernel="quant_matmul_" + kernel_name, shape=shape, M=M, K=K,
+                      N=N, bits=bits, group=GROUP, asymmetric=asym, block_k=block_k,
+                      rms_prologue=gamma is not None, tol_max=QUANT_TOL_MAX * top, bytes=nbytes,
+                      ops=ops, **r, card=card["nvidia_smi"]))
+            del qweight, scales, zeros, x, got
+        torch.cuda.empty_cache()
+    # What a w4a8 call costs before any weight byte counts: one block's
+    # worth of output columns, so the time is the activation kernel plus one
+    # block walking K.
+    for K in (4096, 14336):
+        qweight, scales, _ = quant_operands(torch, gen, K, 8, 4, False)
+        x = torch.randn(16, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        ms = time_ms(torch, lambda: wrappers["w4a8"](x, qweight, scales, None, 4, 2048, None, 1e-5), flush)
+        emit(dict(phase="kernel_probe", kernel="quant_matmul_w4a8", what="one block: M=16, N=8",
+                  K=K, ms=ms, card=card["nvidia_smi"]))
     return results
 
 
@@ -359,15 +525,18 @@ def prompts(seed=SEED):
     return out
 
 
-def prefill_inputs(torch, token_lists, page=16):
-    """ModelInputs of one prefill batch of whole prompts, padded to the
-    token ladder, each sequence on its own pages (page 0 reserved)."""
+def batch_inputs(torch, seqs, page=16):
+    """ModelInputs of one batch, padded to the bucket ladders. seqs holds one
+    (token ids, first position, context length to reserve pages for) per
+    sequence; each sequence owns its own pages, handed out in order from
+    page 1 (page 0 is reserved), so a later batch with the same reservations
+    finds the same pages. Returns (inputs, pages used)."""
     from scalellm_tpu_torch.engine.batch import PAGE_BUCKETS, SEQ_BUCKETS, TOKEN_BUCKETS, pick_bucket
     from scalellm_tpu_torch.engine.params import ModelInputs
 
-    n = [len(t) for t in token_lists]
+    n = [len(ids) for ids, _, _ in seqs]
     T, S = pick_bucket(TOKEN_BUCKETS, sum(n)), pick_bucket(SEQ_BUCKETS, len(n))
-    maxp = pick_bucket(PAGE_BUCKETS, max(-(-k // page) for k in n))
+    maxp = pick_bucket(PAGE_BUCKETS, max(-(-total // page) for _, _, total in seqs))
     tok = torch.zeros(T, dtype=torch.int32)
     pos = torch.zeros(T, dtype=torch.int32)
     seg = torch.zeros(T, dtype=torch.int32)
@@ -377,17 +546,17 @@ def prefill_inputs(torch, token_lists, page=16):
     cu = torch.zeros(S + 1, dtype=torch.int32)
     sel = torch.zeros(S, dtype=torch.int32)
     t, next_page = 0, 1
-    for s, ids in enumerate(token_lists):
+    for s, (ids, start, total) in enumerate(seqs):
         k = len(ids)
-        pages = torch.arange(next_page, next_page + -(-k // page), dtype=torch.int32)
+        pages = torch.arange(next_page, next_page + -(-total // page), dtype=torch.int32)
         next_page += len(pages)
-        p = torch.arange(k, dtype=torch.int32)
+        p = torch.arange(start, start + k, dtype=torch.int32)
         tok[t : t + k] = torch.tensor(ids, dtype=torch.int32)
         pos[t : t + k] = p
         seg[t : t + k] = s
         slots[t : t + k] = pages[p // page] * page + p % page
         tables[s, : len(pages)] = pages
-        kv[s] = k
+        kv[s] = start + k
         cu[s + 1] = t + k
         sel[s] = t + k - 1
         t += k
@@ -399,9 +568,15 @@ def prefill_inputs(torch, token_lists, page=16):
     return mi, next_page
 
 
+def prefill_inputs(torch, token_lists, page=16):
+    """ModelInputs of one prefill batch of whole prompts."""
+    return batch_inputs(torch, [(ids, 0, len(ids)) for ids in token_lists], page)
+
+
 def device_breakdown(prof, wall_s, steps):
-    """Device time by kernel from a profiler trace, in three groups (the
-    attention kernel, matrix products, the rest), the kernels launched per
+    """Device time by kernel from a profiler trace, in four groups (the
+    attention kernel, the quantized matmul kernels with their activation
+    quantization, library matrix products, the rest), the kernels launched per
     engine step, and the share of `wall_s` the device was idle. Kernels run
     on one stream, so their times add up to the device's busy time."""
     from torch.autograd import DeviceType
@@ -411,11 +586,13 @@ def device_breakdown(prof, wall_s, steps):
         if e.device_type == DeviceType.CUDA:
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    groups = dict(attention_ms=0.0, matmul_ms=0.0, other_ms=0.0)
+    groups = dict(attention_ms=0.0, quant_matmul_ms=0.0, matmul_ms=0.0, other_ms=0.0)
     for name, (ms, _) in per_name.items():
         low = name.lower()
         if "ragged_paged_attention" in low:
             groups["attention_ms"] += ms
+        elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "act_quant_kernel")):
+            groups["quant_matmul_ms"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
             groups["matmul_ms"] += ms
         else:
@@ -544,11 +721,265 @@ def phase_end_to_end(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 5
+
+
+def gptq_checkpoint_tensors(cfg):
+    """(HF name, safetensors dtype, shape, kind) of every tensor of a GPTQ
+    int4 Llama checkpoint: the projections as qweight i32 [K/8, N], qzeros
+    i32 [K/G, N/8] and f16 scales [K/G, N]; embeddings, norms and the
+    lm_head in bf16."""
+    D, F_, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    Dh = D // cfg["num_attention_heads"]
+    Hq, Hkv = cfg["num_attention_heads"] * Dh, cfg["num_key_value_heads"] * Dh
+    G = cfg["quantization_config"]["group_size"]
+    out = [("model.embed_tokens.weight", "BF16", (V, D), "weight")]
+    for l in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{l}."
+        for name, K, N in (("self_attn.q_proj", D, Hq), ("self_attn.k_proj", D, Hkv),
+                           ("self_attn.v_proj", D, Hkv), ("self_attn.o_proj", Hq, D),
+                           ("mlp.gate_proj", D, F_), ("mlp.up_proj", D, F_),
+                           ("mlp.down_proj", F_, D)):
+            out += [(p + name + ".qweight", "I32", (K // 8, N), "qweight"),
+                    (p + name + ".qzeros", "I32", (K // G, N // 8), "qzeros"),
+                    (p + name + ".scales", "F16", (K // G, N), "scales")]
+        out += [(p + "input_layernorm.weight", "BF16", (D,), "norm"),
+                (p + "post_attention_layernorm.weight", "BF16", (D,), "norm")]
+    out += [("model.norm.weight", "BF16", (D,), "norm"),
+            ("lm_head.weight", "BF16", (V, D), "weight")]
+    return out
+
+
+def write_gptq_checkpoint(torch, path, cfg):
+    """config.json, tokenizer.json and model.safetensors of a symmetric GPTQ
+    checkpoint, generated on the card from a seeded generator: uniformly
+    random nibbles, zero point 8 (stored as 7), scales that give the
+    dequantized weights a std of about 0.02, bf16 weights N(0, 0.02), norms
+    1. Returns the bytes of tensor data."""
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump(char_tokenizer_json(), f)
+    tensors = gptq_checkpoint_tensors(cfg)
+    width = {"BF16": 2, "F16": 2, "I32": 4}
+    header, offset = {}, 0
+    for name, dtype, shape, _ in tensors:
+        n = width[dtype]
+        for d in shape:
+            n *= d
+        header[name] = {"dtype": dtype, "shape": list(shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    with open(os.path.join(path, "model.safetensors"), "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name, dtype, shape, kind in tensors:
+            n = header[name]["data_offsets"][1] - header[name]["data_offsets"][0]
+            if kind == "norm":
+                t = torch.ones(shape, dtype=torch.bfloat16)
+            elif kind == "weight":
+                t = (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+            elif kind == "qweight":
+                t = torch.randint(-128, 128, (n,), generator=gen, device=DEVICE, dtype=torch.int8)
+            elif kind == "qzeros":
+                t = torch.full((n,), 0x77, dtype=torch.uint8)
+            else:
+                t = ((torch.rand(shape, generator=gen, device=DEVICE) + 0.5) * (0.02 / 4.6)).to(torch.float16)
+            f.write(memoryview(t.cpu().contiguous().view(torch.uint8).numpy().reshape(-1)))
+    return offset
+
+
+def watch_steps(engine, counters):
+    """Record, per engine step, the padded token and sequence counts and how
+    often each kernel wrapper launched. Returns the list it appends to."""
+    log = []
+    real = engine.executor.execute
+
+    def execute(mi, si):
+        before = [c.launches for c in counters]
+        out = real(mi, si)
+        log.append((mi.token_ids.shape[0], mi.selected_idxes.shape[0],
+                    *[c.launches - b for c, b in zip(counters, before)]))
+        return out
+
+    engine.executor.execute = execute
+    return log
+
+
+def phase_end_to_end_int4(torch, card, n_layers):
+    from scalellm_tpu_torch import LLM, SamplingParams
+    from scalellm_tpu_torch.ops import attention
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+    from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
+
+    cfg = dict(LLAMA31_8B_INT4, num_hidden_layers=n_layers)
+    L = n_layers
+    k1, w4a8 = attention.ragged_paged_attention_cuda, Q.quant_matmul_w4a8_cuda
+    group, dequant = Q.quant_matmul_group_cuda, Q.quant_matmul_dequant_cuda
+    counters = (k1, w4a8, group, dequant)
+    tmp = tempfile.mkdtemp(prefix="scalellm_llama8b_int4_")
+    llm = None
+    try:
+        t0 = time.monotonic()
+        nbytes = write_gptq_checkpoint(torch, tmp, cfg)
+        t_write = time.monotonic() - t0
+        t0 = time.monotonic()
+        llm = LLM(tmp, max_tokens_per_batch=512, quantize_lm_head=True)
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+        engine = llm._handler.engine
+        model = engine.model
+        weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+        emit(dict(phase="int4_setup", layers=L, full_depth=L == LLAMA31_8B_INT4["num_hidden_layers"],
+                  checkpoint_bytes=nbytes, write_s=t_write, load_s=t_load,
+                  weight_bytes_on_card=weight_bytes, lm_head_bits=model.lm_head.bits,
+                  kv_blocks=engine.block_manager.options.num_blocks))
+
+        greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+        llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
+        ps = prompts()
+        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
+        ttft_before = (ttft.total, ttft.count)
+        steps_log = watch_steps(engine, counters)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = llm.generate(ps, greedy)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        steps = len(steps_log)
+        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
+        mean_ttft = (ttft.total - ttft_before[0]) / max(ttft.count - ttft_before[1], 1)
+
+        if len(outs) != len(ps):
+            fail(f"int4: {len(outs)} of {len(ps)} requests returned")
+        for o in outs:
+            if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
+                fail(f"int4: request did not finish with 32 tokens: {o.status}, {o.usage}")
+        if steps <= 0:
+            fail("int4: no engine step ran")
+        for T, S, n_k1, n_w4a8, n_group, n_dequant in steps_log:
+            # The lm_head sees the padded count of selected rows.
+            want = [L, 0, 0, 0]
+            want[3 if T > 64 else 1] += 4 * L
+            want[3 if S > 64 else 1] += 1
+            if [n_k1, n_w4a8, n_group, n_dequant] != want:
+                fail(f"int4: a step of T={T}, S={S} launched (K1, w4a8, group, dequant) = "
+                     f"{(n_k1, n_w4a8, n_group, n_dequant)}, expected {tuple(want)}")
+        n_tokens = sum(o.usage.num_generated_tokens for o in outs)
+        emit(dict(phase="int4_e2e", layers=L, requests=len(outs), output_tokens=n_tokens,
+                  wall_s=wall, output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft,
+                  engine_steps=steps, prefill_steps=sum(1 for st in steps_log if st[0] > 64),
+                  step_tokens=sorted({st[0] for st in steps_log}), launches=launches,
+                  quant_launches_per_step=4 * L + 1, card=card["nvidia_smi"]))
+
+        # The same path through the group kernel, two requests: the model's
+        # quantized matmul with variant="group".
+        model.quant_impl = functools.partial(Q.quant_matmul, variant="group")
+        try:
+            for c in counters:
+                c.launches = 0
+            del steps_log[:]
+            short = llm.generate(ps[2:4], SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))
+        finally:
+            model.quant_impl = Q.quant_matmul
+        group_launches = group.launches
+        if not all(o.finished and o.status.ok for o in short):
+            fail("int4: a request of the group-variant run did not finish")
+        if (group_launches != (4 * L + 1) * len(steps_log) or w4a8.launches or dequant.launches
+                or k1.launches != L * len(steps_log)):
+            fail(f"int4: the group-variant run launched group {group_launches}, w4a8 "
+                 f"{w4a8.launches}, dequant {dequant.launches} in {len(steps_log)} steps")
+        emit(dict(phase="int4_group_variant", engine_steps=len(steps_log), group_launches=group_launches))
+        launches[group.__name__] = group_launches
+        launches[k1.__name__] += k1.launches
+
+        # Where the device time goes: the 8-prompt workload once more under
+        # torch.profiler (idle share against the unprofiled wall time).
+        from torch.profiler import ProfilerActivity, profile
+
+        del steps_log[:]
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            llm.generate(prompts(SEED + 1), greedy)
+            torch.cuda.synchronize()
+        profiled_wall = time.monotonic() - t0
+        emit(dict(phase="int4_profile", engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
+                  unprofiled_wall_s=wall, **device_breakdown(prof, wall, len(steps_log)),
+                  card=card["nvidia_smi"]))
+        del prof
+
+        # A prefill batch (T = 512: dequant) and the decode step after it
+        # (T = 16: w4a8) through the model twice over the same weights: the
+        # kernels, then the plain versions of all of them.
+        tok = llm._handler.tokenizer
+        engine = None
+        llm.close()
+        llm = None
+        torch.cuda.empty_cache()
+        ids = [tok.encode(ps[0])[:200], tok.encode(ps[5])]
+        prefill, n_pages = batch_inputs(torch, [(t, 0, len(t) + 1) for t in ids])
+        decode, _ = batch_inputs(torch, [([7 + i], len(t), len(t) + 1) for i, t in enumerate(ids)])
+        n_tok = sum(len(t) for t in ids)
+        logits = {}
+        with torch.inference_mode():
+            for impl in ("kernel", "plain"):
+                plain = impl == "plain"
+                model.attn_impl = ref_ragged_paged_attention if plain else attention.ragged_paged_attention
+                model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
+                kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
+                a = model.logits(model(kv, prefill.to(DEVICE), all_hidden=True)[:n_tok])
+                b = model.logits(model(kv, decode.to(DEVICE))[: len(ids)])
+                logits[impl] = (a, b)
+                del kv
+        model.attn_impl, model.quant_impl = attention.ragged_paged_attention, Q.quant_matmul
+        for which, i in (("prefill", 0), ("decode", 1)):
+            got, want = logits["kernel"][i], logits["plain"][i]
+            diff = (got - want).abs()
+            err = diff.max().item()
+            emit(dict(phase="int4_logits", batch=which, rows=got.shape[0], max_abs_err=err,
+                      mean_abs_err=diff.mean().item(), logits_std=want.std().item(),
+                      argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+                      tol=LOGITS_TOL))
+            if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
+                fail(f"int4 {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
+        return launches
+    finally:
+        if llm is not None:
+            llm.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ main
 
 
+def kernel_entry(name, source, replaces, launches, cases, main_case):
+    """One entry of the `kernels` line: the timing of the main path's shape,
+    the largest error over every checked shape."""
+    r = cases[main_case]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    }
+
+
 def main() -> None:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--int4-layers", type=int, default=LLAMA31_8B_INT4["num_hidden_layers"],
+                        help="depth of the INT4 Llama-3.1-8B run (its widths are never cut)")
+    opts = parser.parse_args()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA device")
@@ -559,23 +990,36 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = phase_device(torch)
     phase_build()
-    results = phase_kernels(torch, card)
-    launches = phase_end_to_end(torch, card)
+    attention_results = phase_kernels(torch, card)
+    quant_results = phase_quant_kernels(torch, card)
+    bf16_launches = phase_end_to_end(torch, card)
+    int4_launches = phase_end_to_end_int4(torch, card, opts.int4_layers)
 
-    a = results["a_decode"]
-    emit({"kernels": [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "scalellm_tpu/ops/attention.py:131",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
-        "ms": a["ms"],
-        "plain_ms": a["plain_ms"],
-        "bound_ms": a["bound_ms"],
-        "bound_by": a["bound_by"],
-        "library_ms": a["library_ms"],
-    }]})
+    # Each kernel's launches on the main paths (counts set to 0 before each
+    # path and read after it; the checks above launch outside that window),
+    # and its timing at a shape the main path gives it: attention at the
+    # 8-sequence decode batch, w4a8 at the decode step's gate_up projection
+    # (T = 16), dequant and group at the 512-token step's.
+    source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
+    kernels = [
+        kernel_entry("ragged_paged_attention", "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
+                     "scalellm_tpu/ops/attention.py:131",
+                     bf16_launches + int4_launches["ragged_paged_attention_cuda"],
+                     attention_results, "a_decode"),
+        kernel_entry("quant_matmul_w4a8", source, "scalellm_tpu/ops/quant_matmul.py:360",
+                     int4_launches["quant_matmul_w4a8_cuda"], quant_results["w4a8"],
+                     ("gate_up_proj", 16, False)),
+        kernel_entry("quant_matmul_group", source, "scalellm_tpu/ops/quant_matmul.py:259",
+                     int4_launches["quant_matmul_group_cuda"], quant_results["group"],
+                     ("gate_up_proj", 512, False)),
+        kernel_entry("quant_matmul_dequant", source, "scalellm_tpu/ops/quant_matmul.py:519",
+                     int4_launches["quant_matmul_dequant_cuda"], quant_results["dequant"],
+                     ("gate_up_proj", 512, False)),
+    ]
+    for k in kernels:
+        if k["launches"] <= 0:
+            fail(f"the main paths never launched {k['name']}")
+    emit({"kernels": kernels})
     print(card["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,10 @@
 """LLMEngine — owns the model executor, tokenizer and KV block manager
 (counterpart of scalellm_tpu/engine/llm_engine.py, synchronous path).
 
-Init: load the model onto the device -> size the KV cache from free device
-memory -> allocate blocks.
+Init: load the model onto the device (a quantized checkpoint as it is; a
+dense one quantized on the device when `quantize` asks) -> size the KV cache
+from the device memory that is free once the weights are in place ->
+allocate blocks.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ class EngineOptions:
     # Direct override for the number of KV blocks (tests / CPU).
     num_blocks: int = 0
     max_top_logprobs: int = 20
+    # Runtime weight quantization of a dense checkpoint: "", "int4" or "int8"
+    # (group size 128, symmetric).
+    quantize: str = ""
+    # Quantize the lm_head at load: False, True (int8) or "int4". Takes
+    # effect on a quantized model only (a quantized checkpoint, or `quantize`).
+    quantize_lm_head: "bool | str" = False
 
 
 class LLMEngine:
@@ -55,7 +63,24 @@ class LLMEngine:
         factory = ModelRegistry.get_causal_lm_factory(self.model_args.model_type)
         if factory is None:
             raise ValueError(f"no causal LM for {self.model_args.model_type!r}")
+        if options.quantize not in ("", "int4", "int8"):
+            raise ValueError(f"quantize must be '', 'int4' or 'int8', got {options.quantize!r}")
+        if options.quantize_lm_head and self.model_args.quant_args:
+            self.model_args.quant_args.quantize_lm_head = True
         self.model = loader.load_model(factory(self.model_args, device="meta"), self.device)
+        if options.quantize and not self.model_args.quant_args:
+            from scalellm_tpu_torch.config import QuantArgs
+            from scalellm_tpu_torch.quantization.runtime import quantize_model
+
+            qargs = QuantArgs(
+                quant_method="internal",
+                bits=4 if options.quantize == "int4" else 8,
+                group_size=128,
+                quantize_lm_head=options.quantize_lm_head,
+            )
+            self.model = quantize_model(self.model, qargs)
+            self.model_args = self.model.args
+            logger.info("runtime-quantized dense checkpoint to %s", options.quantize)
         self.executor = Executor(self.model, self.device, options.max_top_logprobs)
         logger.info(
             "model %s loaded in %.1fs", self.model_args.model_type, time.monotonic() - t0

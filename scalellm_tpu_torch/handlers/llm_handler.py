@@ -7,9 +7,8 @@ templates and keeps tokenization off the scheduler's hot path.
 
 The options keep the reference package's field names. Those that ask for a
 feature this package has not ported yet (speculative decoding, tensor or
-sequence parallelism, multi-host serving, int8 KV, runtime quantization,
-KV swap, async scheduling, multi-step decode, LoRA, CUDA graphs, bucket
-warmup, model-args overrides) raise NotImplementedError; none is silently
+sequence parallelism, multi-host serving, int8 KV, KV swap, async scheduling,
+multi-step decode, LoRA, CUDA graphs, bucket warmup, model-args overrides) raise NotImplementedError; none is silently
 ignored. Per request, guided decoding and prompt logprobs are refused with
 an UNIMPLEMENTED status.
 """
@@ -86,8 +85,6 @@ class LLMHandlerOptions:
             "kv_cache_dtype (int8 KV cache)": self.kv_cache_dtype != "auto",
             "warmup_mode (bucket warmup)": self.warmup_mode != "off",
             "distributed (multi-host serving)": self.distributed,
-            "quantize_lm_head (runtime quantization)": bool(self.quantize_lm_head),
-            "quantize (runtime quantization)": bool(self.quantize),
             "host_swap_bytes (KV swap)": self.host_swap_bytes > 0,
             "enable_async_scheduling": self.enable_async_scheduling,
             "num_decode_steps (multi-step decode)": self.num_decode_steps != 1,
@@ -112,6 +109,8 @@ class LLMHandler:
                 max_memory_utilization=options.max_memory_utilization,
                 enable_prefix_cache=options.enable_prefix_cache,
                 num_blocks=options.num_blocks,
+                quantize=options.quantize,
+                quantize_lm_head=options.quantize_lm_head,
             )
         )
         self.tokenizer = self.engine.tokenizer

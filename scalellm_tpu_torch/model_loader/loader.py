@@ -7,8 +7,16 @@ state_dict on the target device, cast to the model's compute dtype. The
 safetensors format is read here without the safetensors package: an 8-byte
 little-endian header length, a JSON header naming each tensor's dtype, shape
 and byte range, then the raw bytes (read with torch.frombuffer over a
-memory map). F32, F16 and BF16 tensors are supported. Every parameter of the
-model must be filled, or loading fails.
+memory map). F32, F16, BF16, I32 and I64 tensors are supported. Every
+parameter and buffer of the model must be filled, or loading fails.
+
+A checkpoint with a quantization_config (or a quantize_config.json beside it)
+is an AWQ or GPTQ checkpoint: its projections are read through the rules of
+quantization/linear.py, whose transforms unpack qweight / qzeros into the
+kernel layout with torch ops on the target device. Under GPTQ desc_act each
+projection's rows are sorted into contiguous groups and the permutation is
+kept for the input gather. A model that asks for a quantized lm_head gets it
+quantized here from the checkpoint's dense one.
 """
 
 from __future__ import annotations
@@ -26,6 +34,13 @@ import torch
 from scalellm_tpu_torch.config import ModelArgs, QuantArgs, TokenizerArgs
 from scalellm_tpu_torch.models.common import FUSED_PROJECTIONS
 from scalellm_tpu_torch.models.registry import ModelRegistry
+from scalellm_tpu_torch.ops.quant_matmul import (
+    pack_int4,
+    quantize_linear,
+    to_kernel_layout,
+    unpack_int4,
+)
+from scalellm_tpu_torch.quantization.linear import build_quant_rules
 
 logger = logging.getLogger(__name__)
 
@@ -33,6 +48,8 @@ SAFETENSORS_DTYPES = {
     "F32": torch.float32,
     "F16": torch.float16,
     "BF16": torch.bfloat16,
+    "I32": torch.int32,
+    "I64": torch.int64,
 }
 
 
@@ -96,10 +113,7 @@ class HFModelLoader:
                     qcfg["quantization_config"] = json.load(f)
                 break
         self.quant_args = QuantArgs.from_hf_config(qcfg)
-        if self.quant_args.enabled:
-            raise NotImplementedError(
-                f"quantized checkpoints ({self.quant_args.quant_method}) are not ported"
-            )
+        self.model_args.quant_args = self.quant_args if self.quant_args.enabled else None
         self.tokenizer_args = self._load_tokenizer_args()
         self.weight_files = sorted(
             os.path.join(model_path, f)
@@ -116,10 +130,14 @@ class HFModelLoader:
         return args
 
     def load_state_dict(self, model: torch.nn.Module, device) -> Dict[str, torch.Tensor]:
-        """Read every checkpoint tensor the model's weight rules name, cast
-        to the model's dtype on `device`, with fused projections
+        """Read every checkpoint tensor the model's weight rules name onto
+        `device` (floating tensors cast to the model's dtype, quantized ones
+        through their rule's transform), with fused projections
         concatenated."""
-        rules = [(re.compile(rx + r"$"), name) for rx, name in model.hf_weight_rules]
+        rules = [(rx, target, None) for rx, target in model.hf_weight_rules]
+        if self.quant_args.enabled:
+            rules = build_quant_rules(list(model.hf_weight_rules), self.quant_args)
+        rules = [(re.compile(rx + r"$"), target, fn) for rx, target, fn in rules]
         expected = dict(model.state_dict(keep_vars=True))
         dtype = model.dtype
         parts: Dict[str, torch.Tensor] = {}
@@ -127,13 +145,16 @@ class HFModelLoader:
         unmatched = []
         for wf in self.weight_files:
             for ckpt_name, raw in read_safetensors(wf):
-                for rx, target in rules:
+                for rx, target, transform in rules:
                     m = rx.match(ckpt_name)
                     if m is not None:
                         name = target.format(*m.groups())
                         if name == "lm_head" and self.model_args.tie_word_embeddings:
                             break
-                        t = raw.to(device=device, dtype=dtype, copy=True)
+                        if transform is None:
+                            t = raw.to(device=device, dtype=dtype, copy=True)
+                        else:
+                            t = transform(raw.to(device=device, copy=True))
                         (sd if name in expected else parts)[name] = t
                         break
                 else:
@@ -145,20 +166,40 @@ class HFModelLoader:
                 len(unmatched), ", ".join(unmatched[:5]),
             )
         for name in expected:
-            prefix, _, leaf = name.rpartition(".")
-            if name in sd or leaf not in FUSED_PROJECTIONS:
+            if name in sd:
                 continue
-            names = [f"{prefix}.{p}" for p in FUSED_PROJECTIONS[leaf]]
+            prefix, _, leaf = name.rpartition(".")
+            if leaf == "perm" and f"{prefix}.g_idx" in parts:
+                # GPTQ desc_act: sort the rows into contiguous groups.
+                perm = torch.argsort(parts.pop(f"{prefix}.g_idx"), stable=True)
+                rows = unpack_int4(sd[f"{prefix}.qweight"].T)[perm]
+                sd[f"{prefix}.qweight"] = to_kernel_layout(pack_int4(rows))
+                sd[name] = perm.to(torch.int32)
+                continue
+            if prefix == "lm_head" and leaf == "qweight" and "lm_head" in parts:
+                lm = model.lm_head
+                sd[name], sd["lm_head.scales"] = quantize_linear(
+                    parts.pop("lm_head"), lm.bits, lm.group_size)
+                continue
+            # A fused projection: its parts concatenated along the output
+            # dim, which is dim 0 of a weight or qweight and dim 1 of scales
+            # and zeros.
+            module, tensor_leaf = (prefix, leaf) if leaf not in FUSED_PROJECTIONS else (name, "")
+            stem, _, fused = module.rpartition(".")
+            if fused not in FUSED_PROJECTIONS:
+                continue
+            names = [".".join(filter(None, (stem, p, tensor_leaf))) for p in FUSED_PROJECTIONS[fused]]
             if all(n in parts for n in names):
-                sd[name] = torch.cat([parts.pop(n) for n in names], dim=0)
+                dim = 1 if tensor_leaf in ("scales", "zeros") else 0
+                sd[name] = torch.cat([parts.pop(n) for n in names], dim=dim)
         missing = [n for n in expected if n not in sd]
         if missing:
             raise ValueError(f"weights not fully loaded for: {missing[:8]}")
         for name, param in expected.items():
-            if sd[name].shape != param.shape:
+            if sd[name].shape != param.shape or sd[name].dtype != param.dtype:
                 raise ValueError(
-                    f"{name}: checkpoint shape {tuple(sd[name].shape)} "
-                    f"!= model shape {tuple(param.shape)}"
+                    f"{name}: checkpoint {tuple(sd[name].shape)} {sd[name].dtype} "
+                    f"!= model {tuple(param.shape)} {param.dtype}"
                 )
         return sd
 

@@ -10,16 +10,25 @@ reference's fused layout. The layers run as a Python loop; the attention
 implementation is a hook (attn_impl) so a caller can swap the kernel for the
 plain version.
 
+Weight-only quantized models (args.quant_args) hold each projection as a
+QuantLinear (kernel-layout qweight, scales, zeros, and for GPTQ desc_act the
+row permutation) and run it through ops/quant_matmul.py; quant_impl is a
+hook like attn_impl. With desc_act the projections stay unfused (each has
+its own row order). Where the reference folds the RMSNorm before a fused
+quantized projection into the kernel's prologue, so does this model: the
+projection then gets the un-normed input. The lm_head is quantized at load
+when quant_args.quantize_lm_head asks (int8; "int4" on request).
+
 Features of the reference's DecoderModel that this subset does not carry
-(quantized projections, MoE, LoRA, tensor/sequence parallelism, int8 KV,
-biases, layer norm, ALiBi, qk-norm, parallel residual) raise
-NotImplementedError when the model args ask for them.
+(MoE, LoRA, tensor/sequence parallelism, int8 KV, biases, layer norm, ALiBi,
+qk-norm, parallel residual) raise NotImplementedError when the model args
+ask for them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,6 +41,12 @@ from scalellm_tpu_torch.layers.norms import rms_norm
 from scalellm_tpu_torch.layers.rope import apply_rope, compute_cos_sin
 from scalellm_tpu_torch.ops.attention import ragged_paged_attention
 from scalellm_tpu_torch.ops.kv_update import set_kv_cache
+from scalellm_tpu_torch.ops.quant_matmul import (
+    DEFAULT_TILE_N,
+    LM_HEAD_TILE_N,
+    quant_matmul,
+    untile_quant_layout,
+)
 
 # Fused weight -> the checkpoint projections concatenated (in order) along
 # the output dim.
@@ -53,7 +68,6 @@ def model_dtype(args: ModelArgs) -> torch.dtype:
 
 def _unsupported(args: ModelArgs) -> List[str]:
     checks = {
-        "quantized weights": args.quant_args is not None and args.quant_args.enabled,
         "MoE": args.n_experts > 0,
         "MLA": args.kv_lora_rank > 0,
         "int8 KV cache": args.kv_cache_dtype != "auto",
@@ -76,17 +90,72 @@ def _param(*shape: int, dtype: torch.dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def active_quant(args: ModelArgs):
+    """The model's QuantArgs when it is quantized, else None."""
+    q = args.quant_args
+    return q if (q is not None and q.enabled) else None
+
+
+class QuantLinear(nn.Module):
+    """A weight-only quantized [K -> N] projection in the kernel layout of
+    ops/quant_matmul.py: qweight int8 [N, K/2] (int8: [N, K]), scales
+    [K/G, N], zeros int8 [K/G, N] unless symmetric, perm int32 [K] under GPTQ
+    desc_act (the weight's rows are sorted into contiguous groups, and the
+    input is gathered by the same permutation)."""
+
+    def __init__(self, k: int, n: int, *, bits: int, group_size: int,
+                 scales_dtype: torch.dtype, symmetric: bool, desc_act: bool = False,
+                 tile_n: int = DEFAULT_TILE_N, device="cpu"):
+        super().__init__()
+        self.bits, self.symmetric, self.tile_n = bits, symmetric, tile_n
+        self.group_size = group_size if group_size > 0 else k
+        groups = k // self.group_size
+        pack = 2 if bits == 4 else 1
+
+        def buf(name, *shape, dtype):
+            self.register_buffer(name, torch.empty(*shape, dtype=dtype, device=device))
+
+        buf("qweight", n, k // pack, dtype=torch.int8)
+        buf("scales", groups, n, dtype=scales_dtype)
+        if not symmetric:
+            buf("zeros", groups, n, dtype=torch.int8)
+        if desc_act:
+            buf("perm", k, dtype=torch.int32)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, args: ModelArgs, dtype: torch.dtype, device):
         super().__init__()
         D, F_, Dh = args.hidden_size, args.intermediate_size, args.head_dim
         H, Hkv = args.n_heads, args.n_kv_heads
+        quant = active_quant(args)
+
+        def proj(k: int, n: int):
+            if quant is None:
+                return _param(n, k, dtype=dtype, device=device)
+            return QuantLinear(
+                k, n, bits=quant.bits, group_size=quant.group_size,
+                # Internal quantizers round their scales through bf16; the
+                # f16 scales of a checkpoint need f32.
+                scales_dtype=torch.bfloat16 if quant.quant_method == "internal" else torch.float32,
+                symmetric=bool(quant.is_sym and not quant.zero_point),
+                desc_act=quant.desc_act, device=device)
+
         self.input_norm = _param(D, dtype=dtype, device=device)
-        self.qkv_proj = _param((H + 2 * Hkv) * Dh, D, dtype=dtype, device=device)
-        self.o_proj = _param(D, H * Dh, dtype=dtype, device=device)
+        if quant is not None and quant.desc_act:
+            self.q_proj = proj(D, H * Dh)
+            self.k_proj = proj(D, Hkv * Dh)
+            self.v_proj = proj(D, Hkv * Dh)
+        else:
+            self.qkv_proj = proj(D, (H + 2 * Hkv) * Dh)
+        self.o_proj = proj(H * Dh, D)
         self.post_norm = _param(D, dtype=dtype, device=device)
-        self.gate_up_proj = _param(2 * F_, D, dtype=dtype, device=device)
-        self.down_proj = _param(D, F_, dtype=dtype, device=device)
+        if quant is not None and quant.desc_act:
+            self.gate_proj = proj(D, F_)
+            self.up_proj = proj(D, F_)
+        else:
+            self.gate_up_proj = proj(D, 2 * F_)
+        self.down_proj = proj(F_, D)
 
 
 class DecoderModel(nn.Module):
@@ -101,6 +170,10 @@ class DecoderModel(nn.Module):
             )
         self.args = args
         self.attn_impl = attn_impl or ragged_paged_attention
+        self.quant_impl = quant_matmul
+        self.quant = active_quant(args)
+        if self.quant is not None and self.quant.bits not in (4, 8):
+            raise ValueError(f"quantization to {self.quant.bits} bits is not supported")
         self.dtype = model_dtype(args)
         D, V = args.hidden_size, args.vocab_size
         self.embed_tokens = _param(V, D, dtype=self.dtype, device=device)
@@ -109,7 +182,24 @@ class DecoderModel(nn.Module):
         )
         self.final_norm = _param(D, dtype=self.dtype, device=device)
         if not args.tie_word_embeddings:
-            self.lm_head = _param(V, D, dtype=self.dtype, device=device)
+            if self._lm_head_quant():
+                self.lm_head = QuantLinear(
+                    D, V, bits=self._lm_head_bits(), group_size=128,
+                    scales_dtype=torch.bfloat16, symmetric=True,
+                    tile_n=LM_HEAD_TILE_N, device=device)
+            else:
+                self.lm_head = _param(V, D, dtype=self.dtype, device=device)
+
+    def _lm_head_quant(self) -> bool:
+        return bool(
+            self.quant is not None
+            and self.quant.quantize_lm_head
+            and self.args.hidden_size % 128 == 0
+        )
+
+    def _lm_head_bits(self) -> int:
+        """quantize_lm_head: truthy -> int8; the string "int4" -> int4."""
+        return 4 if self.quant.quantize_lm_head == "int4" else 8
 
     # ------------------------------------------------------------ kv cache
 
@@ -139,6 +229,35 @@ class DecoderModel(nn.Module):
             for i in range(a.n_layers)
         ]
 
+    def _proj(self, x: torch.Tensor, w, rms: Optional[Tuple[torch.Tensor, float]] = None):
+        """x @ W^T for a dense or quantized projection, in x's type.
+        rms=(gamma, eps) asks for the RMSNorm of x first; for a quantized
+        projection it goes into the matmul's prologue, and the caller passes
+        the un-normed input."""
+        if isinstance(w, QuantLinear):
+            if "perm" in w._buffers:
+                x = x[:, w.perm]
+            return self.quant_impl(
+                x, w.qweight, w.scales, w._buffers.get("zeros"), bits=w.bits,
+                symmetric=w.symmetric, tile_n=w.tile_n,
+                rms_gamma=rms[0] if rms is not None else None,
+                rms_eps=float(rms[1]) if rms is not None else 1e-6,
+            )
+        if rms is not None:
+            x = rms_norm(x, rms[0], rms[1])
+        return F.linear(x, w)
+
+    def _fused_norm(self, layer: DecoderLayer, proj: str, norm: torch.Tensor):
+        """(gamma, eps) when the RMSNorm before `proj` folds into the quant
+        matmul's prologue (a fused quantized projection without a row
+        permutation), else None."""
+        w = getattr(layer, proj, None)
+        if not isinstance(w, QuantLinear) or "perm" in w._buffers:
+            return None
+        if self.args.zero_centered_norm:
+            norm = 1.0 + norm.float()
+        return norm, self.args.rms_norm_eps
+
     def forward(
         self,
         kv_cache: torch.Tensor,  # [L, P, page, 2*Hkv, Dh], updated in place
@@ -160,8 +279,12 @@ class DecoderModel(nn.Module):
         T = h.shape[0]
 
         for layer, kvc, window in zip(self.layers, kv_cache, self._layer_windows()):
-            x = rms_norm(h, layer.input_norm, a.rms_norm_eps, a.zero_centered_norm)
-            q, k, v = F.linear(x, layer.qkv_proj).split([q_n, kv_n, kv_n], dim=-1)
+            rms = self._fused_norm(layer, "qkv_proj", layer.input_norm)
+            x = h if rms else rms_norm(h, layer.input_norm, a.rms_norm_eps, a.zero_centered_norm)
+            if hasattr(layer, "qkv_proj"):
+                q, k, v = self._proj(x, layer.qkv_proj, rms).split([q_n, kv_n, kv_n], dim=-1)
+            else:  # desc_act: unfused projections
+                q, k, v = (self._proj(x, w) for w in (layer.q_proj, layer.k_proj, layer.v_proj))
             q = apply_rope(q.reshape(T, H, Dh), cos, sin, a.interleaved_rope)
             k = apply_rope(k.reshape(T, Hkv, Dh), cos, sin, a.interleaved_rope)
             set_kv_cache(kvc, k, v.reshape(T, Hkv, Dh), mi.new_kv_slot_ids)
@@ -170,12 +293,16 @@ class DecoderModel(nn.Module):
                 mi.num_seqs, sm_scale=sm_scale, sliding_window=window,
                 logit_soft_cap=soft_cap,
             )
-            h = h + F.linear(o.reshape(T, q_n), layer.o_proj)
+            h = h + self._proj(o.reshape(T, q_n), layer.o_proj)
 
-            x = rms_norm(h, layer.post_norm, a.rms_norm_eps, a.zero_centered_norm)
-            g, u = F.linear(x, layer.gate_up_proj).chunk(2, dim=-1)
+            rms = self._fused_norm(layer, "gate_up_proj", layer.post_norm)
+            x = h if rms else rms_norm(h, layer.post_norm, a.rms_norm_eps, a.zero_centered_norm)
+            if hasattr(layer, "gate_up_proj"):
+                g, u = self._proj(x, layer.gate_up_proj, rms).chunk(2, dim=-1)
+            else:
+                g, u = self._proj(x, layer.gate_proj), self._proj(x, layer.up_proj)
             m = act_with_mul(a.hidden_act, g.float(), u.float()).to(x.dtype)
-            h = h + F.linear(m, layer.down_proj)
+            h = h + self._proj(m, layer.down_proj)
 
         h = rms_norm(h, self.final_norm, a.rms_norm_eps, a.zero_centered_norm)
         if all_hidden:
@@ -186,7 +313,7 @@ class DecoderModel(nn.Module):
         """[S, D] -> [S, V] float32 logits."""
         a = self.args
         w = self.embed_tokens if a.tie_word_embeddings else self.lm_head
-        logits = F.linear(hidden, w).float()
+        logits = self._proj(hidden, w).float()
         if a.final_logit_soft_cap > 0.0:
             cap = a.final_logit_soft_cap
             logits = cap * torch.tanh(logits / cap)
@@ -196,7 +323,13 @@ class DecoderModel(nn.Module):
 def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]:
     """The reference package's numpy parameter tree (fused layout, per-layer
     tensors stacked over L, projections [in, out]) -> this model's
-    state_dict (per-layer tensors, projections [out, in]), on the CPU."""
+    state_dict (per-layer tensors, projections [out, in]), on the CPU.
+
+    A quantized projection arrives as a dict of the reference's N-tiled
+    arrays [L, N_pad/W, R, W] (or flat [L, R, N]): each is untiled, cut back
+    to the projection's N, and qweight goes to the kernel layout. Scales keep
+    their type (bf16 or f32), so their values carry over exactly; zeros are
+    dropped for a symmetric model, as its matmuls never read them."""
     import numpy as np
 
     def tensor(x) -> torch.Tensor:
@@ -205,16 +338,50 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
             return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
         return torch.from_numpy(arr.copy())
 
+    quant = active_quant(args)
+    symmetric = quant is not None and bool(quant.is_sym and not quant.zero_point)
+    D, F_, Dh = args.hidden_size, args.intermediate_size, args.head_dim
+    q_n, kv_n = args.n_heads * Dh, args.n_kv_heads * Dh
+    widths = {
+        "qkv_proj": q_n + 2 * kv_n, "q_proj": q_n, "k_proj": kv_n, "v_proj": kv_n,
+        "o_proj": D, "gate_up_proj": 2 * F_, "gate_proj": F_, "up_proj": F_,
+        "down_proj": D,
+    }
+
+    def put_quant(prefix, node, n, drop_zeros):
+        for key, arr in node.items():
+            t = tensor(arr)
+            if key == "perm":
+                sd[f"{prefix}.perm"] = t.to(torch.int32)
+                continue
+            if key == "zeros" and drop_zeros:
+                continue
+            if t.dim() > 2:
+                t = untile_quant_layout(t)
+            t = t[..., :n]
+            sd[f"{prefix}.{key}"] = t.T.contiguous() if key == "qweight" else t.contiguous()
+
     layers = jax_params["layers"]
     sd = {
         "embed_tokens": tensor(jax_params["embed_tokens"]),
         "final_norm": tensor(jax_params["final_norm"]),
     }
     if not args.tie_word_embeddings:
-        sd["lm_head"] = tensor(jax_params["lm_head"]).T.contiguous()
-    projections = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+        lm = jax_params["lm_head"]
+        if isinstance(lm, dict):
+            put_quant("lm_head", lm, args.vocab_size, True)  # always symmetric
+        else:
+            sd["lm_head"] = tensor(lm).T.contiguous()
     for l in range(args.n_layers):
-        for name in ("input_norm", "post_norm") + projections:
-            t = tensor(np.asarray(layers[name])[l])
-            sd[f"layers.{l}.{name}"] = t.T.contiguous() if name in projections else t
+        for name in ("input_norm", "post_norm"):
+            sd[f"layers.{l}.{name}"] = tensor(np.asarray(layers[name])[l])
+        for name, n in widths.items():
+            if name not in layers:
+                continue
+            node = layers[name]
+            if isinstance(node, dict):
+                put_quant(f"layers.{l}.{name}",
+                          {k: np.asarray(v)[l] for k, v in node.items()}, n, symmetric)
+            else:
+                sd[f"layers.{l}.{name}"] = tensor(np.asarray(node)[l]).T.contiguous()
     return sd

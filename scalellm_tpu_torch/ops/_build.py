@@ -23,7 +23,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scalellm_tpu_torch"
 
 # Kernel name -> source file in csrc/.
-SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu"}
+SOURCES = {
+    "ragged_paged_attention": "ragged_paged_attention.cu",
+    "quant_matmul": "quant_matmul.cu",
+}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

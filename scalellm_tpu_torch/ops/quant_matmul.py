@@ -1,0 +1,495 @@
+"""Weight-only INT4/INT8 matmul with fused dequantization: host-side packing,
+the plain PyTorch versions, the CUDA kernels' wrappers and the dispatcher.
+
+Counterpart of scalellm_tpu/ops/quant_matmul.py. A CUDA tensor goes to the
+hand-written Hopper kernels of csrc/quant_matmul.cu; a CPU tensor goes to the
+plain versions below, which repeat the kernels' arithmetic. There is no
+fallback from one to the other: a CUDA call a kernel does not cover raises.
+
+Two layouts of a quantized [K, N] weight:
+
+  canonical (the reference package's flat layout; pack/quantize produce it)
+    qweight  int8 [K/2, N]: byte r holds K=2r in bits 0-3 and K=2r+1 in bits
+             4-7, each a SIGNED nibble (the checkpoint's unsigned value - 8);
+             int8 quantization: int8 [K, N]
+    scales   [K/G, N] (bf16 from the internal quantizers, f32 from AWQ/GPTQ
+             checkpoints, whose f16 scales bf16 cannot hold)
+    zeros    int8 [K/G, N], shifted by -8 for int4 (symmetric: all 0)
+
+  kernel (what the models store and every matmul here takes)
+    qweight  int8 [N, K/2] (int8: [N, K]): the canonical bytes transposed, so
+             K is contiguous and 16 bytes of a row are 32 weights of one
+             output column; torch's [out, in] convention
+    scales, zeros  as canonical; zeros is None for a symmetric weight
+
+Dequantized weight: w = (q - z) * s.
+
+Variants (the reference's, chosen per call by plan()):
+  "w4a8"    activations quantized to int8 per (row, k-block of block_k),
+            int8 x int8 group dots with int32 sums; decode (M <= 64)
+  "group"   bf16 x int group dots with f32 sums, scale applied after the dot
+  "dequant" weight dequantized to bf16 (two roundings), one bf16 dot; what
+            the reference's tiled storage runs for M > 64 and for G < 128
+  "ref"     the float reference (ref_quant_matmul), CPU tensors only
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from scalellm_tpu_torch.ops import _build
+
+# The reference's stored tile widths. Its block_k choice, which is part of
+# the W4A8 numerics, depends on them.
+DEFAULT_TILE_N = 1024
+LM_HEAD_TILE_N = 2048
+
+VARIANTS = ("w4a8", "group", "dequant")
+
+# ---------------------------------------------------------------- packing
+
+
+def pack_int4(w_unsigned: torch.Tensor) -> torch.Tensor:
+    """[K, N] unsigned nibble values (0..15) -> canonical int8 [K/2, N]."""
+    assert w_unsigned.shape[0] % 2 == 0
+    w = (w_unsigned.to(torch.int32) - 8) & 0xF
+    packed = (w[1::2] << 4) | w[0::2]
+    return packed.to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4: canonical int8 [K/2, N] -> uint8 [K, N] (0..15)."""
+    p = packed.view(torch.uint8).to(torch.int32)
+    out = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=1).reshape(-1, packed.shape[1])
+    return ((out + 8) & 0xF).to(torch.uint8)
+
+
+def _quantize(w: torch.Tensor, group_size: int, qmax: int, qmin: int):
+    K, N = w.shape
+    assert K % group_size == 0
+    g = w.float().reshape(K // group_size, group_size, N)
+    max_abs = g.abs().amax(dim=1)
+    # The scale goes through its storage type (bf16) BEFORE the grid is
+    # computed, so what is stored is what the grid was built against.
+    qmax_t = torch.full((), float(qmax), device=w.device)
+    scales = torch.clamp(max_abs / qmax_t, min=1e-10).to(torch.bfloat16)
+    q = torch.clamp(torch.round(g / scales.float()[:, None, :]), qmin, qmax)
+    zeros = torch.zeros(K // group_size, N, dtype=torch.int8, device=w.device)
+    return q.reshape(K, N), scales, zeros
+
+
+def quantize_int4(w: torch.Tensor, group_size: int):
+    """Symmetric int4 group quantization of a float [K, N] weight ->
+    (canonical int8 [K/2, N], bf16 scales [K/G, N], int8 zeros, all 0)."""
+    q, scales, zeros = _quantize(w, group_size, 7, -8)
+    return pack_int4((q + 8).to(torch.uint8)), scales, zeros
+
+
+def quantize_int8(w: torch.Tensor, group_size: int):
+    """Symmetric int8 group quantization -> (int8 [K, N], bf16 scales, zeros)."""
+    q, scales, zeros = _quantize(w, group_size, 127, -127)
+    return q.to(torch.int8), scales, zeros
+
+
+def to_kernel_layout(qweight: torch.Tensor) -> torch.Tensor:
+    """Canonical [K/2 or K, N] -> kernel [N, K/2 or K]: the same bytes,
+    K-contiguous. A transpose, so the same call takes a kernel-layout weight
+    back."""
+    return qweight.T.contiguous()
+
+
+def untile_quant_layout(arr: torch.Tensor) -> torch.Tensor:
+    """The reference's N-blocked storage [*, N_pad/W, R, W] -> flat
+    [*, R, N_pad] (keeps the N padding that tiling added)."""
+    *lead, n_n, R, W = arr.shape
+    return arr.transpose(-3, -2).reshape(*lead, R, n_n * W).contiguous()
+
+
+def unpack_signed(qweight: torch.Tensor, bits: int) -> torch.Tensor:
+    """Kernel-layout qweight -> the signed integer weights, int8 [N, K]."""
+    if bits == 8:
+        return qweight
+    q = qweight.to(torch.int32)
+    lo = ((q & 0xF) ^ 8) - 8
+    hi = (((q >> 4) & 0xF) ^ 8) - 8
+    return torch.stack([lo, hi], dim=2).reshape(qweight.shape[0], -1).to(torch.int8)
+
+
+def quantize_linear(weight: torch.Tensor, bits: int, group_size: int):
+    """A dense [out, in] weight -> (kernel-layout qweight, bf16 scales)."""
+    fn = quantize_int4 if bits == 4 else quantize_int8
+    qw, scales, _ = fn(weight.T.float(), group_size)
+    return to_kernel_layout(qw), scales
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def ref_quant_matmul(
+    x: torch.Tensor,  # [M, K]
+    qweight: torch.Tensor,  # kernel layout
+    scales: torch.Tensor,  # [K/G, N]
+    zeros: Optional[torch.Tensor],  # int8 [K/G, N] or None
+    bits: int,
+) -> torch.Tensor:
+    """Float reference: x @ ((q - z) * s) in float32, cast to x's type."""
+    K = x.shape[-1]
+    w = unpack_signed(qweight, bits).to(torch.int32).T  # [K, N]
+    G = K // scales.shape[0]
+    if zeros is not None:
+        w = w - torch.repeat_interleave(zeros.to(torch.int32), G, dim=0)
+    wf = w.float() * torch.repeat_interleave(scales.float(), G, dim=0)
+    return (x.float() @ wf).to(x.dtype)
+
+
+def rms_prologue(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """The RMSNorm prologue: f32 norm, rounded to x's type before anything
+    else reads it."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def _group_operands(x, qweight, scales, bits):
+    M, K = x.shape
+    n_g = scales.shape[0]
+    G = K // n_g
+    w = unpack_signed(qweight, bits).float().T.reshape(n_g, G, -1)  # [n_g, G, N]
+    return M, K, n_g, G, w
+
+
+def plain_w4a8(x, qweight, scales, zeros, bits, block_k, rms_gamma=None, rms_eps=1e-6):
+    """What csrc/quant_matmul.cu:w4a8_kernel computes, in float32 [M, N].
+    x is bf16. The integer dots run as float32 matmuls of integers whose
+    partial sums stay below 2**24, so they are exact."""
+    if rms_gamma is not None:
+        x = rms_prologue(x, rms_gamma, rms_eps)
+    M, K, n_g, G, w = _group_operands(x, qweight, scales, bits)
+    s = scales.float()
+    z = None if zeros is None else zeros.float()
+    per_block = block_k // G
+    acc = torch.zeros(M, w.shape[-1], dtype=torch.float32, device=x.device)
+    for kb in range(K // block_k):
+        xf = x[:, kb * block_k:(kb + 1) * block_k].float()
+        # absmax * (1 / 127), not absmax / 127: XLA turns the reference's
+        # division by a constant into this multiplication, and the two can
+        # differ in the last bit, which flips quantized activations on ties.
+        sx = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-10) * (1.0 / 127.0)
+        xq = torch.clamp(torch.round(xf / sx), -127, 127)  # round half to even
+        xg = xq.reshape(M, per_block, G).transpose(0, 1)  # [groups, M, G]
+        groups = slice(kb * per_block, (kb + 1) * per_block)
+        dots = torch.bmm(xg, w[groups])  # [groups, M, N]
+        if z is not None:
+            dots = dots - xg.sum(dim=2)[:, :, None] * z[groups][:, None, :]
+        acc += (dots * s[groups][:, None, :]).sum(dim=0) * sx
+    return acc
+
+
+def plain_group(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6):
+    """What tile_kernel<group> computes, in float32 [M, N]. x is bf16."""
+    if rms_gamma is not None:
+        x = rms_prologue(x, rms_gamma, rms_eps)
+    M, K, n_g, G, w = _group_operands(x, qweight, scales, bits)
+    xg = x.float().reshape(M, n_g, G).transpose(0, 1)  # [n_g, M, G]
+    dots = torch.bmm(xg, w)
+    if zeros is not None:
+        dots = dots - xg.sum(dim=2)[:, :, None] * zeros.float()[:, None, :]
+    return (dots * scales.float()[:, None, :]).sum(dim=0)
+
+
+def plain_dequant(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6):
+    """What tile_kernel<dequant> computes, in float32 [M, N]: the weight is
+    (q - z) * s evaluated in bf16 (each step rounds), then one dot with f32
+    sums. x is bf16."""
+    if rms_gamma is not None:
+        x = rms_prologue(x, rms_gamma, rms_eps)
+    K = x.shape[1]
+    n_g = scales.shape[0]
+    wg = unpack_signed(qweight, bits).to(torch.bfloat16).T.reshape(n_g, K // n_g, -1)
+    if zeros is not None:
+        wg = wg - zeros.to(torch.bfloat16)[:, None, :]
+    wd = wg * scales.to(torch.bfloat16)[:, None, :]
+    return x.float() @ wd.reshape(K, -1).float()
+
+
+# ---------------------------------------------------------------- dispatch
+
+
+def _shrink_block_k(block_k: int, K: int, chunk: int) -> int:
+    """Largest multiple of lcm(chunk, 128) that divides K and is <= block_k;
+    K itself when K cannot be cut that way."""
+    chunk = math.lcm(chunk, 128)
+    if K % chunk == 0 and K > chunk:
+        bk = (min(block_k, K) // chunk) * chunk
+        while bk > chunk and K % bk != 0:
+            bk -= chunk
+        return max(bk, chunk)
+    return K
+
+
+def plan(
+    M: int, K: int, N: int, bits: int, group_size: int, scales_itemsize: int,
+    has_rms: bool, variant: str = "", block_k: int = 0, tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[str, int, bool]:
+    """(variant, block_k, fuse_rms) as the reference's quant_matmul picks them
+    for a weight in its tiled storage of width tile_n, which is what its
+    models run. Only the decisions that change results are carried over:
+    the variant; the k-block, which for W4A8 is the span of one activation
+    scale; and whether the RMSNorm runs in the kernel's prologue. An
+    explicit variant="group" stays `group` at any M, as on the reference's
+    flat layout."""
+    G = group_size
+    block_n = min(tile_n, N)
+    if variant not in ("",) + VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
+    forced_group = variant == "group"
+    bk = block_k or 2048
+    variant = variant or ("w4a8" if M <= 64 else "group")
+    if G < 128 and variant in ("group", "w4a8"):
+        variant = "dequant"  # the reference's group reshape needs G >= 128
+    chunk = (16 if scales_itemsize == 2 else 8) * G
+    w_bytes_per_k = block_n // 2 if bits == 4 else block_n
+    max_bk = max((4 * 1024 * 1024) // w_bytes_per_k, chunk)
+    if scales_itemsize == 2 and K % chunk != 0 and K % (8 * G) == 0:
+        chunk = 8 * G  # the reference upcasts the scales to f32 for such K
+    if has_rms and M <= 64 and K <= max_bk and K % chunk == 0:
+        bk = K  # the prologue's mean needs all of K in one k-block
+    bk = _shrink_block_k(min(bk, max_bk), K, chunk)
+    if bk < 1024 and bk < K <= max_bk:
+        bk = K  # awkward K: one full-K block instead of many small ones
+    if M > 64:
+        if variant == "w4a8":
+            variant = "group"
+        if not (forced_group and variant == "group"):
+            variant = "dequant"
+            bk = _shrink_block_k(
+                min(bk, max(4 * 1024 * 1024 // (block_n * 2), chunk)), K, chunk)
+    fuse_rms = has_rms and K // bk == 1 and M <= 256
+    return variant, bk, fuse_rms
+
+
+def _run(plain: bool, x, qweight, scales, zeros, bits, symmetric, variant, block_k,
+         rms_gamma, rms_eps, tile_n):
+    if x.dim() != 2:
+        raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    M, K = x.shape
+    N = qweight.shape[0]
+    if qweight.shape[1] * (2 if bits == 4 else 1) != K or scales.shape[1] != N:
+        raise ValueError(
+            f"x {tuple(x.shape)}, qweight {tuple(qweight.shape)} and scales "
+            f"{tuple(scales.shape)} do not match for bits={bits}")
+    if K % scales.shape[0]:
+        raise ValueError(f"K={K} is not a multiple of its {scales.shape[0]} groups")
+    G = K // scales.shape[0]
+    if symmetric:
+        zeros = None
+    if variant == "ref":
+        if not plain:
+            raise ValueError('variant="ref" is the float reference, for CPU tensors only')
+        if rms_gamma is not None:
+            x = rms_prologue(x, rms_gamma, rms_eps)
+        return ref_quant_matmul(x, qweight, scales, zeros, bits)
+    variant, block_k, fuse_rms = plan(
+        M, K, N, bits, G, scales.dtype.itemsize, rms_gamma is not None,
+        variant=variant, block_k=block_k, tile_n=tile_n)
+    if rms_gamma is not None and not fuse_rms:
+        x = rms_prologue(x, rms_gamma, rms_eps)
+        rms_gamma = None
+    x_op = x.to(torch.bfloat16)
+    args = (x_op, qweight, scales, zeros, bits)
+    if plain:
+        if variant == "w4a8":
+            out = plain_w4a8(*args, block_k, rms_gamma, rms_eps)
+        elif variant == "group":
+            out = plain_group(*args, rms_gamma, rms_eps)
+        else:
+            out = plain_dequant(*args, rms_gamma, rms_eps)
+    elif variant == "w4a8":
+        out = quant_matmul_w4a8_cuda(*args, block_k, rms_gamma, rms_eps)
+    elif variant == "group":
+        out = quant_matmul_group_cuda(*args, rms_gamma, rms_eps)
+    else:
+        out = quant_matmul_dequant_cuda(*args, rms_gamma, rms_eps)
+    return out.to(x.dtype)
+
+
+def quant_matmul(
+    x: torch.Tensor,  # [M, K]
+    qweight: torch.Tensor,  # kernel layout: int8 [N, K/2] (int4) or [N, K]
+    scales: torch.Tensor,  # [K/G, N], f32 or bf16
+    zeros: Optional[torch.Tensor] = None,  # int8 [K/G, N] (None => symmetric)
+    bits: int = 4,
+    symmetric: bool = False,
+    variant: str = "",
+    block_k: int = 0,
+    rms_gamma: Optional[torch.Tensor] = None,  # [K]: fused RMSNorm prologue
+    rms_eps: float = 1e-6,
+    tile_n: int = DEFAULT_TILE_N,
+) -> torch.Tensor:
+    """x @ dequant(qweight) in x's type: the kernels for a CUDA tensor, the
+    plain versions for a CPU tensor. rms_gamma asks for RMSNorm(x) first; it
+    runs inside the kernel where plan() says so, before the call otherwise,
+    with the same values either way."""
+    return _run(x.device.type == "cpu", x, qweight, scales, zeros, bits, symmetric,
+                variant, block_k, rms_gamma, rms_eps, tile_n)
+
+
+def plain_quant_matmul(
+    x, qweight, scales, zeros=None, bits=4, symmetric=False, variant="", block_k=0,
+    rms_gamma=None, rms_eps=1e-6, tile_n=DEFAULT_TILE_N,
+) -> torch.Tensor:
+    """quant_matmul with the same decisions but always the plain versions, on
+    whatever device x lies: what the kernels are held against on the card."""
+    return _run(True, x, qweight, scales, zeros, bits, symmetric, variant, block_k,
+                rms_gamma, rms_eps, tile_n)
+
+
+# ---------------------------------------------------------------- CUDA wrappers
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Parameters of the C entry points of csrc/quant_matmul.cu, in order.
+# w4a8: x, qweight, scales, zeros, rms_gamma, xq, sx, xsum, out; M, K, N,
+# group_size, bits, scales_bf16, gamma_bf16, block_k; rms_eps; stream.
+_W4A8_ARGTYPES = [_P] * 9 + [_I] * 8 + [_F, _P]
+# group and dequant: x, qweight, scales, zeros, rms_gamma, out; M, K, N,
+# group_size, bits, scales_bf16, gamma_bf16; rms_eps; stream.
+_TILE_ARGTYPES = [_P] * 6 + [_I] * 7 + [_F, _P]
+ENTRY_POINTS = {
+    "scalellm_quant_matmul_w4a8": _W4A8_ARGTYPES,
+    "scalellm_quant_matmul_group": _TILE_ARGTYPES,
+    "scalellm_quant_matmul_dequant": _TILE_ARGTYPES,
+}
+W4A8_MAX_M = 64
+W4A8_MAX_K = 32 * 1024  # the activation kernel stages a row of xq in shared memory
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("quant_matmul")
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma):
+    """Raise on what the kernels do not take; returns (M, K, N, G)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(f"the CUDA kernels take bf16 x, got {x.dtype}")
+    if qweight.dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"qweight must be int8 or uint8, got {qweight.dtype}")
+    if scales.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"scales must be f32 or bf16, got {scales.dtype}")
+    if zeros is not None and (zeros.dtype != torch.int8 or zeros.shape != scales.shape):
+        raise ValueError("zeros must be int8 of the scales' shape")
+    if rms_gamma is not None and rms_gamma.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"rms_gamma must be f32 or bf16, got {rms_gamma.dtype}")
+    M, K = x.shape
+    N = qweight.shape[0]
+    for name, t in (("x", x), ("qweight", qweight), ("scales", scales), ("zeros", zeros),
+                    ("rms_gamma", rms_gamma)):
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if rms_gamma is not None and rms_gamma.shape != (K,):
+        raise ValueError(f"rms_gamma must be [{K}], got {tuple(rms_gamma.shape)}")
+    if bits not in (4, 8) or qweight.shape[1] * (2 if bits == 4 else 1) != K:
+        raise ValueError(f"qweight {tuple(qweight.shape)} does not match K={K}, bits={bits}")
+    if scales.shape[1] != N or K % scales.shape[0]:
+        raise ValueError(f"scales {tuple(scales.shape)} do not match K={K}, N={N}")
+    return M, K, N, K // scales.shape[0]
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _is_bf16(t: Optional[torch.Tensor]) -> int:
+    return int(t is not None and t.dtype == torch.bfloat16)
+
+
+def quant_matmul_w4a8_cuda(x, qweight, scales, zeros, bits, block_k,
+                           rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
+    """Launch the W4A8 kernel (activation quantization, then the int8
+    matmul, one C call) on the current stream; returns bf16 [M, N].
+    `quant_matmul_w4a8_cuda.launches` counts the launches."""
+    M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
+    seg_k = 128 if bits == 4 else 64
+    if M > W4A8_MAX_M:
+        raise NotImplementedError(f"the W4A8 kernel takes M <= {W4A8_MAX_M}, got {M}")
+    if G % seg_k or N % 8 or K % 16 or K > W4A8_MAX_K:
+        raise NotImplementedError(
+            f"the W4A8 kernel needs G % {seg_k} == 0, N % 8 == 0, K % 16 == 0 and "
+            f"K <= {W4A8_MAX_K}; got K={K}, N={N}, G={G}")
+    if block_k <= 0 or block_k % G or K % block_k:
+        raise ValueError(f"block_k={block_k} must be a multiple of G={G} that divides K={K}")
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    sx = torch.empty(M, K // block_k, dtype=torch.float32, device=x.device)
+    xsum = None if zeros is None else torch.empty(M, K // G, dtype=torch.int32, device=x.device)
+    rc = _library().scalellm_quant_matmul_w4a8(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
+        xq.data_ptr(), sx.data_ptr(), _ptr(xsum), out.data_ptr(), M, K, N, G, bits,
+        _is_bf16(scales), _is_bf16(rms_gamma), block_k, float(rms_eps),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul w4a8 kernel launch failed: CUDA error {rc}")
+    quant_matmul_w4a8_cuda.launches += 1
+    return out
+
+
+quant_matmul_w4a8_cuda.launches = 0
+
+
+def _tile_cuda(entry: str, x, qweight, scales, zeros, bits, rms_gamma, rms_eps):
+    M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
+    if K % 32 or G % 32 or N % 2 or -(-N // 64) > 65535:
+        raise NotImplementedError(
+            f"the {entry} kernel needs K % 32 == 0, G % 32 == 0, even N <= 64 * 65535; "
+            f"got K={K}, N={N}, G={G}")
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    rc = getattr(_library(), "scalellm_quant_matmul_" + entry)(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
+        out.data_ptr(), M, K, N, G, bits, _is_bf16(scales), _is_bf16(rms_gamma),
+        float(rms_eps), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul {entry} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def quant_matmul_group_cuda(x, qweight, scales, zeros, bits,
+                            rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
+    """Launch the group kernel on the current stream; returns bf16 [M, N].
+    `quant_matmul_group_cuda.launches` counts the launches."""
+    out = _tile_cuda("group", x, qweight, scales, zeros, bits, rms_gamma, rms_eps)
+    quant_matmul_group_cuda.launches += 1
+    return out
+
+
+quant_matmul_group_cuda.launches = 0
+
+
+def quant_matmul_dequant_cuda(x, qweight, scales, zeros, bits,
+                              rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
+    """Launch the dequant kernel on the current stream; returns bf16 [M, N].
+    `quant_matmul_dequant_cuda.launches` counts the launches."""
+    out = _tile_cuda("dequant", x, qweight, scales, zeros, bits, rms_gamma, rms_eps)
+    quant_matmul_dequant_cuda.launches += 1
+    return out
+
+
+quant_matmul_dequant_cuda.launches = 0

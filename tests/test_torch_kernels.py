@@ -1,11 +1,18 @@
-"""The CUDA ragged paged attention kernel against its plain version, in
-bf16 on the card. Each test skips when no CUDA device is present: the
-kernel has no CPU or interpret mode. Run them on the card with
-`python -m pytest tests/test_torch_kernels.py -q`.
+"""The CUDA kernels against their plain versions, in bf16 on the card. Each
+test skips when no CUDA device is present: the kernels have no CPU or
+interpret mode. Run them on the card with
+`python -m pytest --noconftest tests/test_torch_kernels.py -q`.
 
-Tolerance 2e-2 absolute: both sum in f32, the kernel with an online
-softmax; the outputs are rounded to bf16 (8 bits of mantissa) from values
-of magnitude <= ~3."""
+Ragged paged attention: tolerance 2e-2 absolute: both sum in f32, the kernel
+with an online softmax; the outputs are rounded to bf16 (8 bits of mantissa)
+from values of magnitude <= ~3.
+
+Quantized matmuls (w4a8, group, dequant): the integer dots are exact on
+both sides; the f32 sums over groups and k-blocks run in another order, the
+prologue's rsqrt may differ in its last bit (a rare +-1 in a quantized
+activation), and the output is rounded to bf16. Tolerance: 1% of the
+output's largest magnitude (two to three bf16 steps there), and a mean
+error below 0.1% of it."""
 
 import numpy as np
 import pytest
@@ -81,3 +88,127 @@ def test_kernel_refuses_what_it_does_not_cover(cuda):
         ragged_paged_attention(**inputs, alibi_slopes=torch.ones(4, device=cuda))
     with pytest.raises(NotImplementedError):
         ragged_paged_attention(**{**inputs, "q": inputs["q"].float()})
+
+
+# ---------------------------------------------------------------- quant matmul
+
+
+def _quant_case(device, *, M, K, N, G, bits, asym, rms, scales_dtype, seed=0):
+    """Random kernel-layout weights and a bf16 x of non-zero mean (an
+    unsigned nibble unpack would shift the output by 8 * sum(x) * scale)."""
+    rng = np.random.default_rng(seed)
+    rows = K // 2 if bits == 4 else K
+    qweight = torch.from_numpy(rng.integers(-128, 128, (N, rows), dtype=np.int8))
+    scales = torch.from_numpy(rng.uniform(0.002, 0.02, (K // G, N)).astype(np.float32))
+    lo, hi = (-8, 8) if bits == 4 else (-20, 20)
+    zeros = torch.from_numpy(rng.integers(lo, hi, (K // G, N), dtype=np.int8)) if asym else None
+    x = torch.from_numpy((rng.standard_normal((M, K)) + 0.5).astype(np.float32))
+    gamma = torch.from_numpy(rng.uniform(0.5, 1.5, K).astype(np.float32)) if rms else None
+    on = lambda t, dt=None: None if t is None else t.to(device=device, dtype=dt or t.dtype)
+    return dict(x=on(x, torch.bfloat16), qweight=on(qweight), scales=on(scales, scales_dtype),
+                zeros=on(zeros), rms_gamma=on(gamma, torch.bfloat16 if rms == "bf16" else None))
+
+
+def _check_quant(got, want):
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    diff = (got.float() - want.float()).abs()
+    top = want.float().abs().max().item()
+    assert diff.max().item() <= 1e-2 * top, (diff.max().item(), top)
+    assert diff.mean().item() <= 1e-3 * top, (diff.mean().item(), top)
+
+
+# (M, K, N, G, bits, asym, rms, scales dtype, block_k)
+W4A8_CASES = {
+    "m1_int4": (1, 512, 64, 128, 4, False, False, torch.float32, 256),
+    "m8_int4_asym_rms": (8, 1024, 128, 128, 4, True, True, torch.float32, 1024),
+    "m16_int4_bf16_scales": (16, 4096, 4096, 128, 4, False, "bf16", torch.bfloat16, 4096),
+    "m33_int4_asym": (33, 2048, 256, 128, 4, True, False, torch.bfloat16, 1024),
+    "m64_int4_kblocks": (64, 14336, 512, 128, 4, False, False, torch.float32, 2048),
+    "m5_int4_g256": (5, 1024, 64, 256, 4, True, False, torch.float32, 512),
+    "m8_int8": (8, 4096, 1024, 128, 8, False, False, torch.bfloat16, 2048),
+    "m64_int8_asym_rms": (64, 512, 64, 128, 8, True, True, torch.float32, 512),
+}
+
+
+@pytest.mark.parametrize("case", list(W4A8_CASES))
+def test_w4a8_kernel_matches_plain_version(cuda, case):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    M, K, N, G, bits, asym, rms, sdt, block_k = W4A8_CASES[case]
+    t = _quant_case(cuda, M=M, K=K, N=N, G=G, bits=bits, asym=asym, rms=rms, scales_dtype=sdt)
+    before = Q.quant_matmul_w4a8_cuda.launches
+    got = Q.quant_matmul_w4a8_cuda(t["x"], t["qweight"], t["scales"], t["zeros"], bits, block_k,
+                                   t["rms_gamma"], 1e-5)
+    torch.cuda.synchronize()
+    assert Q.quant_matmul_w4a8_cuda.launches == before + 1
+    want = Q.plain_w4a8(t["x"], t["qweight"], t["scales"], t["zeros"], bits, block_k,
+                        t["rms_gamma"], 1e-5)
+    _check_quant(got, want.to(torch.bfloat16))
+
+
+# (M, K, N, G, bits, asym, rms, scales dtype)
+TILE_CASES = {
+    "m8_g32_int4": (8, 256, 64, 32, 4, False, False, torch.float32),
+    "m128_int4_asym": (128, 1024, 192, 128, 4, True, False, torch.float32),
+    "m200_int4_rms": (200, 512, 128, 64, 4, True, True, torch.bfloat16),
+    "m512_int4_8b": (512, 4096, 4096, 128, 4, False, False, torch.float32),
+    "m70_int8_asym": (70, 512, 130, 128, 8, True, "bf16", torch.float32),
+    "m256_int8": (256, 4096, 1024, 128, 8, False, False, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("variant", ["group", "dequant"])
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_kernels_match_plain_versions(cuda, case, variant):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    M, K, N, G, bits, asym, rms, sdt = TILE_CASES[case]
+    t = _quant_case(cuda, M=M, K=K, N=N, G=G, bits=bits, asym=asym, rms=rms, scales_dtype=sdt)
+    kernel = getattr(Q, f"quant_matmul_{variant}_cuda")
+    plain = getattr(Q, f"plain_{variant}")
+    before = kernel.launches
+    got = kernel(t["x"], t["qweight"], t["scales"], t["zeros"], bits, t["rms_gamma"], 1e-5)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(t["x"], t["qweight"], t["scales"], t["zeros"], bits, t["rms_gamma"], 1e-5)
+    _check_quant(got, want.to(torch.bfloat16))
+
+
+def test_quant_dispatcher_goes_to_the_kernels(cuda):
+    """quant_matmul on CUDA tensors launches the variant plan() names, and
+    agrees with plain_quant_matmul, which makes the same decisions."""
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    t = _quant_case(cuda, M=16, K=1024, N=256, G=128, bits=4, asym=False, rms="bf16",
+                    scales_dtype=torch.bfloat16)
+    kw = dict(bits=4, symmetric=True, rms_gamma=t["rms_gamma"], rms_eps=1e-5)
+    counts = lambda: (Q.quant_matmul_w4a8_cuda.launches, Q.quant_matmul_group_cuda.launches,
+                      Q.quant_matmul_dequant_cuda.launches)
+    c0 = counts()
+    got = Q.quant_matmul(t["x"], t["qweight"], t["scales"], **kw)
+    c1 = counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (1, 0, 0)
+    _check_quant(got, Q.plain_quant_matmul(t["x"], t["qweight"], t["scales"], **kw))
+    big = _quant_case(cuda, M=128, K=1024, N=256, G=128, bits=4, asym=False, rms=False,
+                      scales_dtype=torch.bfloat16)
+    got = Q.quant_matmul(big["x"], big["qweight"], big["scales"], bits=4, symmetric=True)
+    c2 = counts()
+    assert (c2[0] - c1[0], c2[1] - c1[1], c2[2] - c1[2]) == (0, 0, 1)
+    _check_quant(got, Q.plain_quant_matmul(big["x"], big["qweight"], big["scales"], bits=4,
+                                           symmetric=True))
+
+
+def test_quant_kernels_refuse_what_they_do_not_cover(cuda):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    t = _quant_case(cuda, M=8, K=256, N=64, G=128, bits=4, asym=False, rms=False,
+                    scales_dtype=torch.float32)
+    args = (t["qweight"], t["scales"], None, 4)
+    with pytest.raises(NotImplementedError):
+        Q.quant_matmul_w4a8_cuda(t["x"].float(), *args, 256)
+    with pytest.raises(NotImplementedError):
+        Q.quant_matmul_w4a8_cuda(t["x"].repeat(16, 1), *args, 256)  # M = 128
+    with pytest.raises(ValueError):
+        Q.quant_matmul_dequant_cuda(t["x"].cpu(), *args)
+    with pytest.raises(ValueError):
+        Q.quant_matmul(t["x"], *args[:2], variant="ref")

@@ -34,3 +34,92 @@ def ragged_batch(rng, *, q_lens, kv_lens, S, T, n_heads, n_kv_heads, head_dim,
         q=q, kv_pages=kv_pages, kv_lens=kv, page_indices=page_indices,
         cu_q_lens=cu, num_seqs=np.array([n_real], np.int32),
     )
+
+
+# ------------------------------------------------------- quantized checkpoints
+
+
+def _pack_nibbles(u, axis, order=tuple(range(8))):
+    """Unsigned nibbles -> int32 words of 8 along `axis`, nibble i of a word
+    taken from offset order[i] of its run of 8."""
+    u = np.moveaxis(u, axis, -1).astype(np.uint32)
+    out = np.zeros(u.shape[:-1] + (u.shape[-1] // 8,), np.uint32)
+    for i in range(8):
+        out |= (u[..., order[i]::8] & 0xF) << np.uint32(4 * i)
+    return np.ascontiguousarray(np.moveaxis(out.view(np.int32), -1, axis))
+
+
+AWQ_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def quantize_checkpoint(src_dir, dst_dir, fmt, group=32, desc_act=False, seed=7,
+                        quant_method=None):
+    """An AWQ or GPTQ int4 checkpoint made from a float Llama checkpoint, as
+    AutoAWQ / AutoGPTQ serialize them: qweight and qzeros packed into int32,
+    f16 scales, g_idx under desc_act (rows quantized in a random activation
+    order). GPTQ is symmetric (zero point 8); AWQ is asymmetric, with a zero
+    point per group and column. Returns dst_dir."""
+    import json
+    import os
+    import shutil
+
+    from safetensors import safe_open
+    from safetensors.numpy import save_file
+
+    os.makedirs(dst_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    src = [f for f in os.listdir(src_dir) if f.endswith(".safetensors")][0]
+    out = {}
+    with safe_open(os.path.join(src_dir, src), framework="numpy") as f:
+        for name in f.keys():
+            t = f.get_tensor(name)
+            if not name.endswith(tuple(p + ".weight" for p in PROJECTIONS)):
+                out[name] = t
+                continue
+            w = np.ascontiguousarray(t.T.astype(np.float32))  # [in, out]
+            K, N = w.shape
+            if desc_act:
+                act_order = rng.permutation(K)
+                g_idx = np.empty(K, np.int32)
+                g_idx[act_order] = np.arange(K, dtype=np.int32) // group
+                w = w[act_order]
+            g = w.reshape(K // group, group, N)
+            if fmt == "awq":
+                lo, hi = g.min(axis=1), g.max(axis=1)
+                scales = (np.maximum(hi - lo, 1e-5) / 15.0).astype(np.float16)
+                s = scales.astype(np.float32)
+                zp = np.clip(np.round(-lo / s), 0, 15)
+                u = np.clip(np.round(g / s[:, None, :]) + zp[:, None, :], 0, 15)
+            else:
+                scales = (np.maximum(np.abs(g).max(axis=1), 1e-5) / 7.0).astype(np.float16)
+                zp = np.full(scales.shape, 8.0)
+                u = np.clip(np.round(g / scales.astype(np.float32)[:, None, :]) + 8, 0, 15)
+            u = u.reshape(K, N).astype(np.uint8)
+            if desc_act:
+                u_orig = np.empty_like(u)
+                u_orig[act_order] = u  # rows back in checkpoint order
+                u = u_orig
+            stem = name[: -len(".weight")]
+            if fmt == "awq":
+                out[stem + ".qweight"] = _pack_nibbles(u, 1, AWQ_ORDER)
+                out[stem + ".qzeros"] = _pack_nibbles(zp.astype(np.uint8), 1, AWQ_ORDER)
+            else:
+                out[stem + ".qweight"] = _pack_nibbles(u, 0)
+                out[stem + ".qzeros"] = _pack_nibbles((zp - 1).astype(np.uint8), 1)  # GPTQ stores z - 1
+                if desc_act:
+                    out[stem + ".g_idx"] = g_idx
+            out[stem + ".scales"] = scales
+    save_file(out, os.path.join(dst_dir, "model.safetensors"))
+    with open(os.path.join(src_dir, "config.json")) as f:
+        cfg = json.load(f)
+    cfg["quantization_config"] = {
+        "quant_method": quant_method or fmt, "bits": 4, "group_size": group,
+        "zero_point": fmt == "awq", "sym": True, "desc_act": desc_act,
+    }
+    with open(os.path.join(dst_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    for extra in ("tokenizer.json", "generation_config.json"):
+        if os.path.exists(os.path.join(src_dir, extra)):
+            shutil.copy(os.path.join(src_dir, extra), os.path.join(dst_dir, extra))
+    return dst_dir
