@@ -20,6 +20,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
         and group with the RMSNorm in their prologue at (K, N) = (2048, 2560),
         M = 128 (yardstick: one bf16 matmul on weights dequantized ahead of
         time).
+     c. the DeepSeek-V2-Lite kernels: the grouped GEMM (K6) at the decode
+        (96 rows: 8 tokens and 8 padding rows x 6 experts, routed by a
+        seeded softmax over 64 experts, the padding rows all to the same 6)
+        and prefill (3072 rows) steps, for gate/up (2048 -> 1408) and down
+        (1408 -> 2048) (yardstick: torch._grouped_mm where the build has it,
+        else a loop of torch.matmul over the experts with rows), and each
+        with both row tiles (16 and 64 rows a block); the MLA decode kernel
+        (K9) at 8 sequences of 16-600 tokens and
+        the MLA prefill kernel (K10) on a mixed T = 512, S = 8 batch, 16
+        heads over the 576-wide latent cache (yardstick:
+        scaled_dot_product_attention on gathered rows).
   4. end to end, bf16: a TinyLlama-1.1B-shaped checkpoint (random weights
      from a seed) served by scalellm_tpu_torch.LLM with chunked prefill and
      the prefix cache; every request must finish and every engine step must
@@ -36,7 +47,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
      matmul sends the same path through the group kernel. Then a prefill and a decode batch run through the
      model twice, with the kernels and with the plain versions, and the
      logits must agree. --int4-layers N cuts the depth (default 32).
-  6. a `kernels` JSON line, then the result line.
+  6. end to end, bf16 MoE + MLA: a DeepSeek-V2-Lite checkpoint at the
+     published widths (random bf16 weights from a seed, one tensor per
+     expert, 31 GB on disk) served by LLM(path) with the same traffic.
+     Every engine step must launch the grouped GEMM 3 times per MoE layer,
+     the MLA decode kernel once per layer on decode-only steps and the MLA
+     prefill kernel once per layer on the others. Then a prefill and a
+     decode batch run through the model twice, with the kernels and with
+     the plain versions, the second run replaying the first one's routing,
+     and the logits must agree. --deepseek-layers N cuts the depth (default
+     27).
+  7. a `kernels` JSON line, then the result line.
 
 It needs the repository (it fails in a directory that holds only this
 script) and a CUDA device (it fails where torch.cuda.is_available() is
@@ -436,6 +457,218 @@ def phase_quant_kernels(torch, card):
     return results
 
 
+# ------------------------------------------------------------------ phase 3c
+
+# deepseek-ai/DeepSeek-V2-Lite config.json (bench.py preset
+# "deepseek-v2-lite" carries the same widths), in bf16.
+DEEPSEEK_V2_LITE = dict(
+    model_type="deepseek_v2", architectures=["DeepseekV2ForCausalLM"], torch_dtype="bfloat16",
+    hidden_size=2048, intermediate_size=10944, num_hidden_layers=27, num_attention_heads=16,
+    num_key_value_heads=16, vocab_size=102400, max_position_embeddings=163840,
+    rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="silu", tie_word_embeddings=False,
+    bos_token_id=100000, eos_token_id=100001, q_lora_rank=None, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, first_k_dense_replace=1,
+    moe_layer_freq=1, n_routed_experts=64, num_experts_per_tok=6, moe_intermediate_size=1408,
+    n_shared_experts=2, norm_topk_prob=False, routed_scaling_factor=1.0, topk_method="greedy",
+    n_group=1, topk_group=1,
+    rope_scaling=dict(type="yarn", factor=40, original_max_position_embeddings=4096,
+                      beta_fast=32, beta_slow=1, mscale=0.707, mscale_all_dim=0.707),
+)
+# The grouped GEMM against its plain version: both sum exact bf16 products
+# in f32, in another order: 1e-4 of the output's largest magnitude.
+GMM_TOL = 1e-4
+
+
+def routed_rows(torch, gen, T, E, k, K, n_pad=0):
+    """xs of T tokens routed to k of E experts by a seeded softmax (so some
+    experts get no rows), sorted by expert, and the group sizes. The last
+    n_pad tokens are the engine's padding rows: they share one input, so
+    all of them route to the same k experts."""
+    def rows(shape):
+        x = torch.randn(*shape, generator=gen, device=DEVICE)
+        if n_pad:
+            x[T - n_pad:] = x[T - n_pad]
+        return x
+
+    probs = torch.softmax(rows((T, E)), dim=-1)
+    experts = torch.topk(probs, k, dim=-1).indices.reshape(-1)
+    order = torch.sort(experts, stable=True).indices
+    x = rows((T, K)).to(torch.bfloat16)
+    sizes = torch.bincount(experts, minlength=E).to(torch.int32)
+    return x[order // k].contiguous(), sizes
+
+
+def library_grouped_mm(torch, xs, w, sizes):
+    """One PyTorch call computing the grouped GEMM, where this build has it
+    (torch._grouped_mm, bf16 on sm_90, bf16 out): (name, fn). Else a loop
+    of torch.matmul over the experts that have rows."""
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    wt = w.transpose(1, 2)  # [E, K, N], K-major per expert
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(xs, wt, offs=offs)
+            torch.cuda.synchronize()
+            return "torch._grouped_mm", lambda: torch._grouped_mm(xs, wt, offs=offs)
+        except (RuntimeError, TypeError) as e:
+            print(f"torch._grouped_mm refused: {e}", file=sys.stderr, flush=True)
+    bounds = [0] + torch.cumsum(sizes, 0).tolist()
+    active = [e for e in range(w.shape[0]) if bounds[e + 1] > bounds[e]]
+
+    def loop():
+        return [torch.matmul(xs[bounds[e]:bounds[e + 1]], w[e].T) for e in active]
+
+    return "torch.matmul loop over active experts", loop
+
+
+def latent_batch(torch, gen, *, q_lens, kv_lens, S, T, H, Dc, page=16):
+    """Inputs of MLA paged attention on the card: make_batch's layout with
+    one K-only latent head [P, page, 1, Dc]."""
+    b = make_batch(torch, gen, q_lens=q_lens, kv_lens=kv_lens, S=S, T=T, H=H, Hkv=1, D=Dc, page=page)
+    b["k_pages"] = b.pop("kv_pages")[:, :, :1].contiguous()
+    return b
+
+
+def mla_library_inputs(torch, spec, inputs, v_dim):
+    """q, K, V gathered per sequence for scaled_dot_product_attention (the
+    one latent head broadcast to the query heads) and the boolean mask."""
+    q_lens, kv_lens = spec["q_lens"], spec["kv_lens"]
+    H, Dc = spec["H"], spec["Dc"]
+    S, qmax, lmax = len(q_lens), max(q_lens), max(kv_lens)
+    page = inputs["k_pages"].shape[1]
+    qs = torch.zeros(S, H, qmax, Dc, dtype=torch.bfloat16, device=DEVICE)
+    ks = torch.zeros(S, 1, lmax, Dc, dtype=torch.bfloat16, device=DEVICE)
+    mask = torch.zeros(S, 1, qmax, lmax, dtype=torch.bool, device=DEVICE)
+    start = 0
+    for i, (ql, kl) in enumerate(zip(q_lens, kv_lens)):
+        qs[i, :, :ql] = inputs["q"][start : start + ql].transpose(0, 1)
+        start += ql
+        pages = inputs["page_indices"][i, : -(-kl // page)].long()
+        ks[i, 0, :kl] = inputs["k_pages"][pages].reshape(-1, Dc)[:kl]
+        pos = torch.arange(kl - ql, kl, device=DEVICE)[:, None]
+        j = torch.arange(lmax, device=DEVICE)[None, :]
+        mask[i, 0, :ql] = (j <= pos) & (j < kl)
+    ks = ks.expand(S, H, lmax, Dc)
+    return qs, ks, ks[..., :v_dim], mask
+
+
+def phase_moe_mla_kernels(torch, card):
+    import torch.nn.functional as F
+
+    from scalellm_tpu_torch.ops import grouped_matmul as G
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 2)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+    cfg = DEEPSEEK_V2_LITE
+    D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
+    gmm = {}
+    # As the engine runs them: a decode step of 8 tokens padded to T=16 (the
+    # 8 padding rows share one input), 96 rows; a 512-token step, 3072 rows.
+    for step, T, n_pad in (("decode", 16, 8), ("prefill", 512, 0)):
+        for proj, K, N in (("gate_up", D, Fm), ("down", Fm, D)):
+            xs, sizes = routed_rows(torch, gen, T, E, k, K, n_pad)
+            w = (torch.randn(E, N, K, generator=gen, device=DEVICE) * K ** -0.5).to(torch.bfloat16)
+            got = G.grouped_matmul_cuda(xs, w, sizes)
+            torch.cuda.synchronize()
+            want = G.plain_grouped_matmul(xs, w, sizes)
+            if not torch.isfinite(got).all():
+                fail(f"grouped_matmul {step} {proj}: kernel output is not finite")
+            top = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if not err <= GMM_TOL * top:
+                fail(f"grouped_matmul {step} {proj}: differs from the plain version by {err} at magnitude {top}")
+            lib_name, lib = library_grouped_mm(torch, xs, w, sizes)
+            lib_out = lib()  # one tensor, or the active experts' rows in order
+            lib_out = lib_out if isinstance(lib_out, torch.Tensor) else torch.cat(lib_out)
+            lib_err = (lib_out.float() - want).abs().max().item()
+            del lib_out
+            ms = time_ms(torch, lambda: G.grouped_matmul_cuda(xs, w, sizes), flush)
+            # The row tile's A/B: 16 rows a block (m_tiles 1) against 64 (4).
+            tiles = {m: time_ms(torch, lambda m=m: G.grouped_matmul_cuda(xs, w, sizes, m_tiles=m), flush)
+                     for m in (1, 4)}
+            tile_err = (G.grouped_matmul_cuda(xs, w, sizes, m_tiles=1)
+                        - G.grouped_matmul_cuda(xs, w, sizes, m_tiles=4)).abs().max().item()
+            emit(dict(phase="kernel_probe", kernel="grouped_matmul", shape=f"{step}_{proj}",
+                      what="row tile of 16 (m_tiles=1) vs 64 (m_tiles=4)", ms_m_tiles_1=tiles[1],
+                      ms_m_tiles_4=tiles[4], max_abs_diff=tile_err,
+                      default_m_tiles=4 if xs.shape[0] >= G.WIDE_TILE_ROWS_PER_EXPERT * E else 1,
+                      card=card["nvidia_smi"]))
+            plain_ms = time_ms(torch, lambda: G.plain_grouped_matmul(xs, w, sizes), flush, runs=3)
+            library_ms = time_ms(torch, lib, flush)
+            active = int((sizes > 0).sum())
+            nbytes = xs.numel() * 2 + active * N * K * 2 + sizes.numel() * 4 + xs.shape[0] * N * 4
+            ops = 2 * xs.shape[0] * K * N
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+            r = dict(max_abs_err=err, out_magnitude=top, ms=ms, plain_ms=plain_ms,
+                     bound_ms=1e3 * max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
+            gmm[(step, proj)] = r
+            emit(dict(phase="kernel", kernel="grouped_matmul", shape=f"{step}_{proj}", R=xs.shape[0], K=K,
+                      N=N, E=E, active_experts=active, tol=GMM_TOL * top, bytes=nbytes, ops=ops,
+                      library=lib_name, library_max_abs_err=lib_err, **r, card=card["nvidia_smi"]))
+            del xs, w, got, want
+    torch.cuda.empty_cache()
+
+    H, Dc, vd = cfg["num_attention_heads"], cfg["kv_lora_rank"] + cfg["qk_rope_head_dim"], cfg["kv_lora_rank"]
+    specs = {
+        # 8 decodes, padded to T=16, S=8: K9.
+        "decode": dict(q_lens=[1] * 8, kv_lens=[16, 40, 90, 150, 233, 310, 480, 600], S=8, T=16),
+        # Two prefill chunks and six decodes padded to T=512: K10.
+        "mixed": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                      S=8, T=512),
+    }
+    # The model's softmax scale: (qk head dim)^-0.5 times yarn's mscale^2.
+    from scalellm_tpu_torch.models.deepseek import yarn_get_mscale
+
+    yarn = cfg["rope_scaling"]
+    sm_scale = ((cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]) ** -0.5
+                * yarn_get_mscale(yarn["factor"], yarn["mscale_all_dim"]) ** 2)
+    mla = {}
+    for name, spec in specs.items():
+        spec = dict(spec, H=H, Dc=Dc)
+        inputs = latent_batch(torch, gen, q_lens=spec["q_lens"], kv_lens=spec["kv_lens"], S=spec["S"],
+                              T=spec["T"], H=H, Dc=Dc)
+        decode_only = name == "decode"
+        kernel_name = "mla_decode" if decode_only else "mla_prefill"
+        if decode_only:
+            kernel = lambda: M.mla_decode_attention_cuda(inputs["q"], inputs["k_pages"], inputs["kv_lens"],
+                                                         inputs["page_indices"], sm_scale=sm_scale, v_dim=vd)
+        else:
+            kernel = lambda: M.mla_prefill_attention_cuda(**inputs, sm_scale=sm_scale, v_dim=vd)
+        plain = lambda: M.plain_mla_paged_attention(**inputs, sm_scale=sm_scale, v_dim=vd,
+                                                    decode_only=decode_only)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        n_real = sum(spec["q_lens"])
+        if not torch.isfinite(got).all():
+            fail(f"{kernel_name}: kernel output is not finite")
+        if not torch.all(got[n_real:] == 0):
+            fail(f"{kernel_name}: padding rows are not zero")
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= KERNEL_TOL:
+            fail(f"{kernel_name}: differs from the plain version by {err} > {KERNEL_TOL}")
+        ms = time_ms(torch, kernel, flush)
+        plain_ms = time_ms(torch, plain, flush, runs=5)
+        qs, ks, vs, mask = mla_library_inputs(torch, spec, inputs, vd)
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                                             scale=sm_scale), flush)
+        del qs, ks, vs, mask
+        tok, seq = kv_ranges(spec["q_lens"], spec["kv_lens"], None)
+        nbytes = (sum(e - b for b, e in seq) * Dc * 2 + n_real * H * (Dc + vd) * 2
+                  + sum(inputs[x].numel() * 4 for x in ("kv_lens", "page_indices", "cu_q_lens", "num_seqs")))
+        flops = sum(e - b for b, e in tok) * H * (Dc + vd) * 2
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
+        mla[kernel_name] = r
+        emit(dict(phase="kernel", kernel=kernel_name, shape=name, T=spec["T"], S=spec["S"],
+                  real_tokens=n_real, H=H, Dc=Dc, v_dim=vd, tol=KERNEL_TOL, bytes=nbytes, flops=flops,
+                  library="scaled_dot_product_attention", **r, card=card["nvidia_smi"]))
+    return gmm, mla
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -474,14 +707,15 @@ def checkpoint_tensors(cfg):
     return out
 
 
-def write_checkpoint(torch, path, cfg):
+def write_checkpoint(torch, path, cfg, tensors=None):
     """config.json, tokenizer.json and model.safetensors (bf16, weights
-    N(0, 0.02) from a seeded generator, norms 1)."""
+    N(0, 0.02) from a seeded generator, norms 1) of the (HF name, shape, is
+    norm) list `tensors`, by default a Llama checkpoint's."""
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg, f)
     with open(os.path.join(path, "tokenizer.json"), "w") as f:
         json.dump(char_tokenizer_json(), f)
-    tensors = checkpoint_tensors(cfg)
+    tensors = tensors or checkpoint_tensors(cfg)
     header, offset = {}, 0
     for name, shape, _ in tensors:
         n = 2
@@ -501,7 +735,7 @@ def write_checkpoint(torch, path, cfg):
                 t = torch.ones(shape, dtype=torch.bfloat16)
             else:
                 t = (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16).cpu()
-            f.write(t.view(torch.uint8).numpy().tobytes())
+            f.write(memoryview(t.view(torch.uint8).numpy().reshape(-1)))
     return offset
 
 
@@ -574,9 +808,10 @@ def prefill_inputs(torch, token_lists, page=16):
 
 
 def device_breakdown(prof, wall_s, steps):
-    """Device time by kernel from a profiler trace, in four groups (the
-    attention kernel, the quantized matmul kernels with their activation
-    quantization, library matrix products, the rest), the kernels launched per
+    """Device time by kernel from a profiler trace, in five groups (the
+    attention kernels, the quantized matmul kernels with their activation
+    quantization, the grouped GEMM, library matrix products, the rest), the
+    kernels launched per
     engine step, and the share of `wall_s` the device was idle. Kernels run
     on one stream, so their times add up to the device's busy time."""
     from torch.autograd import DeviceType
@@ -586,11 +821,14 @@ def device_breakdown(prof, wall_s, steps):
         if e.device_type == DeviceType.CUDA:
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    groups = dict(attention_ms=0.0, quant_matmul_ms=0.0, matmul_ms=0.0, other_ms=0.0)
+    groups = dict(attention_ms=0.0, quant_matmul_ms=0.0, grouped_matmul_ms=0.0, matmul_ms=0.0,
+                  other_ms=0.0)
     for name, (ms, _) in per_name.items():
         low = name.lower()
-        if "ragged_paged_attention" in low:
+        if any(w in low for w in ("ragged_paged_attention", "mla_decode_kernel", "mla_prefill_kernel")):
             groups["attention_ms"] += ms
+        elif "grouped_matmul_kernel" in low:
+            groups["grouped_matmul_ms"] += ms
         elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "act_quant_kernel")):
             groups["quant_matmul_ms"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
@@ -793,15 +1031,16 @@ def write_gptq_checkpoint(torch, path, cfg):
 
 
 def watch_steps(engine, counters):
-    """Record, per engine step, the padded token and sequence counts and how
-    often each kernel wrapper launched. Returns the list it appends to."""
+    """Record, per engine step, the padded token and sequence counts, whether
+    the step was decode-only, and how often each kernel wrapper launched.
+    Returns the list it appends to."""
     log = []
     real = engine.executor.execute
 
-    def execute(mi, si):
+    def execute(mi, si, decode_only=False):
         before = [c.launches for c in counters]
-        out = real(mi, si)
-        log.append((mi.token_ids.shape[0], mi.selected_idxes.shape[0],
+        out = real(mi, si, decode_only=decode_only)
+        log.append((mi.token_ids.shape[0], mi.selected_idxes.shape[0], decode_only,
                     *[c.launches - b for c, b in zip(counters, before)]))
         return out
 
@@ -864,7 +1103,7 @@ def phase_end_to_end_int4(torch, card, n_layers):
                 fail(f"int4: request did not finish with 32 tokens: {o.status}, {o.usage}")
         if steps <= 0:
             fail("int4: no engine step ran")
-        for T, S, n_k1, n_w4a8, n_group, n_dequant in steps_log:
+        for T, S, _, n_k1, n_w4a8, n_group, n_dequant in steps_log:
             # The lm_head sees the padded count of selected rows.
             want = [L, 0, 0, 0]
             want[3 if T > 64 else 1] += 4 * L
@@ -956,6 +1195,185 @@ def phase_end_to_end_int4(torch, card, n_layers):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+def deepseek_checkpoint_tensors(cfg):
+    """(HF name, shape, is norm) of every tensor of a DeepSeek-V2 checkpoint
+    without q_lora_rank: a dense first stack, then MoE layers with one
+    tensor per routed expert and projection."""
+    D, V, H = cfg["hidden_size"], cfg["vocab_size"], cfg["num_attention_heads"]
+    nope, rope, vd = cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"], cfg["v_head_dim"]
+    R, F_, Fm = cfg["kv_lora_rank"], cfg["intermediate_size"], cfg["moe_intermediate_size"]
+    Fs = Fm * cfg["n_shared_experts"]
+    out = [("model.embed_tokens.weight", (V, D), False)]
+    for l in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{l}."
+        out += [
+            (p + "input_layernorm.weight", (D,), True),
+            (p + "post_attention_layernorm.weight", (D,), True),
+            (p + "self_attn.q_proj.weight", (H * (nope + rope), D), False),
+            (p + "self_attn.kv_a_proj_with_mqa.weight", (R + rope, D), False),
+            (p + "self_attn.kv_a_layernorm.weight", (R,), True),
+            (p + "self_attn.kv_b_proj.weight", (H * (nope + vd), R), False),
+            (p + "self_attn.o_proj.weight", (D, H * vd), False),
+        ]
+        if l < cfg["first_k_dense_replace"]:
+            out += [(p + "mlp.gate_proj.weight", (F_, D), False), (p + "mlp.up_proj.weight", (F_, D), False),
+                    (p + "mlp.down_proj.weight", (D, F_), False)]
+            continue
+        out.append((p + "mlp.gate.weight", (cfg["n_routed_experts"], D), False))
+        for e in range(cfg["n_routed_experts"]):
+            q = f"{p}mlp.experts.{e}."
+            out += [(q + "gate_proj.weight", (Fm, D), False), (q + "up_proj.weight", (Fm, D), False),
+                    (q + "down_proj.weight", (D, Fm), False)]
+        out += [(p + "mlp.shared_experts.gate_proj.weight", (Fs, D), False),
+                (p + "mlp.shared_experts.up_proj.weight", (Fs, D), False),
+                (p + "mlp.shared_experts.down_proj.weight", (D, Fs), False)]
+    out += [("model.norm.weight", (D,), True), ("lm_head.weight", (V, D), False)]
+    return out
+
+
+def phase_end_to_end_deepseek(torch, card, n_layers):
+    from scalellm_tpu_torch import LLM, SamplingParams
+    from scalellm_tpu_torch.ops import grouped_matmul as G
+    from scalellm_tpu_torch.ops import mla_attention as M
+    from scalellm_tpu_torch.utils.metrics import HISTOGRAMS
+
+    cfg = dict(DEEPSEEK_V2_LITE, num_hidden_layers=n_layers)
+    L = n_layers
+    L_moe = L - min(cfg["first_k_dense_replace"], L)
+    gmm, k9, k10 = G.grouped_matmul_cuda, M.mla_decode_attention_cuda, M.mla_prefill_attention_cuda
+    counters = (gmm, k9, k10)
+    depth = dict(layers=L, full_depth=L == DEEPSEEK_V2_LITE["num_hidden_layers"])
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="scalellm_deepseek_v2_lite_")
+    llm = None
+    try:
+        tensors = deepseek_checkpoint_tensors(cfg)
+        need = sum(2 * functools.reduce(lambda a, b: a * b, shape, 1) for _, shape, _ in tensors)
+        free = shutil.disk_usage(tmp).free
+        if free < need + 2**30:
+            fail(f"deepseek: the {need / 1e9:.1f} GB checkpoint does not fit the {free / 1e9:.1f} GB free "
+                 f"under {tmp}; --deepseek-layers cuts the depth")
+        t0 = time.monotonic()
+        nbytes = write_checkpoint(torch, tmp, cfg, tensors)
+        t_write = time.monotonic() - t0
+        t0 = time.monotonic()
+        llm = LLM(tmp, max_tokens_per_batch=512)
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+        shutil.rmtree(tmp, ignore_errors=True)  # the weights are on the card
+        engine = llm._handler.engine
+        model = engine.model
+        weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+        emit(dict(phase="deepseek_setup", **depth, checkpoint_bytes=nbytes, write_s=t_write, load_s=t_load,
+                  weight_bytes_on_card=weight_bytes, kv_blocks=engine.block_manager.options.num_blocks,
+                  kv_cache_shape=list(engine.executor.kv_cache.shape)))
+
+        greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+        llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
+        ps = prompts()
+        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
+        ttft_before = (ttft.total, ttft.count)
+        steps_log = watch_steps(engine, counters)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = llm.generate(ps, greedy)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
+        mean_ttft = (ttft.total - ttft_before[0]) / max(ttft.count - ttft_before[1], 1)
+        if len(outs) != len(ps):
+            fail(f"deepseek: {len(outs)} of {len(ps)} requests returned")
+        for o in outs:
+            if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
+                fail(f"deepseek: request did not finish with 32 tokens: {o.status}, {o.usage}")
+        if not steps_log:
+            fail("deepseek: no engine step ran")
+        for T, S, decode_only, n_gmm, n_k9, n_k10 in steps_log:
+            want = (3 * L_moe, L if decode_only else 0, 0 if decode_only else L)
+            if (n_gmm, n_k9, n_k10) != want:
+                fail(f"deepseek: a step of T={T}, S={S}, decode_only={decode_only} launched "
+                     f"(K6, K9, K10) = {(n_gmm, n_k9, n_k10)}, expected {want}")
+        n_tokens = sum(o.usage.num_generated_tokens for o in outs)
+        n_decode = sum(1 for st in steps_log if st[2])
+        emit(dict(phase="deepseek_e2e", **depth, requests=len(outs), output_tokens=n_tokens, wall_s=wall,
+                  output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft, engine_steps=len(steps_log),
+                  decode_only_steps=n_decode, step_tokens=sorted({st[0] for st in steps_log}),
+                  launches=launches, per_step=dict(grouped_matmul=3 * L_moe, mla_decode_on_decode_steps=L,
+                                                   mla_prefill_on_other_steps=L),
+                  card=card["nvidia_smi"]))
+
+        # Where the device time goes: the same workload under torch.profiler.
+        from torch.profiler import ProfilerActivity, profile
+
+        del steps_log[:]
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            llm.generate(prompts(SEED + 1), greedy)
+            torch.cuda.synchronize()
+        profiled_wall = time.monotonic() - t0
+        emit(dict(phase="deepseek_profile", engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
+                  unprofiled_wall_s=wall, **device_breakdown(prof, wall, len(steps_log)),
+                  card=card["nvidia_smi"]))
+        del prof
+
+        # A prefill batch (K10) and the decode step after it (K9) through the
+        # model twice over the same weights: the kernels, then the plain
+        # versions. The plain run replays the kernel run's routing, layer by
+        # layer: with random weights a near-tie in a router could otherwise
+        # send a token to another expert, which is no fault of a kernel.
+        tok = llm._handler.tokenizer
+        engine = None
+        llm.close()
+        llm = None
+        torch.cuda.empty_cache()
+        ids = [tok.encode(ps[0])[:200], tok.encode(ps[5])]
+        prefill, n_pages = batch_inputs(torch, [(t, 0, len(t) + 1) for t in ids])
+        decode, _ = batch_inputs(torch, [([7 + i], len(t), len(t) + 1) for i, t in enumerate(ids)])
+        n_tok = sum(len(t) for t in ids)
+        routes, real_router = [], model._router
+
+        def recording(x, w):
+            out = real_router(x, w)
+            routes.append(out)
+            return out
+
+        logits = {}
+        with torch.inference_mode():
+            for impl in ("kernel", "plain"):
+                plain = impl == "plain"
+                model.attn_impl = M.plain_mla_paged_attention if plain else M.mla_paged_attention
+                model.gmm_impl = G.plain_grouped_matmul if plain else G.grouped_matmul
+                model._router = (lambda x, w: routes.pop(0)) if plain else recording
+                kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
+                a = model.logits(model(kv, prefill.to(DEVICE), all_hidden=True)[:n_tok])
+                b = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[: len(ids)])
+                logits[impl] = (a, b)
+                del kv
+        del model._router
+        model.attn_impl, model.gmm_impl = M.mla_paged_attention, G.grouped_matmul
+        for which, i in (("prefill", 0), ("decode", 1)):
+            got, want = logits["kernel"][i], logits["plain"][i]
+            diff = (got - want).abs()
+            err = diff.max().item()
+            emit(dict(phase="deepseek_logits", batch=which, rows=got.shape[0], max_abs_err=err,
+                      mean_abs_err=diff.mean().item(), logits_std=want.std().item(),
+                      argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+                      same_routing=True, tol=LOGITS_TOL))
+            if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
+                fail(f"deepseek {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
+        return launches
+    finally:
+        if llm is not None:
+            llm.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -979,6 +1397,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--int4-layers", type=int, default=LLAMA31_8B_INT4["num_hidden_layers"],
                         help="depth of the INT4 Llama-3.1-8B run (its widths are never cut)")
+    parser.add_argument("--deepseek-layers", type=int, default=DEEPSEEK_V2_LITE["num_hidden_layers"],
+                        help="depth of the bf16 DeepSeek-V2-Lite run (its widths are never cut)")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -992,14 +1412,19 @@ def main() -> None:
     phase_build()
     attention_results = phase_kernels(torch, card)
     quant_results = phase_quant_kernels(torch, card)
+    gmm_results, mla_results = phase_moe_mla_kernels(torch, card)
     bf16_launches = phase_end_to_end(torch, card)
     int4_launches = phase_end_to_end_int4(torch, card, opts.int4_layers)
+    ds_launches = phase_end_to_end_deepseek(torch, card, opts.deepseek_layers)
 
     # Each kernel's launches on the main paths (counts set to 0 before each
     # path and read after it; the checks above launch outside that window),
     # and its timing at a shape the main path gives it: attention at the
     # 8-sequence decode batch, w4a8 at the decode step's gate_up projection
-    # (T = 16), dequant and group at the 512-token step's.
+    # (T = 16), dequant and group at the 512-token step's; the grouped GEMM
+    # at the decode step's gate/up (96 rows, padding included), the MLA decode kernel at the
+    # 8-sequence decode batch, the MLA prefill kernel at the mixed T = 512
+    # batch.
     source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
     kernels = [
         kernel_entry("ragged_paged_attention", "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -1015,6 +1440,15 @@ def main() -> None:
         kernel_entry("quant_matmul_dequant", source, "scalellm_tpu/ops/quant_matmul.py:519",
                      int4_launches["quant_matmul_dequant_cuda"], quant_results["dequant"],
                      ("gate_up_proj", 512, False)),
+        kernel_entry("grouped_matmul", "scalellm_tpu_torch/csrc/grouped_matmul.cu",
+                     "scalellm_tpu/layers/moe.py:70", ds_launches["grouped_matmul_cuda"],
+                     gmm_results, ("decode", "gate_up")),
+        kernel_entry("mla_decode", "scalellm_tpu_torch/csrc/mla_attention.cu",
+                     "scalellm_tpu/ops/mla_attention.py:96", ds_launches["mla_decode_attention_cuda"],
+                     {"k": mla_results["mla_decode"]}, "k"),
+        kernel_entry("mla_prefill", "scalellm_tpu_torch/csrc/mla_attention.cu",
+                     "scalellm_tpu/ops/mla_attention.py:271", ds_launches["mla_prefill_attention_cuda"],
+                     {"k": mla_results["mla_prefill"]}, "k"),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -63,6 +63,12 @@ class Batch:
         return len(self.entries)
 
     @property
+    def is_decode_only(self) -> bool:
+        """Every sequence contributes exactly one query token: the step a
+        model with a decode kernel (MLA) sends to it."""
+        return bool(self.entries) and all(e.num_tokens == 1 for e in self.entries)
+
+    @property
     def num_tokens(self) -> int:
         return sum(e.num_tokens for e in self.entries)
 

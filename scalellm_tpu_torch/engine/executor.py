@@ -3,8 +3,8 @@
 
 One step is forward -> logits -> sample_tokens, run under
 torch.inference_mode. The paged KV cache is one persistent tensor
-[L, P, page, 2*Hkv, Dh] that every step updates IN PLACE (models/common.py
-scatters each layer's new K/V into it).
+(model.kv_cache_shape: [L, P, page, 2*Hkv, Dh], or [L, P, page, 1, Dc] for
+MLA's latent cache) that every step updates IN PLACE.
 """
 
 from __future__ import annotations
@@ -38,13 +38,14 @@ class Executor:
         return n * self.model.dtype.itemsize
 
     @torch.inference_mode()
-    def execute(self, mi: ModelInputs, si: SamplingInputs) -> ModelOutputs:
+    def execute(self, mi: ModelInputs, si: SamplingInputs, decode_only: bool = False) -> ModelOutputs:
         """Run one step; the KV cache is updated in place. Outputs stay on
-        the device."""
+        the device. decode_only: every sequence has one token (MLA models
+        take their decode kernel on such a step)."""
         if self.kv_cache is None:
             raise RuntimeError("init_kv_cache first")
         mi = mi.to(self.device)
         si = si.to(self.device)
-        hidden = self.model(self.kv_cache, mi)
+        hidden = self.model(self.kv_cache, mi, decode_only=decode_only)
         logits = self.model.logits(hidden)
         return sample_tokens(logits, si, max_top_logprobs=self.max_top_logprobs)

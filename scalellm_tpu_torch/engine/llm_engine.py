@@ -103,7 +103,7 @@ class LLMEngine:
 
     def kv_cache_slot_size_in_bytes(self) -> int:
         """Bytes per KV slot across all layers."""
-        shape = self.model.kv_cache_shape(1, 1)  # [L, 1, 1, 2*Hkv, Dh]
+        shape = self.model.kv_cache_shape(1, 1)  # [L, 1, 1, 2*Hkv, Dh] or [L, 1, 1, 1, Dc]
         return shape[0] * shape[-2] * shape[-1] * self.model.dtype.itemsize
 
     def _profile_num_blocks(self) -> int:
@@ -127,7 +127,7 @@ class LLMEngine:
             return
         self._step_counter += 1
         mi, si, _ = batch.prepare_model_inputs(self.options.block_size, self._step_counter)
-        outs = self.executor.execute(mi, si)
+        outs = self.executor.execute(mi, si, decode_only=batch.is_decode_only)
         next_tokens = outs.next_tokens.cpu().numpy()
         want_lp = any(e.seq.sampling_params.logprobs for e in batch.entries)
         logprobs = outs.logprobs.cpu().numpy() if want_lp else None

@@ -1,0 +1,82 @@
+"""Mixture-of-experts MLP: router, sort-by-expert dispatch, grouped expert
+matmuls, weighted combine (counterpart of scalellm_tpu/layers/moe.py,
+replicated dispatch).
+
+The (token, slot) pairs of the top-k routing are sorted by expert (a stable
+sort, as jnp.argsort is), so each expert's rows are contiguous; the group
+sizes come from the sorted ids without a device-to-host sync. The expert
+matmuls are grouped GEMMs (ops/grouped_matmul.py, K6, a hook the caller may
+swap for the plain version). Rows are not padded: K6 takes any row count,
+so the reference's 128-row alignment (row_align) has no counterpart here.
+
+Expert weights are stored [E, N, K] (torch's [out, in] per expert): gate
+and up [E, F, D], down [E, D, F]; the router [E, D].
+
+Not ported yet: expert parallelism (ep_axis, moe_mlp_a2a) and quantized
+experts.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from scalellm_tpu_torch.layers.activations import act_with_mul
+from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul
+
+
+def softmax_topk(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
+                 norm_topk_prob: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routing weights and experts [T, k]: softmax over the router logits in
+    f32, top-k, optionally renormalised over the k."""
+    probs = torch.softmax(x.float() @ router_w.float().T, dim=-1)
+    topk_w, topk_e = torch.topk(probs, top_k, dim=-1)
+    if norm_topk_prob:
+        topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    return topk_w, topk_e
+
+
+def dispatch(topk_e: torch.Tensor, n_experts: int):
+    """Sort the (token, slot) pairs by expert. Returns (order: the pair
+    index of each sorted row, token_of: its token, group_sizes i32[E])."""
+    flat_e = topk_e.reshape(-1)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    edges = torch.searchsorted(
+        sorted_e, torch.arange(n_experts + 1, device=flat_e.device, dtype=sorted_e.dtype))
+    group_sizes = (edges[1:] - edges[:-1]).to(torch.int32)
+    return order, order // topk_e.shape[-1], group_sizes
+
+
+def expert_ffn(xs: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor, down_w: torch.Tensor,
+               group_sizes: torch.Tensor, act: str = "silu",
+               gmm: Callable = grouped_matmul) -> torch.Tensor:
+    """The gated expert FFN over expert-sorted rows, f32 [R, D]; rows past
+    the last covered group are zeros (the grouped matmul leaves them
+    unwritten)."""
+    g = gmm(xs, gate_w, group_sizes)
+    u = gmm(xs, up_w, group_sizes)
+    h = act_with_mul(act, g, u).to(xs.dtype)
+    y = gmm(h, down_w, group_sizes)
+    covered = torch.arange(y.shape[0], device=y.device) < group_sizes.sum()
+    return torch.where(covered[:, None], y, 0.0)
+
+
+def combine(y: torch.Tensor, topk_w: torch.Tensor, order: torch.Tensor, token_of: torch.Tensor,
+            n_tokens: int) -> torch.Tensor:
+    """Weight each sorted row by its routing weight and add it to its token:
+    f32 [T, D]."""
+    y = y * topk_w.reshape(-1)[order].float()[:, None]
+    out = torch.zeros(n_tokens, y.shape[-1], dtype=torch.float32, device=y.device)
+    return out.index_add_(0, token_of, y)
+
+
+def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,
+            down_w: torch.Tensor, top_k: int, norm_topk_prob: bool = False, act: str = "silu",
+            gmm: Callable = grouped_matmul) -> torch.Tensor:
+    """x [T, D] -> f32 [T, D]: softmax top-k routing over router_w [E, D],
+    then the experts' gated FFNs."""
+    topk_w, topk_e = softmax_topk(x, router_w, top_k, norm_topk_prob)
+    order, token_of, group_sizes = dispatch(topk_e, router_w.shape[0])
+    y = expert_ffn(x[token_of], gate_w, up_w, down_w, group_sizes, act, gmm)
+    return combine(y, topk_w, order, token_of, x.shape[0])

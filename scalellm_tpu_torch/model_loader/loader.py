@@ -16,7 +16,10 @@ quantization/linear.py, whose transforms unpack qweight / qzeros into the
 kernel layout with torch ops on the target device. Under GPTQ desc_act each
 projection's rows are sorted into contiguous groups and the permutation is
 kept for the input gather. A model that asks for a quantized lm_head gets it
-quantized here from the checkpoint's dense one.
+quantized here from the checkpoint's dense one. A rule whose target has one
+more index than a parameter of the model (the experts of an MoE layer,
+"layers.{}.experts_gate.{}") fills that slot of the stacked parameter; a
+slot the checkpoint lacks is a load error.
 """
 
 from __future__ import annotations
@@ -142,6 +145,7 @@ class HFModelLoader:
         dtype = model.dtype
         parts: Dict[str, torch.Tensor] = {}
         sd: Dict[str, torch.Tensor] = {}
+        stacked: Dict[str, set] = {}  # stacked parameter -> the slots filled
         unmatched = []
         for wf in self.weight_files:
             for ckpt_name, raw in read_safetensors(wf):
@@ -150,6 +154,11 @@ class HFModelLoader:
                     if m is not None:
                         name = target.format(*m.groups())
                         if name == "lm_head" and self.model_args.tie_word_embeddings:
+                            break
+                        stack, _, slot = name.rpartition(".")
+                        if transform is None and name not in expected and stack in expected:
+                            # One expert of an [E, ...] parameter, copied into its slot.
+                            self._fill_slot(sd, stacked, stack, int(slot), expected[stack], raw, device)
                             break
                         if transform is None:
                             t = raw.to(device=device, dtype=dtype, copy=True)
@@ -192,6 +201,10 @@ class HFModelLoader:
             if all(n in parts for n in names):
                 dim = 1 if tensor_leaf in ("scales", "zeros") else 0
                 sd[name] = torch.cat([parts.pop(n) for n in names], dim=dim)
+        for stack, slots in stacked.items():
+            absent = sorted(set(range(expected[stack].shape[0])) - slots)
+            if absent:
+                raise ValueError(f"{stack}: the checkpoint lacks slots {absent[:8]} (experts)")
         missing = [n for n in expected if n not in sd]
         if missing:
             raise ValueError(f"weights not fully loaded for: {missing[:8]}")
@@ -202,6 +215,19 @@ class HFModelLoader:
                     f"!= model {tuple(param.shape)} {param.dtype}"
                 )
         return sd
+
+    @staticmethod
+    def _fill_slot(sd, stacked, stack, slot, param, raw, device) -> None:
+        """Copy one checkpoint tensor into slot `slot` of the stacked
+        parameter `stack` (allocated on the device at its first slot)."""
+        if stack not in sd:
+            sd[stack] = torch.empty(param.shape, dtype=param.dtype, device=device)
+            stacked[stack] = set()
+        if not 0 <= slot < param.shape[0] or tuple(raw.shape) != tuple(param.shape[1:]):
+            raise ValueError(f"{stack}[{slot}]: checkpoint {tuple(raw.shape)} does not fit "
+                             f"{tuple(param.shape)}")
+        sd[stack][slot].copy_(raw)
+        stacked[stack].add(slot)
 
     def load_model(self, model: torch.nn.Module, device) -> torch.nn.Module:
         """Fill a model built on the meta device with the checkpoint."""

@@ -263,6 +263,7 @@ class DecoderModel(nn.Module):
         kv_cache: torch.Tensor,  # [L, P, page, 2*Hkv, Dh], updated in place
         mi: ModelInputs,
         all_hidden: bool = False,
+        decode_only: bool = False,  # unused: K1 takes decode-only and mixed steps alike
     ) -> torch.Tensor:
         """Returns the final hidden states of the selected rows [S, D] (all
         rows [T, D] with all_hidden). The KV cache is written in place."""

@@ -26,6 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scalellm_tpu_torch"
 SOURCES = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
     "quant_matmul": "quant_matmul.cu",
+    "grouped_matmul": "grouped_matmul.cu",
+    "mla_attention": "mla_attention.cu",
 }
 
 NVCC_FLAGS = [

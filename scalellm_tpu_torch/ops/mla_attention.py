@@ -1,0 +1,306 @@
+"""MLA latent attention over a K-only page cache: the latent scatter, the
+reference, the plain versions of the two kernels, their CUDA wrappers and
+the dispatcher.
+
+Counterpart of scalellm_tpu/ops/mla_attention.py. DeepSeek's absorbed MLA
+is multi-query attention over one shared latent head K = [c_kv | k_pe]
+(kv_lora_rank + rope dims, 576 for DeepSeek-V2); V is the first v_dim
+columns of the same rows, so the pages hold K only: [P, page_size, 1, Dc].
+
+  - set_latent_cache: scatter the new tokens' latent rows into the pages,
+    in place. Slots in page 0 (the reserved padding page) take the padding
+    tokens' writes.
+  - ref_mla_paged_attention: a transcription of the JAX reference (ground
+    truth; gathers [T, MAXP * page_size, Dc]).
+  - plain_mla_decode / plain_mla_prefill: plain PyTorch versions of the two
+    kernels, what the CPU runs and what the kernels are held to on the card.
+  - mla_decode_attention_cuda (K9, the counterpart of _mla_decode_kernel)
+    and mla_prefill_attention_cuda (K10, of _mla_prefill_kernel): wrappers
+    of the Hopper kernels in csrc/mla_attention.cu, each counting its
+    launches.
+  - mla_paged_attention: the dispatcher. A CUDA tensor goes to K9 for a
+    decode-only batch (one token per sequence slot, token s of sequence s)
+    and to K10 otherwise; a CPU tensor goes to the plain versions. There is
+    no fallback from one to the other: a CUDA call the kernels do not cover
+    raises.
+
+Rows that own no KV come out as zeros: padding sequence slots (kv_len 0),
+rows past the sequence slots of a decode-only batch, and rows at or past
+cu_q_lens[num_seqs] of a mixed batch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from scalellm_tpu_torch.ops import _build
+
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# The kernels are built for DeepSeek-V2's widths (V2, V2-Lite and V3 alike):
+# kv_lora_rank 512 plus 64 rope dims.
+KERNEL_LATENT_DIM, KERNEL_V_DIM = 576, 512
+
+
+def set_latent_cache(
+    k_pages: torch.Tensor,  # [P, page_size, 1, Dc]
+    k_lat: torch.Tensor,  # [T, Dc] latent rows [c_kv | k_pe]
+    slot_ids: torch.Tensor,  # [T] global slot ids
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Scatter k_lat into k_pages in place; returns k_pages."""
+    if k_pages.dtype == torch.int8:
+        raise NotImplementedError("int8 latent pages (k_scale) are not ported")
+    P, page_size, one, Dc = k_pages.shape
+    flat = k_pages.view(P * page_size, Dc)
+    flat.index_copy_(0, slot_ids.long(), k_lat.to(k_pages.dtype))
+    return k_pages
+
+
+def ref_mla_paged_attention(
+    q: torch.Tensor,  # [T, H, Dc]
+    k_pages: torch.Tensor,  # [P, page_size, 1, Dc]
+    kv_lens: torch.Tensor,  # i32[S]
+    page_indices: torch.Tensor,  # i32[S, MAXP]
+    cu_q_lens: torch.Tensor,  # i32[S+1]
+    num_seqs: torch.Tensor,  # i32[1] (unused: padding rows fully masked)
+    *,
+    sm_scale: float,
+    v_dim: int,
+    k_scale: Optional[float] = None,
+) -> torch.Tensor:  # [T, H, v_dim]
+    """The JAX reference, op for op: every token attends its sequence's
+    whole [MAXP * page_size] latent rows, masked causally by absolute
+    position and by kv_len."""
+    T, H, Dc = q.shape
+    S, MAXP = page_indices.shape
+    page_size = k_pages.shape[1]
+    KV = MAXP * page_size
+    dev = q.device
+    tok = torch.arange(T, device=dev, dtype=torch.int32)
+    token_seg = torch.searchsorted(cu_q_lens[1:].contiguous(), tok, right=True).clamp(0, S - 1)
+    q_lens = cu_q_lens[1:] - cu_q_lens[:-1]
+    positions = kv_lens[token_seg] - q_lens[token_seg] + (tok - cu_q_lens[token_seg])
+
+    k_seq = k_pages[page_indices.long()].reshape(S, KV, Dc)
+    k_tok = k_seq[token_seg].float()  # [T, KV, Dc]
+    if k_scale is not None:
+        k_tok = k_tok * k_scale
+    v_tok = k_tok[..., :v_dim]
+    scores = torch.einsum("thd,tjd->thj", q.float(), k_tok) * sm_scale
+    kv_pos = torch.arange(KV, device=dev, dtype=torch.int32)
+    mask = kv_pos[None, :] > positions[:, None]
+    mask = mask | (kv_pos[None, :] >= kv_lens[token_seg][:, None])
+    scores = scores.masked_fill(mask[:, None, :], MASK_VALUE)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("thj,tjd->thd", p, v_tok).to(q.dtype)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, kv_end: torch.Tensor, sm_scale: float, v_dim: int):
+    """Softmax attention of q [n, H, Dc] over latent rows k ([KV, Dc] shared
+    by all rows, or [n, KV, Dc]) where row i sees k[:kv_end[i]]; rows that
+    see nothing give zeros. f32 throughout."""
+    kf = k.float()
+    scores = (q.float() @ kf.transpose(-1, -2)) * sm_scale  # [n, H, KV]
+    visible = torch.arange(k.shape[-2], device=q.device)[None, :] < kv_end[:, None]
+    scores = scores.masked_fill(~visible[:, None, :], float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True).clamp_min(MASK_VALUE)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = p @ kf[..., :v_dim]
+    return torch.where(l > 0, out / l.clamp_min(1e-30), torch.zeros_like(out))
+
+
+def plain_mla_decode(
+    q: torch.Tensor,  # [T, H, Dc], T >= S: token s is sequence s's only query
+    k_pages: torch.Tensor,  # [P, page_size, 1, Dc]
+    kv_lens: torch.Tensor,  # i32[S]
+    page_indices: torch.Tensor,  # i32[S, MAXP]
+    *,
+    sm_scale: float,
+    v_dim: int,
+) -> torch.Tensor:  # [T, H, v_dim]
+    """Plain version of the decode kernel (K9): one query per sequence slot
+    over its first kv_len latent rows; rows past the S slots and slots with
+    kv_len 0 are zeros."""
+    T, H, Dc = q.shape
+    S, MAXP = page_indices.shape
+    k = k_pages[page_indices.long()].reshape(S, MAXP * k_pages.shape[1], Dc)
+    out = torch.zeros(T, H, v_dim, dtype=q.dtype, device=q.device)
+    out[:S] = _attend(q[:S], k, kv_lens.long(), sm_scale, v_dim).to(q.dtype)
+    return out
+
+
+def plain_mla_prefill(
+    q: torch.Tensor,  # [T, H, Dc] ragged mixed prefill/decode batch
+    k_pages: torch.Tensor,  # [P, page_size, 1, Dc]
+    kv_lens: torch.Tensor,  # i32[S]
+    page_indices: torch.Tensor,  # i32[S, MAXP]
+    cu_q_lens: torch.Tensor,  # i32[S+1]
+    num_seqs: torch.Tensor,  # i32[1]
+    *,
+    sm_scale: float,
+    v_dim: int,
+) -> torch.Tensor:  # [T, H, v_dim]
+    """Plain version of the ragged prefill kernel (K10): sequence by
+    sequence, token i of a chunk of q_len attends its context's rows
+    [0, kv_len - q_len + i]. Rows outside every real chunk are zeros."""
+    T, H, Dc = q.shape
+    page_size = k_pages.shape[1]
+    out = torch.zeros(T, H, v_dim, dtype=q.dtype, device=q.device)
+    cu = cu_q_lens.tolist()
+    lens = kv_lens.tolist()
+    for s in range(int(num_seqs.reshape(-1)[0])):
+        start, end, kv_len = cu[s], cu[s + 1], lens[s]
+        if end <= start or kv_len <= 0:
+            continue
+        n_pages = -(-kv_len // page_size)
+        k = k_pages[page_indices[s, :n_pages].long()].reshape(n_pages * page_size, Dc)
+        kv_end = torch.arange(kv_len - (end - start) + 1, kv_len + 1, device=q.device)
+        out[start:end] = _attend(q[start:end], k, kv_end, sm_scale, v_dim).to(q.dtype)
+    return out
+
+
+# ---------------------------------------------------------------- CUDA wrappers
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Parameters of the C entry points of csrc/mla_attention.cu, in order.
+# decode: q, k_pages, kv_lens, page_indices, out; num_rows, num_seqs (S),
+# maxp, page_size, n_heads, latent_dim, v_dim; sm_scale; stream.
+_DECODE_ARGTYPES = [_P] * 5 + [_I] * 7 + [_F, _P]
+# prefill: q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, out;
+# num_tokens, S, maxp, page_size, n_heads, latent_dim, v_dim; sm_scale; stream.
+_PREFILL_ARGTYPES = [_P] * 7 + [_I] * 7 + [_F, _P]
+ENTRY_POINTS = {
+    "scalellm_mla_decode": _DECODE_ARGTYPES,
+    "scalellm_mla_prefill": _PREFILL_ARGTYPES,
+}
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("mla_attention")
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda_operands(q, k_pages, v_dim, **index_tensors):
+    """Raise on what the kernels do not take; returns (T, H, Dc, S, maxp, page)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor, got {q.device}")
+    if k_pages.dim() != 4 or k_pages.shape[2] != 1:
+        raise ValueError(f"k_pages must be [P, page, 1, Dc], got {tuple(k_pages.shape)}")
+    if k_pages.dtype == torch.int8:
+        raise NotImplementedError("int8 latent pages (k_scale) are not ported")
+    if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16:
+        raise NotImplementedError(f"the MLA kernels take bf16 q and pages, got {q.dtype}, {k_pages.dtype}")
+    T, H, Dc = q.shape
+    if k_pages.shape[3] != Dc:
+        raise ValueError(f"q {tuple(q.shape)} does not match k_pages {tuple(k_pages.shape)}")
+    if (Dc, v_dim) != (KERNEL_LATENT_DIM, KERNEL_V_DIM):
+        raise NotImplementedError(
+            f"the MLA kernels take Dc={KERNEL_LATENT_DIM}, v_dim={KERNEL_V_DIM}; got Dc={Dc}, v_dim={v_dim}")
+    for name, t in (("q", q), ("k_pages", k_pages), *index_tensors.items()):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name not in ("q", "k_pages") and t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    S, maxp = index_tensors["page_indices"].shape
+    if index_tensors["kv_lens"].shape != (S,):
+        raise ValueError("kv_lens must be [S]")
+    return T, H, Dc, S, maxp, k_pages.shape[1]
+
+
+def mla_decode_attention_cuda(q, k_pages, kv_lens, page_indices, *, sm_scale, v_dim) -> torch.Tensor:
+    """Launch K9 on the current stream: row s < S attends sequence s (one
+    query token each), rows >= S come out zero. Returns bf16 [T, H, v_dim].
+    `mla_decode_attention_cuda.launches` counts the launches."""
+    T, H, Dc, S, maxp, page = _check_cuda_operands(
+        q, k_pages, v_dim, kv_lens=kv_lens, page_indices=page_indices)
+    if T < S:
+        raise ValueError(f"a decode-only batch has a row per sequence slot: T={T} < S={S}")
+    out = torch.empty(T, H, v_dim, dtype=torch.bfloat16, device=q.device)
+    rc = _library().scalellm_mla_decode(
+        q.data_ptr(), k_pages.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
+        out.data_ptr(), T, S, maxp, page, H, Dc, v_dim, float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"mla decode kernel launch failed: CUDA error {rc}")
+    mla_decode_attention_cuda.launches += 1
+    return out
+
+
+mla_decode_attention_cuda.launches = 0
+
+
+def mla_prefill_attention_cuda(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
+                               sm_scale, v_dim) -> torch.Tensor:
+    """Launch K10 on the current stream over a ragged mixed batch. Returns
+    bf16 [T, H, v_dim]. `mla_prefill_attention_cuda.launches` counts the
+    launches."""
+    T, H, Dc, S, maxp, page = _check_cuda_operands(
+        q, k_pages, v_dim, kv_lens=kv_lens, page_indices=page_indices, cu_q_lens=cu_q_lens,
+        num_seqs=num_seqs)
+    if cu_q_lens.shape != (S + 1,) or num_seqs.shape != (1,):
+        raise ValueError("cu_q_lens and num_seqs must be [S+1] and [1]")
+    out = torch.empty(T, H, v_dim, dtype=torch.bfloat16, device=q.device)
+    rc = _library().scalellm_mla_prefill(
+        q.data_ptr(), k_pages.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
+        cu_q_lens.data_ptr(), num_seqs.data_ptr(), out.data_ptr(), T, S, maxp, page, H, Dc,
+        v_dim, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"mla prefill kernel launch failed: CUDA error {rc}")
+    mla_prefill_attention_cuda.launches += 1
+    return out
+
+
+mla_prefill_attention_cuda.launches = 0
+
+
+def mla_paged_attention(
+    q: torch.Tensor,  # [T, H, Dc]
+    k_pages: torch.Tensor,  # [P, page_size, 1, Dc]
+    kv_lens: torch.Tensor,  # i32[S]
+    page_indices: torch.Tensor,  # i32[S, MAXP]
+    cu_q_lens: torch.Tensor,  # i32[S+1]
+    num_seqs: torch.Tensor,  # i32[1]
+    *,
+    sm_scale: float,
+    v_dim: int,
+    k_scale: Optional[float] = None,
+    decode_only: bool = False,
+) -> torch.Tensor:  # [T, H, v_dim]
+    """K9 for a decode-only batch, K10 otherwise, on a CUDA tensor; the
+    plain versions on a CPU tensor."""
+    if q.device.type == "cpu":
+        return plain_mla_paged_attention(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+                                         sm_scale=sm_scale, v_dim=v_dim, k_scale=k_scale,
+                                         decode_only=decode_only)
+    if k_scale is not None:
+        raise NotImplementedError("int8 latent pages (k_scale) are not ported")
+    if decode_only:
+        return mla_decode_attention_cuda(q, k_pages, kv_lens, page_indices, sm_scale=sm_scale,
+                                         v_dim=v_dim)
+    return mla_prefill_attention_cuda(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+                                      sm_scale=sm_scale, v_dim=v_dim)
+
+
+def plain_mla_paged_attention(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
+                              sm_scale, v_dim, k_scale=None, decode_only=False):
+    """mla_paged_attention's plain versions on whatever device q lies: what
+    the kernels are held against on the card."""
+    if k_scale is not None:
+        raise NotImplementedError("int8 latent pages (k_scale) are not ported")
+    if decode_only:
+        return plain_mla_decode(q, k_pages, kv_lens, page_indices, sm_scale=sm_scale, v_dim=v_dim)
+    return plain_mla_prefill(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+                             sm_scale=sm_scale, v_dim=v_dim)

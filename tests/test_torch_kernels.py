@@ -212,3 +212,128 @@ def test_quant_kernels_refuse_what_they_do_not_cover(cuda):
         Q.quant_matmul_dequant_cuda(t["x"].cpu(), *args)
     with pytest.raises(ValueError):
         Q.quant_matmul(t["x"], *args[:2], variant="ref")
+
+
+# ---------------------------------------------------------------- grouped GEMM (K6)
+#
+# Tolerance: the kernel and the plain version both sum exact bf16 products
+# in f32, in another order: 1e-4 of the output's largest magnitude.
+
+
+def _routed_rows(rng, T, E, k, K, n_pad=0):
+    """Rows of T tokens routed to k of E experts by a seeded softmax, sorted
+    by expert (some experts get no rows), and their group sizes. The last
+    n_pad tokens share one input, as the engine's padding rows do."""
+    def rows(shape):
+        x = rng.standard_normal(shape)
+        x[T - n_pad:] = x[T - 1]
+        return x
+
+    logits = rows((T, E))
+    topk = np.argsort(-logits, axis=1)[:, :k].reshape(-1)
+    order = np.argsort(topk, kind="stable")
+    x = rows((T, K)).astype(np.float32)
+    return x[order // k], np.bincount(topk, minlength=E).astype(np.int32)
+
+
+# (tokens, padding tokens among them, experts, top-k, K, N, uncovered rows appended)
+GMM_CASES = {
+    "decode_r96_e64_padded": (16, 8, 64, 6, 256, 136, 0),
+    "prefill_wide_tile": (512, 0, 8, 2, 128, 256, 0),
+    "uncovered_rows": (20, 0, 16, 2, 96, 64, 5),
+}
+
+
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_grouped_matmul_kernel_matches_plain_version(cuda, case):
+    from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_cuda, plain_grouped_matmul
+
+    T, n_pad, E, k, K, N, extra = GMM_CASES[case]
+    rng = np.random.default_rng(0)
+    xs, sizes = _routed_rows(rng, T, E, k, K, n_pad)
+    xs = np.concatenate([xs, rng.standard_normal((extra, K)).astype(np.float32)])
+    xs = torch.from_numpy(xs).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((E, N, K)).astype(np.float32) / np.sqrt(K)).to(cuda, torch.bfloat16)
+    gs = torch.from_numpy(sizes).to(cuda)
+    before = grouped_matmul_cuda.launches
+    got = grouped_matmul(xs, w, gs)
+    torch.cuda.synchronize()
+    assert grouped_matmul_cuda.launches == before + 1
+    want = plain_grouped_matmul(xs, w, gs)
+    covered = int(sizes.sum())
+    top = want.abs().max().item()
+    assert torch.isfinite(got[:covered]).all()
+    torch.testing.assert_close(got[:covered], want[:covered], atol=1e-4 * top, rtol=0)
+    for m_tiles in (1, 4):  # both row tiles, whichever the wrapper picked
+        other = grouped_matmul_cuda(xs, w, gs, m_tiles=m_tiles)
+        torch.testing.assert_close(other[:covered], want[:covered], atol=1e-4 * top, rtol=0)
+
+
+def test_grouped_matmul_kernel_refuses_what_it_does_not_cover(cuda):
+    from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul_cuda
+
+    xs = torch.zeros(4, 48, dtype=torch.bfloat16, device=cuda)
+    gs = torch.tensor([4, 0], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError):  # K % 32
+        grouped_matmul_cuda(xs, torch.zeros(2, 16, 48, dtype=torch.bfloat16, device=cuda), gs)
+    with pytest.raises(NotImplementedError):  # f32
+        grouped_matmul_cuda(xs[:, :32].float(), torch.zeros(2, 16, 32, device=cuda), gs)
+
+
+# ---------------------------------------------------------------- MLA attention (K9, K10)
+#
+# Tolerance 2e-2 absolute, as for ragged paged attention: the kernels round
+# p to bf16 for the second product; outputs (averages of unit-variance rows)
+# are rounded to bf16.
+
+# (q_lens, kv_lens, S, T, n_heads, latent_dim, v_dim)
+MLA_CASES = {
+    "decode_v2_lite": ([1] * 8, [16, 40, 90, 150, 233, 310, 480, 600], 8, 16, 16, 576, 512),
+    "decode_padding_slots": ([1] * 3, [5, 33, 64], 8, 16, 4, 576, 512),
+    "mixed_v2_lite": ([37, 64, 1, 1, 1, 1, 1, 1], [37, 200, 17, 90, 301, 5, 77, 600], 16, 256, 16, 576, 512),
+    "mixed_two_head_groups": ([9, 1, 1], [40, 70, 3], 4, 16, 20, 576, 512),
+}
+
+
+@pytest.mark.parametrize("case", list(MLA_CASES))
+def test_mla_kernels_match_plain_versions(cuda, case):
+    from torch_port_util import latent_batch
+
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    q_lens, kv_lens, S, T, H, Dc, vd = MLA_CASES[case]
+    rng = np.random.default_rng(0)
+    inputs = _on(latent_batch(rng, q_lens=q_lens, kv_lens=kv_lens, S=S, T=T, n_heads=H,
+                              latent_dim=Dc), cuda)
+    decode_only = all(n == 1 for n in q_lens)
+    kw = dict(sm_scale=0.0723, v_dim=vd, decode_only=decode_only)
+    kernel = M.mla_decode_attention_cuda if decode_only else M.mla_prefill_attention_cuda
+    before = kernel.launches
+    got = M.mla_paged_attention(**inputs, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = M.plain_mla_paged_attention(**inputs, **kw)
+    assert got.shape == (T, H, vd) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    assert torch.all(got[sum(q_lens):] == 0)
+    if decode_only:  # the same batch through K10 gives the same rows
+        mixed = M.mla_prefill_attention_cuda(**{k: v for k, v in inputs.items()}, sm_scale=0.0723, v_dim=vd)
+        torch.testing.assert_close(mixed.float(), got.float(), atol=TOL, rtol=0)
+
+
+def test_mla_kernels_refuse_what_they_do_not_cover(cuda):
+    from torch_port_util import latent_batch
+
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    rng = np.random.default_rng(1)
+    inputs = _on(latent_batch(rng, q_lens=[1], kv_lens=[5], S=1, T=1, n_heads=4, latent_dim=576), cuda)
+    with pytest.raises(NotImplementedError):
+        M.mla_paged_attention(**inputs, sm_scale=0.1, v_dim=512, k_scale=0.5)
+    with pytest.raises(NotImplementedError):  # only v_dim 512
+        M.mla_paged_attention(**inputs, sm_scale=0.1, v_dim=256)
+    with pytest.raises(NotImplementedError):
+        M.mla_paged_attention(**{**inputs, "q": inputs["q"].float()}, sm_scale=0.1, v_dim=512)
+    narrow = _on(latent_batch(rng, q_lens=[1], kv_lens=[5], S=1, T=1, n_heads=4, latent_dim=192), cuda)
+    with pytest.raises(NotImplementedError):  # only a 576-wide latent
+        M.mla_paged_attention(**narrow, sm_scale=0.1, v_dim=128)

@@ -283,20 +283,30 @@ def test_cpu_dispatch_refuses_bad_arguments():
 # ------------------------------------------------------------ ctypes
 
 
-@pytest.mark.parametrize("entry", list(TQ.ENTRY_POINTS))
+def _entry_points():
+    """Every C entry point of the port's kernels: name -> (wrapper module,
+    its source under csrc/)."""
+    from scalellm_tpu_torch.ops import grouped_matmul, mla_attention
+
+    modules = ((TQ, "quant_matmul.cu"), (mla_attention, "mla_attention.cu"),
+               (grouped_matmul, "grouped_matmul.cu"))
+    return {entry: (module, source) for module, source in modules for entry in module.ENTRY_POINTS}
+
+
+@pytest.mark.parametrize("entry", list(_entry_points()))
 def test_ctypes_signatures_match_the_cuda_source(entry):
     """Each wrapper's argtypes follow its C entry point's parameter list in
-    csrc/quant_matmul.cu, so no argument is passed with another type or
-    width."""
+    its csrc/ source, so no argument is passed with another type or width."""
     import ctypes
     import pathlib
     import re
 
-    src = (pathlib.Path(TQ.__file__).parent.parent / "csrc" / "quant_matmul.cu").read_text()
+    module, source = _entry_points()[entry]
+    src = (pathlib.Path(TQ.__file__).parent.parent / "csrc" / source).read_text()
     params = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", src, re.S).group(1)
     kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
     want = []
     for p in params.split(","):
         words = p.replace("*", " * ").split()[:-1]  # drop the parameter name
         want.append(kinds["void*" if "*" in words else words[-1]])
-    assert TQ.ENTRY_POINTS[entry] == want
+    assert module.ENTRY_POINTS[entry] == want

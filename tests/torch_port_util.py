@@ -36,6 +36,18 @@ def ragged_batch(rng, *, q_lens, kv_lens, S, T, n_heads, n_kv_heads, head_dim,
     )
 
 
+def latent_batch(rng, *, q_lens, kv_lens, S, T, n_heads, latent_dim, page_size=16):
+    """Random inputs of MLA paged attention over a K-only latent cache, as
+    numpy arrays: q [T, H, Dc], k_pages [P, page_size, 1, Dc] and the
+    ragged-batch index arrays of ragged_batch (same padding conventions)."""
+    out = ragged_batch(rng, q_lens=q_lens, kv_lens=kv_lens, S=S, T=T, n_heads=n_heads,
+                       n_kv_heads=1, head_dim=latent_dim, page_size=page_size,
+                       num_pages=1 + sum(-(-k // page_size) for k in kv_lens))
+    kv = out.pop("kv_pages")
+    out["k_pages"] = np.ascontiguousarray(kv[:, :, :1])  # the K rows only
+    return out
+
+
 # ------------------------------------------------------- quantized checkpoints
 
 
