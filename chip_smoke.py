@@ -31,6 +31,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
         the MLA prefill kernel (K10) on a mixed T = 512, S = 8 batch, 16
         heads over the 576-wide latent cache (yardstick:
         scaled_dot_product_attention on gathered rows).
+     d. the routed quantized-expert kernels at DeepSeek-V2-Lite's widths:
+        K8 (gate and up, 2048 -> 1408, one launch) and K7 (down, 1408 ->
+        2048), int4 at group 128 and int8, at the decode step of 3c (96
+        rows, the padding rows sharing their experts) and in the T=1 layout
+        (one token over 8 rows, 6 experts, starts given); bound: the active
+        experts' weight and scale bytes (yardstick: torch._grouped_mm on
+        weights dequantized ahead of time).
   4. end to end, bf16: a TinyLlama-1.1B-shaped checkpoint (random weights
      from a seed) served by scalellm_tpu_torch.LLM with chunked prefill and
      the prefix cache; every request must finish and every engine step must
@@ -49,15 +56,23 @@ Phases (any failure exits non-zero, and the result line is not printed):
      logits must agree. --int4-layers N cuts the depth (default 32).
   6. end to end, bf16 MoE + MLA: a DeepSeek-V2-Lite checkpoint at the
      published widths (random bf16 weights from a seed, one tensor per
-     expert, 31 GB on disk) served by LLM(path) with the same traffic.
-     Every engine step must launch the grouped GEMM 3 times per MoE layer,
-     the MLA decode kernel once per layer on decode-only steps and the MLA
-     prefill kernel once per layer on the others. Then a prefill and a
-     decode batch run through the model twice, with the kernels and with
-     the plain versions, the second run replaying the first one's routing,
-     and the logits must agree. --deepseek-layers N cuts the depth (default
-     27).
-  7. a `kernels` JSON line, then the result line.
+     expert, 31 GB on disk, written once for phases 6 and 7 and removed
+     after them) served by LLM(path) with the same traffic. Every engine
+     step must launch the grouped GEMM 3 times per MoE layer, the MLA
+     decode kernel once per layer on decode-only steps and the MLA prefill
+     kernel once per layer on the others. Then a prefill and a decode batch
+     run through the model twice, with the kernels and with the plain
+     versions, the second run replaying the first one's routing, and the
+     logits must agree. --deepseek-layers N cuts the depth of phases 6 and
+     7 (default 27).
+  7. end to end, INT4 MoE + MLA: the same checkpoint served by LLM(path,
+     quantize="int4"): experts and projections quantized on the card. Every
+     engine step must launch exactly what the path implies: per MoE layer
+     K8 and K7 once where the step's routed rows take the decode kernel (T
+     <= 32), else the grouped GEMM 3 times; K9/K10 as in phase 6; each
+     quantized projection's kernel (w4a8 or dequant) as plan() picks it.
+     Then the profile and the same kernel-vs-plain logits check.
+  8. a `kernels` JSON line, then the result line.
 
 It needs the repository (it fails in a directory that holds only this
 script) and a CUDA device (it fails where torch.cuda.is_available() is
@@ -669,6 +684,101 @@ def phase_moe_mla_kernels(torch, card):
     return gmm, mla
 
 
+# ------------------------------------------------------------------ phase 3d
+
+# K7/K8 against their plain versions: both multiply the same exact products
+# (bf16 x int4/int8, exact in f32) and sum in f32 in another order before the
+# group or channel scale: 1e-4 of the output's largest magnitude.
+MOE_QUANT_TOL = 1e-4
+
+
+def phase_moe_quant_kernels(torch, card):
+    """K8 (gate and up, 2048 -> 1408) and K7 (down, 1408 -> 2048) at
+    DeepSeek-V2-Lite's decode step (96 rows routed as in phase 3c) and in
+    the T=1 layout (one token over 8 rows, 6 experts, starts given), int4
+    at G = 128 and int8."""
+    from scalellm_tpu_torch.layers.moe import single_token_layout
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 3)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+    cfg = DEEPSEEK_V2_LITE
+    D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
+
+    def experts(K, N, bits):
+        w = torch.randn(E, N, K, generator=gen, device=DEVICE) * K ** -0.5
+        return MQ.quantize_experts_int4(w, GROUP) if bits == 4 else MQ.quantize_experts_int8(w)
+
+    def rows(n, K):
+        return torch.randn(n, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    results = {}
+    for bits in (4, 8):
+        gate, up, down = experts(D, Fm, bits), experts(D, Fm, bits), experts(Fm, D, bits)
+        for layout in ("decode", "t1"):
+            if layout == "decode":
+                xs, sizes = routed_rows(torch, gen, 16, E, k, D, n_pad=8)
+                h = rows(xs.shape[0], Fm)
+                active, starts = MQ.active_experts(sizes, min(E, xs.shape[0])), MQ.expert_starts(sizes)
+                order = torch.arange(xs.shape[0], device=DEVICE)  # already sorted by expert
+            else:
+                topk_e = torch.randperm(E, generator=gen, device=DEVICE)[:k].reshape(1, k)
+                Tp, sizes, starts, active, _ = single_token_layout(topk_e, torch.ones(1, k, device=DEVICE), E)
+                xs, h = rows(1, D).expand(Tp, -1).contiguous(), rows(Tp, Fm)
+                order = torch.argsort(topk_e[0])  # the library call wants rows sorted by expert
+            n_active = int((active >= 0).sum())
+            covered = int(sizes.sum())
+            for proj, x, weights, K, N in (("gate_up", xs, (gate, up), D, Fm), ("down", h, (down,), Fm, D)):
+                flat = [t for pair in weights for t in pair]
+                if proj == "gate_up":
+                    kernel = lambda: MQ.grouped_quant_matmul_pair_cuda(x, *flat, sizes, active, starts)
+                    plain = lambda: MQ.plain_grouped_quant_matmul_pair(x, *flat, sizes, active, starts)
+                else:
+                    kernel = lambda: (MQ.grouped_quant_matmul_cuda(x, *flat, sizes, active, starts),)
+                    plain = lambda: (MQ.plain_grouped_quant_matmul(x, *flat, sizes, active, starts),)
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                name = f"{proj}_int{bits}_{layout}"
+                if not all(torch.isfinite(g).all() for g in got):
+                    fail(f"moe_quant {name}: kernel output is not finite")
+                top = max(w.abs().max().item() for w in want)
+                err = max((g - w).abs().max().item() for g, w in zip(got, want))
+                if not err <= MOE_QUANT_TOL * top:
+                    fail(f"moe_quant {name}: differs from the plain version by {err} at magnitude {top}")
+                if not all(torch.all(g[covered:] == 0) for g in got):
+                    fail(f"moe_quant {name}: rows outside every group are not zero")
+                ms = time_ms(torch, kernel, flush)
+                plain_ms = time_ms(torch, plain, flush, runs=3)
+                # Yardstick: torch._grouped_mm (or the matmul loop) over the
+                # same rows in expert order, on bf16 weights dequantized ahead
+                # of time.
+                x_sorted = x[:covered][order[:covered]].contiguous()
+                libs = [library_grouped_mm(torch, x_sorted, MQ.dequantize_experts(q, sc, K).to(torch.bfloat16), sizes)
+                        for q, sc in weights]
+                lib_name = libs[0][0]
+                library_ms = time_ms(torch, lambda: [fn() for _, fn in libs], flush)
+                del libs
+                w_bytes = sum(q[0].numel() * q.element_size() + sc[0].numel() * sc.element_size() for q, sc in weights)
+                nbytes = (x.numel() * 2 + n_active * w_bytes + len(weights) * x.shape[0] * N * 4
+                          + (active.numel() + starts.numel() + sizes.numel()) * 4)
+                ops = 2 * covered * K * N * len(weights)
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+                r = dict(max_abs_err=err, out_magnitude=top, ms=ms, plain_ms=plain_ms,
+                         bound_ms=1e3 * max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
+                results[(proj, bits, layout)] = r
+                emit(dict(phase="kernel", kernel="moe_quant_decode_pair" if proj == "gate_up" else "moe_quant_decode",
+                          shape=name, R=x.shape[0], K=K, N=N, E=E, bits=bits, group=GROUP if bits == 4 else None,
+                          active_experts=n_active, rows_in_groups=covered, tol=MOE_QUANT_TOL * top, bytes=nbytes,
+                          ops=ops, library=lib_name + " on pre-dequantized bf16 weights", **r,
+                          card=card["nvidia_smi"]))
+        del gate, up, down
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -808,10 +918,10 @@ def prefill_inputs(torch, token_lists, page=16):
 
 
 def device_breakdown(prof, wall_s, steps):
-    """Device time by kernel from a profiler trace, in five groups (the
+    """Device time by kernel from a profiler trace, in six groups (the
     attention kernels, the quantized matmul kernels with their activation
-    quantization, the grouped GEMM, library matrix products, the rest), the
-    kernels launched per
+    quantization, the grouped GEMM, the routed quantized-expert kernels,
+    library matrix products, the rest), the kernels launched per
     engine step, and the share of `wall_s` the device was idle. Kernels run
     on one stream, so their times add up to the device's busy time."""
     from torch.autograd import DeviceType
@@ -821,14 +931,16 @@ def device_breakdown(prof, wall_s, steps):
         if e.device_type == DeviceType.CUDA:
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    groups = dict(attention_ms=0.0, quant_matmul_ms=0.0, grouped_matmul_ms=0.0, matmul_ms=0.0,
-                  other_ms=0.0)
+    groups = dict(attention_ms=0.0, quant_matmul_ms=0.0, grouped_matmul_ms=0.0, moe_quant_ms=0.0,
+                  matmul_ms=0.0, other_ms=0.0)
     for name, (ms, _) in per_name.items():
         low = name.lower()
         if any(w in low for w in ("ragged_paged_attention", "mla_decode_kernel", "mla_prefill_kernel")):
             groups["attention_ms"] += ms
         elif "grouped_matmul_kernel" in low:
             groups["grouped_matmul_ms"] += ms
+        elif "moe_quant_kernel" in low:
+            groups["moe_quant_ms"] += ms
         elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "act_quant_kernel")):
             groups["quant_matmul_ms"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
@@ -1234,41 +1346,108 @@ def deepseek_checkpoint_tensors(cfg):
     return out
 
 
-def phase_end_to_end_deepseek(torch, card, n_layers):
-    from scalellm_tpu_torch import LLM, SamplingParams
+def write_deepseek_checkpoint(torch, n_layers):
+    """The DeepSeek-V2-Lite checkpoint that phases 6 and 7 serve, written
+    once to a new temp dir: (dir, bytes, seconds to write)."""
+    cfg = dict(DEEPSEEK_V2_LITE, num_hidden_layers=n_layers)
+    tmp = tempfile.mkdtemp(prefix="scalellm_deepseek_v2_lite_")
+    tensors = deepseek_checkpoint_tensors(cfg)
+    need = sum(2 * functools.reduce(lambda a, b: a * b, shape, 1) for _, shape, _ in tensors)
+    free = shutil.disk_usage(tmp).free
+    if free < need + 2**30:
+        shutil.rmtree(tmp, ignore_errors=True)
+        fail(f"deepseek: the {need / 1e9:.1f} GB checkpoint does not fit the {free / 1e9:.1f} GB free "
+             f"under {tmp}; --deepseek-layers cuts the depth")
+    t0 = time.monotonic()
+    nbytes = write_checkpoint(torch, tmp, cfg, tensors)
+    return tmp, nbytes, time.monotonic() - t0
+
+
+def deepseek_counters():
+    """The kernel wrappers a DeepSeek step may launch, by name."""
     from scalellm_tpu_torch.ops import grouped_matmul as G
     from scalellm_tpu_torch.ops import mla_attention as M
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    return (G.grouped_matmul_cuda, MQ.grouped_quant_matmul_pair_cuda, MQ.grouped_quant_matmul_cuda,
+            M.mla_decode_attention_cuda, M.mla_prefill_attention_cuda, Q.quant_matmul_w4a8_cuda,
+            Q.quant_matmul_group_cuda, Q.quant_matmul_dequant_cuda)
+
+
+def deepseek_step_launches(model, T, S, decode_only):
+    """What one engine step of T tokens and S selected rows must launch, by
+    wrapper name: K9 (decode-only) or K10 once a layer; per MoE layer K6
+    three times for bf16 experts, and for quantized ones K8 (gate and up)
+    and K7 (down) where the T * top_k routed rows take the decode kernel
+    (the dispatcher's takes_decode_kernel), else K6 in their place (two for
+    the pair, one for down); and each quantized projection's kernel as
+    plan() picks it (M = T; the lm_head's M = S)."""
+    from scalellm_tpu_torch.models.common import QuantExperts, QuantLinear
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    a = model.args
+    want = {c.__name__: 0 for c in deepseek_counters()}
+    want["mla_decode_attention_cuda" if decode_only else "mla_prefill_attention_cuda"] = a.n_layers
+    rows = T * a.n_experts_per_token
+    for layer in model.layers:
+        if not layer.moe:
+            continue
+        gate, down = layer.experts_gate, layer.experts_down
+        if not isinstance(gate, QuantExperts):
+            want["grouped_matmul_cuda"] += 3
+            continue
+        for w, K, kernel, calls in ((gate, a.hidden_size, "grouped_quant_matmul_pair_cuda", 2),
+                                    (down, gate.qweight.shape[1], "grouped_quant_matmul_cuda", 1)):
+            if MQ.takes_decode_kernel(rows, K, w.qweight, w.scales):
+                want[kernel] += 1
+            else:
+                want["grouped_matmul_cuda"] += calls
+    for name, m in model.named_modules():
+        if isinstance(m, QuantLinear):
+            K = m.qweight.shape[1] * (2 if m.bits == 4 else 1)
+            variant = Q.plan(S if name == "lm_head" else T, K, m.qweight.shape[0], m.bits, m.group_size,
+                             m.scales.element_size(), False, tile_n=m.tile_n)[0]
+            want[f"quant_matmul_{variant}_cuda"] += 1
+    return want
+
+
+def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
+    """Serve the checkpoint at `path` with LLM(path, quantize=quantize):
+    phase 6 in bf16, phase 7 with runtime-INT4 experts and projections."""
+    from scalellm_tpu_torch import LLM, SamplingParams
+    from scalellm_tpu_torch.layers.moe import quant_expert_ffn
+    from scalellm_tpu_torch.models.common import QuantExperts
+    from scalellm_tpu_torch.ops import grouped_matmul as G
+    from scalellm_tpu_torch.ops import mla_attention as M
+    from scalellm_tpu_torch.ops import quant_matmul as Q
     from scalellm_tpu_torch.utils.metrics import HISTOGRAMS
 
-    cfg = dict(DEEPSEEK_V2_LITE, num_hidden_layers=n_layers)
-    L = n_layers
-    L_moe = L - min(cfg["first_k_dense_replace"], L)
-    gmm, k9, k10 = G.grouped_matmul_cuda, M.mla_decode_attention_cuda, M.mla_prefill_attention_cuda
-    counters = (gmm, k9, k10)
-    depth = dict(layers=L, full_depth=L == DEEPSEEK_V2_LITE["num_hidden_layers"])
+    import gc
+
+    tag = f"deepseek_{quantize}" if quantize else "deepseek"
+    counters = deepseek_counters()
+    gc.collect()  # the previous phase's model, before this one loads
+    depth = dict(layers=n_layers, full_depth=n_layers == DEEPSEEK_V2_LITE["num_hidden_layers"])
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="scalellm_deepseek_v2_lite_")
+    torch.cuda.reset_peak_memory_stats()
     llm = None
     try:
-        tensors = deepseek_checkpoint_tensors(cfg)
-        need = sum(2 * functools.reduce(lambda a, b: a * b, shape, 1) for _, shape, _ in tensors)
-        free = shutil.disk_usage(tmp).free
-        if free < need + 2**30:
-            fail(f"deepseek: the {need / 1e9:.1f} GB checkpoint does not fit the {free / 1e9:.1f} GB free "
-                 f"under {tmp}; --deepseek-layers cuts the depth")
         t0 = time.monotonic()
-        nbytes = write_checkpoint(torch, tmp, cfg, tensors)
-        t_write = time.monotonic() - t0
-        t0 = time.monotonic()
-        llm = LLM(tmp, max_tokens_per_batch=512)
+        llm = LLM(path, max_tokens_per_batch=512, quantize=quantize)
         torch.cuda.synchronize()
         t_load = time.monotonic() - t0
-        shutil.rmtree(tmp, ignore_errors=True)  # the weights are on the card
         engine = llm._handler.engine
         model = engine.model
         weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
-        emit(dict(phase="deepseek_setup", **depth, checkpoint_bytes=nbytes, write_s=t_write, load_s=t_load,
-                  weight_bytes_on_card=weight_bytes, kv_blocks=engine.block_manager.options.num_blocks,
+        experts = [m for m in model.modules() if isinstance(m, QuantExperts)]
+        emit(dict(phase=f"{tag}_setup", **depth, quantize=quantize or None, load_s=t_load,
+                  # the peak of LLM(...): loading, quantizing, then the KV cache (90% of what is left)
+                  peak_bytes_at_start=torch.cuda.max_memory_allocated(), weight_bytes_on_card=weight_bytes,
+                  expert_bits=experts[0].bits if experts else 16,
+                  expert_group=experts[0].group_size if experts else None,
+                  kv_blocks=engine.block_manager.options.num_blocks,
                   kv_cache_shape=list(engine.executor.kv_cache.shape)))
 
         greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
@@ -1288,24 +1467,25 @@ def phase_end_to_end_deepseek(torch, card, n_layers):
         ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
         mean_ttft = (ttft.total - ttft_before[0]) / max(ttft.count - ttft_before[1], 1)
         if len(outs) != len(ps):
-            fail(f"deepseek: {len(outs)} of {len(ps)} requests returned")
+            fail(f"{tag}: {len(outs)} of {len(ps)} requests returned")
         for o in outs:
             if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
-                fail(f"deepseek: request did not finish with 32 tokens: {o.status}, {o.usage}")
+                fail(f"{tag}: request did not finish with 32 tokens: {o.status}, {o.usage}")
         if not steps_log:
-            fail("deepseek: no engine step ran")
-        for T, S, decode_only, n_gmm, n_k9, n_k10 in steps_log:
-            want = (3 * L_moe, L if decode_only else 0, 0 if decode_only else L)
-            if (n_gmm, n_k9, n_k10) != want:
-                fail(f"deepseek: a step of T={T}, S={S}, decode_only={decode_only} launched "
-                     f"(K6, K9, K10) = {(n_gmm, n_k9, n_k10)}, expected {want}")
+            fail(f"{tag}: no engine step ran")
+        kinds = {}
+        for T, S, decode_only, *counts in steps_log:
+            want = deepseek_step_launches(model, T, S, decode_only)
+            got = dict(zip((c.__name__ for c in counters), counts))
+            if got != want:
+                fail(f"{tag}: a step of T={T}, S={S}, decode_only={decode_only} launched {got}, expected {want}")
+            kinds[f"T={T},S={S}"] = {k: v for k, v in want.items() if v}
         n_tokens = sum(o.usage.num_generated_tokens for o in outs)
-        n_decode = sum(1 for st in steps_log if st[2])
-        emit(dict(phase="deepseek_e2e", **depth, requests=len(outs), output_tokens=n_tokens, wall_s=wall,
+        emit(dict(phase=f"{tag}_e2e", **depth, requests=len(outs), output_tokens=n_tokens, wall_s=wall,
                   output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft, engine_steps=len(steps_log),
-                  decode_only_steps=n_decode, step_tokens=sorted({st[0] for st in steps_log}),
-                  launches=launches, per_step=dict(grouped_matmul=3 * L_moe, mla_decode_on_decode_steps=L,
-                                                   mla_prefill_on_other_steps=L),
+                  decode_only_steps=sum(1 for st in steps_log if st[2]),
+                  step_tokens=sorted({st[0] for st in steps_log}),
+                  launches={k: v for k, v in launches.items() if v}, per_step=kinds,
                   card=card["nvidia_smi"]))
 
         # Where the device time goes: the same workload under torch.profiler.
@@ -1317,12 +1497,13 @@ def phase_end_to_end_deepseek(torch, card, n_layers):
             llm.generate(prompts(SEED + 1), greedy)
             torch.cuda.synchronize()
         profiled_wall = time.monotonic() - t0
-        emit(dict(phase="deepseek_profile", engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
+        emit(dict(phase=f"{tag}_profile", engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
                   unprofiled_wall_s=wall, **device_breakdown(prof, wall, len(steps_log)),
                   card=card["nvidia_smi"]))
         del prof
 
-        # A prefill batch (K10) and the decode step after it (K9) through the
+        # A prefill batch (K10; quantized: K4 and the experts through K6) and
+        # the decode step after it (K9; quantized: K2, K8, K7) through the
         # model twice over the same weights: the kernels, then the plain
         # versions. The plain run replays the kernel run's routing, layer by
         # layer: with random weights a near-tie in a router could otherwise
@@ -1349,29 +1530,29 @@ def phase_end_to_end_deepseek(torch, card, n_layers):
                 plain = impl == "plain"
                 model.attn_impl = M.plain_mla_paged_attention if plain else M.mla_paged_attention
                 model.gmm_impl = G.plain_grouped_matmul if plain else G.grouped_matmul
+                model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
+                model.qexperts_impl = (functools.partial(quant_expert_ffn, variant="plain") if plain
+                                       else quant_expert_ffn)
                 model._router = (lambda x, w: routes.pop(0)) if plain else recording
                 kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
                 a = model.logits(model(kv, prefill.to(DEVICE), all_hidden=True)[:n_tok])
                 b = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[: len(ids)])
                 logits[impl] = (a, b)
                 del kv
-        del model._router
-        model.attn_impl, model.gmm_impl = M.mla_paged_attention, G.grouped_matmul
         for which, i in (("prefill", 0), ("decode", 1)):
             got, want = logits["kernel"][i], logits["plain"][i]
             diff = (got - want).abs()
             err = diff.max().item()
-            emit(dict(phase="deepseek_logits", batch=which, rows=got.shape[0], max_abs_err=err,
+            emit(dict(phase=f"{tag}_logits", batch=which, rows=got.shape[0], max_abs_err=err,
                       mean_abs_err=diff.mean().item(), logits_std=want.std().item(),
                       argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
                       same_routing=True, tol=LOGITS_TOL))
             if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
-                fail(f"deepseek {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
+                fail(f"{tag} {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
         return launches
     finally:
         if llm is not None:
             llm.close()
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ main
@@ -1398,7 +1579,7 @@ def main() -> None:
     parser.add_argument("--int4-layers", type=int, default=LLAMA31_8B_INT4["num_hidden_layers"],
                         help="depth of the INT4 Llama-3.1-8B run (its widths are never cut)")
     parser.add_argument("--deepseek-layers", type=int, default=DEEPSEEK_V2_LITE["num_hidden_layers"],
-                        help="depth of the bf16 DeepSeek-V2-Lite run (its widths are never cut)")
+                        help="depth of the DeepSeek-V2-Lite runs, bf16 and INT4 (their widths are never cut)")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1413,41 +1594,62 @@ def main() -> None:
     attention_results = phase_kernels(torch, card)
     quant_results = phase_quant_kernels(torch, card)
     gmm_results, mla_results = phase_moe_mla_kernels(torch, card)
+    moe_quant_results = phase_moe_quant_kernels(torch, card)
     bf16_launches = phase_end_to_end(torch, card)
     int4_launches = phase_end_to_end_int4(torch, card, opts.int4_layers)
-    ds_launches = phase_end_to_end_deepseek(torch, card, opts.deepseek_layers)
+    # Phases 6 and 7 serve one DeepSeek-V2-Lite checkpoint, written once.
+    path, nbytes, t_write = write_deepseek_checkpoint(torch, opts.deepseek_layers)
+    try:
+        emit(dict(phase="deepseek_checkpoint", layers=opts.deepseek_layers, checkpoint_bytes=nbytes,
+                  write_s=t_write))
+        ds_launches = phase_end_to_end_deepseek(torch, card, path, opts.deepseek_layers)
+        ds4_launches = phase_end_to_end_deepseek(torch, card, path, opts.deepseek_layers, quantize="int4")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
 
     # Each kernel's launches on the main paths (counts set to 0 before each
     # path and read after it; the checks above launch outside that window),
-    # and its timing at a shape the main path gives it: attention at the
-    # 8-sequence decode batch, w4a8 at the decode step's gate_up projection
-    # (T = 16), dequant and group at the 512-token step's; the grouped GEMM
-    # at the decode step's gate/up (96 rows, padding included), the MLA decode kernel at the
-    # 8-sequence decode batch, the MLA prefill kernel at the mixed T = 512
-    # batch.
+    # summed over the paths that run it, and its timing at a shape the main
+    # path gives it: attention at the 8-sequence decode batch, w4a8 at the
+    # decode step's gate_up projection (T = 16), dequant and group at the
+    # 512-token step's; the grouped GEMM at the decode step's gate/up (96
+    # rows, padding included), the MLA decode kernel at the 8-sequence decode
+    # batch, the MLA prefill kernel at the mixed T = 512 batch; K8 and K7 at
+    # the INT4 decode step (96 rows) of gate/up and down.
+    def launched(name):
+        return sum(run.get(name, 0) for run in (int4_launches, ds_launches, ds4_launches))
+
     source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
+    moe_source = "scalellm_tpu_torch/csrc/moe_quant.cu"
     kernels = [
         kernel_entry("ragged_paged_attention", "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
                      "scalellm_tpu/ops/attention.py:131",
                      bf16_launches + int4_launches["ragged_paged_attention_cuda"],
                      attention_results, "a_decode"),
         kernel_entry("quant_matmul_w4a8", source, "scalellm_tpu/ops/quant_matmul.py:360",
-                     int4_launches["quant_matmul_w4a8_cuda"], quant_results["w4a8"],
+                     launched("quant_matmul_w4a8_cuda"), quant_results["w4a8"],
                      ("gate_up_proj", 16, False)),
         kernel_entry("quant_matmul_group", source, "scalellm_tpu/ops/quant_matmul.py:259",
-                     int4_launches["quant_matmul_group_cuda"], quant_results["group"],
+                     launched("quant_matmul_group_cuda"), quant_results["group"],
                      ("gate_up_proj", 512, False)),
         kernel_entry("quant_matmul_dequant", source, "scalellm_tpu/ops/quant_matmul.py:519",
-                     int4_launches["quant_matmul_dequant_cuda"], quant_results["dequant"],
+                     launched("quant_matmul_dequant_cuda"), quant_results["dequant"],
                      ("gate_up_proj", 512, False)),
         kernel_entry("grouped_matmul", "scalellm_tpu_torch/csrc/grouped_matmul.cu",
-                     "scalellm_tpu/layers/moe.py:70", ds_launches["grouped_matmul_cuda"],
+                     "scalellm_tpu/layers/moe.py:70", launched("grouped_matmul_cuda"),
                      gmm_results, ("decode", "gate_up")),
+        kernel_entry("moe_quant_decode", moe_source, "scalellm_tpu/ops/moe_quant.py:541",
+                     launched("grouped_quant_matmul_cuda"),
+                     {c: r for c, r in moe_quant_results.items() if c[0] == "down"}, ("down", 4, "decode")),
+        kernel_entry("moe_quant_decode_pair", moe_source, "scalellm_tpu/ops/moe_quant.py:406",
+                     launched("grouped_quant_matmul_pair_cuda"),
+                     {c: r for c, r in moe_quant_results.items() if c[0] == "gate_up"},
+                     ("gate_up", 4, "decode")),
         kernel_entry("mla_decode", "scalellm_tpu_torch/csrc/mla_attention.cu",
-                     "scalellm_tpu/ops/mla_attention.py:96", ds_launches["mla_decode_attention_cuda"],
+                     "scalellm_tpu/ops/mla_attention.py:96", launched("mla_decode_attention_cuda"),
                      {"k": mla_results["mla_decode"]}, "k"),
         kernel_entry("mla_prefill", "scalellm_tpu_torch/csrc/mla_attention.cu",
-                     "scalellm_tpu/ops/mla_attention.py:271", ds_launches["mla_prefill_attention_cuda"],
+                     "scalellm_tpu/ops/mla_attention.py:271", launched("mla_prefill_attention_cuda"),
                      {"k": mla_results["mla_prefill"]}, "k"),
     ]
     for k in kernels:

@@ -84,7 +84,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_unpack.cuh"
+
 namespace {
+
+using scalellm_quant::bf16x2_bits;
+using scalellm_quant::bf16x2_from_bits;
+using scalellm_quant::mma_bf16;
 
 typedef __nv_bfloat16 bf16;
 
@@ -388,29 +394,12 @@ __global__ void __launch_bounds__(kW4Threads) w4a8_kernel(
 constexpr int kTileThreads = 128;
 constexpr int kBM = 64, kBN = 64;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // Four 8x8 b16 matrices from shared memory, one row address per lane.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ __nv_bfloat162 bf16x2_from_bits(uint32_t bits) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&bits);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -525,23 +514,17 @@ __global__ void __launch_bounds__(kTileThreads) tile_kernel(
     // (q - z) in bf16, then times the bf16 scale, rounded to bf16 again.
     bf16* dst = &Bs[b_n * kLD + b_k];
     if (BITS == 4) {
-      // A nibble n (unsigned, the weight plus 8 once its sign bit is
-      // flipped) placed in the low mantissa bits of the bf16 128.0 reads as
-      // 128 + n; subtracting 136 (+ z) leaves the weight (minus its zero
-      // point), exactly. Two nibbles at a time, no integer-to-float converts.
+      // Exact unpacking (quant_unpack.cuh); the offset 136 + z leaves the
+      // weight minus its zero point.
       const __nv_bfloat162 offset = __float2bfloat162_rn(136.f + (DEQUANT ? (float)b_zero : 0.f));
       const __nv_bfloat162 s2 = __float2bfloat162_rn(b_scale);
 #pragma unroll
       for (int i = 0; i < kBWords; ++i) {  // 8 weights a word
-        const uint32_t w = b_reg[i] ^ 0x88888888u;
         uint32_t packed[4];
+        scalellm_quant::unpack_int4x8(b_reg[i], offset, packed);
+        if (DEQUANT) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t byte = w >> (8 * j);
-          const uint32_t bits = 0x43004300u | (byte & 0xFu) | ((byte << 12) & 0x000F0000u);
-          __nv_bfloat162 v = __hsub2(bf16x2_from_bits(bits), offset);
-          if (DEQUANT) v = __hmul2(v, s2);
-          packed[j] = bf16x2_bits(v);
+          for (int j = 0; j < 4; ++j) packed[j] = bf16x2_bits(__hmul2(bf16x2_from_bits(packed[j]), s2));
         }
         *reinterpret_cast<uint4*>(dst + 8 * i) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
       }

@@ -12,8 +12,14 @@ so the reference's 128-row alignment (row_align) has no counterpart here.
 Expert weights are stored [E, N, K] (torch's [out, in] per expert): gate
 and up [E, F, D], down [E, D, F]; the router [E, D].
 
-Not ported yet: expert parallelism (ep_axis, moe_mlp_a2a) and quantized
-experts.
+Quantized experts (int4/int8, ops/moe_quant.py's layout) go through
+quant_expert_ffn: gate and up in one routed call (K8 on decode-sized
+steps), then down (K7); steps with more rows dequantize and run K6, as the
+reference does. single_token_layout builds the reference's sort-free T=1
+layout for them: the token's k experts are distinct, so row j belongs to
+top-k slot j's expert and no sort is needed.
+
+Not ported yet: expert parallelism (ep_axis, moe_mlp_a2a).
 """
 
 from __future__ import annotations
@@ -24,6 +30,13 @@ import torch
 
 from scalellm_tpu_torch.layers.activations import act_with_mul
 from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul
+from scalellm_tpu_torch.ops.moe_quant import (
+    active_experts,
+    expert_starts,
+    grouped_quant_matmul,
+    grouped_quant_matmul_pair,
+    takes_decode_kernel,
+)
 
 
 def softmax_topk(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
@@ -60,6 +73,42 @@ def expert_ffn(xs: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor, down_
     y = gmm(h, down_w, group_sizes)
     covered = torch.arange(y.shape[0], device=y.device) < group_sizes.sum()
     return torch.where(covered[:, None], y, 0.0)
+
+
+def quant_expert_ffn(xs: torch.Tensor, gate, up, down, group_sizes: torch.Tensor, act: str = "silu", *,
+                     active=None, starts=None, max_active: int = 0, variant: str = "") -> torch.Tensor:
+    """The gated expert FFN over quantized experts (modules holding qweight
+    and scales), f32 [R, D], 0 on rows outside every group. active / starts
+    give an explicit layout (single_token_layout); by default the rows are
+    sorted by expert, and where all three calls take the decode kernel the
+    active list and starts are computed here once, on the device, for all
+    of them. variant goes to ops/moe_quant.py's dispatcher."""
+    R, K = xs.shape
+    if active is None and starts is None and all(
+            takes_decode_kernel(R, k, w.qweight, w.scales)
+            for k, w in ((K, gate), (K, up), (gate.qweight.shape[1], down))):
+        active, starts = active_experts(group_sizes, max_active), expert_starts(group_sizes)
+    kw = dict(active=active, starts=starts, max_active=max_active, variant=variant)
+    g, u = grouped_quant_matmul_pair(xs, gate.qweight, gate.scales, up.qweight, up.scales, group_sizes, **kw)
+    h = act_with_mul(act, g, u).to(xs.dtype)
+    return grouped_quant_matmul(h, down.qweight, down.scales, group_sizes, **kw)
+
+
+def single_token_layout(topk_e: torch.Tensor, topk_w: torch.Tensor, n_experts: int):
+    """The reference's sort-free layout of one token's k distinct experts:
+    (rows Tp = k rounded up to 8, group sizes, starts and the active list,
+    each i32 and on the device, and the f32 weight of each row, 0 on the
+    rows past k). Row j belongs to top-k slot j's expert."""
+    k = topk_e.shape[-1]
+    dev = topk_e.device
+    e_sel = topk_e[0].to(torch.int32)
+    sizes = torch.zeros(n_experts, dtype=torch.int32, device=dev).index_fill_(0, e_sel.long(), 1)
+    starts = torch.zeros(n_experts, dtype=torch.int32, device=dev).index_copy_(
+        0, e_sel.long(), torch.arange(k, dtype=torch.int32, device=dev))
+    Tp = -(-k // 8) * 8
+    w_col = torch.zeros(Tp, dtype=torch.float32, device=dev)
+    w_col[:k] = topk_w[0].float()
+    return Tp, sizes, starts, e_sel, w_col
 
 
 def combine(y: torch.Tensor, topk_w: torch.Tensor, order: torch.Tensor, token_of: torch.Tensor,

@@ -41,10 +41,12 @@ from scalellm_tpu_torch.layers.norms import rms_norm
 from scalellm_tpu_torch.layers.rope import apply_rope, compute_cos_sin
 from scalellm_tpu_torch.ops.attention import ragged_paged_attention
 from scalellm_tpu_torch.ops.kv_update import set_kv_cache
+from scalellm_tpu_torch.ops.moe_quant import quantize_experts_int4, quantize_experts_int8
 from scalellm_tpu_torch.ops.quant_matmul import (
     DEFAULT_TILE_N,
     LM_HEAD_TILE_N,
     quant_matmul,
+    quantize_linear,
     untile_quant_layout,
 )
 
@@ -121,6 +123,37 @@ class QuantLinear(nn.Module):
             buf("zeros", groups, n, dtype=torch.int8)
         if desc_act:
             buf("perm", k, dtype=torch.int32)
+
+    def quantize(self, weight: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """qweight and scales from a dense [out, in] weight (symmetric,
+        runtime quantization), on the weight's device."""
+        qweight, scales = quantize_linear(weight, self.bits, self.group_size)
+        return {"qweight": qweight, "scales": scales}
+
+
+class QuantExperts(nn.Module):
+    """The E experts of one [K -> N] projection, quantized in the layout of
+    ops/moe_quant.py: int4 qweight int8 [E, N, K/2] with bf16 scales [E,
+    K/G, N], or int8 qweight [E, N, K] with f32 scales [E, N]."""
+
+    def __init__(self, n_experts: int, k: int, n: int, *, bits: int, group_size: int, device="cpu"):
+        super().__init__()
+        self.bits, self.group_size = bits, group_size
+        E = n_experts
+        if bits == 4:
+            q_shape, s_shape, s_dtype = (E, n, k // 2), (E, k // group_size, n), torch.bfloat16
+        else:
+            q_shape, s_shape, s_dtype = (E, n, k), (E, n), torch.float32
+        self.register_buffer("qweight", torch.empty(*q_shape, dtype=torch.int8, device=device))
+        self.register_buffer("scales", torch.empty(*s_shape, dtype=s_dtype, device=device))
+
+    def quantize(self, weight: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """qweight and scales from the dense experts [E, N, K]."""
+        if self.bits == 4:
+            qweight, scales = quantize_experts_int4(weight, self.group_size)
+        else:
+            qweight, scales = quantize_experts_int8(weight)
+        return {"qweight": qweight, "scales": scales}
 
 
 class DecoderLayer(nn.Module):

@@ -1,6 +1,6 @@
 """DeepSeek-V2 family: Multi-head Latent Attention over a K-only latent page
 cache, a dense first stack, then MoE layers with shared experts
-(counterpart of scalellm_tpu/models/deepseek.py, the bf16 path).
+(counterpart of scalellm_tpu/models/deepseek.py).
 
 Attention runs in the absorbed formulation, as multi-query attention over
 one shared latent head:
@@ -21,14 +21,41 @@ plain gated FFN added without a gate.
 
 Weights are nn.Parameters in torch's [out, in] layout, per layer: the dense
 FFN's and the shared experts' gate/up fused into gate_up_proj, the routed
-experts stacked [E, N, K] (experts_gate, experts_up, experts_down). The
-attention and grouped-matmul implementations are hooks (attn_impl, gmm_impl)
-so a caller can swap the kernels for their plain versions.
+experts stacked [E, N, K] (experts_gate, experts_up, experts_down).
+
+Runtime-quantized models (quant_args, internal quantization of a bf16
+checkpoint; the reference's moe_quant and proj_quant, which on one device
+always go together):
+  - the routed experts are QuantExperts at quant_args.bits: int4 per
+    (expert, k-group, channel), the group quant_args.group_size (128) halved
+    until it divides the hidden and expert widths, or int8 per (expert,
+    channel). A step of T tokens runs them through layers/moe.py's
+    quant_expert_ffn: K8 for gate and up and K7 for down while T * top_k
+    rows fit the decode kernel (fits_decode_kernel), else dequantized experts
+    through K6. At T = 1 the reference's sort-free layout is taken whenever
+    the decode kernel fits, on every device (it equals the sorted dispatch).
+  - q_proj / q_b_proj, o_proj, kv_a_proj (only where its width is a multiple
+    of 128; never on a real DeepSeek), the dense layer's gate_up_proj and
+    down_proj, the shared experts' gate_up_proj and down_proj, and the
+    lm_head are symmetric QuantLinears at the same bits wherever pick_group
+    finds a group size for their input width (V2-Lite: 128 at K = 2048, 32
+    at the shared experts' K = 2816, none at the dense down's K = 10944);
+    the others stay bf16, as do q_a, kv_b and the router. A fused gate_up
+    keeps the reference's unfused tile width, so plan() picks the same
+    k-block.
+Pre-quantized (GPTQ/AWQ) DeepSeek checkpoints are refused: the reference has
+no such path.
+
+The attention, the grouped matmul, the quantized matmul and the quantized
+experts are hooks (attn_impl, gmm_impl, quant_impl, qexperts_impl) so a
+caller can swap the kernels for their plain versions or the float
+reference. The reference's MOE_DISPATCH_T1 / MOE_FUSE_GATE_UP environment
+switches are not ported (both choices give the same values; the port takes
+the T=1 layout and the fused pair wherever they apply), nor is its
+BENCH_ABLATE.
 
 Not ported (each raises NotImplementedError where the model args ask for
-it): quantized experts and projections (moe_quant, proj_quant), int8 latent
-pages, tensor and expert parallelism. The reference's T=1 sort-free
-dispatch belongs to the quantized experts and waits with them.
+it): int8 latent pages, tensor and expert parallelism.
 """
 
 from __future__ import annotations
@@ -44,13 +71,27 @@ import torch.nn.functional as F
 from scalellm_tpu_torch.config import ModelArgs, hf_dtype
 from scalellm_tpu_torch.engine.params import ModelInputs
 from scalellm_tpu_torch.layers.activations import act_with_mul
-from scalellm_tpu_torch.layers.moe import combine, dispatch, expert_ffn
+from scalellm_tpu_torch.layers.moe import (
+    combine,
+    dispatch,
+    expert_ffn,
+    quant_expert_ffn,
+    single_token_layout,
+)
 from scalellm_tpu_torch.layers.norms import rms_norm
 from scalellm_tpu_torch.layers.rope import apply_rope
-from scalellm_tpu_torch.models.common import _param, active_quant, model_dtype
+from scalellm_tpu_torch.models.common import (
+    QuantExperts,
+    QuantLinear,
+    _param,
+    active_quant,
+    model_dtype,
+)
 from scalellm_tpu_torch.models.registry import ModelRegistry
 from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul
 from scalellm_tpu_torch.ops.mla_attention import mla_paged_attention, set_latent_cache
+from scalellm_tpu_torch.ops.moe_quant import takes_decode_kernel
+from scalellm_tpu_torch.ops.quant_matmul import DEFAULT_TILE_N, quant_matmul, untile_quant_layout
 
 
 def parse_yarn(args: ModelArgs) -> Optional[Dict[str, float]]:
@@ -107,17 +148,58 @@ def n_dense_layers(args: ModelArgs) -> int:
     return min(args.first_k_dense_replace, args.n_layers) if args.n_experts else args.n_layers
 
 
+def pick_group(K: int, bits: int) -> Optional[int]:
+    """The group size of a plain [K, N] projection, or None where it stays
+    bf16 (a copy of the reference's MLADecoderModel._pick_group): the
+    largest of 128, 64, 32, 16, 8 whose scale rows the reference's stacked
+    stream can tile and whose K has a usable k-block (a multiple of 128 and
+    of the scale-row chunk that divides K, with a weight tile of at most 4
+    MB at the 1024-wide tile). DeepSeek-V2-Lite: K=2048 -> 128, the shared
+    experts' K=2816 -> 32, the dense down's K=10944 -> None."""
+    pack = 2 if bits == 4 else 1
+    for G in (128, 64, 32, 16, 8):
+        if K % G:
+            continue
+        rows = K // G
+        if rows % 16 == 0:
+            chunk = 16 * G
+        elif rows % 8 == 0 and K % (8 * G) == 0:
+            chunk = 8 * G
+        else:
+            continue
+        step = math.lcm(chunk, 128)
+        bk = (K // step) * step
+        while bk >= step:
+            if K % bk == 0 and (bk // pack) * 1024 <= 4 * 1024 * 1024:
+                return G
+            bk -= step
+    return None
+
+
+def expert_group(hidden: int, moe_width: int, group_size: int) -> int:
+    """The int4 experts' group size: the requested one (128 by default),
+    halved while it does not divide both widths (the reference's rule)."""
+    G = group_size or 128
+    while G > 8 and (hidden % G or moe_width % G):
+        G //= 2
+    if hidden % G or moe_width % G:
+        raise ValueError(f"no int4 expert group size divides {hidden} and {moe_width}")
+    return G
+
+
 class SharedExperts(nn.Module):
-    def __init__(self, d: int, f: int, dtype, device):
+    def __init__(self, d: int, f: int, proj):
         super().__init__()
-        self.gate_up_proj = _param(2 * f, d, dtype=dtype, device=device)
-        self.down_proj = _param(d, f, dtype=dtype, device=device)
+        self.gate_up_proj = proj(d, 2 * f, parts=2)
+        self.down_proj = proj(f, d)
 
 
 class MLALayer(nn.Module):
-    """Attention weights of every layer, then a dense FFN or an MoE block."""
+    """Attention weights of every layer, then a dense FFN or an MoE block.
+    bits (4 or 8) quantizes the experts and, where pick_group allows, the
+    projections (see the module docstring); 0 keeps everything dense."""
 
-    def __init__(self, args: ModelArgs, moe: bool, dtype, device):
+    def __init__(self, args: ModelArgs, moe: bool, dtype, device, bits: int = 0):
         super().__init__()
         a = args
         D, H = a.hidden_size, a.n_heads
@@ -127,30 +209,46 @@ class MLALayer(nn.Module):
         def p(*shape):
             return _param(*shape, dtype=dtype, device=device)
 
+        def proj(k: int, n: int, parts: int = 1, allow: bool = True):
+            """A [k -> n] projection (`parts` fused ones): quantized where
+            bits are set and pick_group finds a group, else dense."""
+            G = pick_group(k, bits) if bits and allow else None
+            if G is None:
+                return p(n, k)
+            return QuantLinear(k, n, bits=bits, group_size=G, scales_dtype=torch.bfloat16,
+                               symmetric=True, tile_n=min(DEFAULT_TILE_N, n // parts), device=device)
+
         self.moe = moe
         self.input_norm = p(D)
         self.post_norm = p(D)
         if a.q_lora_rank:
             self.q_a_proj = p(a.q_lora_rank, D)
             self.q_a_norm = p(a.q_lora_rank)
-            self.q_b_proj = p(H * qk, a.q_lora_rank)
+            self.q_b_proj = proj(a.q_lora_rank, H * qk)
         else:
-            self.q_proj = p(H * qk, D)
-        self.kv_a_proj = p(R + r, D)
+            self.q_proj = proj(D, H * qk)
+        # kv_a only where its width is a multiple of 128, as in the reference.
+        self.kv_a_proj = proj(D, R + r, allow=(R + r) % 128 == 0)
         self.kv_a_norm = p(R)
         self.kv_b_proj = p(H * (a.qk_nope_head_dim + a.v_head_dim), R)
-        self.o_proj = p(D, H * a.v_head_dim)
+        self.o_proj = proj(H * a.v_head_dim, D)
         if moe:
             E, Fm = a.n_experts, a.moe_intermediate_size
             self.router = p(E, D)
-            self.experts_gate = p(E, Fm, D)
-            self.experts_up = p(E, Fm, D)
-            self.experts_down = p(E, D, Fm)
+            if bits:
+                G = expert_group(D, Fm, a.quant_args.group_size) if bits == 4 else 0
+                self.experts_gate = QuantExperts(E, D, Fm, bits=bits, group_size=G, device=device)
+                self.experts_up = QuantExperts(E, D, Fm, bits=bits, group_size=G, device=device)
+                self.experts_down = QuantExperts(E, Fm, D, bits=bits, group_size=G, device=device)
+            else:
+                self.experts_gate = p(E, Fm, D)
+                self.experts_up = p(E, Fm, D)
+                self.experts_down = p(E, D, Fm)
             if a.n_shared_experts:
-                self.shared_experts = SharedExperts(D, Fm * a.n_shared_experts, dtype, device)
+                self.shared_experts = SharedExperts(D, Fm * a.n_shared_experts, proj)
         else:
-            self.gate_up_proj = p(2 * a.intermediate_size, D)
-            self.down_proj = p(D, a.intermediate_size)
+            self.gate_up_proj = proj(D, 2 * a.intermediate_size, parts=2)
+            self.down_proj = proj(a.intermediate_size, D)
 
 
 class MLADecoderModel(nn.Module):
@@ -158,14 +256,22 @@ class MLADecoderModel(nn.Module):
 
     def __init__(self, args: ModelArgs, attn_impl=None, device="cpu"):
         super().__init__()
-        if active_quant(args) is not None:
+        quant = active_quant(args)
+        if quant is not None and quant.quant_method != "internal":
             raise NotImplementedError(
-                "deepseek_v2: quantized experts and projections (moe_quant, proj_quant) are not ported")
+                f"deepseek_v2: {quant.quant_method} checkpoints are not supported (nor by the reference); "
+                "serve the bf16 checkpoint with quantize='int4' or 'int8'")
         if args.kv_cache_dtype != "auto":
             raise NotImplementedError("deepseek_v2: int8 latent pages are not ported")
         self.args = args
         self.attn_impl = attn_impl or mla_paged_attention
         self.gmm_impl = grouped_matmul
+        self.quant_impl = quant_matmul
+        self.qexperts_impl = quant_expert_ffn
+        # The reference's moe_quant (and proj_quant, the same on one device).
+        self.quant_bits = (quant.bits or 8) if quant is not None and args.n_experts > 0 else 0
+        if self.quant_bits not in (0, 4, 8):
+            raise ValueError(f"quantization to {self.quant_bits} bits is not supported")
         self.dtype = model_dtype(args)
         a = args
         self.qk_head_dim = a.qk_nope_head_dim + a.qk_rope_head_dim
@@ -179,12 +285,18 @@ class MLADecoderModel(nn.Module):
             self.sm_scale = self.sm_scale * m * m
         self.embed_tokens = _param(a.vocab_size, a.hidden_size, dtype=self.dtype, device=device)
         self.layers = nn.ModuleList(
-            MLALayer(a, moe=i >= self.n_dense, dtype=self.dtype, device=device)
+            MLALayer(a, moe=i >= self.n_dense, dtype=self.dtype, device=device, bits=self.quant_bits)
             for i in range(a.n_layers)
         )
         self.final_norm = _param(a.hidden_size, dtype=self.dtype, device=device)
         if not a.tie_word_embeddings:
-            self.lm_head = _param(a.vocab_size, a.hidden_size, dtype=self.dtype, device=device)
+            G = pick_group(a.hidden_size, self.quant_bits) if self.quant_bits else None
+            if G:  # the reference quantizes it whenever it quantizes projections
+                self.lm_head = QuantLinear(
+                    a.hidden_size, a.vocab_size, bits=self.quant_bits, group_size=G,
+                    scales_dtype=torch.bfloat16, symmetric=True, device=device)
+            else:
+                self.lm_head = _param(a.vocab_size, a.hidden_size, dtype=self.dtype, device=device)
 
     def kv_cache_shape(self, num_pages: int, page_size: int):
         """[L, P, page, 1, kv_lora_rank + rope dims]: one K-only latent head."""
@@ -204,12 +316,12 @@ class MLADecoderModel(nn.Module):
         eps = a.rms_norm_eps
         x = rms_norm(h, layer.input_norm, eps)
         if a.q_lora_rank:
-            q = F.linear(rms_norm(F.linear(x, layer.q_a_proj), layer.q_a_norm, eps), layer.q_b_proj)
+            q = self._proj(rms_norm(F.linear(x, layer.q_a_proj), layer.q_a_norm, eps), layer.q_b_proj)
         else:
-            q = F.linear(x, layer.q_proj)
+            q = self._proj(x, layer.q_proj)
         q = q.view(T, H, self.qk_head_dim)
         q_nope, q_pe = q[..., :nope], q[..., nope:]
-        ckv = F.linear(x, layer.kv_a_proj)
+        ckv = self._proj(x, layer.kv_a_proj)
         c_kv = rms_norm(ckv[:, :R], layer.kv_a_norm, eps)
         q_pe = apply_rope(q_pe, cos, sin, interleaved=True)
         k_pe = apply_rope(ckv[:, None, R:], cos, sin, interleaved=True)[:, 0]
@@ -224,7 +336,14 @@ class MLADecoderModel(nn.Module):
             sm_scale=self.sm_scale, v_dim=R, decode_only=decode_only,
         )  # [T, H, R]
         o = torch.bmm(o_lat.transpose(0, 1), w_kv[:, nope:].transpose(1, 2))  # [H, T, vd]
-        return h + F.linear(o.transpose(0, 1).reshape(T, H * vd), layer.o_proj)
+        return h + self._proj(o.transpose(0, 1).reshape(T, H * vd), layer.o_proj)
+
+    def _proj(self, x: torch.Tensor, w) -> torch.Tensor:
+        """x @ W^T in x's type, for a dense or a quantized projection."""
+        if isinstance(w, QuantLinear):
+            return self.quant_impl(x, w.qweight, w.scales, None, bits=w.bits, symmetric=True,
+                                   tile_n=w.tile_n)
+        return F.linear(x, w)
 
     def _router(self, x: torch.Tensor, router_w: torch.Tensor):
         """Softmax scores, greedy or group-limited top-k; then top-k
@@ -246,21 +365,44 @@ class MLADecoderModel(nn.Module):
         return topk_w, topk_e
 
     def _moe_ffn(self, layer: MLALayer, x: torch.Tensor) -> torch.Tensor:
-        """Routed experts (sorted dispatch, three grouped GEMMs) plus the
-        shared experts; f32 [T, D]."""
+        """Routed experts (sorted dispatch, three grouped GEMMs; quantized:
+        the pair and down, or the T=1 layout) plus the shared experts; f32
+        [T, D]."""
+        a = self.args
+        E, k, T = a.n_experts, a.n_experts_per_token, x.shape[0]
         topk_w, topk_e = self._router(x, layer.router)
-        order, token_of, group_sizes = dispatch(topk_e, self.args.n_experts)
-        y = expert_ffn(x[token_of], layer.experts_gate, layer.experts_up, layer.experts_down,
-                       group_sizes, "silu", self.gmm_impl)
-        out = combine(y, topk_w, order, token_of, x.shape[0])
+        gate, up, down = layer.experts_gate, layer.experts_up, layer.experts_down
+        if not isinstance(gate, QuantExperts):
+            order, token_of, group_sizes = dispatch(topk_e, E)
+            y = expert_ffn(x[token_of], gate, up, down, group_sizes, "silu", self.gmm_impl)
+            out = combine(y, topk_w, order, token_of, T)
+        elif T == 1 and self._single_token_fits(layer, k):
+            Tp, sizes, starts, active, w_col = single_token_layout(topk_e, topk_w, E)
+            y = self.qexperts_impl(x.expand(Tp, -1).contiguous(), gate, up, down, sizes, "silu",
+                                   active=active, starts=starts, max_active=min(E, k))
+            out = (y * w_col[:, None]).sum(dim=0, keepdim=True)
+        else:
+            order, token_of, group_sizes = dispatch(topk_e, E)
+            y = self.qexperts_impl(x[token_of], gate, up, down, group_sizes, "silu",
+                                   max_active=min(E, T * k))
+            out = combine(y, topk_w, order, token_of, T)
         if hasattr(layer, "shared_experts"):
             out = out + self._dense_ffn(layer.shared_experts, x).float()
         return out
 
+    @staticmethod
+    def _single_token_fits(layer: MLALayer, k: int) -> bool:
+        """Whether both routed calls of the T=1 layout (k rows) take the
+        decode kernel, which that layout needs. Down's K is gate's N,
+        whatever the bits."""
+        gate, down = layer.experts_gate, layer.experts_down
+        return (takes_decode_kernel(k, layer.post_norm.shape[0], gate.qweight, gate.scales)
+                and takes_decode_kernel(k, gate.qweight.shape[1], down.qweight, down.scales))
+
     def _dense_ffn(self, mod, x: torch.Tensor) -> torch.Tensor:
-        g, u = F.linear(x, mod.gate_up_proj).chunk(2, dim=-1)
+        g, u = self._proj(x, mod.gate_up_proj).chunk(2, dim=-1)
         m = act_with_mul(self.args.hidden_act, g.float(), u.float()).to(x.dtype)
-        return F.linear(m, mod.down_proj)
+        return self._proj(m, mod.down_proj)
 
     def forward(
         self,
@@ -283,7 +425,7 @@ class MLADecoderModel(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """[S, D] -> [S, V] float32 logits."""
         w = self.embed_tokens if self.args.tie_word_embeddings else self.lm_head
-        return F.linear(hidden, w).float()
+        return self._proj(hidden, w).float()
 
 
 # ------------------------------------------------------------------ registry
@@ -375,7 +517,14 @@ def create_deepseek_v2(args: ModelArgs, attn_impl=None, device="cpu") -> MLADeco
 def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]:
     """The reference package's numpy tree for its MLADecoderModel
     (dense_layers.* and moe_layers.* stacked over their layers, experts
-    over E, projections [in, out]) -> this model's state_dict, on the CPU."""
+    over E, projections [in, out]) -> this model's state_dict, on the CPU.
+
+    A runtime-quantized tree carries the quantized projections as triples
+    in the reference's N-tiled storage [n_n, R, W] per layer: each is
+    untiled, cut back to the projection's width, qweight goes to the kernel
+    layout [N, R] and the all-zero zeros of the symmetric grid are dropped.
+    Quantized experts {qweight [E, K/2 or K, N], scales} go to [E, N, K/2 or
+    K] (transposed per expert); their scales keep their type and layout."""
 
     def tensor(x) -> torch.Tensor:
         arr = np.asarray(x)
@@ -389,31 +538,70 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
     def experts(x) -> torch.Tensor:  # [E, in, out] -> [E, out, in]
         return tensor(x).transpose(1, 2).contiguous()
 
-    renames = {"q_proj": "q_proj", "q_a": "q_a_proj", "q_b": "q_b_proj", "kv_a": "kv_a_proj",
-               "kv_b": "kv_b_proj", "o_proj": "o_proj", "router": "router",
-               "down_proj": "down_proj"}
+    def quant(node, n: int) -> Dict[str, torch.Tensor]:  # one projection's tiled triple
+        out = {}
+        for key in ("qweight", "scales"):
+            t = tensor(node[key])
+            t = (untile_quant_layout(t) if t.dim() > 2 else t)[..., :n]
+            out[key] = t.T.contiguous() if key == "qweight" else t.contiguous()
+        return out
+
+    def put(name: str, node, n: int) -> None:
+        if isinstance(node, dict):
+            for key, t in quant(node, n).items():
+                sd[f"{name}.{key}"] = t
+        else:
+            sd[name] = proj(node)
+
+    def put_fused(name: str, gate, up, n: int) -> None:
+        if isinstance(gate, dict):
+            g, u = quant(gate, n), quant(up, n)
+            sd[name + ".qweight"] = torch.cat([g["qweight"], u["qweight"]])
+            sd[name + ".scales"] = torch.cat([g["scales"], u["scales"]], dim=1)
+        else:
+            sd[name] = torch.cat([proj(gate), proj(up)])
+
+    a = args
+    D, H = a.hidden_size, a.n_heads
+    qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+    Fs = a.moe_intermediate_size * a.n_shared_experts
+    widths = {"q_proj": ("q_proj", H * qk), "q_b": ("q_b_proj", H * qk),
+              "kv_a": ("kv_a_proj", a.kv_lora_rank + a.qk_rope_head_dim),
+              "o_proj": ("o_proj", D), "down_proj": ("down_proj", D),
+              "shared_down_proj": ("shared_experts.down_proj", D)}
+    renames = {"q_a": "q_a_proj", "kv_b": "kv_b_proj", "router": "router"}
     sd = {
         "embed_tokens": tensor(jax_params["embed_tokens"]),
         "final_norm": tensor(jax_params["final_norm"]),
     }
-    if not args.tie_word_embeddings:
-        sd["lm_head"] = proj(jax_params["lm_head"])
-    n_dense = n_dense_layers(args)
-    for l in range(args.n_layers):
+    if not a.tie_word_embeddings:
+        put("lm_head", jax_params["lm_head"], a.vocab_size)
+
+    def at(node, i):
+        if isinstance(node, dict):
+            return {k: np.asarray(v)[i] for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    n_dense = n_dense_layers(a)
+    for l in range(a.n_layers):
         stack, i = ("dense_layers", l) if l < n_dense else ("moe_layers", l - n_dense)
-        layer = {k: np.asarray(v)[i] for k, v in jax_params[stack].items()}
+        layer = {k: at(v, i) for k, v in jax_params[stack].items()}
         pre = f"layers.{l}."
         for name, arr in layer.items():
             if name.endswith("norm"):
                 sd[pre + name] = tensor(arr)
             elif name in renames:
                 sd[pre + renames[name]] = proj(arr)
+            elif name in widths:
+                put(pre + widths[name][0], arr, widths[name][1])
+            elif name.startswith("moe_") and isinstance(arr, dict):
+                sd[pre + "experts_" + name[4:] + ".qweight"] = experts(arr["qweight"])
+                sd[pre + "experts_" + name[4:] + ".scales"] = tensor(arr["scales"])
             elif name.startswith("moe_"):
                 sd[pre + "experts_" + name[4:]] = experts(arr)
         if "gate_proj" in layer:
-            sd[pre + "gate_up_proj"] = torch.cat([proj(layer["gate_proj"]), proj(layer["up_proj"])])
+            put_fused(pre + "gate_up_proj", layer["gate_proj"], layer["up_proj"], a.intermediate_size)
         if "shared_gate_proj" in layer:
-            sd[pre + "shared_experts.gate_up_proj"] = torch.cat(
-                [proj(layer["shared_gate_proj"]), proj(layer["shared_up_proj"])])
-            sd[pre + "shared_experts.down_proj"] = proj(layer["shared_down_proj"])
+            put_fused(pre + "shared_experts.gate_up_proj", layer["shared_gate_proj"],
+                      layer["shared_up_proj"], Fs)
     return sd

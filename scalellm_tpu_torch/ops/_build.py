@@ -2,8 +2,9 @@
 
 Each source under csrc/ is compiled by nvcc for sm_90a into a shared library
 under build/scalellm_tpu_torch/ at the repository root, the first time it is
-needed. The library's file name carries a hash of its source, so an edited
-source is rebuilt and a stale library is never loaded. The build runs only
+needed. The library's file name carries a hash of its source and of the
+shared headers (csrc/*.cuh), so an edited source or header is rebuilt and a
+stale library is never loaded. The build runs only
 when a kernel is launched or build() is called, never at import.
 """
 
@@ -28,6 +29,7 @@ SOURCES = {
     "quant_matmul": "quant_matmul.cu",
     "grouped_matmul": "grouped_matmul.cu",
     "mla_attention": "mla_attention.cu",
+    "moe_quant": "moe_quant.cu",
 }
 
 NVCC_FLAGS = [
@@ -46,9 +48,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path; its name hashes the source and the shared
+    headers of csrc/ (a source may include any of them)."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, float]:

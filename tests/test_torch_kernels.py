@@ -337,3 +337,125 @@ def test_mla_kernels_refuse_what_they_do_not_cover(cuda):
     narrow = _on(latent_batch(rng, q_lens=[1], kv_lens=[5], S=1, T=1, n_heads=4, latent_dim=192), cuda)
     with pytest.raises(NotImplementedError):  # only a 576-wide latent
         M.mla_paged_attention(**narrow, sm_scale=0.1, v_dim=128)
+
+
+# ---------------------------------------------------------------- routed quantized experts (K7, K8)
+#
+# Tolerance: the kernels and their plain versions multiply the same exact
+# products (bf16 activations times int4/int8 weights, exact in f32), sum
+# them in f32 in another order, then scale per group (int4) or per channel
+# (int8): 1e-4 of the output's largest magnitude. K7 and K8 share their
+# arithmetic, so K8's outputs equal two K7 calls bit for bit.
+
+
+def _quant_experts(rng, E, K, N, bits, G, device):
+    from scalellm_tpu_torch.ops.moe_quant import quantize_experts_int4, quantize_experts_int8
+
+    w = torch.from_numpy((rng.standard_normal((E, N, K)) * K ** -0.5).astype(np.float32)).to(device)
+    return quantize_experts_int4(w, G) if bits == 4 else quantize_experts_int8(w)
+
+
+# (tokens, padding tokens among them, experts, top-k, K, N, bits, int4 group)
+MOE_QUANT_CASES = {
+    # DeepSeek-V2-Lite's decode step: 8 tokens padded to 16, 96 rows.
+    "v2_lite_gate_up_int4": (16, 8, 64, 6, 2048, 1408, 4, 128),
+    "v2_lite_down_int4_11_groups": (16, 8, 64, 6, 1408, 2048, 4, 128),
+    "v2_lite_gate_up_int8": (16, 8, 64, 6, 2048, 1408, 8, 0),
+    "v2_lite_down_int8": (16, 8, 64, 6, 1408, 2048, 8, 0),
+    # Groups of 32 (4-byte weight loads) and experts without rows.
+    "int4_g32_empty_experts": (8, 4, 16, 2, 256, 64, 4, 32),
+    # 192 rows over 8 experts: each expert walks two or more 16-row tiles.
+    "t32_row_tiles": (32, 0, 8, 6, 256, 128, 4, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_QUANT_CASES))
+def test_moe_quant_kernels_match_plain_versions(cuda, case):
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    T, n_pad, E, k, K, N, bits, G = MOE_QUANT_CASES[case]
+    rng = np.random.default_rng(0)
+    xs, sizes = _routed_rows(rng, T, E, k, K, n_pad)
+    xs = torch.from_numpy(xs).to(cuda, torch.bfloat16)
+    gs = torch.from_numpy(sizes).to(cuda)
+    (qg, sg), (qu, su) = (_quant_experts(rng, E, K, N, bits, G, cuda) for _ in range(2))
+    cap = min(E, T * k)
+    pair, single = MQ.grouped_quant_matmul_pair_cuda, MQ.grouped_quant_matmul_cuda
+    before = (pair.launches, single.launches)
+    g, u = MQ.grouped_quant_matmul_pair(xs, qg, sg, qu, su, gs, max_active=cap)
+    only_g = MQ.grouped_quant_matmul(xs, qg, sg, gs, max_active=cap)
+    torch.cuda.synchronize()
+    assert (pair.launches, single.launches) == (before[0] + 1, before[1] + 1)
+    active, starts = MQ.active_experts(gs, cap), MQ.expert_starts(gs)
+    want_g, want_u = MQ.plain_grouped_quant_matmul_pair(xs, qg, sg, qu, su, gs, active, starts)
+    for got, want in ((g, want_g), (u, want_u)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+    assert torch.equal(only_g, g)
+
+
+def test_moe_quant_kernels_take_the_single_token_layout(cuda):
+    """The T=1 layout: one token broadcast over 8 rows, row j the expert of
+    top-k slot j (rows not sorted by expert), rows 6 and 7 in no group."""
+    from scalellm_tpu_torch.layers.moe import single_token_layout
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    rng = np.random.default_rng(1)
+    E, k = 64, 6
+    for bits, G in ((4, 128), (8, 0)):
+        (qg, sg), (qu, su) = (_quant_experts(rng, E, 2048, 1408, bits, G, cuda) for _ in range(2))
+        qd, sd = _quant_experts(rng, E, 1408, 2048, bits, G, cuda)
+        topk_e = torch.from_numpy(rng.permutation(E)[:k].reshape(1, k)).to(cuda)
+        topk_w = torch.rand(1, k, device=cuda)
+        Tp, sizes, starts, active, _ = single_token_layout(topk_e, topk_w, E)
+        x = torch.randn(1, 2048, device=cuda).to(torch.bfloat16).expand(Tp, -1).contiguous()
+        h = torch.randn(Tp, 1408, device=cuda).to(torch.bfloat16)
+        g, u = MQ.grouped_quant_matmul_pair(x, qg, sg, qu, su, sizes, active=active, starts=starts, max_active=k)
+        d = MQ.grouped_quant_matmul(h, qd, sd, sizes, active=active, starts=starts, max_active=k)
+        torch.cuda.synchronize()
+        want_g, _ = MQ.plain_grouped_quant_matmul_pair(x, qg, sg, qu, su, sizes, active, starts)
+        want_d = MQ.plain_grouped_quant_matmul(h, qd, sd, sizes, active, starts)
+        for got, want in ((g, want_g), (d, want_d)):
+            torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+            assert torch.all(got[k:] == 0)
+
+
+def test_moe_quant_dispatch_takes_the_grouped_gemm_past_256_rows(cuda):
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+    from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul_cuda
+
+    rng = np.random.default_rng(2)
+    T, E, k, K, N = 64, 16, 6, 256, 128
+    xs, sizes = _routed_rows(rng, T, E, k, K)
+    xs = torch.from_numpy(xs).to(cuda, torch.bfloat16)
+    gs = torch.from_numpy(sizes).to(cuda)
+    for bits, G in ((4, 128), (8, 0)):
+        qw, sc = _quant_experts(rng, E, K, N, bits, G, cuda)
+        before = (grouped_matmul_cuda.launches, MQ.grouped_quant_matmul_cuda.launches)
+        got = MQ.grouped_quant_matmul(xs, qw, sc, gs, max_active=E)
+        torch.cuda.synchronize()
+        assert (grouped_matmul_cuda.launches, MQ.grouped_quant_matmul_cuda.launches) == (before[0] + 1, before[1])
+        want = MQ.grouped_quant_matmul(xs, qw, sc, gs, max_active=E, variant="plain")
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+        if bits == 4:  # the int8 shifts and the bf16 product on the card: q * s rounded once
+            want_w = MQ.dequantize_experts(qw, sc, K).to(torch.bfloat16)
+            assert torch.equal(MQ.dequantize_experts_bf16(qw, sc, K),
+                               torch.cat([want_w[..., 0::2], want_w[..., 1::2]], dim=-1))
+
+
+def test_moe_quant_kernels_refuse_what_they_do_not_cover(cuda):
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    rng = np.random.default_rng(3)
+    gs = torch.tensor([3, 0, 1, 0], dtype=torch.int32, device=cuda)
+    act, st = MQ.active_experts(gs), MQ.expert_starts(gs)
+    xs = torch.zeros(4, 256, dtype=torch.bfloat16, device=cuda)
+    qw, sc = _quant_experts(rng, 4, 256, 64, 4, 16, cuda)
+    with pytest.raises(NotImplementedError):  # int4 G % 32
+        MQ.grouped_quant_matmul_cuda(xs, qw, sc, gs, act, st)
+    qw, sc = _quant_experts(rng, 4, 96, 64, 8, 0, cuda)
+    with pytest.raises(NotImplementedError):  # int8 K % 64
+        MQ.grouped_quant_matmul_cuda(xs[:, :96].contiguous(), qw, sc, gs, act, st)
+    qw, sc = _quant_experts(rng, 4, 256, 64, 4, 32, cuda)
+    with pytest.raises(NotImplementedError):  # f32 activations
+        MQ.grouped_quant_matmul_cuda(xs.float(), qw, sc, gs, act, st)

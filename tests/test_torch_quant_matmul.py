@@ -286,10 +286,10 @@ def test_cpu_dispatch_refuses_bad_arguments():
 def _entry_points():
     """Every C entry point of the port's kernels: name -> (wrapper module,
     its source under csrc/)."""
-    from scalellm_tpu_torch.ops import grouped_matmul, mla_attention
+    from scalellm_tpu_torch.ops import grouped_matmul, mla_attention, moe_quant
 
     modules = ((TQ, "quant_matmul.cu"), (mla_attention, "mla_attention.cu"),
-               (grouped_matmul, "grouped_matmul.cu"))
+               (grouped_matmul, "grouped_matmul.cu"), (moe_quant, "moe_quant.cu"))
     return {entry: (module, source) for module, source in modules for entry in module.ENTRY_POINTS}
 
 
