@@ -11,7 +11,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
      (one nvcc per source, started together).
   3. kernels: each kernel against its plain PyTorch version on the card,
      with CUDA-event timings of the kernel, the plain version and a library
-     yardstick, beside the least time the card could take (bytes over
+     yardstick (L2 flushed by reading 128 MB before each call), beside the
+     least time the card could take (bytes over
      3.35 TB/s, operations over 989 TFLOP/s bf16 or 1979 TOP/s int8).
      a. ragged paged attention in bf16 at five shapes of the serving paths
         (yardstick: scaled_dot_product_attention on gathered K/V);
@@ -38,6 +39,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
         (one token over 8 rows, 6 experts, starts given); bound: the active
         experts' weight and scale bytes (yardstick: torch._grouped_mm on
         weights dequantized ahead of time).
+     e. the small-M variants gemv (K12a) and w4a8g (K12b) at the phase-3b
+        Llama-3.1-8B shapes (o also asymmetric) at M = 1, 16, 64, beside K2,
+        K3 and the bf16 matmul; the stream probe (K12c) at the same shapes,
+        equal to its plain version, failing if it reads faster than 3.35
+        TB/s; the fused quantized MLP (K11) at Llama-3.1-8B's MLP (int4,
+        G = 128, bf16 scales, symmetric and asymmetric) at M = 1, 8, 16,
+        beside the two-launch path (K2 gate_up, silu * up, K2 down) and two
+        bf16 matmuls; then K11's own path, its entry point quant_mlp at M
+        = 1, 8, 16 (no model calls it, as in the reference).
   4. end to end, bf16: a TinyLlama-1.1B-shaped checkpoint (random weights
      from a seed) served by scalellm_tpu_torch.LLM with chunked prefill and
      the prefix cache; every request must finish and every engine step must
@@ -51,9 +61,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
      matmul kernel four times per layer plus once for the lm_head: dequant
      for the projections of steps with more than 64 tokens, w4a8 otherwise.
      A short third run with variant="group" set on the model's quantized
-     matmul sends the same path through the group kernel. Then a prefill and a decode batch run through the
-     model twice, with the kernels and with the plain versions, and the
-     logits must agree. --int4-layers N cuts the depth (default 32).
+     matmul sends the same path through the group kernel, and two more with
+     variant="gemv" and "w4a8g" through K12a and K12b (exactly 4 per layer
+     plus the lm_head on steps of up to 64 tokens; dequant in the layers and
+     the variant in the lm_head above). Then a prefill and a decode batch
+     run through the model twice, with the kernels and with the plain
+     versions, and the logits must agree; the decode batch again under
+     gemv and w4a8g. Last the reference's in-model probe: one decode step
+     under torch.profiler with the real kernels, then with the stream probe
+     (K12c) in every layer projection, and the fraction of the stream
+     ceiling that the projections reach. --int4-layers N cuts the depth
+     (default 32).
   6. end to end, bf16 MoE + MLA: a DeepSeek-V2-Lite checkpoint at the
      published widths (random bf16 weights from a seed, one tensor per
      expert, 31 GB on disk, written once for phases 6 and 7 and removed
@@ -106,6 +124,7 @@ KERNEL_TOL = 2e-2  # bf16 output (8-bit mantissa) of values of magnitude <~ 3
 # 22 bf16 layers.
 LOGITS_TOL = 0.25
 TIMED_RUNS = 20
+FLUSH_BYTES = 128 * 2**20  # read before each timed call: 2.5x the 50 MB L2
 SPIN_CYCLES = 1_000_000  # about 0.5 ms of device spin before each timed call
 SEED = 0
 DEVICE = "cuda"
@@ -266,10 +285,13 @@ def sdpa_inputs(torch, spec, inputs):
     return qs, ks.repeat_interleave(rep, 1).contiguous(), vs.repeat_interleave(rep, 1).contiguous(), mask
 
 
-def time_ms(torch, fn, flush, runs=TIMED_RUNS):
+def time_ms(torch, fn, flush, runs=TIMED_RUNS, dirty_flush=False):
     """Median over `runs` of one call's time on the device, from CUDA events,
     with the L2 cache flushed before each call (the engine reads each
-    layer's KV and weights cold). A spin kernel ahead of the first event
+    layer's KV and weights cold). The flush reads a buffer larger than L2,
+    so L2 holds clean lines: a flush that writes it (dirty_flush) leaves up
+    to 50 MB of dirty lines that the timed call writes back while it reads.
+    A spin kernel ahead of the first event
     keeps the device busy while the host enqueues the call, so the events
     bracket the kernels' own time and not the host's time to launch them
     (a wrapper's Python can take longer than its kernel runs)."""
@@ -277,7 +299,10 @@ def time_ms(torch, fn, flush, runs=TIMED_RUNS):
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        if dirty_flush:
+            flush.zero_()
+        else:
+            flush.sum()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         # torch.cuda._sleep is a private API (a spin kernel of that many
         # cycles); checked on torch 2.11.0+cu128.
@@ -318,7 +343,7 @@ def phase_kernels(torch, card):
     }
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     results = {}
     for name, spec in specs.items():
         inputs = make_batch(torch, gen, q_lens=spec["q_lens"], kv_lens=spec["kv_lens"], S=spec["S"],
@@ -386,12 +411,39 @@ def quant_operands(torch, gen, K, N, bits, asym):
     return qweight, scales, zeros
 
 
+def dequantized(torch, qweight, scales, zeros, bits):
+    """bf16 [N, K] weights dequantized ahead of time: the operand of the
+    library yardsticks."""
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    K = qweight.shape[1] * (2 if bits == 4 else 1)
+    group_of_k = torch.arange(K, device=DEVICE) // (K // scales.shape[0])
+    wd = Q.unpack_signed(qweight, bits).to(torch.bfloat16)
+    if zeros is not None:
+        wd -= zeros.to(torch.bfloat16).T[:, group_of_k]
+    wd *= scales.to(torch.bfloat16).T[:, group_of_k]
+    return wd
+
+
+def check_quant(torch, name, got, want):
+    """The quantized matmuls' tolerance (QUANT_TOL_*); returns (max error,
+    mean error, output magnitude)."""
+    if not torch.isfinite(got).all():
+        fail(f"{name}: kernel output is not finite")
+    diff = (got.float() - want.float()).abs()
+    top = want.float().abs().max().item()
+    err, mean_err = diff.max().item(), diff.mean().item()
+    if not (err <= QUANT_TOL_MAX * top and mean_err <= QUANT_TOL_MEAN * top):
+        fail(f"{name}: differs from the plain version by {err} (mean {mean_err}) at output magnitude {top}")
+    return err, mean_err, top
+
+
 def phase_quant_kernels(torch, card):
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 1)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     wrappers = dict(w4a8=Q.quant_matmul_w4a8_cuda, group=Q.quant_matmul_group_cuda,
                     dequant=Q.quant_matmul_dequant_cuda)
     plains = dict(w4a8=Q.plain_w4a8, group=Q.plain_group, dequant=Q.plain_dequant)
@@ -423,28 +475,16 @@ def phase_quant_kernels(torch, card):
             plain = lambda: plains[kernel_name](*args, gamma, 1e-5)
             got = kernel()
             torch.cuda.synchronize()
-            want = plain().to(torch.bfloat16)
-            if not torch.isfinite(got).all():
-                fail(f"{kernel_name} {shape} M={M}: kernel output is not finite")
-            diff = (got.float() - want.float()).abs()
-            top = want.float().abs().max().item()
-            err, mean_err = diff.max().item(), diff.mean().item()
-            del diff, want
-            if not (err <= QUANT_TOL_MAX * top and mean_err <= QUANT_TOL_MEAN * top):
-                fail(f"{kernel_name} {shape} M={M} asym={asym}: differs from the plain version by "
-                     f"{err} (mean {mean_err}) at output magnitude {top}")
+            err, mean_err, top = check_quant(torch, f"{kernel_name} {shape} M={M} asym={asym}", got,
+                                             plain().to(torch.bfloat16))
             ms = time_ms(torch, kernel, flush)
             plain_ms = time_ms(torch, plain, flush, runs=3)
             # Yardstick: one bf16 matmul on weights dequantized ahead of time
             # (and x normalised ahead of time where the prologue runs).
-            wd = Q.unpack_signed(qweight, bits).to(torch.bfloat16)
-            group_of_k = torch.arange(K, device=DEVICE) // GROUP
-            if zeros is not None:
-                wd -= zeros.to(torch.bfloat16).T[:, group_of_k]
-            wd *= scales.to(torch.bfloat16).T[:, group_of_k]
+            wd = dequantized(torch, qweight, scales, zeros, bits)
             xn = x if gamma is None else Q.rms_prologue(x, gamma, 1e-5)
             library_ms = time_ms(torch, lambda: torch.matmul(xn, wd.T), flush)
-            del wd, group_of_k
+            del wd
             nbytes = sum(t.numel() * t.element_size() for t in (x, qweight, scales, zeros, gamma)
                          if t is not None) + M * N * 2
             ops = 2 * M * K * N
@@ -574,7 +614,7 @@ def phase_moe_mla_kernels(torch, card):
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 2)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     cfg = DEEPSEEK_V2_LITE
     D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
     gmm = {}
@@ -702,7 +742,7 @@ def phase_moe_quant_kernels(torch, card):
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 3)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     cfg = DEEPSEEK_V2_LITE
     D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
 
@@ -777,6 +817,198 @@ def phase_moe_quant_kernels(torch, card):
         del gate, up, down
         torch.cuda.empty_cache()
     return results
+
+
+# ------------------------------------------------------------------ phase 3e
+
+# The phase-3b shapes the small-M variants and the probe are timed at:
+# (shape, asymmetric).
+SMALL_M_SHAPES = (("qkv_proj", False), ("o_proj", False), ("o_proj", True),
+                  ("gate_up_proj", False), ("down_proj", False), ("lm_head", False))
+SMALL_M_ROWS = (1, 16, 64)
+# K11 at Llama-3.1-8B's MLP, int4 at G = 128 with bf16 scales (what runtime
+# quantization stores): 91 MB of weights and scales.
+MLP_D, MLP_F = LLAMA31_8B_INT4["hidden_size"], LLAMA31_8B_INT4["intermediate_size"]
+MLP_ROWS = (1, 8, 16)
+# K11 against its plain version: g and u are f32 sums of exact products in
+# another order, where they fall on a bf16 boundary an element of h moves by
+# one bf16 step, and down sums exact products of h in another order: 1e-3
+# of the output's largest magnitude, mean error 2e-5 of it.
+MLP_TOL_MAX, MLP_TOL_MEAN = 1e-3, 2e-5
+
+
+def phase_small_m_kernels(torch, card):
+    """K12a (gemv) and K12b (w4a8g) at the 8B projection shapes, M = 1, 16
+    and 64, against their plain versions, beside K2 and K3 (as the
+    dispatcher runs them) and one bf16 matmul on weights dequantized ahead
+    of time; K12c (the stream probe) at the same shapes, exactly against its
+    plain version, with the rate at which it reads the weights; K11 at the
+    8B MLP, symmetric and asymmetric, M = 1, 8 and 16, beside the two-launch
+    path (K2 gate_up, silu * up, K2 down: timed only, its numerics differ)
+    and two bf16 matmuls with the activation. Then K11's own path: its entry
+    point quant_mlp at M = 1, 8 and 16 (no model calls it)."""
+    import torch.nn.functional as TF
+
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+    from scalellm_tpu_torch.ops import quant_mlp as QM
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 4)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    results = dict(gemv={}, w4a8g={}, stream={}, mlp={})
+    wrappers = dict(gemv=(Q.quant_gemv_cuda, Q.plain_gemv), w4a8g=(Q.quant_w4a8_gemv_cuda, Q.plain_w4a8g))
+    for shape, asym in SMALL_M_SHAPES:
+        K, N, bits, has_norm = QUANT_SHAPES[shape]
+        tile_n = Q.LM_HEAD_TILE_N if shape == "lm_head" else Q.DEFAULT_TILE_N
+        name = shape + ("_asym" if asym else "")
+        qweight, scales, zeros = quant_operands(torch, gen, K, N, bits, asym)
+        wd = dequantized(torch, qweight, scales, zeros, bits)
+        w_bytes = sum(t.numel() * t.element_size() for t in (qweight, scales, zeros) if t is not None)
+        for M in SMALL_M_ROWS:
+            x = (torch.randn(M, K, generator=gen, device=DEVICE) + 0.25).to(torch.bfloat16)
+            gamma = None
+            if has_norm:
+                gamma = (torch.rand(K, generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
+            xn = x if gamma is None else Q.rms_prologue(x, gamma, 1e-5)
+            yard = {v: time_ms(torch, lambda v=v: Q.quant_matmul(
+                x, qweight, scales, zeros, bits=bits, variant=v, rms_gamma=gamma, rms_eps=1e-5,
+                tile_n=tile_n), flush) for v in ("w4a8", "group")}
+            library_ms = time_ms(torch, lambda: torch.matmul(xn, wd.T), flush)
+            for variant, (wrapper, plain_fn) in wrappers.items():
+                v, block_k, fuse = Q.plan(M, K, N, bits, GROUP, scales.element_size(), has_norm,
+                                          variant=variant, tile_n=tile_n)
+                if v != variant:
+                    fail(f"{name} M={M}: plan() turned {variant} into {v}")
+                xv, g = (x, gamma) if fuse else (xn, None)
+                extra = (block_k,) if variant == "w4a8g" else ()
+                kernel = lambda: wrapper(xv, qweight, scales, zeros, bits, *extra, g, 1e-5)
+                plain = lambda: plain_fn(xv, qweight, scales, zeros, bits, *extra, g, 1e-5)
+                got = kernel()
+                torch.cuda.synchronize()
+                err, mean_err, top = check_quant(torch, f"{variant} {name} M={M}", got, plain().to(torch.bfloat16))
+                ms = time_ms(torch, kernel, flush)
+                plain_ms = time_ms(torch, plain, flush, runs=3)
+                nbytes = (x.numel() * 2 + w_bytes + M * N * 2
+                          + (g.numel() * g.element_size() if g is not None else 0))
+                ops = 2 * M * K * N
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                t_ops = ops / (INT8_OPS_PER_S if variant == "w4a8g" else BF16_FLOPS_PER_S)
+                r = dict(max_abs_err=err, mean_abs_err=mean_err, out_magnitude=top, ms=ms,
+                         plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms,
+                         w4a8_ms=yard["w4a8"], group_ms=yard["group"])
+                results[variant][(name, M)] = r
+                emit(dict(phase="kernel", kernel="quant_" + variant, shape=name, M=M, K=K, N=N,
+                          bits=bits, group=GROUP, asymmetric=asym, block_k=block_k,
+                          rms_prologue=g is not None, tol_max=QUANT_TOL_MAX * top, bytes=nbytes,
+                          ops=ops, **r, card=card["nvidia_smi"]))
+                del got
+            # The probe: every weight, scale and zero byte, as the default
+            # variant's k-blocks; the norm, where the call has one, ahead.
+            _, block_k, _ = Q.plan(M, K, N, bits, GROUP, scales.element_size(), has_norm,
+                                   variant="stream", tile_n=tile_n)
+            probe = lambda: Q.quant_stream_probe_cuda(xn, qweight, scales, zeros, bits, block_k)
+            plain = lambda: Q.plain_stream(xn, qweight, scales, zeros, bits, block_k)
+            got = probe()
+            torch.cuda.synchronize()
+            err = (got.float() - plain().to(torch.bfloat16).float()).abs().max().item()
+            if err != 0:
+                fail(f"stream probe {name} M={M}: differs from the plain version by {err}")
+            ms = time_ms(torch, probe, flush)
+            plain_ms = time_ms(torch, plain, flush, runs=3)
+            weights_only_ms = time_ms(torch, lambda: Q.quant_stream_probe_cuda(
+                xn, qweight, scales, zeros, bits, block_k, weights_only=True), flush)
+            if (name, M) == ("gate_up_proj", 16):
+                # The flush A/B, in turns: zeroing (dirty lines), reading, reading, zeroing.
+                ab = [time_ms(torch, probe, flush, dirty_flush=d) for d in (True, False, False, True)]
+                emit(dict(phase="kernel_probe", kernel="quant_stream_probe", shape=name, M=M,
+                          what="L2 flush A/B: zeroing, reading, reading, zeroing a 128 MB buffer",
+                          ms=ab, weight_gb_per_s=[w_bytes / (t * 1e-3) / 1e9 for t in ab],
+                          card=card["nvidia_smi"]))
+            rate = w_bytes / (ms * 1e-3)
+            if rate > HBM_BYTES_PER_S:
+                fail(f"stream probe {name} M={M}: reads {rate / 1e12:.3f} TB/s, more than the memory gives")
+            nbytes = w_bytes + M * N * 2 + (K // block_k) * 2
+            r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                     bound_by="bytes", library_ms=None, weight_gb_per_s=rate / 1e9,
+                     weights_only_ms=weights_only_ms,
+                     weights_only_gb_per_s=qweight.numel() * qweight.element_size() / (weights_only_ms * 1e-3) / 1e9)
+            results["stream"][(name, M)] = r
+            emit(dict(phase="kernel", kernel="quant_stream_probe", shape=name, M=M, K=K, N=N, bits=bits,
+                      asymmetric=asym, block_k=block_k, bytes=nbytes, **r, card=card["nvidia_smi"]))
+            del x, xn, got
+        del qweight, scales, zeros, wd
+        torch.cuda.empty_cache()
+
+    # K11 at the 8B MLP.
+    D, Fi = MLP_D, MLP_F
+    mlp_inputs = {}
+    for asym in (False, True):
+        gq, gs, gz = quant_operands(torch, gen, D, 2 * Fi, 4, asym)
+        dq, ds, dz = quant_operands(torch, gen, Fi, D, 4, asym)
+        gate_up, down = (gq, gs.to(torch.bfloat16), gz), (dq, ds.to(torch.bfloat16), dz)
+        wd_gu, wd_dn = dequantized(torch, *gate_up, 4), dequantized(torch, *down, 4)
+        w_bytes = sum(t.numel() * t.element_size() for t in gate_up + down if t is not None)
+
+        def two_launch():
+            gu = Q.quant_matmul(x, *gate_up, bits=4, variant="w4a8")
+            g, u = gu.chunk(2, dim=-1)
+            h = (TF.silu(g.float()) * u.float()).to(torch.bfloat16)
+            return Q.quant_matmul(h, *down, bits=4, variant="w4a8")
+
+        def library():
+            g, u = torch.matmul(x, wd_gu.T).chunk(2, dim=-1)
+            return torch.matmul((TF.silu(g.float()) * u.float()).to(torch.bfloat16), wd_dn.T)
+
+        for M in MLP_ROWS:
+            x = (torch.randn(M, D, generator=gen, device=DEVICE) + 0.25).to(torch.bfloat16)
+            kernel = lambda: QM.quant_mlp_cuda(x, gate_up, down, Fi, 4, "silu")
+            plain = lambda: QM.plain_quant_mlp(x, gate_up, down, Fi, 4, "silu")
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            name = f"llama8b_mlp{'_asym' if asym else ''}"
+            if not torch.isfinite(got).all():
+                fail(f"quant_mlp {name} M={M}: kernel output is not finite")
+            diff = (got - want).abs()
+            top = want.abs().max().item()
+            err, mean_err = diff.max().item(), diff.mean().item()
+            if not (err <= MLP_TOL_MAX * top and mean_err <= MLP_TOL_MEAN * top):
+                fail(f"quant_mlp {name} M={M}: differs from the plain version by {err} (mean {mean_err}) "
+                     f"at output magnitude {top}")
+            ms = time_ms(torch, kernel, flush)
+            plain_ms = time_ms(torch, plain, flush, runs=3)
+            two_launch_ms = time_ms(torch, two_launch, flush)
+            library_ms = time_ms(torch, library, flush)
+            nbytes = x.numel() * 2 + w_bytes + M * D * 4
+            ops = 2 * M * 3 * D * Fi
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+            r = dict(max_abs_err=err, mean_abs_err=mean_err, out_magnitude=top, ms=ms, plain_ms=plain_ms,
+                     bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     library_ms=library_ms, two_launch_ms=two_launch_ms)
+            results["mlp"][(name, M)] = r
+            emit(dict(phase="kernel", kernel="quant_mlp", shape=name, M=M, D=D, F=Fi, bits=4, group=GROUP,
+                      asymmetric=asym, tol_max=MLP_TOL_MAX * top, bytes=nbytes, ops=ops,
+                      library="two bf16 torch.matmul + silu on pre-dequantized weights",
+                      two_launch="K2 gate_up, silu * up, K2 down", **r, card=card["nvidia_smi"]))
+            del got, want, diff
+        mlp_inputs[asym] = (gate_up, down)
+        del wd_gu, wd_dn
+        torch.cuda.empty_cache()
+
+    # K11's own path: the entry point a user calls, at the decode sizes.
+    QM.quant_mlp_cuda.launches = 0
+    for M in MLP_ROWS:
+        x = torch.randn(M, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+        out = QM.quant_mlp(x, *mlp_inputs[False], Fi, bits=4, act="silu", symmetric=True)
+        if out.shape != (M, D) or not torch.isfinite(out).all():
+            fail(f"quant_mlp at M={M}: output {tuple(out.shape)} is not finite [M, D]")
+    torch.cuda.synchronize()
+    mlp_launches = QM.quant_mlp_cuda.launches
+    emit(dict(phase="quant_mlp_path", rows=list(MLP_ROWS), launches=mlp_launches))
+    del mlp_inputs
+    torch.cuda.empty_cache()
+    return results, mlp_launches
 
 
 # ------------------------------------------------------------------ phase 4
@@ -941,7 +1173,9 @@ def device_breakdown(prof, wall_s, steps):
             groups["grouped_matmul_ms"] += ms
         elif "moe_quant_kernel" in low:
             groups["moe_quant_ms"] += ms
-        elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "act_quant_kernel")):
+        elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "act_quant_kernel", "gemv_kernel<",
+                                    "w4a8g_kernel", "stream_probe_kernel", "row_rms_kernel",
+                                    "split_sum_kernel")):
             groups["quant_matmul_ms"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
             groups["matmul_ms"] += ms
@@ -1171,7 +1405,8 @@ def phase_end_to_end_int4(torch, card, n_layers):
     L = n_layers
     k1, w4a8 = attention.ragged_paged_attention_cuda, Q.quant_matmul_w4a8_cuda
     group, dequant = Q.quant_matmul_group_cuda, Q.quant_matmul_dequant_cuda
-    counters = (k1, w4a8, group, dequant)
+    gemv, w4a8g, probe = Q.quant_gemv_cuda, Q.quant_w4a8_gemv_cuda, Q.quant_stream_probe_cuda
+    counters = (k1, w4a8, group, dequant, gemv, w4a8g)
     tmp = tempfile.mkdtemp(prefix="scalellm_llama8b_int4_")
     llm = None
     try:
@@ -1215,14 +1450,14 @@ def phase_end_to_end_int4(torch, card, n_layers):
                 fail(f"int4: request did not finish with 32 tokens: {o.status}, {o.usage}")
         if steps <= 0:
             fail("int4: no engine step ran")
-        for T, S, _, n_k1, n_w4a8, n_group, n_dequant in steps_log:
+        for T, S, _, *got in steps_log:
             # The lm_head sees the padded count of selected rows.
-            want = [L, 0, 0, 0]
+            want = [L, 0, 0, 0, 0, 0]
             want[3 if T > 64 else 1] += 4 * L
             want[3 if S > 64 else 1] += 1
-            if [n_k1, n_w4a8, n_group, n_dequant] != want:
-                fail(f"int4: a step of T={T}, S={S} launched (K1, w4a8, group, dequant) = "
-                     f"{(n_k1, n_w4a8, n_group, n_dequant)}, expected {tuple(want)}")
+            if got != want:
+                fail(f"int4: a step of T={T}, S={S} launched (K1, w4a8, group, dequant, gemv, w4a8g) = "
+                     f"{tuple(got)}, expected {tuple(want)}")
         n_tokens = sum(o.usage.num_generated_tokens for o in outs)
         emit(dict(phase="int4_e2e", layers=L, requests=len(outs), output_tokens=n_tokens,
                   wall_s=wall, output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft,
@@ -1250,6 +1485,38 @@ def phase_end_to_end_int4(torch, card, n_layers):
         emit(dict(phase="int4_group_variant", engine_steps=len(steps_log), group_launches=group_launches))
         launches[group.__name__] = group_launches
         launches[k1.__name__] += k1.launches
+
+        # The small-M variants (K12a, K12b), as the reference's QUANT_VARIANT
+        # selects them: two requests each. A step of T <= 64 tokens runs
+        # the variant in every projection and the lm_head; a step of more
+        # runs dequant in the projections and the variant in the lm_head (M
+        # = S sequences).
+        for i, (variant, wrapper) in enumerate((("gemv", gemv), ("w4a8g", w4a8g))):
+            model.quant_impl = functools.partial(Q.quant_matmul, variant=variant)
+            try:
+                for c in counters:
+                    c.launches = 0
+                del steps_log[:]
+                # Prompts the prefix cache has not seen: a 300-token first step.
+                short = llm.generate(prompts(SEED + 2 + i)[4:6],
+                                     SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))
+            finally:
+                model.quant_impl = Q.quant_matmul
+            if not all(o.finished and o.status.ok and o.usage.num_generated_tokens == 8 for o in short):
+                fail(f"int4: a request of the {variant}-variant run did not finish")
+            for T, S, _, *got in steps_log:
+                want = {k1: L, w4a8: 0, group: 0, dequant: 0, gemv: 0, w4a8g: 0}
+                want[dequant if T > 64 else wrapper] += 4 * L
+                want[wrapper] += 1  # S <= 64 here
+                if got != [want[c] for c in counters]:
+                    fail(f"int4: a {variant}-variant step of T={T}, S={S} launched (K1, w4a8, group, "
+                         f"dequant, gemv, w4a8g) = {tuple(got)}, expected {tuple(want[c] for c in counters)}")
+            emit(dict(phase=f"int4_{variant}_variant", engine_steps=len(steps_log),
+                      step_tokens=sorted({st[0] for st in steps_log}), launches=wrapper.launches,
+                      dequant_launches=dequant.launches))
+            launches[wrapper.__name__] = wrapper.launches
+            launches[dequant.__name__] += dequant.launches
+            launches[k1.__name__] += k1.launches
 
         # Where the device time goes: the 8-prompt workload once more under
         # torch.profiler (idle share against the unprofiled wall time).
@@ -1300,11 +1567,101 @@ def phase_end_to_end_int4(torch, card, n_layers):
                       tol=LOGITS_TOL))
             if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
                 fail(f"int4 {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
+
+        # The decode batch through gemv and w4a8g, kernels against plain
+        # versions (the prefill before it fills the KV cache; above 64
+        # tokens both variants run dequant there).
+        with torch.inference_mode():
+            for variant in ("gemv", "w4a8g"):
+                out = {}
+                for impl in ("kernel", "plain"):
+                    fn = Q.plain_quant_matmul if impl == "plain" else Q.quant_matmul
+                    model.quant_impl = functools.partial(fn, variant=variant)
+                    model.attn_impl = (ref_ragged_paged_attention if impl == "plain"
+                                       else attention.ragged_paged_attention)
+                    kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
+                    model(kv, prefill.to(DEVICE))
+                    out[impl] = model.logits(model(kv, decode.to(DEVICE))[: len(ids)])
+                    del kv
+                diff = (out["kernel"] - out["plain"]).abs()
+                err = diff.max().item()
+                emit(dict(phase="int4_logits", batch="decode", variant=variant, rows=len(ids),
+                          max_abs_err=err, mean_abs_err=diff.mean().item(),
+                          argmax_agreement=(out["kernel"].argmax(-1) == out["plain"].argmax(-1)).float().mean().item(),
+                          tol=LOGITS_TOL))
+                if not torch.isfinite(out["kernel"]).all() or not err <= LOGITS_TOL:
+                    fail(f"int4 decode, {variant}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
+        model.attn_impl, model.quant_impl = attention.ragged_paged_attention, Q.quant_matmul
+
+        launches[probe.__name__] = phase_stream_probe_in_model(torch, card, model, prefill, decode, n_pages)
         return launches
     finally:
         if llm is not None:
             llm.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def device_ms(prof, *names):
+    """Device time (ms) of the kernels whose names contain one of `names`."""
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and any(n in e.name for n in names))
+
+
+def phase_stream_probe_in_model(torch, card, model, prefill, decode, n_pages):
+    """The reference's in-model weight-stream probe (bench.py:487-509): one
+    decode step under torch.profiler with the model's quantized matmuls,
+    then with every layer projection replaced by the stream probe (the
+    lm_head stays real, as in the reference). The layer projections' device
+    time against the probe's is the fraction of the stream ceiling the
+    decode projections reach. Returns the probe's launches in that step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    lm_head = model.lm_head.qweight
+
+    def probe_impl(x, qweight, *args, **kw):
+        return Q.quant_matmul(x, qweight, *args, **dict(kw, variant="" if qweight is lm_head else "stream"))
+
+    quant_kernels = ("w4a8_kernel", "act_quant_kernel", "tile_kernel")
+    times = {}
+    with torch.inference_mode():
+        kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
+        model(kv, prefill.to(DEVICE))
+        step = decode.to(DEVICE)
+        for impl in ("kernels", "probe"):
+            model.quant_impl = probe_impl if impl == "probe" else Q.quant_matmul
+            model.logits(model(kv, step))  # warm
+            torch.cuda.synchronize()
+            Q.quant_stream_probe_cuda.launches = 0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                model.logits(model(kv, step))
+                torch.cuda.synchronize()
+            times[impl] = dict(quant=device_ms(prof, *quant_kernels), probe=device_ms(prof, "stream_probe_kernel"))
+            launches = Q.quant_stream_probe_cuda.launches
+        model.quant_impl = Q.quant_matmul
+        del kv
+    # The probe run's quantized kernels are the lm_head's alone.
+    layers_ms = times["kernels"]["quant"] - times["probe"]["quant"]
+    probe_ms = times["probe"]["probe"]
+    n_layers = len(model.layers)
+    want = 4 * n_layers
+    if launches != want:
+        fail(f"stream probe in model: {launches} probe launches in one step, expected {want}")
+    if not probe_ms > 0 or not layers_ms > 0:
+        fail(f"stream probe in model: no device time read (layers {layers_ms} ms, probe {probe_ms} ms)")
+    proj_bytes = sum(t.numel() * t.element_size() for layer in model.layers
+                     for w in (layer.qkv_proj, layer.o_proj, layer.gate_up_proj, layer.down_proj)
+                     for t in (w.qweight, w.scales) + ((w.zeros,) if "zeros" in w._buffers else ()))
+    emit(dict(phase="int4_stream_probe", tokens=int(decode.token_ids.shape[0]), layers=n_layers,
+              projection_bytes=proj_bytes, projections_ms=layers_ms, probe_ms=probe_ms,
+              fraction_of_stream_ceiling=probe_ms / layers_ms,
+              probe_gb_per_s=proj_bytes / (probe_ms * 1e-3) / 1e9,
+              projections_gb_per_s=proj_bytes / (layers_ms * 1e-3) / 1e9,
+              lm_head_ms=times["probe"]["quant"], probe_launches=launches, card=card["nvidia_smi"]))
+    return launches
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1595,6 +1952,7 @@ def main() -> None:
     quant_results = phase_quant_kernels(torch, card)
     gmm_results, mla_results = phase_moe_mla_kernels(torch, card)
     moe_quant_results = phase_moe_quant_kernels(torch, card)
+    small_m_results, mlp_launches = phase_small_m_kernels(torch, card)
     bf16_launches = phase_end_to_end(torch, card)
     int4_launches = phase_end_to_end_int4(torch, card, opts.int4_layers)
     # Phases 6 and 7 serve one DeepSeek-V2-Lite checkpoint, written once.
@@ -1615,12 +1973,17 @@ def main() -> None:
     # 512-token step's; the grouped GEMM at the decode step's gate/up (96
     # rows, padding included), the MLA decode kernel at the 8-sequence decode
     # batch, the MLA prefill kernel at the mixed T = 512 batch; K8 and K7 at
-    # the INT4 decode step (96 rows) of gate/up and down.
+    # the INT4 decode step (96 rows) of gate/up and down; gemv, w4a8g and
+    # the stream probe at the decode step's gate_up projection (T = 16; the
+    # probe's launches are those of phase 5's in-model probe step); K11 at
+    # the 8B MLP, M = 16, launched by its own path (its entry point at M =
+    # 1, 8, 16: no model calls it).
     def launched(name):
         return sum(run.get(name, 0) for run in (int4_launches, ds_launches, ds4_launches))
 
     source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
     moe_source = "scalellm_tpu_torch/csrc/moe_quant.cu"
+    gemv_source = "scalellm_tpu_torch/csrc/quant_gemv.cu"
     kernels = [
         kernel_entry("ragged_paged_attention", "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
                      "scalellm_tpu/ops/attention.py:131",
@@ -1651,6 +2014,14 @@ def main() -> None:
         kernel_entry("mla_prefill", "scalellm_tpu_torch/csrc/mla_attention.cu",
                      "scalellm_tpu/ops/mla_attention.py:271", launched("mla_prefill_attention_cuda"),
                      {"k": mla_results["mla_prefill"]}, "k"),
+        kernel_entry("quant_gemv", gemv_source, "scalellm_tpu/ops/quant_matmul.py:304",
+                     launched("quant_gemv_cuda"), small_m_results["gemv"], ("gate_up_proj", 16)),
+        kernel_entry("quant_w4a8_gemv", gemv_source, "scalellm_tpu/ops/quant_matmul.py:466",
+                     launched("quant_w4a8_gemv_cuda"), small_m_results["w4a8g"], ("gate_up_proj", 16)),
+        kernel_entry("quant_stream_probe", gemv_source, "scalellm_tpu/ops/quant_matmul.py:556",
+                     launched("quant_stream_probe_cuda"), small_m_results["stream"], ("gate_up_proj", 16)),
+        kernel_entry("quant_mlp", "scalellm_tpu_torch/csrc/quant_mlp.cu", "scalellm_tpu/ops/quant_mlp.py:78",
+                     mlp_launches, small_m_results["mlp"], ("llama8b_mlp", 16)),
     ]
     for k in kernels:
         if k["launches"] <= 0:

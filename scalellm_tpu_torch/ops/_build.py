@@ -30,6 +30,8 @@ SOURCES = {
     "grouped_matmul": "grouped_matmul.cu",
     "mla_attention": "mla_attention.cu",
     "moe_quant": "moe_quant.cu",
+    "quant_gemv": "quant_gemv.cu",
+    "quant_mlp": "quant_mlp.cu",
 }
 
 NVCC_FLAGS = [

@@ -30,6 +30,13 @@ Variants (the reference's, chosen per call by plan()):
   "group"   bf16 x int group dots with f32 sums, scale applied after the dot
   "dequant" weight dequantized to bf16 (two roundings), one bf16 dot; what
             the reference's tiled storage runs for M > 64 and for G < 128
+  "gemv"    the group variant's function for small M, as CUDA-core dots
+            over spans of K (csrc/quant_gemv.cu); opt-in, any G
+  "w4a8g"   the W4A8 function for small M, as dp4a dots over 128-K spans;
+            opt-in
+  "stream"  the weight-stream probe: reads every weight, scale and zero
+            byte and returns the reference probe's one-row "touch", not a
+            matmul (timing only)
   "ref"     the float reference (ref_quant_matmul), CPU tensors only
 """
 
@@ -48,7 +55,8 @@ from scalellm_tpu_torch.ops import _build
 DEFAULT_TILE_N = 1024
 LM_HEAD_TILE_N = 2048
 
-VARIANTS = ("w4a8", "group", "dequant")
+VARIANTS = ("w4a8", "group", "dequant", "gemv", "w4a8g", "stream")
+MATMUL_VARIANTS = VARIANTS[:-1]  # all but the probe compute x @ w
 
 # ---------------------------------------------------------------- packing
 
@@ -107,6 +115,18 @@ def untile_quant_layout(arr: torch.Tensor) -> torch.Tensor:
     [*, R, N_pad] (keeps the N padding that tiling added)."""
     *lead, n_n, R, W = arr.shape
     return arr.transpose(-3, -2).reshape(*lead, R, n_n * W).contiguous()
+
+
+def from_tiled_quant(qweight: torch.Tensor, scales: torch.Tensor,
+                     zeros: Optional[torch.Tensor], n: int):
+    """The reference's N-tiled quantized triple (qweight [N_pad/W, R, W],
+    scales and zeros [N_pad/W, K/G, W]; zeros may be None) -> the kernel
+    layout of its first n columns: qweight [n, R], scales and zeros [K/G, n]."""
+    def flat(t):
+        return untile_quant_layout(t)[:, :n]
+
+    return (flat(qweight).T.contiguous(), flat(scales).contiguous(),
+            None if zeros is None else flat(zeros).contiguous())
 
 
 def unpack_signed(qweight: torch.Tensor, bits: int) -> torch.Tensor:
@@ -216,6 +236,85 @@ def plain_dequant(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6)
     return x.float() @ wd.reshape(K, -1).float()
 
 
+def gemv_span(group_size: int) -> int:
+    """K of one scaled dot of the gemv kernel: the group at G = 128 (and its
+    128-K parts at G = 256, ...), else 32 K."""
+    return 128 if group_size % 128 == 0 else 32
+
+
+def plain_gemv(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6):
+    """What csrc/quant_gemv.cu:gemv_kernel computes, in float32 [M, N]: per
+    span of K (gemv_span(G)) the f32 dot of x with the integer weights,
+    (dot - sum(x) * zero) * scale, summed over the spans. x is bf16."""
+    if rms_gamma is not None:
+        x = rms_prologue(x, rms_gamma, rms_eps)
+    M, K = x.shape
+    G = K // scales.shape[0]
+    span = gemv_span(G)
+    n_sp = K // span
+    w = unpack_signed(qweight, bits).float().T.reshape(n_sp, span, -1)  # [spans, span, N]
+    xs = x.float().reshape(M, n_sp, span).transpose(0, 1)  # [spans, M, span]
+    dots = torch.bmm(xs, w)
+    per = G // span
+    if zeros is not None:
+        dots = dots - xs.sum(dim=2)[:, :, None] * zeros.float().repeat_interleave(per, 0)[:, None, :]
+    return (dots * scales.float().repeat_interleave(per, 0)[:, None, :]).sum(dim=0)
+
+
+W4A8G_SPAN = 128
+
+
+def plain_w4a8g(x, qweight, scales, zeros, bits, block_k, rms_gamma=None, rms_eps=1e-6):
+    """What csrc/quant_gemv.cu:w4a8g_kernel computes, in float32 [M, N]:
+    activations quantized as plain_w4a8 quantizes them; per 128-K span an
+    integer dot, (dot - sum(xq) * zero) * scale * sx, summed over the spans.
+    The integer dots run as f32 matmuls of integers (exact)."""
+    if rms_gamma is not None:
+        x = rms_prologue(x, rms_gamma, rms_eps)
+    M, K = x.shape
+    G = K // scales.shape[0]
+    span = W4A8G_SPAN
+    w = unpack_signed(qweight, bits).float().T.reshape(K // span, span, -1)
+    per, per_kb = G // span, block_k // span
+    s = scales.float().repeat_interleave(per, 0)  # [spans, N]
+    z = None if zeros is None else zeros.float().repeat_interleave(per, 0)
+    acc = torch.zeros(M, w.shape[-1], dtype=torch.float32, device=x.device)
+    for kb in range(K // block_k):
+        xf = x[:, kb * block_k:(kb + 1) * block_k].float()
+        sx = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-10) * (1.0 / 127.0)
+        xq = torch.clamp(torch.round(xf / sx), -127, 127)
+        xg = xq.reshape(M, per_kb, span).transpose(0, 1)  # [spans, M, span]
+        spans = slice(kb * per_kb, (kb + 1) * per_kb)
+        dots = torch.bmm(xg, w[spans])
+        if z is not None:
+            dots = dots - xg.sum(dim=2)[:, :, None] * z[spans][:, None, :]
+        acc += (dots * s[spans][:, None, :] * sx).sum(dim=0)
+    return acc
+
+
+def plain_stream(x, qweight, scales, zeros, bits, block_k):
+    """The stream probe's output, float32 [M, N] (every row the same): the
+    reference's _stream_only_kernel touch, per k-block (first packed byte
+    as int8) * (first scale row) (+ first zero row) + x[0, block start],
+    summed over k-blocks in f32. As XLA evaluates the reference, the
+    product and the addition after it round once (a fused multiply-add,
+    exact here in float64 and then rounded); the rest rounds per step. x
+    is bf16 (normed ahead where the call has an RMSNorm prologue)."""
+    M, K = x.shape
+    G = K // scales.shape[0]
+    pack = 2 if bits == 4 else 1
+    acc = torch.zeros(qweight.shape[0], dtype=torch.float32, device=x.device)
+    for kb in range(K // block_k):
+        k = kb * block_k
+        qs = qweight[:, k // pack].double() * scales[k // G].double()
+        if zeros is not None:
+            t = (qs + zeros[k // G].double()).float() + x[0, k].float()
+        else:
+            t = (qs + x[0, k].double()).float()
+        acc = acc + t
+    return acc.expand(M, -1).contiguous()
+
+
 # ---------------------------------------------------------------- dispatch
 
 
@@ -241,16 +340,23 @@ def plan(
     the variant; the k-block, which for W4A8 is the span of one activation
     scale; and whether the RMSNorm runs in the kernel's prologue. An
     explicit variant="group" stays `group` at any M, as on the reference's
-    flat layout."""
+    flat layout; an explicit "gemv" or "w4a8g" turns into `group` above
+    M = 64 and, on the tiled storage, into `dequant`. "stream" (the probe)
+    takes the k-block and prologue of the default variant, as the
+    reference's probe takes over the body of whatever kernel the call runs."""
     G = group_size
     block_n = min(tile_n, N)
     if variant not in ("",) + VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
+    if variant == "stream":
+        _, bk, fuse_rms = plan(M, K, N, bits, G, scales_itemsize, has_rms,
+                               block_k=block_k, tile_n=tile_n)
+        return "stream", bk, fuse_rms
     forced_group = variant == "group"
     bk = block_k or 2048
     variant = variant or ("w4a8" if M <= 64 else "group")
-    if G < 128 and variant in ("group", "w4a8"):
-        variant = "dequant"  # the reference's group reshape needs G >= 128
+    if G < 128 and variant in ("group", "w4a8", "w4a8g"):
+        variant = "dequant"  # the reference's group reshape needs G >= 128 (gemv takes any G)
     chunk = (16 if scales_itemsize == 2 else 8) * G
     w_bytes_per_k = block_n // 2 if bits == 4 else block_n
     max_bk = max((4 * 1024 * 1024) // w_bytes_per_k, chunk)
@@ -262,7 +368,7 @@ def plan(
     if bk < 1024 and bk < K <= max_bk:
         bk = K  # awkward K: one full-K block instead of many small ones
     if M > 64:
-        if variant == "w4a8":
+        if variant in ("gemv", "w4a8", "w4a8g"):
             variant = "group"
         if not (forced_group and variant == "group"):
             variant = "dequant"
@@ -303,19 +409,22 @@ def _run(plain: bool, x, qweight, scales, zeros, bits, symmetric, variant, block
         rms_gamma = None
     x_op = x.to(torch.bfloat16)
     args = (x_op, qweight, scales, zeros, bits)
-    if plain:
-        if variant == "w4a8":
-            out = plain_w4a8(*args, block_k, rms_gamma, rms_eps)
-        elif variant == "group":
-            out = plain_group(*args, rms_gamma, rms_eps)
-        else:
-            out = plain_dequant(*args, rms_gamma, rms_eps)
-    elif variant == "w4a8":
-        out = quant_matmul_w4a8_cuda(*args, block_k, rms_gamma, rms_eps)
-    elif variant == "group":
-        out = quant_matmul_group_cuda(*args, rms_gamma, rms_eps)
+    if variant == "stream":
+        # The probe's prologue, fused or not, runs ahead of it on the bf16 x
+        # that a fused prologue would read.
+        if rms_gamma is not None:
+            x_op = rms_prologue(x_op, rms_gamma, rms_eps)
+        fn = plain_stream if plain else quant_stream_probe_cuda
+        out = fn(x_op, qweight, scales, zeros, bits, block_k)
+    elif variant in ("w4a8", "w4a8g"):  # the k-block is part of their function
+        fn = dict(w4a8=(plain_w4a8, quant_matmul_w4a8_cuda),
+                  w4a8g=(plain_w4a8g, quant_w4a8_gemv_cuda))[variant][0 if plain else 1]
+        out = fn(*args, block_k, rms_gamma, rms_eps)
     else:
-        out = quant_matmul_dequant_cuda(*args, rms_gamma, rms_eps)
+        fn = dict(group=(plain_group, quant_matmul_group_cuda),
+                  dequant=(plain_dequant, quant_matmul_dequant_cuda),
+                  gemv=(plain_gemv, quant_gemv_cuda))[variant][0 if plain else 1]
+        out = fn(*args, rms_gamma, rms_eps)
     return out.to(x.dtype)
 
 
@@ -493,3 +602,145 @@ def quant_matmul_dequant_cuda(x, qweight, scales, zeros, bits,
 
 
 quant_matmul_dequant_cuda.launches = 0
+
+
+# ---------------------------------------------------------------- small-M variants and the probe
+#
+# csrc/quant_gemv.cu: gemv (K12a), w4a8g (K12b), the stream probe (K12c).
+
+# gemv: x, qweight, scales, zeros, rms_gamma, inv_rms, part, out; M, K, N,
+# group_size, bits, scales_bf16, gamma_bf16, splits; rms_eps; stream.
+# w4a8g: x, qweight, scales, zeros, rms_gamma, xq, sx, xsum, part, out; M, K,
+# N, group_size, bits, scales_bf16, gamma_bf16, block_k, splits; rms_eps;
+# stream.
+# stream probe: x, qweight, scales, zeros, sink, out; M, K, N, group_size,
+# bits, scales_bf16, block_k, weights_only, blocks; stream.
+GEMV_ENTRY_POINTS = {
+    "scalellm_quant_gemv": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "scalellm_quant_w4a8_gemv": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "scalellm_quant_stream_probe": [_P] * 6 + [_I] * 9 + [_P],
+}
+GEMV_COLS = 32  # output columns of a gemv / w4a8g block
+GEMV_CHUNK_K = 1024  # K a block stages at a time
+STREAM_THREADS = 256  # threads of a probe block, one sink word a warp
+STREAM_LOADS = 8  # 16-byte loads a probe thread keeps in flight
+
+
+def _gemv_library() -> ctypes.CDLL:
+    lib = _build.load("quant_gemv")
+    for name, argtypes in GEMV_ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _gemv_splits(M: int, K: int, N: int, device) -> int:
+    """Split-K of a gemv / w4a8g call: 1 where the output tiles give at
+    least two blocks an SM, else enough whole 1024-K chunks per split to
+    reach that (the kernels add the splits' f32 partials in order)."""
+    rows = 1 if M <= 1 else 4 if M <= 4 else 8 if M <= 8 else 16
+    blocks = -(-M // rows) * -(-N // GEMV_COLS)
+    want = 2 * torch.cuda.get_device_properties(device).multi_processor_count
+    n_chunks = -(-K // GEMV_CHUNK_K)
+    if blocks >= want:
+        return 1
+    per = -(-n_chunks // min(n_chunks, -(-want // blocks)))
+    return -(-n_chunks // per)
+
+
+def _check_small_m(name, M, K, G, g_mult):
+    if M > W4A8_MAX_M:
+        raise NotImplementedError(f"the {name} kernel takes M <= {W4A8_MAX_M}, got {M}")
+    if G % g_mult or K % 128:
+        raise NotImplementedError(
+            f"the {name} kernel needs G % {g_mult} == 0 and K % 128 == 0; got K={K}, G={G}")
+
+
+def quant_gemv_cuda(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
+    """Launch the gemv kernel (K12a) on the current stream; returns bf16
+    [M, N]. `quant_gemv_cuda.launches` counts the launches."""
+    M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
+    _check_small_m("gemv", M, K, G, 32)
+    splits = _gemv_splits(M, K, N, x.device)
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    part = torch.empty(splits, M, N, dtype=torch.float32, device=x.device) if splits > 1 else None
+    inv = torch.empty(M, dtype=torch.float32, device=x.device) if rms_gamma is not None else None
+    rc = _gemv_library().scalellm_quant_gemv(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
+        _ptr(inv), _ptr(part), out.data_ptr(), M, K, N, G, bits, _is_bf16(scales),
+        _is_bf16(rms_gamma), splits, float(rms_eps), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul gemv kernel launch failed: CUDA error {rc}")
+    quant_gemv_cuda.launches += 1
+    return out
+
+
+quant_gemv_cuda.launches = 0
+
+
+def quant_w4a8_gemv_cuda(x, qweight, scales, zeros, bits, block_k,
+                         rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
+    """Launch the w4a8g kernel (K12b: activation quantization, then the dp4a
+    GEMV, one C call) on the current stream; returns bf16 [M, N].
+    `quant_w4a8_gemv_cuda.launches` counts the launches."""
+    M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
+    _check_small_m("w4a8g", M, K, G, W4A8G_SPAN)
+    if K > W4A8_MAX_K:
+        raise NotImplementedError(f"the w4a8g kernel takes K <= {W4A8_MAX_K}, got {K}")
+    if block_k <= 0 or block_k % G or K % block_k:
+        raise ValueError(f"block_k={block_k} must be a multiple of G={G} that divides K={K}")
+    splits = _gemv_splits(M, K, N, x.device)
+    dev = x.device
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(splits, M, N, dtype=torch.float32, device=dev) if splits > 1 else None
+    xq = torch.empty(M, K, dtype=torch.int8, device=dev)
+    sx = torch.empty(M, K // block_k, dtype=torch.float32, device=dev)
+    xsum = None if zeros is None else torch.empty(M, K // W4A8G_SPAN, dtype=torch.int32, device=dev)
+    rc = _gemv_library().scalellm_quant_w4a8_gemv(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
+        xq.data_ptr(), sx.data_ptr(), _ptr(xsum), _ptr(part), out.data_ptr(), M, K, N, G, bits,
+        _is_bf16(scales), _is_bf16(rms_gamma), block_k, splits, float(rms_eps),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul w4a8g kernel launch failed: CUDA error {rc}")
+    quant_w4a8_gemv_cuda.launches += 1
+    return out
+
+
+quant_w4a8_gemv_cuda.launches = 0
+
+
+def quant_stream_probe_cuda(x, qweight, scales, zeros, bits, block_k,
+                            weights_only=False) -> torch.Tensor:
+    """Launch the weight-stream probe (K12c) on the current stream: every
+    byte of qweight, scales (not with weights_only) and zeros is read; the
+    bf16 [M, N] output is plain_stream's touch (not a matmul; with
+    weights_only it reads scale 1). `quant_stream_probe_cuda.launches`
+    counts the launches."""
+    M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, None)
+    if block_k <= 0 or block_k % G or K % block_k:
+        raise ValueError(f"block_k={block_k} must be a multiple of G={G} that divides K={K}")
+    if qweight.data_ptr() % 16 or scales.data_ptr() % 4 or (zeros is not None and zeros.data_ptr() % 4):
+        raise NotImplementedError("the stream probe reads qweight in 16-byte and scales/zeros in 4-byte words")
+    # The grid: at most 4 blocks an SM, fewer where the weights give each
+    # thread fewer than its loads in flight.
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = max(1, min(4 * sms, qweight.numel() // (16 * STREAM_THREADS * STREAM_LOADS)))
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    sink = torch.empty(blocks * STREAM_THREADS // 32, dtype=torch.int32, device=x.device)
+    rc = _gemv_library().scalellm_quant_stream_probe(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), sink.data_ptr(),
+        out.data_ptr(), M, K, N, G, bits, _is_bf16(scales), block_k, int(weights_only), blocks,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul stream probe launch failed: CUDA error {rc}")
+    quant_stream_probe_cuda.launches += 1
+    return out
+
+
+quant_stream_probe_cuda.launches = 0

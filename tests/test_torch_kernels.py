@@ -459,3 +459,170 @@ def test_moe_quant_kernels_refuse_what_they_do_not_cover(cuda):
     qw, sc = _quant_experts(rng, 4, 256, 64, 4, 32, cuda)
     with pytest.raises(NotImplementedError):  # f32 activations
         MQ.grouped_quant_matmul_cuda(xs.float(), qw, sc, gs, act, st)
+
+
+# ---------------------------------------------------------------- small-M variants and the probe (K12)
+#
+# gemv and w4a8g against plain_gemv / plain_w4a8g: the products are exact on
+# both sides and the f32 sums run in another order; w4a8g's activation
+# quantization is K2's (a rare +-1 in a quantized activation where rsqrt's
+# last bit differs); outputs are rounded to bf16: the tolerance of the other
+# quantized matmuls (_check_quant). The stream probe does the same f32
+# operations as plain_stream in the same order (the product and the
+# addition after it fused on both sides): equal after the bf16 rounding.
+
+# (M, K, N, G, bits, asym, rms, scales dtype)
+GEMV_CASES = {
+    "m1_int4": (1, 512, 64, 128, 4, False, False, torch.float32),
+    "m5_g32_asym_rms_ragged_n": (5, 1024, 96, 32, 4, True, "bf16", torch.float32),
+    "m16_8b_qkv_rms": (16, 4096, 6144, 128, 4, False, "bf16", torch.float32),
+    "m64_8b_down_split_k": (64, 14336, 512, 128, 4, False, False, torch.float32),
+    "m8_int8_bf16_scales": (8, 4096, 1024, 128, 8, False, False, torch.bfloat16),
+    "m33_int8_asym": (33, 2048, 256, 128, 8, True, False, torch.float32),
+}
+
+
+@pytest.mark.parametrize("variant", ["gemv", "w4a8g"])
+@pytest.mark.parametrize("case", list(GEMV_CASES))
+def test_small_m_kernels_match_plain_versions(cuda, case, variant):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    M, K, N, G, bits, asym, rms, sdt = GEMV_CASES[case]
+    if variant == "w4a8g" and G % 128:
+        G = 128
+    t = _quant_case(cuda, M=M, K=K, N=N, G=G, bits=bits, asym=asym, rms=rms, scales_dtype=sdt)
+    args = (t["x"], t["qweight"], t["scales"], t["zeros"], bits)
+    if variant == "gemv":
+        kernel, plain, extra = Q.quant_gemv_cuda, Q.plain_gemv, ()
+    else:
+        kernel, plain, extra = Q.quant_w4a8_gemv_cuda, Q.plain_w4a8g, (min(K, 2048),)
+    before = kernel.launches
+    got = kernel(*args, *extra, t["rms_gamma"], 1e-5)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _check_quant(got, plain(*args, *extra, t["rms_gamma"], 1e-5).to(torch.bfloat16))
+
+
+# (M, K, N, G, bits, asym, scales dtype, block_k)
+STREAM_CASES = {
+    "m4_int4": (4, 4096, 6144, 128, 4, False, torch.float32, 2048),
+    "m3_asym_ragged_n": (3, 2048, 1000, 128, 4, True, torch.float32, 2048),
+    "m70_int8_bf16_scales": (70, 4096, 4096, 128, 8, False, torch.bfloat16, 1024),
+    "m16_g32_asym": (16, 1024, 256, 32, 4, True, torch.float32, 256),
+}
+
+
+@pytest.mark.parametrize("case", list(STREAM_CASES))
+def test_stream_probe_matches_plain_version_exactly(cuda, case):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    M, K, N, G, bits, asym, sdt, block_k = STREAM_CASES[case]
+    t = _quant_case(cuda, M=M, K=K, N=N, G=G, bits=bits, asym=asym, rms=False, scales_dtype=sdt)
+    args = (t["x"], t["qweight"], t["scales"], t["zeros"], bits, block_k)
+    before = Q.quant_stream_probe_cuda.launches
+    got = Q.quant_stream_probe_cuda(*args)
+    torch.cuda.synchronize()
+    assert Q.quant_stream_probe_cuda.launches == before + 1
+    assert torch.equal(got, Q.plain_stream(*args).to(torch.bfloat16))
+    weights_only = Q.quant_stream_probe_cuda(*args, weights_only=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(weights_only).all()
+
+
+def test_dispatcher_takes_the_small_m_variants_to_their_kernels(cuda):
+    """quant_matmul with variant gemv / w4a8g / stream launches that kernel
+    at M <= 64 (gemv and w4a8g go to dequant above), and agrees with
+    plain_quant_matmul."""
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    wrappers = dict(gemv=Q.quant_gemv_cuda, w4a8g=Q.quant_w4a8_gemv_cuda,
+                    stream=Q.quant_stream_probe_cuda, dequant=Q.quant_matmul_dequant_cuda)
+    for M, variant, want in ((16, "gemv", "gemv"), (16, "w4a8g", "w4a8g"), (16, "stream", "stream"),
+                             (65, "gemv", "dequant"), (65, "w4a8g", "dequant")):
+        t = _quant_case(cuda, M=M, K=1024, N=256, G=128, bits=4, asym=False, rms="bf16",
+                        scales_dtype=torch.bfloat16)
+        kw = dict(bits=4, symmetric=True, variant=variant, rms_gamma=t["rms_gamma"], rms_eps=1e-5)
+        before = {k: w.launches for k, w in wrappers.items()}
+        got = Q.quant_matmul(t["x"], t["qweight"], t["scales"], **kw)
+        torch.cuda.synchronize()
+        assert {k: w.launches - before[k] for k, w in wrappers.items()} == \
+            {k: int(k == want) for k in wrappers}, (M, variant)
+        want_out = Q.plain_quant_matmul(t["x"], t["qweight"], t["scales"], **kw)
+        if variant == "stream":
+            assert torch.equal(got, want_out)
+        else:
+            _check_quant(got, want_out)
+
+
+def test_small_m_kernels_refuse_what_they_do_not_cover(cuda):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    t = _quant_case(cuda, M=8, K=256, N=64, G=128, bits=4, asym=False, rms=False,
+                    scales_dtype=torch.float32)
+    args = (t["qweight"], t["scales"], None, 4)
+    with pytest.raises(NotImplementedError):
+        Q.quant_gemv_cuda(t["x"].repeat(16, 1), *args)  # M = 128
+    with pytest.raises(NotImplementedError):
+        Q.quant_w4a8_gemv_cuda(t["x"].float(), *args, 256)
+    g64 = _quant_case(cuda, M=8, K=256, N=64, G=64, bits=4, asym=False, rms=False,
+                      scales_dtype=torch.float32)
+    with pytest.raises(NotImplementedError):  # w4a8g needs G % 128 == 0
+        Q.quant_w4a8_gemv_cuda(g64["x"], g64["qweight"], g64["scales"], None, 4, 256)
+
+
+# ---------------------------------------------------------------- fused quantized MLP (K11)
+#
+# Against plain_quant_mlp: g and u are f32 sums of exact products in another
+# order; where they fall on a bf16 boundary an element of h moves by one bf16
+# step; the down sums are exact products in another order: 1e-3 of the
+# output's largest magnitude, a mean error below 2e-5 of it.
+
+# (M, D, F, G, bits, asym, act)
+MLP_CASES = {
+    "m1_8b": (1, 4096, 14336, 128, 4, False, "silu"),
+    "m8_8b_asym": (8, 4096, 14336, 128, 4, True, "silu"),
+    "m3_g32_gelu_asym": (3, 256, 512, 32, 4, True, "gelu"),
+    "m5_int8_gelu_new": (5, 512, 256, 64, 8, True, "gelu_new"),
+    "m40_g256_two_row_tiles": (40, 1024, 1024, 256, 4, False, "silu"),
+}
+
+
+def _mlp_case(device, M, D, F, G, bits, asym, seed=0):
+    rng = np.random.default_rng(seed)
+    pack = 2 if bits == 4 else 1
+
+    def triple(K, N):
+        q = torch.from_numpy(rng.integers(-128, 128, (N, K // pack), dtype=np.int8)).to(device)
+        s = torch.from_numpy(rng.uniform(0.002, 0.02, (K // G, N)).astype(np.float32)).to(device)
+        lo, hi = (-8, 8) if bits == 4 else (-20, 20)
+        z = torch.from_numpy(rng.integers(lo, hi, (K // G, N), dtype=np.int8)).to(device) if asym else None
+        return q, s, z
+
+    x = torch.from_numpy((rng.standard_normal((M, D)) + 0.3).astype(np.float32)).to(device, torch.bfloat16)
+    return x, triple(D, 2 * F), triple(F, D)
+
+
+@pytest.mark.parametrize("case", list(MLP_CASES))
+def test_quant_mlp_kernel_matches_plain_version(cuda, case):
+    from scalellm_tpu_torch.ops import quant_mlp as QM
+
+    M, D, F, G, bits, asym, act = MLP_CASES[case]
+    x, gate_up, down = _mlp_case(cuda, M, D, F, G, bits, asym)
+    before = QM.quant_mlp_cuda.launches
+    got = QM.quant_mlp(x, gate_up, down, F, bits=bits, act=act, tile_n=min(1024, F))
+    torch.cuda.synchronize()
+    assert QM.quant_mlp_cuda.launches == before + 1
+    want = QM.plain_quant_mlp(x, gate_up, down, F, bits, act)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    diff = (got - want).abs()
+    top = want.abs().max().item()
+    assert diff.max().item() <= 1e-3 * top, (diff.max().item(), top)
+    assert diff.mean().item() <= 2e-5 * top, (diff.mean().item(), top)
+
+
+def test_quant_mlp_kernel_refuses_prefill(cuda):
+    from scalellm_tpu_torch.ops import quant_mlp as QM
+
+    x, gate_up, down = _mlp_case(cuda, 65, 256, 256, 128, 4, False)
+    with pytest.raises(NotImplementedError):
+        QM.quant_mlp(x, gate_up, down, 256, tile_n=256)

@@ -6,7 +6,7 @@ ids and texts must be equal."""
 
 import pytest
 
-import tests.fixtures as fixtures
+from tests.torch_port_util import tiny_llama
 
 PROMPTS = [
     "the quick brown fox jumps over",
@@ -17,9 +17,8 @@ PROMPTS = [
 
 
 @pytest.fixture(scope="module")
-def tiny_model(tmp_path_factory):
-    d = tmp_path_factory.mktemp("tiny_llama_torch_port")
-    return fixtures.make_tiny_llama(str(d), tokenizer=True)
+def tiny_model():
+    return tiny_llama()  # fixtures.make_tiny_llama(tokenizer=True), shared
 
 
 def _run(llm_cls, sp_cls, path, **kw):

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-import tests.fixtures as fixtures
+from tests.torch_port_util import tiny_llama
 from scalellm_tpu.config import ModelArgs as JaxModelArgs
 from scalellm_tpu.engine.params import ModelInputs as JaxModelInputs
 from scalellm_tpu.models.common import DecoderModel as JaxDecoderModel
@@ -106,7 +106,7 @@ def test_forward_and_logits_match_jax_over_steps(models):
     np.testing.assert_allclose(tkv.numpy(), np.asarray(jkv), atol=TOL, rtol=TOL)
 
 
-def test_loader_reads_the_checkpoint_like_jax(tmp_path):
+def test_loader_reads_the_checkpoint_like_jax():
     import scalellm_tpu.models  # noqa: F401  (registers the JAX models)
     from scalellm_tpu.model_loader.loader import HFModelLoader as JaxLoader
     from scalellm_tpu.models.registry import ModelRegistry as JaxRegistry
@@ -114,7 +114,7 @@ def test_loader_reads_the_checkpoint_like_jax(tmp_path):
     from scalellm_tpu_torch.model_loader.loader import HFModelLoader
     from scalellm_tpu_torch.models.registry import ModelRegistry
 
-    path = fixtures.make_tiny_llama(str(tmp_path / "tiny"))
+    path = tiny_llama()  # fixtures.make_tiny_llama's checkpoint, shared
     jl = JaxLoader(path)
     from scalellm_tpu.parallel.config import ParallelConfig
 

@@ -177,7 +177,7 @@ def test_group_32_goes_to_dequant_like_the_reference(M, asym):
 def test_bf16_activations_give_bf16_within_one_step():
     jt, (t_qw, t_sc, _) = _case(512, 128, 128, 4, False)
     xb = torch.from_numpy(_x(8, 512)).to(torch.bfloat16)
-    for variant in TQ.VARIANTS:
+    for variant in TQ.MATMUL_VARIANTS:
         want = _interpret(_bf16_np(xb), jt, 4, False, variant, 256, None).astype(np.float32)
         got = TQ.quant_matmul(xb, t_qw, t_sc, None, bits=4, symmetric=True, variant=variant,
                               block_k=256)
@@ -196,7 +196,7 @@ def test_sign_extension_of_the_nibbles():
     x = torch.ones(1, 32)
     s = torch.ones(1, 8)
     want = (values.float() - 8).sum(0, keepdim=True)
-    for variant in ("ref",) + TQ.VARIANTS:
+    for variant in ("ref",) + TQ.MATMUL_VARIANTS:
         got = TQ.quant_matmul(x, qw, s, None, bits=4, symmetric=True, variant=variant)
         assert torch.equal(got, want), variant
 
@@ -204,7 +204,7 @@ def test_sign_extension_of_the_nibbles():
 # ------------------------------------------------------------ dispatcher
 
 
-def _reference_plan(M, K, N, bits, G, scales_dtype, rms, tile, capfd):
+def _reference_plan(M, K, N, bits, G, scales_dtype, rms, tile, capfd, variant=""):
     """What the JAX dispatcher decides for a tiled weight, read from its
     QUANT_DEBUG line while the call is traced with abstract values (nothing
     is computed)."""
@@ -219,7 +219,7 @@ def _reference_plan(M, K, N, bits, G, scales_dtype, rms, tile, capfd):
         jax.eval_shape(
             lambda x, q, s, g: JQ.quant_matmul.__wrapped__(
                 x, q, s, None, bits=bits, backend="tpu", interpret=True, symmetric=True,
-                rms_gamma=g, rms_eps=EPS),
+                variant=variant, rms_gamma=g, rms_eps=EPS),
             *args, gamma)
     finally:
         os.environ.pop("QUANT_DEBUG", None)
@@ -273,7 +273,7 @@ def test_cpu_dispatch_refuses_bad_arguments():
     with pytest.raises(ValueError):
         TQ.quant_matmul(x, t_qw, t_sc, bits=3)
     with pytest.raises(ValueError):
-        TQ.quant_matmul(x, t_qw, t_sc, variant="gemv")
+        TQ.quant_matmul(x, t_qw, t_sc, variant="block_diagonal")
     with pytest.raises(ValueError):
         TQ.quant_matmul(x[:, :128], t_qw, t_sc)
     with pytest.raises(ValueError):
@@ -284,13 +284,16 @@ def test_cpu_dispatch_refuses_bad_arguments():
 
 
 def _entry_points():
-    """Every C entry point of the port's kernels: name -> (wrapper module,
-    its source under csrc/)."""
-    from scalellm_tpu_torch.ops import grouped_matmul, mla_attention, moe_quant
+    """Every C entry point of the port's kernels: name -> (its argtypes, its
+    source under csrc/)."""
+    from scalellm_tpu_torch.ops import grouped_matmul, mla_attention, moe_quant, quant_mlp
 
-    modules = ((TQ, "quant_matmul.cu"), (mla_attention, "mla_attention.cu"),
-               (grouped_matmul, "grouped_matmul.cu"), (moe_quant, "moe_quant.cu"))
-    return {entry: (module, source) for module, source in modules for entry in module.ENTRY_POINTS}
+    tables = ((TQ.ENTRY_POINTS, "quant_matmul.cu"), (TQ.GEMV_ENTRY_POINTS, "quant_gemv.cu"),
+              (quant_mlp.ENTRY_POINTS, "quant_mlp.cu"),
+              (mla_attention.ENTRY_POINTS, "mla_attention.cu"),
+              (grouped_matmul.ENTRY_POINTS, "grouped_matmul.cu"),
+              (moe_quant.ENTRY_POINTS, "moe_quant.cu"))
+    return {entry: (table[entry], source) for table, source in tables for entry in table}
 
 
 @pytest.mark.parametrize("entry", list(_entry_points()))
@@ -301,7 +304,7 @@ def test_ctypes_signatures_match_the_cuda_source(entry):
     import pathlib
     import re
 
-    module, source = _entry_points()[entry]
+    argtypes, source = _entry_points()[entry]
     src = (pathlib.Path(TQ.__file__).parent.parent / "csrc" / source).read_text()
     params = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", src, re.S).group(1)
     kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
@@ -309,4 +312,4 @@ def test_ctypes_signatures_match_the_cuda_source(entry):
     for p in params.split(","):
         words = p.replace("*", " * ").split()[:-1]  # drop the parameter name
         want.append(kinds["void*" if "*" in words else words[-1]])
-    assert module.ENTRY_POINTS[entry] == want
+    assert argtypes == want

@@ -33,7 +33,7 @@ from scalellm_tpu_torch.models.common import QuantLinear
 from scalellm_tpu_torch.ops import quant_matmul as TQ
 from tests.test_torch_model import PAGE, _inputs
 from tests.test_torch_quantization import CHECKPOINTS, _jax_params, _torch_state
-from tests.torch_port_util import quantize_checkpoint
+from tests.torch_port_util import quantize_checkpoint, tiny_llama
 
 TOL_REF = 1e-4
 TOL_DISPATCH = 0.02
@@ -47,10 +47,8 @@ RUNTIME = {
 
 
 @pytest.fixture(scope="module")
-def dense_dirs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("quant_model_src")
-    return {h: fixtures.make_tiny_llama(str(root / f"h{h}"), tokenizer=True, hidden_size=h,
-                                        intermediate_size=2 * h) for h in (64, 128)}
+def dense_dirs():
+    return {h: tiny_llama(h) for h in (64, 128)}
 
 
 @pytest.fixture(scope="module")
@@ -169,18 +167,42 @@ def test_greedy_tokens_match_jax(name, model_dir):
     assert all(len(t) == 6 for t in got)
 
 
-def test_default_dispatch_greedy_tokens_match_jax_on_the_trained_model():
+TRAINED_OPTS = dict(quantize="int4", quantize_lm_head=True)
+
+
+@pytest.fixture(scope="module")
+def trained_jax_tokens():
+    """The char-level model trained on tests/data/corpus.txt, runtime int4
+    with an int8 lm_head, and the JAX package's greedy tokens on it (its
+    engine built once for the file)."""
+    from scalellm_tpu import LLM as JaxLLM
+    from scalellm_tpu import SamplingParams as JaxSamplingParams
+
+    path = fixtures.trained_tiny_llama_cached()
+    return path, _generate(JaxLLM, JaxSamplingParams, path, enable_cuda_graph=False, **TRAINED_OPTS)
+
+
+def test_default_dispatch_greedy_tokens_match_jax_on_the_trained_model(trained_jax_tokens):
     """The random fixtures' logits are too flat for greedy tokens to survive
     int8 activations (their top-two margins are below TOL_DISPATCH); the
     char-level model trained on tests/data/corpus.txt has real margins. With
     runtime int4 and an int8 lm_head (G = 128: every projection W4A8), the
     port's default dispatch gives the JAX package's tokens."""
-    from scalellm_tpu import LLM as JaxLLM
-    from scalellm_tpu import SamplingParams as JaxSamplingParams
     from scalellm_tpu_torch import LLM, SamplingParams
 
-    path = fixtures.trained_tiny_llama_cached()
-    opts = dict(quantize="int4", quantize_lm_head=True)
-    want = _generate(JaxLLM, JaxSamplingParams, path, enable_cuda_graph=False, **opts)
-    got = _generate(LLM, SamplingParams, path, devices="cpu", **opts)
+    path, want = trained_jax_tokens
+    got = _generate(LLM, SamplingParams, path, devices="cpu", **TRAINED_OPTS)
+    assert got == want
+
+
+@pytest.mark.parametrize("variant", ["gemv", "w4a8g"])
+def test_small_m_variants_greedy_tokens_match_jax_on_the_trained_model(variant, trained_jax_tokens):
+    """The same run with the small-M variants set on the model's quantized
+    matmul, as the reference's QUANT_VARIANT selects them (every decode
+    step through the variant, prefill chunks of 16 tokens too): the JAX
+    package's tokens."""
+    from scalellm_tpu_torch import LLM, SamplingParams
+
+    path, want = trained_jax_tokens
+    got = _generate(LLM, SamplingParams, path, variant=variant, devices="cpu", **TRAINED_OPTS)
     assert got == want

@@ -7,7 +7,6 @@ import numpy as np
 import pytest
 import torch
 
-import tests.fixtures as fixtures
 from scalellm_tpu.ops import quant_matmul as JQ
 from scalellm_tpu.quantization import formats as JF
 from scalellm_tpu_torch.config import QuantArgs
@@ -17,7 +16,7 @@ from scalellm_tpu_torch.quantization.linear import (
     build_quant_rules,
     gptq_qweight_to_kernel_layout,
 )
-from tests.torch_port_util import AWQ_ORDER, _pack_nibbles, quantize_checkpoint
+from tests.torch_port_util import AWQ_ORDER, _pack_nibbles, quantize_checkpoint, tiny_llama
 
 
 def _same_bits(t: torch.Tensor, a: np.ndarray):
@@ -208,10 +207,8 @@ CHECKPOINTS = {
 
 
 @pytest.fixture(scope="module")
-def dense_dirs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("quant_src")
-    return {h: fixtures.make_tiny_llama(str(root / f"h{h}"), tokenizer=True, hidden_size=h,
-                                        intermediate_size=2 * h) for h in (64, 128)}
+def dense_dirs():
+    return {h: tiny_llama(h) for h in (64, 128)}
 
 
 @pytest.mark.parametrize("name", list(CHECKPOINTS))

@@ -135,3 +135,46 @@ def quantize_checkpoint(src_dir, dst_dir, fmt, group=32, desc_act=False, seed=7,
         if os.path.exists(os.path.join(src_dir, extra)):
             shutil.copy(os.path.join(src_dir, extra), os.path.join(dst_dir, extra))
     return dst_dir
+
+
+# ------------------------------------------------------- shared checkpoints
+
+
+def shared_checkpoint(name: str, build) -> str:
+    """A checkpoint directory built once per temp directory and shared by
+    every test process that asks for `name`: the first caller runs
+    build(dirpath) under a file lock (later callers wait for it, then reuse
+    the result) and the finished directory is renamed into place, so no
+    caller sees half of it. The name carries everything the build depends
+    on."""
+    import fcntl
+    import os
+    import shutil
+    import tempfile
+
+    root = os.path.join(tempfile.gettempdir(), "scalellm_torch_port_checkpoints")
+    os.makedirs(root, exist_ok=True)
+    final = os.path.join(root, name)
+    if os.path.isdir(final):
+        return final
+    with open(final + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.isdir(final):
+            tmp = f"{final}.building-{os.getpid()}"
+            shutil.rmtree(tmp, ignore_errors=True)
+            build(tmp)
+            os.replace(tmp, final)
+    return final
+
+
+def tiny_llama(hidden_size: int = 64) -> str:
+    """tests/fixtures.make_tiny_llama's float32 checkpoint (seed 0, the char
+    tokenizer) at this hidden size and twice it as the FFN width, built
+    once for every file that uses it: the transformers import it needs is
+    the slowest part of these files' set-up."""
+    import tests.fixtures as fixtures
+
+    return shared_checkpoint(
+        f"tiny_llama_h{hidden_size}_f{2 * hidden_size}_seed0_tok",
+        lambda d: fixtures.make_tiny_llama(d, tokenizer=True, hidden_size=hidden_size,
+                                           intermediate_size=2 * hidden_size))
