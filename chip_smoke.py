@@ -17,10 +17,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
      a. ragged paged attention in bf16 at five shapes of the serving paths
         (yardstick: scaled_dot_product_attention on gathered K/V);
      b. the quantized matmuls at the five Llama-3.1-8B projection shapes:
-        w4a8 at M = 1, 8, 16, 64, dequant and group at M = 512, and dequant
-        and group with the RMSNorm in their prologue at (K, N) = (2048, 2560),
-        M = 128 (yardstick: one bf16 matmul on weights dequantized ahead of
-        time).
+        w4a8 at M = 1, 8, 16, 64, dequant and group at M = 512 (dequant at
+        gate_up also at M = 128 and 256), dequant and group with the RMSNorm
+        in their prologue at (K, N) = (2048, 2560), M = 128, and dequant at
+        the DeepSeek-V2-Lite shared experts' down projection as phase 7
+        quantizes it (K = 2816, N = 2048, G = 32, bf16 scales) at its decode
+        M = 16 (yardstick: one bf16 matmul on weights dequantized ahead of
+        time); per M = 512 shape the bytes the chosen tiles move through L2.
      c. the DeepSeek-V2-Lite kernels: the grouped GEMM (K6) at the decode
         (96 rows: 8 tokens and 8 padding rows x 6 experts, routed by a
         seeded softmax over 64 experts, the padding rows all to the same 6)
@@ -89,7 +92,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
      K8 and K7 once where the step's routed rows take the decode kernel (T
      <= 32), else the grouped GEMM 3 times; K9/K10 as in phase 6; each
      quantized projection's kernel (w4a8 or dequant) as plan() picks it.
-     Then the profile and the same kernel-vs-plain logits check.
+     Then the profile and the same kernel-vs-plain logits check, the
+     kernels run twice: the two runs' logits must be the same bits (the MoE
+     combine adds each token's rows in a fixed order, no atomics).
   8. a `kernels` JSON line, then the result line.
 
 It needs the repository (it fails in a directory that holds only this
@@ -394,21 +399,39 @@ QUANT_SHAPES = {
 }
 
 
-def quant_operands(torch, gen, K, N, bits, asym):
+def quant_operands(torch, gen, K, N, bits, asym, group=GROUP, bf16_scales=False):
     """Random kernel-layout weights on the card: every nibble (byte) value,
     f32 scales for the int4 projections (as a GPTQ checkpoint's f16 scales
-    load) and bf16 scales for the int8 lm_head (as the load-time quantizer
-    makes them), sized so that the dequantized weights have std ~0.02."""
+    load) and bf16 scales for the int8 lm_head or with bf16_scales (as the
+    load-time quantizer makes them), sized so that the dequantized weights
+    have std ~0.02."""
     rows = K // 2 if bits == 4 else K
     qweight = torch.randint(-128, 128, (N, rows), generator=gen, device=DEVICE, dtype=torch.int8)
     unit = 0.02 / (4.6 if bits == 4 else 74.0)
-    scales = (torch.rand(K // GROUP, N, generator=gen, device=DEVICE) + 0.5) * unit
-    if bits == 8:
+    scales = (torch.rand(K // group, N, generator=gen, device=DEVICE) + 0.5) * unit
+    if bits == 8 or bf16_scales:
         scales = scales.to(torch.bfloat16)
     zeros = None
     if asym:
-        zeros = torch.randint(-8, 8, (K // GROUP, N), generator=gen, device=DEVICE, dtype=torch.int8)
+        zeros = torch.randint(-8, 8, (K // group, N), generator=gen, device=DEVICE, dtype=torch.int8)
     return qweight, scales, zeros
+
+
+def deepseek_shared_down():
+    """(K, N, G) of DeepSeek-V2-Lite's shared experts' down projection as
+    phase 7's model quantizes it: K = the shared experts' width, N = the
+    hidden size, G from the model's own rule."""
+    from scalellm_tpu_torch.models.deepseek import pick_group
+
+    K = DEEPSEEK_V2_LITE["moe_intermediate_size"] * DEEPSEEK_V2_LITE["n_shared_experts"]
+    return K, DEEPSEEK_V2_LITE["hidden_size"], pick_group(K, 4)
+
+
+def l2_bytes(M, K, N, bits, rows, tokens):
+    """Bytes a tile kernel moves through L2: every column tile reads all of
+    x, every token tile all of the packed weights."""
+    w_bytes = N * K // 2 if bits == 4 else N * K
+    return M * K * 2 * -(-N // rows) + w_bytes * -(-M // tokens)
 
 
 def dequantized(torch, qweight, scales, zeros, bits):
@@ -449,24 +472,32 @@ def phase_quant_kernels(torch, card):
     plains = dict(w4a8=Q.plain_w4a8, group=Q.plain_group, dequant=Q.plain_dequant)
     # (kernel, M, asymmetric) per shape; one asymmetric case per kernel.
     cases = [("w4a8", m, False) for m in (1, 8, 16, 64)] + [("dequant", 512, False), ("group", 512, False)]
-    extra = {"o_proj": [("w4a8", 16, True), ("dequant", 512, True), ("group", 512, True)]}
-    only = {"qkv_proj_k2048": [("dequant", 128, False), ("group", 128, False)]}
+    extra = {"o_proj": [("w4a8", 16, True), ("dequant", 512, True), ("group", 512, True)],
+             "gate_up_proj": [("dequant", 128, False), ("dequant", 256, False)]}
+    only = {"qkv_proj_k2048": [("dequant", 128, False), ("group", 128, False)],
+            "deepseek_shared_down": [("dequant", 16, False)]}
+    ds_K, ds_N, ds_G = deepseek_shared_down()
+    shapes = dict(QUANT_SHAPES, deepseek_shared_down=(ds_K, ds_N, 4, False))
+    groups = dict(deepseek_shared_down=ds_G)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {name: {} for name in wrappers}
-    for shape, (K, N, bits, has_norm) in QUANT_SHAPES.items():
+    for shape, (K, N, bits, has_norm) in shapes.items():
         tile_n = Q.LM_HEAD_TILE_N if shape == "lm_head" else Q.DEFAULT_TILE_N
+        G = groups.get(shape, GROUP)
         for kernel_name, M, asym in only.get(shape, cases + extra.get(shape, [])):
-            qweight, scales, zeros = quant_operands(torch, gen, K, N, bits, asym)
+            qweight, scales, zeros = quant_operands(torch, gen, K, N, bits, asym, group=G,
+                                                    bf16_scales=shape in groups)
             x = (torch.randn(M, K, generator=gen, device=DEVICE) + 0.25).to(torch.bfloat16)
             gamma = None
             if has_norm:
                 gamma = (torch.rand(K, generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
             # As the dispatcher would call the kernel on the model's path:
             # its block_k, and the norm in the prologue only where it fuses.
-            variant, block_k, fuse = Q.plan(M, K, N, bits, GROUP, scales.dtype.itemsize, has_norm,
+            variant, block_k, fuse = Q.plan(M, K, N, bits, G, scales.dtype.itemsize, has_norm,
                                             variant=kernel_name, tile_n=tile_n)
             if variant != kernel_name:
                 fail(f"{shape} M={M}: plan() turned {kernel_name} into {variant}")
-            if shape in only and not (fuse and kernel_name != "w4a8"):
+            if shape == "qkv_proj_k2048" and not fuse:
                 fail(f"{shape} M={M}: plan() does not put the norm in {kernel_name}'s prologue")
             if gamma is not None and not fuse:
                 x, gamma = Q.rms_prologue(x, gamma, 1e-5), None
@@ -494,10 +525,18 @@ def phase_quant_kernels(torch, card):
                      plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
             results[kernel_name][(shape, M, asym)] = r
+            tile = None
+            if kernel_name != "w4a8":
+                tile = Q.TILES[Q.tile_shape(kernel_name, M, K, N, G, sms)]
             emit(dict(phase="kernel", kernel="quant_matmul_" + kernel_name, shape=shape, M=M, K=K,
-                      N=N, bits=bits, group=GROUP, asymmetric=asym, block_k=block_k,
-                      rms_prologue=gamma is not None, tol_max=QUANT_TOL_MAX * top, bytes=nbytes,
+                      N=N, bits=bits, group=G, asymmetric=asym, block_k=block_k,
+                      rms_prologue=gamma is not None, tile=tile, tol_max=QUANT_TOL_MAX * top, bytes=nbytes,
                       ops=ops, **r, card=card["nvidia_smi"]))
+            if kernel_name != "w4a8" and M == 512 and not asym:
+                emit(dict(phase="kernel_probe", kernel="quant_matmul_" + kernel_name, shape=shape, M=M,
+                          what="bytes through L2 of the chosen tiles (64 x 64 tiles' beside)",
+                          tile=tile, l2_bytes=l2_bytes(M, K, N, bits, *tile),
+                          l2_bytes_64x64=l2_bytes(M, K, N, bits, 64, 64)))
             del qweight, scales, zeros, x, got
         torch.cuda.empty_cache()
     # What a w4a8 call costs before any weight byte counts: one block's
@@ -1153,7 +1192,8 @@ def device_breakdown(prof, wall_s, steps):
     """Device time by kernel from a profiler trace, in six groups (the
     attention kernels, the quantized matmul kernels with their activation
     quantization, the grouped GEMM, the routed quantized-expert kernels,
-    library matrix products, the rest), the kernels launched per
+    library matrix products, the rest), the K3/K4 tile kernel's share of
+    the quantized group (with its pre-pass), the kernels launched per
     engine step, and the share of `wall_s` the device was idle. Kernels run
     on one stream, so their times add up to the device's busy time."""
     from torch.autograd import DeviceType
@@ -1173,8 +1213,8 @@ def device_breakdown(prof, wall_s, steps):
             groups["grouped_matmul_ms"] += ms
         elif "moe_quant_kernel" in low:
             groups["moe_quant_ms"] += ms
-        elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "act_quant_kernel", "gemv_kernel<",
-                                    "w4a8g_kernel", "stream_probe_kernel", "row_rms_kernel",
+        elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "tile_prep_kernel", "act_quant_kernel",
+                                    "gemv_kernel<", "w4a8g_kernel", "stream_probe_kernel", "row_rms_kernel",
                                     "split_sum_kernel")):
             groups["quant_matmul_ms"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
@@ -1182,11 +1222,12 @@ def device_breakdown(prof, wall_s, steps):
         else:
             groups["other_ms"] += ms
     busy_ms = sum(groups.values())
+    tile_ms = sum(ms for name, (ms, _) in per_name.items() if "tile_kernel" in name or "tile_prep" in name)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
     return dict(
         device_busy_ms=busy_ms if per_name else None,
         idle_share=1.0 - busy_ms / (1e3 * wall_s) if per_name else None,
-        kernels_per_step=sum(n for _, n in per_name.values()) / steps, **groups,
+        kernels_per_step=sum(n for _, n in per_name.values()) / steps, **groups, tile_kernel_ms=tile_ms,
         top=[dict(name=name[:90], ms=ms, count=n) for name, (ms, n) in top],
     )
 
@@ -1882,20 +1923,31 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
             return out
 
         logits = {}
+        # Phase 7 runs the kernels twice (the second time routing afresh):
+        # the two results must be the same bits.
+        impls = ("kernel", "kernel_again", "plain") if quantize else ("kernel", "plain")
         with torch.inference_mode():
-            for impl in ("kernel", "plain"):
+            for impl in impls:
                 plain = impl == "plain"
                 model.attn_impl = M.plain_mla_paged_attention if plain else M.mla_paged_attention
                 model.gmm_impl = G.plain_grouped_matmul if plain else G.grouped_matmul
                 model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
                 model.qexperts_impl = (functools.partial(quant_expert_ffn, variant="plain") if plain
                                        else quant_expert_ffn)
-                model._router = (lambda x, w: routes.pop(0)) if plain else recording
+                model._router = ((lambda x, w: routes.pop(0)) if plain
+                                 else recording if impl == "kernel" else real_router)
                 kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
                 a = model.logits(model(kv, prefill.to(DEVICE), all_hidden=True)[:n_tok])
                 b = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[: len(ids)])
                 logits[impl] = (a, b)
                 del kv
+        if quantize:
+            same = [torch.equal(a, b) for a, b in zip(logits["kernel"], logits["kernel_again"])]
+            emit(dict(phase=f"{tag}_logits_repeat", batches=["prefill", "decode"], bit_identical=same,
+                      max_abs_diff=[(a - b).abs().max().item()
+                                    for a, b in zip(logits["kernel"], logits["kernel_again"])]))
+            if not all(same):
+                fail(f"{tag}: two runs of the same batches through the kernels gave different logits")
         for which, i in (("prefill", 0), ("decode", 1)):
             got, want = logits["kernel"][i], logits["plain"][i]
             diff = (got - want).abs()

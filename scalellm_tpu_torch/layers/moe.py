@@ -113,11 +113,16 @@ def single_token_layout(topk_e: torch.Tensor, topk_w: torch.Tensor, n_experts: i
 
 def combine(y: torch.Tensor, topk_w: torch.Tensor, order: torch.Tensor, token_of: torch.Tensor,
             n_tokens: int) -> torch.Tensor:
-    """Weight each sorted row by its routing weight and add it to its token:
-    f32 [T, D]."""
-    y = y * topk_w.reshape(-1)[order].float()[:, None]
-    out = torch.zeros(n_tokens, y.shape[-1], dtype=torch.float32, device=y.device)
-    return out.index_add_(0, token_of, y)
+    """Add each token's k expert rows (y, sorted by expert), weighted by
+    their routing weights: f32 [T, D]. The inverse of `order`
+    gathers them back into top-k slot order, [T, k, D], and one reduction
+    adds them, so no atomics and the same bits on every run. (The
+    reference's scatter adds a token's rows in sorted-row order instead;
+    the same sum in another f32 order.)"""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    rows = y[inv].view(n_tokens, -1, y.shape[-1])
+    return (rows * topk_w.float()[..., None]).sum(dim=1)
 
 
 def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,

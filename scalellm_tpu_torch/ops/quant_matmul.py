@@ -466,9 +466,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # w4a8: x, qweight, scales, zeros, rms_gamma, xq, sx, xsum, out; M, K, N,
 # group_size, bits, scales_bf16, gamma_bf16, block_k; rms_eps; stream.
 _W4A8_ARGTYPES = [_P] * 9 + [_I] * 8 + [_F, _P]
-# group and dequant: x, qweight, scales, zeros, rms_gamma, out; M, K, N,
-# group_size, bits, scales_bf16, gamma_bf16; rms_eps; stream.
-_TILE_ARGTYPES = [_P] * 6 + [_I] * 7 + [_F, _P]
+# group and dequant: x, qweight, scales, zeros, rms_gamma, xn, xsum, out; M,
+# K, N, group_size, bits, scales_bf16, gamma_bf16, tile; rms_eps; stream.
+_TILE_ARGTYPES = [_P] * 8 + [_I] * 8 + [_F, _P]
 ENTRY_POINTS = {
     "scalellm_quant_matmul_w4a8": _W4A8_ARGTYPES,
     "scalellm_quant_matmul_group": _TILE_ARGTYPES,
@@ -563,17 +563,56 @@ def quant_matmul_w4a8_cuda(x, qweight, scales, zeros, bits, block_k,
 quant_matmul_w4a8_cuda.launches = 0
 
 
+# The tile kernel's block shapes, (weight rows, tokens), in the order of
+# csrc/quant_matmul.cu:launch_tile_bits, and those each variant takes above
+# M = 64 (group has no 192-row tile: its second accumulator).
+TILES = ((64, 32), (64, 64), (128, 64), (128, 128), (192, 128))
+LARGE_TILES = {"dequant": (4, 3, 2, 1), "group": (3, 2, 1)}
+# Time per output element of a full wave of blocks, relative to (128, 128),
+# from an H100's timings of each tile at the 8B gate_up projection: a
+# smaller token tile unpacks each weight for fewer tokens.
+TILE_COST = (2.5, 2.0, 1.45, 1.0, 0.9)
+
+
+def tile_shape(variant: str, M: int, K: int, N: int, G: int, sms: int = 132) -> int:
+    """The tile kernel's block shape for a call (an index into TILES): the
+    token tile from M (32 or 64 up to M = 64); above that the shape whose
+    grid takes the least time: waves of `sms` blocks, times the tile's size
+    and its TILE_COST (the larger tile on a tie: fewer bytes through L2).
+    Raises NotImplementedError on what the kernel does not take."""
+    if K % 32 or N % 2 or K % G or G % 32 or -(-N // 64) > 65535:
+        raise NotImplementedError(
+            f"the {variant} kernel needs K % 32 == 0, G % 32 == 0, even N <= 64 * 65535; "
+            f"got K={K}, N={N}, G={G}")
+    if M <= 32:
+        return 0
+    if M <= 64:
+        return 1
+
+    def cost(i):
+        rows, toks = TILES[i]
+        blocks = -(-M // toks) * -(-N // rows)
+        return (-(-blocks // sms) * rows * toks * TILE_COST[i], -rows * toks)
+
+    return min(LARGE_TILES[variant], key=cost)
+
+
 def _tile_cuda(entry: str, x, qweight, scales, zeros, bits, rms_gamma, rms_eps):
     M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
-    if K % 32 or G % 32 or N % 2 or -(-N // 64) > 65535:
-        raise NotImplementedError(
-            f"the {entry} kernel needs K % 32 == 0, G % 32 == 0, even N <= 64 * 65535; "
-            f"got K={K}, N={N}, G={G}")
-    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    if x.data_ptr() % 16 or qweight.data_ptr() % 16:
+        raise NotImplementedError(f"the {entry} kernel loads x and qweight by TMA: 16-byte aligned starts")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile = tile_shape(entry, M, K, N, G, sms)
+    dev = x.device
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    # Scratch of the pre-pass: the normed x, and group's sums of x per 32-K span.
+    xn = torch.empty(M, K, dtype=torch.bfloat16, device=dev) if rms_gamma is not None else None
+    xsum = (torch.empty(K // 32, M, dtype=torch.float32, device=dev)
+            if entry == "group" and zeros is not None else None)
     rc = getattr(_library(), "scalellm_quant_matmul_" + entry)(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
-        out.data_ptr(), M, K, N, G, bits, _is_bf16(scales), _is_bf16(rms_gamma),
-        float(rms_eps), torch.cuda.current_stream(x.device).cuda_stream,
+        _ptr(xn), _ptr(xsum), out.data_ptr(), M, K, N, G, bits, _is_bf16(scales),
+        _is_bf16(rms_gamma), tile, float(rms_eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"quant_matmul {entry} kernel launch failed: CUDA error {rc}")

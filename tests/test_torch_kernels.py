@@ -154,6 +154,23 @@ TILE_CASES = {
     "m512_int4_8b": (512, 4096, 4096, 128, 4, False, False, torch.float32),
     "m70_int8_asym": (70, 512, 130, 128, 8, True, "bf16", torch.float32),
     "m256_int8": (256, 4096, 1024, 128, 8, False, False, torch.bfloat16),
+    # The tile kernel's edges: each token tile (M 1 to 512), N not a multiple
+    # of the weight tile, the DeepSeek-V2-Lite shared down at decode (K 2816,
+    # G = 32, bf16 scales), K with a half stage at its end (K % 64 == 32),
+    # int8 with zero points and bf16 scales, the prologue at one k-block,
+    # and the 192-row tile (dequant, N = 6144).
+    "m1_int4": (1, 1024, 256, 128, 4, False, False, torch.float32),
+    "m16_shared_down_g32": (16, 2816, 2048, 32, 4, False, False, torch.bfloat16),
+    "m65_int4_asym_ragged_n": (65, 1024, 2050, 128, 4, True, False, torch.bfloat16),
+    "m129_int4_rms_g32_half_stage": (129, 2080, 384, 32, 4, True, True, torch.float32),
+    "m257_int8_asym_bf16": (257, 1024, 1030, 64, 8, True, False, torch.bfloat16),
+    "m512_int4_asym_rms": (512, 2048, 2560, 128, 4, True, "bf16", torch.float32),
+    "m512_int4_n6144": (512, 1024, 6144, 128, 4, False, False, torch.float32),
+    # Groups that are a multiple of 32 but not of 64: a stage's two 32-K
+    # spans in two groups (G = 96, 160), one channel-wise group of K 2080.
+    "m40_int4_asym_g96": (40, 576, 256, 96, 4, True, False, torch.float32),
+    "m300_int8_g160": (300, 960, 320, 160, 8, False, False, torch.bfloat16),
+    "m130_int4_asym_channelwise": (130, 2080, 192, 2080, 4, True, False, torch.float32),
 }
 
 
@@ -172,6 +189,29 @@ def test_tile_kernels_match_plain_versions(cuda, case, variant):
     assert kernel.launches == before + 1
     want = plain(t["x"], t["qweight"], t["scales"], t["zeros"], bits, t["rms_gamma"], 1e-5)
     _check_quant(got, want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("variant", ["group", "dequant"])
+def test_tile_kernel_fragment_order(cuda, variant, bits):
+    """One nonzero weight per column (3 at K = n % 32, scale 1, K = 32): the
+    output is 3 x[:, n % 32] exactly, which holds only if every unpacked
+    nibble (or byte) lands at its own K in the wgmma fragment."""
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    M, K, N = 24, 32, 64
+    k_of = torch.arange(N) % K
+    w = torch.zeros(N, K, dtype=torch.int32)
+    w[torch.arange(N), k_of] = 3
+    if bits == 4:
+        qweight = ((w[:, 0::2] & 0xF) | ((w[:, 1::2] & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+    else:
+        qweight = w.to(torch.int8)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+    kernel = getattr(Q, f"quant_matmul_{variant}_cuda")
+    got = kernel(x.to(cuda), qweight.to(cuda), torch.ones(1, N, device=cuda), None, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), (3 * x.float()[:, k_of]).to(torch.bfloat16))
 
 
 def test_quant_dispatcher_goes_to_the_kernels(cuda):
@@ -626,3 +666,32 @@ def test_quant_mlp_kernel_refuses_prefill(cuda):
     x, gate_up, down = _mlp_case(cuda, 65, 256, 256, 128, 4, False)
     with pytest.raises(NotImplementedError):
         QM.quant_mlp(x, gate_up, down, 256, tile_n=256)
+
+
+# ---------------------------------------------------------------- MoE combine
+
+
+def test_moe_routed_path_is_bit_identical_across_calls(cuda):
+    """The routed experts of a DeepSeek-V2-Lite MoE layer at its decode
+    shape (T = 16 tokens, k = 6 of 64 experts, D = 2048, F = 1408) through
+    K6 and the combine: two calls give the same bits (the combine adds each
+    token's rows in a fixed order, without atomics)."""
+    from scalellm_tpu_torch.layers import moe as TM
+
+    T, E, k, D, F = 16, 64, 6, 2048, 1408
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(T, D, generator=g, device=cuda).to(torch.bfloat16)
+    router = torch.randn(E, D, generator=g, device=cuda)
+    gate, up = (torch.randn(2, E, F, D, generator=g, device=cuda) * D ** -0.5).to(torch.bfloat16)
+    down = (torch.randn(E, D, F, generator=g, device=cuda) * F ** -0.5).to(torch.bfloat16)
+
+    def routed():
+        topk_w, topk_e = TM.softmax_topk(x, router, k)
+        order, token_of, group_sizes = TM.dispatch(topk_e, E)
+        y = TM.expert_ffn(x[token_of], gate, up, down, group_sizes)
+        return TM.combine(y, topk_w, order, token_of, T)
+
+    first, second = routed(), routed()
+    torch.cuda.synchronize()
+    assert first.shape == (T, D) and torch.isfinite(first).all()
+    assert torch.equal(first, second)

@@ -1,8 +1,8 @@
 """The port's MoE pieces against the JAX package on the CPU, from
 numpy-seeded inputs handed to both: the plain grouped GEMM (K6's plain
 version) against the stock megablox `gmm` Pallas kernel in interpret mode
-and against layers/moe.py:_grouped_matmul's CPU path; moe_mlp; and both
-DeepSeek routers (greedy, group-limited greedy).
+and against layers/moe.py:_grouped_matmul's CPU path; moe_mlp; both
+DeepSeek routers (greedy, group-limited greedy); and the combine.
 
 Tolerances: the grouped products are f32 sums of bf16-exact or f32 inputs
 in another order: 1e-5 relative to the output magnitude (about 1). The
@@ -102,3 +102,28 @@ def test_deepseek_routers_match_jax(method):
         torch.from_numpy(x), torch.from_numpy(router.T.copy()))
     np.testing.assert_array_equal(got_e.numpy(), np.asarray(want_e))
     np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("T,E,k,D,spread", [(16, 64, 6, 256, False), (300, 16, 2, 8, True)])
+def test_combine_matches_a_float64_scatter_add_and_the_reference(T, E, k, D, spread):
+    """combine against a float64 scatter-add of the same weighted rows and
+    against the reference's f32 `.at[token_of].add` of them (the same sums
+    in another f32 order: 1e-6 relative, one rounding per add). spread:
+    every token routes to the first and the last expert, so its two rows
+    lie about T rows apart in sorted order."""
+    rng = np.random.default_rng(5)
+    if spread:
+        topk_e = torch.tensor([[0, E - 1]] * T)
+        topk_w = torch.from_numpy(rng.uniform(0.1, 1.0, (T, k)).astype(np.float32))
+    else:
+        probs = torch.softmax(torch.from_numpy(rng.standard_normal((T, E)).astype(np.float32)), -1)
+        topk_w, topk_e = torch.topk(probs, k)
+    order, token_of, _ = TM.dispatch(topk_e, E)
+    y = torch.from_numpy(rng.standard_normal((T * k, D)).astype(np.float32))
+    got = TM.combine(y, topk_w, order, token_of, T)
+    assert got.dtype == torch.float32 and got.shape == (T, D)
+    yw = y * topk_w.reshape(-1)[order][:, None]
+    want = torch.zeros(T, D, dtype=torch.float64).index_add_(0, token_of, yw.double())
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    ref = jnp.zeros((T, D), jnp.float32).at[jnp.asarray(token_of.numpy())].add(jnp.asarray(yw.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)

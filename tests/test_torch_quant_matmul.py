@@ -313,3 +313,41 @@ def test_ctypes_signatures_match_the_cuda_source(entry):
         words = p.replace("*", " * ").split()[:-1]  # drop the parameter name
         want.append(kinds["void*" if "*" in words else words[-1]])
     assert argtypes == want
+
+
+# (M, K, N, variant) -> the tile kernel's block shape (weight rows, tokens)
+# on a card of 132 SMs: the token tile from M up to 64; above that the
+# cheapest grid (192-row tiles only for dequant, where N is large).
+TILE_CHOICES = {
+    (16, 2816, 2048, "dequant"): (64, 32),  # the DeepSeek shared down at decode
+    (64, 4096, 4096, "group"): (64, 64),
+    (65, 1024, 2050, "dequant"): (64, 64),  # two token tiles of 64, 33 column tiles
+    (512, 4096, 28672, "dequant"): (192, 128),  # 8B gate_up
+    (512, 4096, 28672, "group"): (128, 128),
+    (512, 4096, 6144, "dequant"): (192, 128),  # qkv: 128 blocks, one wave
+    (512, 4096, 4096, "dequant"): (128, 128),  # o, down: 128 blocks
+    (128, 2048, 2560, "dequant"): (64, 64),  # a TinyLlama qkv: few column tiles
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_CHOICES))
+def test_tile_shape_choice(case):
+    M, K, N, variant = case
+    assert TQ.TILES[TQ.tile_shape(variant, M, K, N, 128)] == TILE_CHOICES[case]
+    assert TQ.tile_shape(variant, M, K, N, 128) in ((0, 1) if M <= 64 else TQ.LARGE_TILES[variant])
+
+
+@pytest.mark.parametrize("K,N,G", [(96, 64, 48), (256, 64, 16), (80, 64, 80), (256, 63, 128)])
+def test_tile_shape_refuses_what_the_kernel_does_not_take(K, N, G):
+    """Group sizes that are not a multiple of 32 (each 32-K span of a stage
+    takes the scales of one group), K not a multiple of 32, odd N."""
+    with pytest.raises(NotImplementedError):
+        TQ.tile_shape("dequant", 128, K, N, G)
+
+
+@pytest.mark.parametrize("K,G", [(576, 96), (960, 160), (2080, 2080)])
+def test_tile_shape_takes_any_group_of_32s(K, G):
+    """G = 96 and 160 (a stage's two 32-K spans may fall in two groups) and
+    one channel-wise group with K % 64 == 32."""
+    for variant in ("group", "dequant"):
+        assert TQ.tile_shape(variant, 128, K, 256, G) in TQ.LARGE_TILES[variant]
