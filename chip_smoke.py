@@ -48,9 +48,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
         equal to its plain version, failing if it reads faster than 3.35
         TB/s; the fused quantized MLP (K11) at Llama-3.1-8B's MLP (int4,
         G = 128, bf16 scales, symmetric and asymmetric) at M = 1, 8, 16,
-        beside the two-launch path (K2 gate_up, silu * up, K2 down) and two
-        bf16 matmuls; then K11's own path, its entry point quant_mlp at M
-        = 1, 8, 16 (no model calls it, as in the reference).
+        32, 64, beside the two-launch path (K2 gate_up, silu * up, K2 down)
+        and two bf16 matmuls; each gemv and K11 line with the rate at which
+        it reads the weights; then K11's own path, its entry point
+        quant_mlp at M = 1, 8, 16, 32, 64 (no model calls it, as in the
+        reference).
   4. end to end, bf16: a TinyLlama-1.1B-shaped checkpoint (random weights
      from a seed) served by scalellm_tpu_torch.LLM with chunked prefill and
      the prefix cache; every request must finish and every engine step must
@@ -868,7 +870,7 @@ SMALL_M_ROWS = (1, 16, 64)
 # K11 at Llama-3.1-8B's MLP, int4 at G = 128 with bf16 scales (what runtime
 # quantization stores): 91 MB of weights and scales.
 MLP_D, MLP_F = LLAMA31_8B_INT4["hidden_size"], LLAMA31_8B_INT4["intermediate_size"]
-MLP_ROWS = (1, 8, 16)
+MLP_ROWS = (1, 8, 16, 32, 64)  # up to the edge of its contract, M <= 64
 # K11 against its plain version: g and u are f32 sums of exact products in
 # another order, where they fall on a bf16 boundary an element of h moves by
 # one bf16 step, and down sums exact products of h in another order: 1e-3
@@ -882,10 +884,10 @@ def phase_small_m_kernels(torch, card):
     dispatcher runs them) and one bf16 matmul on weights dequantized ahead
     of time; K12c (the stream probe) at the same shapes, exactly against its
     plain version, with the rate at which it reads the weights; K11 at the
-    8B MLP, symmetric and asymmetric, M = 1, 8 and 16, beside the two-launch
-    path (K2 gate_up, silu * up, K2 down: timed only, its numerics differ)
-    and two bf16 matmuls with the activation. Then K11's own path: its entry
-    point quant_mlp at M = 1, 8 and 16 (no model calls it)."""
+    8B MLP, symmetric and asymmetric, M = 1, 8, 16, 32 and 64, beside the
+    two-launch path (K2 gate_up, silu * up, K2 down: timed only, its
+    numerics differ) and two bf16 matmuls with the activation. Then K11's
+    own path: its entry point quant_mlp at those M (no model calls it)."""
     import torch.nn.functional as TF
 
     from scalellm_tpu_torch.ops import quant_matmul as Q
@@ -935,7 +937,8 @@ def phase_small_m_kernels(torch, card):
                 r = dict(max_abs_err=err, mean_abs_err=mean_err, out_magnitude=top, ms=ms,
                          plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms,
-                         w4a8_ms=yard["w4a8"], group_ms=yard["group"])
+                         w4a8_ms=yard["w4a8"], group_ms=yard["group"],
+                         weight_gb_per_s=w_bytes / (ms * 1e-3) / 1e9)
                 results[variant][(name, M)] = r
                 emit(dict(phase="kernel", kernel="quant_" + variant, shape=name, M=M, K=K, N=N,
                           bits=bits, group=GROUP, asymmetric=asym, block_k=block_k,
@@ -1024,7 +1027,8 @@ def phase_small_m_kernels(torch, card):
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
             r = dict(max_abs_err=err, mean_abs_err=mean_err, out_magnitude=top, ms=ms, plain_ms=plain_ms,
                      bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                     library_ms=library_ms, two_launch_ms=two_launch_ms)
+                     library_ms=library_ms, two_launch_ms=two_launch_ms,
+                     weight_gb_per_s=w_bytes / (ms * 1e-3) / 1e9)
             results["mlp"][(name, M)] = r
             emit(dict(phase="kernel", kernel="quant_mlp", shape=name, M=M, D=D, F=Fi, bits=4, group=GROUP,
                       asymmetric=asym, tol_max=MLP_TOL_MAX * top, bytes=nbytes, ops=ops,
@@ -1213,16 +1217,15 @@ def device_breakdown(prof, wall_s, steps):
             groups["grouped_matmul_ms"] += ms
         elif "moe_quant_kernel" in low:
             groups["moe_quant_ms"] += ms
-        elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "tile_prep_kernel", "act_quant_kernel",
-                                    "gemv_kernel<", "w4a8g_kernel", "stream_probe_kernel", "row_rms_kernel",
-                                    "split_sum_kernel")):
+        elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "prep_kernel", "act_quant_kernel",
+                                    "gemv_kernel<", "w4a8g_kernel", "stream_probe_kernel", "split_sum_kernel")):
             groups["quant_matmul_ms"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
             groups["matmul_ms"] += ms
         else:
             groups["other_ms"] += ms
     busy_ms = sum(groups.values())
-    tile_ms = sum(ms for name, (ms, _) in per_name.items() if "tile_kernel" in name or "tile_prep" in name)
+    tile_ms = sum(ms for name, (ms, _) in per_name.items() if "tile_kernel" in name or "prep_kernel" in name)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
     return dict(
         device_busy_ms=busy_ms if per_name else None,
@@ -2029,7 +2032,7 @@ def main() -> None:
     # the stream probe at the decode step's gate_up projection (T = 16; the
     # probe's launches are those of phase 5's in-model probe step); K11 at
     # the 8B MLP, M = 16, launched by its own path (its entry point at M =
-    # 1, 8, 16: no model calls it).
+    # 1, 8, 16, 32, 64: no model calls it).
     def launched(name):
         return sum(run.get(name, 0) for run in (int4_launches, ds_launches, ds4_launches))
 

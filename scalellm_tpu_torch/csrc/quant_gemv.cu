@@ -32,28 +32,35 @@
 //     them, rounded to bf16.
 //
 // The TPU kernels' trick, a block-diagonal activation matrix that turns the
-// group dots into one MXU dot, has no meaning here. The Hopper reading of a
-// small-M GEMV is a CUDA-core GEMV: f32 FMAs (gemv) or dp4a (w4a8g) on
-// unpacked weights, no mma.
+// group dots into one MXU dot, has no meaning here.
 //
-// What bounds them on an H100. The weight bytes at M = 1: a (4096, 28672)
-// int4 projection is 59 MB, 17.5 us at 3.35 TB/s. From a few rows up the
-// CUDA cores bound them: M * K * N FMAs at 33.5 T FMA/s (f32, 67 TFLOP/s)
-// is 56 us at M = 16 for that projection; dp4a does 4 MACs an instruction
-// at half the FMA issue rate, about 2x that. The probe is bound by the
-// bytes alone.
+// What bounds them on an H100. The weight bytes: a (4096, 28672) int4
+// projection is 59 MB, 17.5 us at 3.35 TB/s. gemv runs on the tensor-core
+// small-M mainloop of quant_small_m.cuh (mma.sync on weights unpacked in
+// registers, a TMA ring of weights and x, a producer warp), so at M <= 64
+// its products cost little beside the bytes: 2 * M * K * N flops, 3.8 GFLOP
+// at M = 16 for that projection, 4 us at 989 TFLOP/s. w4a8g is a CUDA-core
+// GEMV: from a few rows up dp4a's issue rate bounds it (4 MACs an
+// instruction at half the FMA issue rate). The probe is bound by the bytes
+// alone.
 //
-// Design, simple first (gemv, w4a8g):
+// Design of gemv: see quant_small_m.cuh. A block owns R = 128 / k_slices
+// output columns (weight rows) for every token and all of K; where N / 128
+// blocks do not fill the SMs the wrapper asks for 2 or 4 K slices (64 or
+// 32 rows a block, its 8 consumer warps splitting K); the slices' sums are
+// added in slice order in shared memory. A pre-pass (prep_kernel, one block
+// a row) runs the RMSNorm prologue into a bf16 copy of x and, with zero
+// points, the sums of x per span.
+// Design of w4a8g, simple first:
 //   - a block of 8 warps owns 32 output columns and one tile of up to MT
 //     rows (MT = 1, 4, 8 or 16; more rows take more tiles, which run side by
 //     side over the same columns, so their weights come from L2);
 //   - 8 lanes share a column: lane s reads the column's K-contiguous 16-byte
 //     words of span s of each 1024-K chunk (64 bytes int4, 128 int8), one
 //     chunk ahead of its use, with the span's scales and zero points;
-//   - the block stages each chunk of x (bf16) or xq (int8) in shared memory,
-//     16-byte pieces swizzled by span so that the 8 lanes of a column read 8
-//     different bank groups; an RMSNorm prologue normalises x on the way in
-//     (inverse RMS from a small pre-kernel, once per row);
+//   - the block stages each chunk of xq (int8) in shared memory, 16-byte
+//     pieces swizzled by span so that the 8 lanes of a column read 8
+//     different bank groups;
 //   - at the end the 8 lanes of a column add their sums by shuffles (fixed
 //     order); where N gives fewer than 2 blocks an SM, the chunks are split
 //     over blockIdx.y and the f32 partials summed in split order by a second
@@ -73,15 +80,33 @@
 #include <algorithm>
 
 #include "quant_act.cuh"
-#include "quant_unpack.cuh"
+#include "quant_small_m.cuh"
 
 namespace {
 
 using scalellm_quant::act_quant_kernel;
-using scalellm_quant::bf16x2_bits;
-using scalellm_quant::block_reduce;
+using scalellm_quant::griddep_wait;
 using scalellm_quant::kActThreads;
+using scalellm_quant::kPrepThreads;
+using scalellm_quant::kSmThreads;
+using scalellm_quant::kSmChunkK;
+using scalellm_quant::kSmWarps;
 using scalellm_quant::load_f32_or_bf16;
+using scalellm_quant::piece_map;
+using scalellm_quant::prep_kernel;
+using scalellm_quant::sm_consume;
+using scalellm_quant::sm_prefetch_weights;
+using scalellm_quant::sm_produce;
+using scalellm_quant::sm_reduce_slices;
+using scalellm_quant::sm_ring;
+using scalellm_quant::sm_smem_bytes;
+using scalellm_quant::sm_stage;
+using scalellm_quant::sm_stages;
+using scalellm_quant::sm_tiles;
+using scalellm_quant::SmJob;
+using scalellm_quant::SmRing;
+using scalellm_quant::SmStage;
+using scalellm_quant::tensor_map;
 
 typedef __nv_bfloat16 bf16;
 
@@ -97,47 +122,6 @@ constexpr int kChunkK = kLanesPerCol * kSpanK;          // 1024 K a step
 // with the span's index, so the 8 spans' pieces j sit in 8 bank groups.
 __device__ __forceinline__ int swz(int q, int pieces_per_span_log2) {
   return q ^ ((q >> pieces_per_span_log2) & 7);
-}
-
-__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 t = __bfloat1622float2(p[j]);
-    f[2 * j] = t.x;
-    f[2 * j + 1] = t.y;
-  }
-}
-
-// Eight int4 weights (one 32-bit word, K order) -> floats, exactly.
-__device__ __forceinline__ void int4x8_to_float(uint32_t word, float (&f)[8]) {
-  uint32_t packed[4];
-  scalellm_quant::unpack_int4x8(word, __float2bfloat162_rn(136.f), packed);
-  bf16x8_to_float(make_uint4(packed[0], packed[1], packed[2], packed[3]), f);
-}
-
-__device__ __forceinline__ void int8x8_to_float(uint32_t lo, uint32_t hi, float (&f)[8]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[j] = (float)(int8_t)((lo >> (8 * j)) & 0xFFu);
-    f[4 + j] = (float)(int8_t)((hi >> (8 * j)) & 0xFFu);
-  }
-}
-
-// ------------------------------------------------------------ RMSNorm rows
-
-// One block per row: inv[row] = rsqrt(mean(x^2) + eps) over the row.
-__global__ void __launch_bounds__(kActThreads) row_rms_kernel(
-    const bf16* __restrict__ x, float* __restrict__ inv, int K, float eps) {
-  __shared__ float red[kActThreads / 32];
-  const bf16* xr = x + (size_t)blockIdx.x * K;
-  float ss = 0.f;
-  for (int k = threadIdx.x; k < K; k += kActThreads) {
-    const float v = __bfloat162float(xr[k]);
-    ss += v * v;
-  }
-  ss = block_reduce(ss, false, red);
-  if (threadIdx.x == 0) inv[blockIdx.x] = __frsqrt_rn(ss / (float)K + eps);
 }
 
 // ------------------------------------------------------------ split sums
@@ -198,129 +182,61 @@ __device__ __forceinline__ void finish(const Tile& t, float (&acc)[MT], bf16* ou
 
 // ------------------------------------------------------------ gemv (K12a)
 
-// MT: rows a block (1, 4, 8, 16). span: 128 or 32 (K of one scaled dot).
-template <int MT, int BITS, bool ASYM>
-__global__ void __launch_bounds__(kGvThreads) gemv_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ inv_rms, const void* __restrict__ gamma,
-    int gamma_bf16, const uint8_t* __restrict__ qw, const void* __restrict__ scales,
-    int scales_bf16, const int8_t* __restrict__ zeros, bf16* __restrict__ out,
-    float* __restrict__ part, int M, int K, int N, int G, int span, int chunks_per_split) {
-  constexpr int kVecs = BITS == 4 ? 4 : 8;      // 16-byte weight words of a span
-  constexpr int kPieces = kChunkK / 8;          // 16-byte pieces of a staged row
-  constexpr int kSubs = kSpanK / 32;            // most scaled dots a span holds
-  __shared__ __align__(16) uint4 xs[MT * kPieces];
-
-  const Tile t = tile_of<MT>(M, N, K, chunks_per_split);
-  const size_t row_bytes = BITS == 4 ? (size_t)K / 2 : (size_t)K;
-  const uint8_t* wrow = qw + (size_t)(t.col_ok ? t.col : 0) * row_bytes;
-  const int steps_per_sub = span / 8;  // 8-K steps of one scaled dot
-
-  float acc[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-
-  uint4 cur[kVecs], nxt[kVecs];
-  float s_cur[kSubs], s_nxt[kSubs];
-  float z_cur[kSubs], z_nxt[kSubs];
-  auto fetch = [&](int c, uint4 (&v)[kVecs], float (&s)[kSubs], float (&z)[kSubs]) {
-    const int k = c * kChunkK + t.sp * kSpanK;
-    const bool ok = t.col_ok && k < K;
-    const uint4* p = reinterpret_cast<const uint4*>(wrow + (BITS == 4 ? k / 2 : k));
-#pragma unroll
-    for (int i = 0; i < kVecs; ++i) v[i] = ok ? __ldg(p + i) : make_uint4(0, 0, 0, 0);
-#pragma unroll
-    for (int j = 0; j < kSubs; ++j) {
-      s[j] = z[j] = 0.f;
-      if (ok && j * span < kSpanK) {
-        const size_t gi = (size_t)((k + j * span) / G) * N + t.col;
-        s[j] = load_f32_or_bf16(scales, gi, scales_bf16);
-        if (ASYM) z[j] = (float)zeros[gi];
-      }
-    }
-  };
-  if (t.c_begin < t.c_end) fetch(t.c_begin, cur, s_cur, z_cur);
-
-  for (int c = t.c_begin; c < t.c_end; ++c) {
-    const int k0 = c * kChunkK;
-    const int kc = min(kChunkK, K - k0);  // a multiple of 128
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < MT * kPieces; i += kGvThreads) {
-      const int r = i / kPieces, q = i % kPieces;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < t.rows && q * 8 < kc) {
-        v = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(t.m0 + r) * K + k0) + q);
-        if (gamma != nullptr) {
-          // f32 norm, rounded to bf16 before anything reads it.
-          float f[8];
-          bf16x8_to_float(v, f);
-          const float inv = inv_rms[t.m0 + r];
-          uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int k = k0 + q * 8 + 2 * j;
-            w[j] = bf16x2_bits(__floats2bfloat162_rn(
-                f[2 * j] * inv * load_f32_or_bf16(gamma, k, gamma_bf16),
-                f[2 * j + 1] * inv * load_f32_or_bf16(gamma, k + 1, gamma_bf16)));
-          }
-        }
-      }
-      xs[r * kPieces + swz(q, 4)] = v;
-    }
-    __syncthreads();
-    if (c + 1 < t.c_end) fetch(c + 1, nxt, s_nxt, z_nxt);
-
-    if (t.col_ok && t.sp * kSpanK < kc) {
-      float d[MT], xsum[MT];
-#pragma unroll
-      for (int step = 0; step < kSpanK / 8; ++step) {
-        if ((step & (steps_per_sub - 1)) == 0) {
-#pragma unroll
-          for (int m = 0; m < MT; ++m) d[m] = xsum[m] = 0.f;
-        }
-        float w[8];
-        if (BITS == 4) {
-          const uint4& v = cur[step / 4];
-          const uint32_t word = (step & 3) == 0 ? v.x : (step & 3) == 1 ? v.y : (step & 3) == 2 ? v.z : v.w;
-          int4x8_to_float(word, w);
-        } else {
-          const uint4& v = cur[step / 2];
-          if (step & 1) int8x8_to_float(v.z, v.w, w);
-          else int8x8_to_float(v.x, v.y, w);
-        }
-        const int q = t.sp * (kSpanK / 8) + step;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m >= t.rows) break;
-          float xv[8];
-          bf16x8_to_float(xs[m * kPieces + swz(q, 4)], xv);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            d[m] = fmaf(xv[j], w[j], d[m]);
-            if (ASYM) xsum[m] += xv[j];
-          }
-        }
-        if (((step + 1) & (steps_per_sub - 1)) == 0) {
-          // span 32: sub-span step / 4 of the 128 K; span 128: the one span.
-          // (Two constant indices and a select: the arrays stay in registers.)
-          const float s = span == kSpanK ? s_cur[0] : s_cur[step / 4];
-          const float z = span == kSpanK ? z_cur[0] : z_cur[step / 4];
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m >= t.rows) break;
-            acc[m] += (ASYM ? d[m] - xsum[m] * z : d[m]) * s;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kVecs; ++i) cur[i] = nxt[i];
-#pragma unroll
-    for (int j = 0; j < kSubs; ++j) {
-      s_cur[j] = s_nxt[j];
-      z_cur[j] = z_nxt[j];
-    }
+// One block: the 2 * rh weight rows from blockIdx.x * 2 * rh (rh = 8 rw)
+// for every token, over all of K, on the small-M mainloop (rw row warps
+// times ks K slices, then the producer warp); its K slices' sums added in
+// slice order, then bf16 out.
+template <int BITS, int NT, bool SPAN32>
+__global__ void __launch_bounds__(kSmThreads, NT <= 4 ? 2 : 1) gemv_kernel(
+    const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+    const __grid_constant__ CUtensorMap xs_map, const void* __restrict__ scales, int scales_bf16,
+    const int8_t* __restrict__ zeros, bf16* __restrict__ out, int M, int K, int N, int G, int rw, int ks,
+    int stages, int slot_bytes) {
+  extern __shared__ uint8_t smem_raw[];
+  const SmRing ring = sm_ring(smem_raw, stages, slot_bytes, rw * ks);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  SmJob j;
+  j.xmap = &x_map;
+  j.wmap = &w_map;
+  j.xsmap = zeros != nullptr ? &xs_map : nullptr;
+  j.scales = scales;
+  j.zeros = zeros;
+  j.ld = N;
+  j.rw = rw;
+  j.ks = ks;
+  const int rh = 8 * j.rw;
+  const int n0 = blockIdx.x * 2 * rh;
+  j.row_a = n0;
+  j.row_b = n0 + rh;
+  j.valid_a = max(0, min(rh, N - j.row_a));
+  j.valid_b = max(0, min(rh, N - j.row_b));
+  j.K = K;
+  j.G = G;
+  j.span = SPAN32 ? 32 : 128;
+  j.parts = 1;
+  j.st = sm_stage(BITS, NT, j.rw, ks, j.span, 1);
+  int g = 0;
+  if (warp == rw * ks) {  // the producer warp
+    sm_prefetch_weights<BITS>(j, stages, lane);
+    griddep_wait();  // behind a pre-pass: its x and sums
+    sm_produce<NT, BITS>(j, ring.ring, slot_bytes, stages, ring.full, ring.empty, g, M, scales_bf16, lane);
+    return;
   }
-  finish<MT>(t, acc, out, part, M, N);
+  float acc[NT][4];
+  sm_consume<NT, BITS, SPAN32>(j, ring.ring, slot_bytes, stages, ring.full, ring.empty, g, M, warp, lane,
+                               scales_bf16, acc);
+  sm_reduce_slices<NT>(acc, ring.red, j.rw, ks, warp, lane);
+  if (warp / j.rw != 0) return;
+  const int r = 8 * (warp % j.rw) + (lane >> 2), tig = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = 8 * n + 2 * tig + e;
+      if (t >= M) continue;
+      if (r < j.valid_a) out[(size_t)t * N + j.row_a + r] = __float2bfloat16_rn(acc[n][e]);
+      if (r < j.valid_b) out[(size_t)t * N + j.row_b + r] = __float2bfloat16_rn(acc[n][2 + e]);
+    }
 }
 
 // ------------------------------------------------------------ w4a8g (K12b)
@@ -538,6 +454,72 @@ int finish_splits(const float* part, void* out, int splits, int M, int N, cudaSt
   return (int)cudaGetLastError();
 }
 
+// Row warps of a one-slice gemv block (4 to 8, 64 to 128 rows): where 128
+// rows give at most two blocks an SM (all resident at once), the count
+// whose blocks, spread evenly over the SMs, give the busiest SM the fewest
+// rows (the larger on a tie: x is read once a block); at the 8B gate_up (N
+// = 28672, 132 SMs) 7: 256 blocks of 112 rows, two on all but 8 SMs, where
+// 128 rows give 224 blocks and leave 40 SMs one. Larger grids run in waves
+// that even themselves out: 8.
+int gemv_row_warps(int N) {
+  const int sms = scalellm_quant::sm_count();
+  int best = kSmWarps, best_rows = 1 << 30;
+  if ((N + 16 * kSmWarps - 1) / (16 * kSmWarps) > 2 * sms) return kSmWarps;
+  for (int rw = kSmWarps; rw >= 4 && sms > 0; --rw) {
+    const int rows = 16 * rw, blocks = (N + rows - 1) / rows;
+    const int busiest = (blocks + sms - 1) / sms * rows;
+    if (busiest < best_rows) best = rw, best_rows = busiest;
+  }
+  return best;
+}
+
+// gemv at one instantiation: the stage layout, the ring's depth for the
+// blocks an SM the registers allow (2 up to NT = 4), the tensor maps (x:
+// the stage's pieces of [8 NT tokens, xk K] in one box; weights: [rh rows,
+// 128 bytes], 128-byte swizzle; sums of x: the stage's rows), one block per
+// 2 * rh weight rows.
+template <int BITS, int NT, bool SPAN32>
+int launch_gemv(const bf16* x, const void* qweight, const void* scales, const void* zeros, const float* xsum,
+                void* out, int M, int K, int N, int G, int scales_bf16, int ks, bool after_prep, cudaStream_t st) {
+  const auto kernel = gemv_kernel<BITS, NT, SPAN32>;
+  const int rw = ks == 1 ? gemv_row_warps(N) : kSmWarps / ks, rh = 8 * rw;
+  const int span = SPAN32 ? 32 : 128;
+  const SmStage s = sm_stage(BITS, NT, rw, ks, span, 1);
+  const int red = (ks - 1) * rw * NT * 4 * 32 * 4;
+  const int blocks = (N + 2 * rh - 1) / (2 * rh);
+  const int stages = sm_stages(s.bytes, red, NT <= 4 ? 2 : 1);
+  static bool smem_set = false;  // once per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  CUtensorMap x_map, w_map, xs_map = {};
+  if (!piece_map(&x_map, x, M, K, s.xk, M, kSmChunkK * s.cps / s.xk) ||
+      !tensor_map(&w_map, qweight, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K * BITS / 8, rh, 128,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (zeros != nullptr && !tensor_map(&xs_map, xsum, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / span, 8 * NT,
+                                       s.xs_rows, 8 * NT, CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return (int)cudaErrorInvalidValue;
+  // Behind a pre-pass the grid is launched as its programmatic dependent:
+  // it starts while the pre-pass runs, prefetches its first weight stages
+  // into L2, and waits for the pre-pass before it reads x.
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(32 * (rw * ks + 1));
+  cfg.dynamicSmemBytes = sm_smem_bytes(stages, s.bytes, red);
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = after_prep ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x_map, w_map, xs_map, scales, scales_bf16,
+                                           static_cast<const int8_t*>(zeros), static_cast<bf16*>(out), M, K, N, G,
+                                           rw, ks, stages, s.bytes);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream` and
@@ -545,51 +527,56 @@ int finish_splits(const float* part, void* out, int splits, int M, int N, cudaSt
 // `splits` is the split-K the caller chose (1: none) and `part` its scratch,
 // f32 [splits, M, N] (null when splits is 1).
 
-// inv_rms f32 [M] is scratch (null without rms_gamma). M <= 64, G % 32 == 0,
-// K % 128 == 0.
+// xn bf16 [M, K] (with rms_gamma) and xsum f32 [K / span, M padded to 8,
+// 16, 32 or 64] (with zeros; span 128 where G % 128 == 0, else 32) are
+// scratch. k_slices: the K slices
+// of a block (1, 2 or 4; the wrapper's small_m_slices). M <= 64, G % 32 ==
+// 0, K % 128 == 0; x and qweight 16-byte aligned (TMA).
 extern "C" int scalellm_quant_gemv(
     const void* x, const void* qweight, const void* scales, const void* zeros,
-    const void* rms_gamma, void* inv_rms, void* part, void* out, int M, int K, int N,
-    int group_size, int bits, int scales_bf16, int gamma_bf16, int splits, float rms_eps,
+    const void* rms_gamma, void* xn, void* xsum, void* out, int M, int K, int N,
+    int group_size, int bits, int scales_bf16, int gamma_bf16, int k_slices, float rms_eps,
     void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const int G = group_size;
-  const int n_chunks = (K + kChunkK - 1) / kChunkK;
-  if ((bits != 4 && bits != 8) || M > 64 || G <= 0 || G % 32 != 0 || K % G != 0 ||
-      K % kSpanK != 0 || splits < 1 || splits > n_chunks || (splits > 1 && part == nullptr) ||
-      (rms_gamma != nullptr && inv_rms == nullptr))
+  if ((bits != 4 && bits != 8) || M > 64 || G <= 0 || G % 32 != 0 || K % G != 0 || K % 128 != 0 ||
+      (k_slices != 1 && k_slices != 2 && k_slices != 4) || (rms_gamma != nullptr && xn == nullptr) ||
+      (zeros != nullptr && xsum == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (rms_gamma != nullptr) {
-    row_rms_kernel<<<M, kActThreads, 0, st>>>(static_cast<const bf16*>(x),
-                                              static_cast<float*>(inv_rms), K, rms_eps);
+  const bool span32 = G % 128 != 0;
+  const bool prep = rms_gamma != nullptr || zeros != nullptr;
+  if (prep) {
+    prep_kernel<<<M, kPrepThreads, 0, st>>>(
+        static_cast<const bf16*>(x), rms_gamma, gamma_bf16, rms_eps,
+        rms_gamma != nullptr ? static_cast<bf16*>(xn) : nullptr,
+        zeros != nullptr ? static_cast<float*>(xsum) : nullptr, M, K, span32 ? 32 : 128, 8 * sm_tiles(M));
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
-  const int mt = rows_tile(M);
-  const int cps = (n_chunks + splits - 1) / splits;
-  const dim3 grid(((M + mt - 1) / mt) * ((N + kGvCols - 1) / kGvCols), (n_chunks + cps - 1) / cps);
-  const int span = G % kSpanK == 0 ? kSpanK : 32;
-  float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
-#define SCALELLM_GEMV(MT, BITS, ASYM)                                                       \
-  gemv_kernel<MT, BITS, ASYM><<<grid, kGvThreads, 0, st>>>(                                 \
-      static_cast<const bf16*>(x), static_cast<const float*>(inv_rms), rms_gamma, gamma_bf16, \
-      static_cast<const uint8_t*>(qweight), scales, scales_bf16,                             \
-      static_cast<const int8_t*>(zeros), static_cast<bf16*>(out), p, M, K, N, G, span, cps)
-#define SCALELLM_GEMV_MT(BITS, ASYM)           \
-  if (mt == 1) SCALELLM_GEMV(1, BITS, ASYM);   \
-  else if (mt == 4) SCALELLM_GEMV(4, BITS, ASYM); \
-  else if (mt == 8) SCALELLM_GEMV(8, BITS, ASYM); \
-  else SCALELLM_GEMV(16, BITS, ASYM)
-  const bool asym = zeros != nullptr;
-  if (bits == 4) {
-    if (asym) { SCALELLM_GEMV_MT(4, true); } else { SCALELLM_GEMV_MT(4, false); }
-  } else {
-    if (asym) { SCALELLM_GEMV_MT(8, true); } else { SCALELLM_GEMV_MT(8, false); }
+  const bf16* xin = static_cast<const bf16*>(rms_gamma != nullptr ? xn : x);
+  const float* xs = zeros != nullptr ? static_cast<const float*>(xsum) : nullptr;
+  const int nt = sm_tiles(M);
+#define SCALELLM_GEMV(BITS, NT)                                                                     \
+  return span32 ? launch_gemv<BITS, NT, true>(xin, qweight, scales, zeros, xs, out, M, K, N, G,   \
+                                              scales_bf16, k_slices, prep, st)                    \
+                : launch_gemv<BITS, NT, false>(xin, qweight, scales, zeros, xs, out, M, K, N, G,  \
+                                               scales_bf16, k_slices, prep, st)
+#define SCALELLM_GEMV_NT(BITS)                  \
+  switch (nt) {                                 \
+    case 1: SCALELLM_GEMV(BITS, 1);             \
+    case 2: SCALELLM_GEMV(BITS, 2);             \
+    case 4: SCALELLM_GEMV(BITS, 4);             \
+    default: SCALELLM_GEMV(BITS, 8);            \
   }
-#undef SCALELLM_GEMV_MT
+  if (bits == 4) {
+    SCALELLM_GEMV_NT(4)
+  } else {
+    SCALELLM_GEMV_NT(8)
+  }
+#undef SCALELLM_GEMV_NT
 #undef SCALELLM_GEMV
-  return finish_splits(p, out, (int)grid.y, M, N, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // xq s8 [M, K], sx f32 [M, K / block_k] and xsum s32 [M, K / 128] (null when

@@ -14,7 +14,7 @@
 //     (16-byte weight loads kW4Prefetch segments ahead of their use) and
 //     tile_kernel's 4-stage TMA ring through shared memory;
 //   the norm computed once per call, ahead of the streamed tiles ->
-//     act_quant_kernel (w4a8) and tile_prep_kernel (group, dequant).
+//     act_quant_kernel (w4a8) and prep_kernel (group, dequant; quant_small_m.cuh).
 // Plain PyTorch versions: scalellm_tpu_torch/ops/quant_matmul.py.
 //
 // Layout (the port's own; scalellm_tpu_torch/ops/quant_matmul.py converts):
@@ -92,7 +92,7 @@
 //     times and the weights ceil(M / tokens) times: 0.86 GB at the 8B
 //     gate_up (M = 512, 192 x 128) against 2.35 GB with the 64 x 64 tiles
 //     of the first kernel. The epilogue writes the tile through shared
-//     memory as rows of out. The RMSNorm prologue runs in tile_prep_kernel,
+//     memory as rows of out. The RMSNorm prologue runs in prep_kernel,
 //     once per row, into a bf16 scratch copy of x that the TMA then reads.
 // Measured limits (H100, chip_smoke.py): a w4a8 call's time at decode is
 // the latency chain of one block (its warps walk K in order and wait for
@@ -112,6 +112,7 @@
 #include <type_traits>
 
 #include "quant_act.cuh"
+#include "quant_small_m.cuh"
 #include "quant_unpack.cuh"
 
 namespace {
@@ -119,8 +120,21 @@ namespace {
 using scalellm_quant::act_quant_kernel;
 using scalellm_quant::bf16x2_bits;
 using scalellm_quant::bf16x2_from_bits;
+using scalellm_quant::int8_pair;
 using scalellm_quant::kActThreads;
+using scalellm_quant::kPrepThreads;
 using scalellm_quant::load_f32_or_bf16;
+using scalellm_quant::mbar_arrive;
+using scalellm_quant::mbar_arrive_cp_async;
+using scalellm_quant::mbar_arrive_expect_tx;
+using scalellm_quant::mbar_init;
+using scalellm_quant::mbar_wait;
+using scalellm_quant::pack_bf16x2;
+using scalellm_quant::prep_kernel;
+using scalellm_quant::smem_addr;
+using scalellm_quant::tensor_map;
+using scalellm_quant::tma_load_2d;
+using scalellm_quant::unpack_int4_frag;
 
 typedef __nv_bfloat16 bf16;
 
@@ -317,60 +331,12 @@ __global__ void __launch_bounds__(kW4Threads) w4a8_kernel(
 
 constexpr int kBK = 64;      // K per ring stage: one 128-byte row (a swizzle atom) of the x tile
 constexpr int kStages = 4;   // depth of the shared-memory ring
-constexpr int kPrepThreads = kActThreads;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Asynchronous copy global -> shared of 4 bytes: the first src_bytes are
 // read and the rest of the destination is zero-filled.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
                : "memory");
-}
-
-// mbarriers in shared memory: a phase completes when `count` arrivals and
-// the expected bytes of the asynchronous copies tracked by it have come in.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-// An arrival once this thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// Waits for the completion of the phase of parity `parity`, spinning inside
-// one asm block (no branch the compiler could take for divergent). A phase
-// that does not complete within 2^26 tries (a lost arrival) traps instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
-      "WAIT:\nmbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@p bra DONE;\n"
-      "add.u32 n, n, 1;\nsetp.lt.u32 p, n, 67108864;\n@p bra WAIT;\ntrap;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-// TMA: the box at (c0, c1) (innermost first) of a 2-D tensor map into
-// shared memory, completion counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // wgmma: D[64 x N] (+)= A[64 x 16] B[16 x N], A from registers (per warp the
@@ -469,43 +435,6 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile, int ks) {
   const uint32_t addr = smem_addr(tile) + 32 * ks;
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
-}
-
-// Four A-fragment words of int4 weights. `word` holds four bytes of the
-// port's layout, [row r0 k-lo, row r1 k-lo, row r0 k-hi, row r1 k-hi] (each
-// byte two consecutive K); out[0..3] are the bf16 pairs in that order, each
-// weight being its value + 136 - the offset of its row. The bit placement
-// of quant_unpack.cuh's unpack_int4x8 (a nibble made unsigned by flipping
-// its sign bit, in the low mantissa bits of the bf16 128.0), two weights
-// in one byte-permute and one logic op.
-__device__ __forceinline__ void unpack_int4_frag(uint32_t word, __nv_bfloat162 off0,
-                                                 __nv_bfloat162 off1, uint32_t (&out)[4]) {
-  const uint32_t lo = (word ^ 0x88888888u) & 0x0F0F0F0Fu;         // even K: the low nibbles
-  const uint32_t hi = ((word >> 4) ^ 0x08080808u) & 0x0F0F0F0Fu;  // odd K: the high nibbles
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t pair = __byte_perm(lo, hi, j | (j << 4) | ((j + 4) << 8) | ((j + 4) << 12));
-    const uint32_t bits = (pair & 0x000F000Fu) | 0x43004300u;
-    out[j] = bf16x2_bits(__hsub2(bf16x2_from_bits(bits), (j & 1) ? off1 : off0));
-  }
-}
-
-// Two int8 weights (the low 16 bits of `pair`, K order) to a bf16 pair; for
-// dequant (q - z) rounded to bf16 where there are zero points, then times
-// the bf16 scale s, rounded again.
-template <bool DEQUANT>
-__device__ __forceinline__ uint32_t int8_pair(uint32_t pair, float s, float z, bool asym) {
-  float q[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    float d = (float)(int8_t)((pair >> (8 * e)) & 0xFFu);
-    if (DEQUANT) {
-      if (asym) d = __bfloat162float(__float2bfloat16_rn(d - z));
-      d *= s;
-    }
-    q[e] = d;
-  }
-  return pack_bf16x2(q[0], q[1]);
 }
 
 // A block: WGS warpgroups, each owning 64 of the block's weight rows
@@ -823,74 +752,6 @@ __global__ void __launch_bounds__(128 * WGS + 32, 1) tile_kernel(
   }
 }
 
-// The pre-pass, one block per row, where the call asks for it: the RMSNorm
-// prologue (xn = bf16(x * rsqrt(mean(x^2) + eps) * gamma), computed once per
-// row rather than in every block) and, for group with zero points, the f32
-// sums of the (normed) x over each 32-K span, xsum[span, row].
-__global__ void __launch_bounds__(kPrepThreads) tile_prep_kernel(
-    const bf16* __restrict__ x, const void* __restrict__ gamma, int gamma_bf16, float eps,
-    bf16* __restrict__ xn, float* __restrict__ xsum, int M, int K) {
-  __shared__ float red[kPrepThreads / 32];
-  const int row = blockIdx.x;
-  const bf16* xr = x + (size_t)row * K;
-  float inv = 1.f;
-  if (gamma != nullptr) {
-    float ss = 0.f;
-    for (int k = threadIdx.x; k < K; k += kPrepThreads) {
-      const float v = __bfloat162float(xr[k]);
-      ss += v * v;
-    }
-    inv = __frsqrt_rn(scalellm_quant::block_reduce(ss, false, red) / (float)K + eps);
-    for (int k = threadIdx.x; k < K; k += kPrepThreads)
-      xn[(size_t)row * K + k] =
-          __float2bfloat16_rn(__bfloat162float(xr[k]) * inv * load_f32_or_bf16(gamma, k, gamma_bf16));
-  }
-  if (xsum != nullptr) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int span = warp; span < K / 32; span += kPrepThreads / 32) {
-      const int k = 32 * span + lane;
-      float s = __bfloat162float(xr[k]);
-      if (gamma != nullptr)
-        s = __bfloat162float(__float2bfloat16_rn(s * inv * load_f32_or_bf16(gamma, k, gamma_bf16)));
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) xsum[(size_t)span * M + row] = s;
-    }
-  }
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime (no link to
-// libcuda): builds the TMA descriptors of x and of the weights.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major [rows, cols] tensor of `bytes`-wide elements, boxes of
-// [box_rows, box_cols]; reads past its end come back as zeros.
-bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int bytes, int rows, int cols,
-                int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool DEQUANT, int BITS, int WGS, int BT>
 int launch_tile_shape(const bf16* x, const void* qweight, const void* scales, const void* zeros,
                       const float* xsum, void* out, int M, int K, int N, int G, int scales_bf16,
@@ -949,10 +810,10 @@ int launch_tile(const void* x, const void* qweight, const void* scales, const vo
       N % 2 != 0 || (rms_gamma != nullptr && xn == nullptr) || (need_xsum && xsum == nullptr))
     return (int)cudaErrorInvalidValue;
   if (rms_gamma != nullptr || need_xsum) {
-    tile_prep_kernel<<<M, kPrepThreads, 0, st>>>(
+    prep_kernel<<<M, kPrepThreads, 0, st>>>(
         static_cast<const bf16*>(x), rms_gamma, gamma_bf16, rms_eps,
         rms_gamma != nullptr ? static_cast<bf16*>(xn) : nullptr,
-        need_xsum ? static_cast<float*>(xsum) : nullptr, M, K);
+        need_xsum ? static_cast<float*>(xsum) : nullptr, M, K, 32, M);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }

@@ -11,87 +11,72 @@
 //   down     qweight [D, F/2] or [D, F]; scales [F/G, D]; zeros [F/G, D] or null
 //   out      f32 [M, D]
 //
-// What it computes, per slice of BF = max(128, G) columns of F:
-//   g, u = the slice's gate and up columns: per span of D (128 where
-//          G % 128 == 0, else 32) the f32 dot of bf16 x with the integer
-//          weights, (dot - xsum * zero) * scale, spans summed in f32;
+// What it computes:
+//   g, u = the gate and up columns as quant_gemv.cu's gemv computes them:
+//          per span of D (128 where G % 128 == 0, else 32) the f32 dot of
+//          bf16 x with the integer weights, (dot - xsum * zero) * scale,
+//          spans summed in f32;
 //   h    = bf16(act(g) * u), act in f32: silu, or gelu in its tanh form
 //          (the TPU op's table maps "gelu" to jax.nn.gelu, which is tanh);
-//   part[slice] = per group of the slice's BF rows of down: the f32 dot of h
-//          with the weights, (dot - hsum * zero) * scale, in group order;
-//   out  = part[0] + part[1] + ..., in slice order (a second kernel).
-// h never leaves the block's shared memory; the f32 partials do. The result
-// does not depend on the run: no float atomics.
+//   out  = h times down the same way, over spans of F (xsum: the f32 sums of
+//          h over the span, added from its 32-column parts in order), f32.
+// The result does not depend on the run: no atomics.
 //
 // What bounds it on an H100: at Llama-3.1-8B's widths (D 4096, F 14336,
 // int4, G 128) the weights and scales are 91 MB, 27 us at 3.35 TB/s; the
-// f32 partials add 2 * (F / BF) * M * D * 4 bytes (3.7 MB at M = 1, 59 MB
-// at M = 16); from a few rows up the CUDA cores bind it: 3 * M * D * F f32
-// FMAs, 84 us at M = 16 at 33.5 T FMA/s.
+// products, 2 * 3 * M * D * F flops, are 5.6 GFLOP at M = 16, 6 us at 989
+// TFLOP/s on the tensor cores.
 //
-// Design, simple first (no mma, TMA or wgmma yet): one block (8 warps) per
-// (slice, tile of up to MT rows); 112 slices at the 8B widths. The block
-// stages its rows of x whole in shared memory (16-byte pieces swizzled by
-// span, as in quant_gemv.cu), then walks the slice's 2 * BF gate and up
-// columns, 4 a warp at a time, 8 lanes a column each reading 128-K spans one
-// chunk ahead of their use; the 8 lanes add their sums by shuffles. Then h
-// in f32 (its bf16 values) in shared memory, read by every thread at once,
-// while each thread owns one output column of down and walks the slice's
-// rows of it, one pass of 256 columns ahead.
+// Design: one cooperative launch, its grid the blocks that can be
+// co-resident (the launch fails, and the wrapper raises, where they cannot
+// all be), on the small-M mainloop of quant_small_m.cuh (mma.sync on
+// weights unpacked in registers, a TMA ring of weights and activations, a
+// producer warp):
+//   phase 1: items of 64 columns of F; an item is 64 gate rows and their 64
+//     up rows, each warp's 16 rows being 8 gate rows and the same 8 up rows,
+//     so a thread holds g and u of its column. h goes to a buffer [M, F]
+//     (0.46 MB at M = 16, read again from L2) and, with zero points, the
+//     sums of h over each 32 columns;
+//   a grid barrier (cooperative_groups::this_grid().sync());
+//   phase 2: items of 128 / KS rows of down over all of F (KS K slices of 8
+//     / KS row warps, their sums added in slice order in shared memory),
+//     written as rows of out.
+// No f32 partials, no second kernel, and no limit on D from shared memory.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
-#include "quant_act.cuh"
-#include "quant_unpack.cuh"
+#include "quant_small_m.cuh"
 
 namespace {
 
-using scalellm_quant::load_f32_or_bf16;
+using scalellm_quant::kPrepThreads;
+using scalellm_quant::kSmThreads;
+using scalellm_quant::kSmChunkK;
+using scalellm_quant::kSmWarps;
+using scalellm_quant::piece_map;
+using scalellm_quant::prep_kernel;
+using scalellm_quant::sm_consume;
+using scalellm_quant::sm_count;
+using scalellm_quant::sm_consumer_sync;
+using scalellm_quant::sm_prefetch_weights;
+using scalellm_quant::sm_produce;
+using scalellm_quant::sm_reduce_slices;
+using scalellm_quant::sm_ring;
+using scalellm_quant::sm_smem_bytes;
+using scalellm_quant::sm_stage;
+using scalellm_quant::sm_stages;
+using scalellm_quant::sm_tiles;
+using scalellm_quant::SmJob;
+using scalellm_quant::SmRing;
+using scalellm_quant::SmStage;
+using scalellm_quant::tensor_map;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSpanK = 128;
-constexpr int kLanesPerCol = 8;
-constexpr int kColsPerWarp = 32 / kLanesPerCol;
-constexpr int kChunkK = kLanesPerCol * kSpanK;
-
-__device__ __forceinline__ int swz(int q) { return q ^ ((q >> 4) & 7); }
-
-__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 t = __bfloat1622float2(p[j]);
-    f[2 * j] = t.x;
-    f[2 * j + 1] = t.y;
-  }
-}
-
-// Eight weights of K order: int4 from one 32-bit word, int8 from two.
-template <int BITS>
-__device__ __forceinline__ void weights8(const uint4* v, int step, float (&f)[8]) {
-  if (BITS == 4) {
-    const uint4& w = v[step / 4];
-    const uint32_t word = (step & 3) == 0 ? w.x : (step & 3) == 1 ? w.y : (step & 3) == 2 ? w.z : w.w;
-    uint32_t packed[4];
-    scalellm_quant::unpack_int4x8(word, __float2bfloat162_rn(136.f), packed);
-    bf16x8_to_float(make_uint4(packed[0], packed[1], packed[2], packed[3]), f);
-  } else {
-    const uint4& w = v[step / 2];
-    const uint32_t lo = (step & 1) ? w.z : w.x, hi = (step & 1) ? w.w : w.y;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f[j] = (float)(int8_t)((lo >> (8 * j)) & 0xFFu);
-      f[4 + j] = (float)(int8_t)((hi >> (8 * j)) & 0xFFu);
-    }
-  }
-}
+constexpr int kItemF = 64;  // columns of F a phase-1 item: 8 a row warp
 
 __device__ __forceinline__ float activation(float g, int act) {
   if (act == 0) return g * (1.f / (1.f + expf(-g)));  // silu: g * sigmoid(g)
@@ -99,301 +84,257 @@ __device__ __forceinline__ float activation(float g, int act) {
   return g * (0.5f * (1.f + tanhf(c * (g + 0.044715f * (g * g * g)))));
 }
 
-// Dynamic shared memory: x [MT][D] bf16 (swizzled pieces), gu [MT][2 BF]
-// f32, h [MT][BF] f32, hsum [MT][BF / G] f32.
-template <int MT, int BITS, bool ASYM>
-__global__ void __launch_bounds__(kThreads) mlp_kernel(
-    const bf16* __restrict__ x, const uint8_t* __restrict__ gu_q, const void* __restrict__ gu_s,
-    const int8_t* __restrict__ gu_z, const uint8_t* __restrict__ dn_q,
-    const void* __restrict__ dn_s, const int8_t* __restrict__ dn_z, int scales_bf16,
-    float* __restrict__ part, int M, int D, int F, int G, int BF, int act) {
-  constexpr int kVecs = BITS == 4 ? 4 : 8;  // 16-byte words of a 128-K span
-  constexpr int kSubs = kSpanK / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int pieces = D / 8;
-  uint4* xs = reinterpret_cast<uint4*>(smem);
-  float* gu = reinterpret_cast<float*>(smem + (size_t)MT * D * 2);
-  float* hs = gu + MT * 2 * BF;
-  float* hsum = hs + MT * BF;
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n_mt = (M + MT - 1) / MT;
-  const int mt = blockIdx.x % n_mt, slice = blockIdx.x / n_mt;
-  const int m0 = mt * MT, rows = min(MT, M - m0);
-  const int f0 = slice * BF;
-  const int span = G % kSpanK == 0 ? kSpanK : 32;
-  const int steps_per_sub = span / 8;
+template <int BITS, int NT, bool SPAN32>
+__global__ void __launch_bounds__(kSmThreads, NT <= 4 ? 2 : 1) mlp_kernel(
+    const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap gu_map,
+    const __grid_constant__ CUtensorMap h_map, const __grid_constant__ CUtensorMap dn_map,
+    const __grid_constant__ CUtensorMap xs_map, const __grid_constant__ CUtensorMap hs_map,
+    const void* __restrict__ gu_s, const int8_t* __restrict__ gu_z, const void* __restrict__ dn_s,
+    const int8_t* __restrict__ dn_z, int scales_bf16, bf16* __restrict__ h, float* __restrict__ hsum,
+    float* __restrict__ out, int M, int D, int F, int G, int act, int ks2, int stages, int slot_bytes) {
+  extern __shared__ uint8_t smem_raw[];
+  const SmRing ring = sm_ring(smem_raw, stages, slot_bytes, kSmWarps);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int span = SPAN32 ? 32 : 128;
+  const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
 
-  for (int i = tid; i < MT * pieces; i += kThreads) {
-    const int r = i / pieces, q = i % pieces;
-    xs[r * pieces + swz(q)] =
-        r < rows ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * D) + q)
-                 : make_uint4(0, 0, 0, 0);
-  }
-  __syncthreads();
+  SmJob j1;  // gate_up: rows f0 + [0, 64) (gate) and F + f0 + [0, 64) (up) over D
+  j1.xmap = &x_map;
+  j1.wmap = &gu_map;
+  j1.xsmap = gu_z != nullptr ? &xs_map : nullptr;
+  j1.scales = gu_s;
+  j1.zeros = gu_z;
+  j1.ld = 2 * F;
+  j1.rw = kSmWarps;
+  j1.ks = 1;
+  j1.valid_a = j1.valid_b = kItemF;
+  j1.K = D;
+  j1.G = G;
+  j1.span = span;
+  j1.parts = 1;
+  j1.st = sm_stage(BITS, NT, j1.rw, 1, span, 1);
+  SmJob j2;  // down: rows n0 + [0, 2 rh) over F
+  j2.xmap = &h_map;
+  j2.wmap = &dn_map;
+  j2.xsmap = dn_z != nullptr ? &hs_map : nullptr;
+  j2.scales = dn_s;
+  j2.zeros = dn_z;
+  j2.ld = D;
+  j2.rw = kSmWarps / ks2;
+  j2.ks = ks2;
+  j2.K = F;
+  j2.G = G;
+  j2.span = span;
+  j2.parts = span / 32;
+  j2.st = sm_stage(BITS, NT, j2.rw, ks2, span, j2.parts);
+  const int rh2 = 8 * j2.rw;
+  const int items1 = F / kItemF, items2 = (D + 2 * rh2 - 1) / (2 * rh2);
+  auto item1 = [&](int i) {
+    j1.row_a = i * kItemF;
+    j1.row_b = F + i * kItemF;
+  };
+  auto item2 = [&](int i) {
+    j2.row_a = i * 2 * rh2;
+    j2.row_b = j2.row_a + rh2;
+    j2.valid_a = max(0, min(rh2, D - j2.row_a));
+    j2.valid_b = max(0, min(rh2, D - j2.row_b));
+  };
 
-  // ---- gate and up: 2 BF columns of gate_up, kWarps * 4 a pass.
-  {
-    const size_t row_bytes = BITS == 4 ? (size_t)D / 2 : (size_t)D;
-    const int n_chunks = (D + kChunkK - 1) / kChunkK;
-    const int passes = 2 * BF / (kWarps * kColsPerWarp);
-    const int sp = lane % kLanesPerCol;
-    auto column = [&](int pass) {
-      const int j = pass * kWarps * kColsPerWarp + warp * kColsPerWarp + lane / kLanesPerCol;
-      return j < BF ? f0 + j : F + f0 + (j - BF);
-    };
-    uint4 cur[kVecs], nxt[kVecs];
-    float s_cur[kSubs], s_nxt[kSubs], z_cur[kSubs], z_nxt[kSubs];
-    auto fetch = [&](int step, uint4 (&v)[kVecs], float (&s)[kSubs], float (&z)[kSubs]) {
-      const int col = column(step / n_chunks);
-      const int k = (step % n_chunks) * kChunkK + sp * kSpanK;
-      const bool ok = k < D;
-      const uint4* p = reinterpret_cast<const uint4*>(gu_q + (size_t)col * row_bytes +
-                                                      (BITS == 4 ? k / 2 : k));
-#pragma unroll
-      for (int i = 0; i < kVecs; ++i) v[i] = ok ? __ldg(p + i) : make_uint4(0, 0, 0, 0);
-#pragma unroll
-      for (int j = 0; j < kSubs; ++j) {
-        s[j] = z[j] = 0.f;
-        if (ok && j * span < kSpanK) {
-          const size_t gi = (size_t)((k + j * span) / G) * (2 * F) + col;
-          s[j] = load_f32_or_bf16(gu_s, gi, scales_bf16);
-          if (ASYM) z[j] = (float)gu_z[gi];
-        }
-      }
-    };
-    const int total = passes * n_chunks;
-    fetch(0, cur, s_cur, z_cur);
-    float acc[MT];
-    for (int step = 0; step < total; ++step) {
-      const int chunk = step % n_chunks;
-      if (chunk == 0) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-      }
-      if (step + 1 < total) fetch(step + 1, nxt, s_nxt, z_nxt);
-      const int kl = chunk * kChunkK + sp * kSpanK;
-      if (kl < D) {
-        float d[MT], xsum[MT];
-#pragma unroll
-        for (int st = 0; st < kSpanK / 8; ++st) {
-          if ((st & (steps_per_sub - 1)) == 0) {
-#pragma unroll
-            for (int m = 0; m < MT; ++m) d[m] = xsum[m] = 0.f;
-          }
-          float w[8];
-          weights8<BITS>(cur, st, w);
-          const int q = kl / 8 + st;
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m >= rows) break;
-            float xv[8];
-            bf16x8_to_float(xs[m * pieces + swz(q)], xv);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              d[m] = fmaf(xv[j], w[j], d[m]);
-              if (ASYM) xsum[m] += xv[j];
-            }
-          }
-          if (((st + 1) & (steps_per_sub - 1)) == 0) {
-            // span 32: sub-span st / 4 of the 128 K; span 128: the one span.
-            const float s = span == kSpanK ? s_cur[0] : s_cur[st / 4];
-            const float z = span == kSpanK ? z_cur[0] : z_cur[st / 4];
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              if (m >= rows) break;
-              acc[m] += (ASYM ? d[m] - xsum[m] * z : d[m]) * s;
-            }
-          }
-        }
-      }
-      if (chunk == n_chunks - 1) {
-        // The column is done: its 8 lanes add their sums (fixed order).
-        const int pass = step / n_chunks;
-        const int j = pass * kWarps * kColsPerWarp + warp * kColsPerWarp + lane / kLanesPerCol;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-#pragma unroll
-          for (int o = 1; o < kLanesPerCol; o <<= 1) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
-          if (sp == 0 && m < rows) gu[m * 2 * BF + j] = acc[m];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kVecs; ++i) cur[i] = nxt[i];
-#pragma unroll
-      for (int j = 0; j < kSubs; ++j) {
-        s_cur[j] = s_nxt[j];
-        z_cur[j] = z_nxt[j];
-      }
+  int g = 0;  // the block's running ring stage, the same in producer and consumers
+  if (warp == kSmWarps) {  // the producer warp
+    for (int i = blockIdx.x; i < items1; i += gridDim.x) {
+      item1(i);
+      sm_produce<NT, BITS>(j1, ring.ring, slot_bytes, stages, ring.full, ring.empty, g, M, scales_bf16, lane);
     }
-  }
-  __syncthreads();
-
-  // ---- h = bf16(act(g) * u), kept as f32; its sums per group of down.
-  for (int i = tid; i < MT * BF; i += kThreads) {
-    const int m = i / BF, j = i % BF;
-    float h = 0.f;
-    if (m < rows) {
-      const float a = activation(gu[m * 2 * BF + j], act);
-      h = __bfloat162float(__float2bfloat16_rn(a * gu[m * 2 * BF + BF + j]));
+    if (blockIdx.x < items2) {  // down's first stages into L2 while the other blocks finish h
+      item2(blockIdx.x);
+      sm_prefetch_weights<BITS>(j2, stages, lane);
     }
-    hs[i] = h;
-  }
-  __syncthreads();
-  const int n_grp = BF / G;
-  if (ASYM) {
-    for (int i = tid; i < MT * n_grp; i += kThreads) {
-      const int m = i / n_grp, g = i % n_grp;
-      float s = 0.f;
-      for (int j = 0; j < G; ++j) s += hs[m * BF + g * G + j];
-      hsum[i] = s;
+    grid.sync();
+    fence_proxy_async();  // h and hsum, written by the other blocks, before the TMA reads them
+    for (int i = blockIdx.x; i < items2; i += gridDim.x) {
+      item2(i);
+      sm_produce<NT, BITS>(j2, ring.ring, slot_bytes, stages, ring.full, ring.empty, g, M, scales_bf16, lane);
     }
-    __syncthreads();
+    return;
   }
 
-  // ---- down: thread t owns output column pass * 256 + t; the slice's BF
-  // rows of down are BF / 128 spans of its K-contiguous row.
-  {
-    const size_t row_bytes = BITS == 4 ? (size_t)F / 2 : (size_t)F;
-    const int n_spans = BF / kSpanK;
-    const int passes = (D + kThreads - 1) / kThreads;
-    const int total = passes * n_spans;
-    uint4 cur[kVecs], nxt[kVecs];
-    auto fetch = [&](int step, uint4 (&v)[kVecs]) {
-      const int d = (step / n_spans) * kThreads + tid;
-      const int k = f0 + (step % n_spans) * kSpanK;
-      const uint4* p = reinterpret_cast<const uint4*>(dn_q + (size_t)min(d, D - 1) * row_bytes +
-                                                      (BITS == 4 ? k / 2 : k));
+  float acc[NT][4];
+  for (int i = blockIdx.x; i < items1; i += gridDim.x) {
+    item1(i);
+    sm_consume<NT, BITS, SPAN32>(j1, ring.ring, slot_bytes, stages, ring.full, ring.empty, g, M, warp, lane,
+                                 scales_bf16, acc);
+    // acc[n][e]: gate of column f, acc[n][2 + e]: its up; tokens 8 n + 2 tig + e.
+    const int f = i * kItemF + 8 * warp + gid;
+    float hv[NT][2];
 #pragma unroll
-      for (int i = 0; i < kVecs; ++i) v[i] = d < D ? __ldg(p + i) : make_uint4(0, 0, 0, 0);
-    };
-    fetch(0, cur);
-    float out[MT], dot[MT];
-    for (int step = 0; step < total; ++step) {
-      const int d = (step / n_spans) * kThreads + tid;
-      const int sp = step % n_spans;
-      if (sp == 0) {
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int m = 0; m < MT; ++m) out[m] = 0.f;
+      for (int e = 0; e < 2; ++e) {
+        const int t = 8 * n + 2 * tig + e;
+        const bf16 hb = __float2bfloat16_rn(activation(acc[n][e], act) * acc[n][2 + e]);
+        hv[n][e] = __bfloat162float(hb);
+        if (t < M) h[(size_t)t * F + f] = hb;
       }
-      if (step + 1 < total) fetch(step + 1, nxt);
+    if (gu_z != nullptr) {
+      // The sums of h over each 32 columns (4 row warps of 8): a warp's 8
+      // by shuffles, then the 4 warps' in order.
 #pragma unroll
-      for (int st = 0; st < kSpanK / 8; ++st) {
-        const int kl = sp * kSpanK + st * 8;  // row of the slice
-        if (kl % G == 0) {
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int m = 0; m < MT; ++m) dot[m] = 0.f;
+        for (int e = 0; e < 2; ++e) {
+          float v = hv[n][e];
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+          if (gid == 0) ring.red[warp * 8 * NT + 8 * n + 2 * tig + e] = v;
         }
-        float w[8];
-        weights8<BITS>(cur, st, w);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m >= rows) break;
-          const float4 h0 = *reinterpret_cast<const float4*>(hs + m * BF + kl);
-          const float4 h1 = *reinterpret_cast<const float4*>(hs + m * BF + kl + 4);
-          float v = dot[m];
-          v = fmaf(h0.x, w[0], v);
-          v = fmaf(h0.y, w[1], v);
-          v = fmaf(h0.z, w[2], v);
-          v = fmaf(h0.w, w[3], v);
-          v = fmaf(h1.x, w[4], v);
-          v = fmaf(h1.y, w[5], v);
-          v = fmaf(h1.z, w[6], v);
-          v = fmaf(h1.w, w[7], v);
-          dot[m] = v;
-        }
-        if ((kl + 8) % G == 0 && d < D) {
-          const int g = (f0 + kl) / G;  // group of down's K
-          const size_t gi = (size_t)g * D + d;
-          const float s = load_f32_or_bf16(dn_s, gi, scales_bf16);
-          const float z = ASYM ? (float)dn_z[gi] : 0.f;
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m >= rows) break;
-            out[m] += (ASYM ? dot[m] - hsum[m * n_grp + kl / G] * z : dot[m]) * s;
-          }
-        }
+      sm_consumer_sync(kSmWarps);
+      for (int q = threadIdx.x; q < 2 * M; q += 32 * kSmWarps) {
+        const int p = q / M, t = q % M;
+        const float* rr = ring.red + 4 * p * 8 * NT + t;
+        hsum[(size_t)(2 * i + p) * 8 * NT + t] = ((rr[0] + rr[8 * NT]) + rr[16 * NT]) + rr[24 * NT];
       }
-      if (sp == n_spans - 1 && d < D) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m >= rows) break;
-          part[((size_t)slice * M + m0 + m) * D + d] = out[m];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kVecs; ++i) cur[i] = nxt[i];
+      sm_consumer_sync(kSmWarps);
     }
+  }
+  fence_proxy_async();
+  grid.sync();
+
+  for (int i = blockIdx.x; i < items2; i += gridDim.x) {
+    item2(i);
+    sm_consume<NT, BITS, SPAN32>(j2, ring.ring, slot_bytes, stages, ring.full, ring.empty, g, M, warp, lane,
+                                 scales_bf16, acc);
+    sm_reduce_slices<NT>(acc, ring.red, j2.rw, ks2, warp, lane);
+    if (warp / j2.rw != 0) continue;
+    const int r = 8 * (warp % j2.rw) + gid;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = 8 * n + 2 * tig + e;
+        if (t >= M) continue;
+        if (r < j2.valid_a) out[(size_t)t * D + j2.row_a + r] = acc[n][e];
+        if (r < j2.valid_b) out[(size_t)t * D + j2.row_b + r] = acc[n][2 + e];
+      }
   }
 }
 
-// out = part[0] + part[1] + ..., in slice order.
-__global__ void slice_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                 int slices, size_t count) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = part[i];
-    for (int s = 1; s < slices; ++s) v += part[(size_t)s * count + i];
-    out[i] = v;
+// One instantiation: both phases' stage layouts (the ring's slot is the
+// larger), the ring's depth for the blocks an SM the registers allow, the
+// grid from the occupancy the launch can have, the four tensor maps, one
+// cooperative launch.
+template <int BITS, int NT, bool SPAN32>
+int launch_mlp(const bf16* x, const void* gu_q, const void* gu_s, const void* gu_z, const void* dn_q,
+               const void* dn_s, const void* dn_z, int scales_bf16, const float* xsum, bf16* h, float* hsum,
+               float* out, int M, int D, int F, int G, int act, int ks2, cudaStream_t st) {
+  constexpr int kPad = 8 * NT;
+  const auto kernel = mlp_kernel<BITS, NT, SPAN32>;
+  const int span = SPAN32 ? 32 : 128;
+  const int rw2 = kSmWarps / ks2;
+  const SmStage s1 = sm_stage(BITS, NT, kSmWarps, 1, span, 1);
+  const SmStage s2 = sm_stage(BITS, NT, rw2, ks2, span, span / 32);
+  int slot = s1.bytes > s2.bytes ? s1.bytes : s2.bytes;
+  const int red_slices = (ks2 - 1) * rw2 * NT * 4 * 32 * 4, red_h = kSmWarps * 8 * NT * 4;
+  const int red = red_slices > red_h ? red_slices : red_h;
+  int stages = sm_stages(slot, red, NT <= 4 ? 2 : 1);
+  int smem = sm_smem_bytes(stages, slot, red);
+  static bool smem_set = false;  // once per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
   }
+  const int sms = sm_count();
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSmThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;  // no grid barrier to be had
+  const int items1 = F / kItemF, items2 = (D + 16 * rw2 - 1) / (16 * rw2);
+  const int want = items1 > items2 ? items1 : items2;
+  const int blocks = per_sm * sms < want ? per_sm * sms : want;
+  CUtensorMap x_map, gu_map, h_map, dn_map, xs_map = {}, hs_map = {};
+  const bool asym = gu_z != nullptr;
+  if (!piece_map(&x_map, x, M, D, s1.xk, M, kSmChunkK * s1.cps / s1.xk) ||
+      !tensor_map(&gu_map, gu_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2 * F, D * BITS / 8, s1.rh, 128,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !piece_map(&h_map, h, M, F, s2.xk, M, kSmChunkK * s2.cps / s2.xk) ||
+      !tensor_map(&dn_map, dn_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, F * BITS / 8, s2.rh, 128,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (asym && (!tensor_map(&xs_map, xsum, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, D / span, kPad, s1.xs_rows, kPad,
+                            CU_TENSOR_MAP_SWIZZLE_NONE) ||
+                !tensor_map(&hs_map, hsum, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, F / 32, kPad, s2.xs_rows, kPad,
+                            CU_TENSOR_MAP_SWIZZLE_NONE))))
+    return (int)cudaErrorInvalidValue;
+  const int8_t* guz = static_cast<const int8_t*>(gu_z);
+  const int8_t* dnz = static_cast<const int8_t*>(dn_z);
+  void* args[] = {&x_map, &gu_map, &h_map, &dn_map, &xs_map, &hs_map, &gu_s, &guz, &dn_s, &dnz,
+                  &scales_bf16, &h, &hsum, &out, &M, &D, &F, &G, &act, &ks2, &stages, &slot};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(kSmThreads), args,
+                                  (size_t)smem, st);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); does not synchronise or allocate.
-// part f32 [F / BF, M, D] is scratch, BF = max(128, G). M <= 64, G % 32 ==
-// 0 and G divides or is a multiple of 128, F % BF == 0, D % 128 == 0.
-// act: 0 silu, 1 gelu (tanh form). MT rows a block: 1, 4, 8 or 16, chosen by
-// the caller so that MT rows of x fit in shared memory.
+// the CUDA error code (0 on success); does not synchronise or allocate.
+// Scratch: h bf16 [M, F]; with zero points xsum f32 [D / span, Mp] (span 128
+// where G % 128 == 0, else 32) and hsum f32 [F / 32, Mp] (null without), Mp
+// being M padded to 8, 16, 32 or 64.
+// M <= 64, G % 32 == 0, D and F multiples of 128 and of G; act: 0 silu, 1
+// gelu (tanh form); k_slices: the K slices of a down block (1, 2 or 4; the
+// wrapper's small_m_slices). x, both qweights and h 16-byte aligned (TMA).
 extern "C" int scalellm_quant_mlp(
     const void* x, const void* gu_qweight, const void* gu_scales, const void* gu_zeros,
-    const void* dn_qweight, const void* dn_scales, const void* dn_zeros, void* part, void* out,
-    int M, int D, int F, int group_size, int bits, int scales_bf16, int act, int rows_tile,
+    const void* dn_qweight, const void* dn_scales, const void* dn_zeros, void* xsum, void* h, void* hsum,
+    void* out, int M, int D, int F, int group_size, int bits, int scales_bf16, int act, int k_slices,
     void* stream) {
   if (M <= 0 || D <= 0) return 0;
   const int G = group_size;
-  const int BF = std::max(kSpanK, G);
-  const int mt = rows_tile;
-  if ((bits != 4 && bits != 8) || M > 64 || G <= 0 || G % 32 != 0 ||
-      (kSpanK % G != 0 && G % kSpanK != 0) || F <= 0 || F % BF != 0 || D % kSpanK != 0 ||
-      (act != 0 && act != 1) || (mt != 1 && mt != 4 && mt != 8 && mt != 16) ||
-      (gu_zeros == nullptr) != (dn_zeros == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)mt * D * 2 + (size_t)mt * 3 * BF * 4 + (size_t)mt * (BF / G) * 4;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int slices = F / BF;
-  const dim3 grid(((M + mt - 1) / mt) * slices);
   const bool asym = gu_zeros != nullptr;
-  cudaError_t e = cudaSuccess;
-#define SCALELLM_MLP(MT, BITS, ASYM)                                                          \
-  do {                                                                                        \
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(&mlp_kernel<MT, BITS, ASYM>),      \
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);         \
-    if (e != cudaSuccess) return (int)e;                                                      \
-    mlp_kernel<MT, BITS, ASYM><<<grid, kThreads, smem, st>>>(                                 \
-        static_cast<const bf16*>(x), static_cast<const uint8_t*>(gu_qweight), gu_scales,      \
-        static_cast<const int8_t*>(gu_zeros), static_cast<const uint8_t*>(dn_qweight),        \
-        dn_scales, static_cast<const int8_t*>(dn_zeros), scales_bf16,                         \
-        static_cast<float*>(part), M, D, F, G, BF, act);                                      \
-  } while (0)
-#define SCALELLM_MLP_MT(BITS, ASYM)            \
-  if (mt == 1) SCALELLM_MLP(1, BITS, ASYM);    \
-  else if (mt == 4) SCALELLM_MLP(4, BITS, ASYM); \
-  else if (mt == 8) SCALELLM_MLP(8, BITS, ASYM); \
-  else SCALELLM_MLP(16, BITS, ASYM)
-  if (bits == 4) {
-    if (asym) { SCALELLM_MLP_MT(4, true); } else { SCALELLM_MLP_MT(4, false); }
-  } else {
-    if (asym) { SCALELLM_MLP_MT(8, true); } else { SCALELLM_MLP_MT(8, false); }
+  if ((bits != 4 && bits != 8) || M > 64 || G <= 0 || G % 32 != 0 || D % 128 != 0 || F <= 0 || F % 128 != 0 ||
+      D % G != 0 || F % G != 0 || (act != 0 && act != 1) || (k_slices != 1 && k_slices != 2 && k_slices != 4) ||
+      asym != (dn_zeros != nullptr) || h == nullptr || (asym && (xsum == nullptr || hsum == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bool span32 = G % 128 != 0;
+  if (asym) {  // the sums of x over each span of D
+    prep_kernel<<<M, kPrepThreads, 0, st>>>(static_cast<const bf16*>(x), nullptr, 0, 0.f, nullptr,
+                                            static_cast<float*>(xsum), M, D, span32 ? 32 : 128,
+                                            8 * sm_tiles(M));
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
   }
-#undef SCALELLM_MLP_MT
+  const float* xs = asym ? static_cast<const float*>(xsum) : nullptr;
+  float* hs = asym ? static_cast<float*>(hsum) : nullptr;
+  const int nt = sm_tiles(M);
+#define SCALELLM_MLP(BITS, NT)                                                                                 \
+  return span32 ? launch_mlp<BITS, NT, true>(static_cast<const bf16*>(x), gu_qweight, gu_scales, gu_zeros,    \
+                                             dn_qweight, dn_scales, dn_zeros, scales_bf16, xs,                \
+                                             static_cast<bf16*>(h), hs, static_cast<float*>(out), M, D, F, G, \
+                                             act, k_slices, st)                                               \
+                : launch_mlp<BITS, NT, false>(static_cast<const bf16*>(x), gu_qweight, gu_scales, gu_zeros,   \
+                                              dn_qweight, dn_scales, dn_zeros, scales_bf16, xs,               \
+                                              static_cast<bf16*>(h), hs, static_cast<float*>(out), M, D, F,   \
+                                              G, act, k_slices, st)
+#define SCALELLM_MLP_NT(BITS)      \
+  switch (nt) {                    \
+    case 1: SCALELLM_MLP(BITS, 1); \
+    case 2: SCALELLM_MLP(BITS, 2); \
+    case 4: SCALELLM_MLP(BITS, 4); \
+    default: SCALELLM_MLP(BITS, 8); \
+  }
+  if (bits == 4) {
+    SCALELLM_MLP_NT(4)
+  } else {
+    SCALELLM_MLP_NT(8)
+  }
+#undef SCALELLM_MLP_NT
 #undef SCALELLM_MLP
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const size_t count = (size_t)M * D;
-  const int blocks = (int)std::min<size_t>((count + 255) / 256, 4096);
-  slice_sum_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(part),
-                                           static_cast<float*>(out), slices, count);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

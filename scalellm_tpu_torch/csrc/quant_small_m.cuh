@@ -1,0 +1,631 @@
+// The small-M tensor-core mainloop of the weight-only quantized kernels for
+// Hopper (sm_90a), and the asynchronous-copy helpers it shares with the
+// K3/K4 tile kernel (quant_matmul.cu).
+//
+// Users: quant_gemv.cu (K12a gemv, scalellm_tpu/ops/quant_matmul.py:304
+// _gemv_kernel) and quant_mlp.cu (K11, scalellm_tpu/ops/quant_mlp.py:78
+// _mlp_kernel, both of its matmuls). Layouts as in quant_matmul.cu: x bf16
+// [M, K]; qweight [N, K/2] int4 or [N, K] int8, K-contiguous; scales f32 or
+// bf16 [K/G, N]; zeros s8 [K/G, N] or none.
+//
+// What it computes, for the R weight rows of a block and M <= 64 tokens:
+// per span of K (128 where G % 128 == 0, else 32) an f32 dot of the bf16
+// tokens with the integer weights, folded into the row's f32 sum as
+// (dot - xsum * zero) * scale at the span's end; xsum is the f32 sum of x
+// over the span, from a pre-pass (prep_kernel). The order of the fold
+// follows the span order of the warp's K; a block whose warps split K adds
+// their sums in slice order. Deterministic: no atomics.
+//
+// What bounds it on an H100: the weight bytes. At M = 16 a (4096, 28672)
+// int4 projection reads 59 MB of weights and 3.7 MB of scales, 18.9 us at
+// 3.35 TB/s, against 3.8 GFLOP of tensor work (4 us at 989 TFLOP/s); in
+// practice the unpacking of the weights (the integer pipes) and the rate at
+// which the ring streams them. The design keeps the bytes streaming and
+// puts every multiply on the tensor cores:
+//   - the transposed product out^T[rows, tokens] = W[rows, K] x^T with
+//     mma.sync m16n8k16 (bf16, f32 accumulate): the weights are the A
+//     operand, unpacked in registers, 16 rows a warp; the tokens are the B
+//     operand, n = 8 a tile, up to NT = 8 tiles. Each weight is unpacked
+//     once per call at every M <= 64. mma.sync rather than wgmma: at these M
+//     the tensor time is not the limit, and a wgmma on a path ptxas takes
+//     for divergent, or with its A registers rewritten while it runs, is
+//     serialized (PERF.md, the tile kernel's findings);
+//   - the A fragments by ldmatrix from a 128-byte-swizzled TMA tile of
+//     packed weights: lane (g, t) receives word t of a row's 16 bytes, K
+//     8t..8t+7 (int4) or 4t..4t+3 (int8), which the fragment takes as its
+//     k slots 2t, 2t+1, 2t+8, 2t+9 of one or two k16 steps; x is read with
+//     the same permutation of K (one 16- or 8-byte load of a token's row in
+//     a dense [tokens][32 K] or [tokens][16 K] tile), so the product is
+//     unchanged and no shared-memory read has a bank conflict. int4 unpacks
+//     by quant_unpack.cuh's unpack_int4_step (13 instructions a k16 step:
+//     unpack_int4_frag's bit placement with one logic op a register), int8
+//     by its int8_pair;
+//   - a ring of up to 8 stages in shared memory, as deep as the shared
+//     memory of the blocks an SM holds allows, filled by one producer warp
+//     with TMA alone (the stage's x as one 3-D box of 32- or 16-K pieces,
+//     the weights as 128-byte boxes, the staged sums of x as one box),
+//     full/empty mbarriers, up to 8 consumer warps. The consumers read
+//     their rows' scales and zero points straight from global memory, the
+//     producer having prefetched the stage's into L2 (4-byte copies of the
+//     scale windows by the producer held the ring back);
+//   - a block owns R = 16 RW rows over all of K: its consumer warps are RW
+//     row warps times KS K slices (a slice takes every KS-th 128-K chunk
+//     of a stage), RW KS <= 8. The wrapper picks KS so that N / R fills
+//     the SMs (small_m_slices); with one slice gemv picks RW (4-8) so that
+//     the SMs share N evenly (gemv_row_warps).
+// Each warp's 16 rows are two halves of 8: rows row_a + 8 w + g and row_b +
+// 8 w + g (g = lane / 4), which lets K11 put a gate row and its up row in
+// the same thread.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "quant_act.cuh"
+#include "quant_unpack.cuh"
+
+namespace scalellm_quant {
+namespace {
+
+// ------------------------------------------------------------ async copies
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers in shared memory: a phase completes when `count` arrivals and
+// the expected bytes of the asynchronous copies tracked by it have come in.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+// An arrival once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// Waits for the completion of the phase of parity `parity`, spinning inside
+// one asm block (no branch the compiler could take for divergent). A phase
+// that does not complete within 2^26 tries (a lost arrival) traps instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\nmbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@p bra DONE;\n"
+      "add.u32 n, n, 1;\nsetp.lt.u32 p, n, 67108864;\n@p bra WAIT;\ntrap;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// TMA: the box at (c0, c1) (innermost first) of a 2-D tensor map into
+// shared memory, completion counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The same for a 3-D tensor map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+      "[%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The box at (c0, c1) of a 2-D tensor map into L2 (no shared memory).
+__device__ __forceinline__ void tma_prefetch_2d(const CUtensorMap* map, int c0, int c1) {
+  asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global [%0, {%1, %2}];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Programmatic dependent launch: a grid launched after this one may start
+// (griddep_launch), and a grid waits for the grid before it to complete and
+// its writes to be visible (griddep_wait; immediate where it was launched
+// without the dependency).
+__device__ __forceinline__ void griddep_launch() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to
+// libcuda): builds the TMA descriptors of x and of the weights.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major [rows, cols] tensor of `bytes`-wide elements, boxes of
+// [box_rows, box_cols]; reads past its end come back as zeros.
+bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int bytes, int rows, int cols,
+                int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A [rows, cols] tensor of bf16 as [cols / piece] pieces of [rows, piece]:
+// one box of [box_rows, piece] x `box_pieces` lands as box_pieces dense
+// [box_rows][piece] tiles, one TMA for many pieces. Reads past its end come
+// back as zeros.
+bool piece_map(CUtensorMap* map, const void* base, int rows, int cols, int piece, int box_rows, int box_pieces) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || cols % piece != 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)piece, (cuuint64_t)rows, (cuuint64_t)(cols / piece)};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)piece * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)piece, (cuuint32_t)box_rows, (cuuint32_t)box_pieces};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ------------------------------------------------------------ pre-pass
+
+constexpr int kPrepThreads = kActThreads;
+
+// One block per row, where the call asks for it: the RMSNorm prologue (xn =
+// bf16(x * rsqrt(mean(x^2) + eps) * gamma), computed once per row rather
+// than in every block) and, for weights with zero points, the f32 sums of
+// the (normed) x over each span of `span` K (32 or 128), xsum[span, row]: a
+// warp a span, each lane adding its K lane, lane + 32, ... in order, then a
+// shuffle tree. xsum's rows are ld floats long (ld >= M).
+__global__ void __launch_bounds__(kPrepThreads) prep_kernel(
+    const bf16* __restrict__ x, const void* __restrict__ gamma, int gamma_bf16, float eps,
+    bf16* __restrict__ xn, float* __restrict__ xsum, int M, int K, int span, int ld) {
+  __shared__ float red[kPrepThreads / 32];
+  griddep_launch();  // a kernel launched behind it may start streaming its weights
+  const int row = blockIdx.x;
+  const bf16* xr = x + (size_t)row * K;
+  float inv = 1.f;
+  if (gamma != nullptr) {
+    float ss = 0.f;
+    for (int k = threadIdx.x; k < K; k += kPrepThreads) {
+      const float v = __bfloat162float(xr[k]);
+      ss += v * v;
+    }
+    inv = __frsqrt_rn(block_reduce(ss, false, red) / (float)K + eps);
+    for (int k = threadIdx.x; k < K; k += kPrepThreads)
+      xn[(size_t)row * K + k] =
+          __float2bfloat16_rn(__bfloat162float(xr[k]) * inv * load_f32_or_bf16(gamma, k, gamma_bf16));
+  }
+  if (xsum != nullptr) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int sp = warp; sp < K / span; sp += kPrepThreads / 32) {
+      float s = 0.f;
+      for (int k = span * sp + lane; k < span * (sp + 1); k += 32) {
+        float v = __bfloat162float(xr[k]);
+        if (gamma != nullptr)
+          v = __bfloat162float(__float2bfloat16_rn(v * inv * load_f32_or_bf16(gamma, k, gamma_bf16)));
+        s += v;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) xsum[(size_t)sp * ld + row] = s;
+    }
+  }
+}
+
+// ------------------------------------------------------------ small-M mainloop
+
+constexpr int kSmWarps = 8;                     // consumer warps a block, at most
+constexpr int kSmThreads = 32 * kSmWarps + 32;  // and one producer warp
+constexpr int kSmMaxStages = 8;
+constexpr int kSmChunkK = 128;  // the unit of a warp's K: one span of 128 or four of 32
+
+__host__ __device__ inline int sm_min(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int sm_round(int v, int to) { return (v + to - 1) / to * to; }
+
+// One ring stage of a job: `cps` chunks of 128 K (a slice takes every KS-th
+// one), byte offsets within the stage. x: stage_k / xk dense tiles of [M
+// tokens][xk K] bf16, xk the K of one 16-byte weight column (32 int4, 16
+// int8), room left for 8 NT tokens. Weights: two halves of rh = 8 * row
+// warps rows, each in 128-byte boxes (128-byte swizzle). Then the sums of x
+// over the stage's spans, [xs_rows][8 NT] f32.
+struct SmStage {
+  int rh, cps, xk, xs_rows;
+  int x_off, w_off, xs_off, bytes;
+};
+
+// The stage's x is [pieces][M][xk]: the box has exactly M token rows, and a
+// token tile's rows past M read whatever follows (the next piece, the
+// weights), which only reaches the output columns of tokens past M, never
+// written. The layout below leaves room for the 8 NT rows.
+__host__ __device__ inline SmStage sm_stage(int bits, int nt, int rw, int ks, int span, int parts) {
+  SmStage s;
+  s.rh = 8 * rw;
+  const int base = bits == 4 ? 2 : 1;  // chunks of one 128-byte weight box
+  s.cps = ks > base ? ks : base;
+  s.xk = bits == 4 ? 32 : 16;
+  const int stage_k = kSmChunkK * s.cps;
+  s.xs_rows = stage_k / span * parts;
+  s.x_off = 0;
+  s.w_off = sm_round(stage_k * 8 * nt * 2, 1024);
+  s.xs_off = s.w_off + 2 * s.rh * stage_k * bits / 8;
+  s.bytes = sm_round(s.xs_off + s.xs_rows * 8 * nt * 4, 1024);
+  return s;
+}
+
+// One job: R = 2 rh rows of one weight matrix over all of its K.
+struct SmJob {
+  const CUtensorMap* xmap;   // B operand, bf16 [M, K] as pieces of xk K (piece_map), boxes of M rows, a stage
+  const CUtensorMap* wmap;   // qweight, u8 [rows, K * bits / 8], boxes [rh, 128], 128-byte swizzle
+  const CUtensorMap* xsmap;  // sums of x, f32 [(K / span) * parts, 8 NT], boxes [xs_rows, 8 NT]; null: symmetric
+  const void* scales;        // [K / G, ld]
+  const int8_t* zeros;       // [K / G, ld] or null
+  int ld;                    // the scales' row length: the weight's N
+  int row_a, row_b;          // first weight row of each half
+  int valid_a, valid_b;      // rows of each half below N (0 .. rh)
+  int K, G, span, parts;
+  int rw, ks;                // row warps, K slices (rw * ks consumer warps, at most 8)
+  SmStage st;
+};
+
+// The producer warp: every stage of the job into the ring, all of it by
+// TMA (one box of x, one or two weight boxes a half, one box of the sums of
+// x), and the stage's scales and zero points prefetched into L2 for the
+// consumers. g is the running stage count of the block (ring slot g %
+// stages, its phase g / stages).
+template <int NT, int BITS>
+__device__ __forceinline__ void sm_produce(const SmJob& j, uint8_t* ring, int slot_bytes, int stages, uint64_t* full,
+                                           uint64_t* empty, int& g, int M, int scales_bf16, int lane) {
+  const SmStage& s = j.st;
+  const int stage_k = kSmChunkK * s.cps;
+  const int n_st = (j.K + stage_k - 1) / stage_k;
+  const int es = scales_bf16 ? 2 : 4;
+  const int wbox = s.rh * 128;
+  const int nwb_half = stage_k * BITS / 8 / 128;
+  constexpr int kPad = 8 * NT;
+  const int x_bytes = stage_k * M * 2, xs_bytes = s.xs_rows * kPad * 4;
+  for (int t = 0; t < n_st; ++t, ++g) {
+    const int slot = g % stages;
+    if (g >= stages) mbar_wait(&empty[slot], (g / stages - 1) & 1);
+    uint8_t* st = ring + (size_t)slot * slot_bytes;
+    const int k0 = t * stage_k;
+    const int kn = sm_min(stage_k, j.K - k0);  // a multiple of 128
+    const int nwb = (kn * BITS / 8 + 127) / 128;
+    if (lane == 0) {
+      const int halves = (j.valid_a > 0) + (j.valid_b > 0);
+      mbar_arrive_expect_tx(&full[slot], x_bytes + halves * nwb * wbox + (j.xsmap != nullptr ? xs_bytes : 0));
+      tma_load_3d(st + s.x_off, j.xmap, 0, 0, k0 / s.xk, &full[slot]);
+      if (j.xsmap != nullptr) tma_load_2d(st + s.xs_off, j.xsmap, 0, k0 / j.span * j.parts, &full[slot]);
+    }
+    __syncwarp();
+    if (lane < 2 * nwb) {
+      const int h = lane >= nwb, b = lane - h * nwb;
+      if ((h ? j.valid_b : j.valid_a) > 0)
+        tma_load_2d(st + s.w_off + (h * nwb_half + b) * wbox, j.wmap, k0 * BITS / 8 + 128 * b, h ? j.row_b : j.row_a,
+                    &full[slot]);
+    }
+    // The stage's scale and zero-point rows into L2 (a 128-byte line a lane),
+    // where the consumers read them.
+    const int g0 = k0 / j.G, nw = (k0 + kn - 1) / j.G - g0 + 1;
+    for (int i = lane; i < 2 * nw; i += 32) {
+      const int h = i & 1;
+      const int valid = h ? j.valid_b : j.valid_a;
+      if (valid <= 0) continue;
+      const size_t e = (size_t)(g0 + (i >> 1)) * j.ld + (h ? j.row_b : j.row_a);
+      const char* p = static_cast<const char*>(j.scales) + e * es;
+      for (int off = 0; off < valid * es; off += 128) prefetch_l2(p + off);
+      prefetch_l2(p + valid * es - 1);
+      if (j.zeros != nullptr) {
+        prefetch_l2(j.zeros + e);
+        prefetch_l2(j.zeros + e + valid - 1);
+      }
+    }
+  }
+}
+
+// The first `stages` stages' weight boxes of a job into L2: issued ahead of
+// a wait for the activations (they do not depend on them).
+template <int BITS>
+__device__ __forceinline__ void sm_prefetch_weights(const SmJob& j, int stages, int lane) {
+  const int stage_k = kSmChunkK * j.st.cps;
+  const int n_st = sm_min(stages, (j.K + stage_k - 1) / stage_k);
+  const int nwb = stage_k * BITS / 8 / 128;
+  for (int i = lane; i < 2 * nwb * n_st; i += 32) {
+    const int t = i / (2 * nwb), h = (i / nwb) & 1, b = i % nwb;
+    if ((h ? j.valid_b : j.valid_a) > 0)
+      tma_prefetch_2d(j.wmap, t * stage_k * BITS / 8 + 128 * b, h ? j.row_b : j.row_a);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float2 lds64f(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// A consumer warp: its rows (row warp `warp % rw`) over its slice of K
+// (`warp / rw`) of every stage of the job, the span sums folded into acc:
+// acc[n][0..1] are row 8 w + g of half a for tokens 8 n + 2 t, + 1;
+// acc[n][2..3] the same tokens of row 8 w + g of half b (g = lane / 4, t =
+// lane % 4). The scales
+// and zero points of the thread's two rows are read from global memory (the
+// producer brought them into L2), the group followed by comparison as K
+// grows (no division in the loop).
+template <int NT, int BITS, bool SPAN32>
+__device__ __forceinline__ void sm_consume(const SmJob& j, const uint8_t* ring, int slot_bytes, int stages,
+                                           uint64_t* full, uint64_t* empty, int& g, int M, int warp, int lane,
+                                           int scales_bf16, float (&acc)[NT][4]) {
+  constexpr int kSpan = SPAN32 ? 32 : 128;
+  constexpr int kSteps = kSpan / 16;  // k16 steps of a span
+  constexpr int kSpans = kSmChunkK / kSpan;
+  const SmStage& s = j.st;
+  const int rw = warp % j.rw, slice = warp / j.rw;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r = 8 * rw + gid;  // the thread's row in each half
+  const bool ok_a = r < j.valid_a, ok_b = r < j.valid_b;
+  const int stage_k = kSmChunkK * s.cps;
+  const int n_st = (j.K + stage_k - 1) / stage_k;
+  const uint32_t xbox = M * s.xk * 2;  // a piece of x: M token rows
+  const int nwb_half = stage_k * BITS / 8 / 128;
+  const bool asym = j.zeros != nullptr;
+  const int es = scales_bf16 ? 2 : 4;
+  const __nv_bfloat162 off = __float2bfloat162_rn(136.f);
+  const uint32_t mask = 0x000F000Fu, magic = 0x43084308u;  // unpack_int4_step's constants
+  // ldmatrix: lane l gives row l % 8 of matrix l / 8 = (half, column) (a, q),
+  // (b, q), (a, q + 1), (b, q + 1); its 16-byte column is swizzled by row.
+  const int lm_half = (lane >> 3) & 1, lm_col = lane >> 4, lm_row = lane & 7;
+  // The group of the next span and the K where the group after it starts;
+  // the rows' scale and zero-point element offsets in that group.
+  int grp_end = j.G;
+  size_t e_a = (size_t)j.row_a + r, e_b = (size_t)j.row_b + r;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int t = 0; t < n_st; ++t, ++g) {
+    const int slot = g % stages;
+    const int k0 = t * stage_k;
+    const int n_ck = sm_min(stage_k, j.K - k0) / kSmChunkK;
+    mbar_wait(&full[slot], (g / stages) & 1);
+    const uint32_t st = smem_addr(ring) + (uint32_t)(slot * slot_bytes);
+    for (int c = slice; c < n_ck; c += j.ks) {
+      const int kc = k0 + kSmChunkK * c;
+      float sa[kSpans], sb[kSpans], za[kSpans], zb[kSpans];
+#pragma unroll
+      for (int h = 0; h < kSpans; ++h) {
+        while (kc + kSpan * h >= grp_end) {
+          grp_end += j.G;
+          e_a += j.ld;
+          e_b += j.ld;
+        }
+        sa[h] = sb[h] = za[h] = zb[h] = 0.f;
+        if (es == 2) {
+          if (ok_a) sa[h] = __bfloat162float(static_cast<const bf16*>(j.scales)[e_a]);
+          if (ok_b) sb[h] = __bfloat162float(static_cast<const bf16*>(j.scales)[e_b]);
+        } else {
+          if (ok_a) sa[h] = static_cast<const float*>(j.scales)[e_a];
+          if (ok_b) sb[h] = static_cast<const float*>(j.scales)[e_b];
+        }
+        if (asym) {
+          if (ok_a) za[h] = (float)j.zeros[e_a];
+          if (ok_b) zb[h] = (float)j.zeros[e_b];
+        }
+      }
+      // The chunk's weight columns: int4 box c / 2, columns 4 (c % 2) ..
+      // +3 (32 K each); int8 box c, columns 0..7 (16 K each).
+      const int box = BITS == 4 ? c >> 1 : c;
+      const int col0 = BITS == 4 ? 4 * (c & 1) : 0;
+      const uint32_t wrow = st + s.w_off + (lm_half * nwb_half + box) * s.rh * 128 + (8 * rw + lm_row) * 128;
+      const uint32_t xc = st + s.x_off + (uint32_t)(c * (kSmChunkK / s.xk)) * xbox;
+      const uint32_t xs_chunk = st + s.xs_off + (kSmChunkK * c / kSpan) * j.parts * 8 * NT * 4;
+      float cs[NT][4];  // the dot of the span in progress
+      uint32_t wr[4], wr4[4];
+      uint4 xq[NT];  // int4: a token tile's x for the current column (two k16 steps)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {  // the chunk's k16 steps
+        if (k % kSteps == 0) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) cs[n][i] = 0.f;
+        }
+        uint32_t a[4];
+        uint32_t b[NT][2];
+        if constexpr (BITS == 4) {
+          // One ldmatrix covers two columns (64 K, four k16 steps) of both
+          // halves: word t of a row's column is its K 8t..8t+7, the k slots
+          // 2t, 2t+1, 2t+8, 2t+9 of two steps. One 16-byte x load a token
+          // tile covers a column: [x(8t..8t+1), x(8t+2..+3), x(8t+4..+5),
+          // x(8t+6..+7)], the same K in the same slots.
+          if (k % 4 == 0) {
+            ldmatrix_x4(wrow + (((col0 + k / 2 + lm_col) ^ lm_row) << 4), wr);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) wr4[i] = wr[i] >> 4;
+          }
+          const int p = (k / 2) & 1, e = k & 1;  // column within the pair, step within the column
+          unpack_int4_step(wr[2 * p], wr4[2 * p], wr[2 * p + 1], wr4[2 * p + 1], e, mask, magic, off, a);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            if (e == 0) xq[n] = lds128(xc + (k / 2) * xbox + (8 * n + gid) * 64 + tig * 16);
+            b[n][0] = e ? xq[n].z : xq[n].x;
+            b[n][1] = e ? xq[n].w : xq[n].y;
+          }
+        } else {
+          // Two columns (two k16 steps) an ldmatrix; a k16 step's x is a
+          // token's 4t..4t+3.
+          if (k % 2 == 0) ldmatrix_x4(wrow + (((k + lm_col) ^ lm_row) << 4), wr);
+          const int p = k & 1;
+          a[0] = int8_pair<false>(wr[2 * p] & 0xFFFFu, 0.f, 0.f, false);
+          a[1] = int8_pair<false>(wr[2 * p + 1] & 0xFFFFu, 0.f, 0.f, false);
+          a[2] = int8_pair<false>(wr[2 * p] >> 16, 0.f, 0.f, false);
+          a[3] = int8_pair<false>(wr[2 * p + 1] >> 16, 0.f, 0.f, false);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const uint2 xv = lds64(xc + k * xbox + (8 * n + gid) * 32 + tig * 8);
+            b[n][0] = xv.x;
+            b[n][1] = xv.y;
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_bf16(cs[n], a[0], a[1], a[2], a[3], b[n][0], b[n][1]);
+        if (k % kSteps == kSteps - 1) {
+          // The span ends: acc += (dot - xsum * z) * s.
+          const int h = k / kSteps;
+          const float(&dot)[NT][4] = cs;
+          if (asym) {
+            const uint32_t xs = xs_chunk + h * j.parts * 8 * NT * 4;
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              float2 x2 = lds64f(xs + (8 * n + 2 * tig) * 4);
+              for (int q = 1; q < j.parts; ++q) {
+                const float2 y = lds64f(xs + (q * 8 * NT + 8 * n + 2 * tig) * 4);
+                x2.x += y.x;
+                x2.y += y.y;
+              }
+              acc[n][0] += (dot[n][0] - x2.x * za[h]) * sa[h];
+              acc[n][1] += (dot[n][1] - x2.y * za[h]) * sa[h];
+              acc[n][2] += (dot[n][2] - x2.x * zb[h]) * sb[h];
+              acc[n][3] += (dot[n][3] - x2.y * zb[h]) * sb[h];
+            }
+          } else {
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              acc[n][0] += dot[n][0] * sa[h];
+              acc[n][1] += dot[n][1] * sa[h];
+              acc[n][2] += dot[n][2] * sb[h];
+              acc[n][3] += dot[n][3] * sb[h];
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);  // this warp is done with the stage
+  }
+}
+
+// The consumer warps' barrier (the producer warp does not take part).
+__device__ __forceinline__ void sm_consumer_sync(int consumers) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(32 * consumers) : "memory");
+}
+
+// With K slices: the slices' sums added in slice order into slice 0's warps,
+// through `red` ((ks - 1) * rw * NT * 4 * 32 floats).
+template <int NT>
+__device__ __forceinline__ void sm_reduce_slices(float (&acc)[NT][4], float* red, int rw_count, int ks_count, int warp, int lane) {
+  if (ks_count == 1) return;
+  const int rw = warp % rw_count, slice = warp / rw_count;
+  auto part = [&](int sl) { return red + (size_t)((sl - 1) * rw_count + rw) * NT * 4 * 32; };
+  if (slice > 0) {
+    float* p = part(slice);
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) p[i * 32 + lane] = acc[i / 4][i % 4];
+  }
+  sm_consumer_sync(rw_count * ks_count);
+  if (slice == 0) {
+    for (int sl = 1; sl < ks_count; ++sl) {
+      const float* p = part(sl);
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) acc[i / 4][i % 4] += p[i * 32 + lane];
+    }
+  }
+  sm_consumer_sync(rw_count * ks_count);  // red may be written again by the next job
+}
+
+// The ring's shared memory: `stages` slots of slot_bytes (1024-aligned),
+// then 2 * stages mbarriers, then `red_bytes` of epilogue scratch.
+inline int sm_smem_bytes(int stages, int slot_bytes, int red_bytes) {
+  return 1024 + stages * slot_bytes + 2 * kSmMaxStages * 8 + red_bytes;
+}
+
+// The card's SMs (queried once).
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+                                                  cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+// Stages that fit the shared memory a block may have where `per_sm` blocks
+// share an SM (at least 2, at most kSmMaxStages).
+inline int sm_stages(int slot_bytes, int red_bytes, int per_sm) {
+  const int budget = 228 * 1024 / per_sm - 1024 - 1024 - 2 * kSmMaxStages * 8 - red_bytes;
+  const int n = budget / slot_bytes;
+  return n < 2 ? 2 : (n > kSmMaxStages ? kSmMaxStages : n);
+}
+
+// Ring, barriers and scratch in the dynamic shared memory; barriers
+// initialised (full: the producer's expect_tx arrival, then the TMA bytes;
+// empty: one arrival per consumer warp, `consumers` of them).
+struct SmRing {
+  uint8_t* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  float* red;
+};
+
+__device__ __forceinline__ SmRing sm_ring(uint8_t* smem_raw, int stages, int slot_bytes, int consumers) {
+  SmRing r;
+  r.ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // 1024-aligned, still a shared pointer
+  r.full = reinterpret_cast<uint64_t*>(r.ring + (size_t)stages * slot_bytes);
+  r.empty = r.full + kSmMaxStages;
+  r.red = reinterpret_cast<float*>(r.empty + kSmMaxStages);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&r.full[i], 1);
+      mbar_init(&r.empty[i], consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// The tokens a launch pads M to: 8 NT, NT in {1, 2, 4, 8}.
+inline int sm_tiles(int M) { return M <= 8 ? 1 : (M <= 16 ? 2 : (M <= 32 ? 4 : 8)); }
+
+}  // namespace
+}  // namespace scalellm_quant

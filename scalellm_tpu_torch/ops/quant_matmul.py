@@ -30,8 +30,9 @@ Variants (the reference's, chosen per call by plan()):
   "group"   bf16 x int group dots with f32 sums, scale applied after the dot
   "dequant" weight dequantized to bf16 (two roundings), one bf16 dot; what
             the reference's tiled storage runs for M > 64 and for G < 128
-  "gemv"    the group variant's function for small M, as CUDA-core dots
-            over spans of K (csrc/quant_gemv.cu); opt-in, any G
+  "gemv"    the group variant's function for small M: per span of K an f32
+            dot, folded with its scale and zero point, on tensor cores
+            (csrc/quant_gemv.cu, csrc/quant_small_m.cuh); opt-in, any G
   "w4a8g"   the W4A8 function for small M, as dp4a dots over 128-K spans;
             opt-in
   "stream"  the weight-stream probe: reads every weight, scale and zero
@@ -245,7 +246,9 @@ def gemv_span(group_size: int) -> int:
 def plain_gemv(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6):
     """What csrc/quant_gemv.cu:gemv_kernel computes, in float32 [M, N]: per
     span of K (gemv_span(G)) the f32 dot of x with the integer weights,
-    (dot - sum(x) * zero) * scale, summed over the spans. x is bf16."""
+    (dot - sum(x) * zero) * scale, summed over the spans. x is bf16. (The
+    kernel adds the spans in order within each of its K slices, then the
+    slices in order: another f32 order of the same sum.)"""
     if rms_gamma is not None:
         x = rms_prologue(x, rms_gamma, rms_eps)
     M, K = x.shape
@@ -645,10 +648,11 @@ quant_matmul_dequant_cuda.launches = 0
 
 # ---------------------------------------------------------------- small-M variants and the probe
 #
-# csrc/quant_gemv.cu: gemv (K12a), w4a8g (K12b), the stream probe (K12c).
+# csrc/quant_gemv.cu: gemv (K12a, on the tensor-core mainloop of
+# csrc/quant_small_m.cuh), w4a8g (K12b), the stream probe (K12c).
 
-# gemv: x, qweight, scales, zeros, rms_gamma, inv_rms, part, out; M, K, N,
-# group_size, bits, scales_bf16, gamma_bf16, splits; rms_eps; stream.
+# gemv: x, qweight, scales, zeros, rms_gamma, xn, xsum, out; M, K, N,
+# group_size, bits, scales_bf16, gamma_bf16, k_slices; rms_eps; stream.
 # w4a8g: x, qweight, scales, zeros, rms_gamma, xq, sx, xsum, part, out; M, K,
 # N, group_size, bits, scales_bf16, gamma_bf16, block_k, splits; rms_eps;
 # stream.
@@ -659,8 +663,10 @@ GEMV_ENTRY_POINTS = {
     "scalellm_quant_w4a8_gemv": [_P] * 10 + [_I] * 9 + [_F, _P],
     "scalellm_quant_stream_probe": [_P] * 6 + [_I] * 9 + [_P],
 }
-GEMV_COLS = 32  # output columns of a gemv / w4a8g block
-GEMV_CHUNK_K = 1024  # K a block stages at a time
+SMALL_M_ROWS = 128  # weight rows of a small-M mainloop block with one K slice (8 warps x 16)
+SMALL_M_MAX_SLICES = 4
+W4A8G_COLS = 32  # output columns of a w4a8g block
+W4A8G_CHUNK_K = 1024  # K a w4a8g block stages at a time
 STREAM_THREADS = 256  # threads of a probe block, one sink word a warp
 STREAM_LOADS = 8  # 16-byte loads a probe thread keeps in flight
 
@@ -675,14 +681,32 @@ def _gemv_library() -> ctypes.CDLL:
     return lib
 
 
-def _gemv_splits(M: int, K: int, N: int, device) -> int:
-    """Split-K of a gemv / w4a8g call: 1 where the output tiles give at
-    least two blocks an SM, else enough whole 1024-K chunks per split to
-    reach that (the kernels add the splits' f32 partials in order)."""
+def small_m_slices(N: int, sms: int) -> int:
+    """K slices of a block of the small-M mainloop (gemv, and K11's down)
+    for N output columns: 1 (a block owns 128 columns over all of K; gemv
+    then takes 64-128 so that the SMs share N evenly) where that gives at
+    least 0.9 of a block an SM, else 2 or 4 (64 or 32 columns a block, its
+    8 warps splitting K, their sums added in slice order)."""
+    ks = 1
+    while ks < SMALL_M_MAX_SLICES and -(-N // (SMALL_M_ROWS // ks)) < 0.9 * sms:
+        ks *= 2
+    return ks
+
+
+def small_m_pad(M: int) -> int:
+    """M padded to the token tiles of the small-M mainloop: 8, 16, 32 or 64
+    (the row length of its staged sums of x)."""
+    return 8 if M <= 8 else 16 if M <= 16 else 32 if M <= 32 else 64
+
+
+def _w4a8g_splits(M: int, K: int, N: int, device) -> int:
+    """Split-K of a w4a8g call: 1 where the output tiles give at least two
+    blocks an SM, else enough whole 1024-K chunks per split to reach that
+    (the kernel adds the splits' f32 partials in order)."""
     rows = 1 if M <= 1 else 4 if M <= 4 else 8 if M <= 8 else 16
-    blocks = -(-M // rows) * -(-N // GEMV_COLS)
+    blocks = -(-M // rows) * -(-N // W4A8G_COLS)
     want = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    n_chunks = -(-K // GEMV_CHUNK_K)
+    n_chunks = -(-K // W4A8G_CHUNK_K)
     if blocks >= want:
         return 1
     per = -(-n_chunks // min(n_chunks, -(-want // blocks)))
@@ -698,18 +722,25 @@ def _check_small_m(name, M, K, G, g_mult):
 
 
 def quant_gemv_cuda(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
-    """Launch the gemv kernel (K12a) on the current stream; returns bf16
-    [M, N]. `quant_gemv_cuda.launches` counts the launches."""
+    """Launch the gemv kernel (K12a; its pre-pass for the RMSNorm prologue
+    and the sums of x, where the call has them, in the same C call) on the
+    current stream; returns bf16 [M, N]. `quant_gemv_cuda.launches` counts
+    the launches."""
     M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
     _check_small_m("gemv", M, K, G, 32)
-    splits = _gemv_splits(M, K, N, x.device)
-    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
-    part = torch.empty(splits, M, N, dtype=torch.float32, device=x.device) if splits > 1 else None
-    inv = torch.empty(M, dtype=torch.float32, device=x.device) if rms_gamma is not None else None
+    if x.data_ptr() % 16 or qweight.data_ptr() % 16:
+        raise NotImplementedError("the gemv kernel loads x and qweight by TMA: 16-byte aligned starts")
+    dev = x.device
+    slices = small_m_slices(N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    # Scratch of the pre-pass: the normed x, and the sums of x per span.
+    xn = torch.empty(M, K, dtype=torch.bfloat16, device=dev) if rms_gamma is not None else None
+    xsum = (torch.empty(K // gemv_span(G), small_m_pad(M), dtype=torch.float32, device=dev)
+            if zeros is not None else None)
     rc = _gemv_library().scalellm_quant_gemv(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
-        _ptr(inv), _ptr(part), out.data_ptr(), M, K, N, G, bits, _is_bf16(scales),
-        _is_bf16(rms_gamma), splits, float(rms_eps), torch.cuda.current_stream(x.device).cuda_stream,
+        _ptr(xn), _ptr(xsum), out.data_ptr(), M, K, N, G, bits, _is_bf16(scales),
+        _is_bf16(rms_gamma), slices, float(rms_eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"quant_matmul gemv kernel launch failed: CUDA error {rc}")
@@ -731,7 +762,7 @@ def quant_w4a8_gemv_cuda(x, qweight, scales, zeros, bits, block_k,
         raise NotImplementedError(f"the w4a8g kernel takes K <= {W4A8_MAX_K}, got {K}")
     if block_k <= 0 or block_k % G or K % block_k:
         raise ValueError(f"block_k={block_k} must be a multiple of G={G} that divides K={K}")
-    splits = _gemv_splits(M, K, N, x.device)
+    splits = _w4a8g_splits(M, K, N, x.device)
     dev = x.device
     out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
     part = torch.empty(splits, M, N, dtype=torch.float32, device=dev) if splits > 1 else None

@@ -17,9 +17,11 @@ weights_from_tiled() converts the reference op's tiled operands (gate tiles
 then up tiles). The output is float32 [M, D].
 
 What it computes (the kernel's order): g and u as plain_gemv computes them;
-h = bf16(act(g) * u) with act in f32; per group of G rows of down the f32
-dot with h, (dot - sum(h) * zero) * scale, added in group order within a
-slice of BF = max(128, G) rows, and the slices' sums added in slice order.
+h = bf16(act(g) * u) with act in f32; then h times down as plain_gemv
+computes it: per span of F (gemv_span(G)) the f32 dot with h, (dot -
+sum(h) * zero) * scale, summed over the spans. The kernel (one cooperative
+launch: gate_up and h, a grid barrier, down) streams x and h through
+shared memory, so D has no limit beyond the reference op's.
 
 The activations are the reference op's own table, not ACT2FN: "gelu" there
 is jax.nn.gelu, whose default is the tanh form.
@@ -37,8 +39,10 @@ from scalellm_tpu_torch.ops import _build
 from scalellm_tpu_torch.ops.quant_matmul import (
     DEFAULT_TILE_N,
     from_tiled_quant,
+    gemv_span,
     plain_gemv,
-    unpack_signed,
+    small_m_pad,
+    small_m_slices,
 )
 
 Triple = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
@@ -46,7 +50,6 @@ Triple = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 # name -> the kernel's act code: 0 silu, 1 gelu in its tanh form.
 ACTS = {"silu": 0, "gelu": 1, "gelu_pytorch_tanh": 1, "gelu_new": 1}
 MAX_M = 64
-SPAN = 128  # a slice of F is max(SPAN, G) columns
 
 
 def _act(g: torch.Tensor, act: str) -> torch.Tensor:
@@ -95,27 +98,10 @@ def plain_quant_mlp(x, gate_up: Triple, down: Triple, F: int, bits: int = 4,
                     act: str = "silu") -> torch.Tensor:
     """What csrc/quant_mlp.cu computes, in float32 [M, D]. x is cast to
     bf16 first, as the kernel takes it."""
-    M, D = x.shape
     x = x.to(torch.bfloat16)
-    (gq, gs, gz), (dq, ds, dz) = gate_up, down
-    G = D // gs.shape[0]
-    gu = plain_gemv(x, gq, gs, gz, bits)  # [M, 2F]
-    h = (_act(gu[:, :F], act) * gu[:, F:]).to(torch.bfloat16).float()
-    n_g = F // G
-    w = unpack_signed(dq, bits).float().T.reshape(n_g, G, D)
-    hg = h.reshape(M, n_g, G).transpose(0, 1)  # [groups, M, G]
-    dots = torch.bmm(hg, w)
-    if dz is not None:
-        dots = dots - hg.sum(dim=2)[:, :, None] * dz.float()[:, None, :]
-    v = dots * ds.float()[:, None, :]  # [groups, M, D]
-    per = max(SPAN, G) // G
-    out = None
-    for s in range(0, n_g, per):
-        p = v[s]
-        for j in range(1, per):
-            p = p + v[s + j]
-        out = p if out is None else out + p
-    return out
+    gu = plain_gemv(x, *gate_up, bits)  # [M, 2F]
+    h = (_act(gu[:, :F], act) * gu[:, F:]).to(torch.bfloat16)
+    return plain_gemv(h, *down, bits)
 
 
 def quant_mlp(x: torch.Tensor, gate_up: Triple, down: Triple, F: int, bits: int = 4,
@@ -136,10 +122,9 @@ def quant_mlp(x: torch.Tensor, gate_up: Triple, down: Triple, F: int, bits: int 
 # ---------------------------------------------------------------- CUDA wrapper
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, gu_qweight, gu_scales, gu_zeros, dn_qweight, dn_scales, dn_zeros, part,
-# out; M, D, F, group_size, bits, scales_bf16, act, rows_tile; stream.
-ENTRY_POINTS = {"scalellm_quant_mlp": [_P] * 9 + [_I] * 8 + [_P]}
-SMEM_BYTES = 232448  # shared memory a block can have on sm_90
+# x, gu_qweight, gu_scales, gu_zeros, dn_qweight, dn_scales, dn_zeros, xsum,
+# h, hsum, out; M, D, F, group_size, bits, scales_bf16, act, k_slices; stream.
+ENTRY_POINTS = {"scalellm_quant_mlp": [_P] * 11 + [_I] * 8 + [_P]}
 
 
 def _library() -> ctypes.CDLL:
@@ -152,22 +137,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def rows_tile(M: int, D: int, G: int) -> int:
-    """Rows of x a block holds in shared memory (1, 4, 8 or 16); 0 when
-    not even one row fits."""
-    bf = max(SPAN, G)
-    want = 1 if M <= 1 else 4 if M <= 4 else 8 if M <= 8 else 16
-    for rows in (16, 8, 4, 1):
-        if rows <= want and rows * (D * 2 + 3 * bf * 4 + (bf // G) * 4) <= SMEM_BYTES:
-            return rows
-    return 0
-
-
 def quant_mlp_cuda(x, gate_up: Triple, down: Triple, F: int, bits: int = 4,
                    act: str = "silu") -> torch.Tensor:
-    """Launch the fused MLP kernel (and its slice sum, one C call) on the
-    current stream; returns float32 [M, D]. `quant_mlp_cuda.launches` counts
-    the launches."""
+    """Launch the fused MLP kernel (one cooperative launch; with zero points
+    the sums of x ahead of it, in the same C call) on the current stream;
+    returns float32 [M, D]. Raises where the card cannot hold the grid the
+    barrier needs. `quant_mlp_cuda.launches` counts the launches."""
     (gq, gs, gz), (dq, ds, dz) = gate_up, down
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
@@ -177,11 +152,10 @@ def quant_mlp_cuda(x, gate_up: Triple, down: Triple, F: int, bits: int = 4,
     if M > MAX_M:
         raise NotImplementedError(f"the fused MLP kernel is for decode: M <= {MAX_M}, got {M}")
     G = D // gs.shape[0]
-    bf = max(SPAN, G)
-    if G % 32 or (SPAN % G and G % SPAN) or F % bf or D % SPAN:
+    if G % 32 or D % 128 or F % 128 or F % G:
         raise NotImplementedError(
-            f"the fused MLP kernel needs G % 32 == 0 nesting with 128, F % {bf} == 0 and "
-            f"D % 128 == 0; got D={D}, F={F}, G={G}")
+            f"the fused MLP kernel needs G % 32 == 0 and D, F multiples of 128 and of G; "
+            f"got D={D}, F={F}, G={G}")
     if gs.dtype != ds.dtype or gs.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"scales must be f32 or bf16 alike, got {gs.dtype}, {ds.dtype}")
     if (gz is None) != (dz is None):
@@ -194,16 +168,21 @@ def quant_mlp_cuda(x, gate_up: Triple, down: Triple, F: int, bits: int = 4,
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    rows = rows_tile(M, D, G)
-    if rows == 0:
-        raise NotImplementedError(f"one row of x (D={D}) does not fit in shared memory")
-    part = torch.empty(F // bf, M, D, dtype=torch.float32, device=x.device)
-    out = torch.empty(M, D, dtype=torch.float32, device=x.device)
+    if x.data_ptr() % 16 or gq.data_ptr() % 16 or dq.data_ptr() % 16:
+        raise NotImplementedError("the fused MLP kernel loads x and the weights by TMA: 16-byte aligned starts")
+    dev = x.device
+    slices = small_m_slices(D, torch.cuda.get_device_properties(dev).multi_processor_count)
+    h = torch.empty(M, F, dtype=torch.bfloat16, device=dev)
+    xsum = hsum = None
+    if gz is not None:  # the sums of x per span of D and of h per 32 columns of F
+        xsum = torch.empty(D // gemv_span(G), small_m_pad(M), dtype=torch.float32, device=dev)
+        hsum = torch.empty(F // 32, small_m_pad(M), dtype=torch.float32, device=dev)
+    out = torch.empty(M, D, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = _library().scalellm_quant_mlp(
         x.data_ptr(), gq.data_ptr(), gs.data_ptr(), ptr(gz), dq.data_ptr(), ds.data_ptr(), ptr(dz),
-        part.data_ptr(), out.data_ptr(), M, D, F, G, bits, int(gs.dtype == torch.bfloat16),
-        ACTS[act], rows, torch.cuda.current_stream(x.device).cuda_stream,
+        ptr(xsum), h.data_ptr(), ptr(hsum), out.data_ptr(), M, D, F, G, bits,
+        int(gs.dtype == torch.bfloat16), ACTS[act], slices, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"quant_mlp kernel launch failed: CUDA error {rc}")

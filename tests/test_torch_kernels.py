@@ -594,6 +594,81 @@ def test_dispatcher_takes_the_small_m_variants_to_their_kernels(cuda):
             _check_quant(got, want_out)
 
 
+# The gemv kernel on the small-M tensor-core mainloop (csrc/quant_small_m.cuh):
+# every bits / zero points / G (32, 96, 128) combination, M = 1, 7, 16, 33,
+# 64, ragged N, blocks of one K slice (N >= 15206 on 132 SMs; 4 to 8 row
+# warps) and of 2 or 4, the RMSNorm prologue. Tolerance: _check_quant's share of the output's
+# magnitude (the tile kernel's). (M, K, N, G, bits, asym, rms, scales dtype)
+GEMV_MAINLOOP_CASES = {
+    "m1_int4_g128_one_slice": (1, 1024, 16384, 128, 4, False, False, torch.float32),
+    "m7_int4_asym_g32_rms_ragged_n": (7, 1024, 200, 32, 4, True, "bf16", torch.float32),
+    "m16_int4_g32": (16, 1024, 128, 32, 4, False, False, torch.bfloat16),
+    "m33_int4_asym_g96": (33, 1152, 256, 96, 4, True, False, torch.float32),
+    "m7_int4_g96_rms_ragged_n": (7, 1152, 1000, 96, 4, False, "bf16", torch.bfloat16),
+    "m64_int4_asym_g128_rms_two_slices": (64, 4096, 9000, 128, 4, True, True, torch.float32),
+    "m64_int4_asym_g32": (64, 2048, 320, 32, 4, True, False, torch.bfloat16),
+    "m16_int8_g32_one_slice_ragged_n": (16, 1024, 16400, 32, 8, False, False, torch.bfloat16),
+    "m1_int8_asym_g32": (1, 512, 96, 32, 8, True, False, torch.float32),
+    "m64_int8_g96_rms": (64, 1152, 512, 96, 8, False, "bf16", torch.bfloat16),
+    "m16_int8_asym_g96": (16, 1152, 384, 96, 8, True, False, torch.float32),
+    "m7_int8_g128": (7, 1024, 256, 128, 8, False, False, torch.bfloat16),
+    "m16_int8_asym_g128_ragged_n": (16, 2048, 1030, 128, 8, True, False, torch.bfloat16),
+    "m33_int8_asym_g128_rms": (33, 4096, 2048, 128, 8, True, True, torch.float32),
+    # One-slice blocks of fewer row warps (the kernel's gemv_row_warps on
+    # 132 SMs): 7 (112 rows, N = 28672) and 5 (80 rows, N = 17000, ragged).
+    "m16_int4_asym_rms_seven_row_warps": (16, 1024, 28672, 128, 4, True, "bf16", torch.float32),
+    "m7_int8_g32_five_row_warps_ragged_n": (7, 1024, 17000, 32, 8, False, False, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", list(GEMV_MAINLOOP_CASES))
+def test_gemv_kernel_matches_plain_version(cuda, case):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    M, K, N, G, bits, asym, rms, sdt = GEMV_MAINLOOP_CASES[case]
+    t = _quant_case(cuda, M=M, K=K, N=N, G=G, bits=bits, asym=asym, rms=rms, scales_dtype=sdt)
+    args = (t["x"], t["qweight"], t["scales"], t["zeros"], bits, t["rms_gamma"], 1e-5)
+    before = Q.quant_gemv_cuda.launches
+    got = Q.quant_gemv_cuda(*args)
+    torch.cuda.synchronize()
+    assert Q.quant_gemv_cuda.launches == before + 1
+    _check_quant(got, Q.plain_gemv(*args).to(torch.bfloat16))
+
+
+def test_gemv_kernel_gives_the_same_bits_on_every_call(cuda):
+    """20 calls, K slices and the prologue included: the sums run in a fixed
+    order (no atomics)."""
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    t = _quant_case(cuda, M=16, K=4096, N=2048, G=128, bits=4, asym=True, rms="bf16",
+                    scales_dtype=torch.float32)
+    args = (t["x"], t["qweight"], t["scales"], t["zeros"], 4, t["rms_gamma"], 1e-5)
+    first = Q.quant_gemv_cuda(*args)
+    for _ in range(19):
+        assert torch.equal(Q.quant_gemv_cuda(*args), first)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_gemv_kernel_fragment_order(cuda, bits):
+    """One nonzero weight per column (3 at K = n, scale 1, K = 128): the
+    output is 3 x[:, n] exactly, which holds only if every unpacked nibble
+    (or byte) lands at its own K in the mma fragment and x is read with the
+    same permutation of K."""
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    M, K, N = 24, 128, 128
+    w = torch.zeros(N, K, dtype=torch.int32)
+    w[torch.arange(N), torch.arange(N)] = 3
+    if bits == 4:
+        qweight = ((w[:, 0::2] & 0xF) | ((w[:, 1::2] & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+    else:
+        qweight = w.to(torch.int8)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+    got = Q.quant_gemv_cuda(x.to(cuda), qweight.to(cuda), torch.ones(1, N, device=cuda), None, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), (3 * x.float()).to(torch.bfloat16))
+
+
 def test_small_m_kernels_refuse_what_they_do_not_cover(cuda):
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
@@ -624,6 +699,15 @@ MLP_CASES = {
     "m3_g32_gelu_asym": (3, 256, 512, 32, 4, True, "gelu"),
     "m5_int8_gelu_new": (5, 512, 256, 64, 8, True, "gelu_new"),
     "m40_g256_two_row_tiles": (40, 1024, 1024, 256, 4, False, "silu"),
+    # The tensor-core kernel's edges: M = 7, 16, 33, 64 (every token tile),
+    # int8 and G = 96, bf16 scales, a large D, one K slice in the down phase
+    # (D >= 15206 on 132 SMs) and 2 or 4.
+    "m7_int8_g96_asym": (7, 1152, 384, 96, 8, True, "silu"),
+    "m16_8b_int4_g32_asym": (16, 4096, 1024, 32, 4, True, "gelu"),
+    "m33_int4_g128": (33, 2048, 1024, 128, 4, False, "silu"),
+    "m64_8b": (64, 4096, 14336, 128, 4, False, "silu"),
+    "m64_int8_asym_large_d": (64, 16384, 256, 128, 8, True, "gelu_new"),
+    "m16_int4_one_down_slice": (16, 16384, 512, 128, 4, False, "silu"),
 }
 
 
@@ -658,6 +742,45 @@ def test_quant_mlp_kernel_matches_plain_version(cuda, case):
     top = want.abs().max().item()
     assert diff.max().item() <= 1e-3 * top, (diff.max().item(), top)
     assert diff.mean().item() <= 2e-5 * top, (diff.mean().item(), top)
+
+
+def test_quant_mlp_kernel_gives_the_same_bits_on_every_call(cuda):
+    from scalellm_tpu_torch.ops import quant_mlp as QM
+
+    x, gate_up, down = _mlp_case(cuda, 16, 2048, 2048, 128, 4, True)
+    first = QM.quant_mlp_cuda(x, gate_up, down, 2048, 4, "silu")
+    for _ in range(19):
+        assert torch.equal(QM.quant_mlp_cuda(x, gate_up, down, 2048, 4, "silu"), first)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quant_mlp_kernel_fragment_order(cuda, bits):
+    """One nonzero weight a row, scale 1, D = F = 128: gate row f reads x at
+    K = f (weight 3), up row f at K = f + 1 (weight 2), down row d reads h
+    at F = d + 5 (weight 1). A fragment or a gate/up pairing out of place
+    moves the output to other columns of x."""
+    from scalellm_tpu_torch.ops import quant_mlp as QM
+
+    M, D, F = 24, 128, 128
+    idx = torch.arange(128)
+
+    def packed(rows, cols, value):
+        w = torch.zeros(rows, 128, dtype=torch.int32)
+        w[idx[:rows], cols] = value
+        if bits == 4:
+            return ((w[:, 0::2] & 0xF) | ((w[:, 1::2] & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+        return w.to(torch.int8)
+
+    gq = torch.cat([packed(F, idx, 3), packed(F, (idx + 1) % D, 2)])
+    dq = packed(D, (idx + 5) % F, 1)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((M, D)).astype(np.float32)).to(torch.bfloat16)
+    ones = lambda n: torch.ones(1, n, device=cuda)
+    got = QM.quant_mlp_cuda(x.to(cuda), (gq.to(cuda), ones(2 * F), None), (dq.to(cuda), ones(D), None), F, bits)
+    torch.cuda.synchronize()
+    xf = x.float()
+    g, u = 3 * xf, 2 * xf[:, (idx + 1) % D]
+    h = (g * torch.sigmoid(g) * u).to(torch.bfloat16).float()
+    torch.testing.assert_close(got.cpu(), h[:, (idx + 5) % F], rtol=1e-2, atol=1e-6)
 
 
 def test_quant_mlp_kernel_refuses_prefill(cuda):

@@ -42,6 +42,13 @@ CASES = {
     "gemv_m5_g32_asym_rms": ("gemv", 5, 512, 128, 32, 4, True, True, 0, "f32"),
     "gemv_m16_int8_asym_tiled": ("gemv", 16, 256, 128, 128, 8, True, False, 128, "bf16"),
     "gemv_m16_g32_int8_rms_tiled": ("gemv", 16, 512, 256, 32, 8, False, True, 256, "f32"),
+    # The tensor-core kernel's function at the edges of its contract: int4
+    # and int8, symmetric and asymmetric, G = 32 and 128, M = 1, 16, 64.
+    "gemv_m64_g128_asym": ("gemv", 64, 512, 128, 128, 4, True, False, 0, "f32"),
+    "gemv_m64_int8_g32_asym_tiled": ("gemv", 64, 256, 128, 32, 8, True, False, 128, "bf16"),
+    "gemv_m1_int8_g128": ("gemv", 1, 256, 128, 128, 8, False, False, 0, "f32"),
+    "gemv_m16_g32": ("gemv", 16, 256, 128, 32, 4, False, False, 128, "bf16"),
+    "gemv_m1_int8_g32_asym": ("gemv", 1, 256, 128, 32, 8, True, False, 0, "bf16"),
     "w4a8g_m1_asym_tiled": ("w4a8g", 1, 512, 256, 128, 4, True, False, 128, "f32"),
     "w4a8g_m5_rms": ("w4a8g", 5, 1024, 128, 128, 4, False, True, 0, "bf16"),
     "w4a8g_m16_int8_tiled": ("w4a8g", 16, 512, 256, 128, 8, False, False, 128, "bf16"),
@@ -127,6 +134,18 @@ def test_plain_stream_matches_the_reference_probe(case, stream_only):
         rms_gamma=None if gamma is None else torch.from_numpy(gamma), rms_eps=EPS, tile_n=W)
     np.testing.assert_array_equal(got.numpy(), want[:, :N])
     assert np.all(want[:, :N] == want[0, :N])  # every row the same touch
+
+
+def test_small_m_slices_fill_the_sms():
+    """One K slice (128 weight rows a block) where N / 128 gives 0.9 of a
+    block an SM, else 2 or 4 (64 or 32 rows a block), never more."""
+    assert TQ.small_m_slices(28672, 132) == 1  # gate_up: 224 blocks
+    assert TQ.small_m_slices(128256, 132) == 1
+    assert TQ.small_m_slices(15206, 132) == 1 and TQ.small_m_slices(15100, 132) == 2
+    assert TQ.small_m_slices(9000, 132) == 2  # 141 blocks of 64 rows
+    assert TQ.small_m_slices(6144, 132) == 4  # qkv: 192 blocks of 32 rows
+    assert TQ.small_m_slices(4096, 132) == 4  # o, down
+    assert TQ.small_m_slices(64, 132) == 4
 
 
 @pytest.mark.parametrize("variant", ["gemv", "w4a8g"])

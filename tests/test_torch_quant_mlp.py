@@ -78,20 +78,21 @@ def _pallas_mlp(x, gu_qw, gu_sc, gu_zp, dn_qw, dn_sc, dn_zp, *, F, bits, act, sy
     return out.reshape(M, n_dn * Wd)
 
 
-def _operands(M, D, F, G, W, bits, asym, seed=0):
+def _operands(M, D, F, G, W, bits, asym, seed=0, w_down=None):
     """Quantized gate, up and down weights (random zero points when asym) in
-    the reference's tiled storage, and x."""
+    the reference's tiled storage (down's tile width w_down, W by default),
+    and x."""
     rng = np.random.default_rng(seed)
     quantize = JQ.quantize_int4 if bits == 4 else JQ.quantize_int8
     gu = (rng.standard_normal((D, 2 * F)) * 0.08).astype(np.float32)  # gate | up
     dn = (rng.standard_normal((F, D)) * 0.08).astype(np.float32)
     out = []
-    for w in (gu, dn):
+    for w, width in ((gu, W), (dn, w_down or W)):
         qw, sc, zp = quantize(w, G)
         if asym:
             lo, hi = (-8, 8) if bits == 4 else (-20, 20)
             zp = rng.integers(lo, hi, zp.shape).astype(np.int8)
-        out.append(tuple(JQ.tile_quant_layout(a, W) for a in (qw, sc, zp)))
+        out.append(tuple(JQ.tile_quant_layout(a, width) for a in (qw, sc, zp)))
     x = (rng.standard_normal((M, D)) + 0.3).astype(np.float32)
     return x, out[0], out[1]
 
@@ -108,13 +109,26 @@ CASES = {
     "m1_gelu_two_f_tiles": (1, 256, 512, 128, 256, 4, False, "gelu"),
     "m5_g32_gelu_asym": (5, 256, 256, 32, 128, 4, True, "gelu"),
     "m2_int8_gelu_new": (2, 256, 256, 64, 128, 8, True, "gelu_new"),
+    # The tensor-core kernel's contract: int4 and int8, symmetric and
+    # asymmetric, G = 32 and 128, M = 1, 16, 64.
+    "m16_int8_silu": (16, 256, 256, 128, 128, 8, False, "silu"),
+    "m64_g32_silu": (64, 256, 256, 32, 128, 4, False, "silu"),
+    "m64_int8_g32_asym": (64, 256, 256, 32, 128, 8, True, "silu"),
+    "m16_g128_asym": (16, 512, 256, 128, 128, 4, True, "silu"),
+    # A D whose row of x the kernel before the small-M mainloop could not
+    # hold in shared memory (its rows_tile refused D > 115454 at G = 128):
+    # x now streams through the ring.
+    "m1_d115456": (1, 115456, 128, 128, 128, 4, False, "silu"),
 }
+# Down's tile width where it is not W: one tile across the large D keeps
+# the interpret-mode kernel's loop over down tiles short.
+DOWN_TILE = {"m1_d115456": 115456}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_quant_mlp_matches_the_pallas_kernel(case):
     M, D, F, G, W, bits, asym, act = CASES[case]
-    x, gu, dn = _operands(M, D, F, G, W, bits, asym)
+    x, gu, dn = _operands(M, D, F, G, W, bits, asym, w_down=DOWN_TILE.get(case))
     want = np.asarray(_pallas_mlp(jnp.asarray(x), *(jnp.asarray(a) for a in gu + dn),
                                   F=F, bits=bits, act=act, symmetric=not asym))[:, :D]
     gate_up, down = TM.weights_from_tiled(*(_torch(a) for a in gu + dn), F=F, D=D)
