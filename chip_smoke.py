@@ -14,8 +14,16 @@ Phases (any failure exits non-zero, and the result line is not printed):
      yardstick (L2 flushed by reading 128 MB before each call), beside the
      least time the card could take (bytes over
      3.35 TB/s, operations over 989 TFLOP/s bf16 or 1979 TOP/s int8).
-     a. ragged paged attention in bf16 at five shapes of the serving paths
-        (yardstick: scaled_dot_product_attention on gathered K/V);
+     a. ragged paged attention (K1) in bf16 at seven shapes of the serving
+        paths: decode batches, whose every sequence takes the split-KV
+        blocks ((a) and (c), 8 decodes; (f) one sequence of 8192 tokens;
+        (g) 64 decodes of 128-2048 tokens), and the mixed T = 512 batches
+        (b), (d), (e), whose chunks take the q-tiled tensor-core blocks and
+        whose decodes the split blocks (yardstick:
+        scaled_dot_product_attention on gathered K/V). Each is held against
+        the plain version within KERNEL_TOL and, row by row, within
+        ATTENTION_REL_TOL of the row's size; on each decode batch that row
+        check must fail the plain split-and-merge with one piece left out;
      b. the quantized matmuls at the five Llama-3.1-8B projection shapes:
         w4a8 at M = 1, 8, 16, 64, dequant and group at M = 512 (dequant at
         gate_up also at M = 128 and 256), dequant and group with the RMSNorm
@@ -56,9 +64,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
   4. end to end, bf16: a TinyLlama-1.1B-shaped checkpoint (random weights
      from a seed) served by scalellm_tpu_torch.LLM with chunked prefill and
      the prefix cache; every request must finish and every engine step must
-     go through the attention kernel. Then one prefill batch runs through
-     the model twice, with the kernel and with the plain attention, and the
-     logits must agree.
+     go through the attention kernel. Then one prefill batch and the
+     decode step after it (every sequence one token: K1's split-KV blocks)
+     run through the model twice, with the kernel and with the plain
+     attention, and the logits must agree.
   5. end to end, INT4: a GPTQ checkpoint of Llama-3.1-8B's widths (random
      int4 weights from a seed, group 128, symmetric) served by
      LLM(path, quantize_lm_head=True) with the same traffic. Every engine
@@ -126,6 +135,11 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 # to bf16, so: 1% of the output's largest magnitude, mean error 0.1% of it.
 QUANT_TOL_MAX, QUANT_TOL_MEAN = 1e-2, 1e-3
 KERNEL_TOL = 2e-2  # bf16 output (8-bit mantissa) of values of magnitude <~ 3
+# Ragged paged attention also per (token, head) row: its largest error over
+# the row's largest |value|. A decode row of a long context is small (about
+# 0.05 at 8192 rows of N(0, 1) scores), so KERNEL_TOL alone would pass a
+# merge that lost one of its 16 pieces; that moves the row by ~10% of it.
+ATTENTION_REL_TOL = 2e-2
 # Logits of the 22-layer random-weight model (std ~1): the two attentions
 # round different f32 sums to bf16, and those 1-ulp differences pass through
 # 22 bf16 layers.
@@ -167,6 +181,26 @@ def fail(msg: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def attention_row_rel_err(torch, got, want) -> float:
+    """The worst (token, head) row's largest |got - want| over its largest
+    |want|; a row the plain version leaves zero must be zero (else inf)."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    size = want.float().abs().amax(-1)
+    return torch.where(diff == 0, 0.0, diff / size).max().item()
+
+
+def dropped_piece(attention, spec, inputs):
+    """(slot, piece) of a planted fault on a decode batch: the middle piece
+    of the longest slot's visible KV range, in the split plan of
+    attention.plain_split_kv_attention."""
+    capacity = inputs["page_indices"].shape[1] * inputs["kv_pages"].shape[1]
+    _, split_len = attention.split_kv_plan(capacity, spec["S"], spec["Hkv"])
+    s = max(range(len(spec["kv_lens"])), key=lambda i: spec["kv_lens"][i])
+    hi = spec["kv_lens"][s]
+    lo = max(0, hi - spec["window"]) if spec["window"] else 0
+    return s, (lo // split_len + (hi - 1) // split_len) // 2
 
 
 # ------------------------------------------------------------------ phase 1
@@ -322,6 +356,36 @@ def time_ms(torch, fn, flush, runs=TIMED_RUNS, dirty_flush=False):
     return statistics.median(times)
 
 
+_DECODE_KV = [17, 64, 129, 256, 400, 640, 900, 1024]
+# Phase 3a: K1 at the serving paths' shapes. Every 1-token sequence takes
+# the split-KV blocks, every longer one the q-tiled blocks.
+ATTENTION_SHAPES = {
+    # 8 decodes, TinyLlama heads, bucket-padded to T=16, S=8.
+    "a_decode": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=32, Hkv=4, D=64, window=None, cap=None),
+    # Two prefill chunks (one the tail of a longer context) and six
+    # decodes, padded to T=512 as the token ladder pads 456 tokens.
+    "b_mixed": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                    S=8, T=512, H=32, Hkv=4, D=64, window=None, cap=None),
+    # Head dim 128 with 32:8 GQA (Llama-3-8B heads), decode.
+    "c_d128_gqa4": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=32, Hkv=8, D=128, window=None, cap=None),
+    # A sliding window plus a logit soft cap on the mixed batch.
+    "d_window_softcap": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                             S=8, T=512, H=32, Hkv=4, D=64, window=128, cap=50.0),
+    # The mixed batch at Llama-3.1-8B's heads: what a 512-token step of
+    # the INT4 run gives the kernel.
+    "e_mixed_d128_gqa4": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1],
+                              kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                              S=8, T=512, H=32, Hkv=8, D=128, window=None, cap=None),
+    # One sequence of 8192 tokens at the 8B heads: 33.5 MB of KV that
+    # only split-KV spreads over the card.
+    "f_long_d128": dict(q_lens=[1], kv_lens=[8192], S=1, T=16, H=32, Hkv=8, D=128, window=None, cap=None),
+    # 64 decodes of 128-2048 tokens, spread evenly, at the 8B heads:
+    # about 285 MB of KV, where splitting should nearly stop.
+    "g_batch64_d128": dict(q_lens=[1] * 64, kv_lens=[128 + round(i * 1920 / 63) for i in range(64)],
+                           S=64, T=64, H=32, Hkv=8, D=128, window=None, cap=None),
+}
+
+
 def phase_kernels(torch, card):
     import torch.nn.functional as F
 
@@ -329,30 +393,11 @@ def phase_kernels(torch, card):
     from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention as plain
 
     kernel = attention.ragged_paged_attention_cuda
-    decode_kv = [17, 64, 129, 256, 400, 640, 900, 1024]
-    specs = {
-        # 8 decodes, TinyLlama heads, bucket-padded to T=16, S=8.
-        "a_decode": dict(q_lens=[1] * 8, kv_lens=decode_kv, S=8, T=16, H=32, Hkv=4, D=64, window=None, cap=None),
-        # Two prefill chunks (one the tail of a longer context) and six
-        # decodes, padded to T=512 as the token ladder pads 456 tokens.
-        "b_mixed": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
-                        S=8, T=512, H=32, Hkv=4, D=64, window=None, cap=None),
-        # Head dim 128 with 32:8 GQA (Llama-3-8B heads), decode.
-        "c_d128_gqa4": dict(q_lens=[1] * 8, kv_lens=decode_kv, S=8, T=16, H=32, Hkv=8, D=128, window=None, cap=None),
-        # A sliding window plus a logit soft cap on the mixed batch.
-        "d_window_softcap": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
-                                 S=8, T=512, H=32, Hkv=4, D=64, window=128, cap=50.0),
-        # The mixed batch at Llama-3.1-8B's heads: what a 512-token step of
-        # the INT4 run gives the kernel.
-        "e_mixed_d128_gqa4": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1],
-                                  kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
-                                  S=8, T=512, H=32, Hkv=8, D=128, window=None, cap=None),
-    }
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     results = {}
-    for name, spec in specs.items():
+    for name, spec in ATTENTION_SHAPES.items():
         inputs = make_batch(torch, gen, q_lens=spec["q_lens"], kv_lens=spec["kv_lens"], S=spec["S"],
                             T=spec["T"], H=spec["H"], Hkv=spec["Hkv"], D=spec["D"])
         kw = dict(sm_scale=spec["D"] ** -0.5, sliding_window=spec["window"], logit_soft_cap=spec["cap"])
@@ -367,6 +412,20 @@ def phase_kernels(torch, card):
         err = (got.float() - want.float()).abs().max().item()
         if not err <= KERNEL_TOL:
             fail(f"{name}: kernel differs from the plain version by {err} > {KERNEL_TOL}")
+        rel_err = attention_row_rel_err(torch, got, want)
+        if not rel_err <= ATTENTION_REL_TOL:
+            fail(f"{name}: kernel differs from the plain version by {rel_err} of a row > {ATTENTION_REL_TOL}")
+        planted = {}
+        if all(n == 1 for n in spec["q_lens"]):
+            # The check must see a merge that lost a piece: the plain
+            # split-and-merge with the longest slot's middle piece left out.
+            drop = dropped_piece(attention, spec, inputs)
+            lost = attention.plain_split_kv_attention(**inputs, **kw, drop=drop)
+            planted = dict(planted_drop=drop, planted_rel_err=attention_row_rel_err(torch, lost, want),
+                           planted_abs_err=(lost.float() - want.float()).abs().max().item())
+            if not planted["planted_rel_err"] > ATTENTION_REL_TOL:
+                fail(f"{name}: the check passes a merge that lost piece {drop}: {planted}")
+            del lost
         ms = time_ms(torch, lambda: kernel(**inputs, **kw), flush)
         plain_ms = time_ms(torch, lambda: plain(**inputs, **kw), flush)
         library_ms = None
@@ -378,10 +437,15 @@ def phase_kernels(torch, card):
         bound_ms, bound_by, nbytes, flops = bound(spec, inputs)
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=library_ms)
+        page = inputs["kv_pages"].shape[1]
+        splits, split_len = attention.split_kv_plan(inputs["page_indices"].shape[1] * page, spec["S"],
+                                                    spec["Hkv"], attention._sm_count(inputs["q"].device))
         emit(dict(phase="kernel", kernel="ragged_paged_attention", shape=name, tol=KERNEL_TOL,
-                  T=spec["T"], S=spec["S"], real_tokens=n_real, H=spec["H"], Hkv=spec["Hkv"], D=spec["D"],
-                  window=spec["window"], soft_cap=spec["cap"], bytes=nbytes, flops=flops,
-                  **results[name], card=card["nvidia_smi"]))
+                  rel_tol=ATTENTION_REL_TOL, max_row_rel_err=rel_err, **planted, T=spec["T"], S=spec["S"], real_tokens=n_real, H=spec["H"],
+                  Hkv=spec["Hkv"], D=spec["D"], window=spec["window"], soft_cap=spec["cap"], splits=splits,
+                  split_len=split_len, bytes=nbytes, flops=flops, **results[name], card=card["nvidia_smi"]))
+        del inputs, got, want
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1187,11 +1251,6 @@ def batch_inputs(torch, seqs, page=16):
     return mi, next_page
 
 
-def prefill_inputs(torch, token_lists, page=16):
-    """ModelInputs of one prefill batch of whole prompts."""
-    return batch_inputs(torch, [(ids, 0, len(ids)) for ids in token_lists], page)
-
-
 def device_breakdown(prof, wall_s, steps):
     """Device time by kernel from a profiler trace, in six groups (the
     attention kernels, the quantized matmul kernels with their activation
@@ -1238,7 +1297,7 @@ def device_breakdown(prof, wall_s, steps):
 def phase_end_to_end(torch, card):
     from scalellm_tpu_torch import LLM, SamplingParams
     from scalellm_tpu_torch.ops import attention
-    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+    from scalellm_tpu_torch.ops.attention import plain_ragged_paged_attention
     from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
 
     cfg = TINYLLAMA
@@ -1310,38 +1369,44 @@ def phase_end_to_end(torch, card):
                   unprofiled_wall_s=wall, **device_breakdown(prof, wall, profiled_steps),
                   card=card["nvidia_smi"]))
 
-        # One prefill batch through the model twice, over the same weights:
-        # the kernel, then the plain attention. The engine's KV cache (most
-        # of the card's memory) is freed first, to leave room for the plain
-        # version's gathered copies of K and V.
+        # One prefill batch and the decode step after it (every sequence one
+        # token: the split-KV blocks) through the model twice, over the same
+        # weights: the kernel, then the plain attention. The engine's KV cache (most of the card's memory)
+        # is freed first, to leave room for the plain version's gathered
+        # copies of K and V.
         model = engine.model
         tok = llm._handler.tokenizer
         engine = None
         llm.close()
         llm = None
         torch.cuda.empty_cache()
-        mi, n_pages = prefill_inputs(torch, [tok.encode(ps[0])[:200], tok.encode(ps[5])])
-        mi = mi.to(DEVICE)
-        n_tok = int(mi.cu_q_lens[-1])
+        ids = [tok.encode(ps[0])[:200], tok.encode(ps[5])]
+        prefill, n_pages = batch_inputs(torch, [(t, 0, len(t) + 1) for t in ids])
+        decode, _ = batch_inputs(torch, [([7 + i], len(t), len(t) + 1) for i, t in enumerate(ids)])
+        n_tok = sum(len(t) for t in ids)
         logits = {}
         with torch.inference_mode():
             for impl in ("kernel", "plain"):
                 model.attn_impl = (
-                    ref_ragged_paged_attention if impl == "plain" else attention.ragged_paged_attention
+                    plain_ragged_paged_attention if impl == "plain" else attention.ragged_paged_attention
                 )
                 kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
                 # Logits of every real token of the batch, not only the last.
-                logits[impl] = model.logits(model(kv, mi, all_hidden=True)[:n_tok])
+                a = model.logits(model(kv, prefill.to(DEVICE), all_hidden=True)[:n_tok])
+                b = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[: len(ids)])
+                logits[impl] = (a, b)
                 del kv
         model.attn_impl = attention.ragged_paged_attention
-        diff = (logits["kernel"] - logits["plain"]).abs()
-        err = diff.max().item()
-        same_argmax = (logits["kernel"].argmax(-1) == logits["plain"].argmax(-1)).float().mean().item()
-        emit(dict(phase="e2e_logits", tokens=n_tok, max_abs_err=err,
-                  mean_abs_err=diff.mean().item(), logits_std=logits["plain"].std().item(),
-                  argmax_agreement=same_argmax, tol=LOGITS_TOL))
-        if not torch.isfinite(logits["kernel"]).all() or not err <= LOGITS_TOL:
-            fail(f"kernel logits differ from plain-attention logits by {err} > {LOGITS_TOL}")
+        for which, i in (("prefill", 0), ("decode", 1)):
+            got, want = logits["kernel"][i], logits["plain"][i]
+            diff = (got - want).abs()
+            err = diff.max().item()
+            same_argmax = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            emit(dict(phase="e2e_logits", batch=which, tokens=got.shape[0], max_abs_err=err,
+                      mean_abs_err=diff.mean().item(), logits_std=want.std().item(),
+                      argmax_agreement=same_argmax, tol=LOGITS_TOL))
+            if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
+                fail(f"{which}: kernel logits differ from plain-attention logits by {err} > {LOGITS_TOL}")
         return launches
     finally:
         if llm is not None:
@@ -1442,7 +1507,7 @@ def phase_end_to_end_int4(torch, card, n_layers):
     from scalellm_tpu_torch import LLM, SamplingParams
     from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops import quant_matmul as Q
-    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+    from scalellm_tpu_torch.ops.attention import plain_ragged_paged_attention
     from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
 
     cfg = dict(LLAMA31_8B_INT4, num_hidden_layers=n_layers)
@@ -1578,8 +1643,9 @@ def phase_end_to_end_int4(torch, card, n_layers):
         del prof
 
         # A prefill batch (T = 512: dequant) and the decode step after it
-        # (T = 16: w4a8) through the model twice over the same weights: the
-        # kernels, then the plain versions of all of them.
+        # (T = 16: w4a8; K1's split-KV blocks) through the model twice over
+        # the same weights: the kernels, then the plain versions
+        # of all of them.
         tok = llm._handler.tokenizer
         engine = None
         llm.close()
@@ -1593,11 +1659,11 @@ def phase_end_to_end_int4(torch, card, n_layers):
         with torch.inference_mode():
             for impl in ("kernel", "plain"):
                 plain = impl == "plain"
-                model.attn_impl = ref_ragged_paged_attention if plain else attention.ragged_paged_attention
+                model.attn_impl = plain_ragged_paged_attention if plain else attention.ragged_paged_attention
                 model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
                 kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
                 a = model.logits(model(kv, prefill.to(DEVICE), all_hidden=True)[:n_tok])
-                b = model.logits(model(kv, decode.to(DEVICE))[: len(ids)])
+                b = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[: len(ids)])
                 logits[impl] = (a, b)
                 del kv
         model.attn_impl, model.quant_impl = attention.ragged_paged_attention, Q.quant_matmul
@@ -1621,11 +1687,11 @@ def phase_end_to_end_int4(torch, card, n_layers):
                 for impl in ("kernel", "plain"):
                     fn = Q.plain_quant_matmul if impl == "plain" else Q.quant_matmul
                     model.quant_impl = functools.partial(fn, variant=variant)
-                    model.attn_impl = (ref_ragged_paged_attention if impl == "plain"
+                    model.attn_impl = (plain_ragged_paged_attention if impl == "plain"
                                        else attention.ragged_paged_attention)
                     kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
                     model(kv, prefill.to(DEVICE))
-                    out[impl] = model.logits(model(kv, decode.to(DEVICE))[: len(ids)])
+                    out[impl] = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[: len(ids)])
                     del kv
                 diff = (out["kernel"] - out["plain"]).abs()
                 err = diff.max().item()
@@ -1677,11 +1743,11 @@ def phase_stream_probe_in_model(torch, card, model, prefill, decode, n_pages):
         step = decode.to(DEVICE)
         for impl in ("kernels", "probe"):
             model.quant_impl = probe_impl if impl == "probe" else Q.quant_matmul
-            model.logits(model(kv, step))  # warm
+            model.logits(model(kv, step, decode_only=True))  # warm
             torch.cuda.synchronize()
             Q.quant_stream_probe_cuda.launches = 0
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                model.logits(model(kv, step))
+                model.logits(model(kv, step, decode_only=True))
                 torch.cuda.synchronize()
             times[impl] = dict(quant=device_ms(prof, *quant_kernels), probe=device_ms(prof, "stream_probe_kernel"))
             launches = Q.quant_stream_probe_cuda.launches
@@ -2041,7 +2107,7 @@ def main() -> None:
     gemv_source = "scalellm_tpu_torch/csrc/quant_gemv.cu"
     kernels = [
         kernel_entry("ragged_paged_attention", "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
-                     "scalellm_tpu/ops/attention.py:131",
+                     "scalellm_tpu/ops/attention.py:132",
                      bf16_launches + int4_launches["ragged_paged_attention_cuda"],
                      attention_results, "a_decode"),
         kernel_entry("quant_matmul_w4a8", source, "scalellm_tpu/ops/quant_matmul.py:360",

@@ -1,7 +1,8 @@
-// Ragged paged attention for Hopper (sm_90a), bf16 pages, f32 online softmax.
+// Ragged paged attention for Hopper (sm_90a), bf16 pages, f32 online softmax,
+// bf16 tensor-core products (mma.sync m16n8k16).
 //
 // Replaces the stock Pallas ragged-paged-attention kernel that
-// scalellm_tpu/ops/attention.py:131 calls. It computes what
+// scalellm_tpu/ops/attention.py:132 calls. It computes what
 // scalellm_tpu/ops/attention_ref.py:ref_ragged_paged_attention computes
 // (plain PyTorch version: scalellm_tpu_torch/ops/attention_ref.py), not the
 // stock kernel's block structure:
@@ -10,8 +11,9 @@
 //     the context lengths, and each chunk is the tail of its context;
 //   - KV pages [P, page_size, 2*Hkv, D], K at even and V at odd combined
 //     heads, reached through the block table page_indices[S, MAXP];
-//   - GQA, causal masking by absolute position, sliding window (<= 0
-//     disables it), logit soft cap (<= 0 disables it);
+//   - GQA (group <= 16), causal masking by absolute position, sliding window
+//     (<= 0 disables it), logit soft cap (<= 0 disables it, applied before
+//     the max);
 //   - rows that own no KV (padding sequences with kv_len 0, and rows at or
 //     past cu_q_lens[num_seqs]) write zeros, never NaN.
 // Page 0 is the reserved padding page: padding tokens write their K/V
@@ -20,32 +22,52 @@
 //
 // What bounds it on an H100: the bytes of KV it reads. A decode token does
 // 4 flops per KV element it loads (q.k and p.v), far below the ~295
-// flops/byte the card needs before its tensor cores are the limit, so the
-// design keeps every KV byte read once per (query token, KV head) block and
-// does all arithmetic from shared memory in f32.
+// flops/byte the card needs before its tensor cores are the limit; a
+// prefill chunk of n tokens does 4n, so at n >= ~64 the flops start to count.
+// So every KV row is read from device memory once per (sequence, KV head),
+// the card is filled with enough blocks to keep its memory busy, and the
+// products run on the tensor cores so that they cost little next to the
+// loads. What binds it now (measured: PERF.md): the split path runs at about
+// the pace of its load ring alone, two stages ahead of the products
+// against the memory latency; the tile path adds its products and softmax
+// to its ring's pace.
 //
-// Design: one block per (query token, KV head). The block loads its GQA
-// group's q rows (8 heads x 64 for TinyLlama) into shared memory, finds its
-// sequence by binary search over cu_q_lens (this replaces the TPU kernel's
-// scalar prefetch), then walks that sequence's pages through the block table
-// in tiles of 32 KV rows, over [max(0, pos - window + 1), min(pos + 1,
-// kv_len)), with an f32 online softmax. Templated on head dim 64 and 128.
-// Inside a tile:
-//   - the next tile's K/V rows are loaded into registers (16 bytes a
-//     thread) while the current tile is computed, so the load latency
-//     overlaps the arithmetic;
-//   - one warp owns a head's 32 scores (one per lane) and runs the online
-//     softmax on them in registers, with shuffles;
-//   - q.k and p.V read shared memory as float4 (K rows padded by 4 floats,
-//     so 8 lanes reading 8 rows hit distinct banks); each thread owns 4
-//     consecutive output dims of one head.
-//
-// Known limit, later work: decode at small batch gives few blocks
-// (S * Hkv = 32 blocks at b = 8 for TinyLlama, against 132 SMs), and a
-// prefill chunk re-reads its sequence's KV once per query token (from L2).
-// A split-KV decode kernel and a q-tiled prefill kernel, fed by TMA and
-// computing with wgmma, are the next step. Int8 pages with k/v scales,
-// ALiBi and head dim 256 are not covered; the Python wrapper refuses them.
+// Design. One launch of attention_kernel computes two kinds of blocks, and
+// merge_kernel (launched by the same entry point) finishes the split rows:
+//   - split blocks (s, split, KV head) take a sequence slot whose query is a
+//     single token (every slot of a decode step, the decodes of a mixed
+//     step; a decode step runs the same launch and its tile blocks find no
+//     tile). The slot's KV range is cut into `splits` pieces of split_len
+//     rows (a multiple of the 64-row stage), which the host sizes
+//     from the block table's length, S, Hkv and the SM count, never from a
+//     device value. The block's group q rows (<= 16) are one mma A operand;
+//     its 4 warps take 16 of each stage's 64 KV rows each, and meet in
+//     shared memory at the end. It writes f32 partials (unnormalised o, its
+//     max m and sum l) to scratch, or an empty partial (m = -inf, l = 0)
+//     when its split lies past kv_len or before the window;
+//   - tile blocks (tile, KV head) take BQ = 64 / group query tokens of one
+//     sequence of 2 or more tokens: BQ x group = up to 64 q rows, 16 a
+//     warp. The device maps a tile to its sequence (a scan of the
+//     per-sequence tile counts from cu_q_lens); the grid is sized from T
+//     and S. The tile's KV range (the union of its tokens' ranges) is
+//     walked once, shared by every row, with per-row causal and window
+//     masks by absolute position; the block writes its bf16 rows;
+//   - both stream their K and V rows through a 3-stage cp.async ring (16
+//     bytes a thread, rows past the range zero-filled, so a masked p = 0
+//     never meets garbage) with an XOR swizzle of the 16-byte chunks, so
+//     ldmatrix (K) and ldmatrix.trans (V) read without bank conflicts.
+//     S = QK^T and O += PV run on mma.sync; P stays in registers, rounded
+//     to bf16 for the PV product (as FlashAttention-2 does); the softmax
+//     runs in base 2 with the scale folded in;
+//   - merge_kernel, one thread per 4 dims of a q row's head: merges a split
+//     row's partials in split order (over the splits its KV range touches)
+//     and writes its bf16 row; writes zeros for padding rows and for split
+//     rows without KV; leaves tile rows alone. It is launched as the
+//     attention grid's programmatic dependent, so its launch and slot
+//     lookup overlap that grid.
+// No float atomics: the same inputs give the same bits on every call.
+// Int8 pages with k/v scales, ALiBi and head dims other than 64 and 128 are
+// not covered; the Python wrapper refuses them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,255 +76,605 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kThreads = 128;                 // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileKV = 32;    // KV rows per tile; one per lane in the softmax
-constexpr int kMaxGroup = 16;  // query heads per KV head
-constexpr int kVec = 8;        // bf16 per 16-byte load
-constexpr int kPad = 4;        // floats after each K row in shared memory
+constexpr int kStage = 64;                    // KV rows per ring stage
+constexpr int kStages = 3;                    // ring depth
+constexpr int kTileRows = 16 * kWarps;        // q rows of a tile block
+constexpr int kMaxGroup = 16;                 // query heads per KV head
+constexpr int kRedPad = 4;                    // floats after each row of the warp merge
+constexpr float kLog2e = 1.4426950408889634f;
 
-// The thread's share of one tile's K and V rows, as raw 16-byte chunks.
-template <int D>
-struct TileRegs {
-  static constexpr int kChunks = D / kVec;                       // per row
-  static constexpr int kLoads = kTileKV * kChunks / kThreads;   // per thread
-  uint4 k[kLoads];
-  uint4 v[kLoads];
+struct Params {
+  const __nv_bfloat16* q;         // [T, H, D]
+  const __nv_bfloat16* kv;        // [P, page, 2*Hkv, D]
+  const int* kv_lens;             // [S]
+  const int* table;               // [S, maxp]
+  const int* cu;                  // [S+1]
+  const int* num_seqs;            // [1]
+  __nv_bfloat16* out;             // [T, H, D]
+  float* o_part;                  // [S, splits, H, D]
+  float2* ml_part;                // [S, splits, H]: (m in base 2, l)
+  int T, S, maxp, page_size, page_shift, n_heads, n_kv_heads, group;  // page_shift: log2, or -1
+  int splits, split_len;          // split blocks: pieces of a slot's KV range
+  int tile_tokens, tile_blocks;   // tile blocks: tokens a tile, grid share
+  int window;
+  float sm_scale, soft_cap;
+  float scale_log2;               // sm_scale * log2(e): scores in base 2 without a soft cap
 };
 
-// Loads rows [base, base + n) of the tile into registers: chunk
-// c = tid + r * kThreads is row c / kChunks, dims (c % kChunks) * kVec.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x (ex2.approx: 2 ulp; -inf gives 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Programmatic dependent launch: the grid launched behind this one may
+// start (griddep_launch); a grid waits for the one before it to finish and
+// its writes to be visible (griddep_wait).
+__device__ __forceinline__ void griddep_launch() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Element offset of 16-byte chunk `ch` of row `j` in a [kStage, D] stage:
+// the chunk index is XORed with the row's low 3 bits, so the 8 rows one
+// ldmatrix phase reads lie in 8 different bank groups.
 template <int D>
-__device__ __forceinline__ void load_tile(
-    TileRegs<D>& regs, const __nv_bfloat16* __restrict__ kv_head,
-    const int* __restrict__ table, size_t row_stride, int page_size, int base,
-    int n, int tid) {
+__device__ __forceinline__ int swz(int j, int ch) {
+  return j * D + ((ch ^ (j & 7)) << 3);
+}
+
+// Stage K and V rows [base, base + kStage) of one KV head; rows at or past
+// `end` are zero-filled. Row i lies at page table[i / page_size], slot
+// i % page_size.
+template <int D>
+__device__ __forceinline__ void load_stage(__nv_bfloat16* ks, const Params& p,
+                                           const __nv_bfloat16* kv_head, const int* table,
+                                           int base, int end) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  constexpr int kIters = kStage * kChunks / kThreads;
+  static_assert(kStage * kChunks % kThreads == 0, "stage chunks");
+  __nv_bfloat16* vs = ks + kStage * D;
+  const size_t row_stride = (size_t)2 * p.n_kv_heads * D;
 #pragma unroll
-  for (int r = 0; r < TileRegs<D>::kLoads; ++r) {
-    const int c = tid + r * kThreads;
-    const int j = c / TileRegs<D>::kChunks;
-    const int d0 = (c % TileRegs<D>::kChunks) * kVec;
-    if (j < n) {
-      const int p = base + j;
-      const size_t row = (size_t)table[p / page_size] * page_size + p % page_size;
-      const __nv_bfloat16* src = kv_head + row * row_stride + d0;
-      regs.k[r] = *reinterpret_cast<const uint4*>(src);
-      regs.v[r] = *reinterpret_cast<const uint4*>(src + D);
+  for (int i = 0; i < kIters; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int j = c / kChunks, ch = c % kChunks;
+    const int pos = base + j;
+    const bool valid = pos < end;
+    const __nv_bfloat16* src = kv_head;
+    if (valid) {
+      const int pg = p.page_shift >= 0 ? pos >> p.page_shift : pos / p.page_size;
+      src = kv_head + ((size_t)table[pg] * p.page_size + (pos - pg * p.page_size)) * row_stride + ch * 8;
+    }
+    const int off = swz<D>(j, ch);
+    cp_async16(ks + off, src, valid);
+    cp_async16(vs + off, valid ? src + D : kv_head, valid);
+  }
+}
+
+// The q rows of one warp as mma A fragments: row_lo holds rows g and
+// row_hi rows g + 8 (null: a padding row, zeros).
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], const __nv_bfloat16* row_lo,
+                                       const __nv_bfloat16* row_hi) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = ks * 16 + 2 * t;
+    qa[ks][0] = row_lo ? *reinterpret_cast<const uint32_t*>(row_lo + c) : 0u;
+    qa[ks][1] = row_hi ? *reinterpret_cast<const uint32_t*>(row_hi + c) : 0u;
+    qa[ks][2] = row_lo ? *reinterpret_cast<const uint32_t*>(row_lo + c + 8) : 0u;
+    qa[ks][3] = row_hi ? *reinterpret_cast<const uint32_t*>(row_hi + c + 8) : 0u;
+  }
+}
+
+// Online-softmax state of one warp's 16 rows; this lane holds rows g
+// (index 0) and g + 8 (index 1). l is the lane's share of the row sum until
+// row_sums() adds the row's 4 lanes.
+template <int D>
+struct WarpAcc {
+  float o[D / 8][4];
+  float m[2], l[2];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+  }
+  __device__ __forceinline__ void row_sums() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+  }
+};
+
+// One warp over NC KV columns [col0, col0 + NC) of a staged tile whose row
+// 0 is KV position `base`: S = q K^T, masks, online softmax, O += P V. A
+// column at position pos is visible to row r (0: g, 1: g + 8) when
+// lo[r] <= pos < hi[r].
+template <int D, int NC>
+__device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const uint32_t (&qa)[D / 16][4],
+                                             WarpAcc<D>& acc, const Params& p, int col0, int base,
+                                             const int (&lo)[2], const int (&hi)[2]) {
+  static_assert(NC % 16 == 0, "columns in k16 steps");
+  const __nv_bfloat16* vs = ks + kStage * D;
+  const int lane = threadIdx.x & 31, t = lane & 3, mat = lane >> 3;
+  float s[NC / 8][4];
+#pragma unroll
+  for (int n = 0; n < NC / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+
+  // S = Q K^T: K rows are the B operand's columns, d-contiguous.
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < NC / 8; n += 2) {
+      uint32_t b[4];
+      const int j = col0 + (n + (mat >> 1)) * 8 + (lane & 7);
+      ldmatrix_x4(b, ks + swz<D>(j, 2 * kk + (mat & 1)));
+      mma_bf16(s[n], qa[kk], b[0], b[1]);
+      mma_bf16(s[n + 1], qa[kk], b[2], b[3]);
+    }
+  }
+
+  // Scale, soft cap, masks; base-2 scores and the rows' new maxima. Where
+  // every column of the warp's share is visible to both rows, no masks.
+  const int c0 = base + col0;
+  const bool whole = c0 >= lo[0] && c0 + NC <= hi[0] && c0 >= lo[1] && c0 + NC <= hi[1];
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < NC / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const int pos = c0 + n * 8 + 2 * t + (e & 1);
+      float x = p.soft_cap > 0.f ? p.soft_cap * tanhf(s[n][e] * p.sm_scale / p.soft_cap) * kLog2e
+                                 : s[n][e] * p.scale_log2;
+      if (!whole && !(pos >= lo[r] && pos < hi[r])) x = -INFINITY;
+      s[n][e] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+  }
+  float base_m[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(acc.m[r], mx[r]);
+    base_m[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing visible yet
+    alpha[r] = exp2_approx(acc.m[r] - base_m[r]);   // 0 while the row was empty
+    acc.m[r] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < NC / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = exp2_approx(s[n][e] - base_m[e >> 1]);  // masked: 2^-inf = 0
+      s[n][e] = pe;
+      sum[e >> 1] += pe;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) acc.l[r] = acc.l[r] * alpha[r] + sum[r];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc.o[n][0] *= alpha[0];
+    acc.o[n][1] *= alpha[0];
+    acc.o[n][2] *= alpha[1];
+    acc.o[n][3] *= alpha[1];
+  }
+
+  // O += P V: P from the score registers (the C layout of two n8 tiles is
+  // the A layout of one k16 step); V rows through ldmatrix.trans.
+#pragma unroll
+  for (int kk = 0; kk < NC / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    const int j = col0 + kk * 16 + (mat & 1) * 8 + (lane & 7);
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vs + swz<D>(j, n + (mat >> 1)));
+      mma_bf16(acc.o[n], a, b[0], b[1]);
+      mma_bf16(acc.o[n + 1], a, b[2], b[3]);
     }
   }
 }
 
-__device__ __forceinline__ void store_f32(float* dst, const uint4& raw) {
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// Walks KV positions [begin, end) of one (sequence, KV head) through the
+// ring. Warp w takes columns (w % KW) * (kStage / KW) of every stage: with
+// KW = 1 every warp sees the whole stage (its own 16 q rows), with KW =
+// kWarps the warps share the q rows and split the stage.
+template <int D, int KW>
+__device__ __forceinline__ void walk(const Params& p, const __nv_bfloat16* kv_head, const int* table,
+                                     int begin, int end, const uint32_t (&qa)[D / 16][4], WarpAcc<D>& acc,
+                                     const int (&lo)[2], const int (&hi)[2], __nv_bfloat16* ring) {
+  constexpr int kCols = kStage / KW;
+  constexpr int kStageElems = 2 * kStage * D;
+  const int col0 = (threadIdx.x / 32 % KW) * kCols;
+  const int n_tiles = (end - begin + kStage - 1) / kStage;
 #pragma unroll
-  for (int e = 0; e < kVec / 2; ++e) {
-    const float2 f = __bfloat1622float2(b[e]);
-    dst[2 * e] = f.x;
-    dst[2 * e + 1] = f.y;
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_tiles) load_stage<D>(ring + st * kStageElems, p, kv_head, table, begin + st * kStage, end);
+    cp_async_commit();
   }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile `it` landed; every warp is done with tile it - 1
+    const int next = it + kStages - 1;
+    if (next < n_tiles)
+      load_stage<D>(ring + (next % kStages) * kStageElems, p, kv_head, table, begin + next * kStage, end);
+    cp_async_commit();
+    attend_stage<D, kCols>(ring + (it % kStages) * kStageElems, qa, acc, p, col0, begin + it * kStage, lo,
+                           hi);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for reuse
+}
+
+// Slot s is finished by a split block and the merge when it is a real
+// sequence of one token (row cu[s]). Sets its row and KV length.
+__device__ __forceinline__ bool split_slot(const Params& p, int s, int n_real, int& row, int& kv_len) {
+  if (s >= n_real || p.cu[s + 1] - p.cu[s] != 1) return false;
+  row = p.cu[s];
+  if (row >= p.T) return false;
+  kv_len = p.kv_lens[s];
+  return true;
+}
+
+// The KV rows [lo, hi) a split slot's token sees: its window, within the
+// block table.
+__device__ __forceinline__ void split_range(const Params& p, int kv_len, int& lo, int& hi) {
+  lo = p.window > 0 ? max(0, kv_len - p.window) : 0;
+  hi = min(kv_len, p.maxp * p.page_size);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-ragged_paged_attention_kernel(
-    const __nv_bfloat16* __restrict__ q,         // [T, H, D]
-    const __nv_bfloat16* __restrict__ kv_pages,  // [P, page, 2*Hkv, D]
-    const int* __restrict__ kv_lens,             // [S]
-    const int* __restrict__ page_indices,        // [S, maxp]
-    const int* __restrict__ cu_q_lens,           // [S+1]
-    const int* __restrict__ num_seqs,            // [1]
-    __nv_bfloat16* __restrict__ out,             // [T, H, D]
-    int S, int maxp, int page_size, int n_heads, int n_kv_heads,
-    float sm_scale, int window, float soft_cap) {
-  constexpr int kQuads = D / 4;                                // float4 per row
-  constexpr int kOutQuads = kMaxGroup * kQuads / kThreads;     // per thread
-  constexpr int kHeadsPerWarp = kMaxGroup / kWarps;
-  static_assert(kTileKV * (D / kVec) % kThreads == 0, "tile chunks");
-  static_assert(kMaxGroup * kQuads % kThreads == 0, "output quads");
+__device__ void split_block(const Params& p, int x, int h, __nv_bfloat16* ring) {
+  const int s = x / p.splits, sp = x % p.splits;
+  const int n_real = min(max(p.num_seqs[0], 0), p.S);
+  int row, kv_len;
+  if (!split_slot(p, s, n_real, row, kv_len)) return;  // the merge never reads it
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32, g = lane >> 2;
+  const int group = p.group;
+  const size_t part = ((size_t)s * p.splits + sp) * p.n_heads + (size_t)h * group;
 
-  __shared__ __align__(16) float q_s[kMaxGroup][D];
-  __shared__ __align__(16) float k_s[kTileKV][D + kPad];
-  __shared__ __align__(16) float v_s[kTileKV][D];
-  __shared__ float p_s[kMaxGroup][kTileKV];
-  __shared__ float alpha_s[kMaxGroup];
-  __shared__ float l_s[kMaxGroup];
-
-  const int t = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int group = n_heads / n_kv_heads;
-  const size_t head0 = (size_t)t * n_heads + (size_t)h * group;
-  const __nv_bfloat16* q_ptr = q + head0 * D;
-  __nv_bfloat16* o_ptr = out + head0 * D;
-
-  // Which sequence owns token t: the first s with cu_q_lens[s + 1] > t.
-  // Every thread computes the same values, so branches below are uniform.
-  const int n_real = min(max(num_seqs[0], 0), S);
-  int s = 0, kv_begin = 0, kv_end = 0;
-  if (t < cu_q_lens[n_real]) {
-    int lo = 0, hi = S - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (cu_q_lens[mid + 1] > t) hi = mid; else lo = mid + 1;
-    }
-    s = lo;
-    const int kv_len = kv_lens[s];
-    const int q_start = cu_q_lens[s];
-    const int pos = kv_len - (cu_q_lens[s + 1] - q_start) + (t - q_start);
-    kv_end = min(pos + 1, kv_len);
-    kv_begin = window > 0 ? max(0, pos - window + 1) : 0;
-  }
-  if (kv_end <= kv_begin) {  // fully masked row
-    for (int i = tid; i < group * D; i += kThreads) o_ptr[i] = __float2bfloat16(0.f);
+  int r_lo, r_hi;
+  split_range(p, kv_len, r_lo, r_hi);
+  const int begin = max(r_lo, sp * p.split_len);
+  const int end = min(r_hi, (sp + 1) * p.split_len);
+  if (end <= begin) {  // nothing of this split is visible: an empty partial
+    if (threadIdx.x < group) p.ml_part[part + threadIdx.x] = make_float2(-INFINITY, 0.f);
     return;
   }
 
-  const int* table = page_indices + (size_t)s * maxp;
-  const size_t row_stride = (size_t)2 * n_kv_heads * D;  // elements per KV row
-  const __nv_bfloat16* kv_head = kv_pages + (size_t)(2 * h) * D;
-  TileRegs<D> regs;
-  load_tile<D>(regs, kv_head, table, row_stride, page_size, kv_begin,
-               min(kTileKV, kv_end - kv_begin), tid);
+  const __nv_bfloat16* q_tok = p.q + ((size_t)row * p.n_heads + (size_t)h * group) * D;
+  uint32_t qa[D / 16][4];
+  load_q<D>(qa, g < group ? q_tok + g * D : nullptr, g + 8 < group ? q_tok + (g + 8) * D : nullptr);
+  WarpAcc<D> acc;
+  acc.init();
+  const int lo[2] = {begin, begin}, hi[2] = {end, end};
+  walk<D, kWarps>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, qa, acc, lo, hi,
+                  ring);
+  acc.row_sums();
 
-  for (int i = tid; i < group * D; i += kThreads)
-    q_s[i / D][i % D] = __bfloat162float(q_ptr[i]) * sm_scale;
-
-  // Running max and sum of the heads this warp owns (g = warp + k * kWarps),
-  // held by every lane of the warp.
-  float m_run[kHeadsPerWarp], l_run[kHeadsPerWarp];
+  // The warps' states meet in the (now free) ring: o [warp][16][D + pad].
+  float* red_o = reinterpret_cast<float*>(ring);
+  float* red_m = red_o + kWarps * 16 * (D + kRedPad);
+  float* red_l = red_m + kWarps * 16;
+  const int t = lane & 3;
 #pragma unroll
-  for (int k = 0; k < kHeadsPerWarp; ++k) {
-    m_run[k] = -INFINITY;
-    l_run[k] = 0.f;
+  for (int n = 0; n < D / 8; ++n) {
+    float* r0 = red_o + (warp * 16 + g) * (D + kRedPad) + n * 8 + 2 * t;
+    *reinterpret_cast<float2*>(r0) = make_float2(acc.o[n][0], acc.o[n][1]);
+    *reinterpret_cast<float2*>(r0 + 8 * (D + kRedPad)) = make_float2(acc.o[n][2], acc.o[n][3]);
   }
-  float4 acc[kOutQuads];
-#pragma unroll
-  for (int r = 0; r < kOutQuads; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int base = kv_begin; base < kv_end; base += kTileKV) {
-    const int n = min(kTileKV, kv_end - base);
-    // This tile's rows, from registers to shared memory as f32.
-#pragma unroll
-    for (int r = 0; r < TileRegs<D>::kLoads; ++r) {
-      const int c = tid + r * kThreads;
-      const int j = c / TileRegs<D>::kChunks;
-      const int d0 = (c % TileRegs<D>::kChunks) * kVec;
-      if (j < n) {
-        store_f32(&k_s[j][d0], regs.k[r]);
-        store_f32(&v_s[j][d0], regs.v[r]);
-      }
-    }
-    __syncthreads();
-    // The next tile's loads are in flight during the arithmetic below.
-    if (base + kTileKV < kv_end)
-      load_tile<D>(regs, kv_head, table, row_stride, page_size, base + kTileKV,
-                   min(kTileKV, kv_end - base - kTileKV), tid);
-
-    // Scores and online softmax: one warp per head, one lane per tile row.
-    // The tile holds at least one unmasked row, so the new max is finite.
-#pragma unroll
-    for (int k = 0; k < kHeadsPerWarp; ++k) {
-      const int g = warp + k * kWarps;
-      if (g >= group) break;  // uniform across the warp
-      float sc = -INFINITY;
-      if (lane < n) {
-        const float4* qr = reinterpret_cast<const float4*>(q_s[g]);
-        const float4* kr = reinterpret_cast<const float4*>(k_s[lane]);
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < kQuads; ++d) {
-          const float4 a = qr[d], b = kr[d];
-          dot += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-        }
-        sc = soft_cap > 0.f ? soft_cap * tanhf(dot / soft_cap) : dot;
-      }
-      float mx = sc;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_run[k], mx);
-      const float pr = lane < n ? __expf(sc - m_new) : 0.f;
-      float sum = pr;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float alpha = __expf(m_run[k] - m_new);  // 0 on the first tile
-      l_run[k] = l_run[k] * alpha + sum;
-      m_run[k] = m_new;
-      p_s[g][lane] = pr;
-      if (lane == 0) alpha_s[g] = alpha;
-    }
-    __syncthreads();
-
-    // o = o * alpha + p @ V; thread owns dims [d0, d0 + 4) of head g.
-#pragma unroll
-    for (int r = 0; r < kOutQuads; ++r) {
-      const int i = tid + r * kThreads;
-      if (i < group * kQuads) {
-        const int g = i / kQuads, d0 = (i % kQuads) * 4;
-        const float a = alpha_s[g];
-        float4 o = acc[r];
-        o.x *= a; o.y *= a; o.z *= a; o.w *= a;
-        for (int j = 0; j < n; ++j) {
-          const float p = p_s[g][j];
-          const float4 v = *reinterpret_cast<const float4*>(&v_s[j][d0]);
-          o.x += p * v.x; o.y += p * v.y; o.z += p * v.z; o.w += p * v.w;
-        }
-        acc[r] = o;
-      }
-    }
-    __syncthreads();
+  if (t == 0) {
+    red_m[warp * 16 + g] = acc.m[0];
+    red_m[warp * 16 + g + 8] = acc.m[1];
+    red_l[warp * 16 + g] = acc.l[0];
+    red_l[warp * 16 + g + 8] = acc.l[1];
   }
-
-  if (lane == 0) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < group * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float m = -INFINITY;
 #pragma unroll
-    for (int k = 0; k < kHeadsPerWarp; ++k) {
-      const int g = warp + k * kWarps;
-      if (g < group) l_s[g] = l_run[k];
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, red_m[w * 16 + r]);
+    const float mb = m == -INFINITY ? 0.f : m;
+    float o = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2_approx(red_m[w * 16 + r] - mb);
+      o += wt * red_o[(w * 16 + r) * (D + kRedPad) + d];
+      l += wt * red_l[w * 16 + r];
+    }
+    p.o_part[(part + r) * D + d] = o;
+    if (d == 0) p.ml_part[part + r] = make_float2(m, l);
+  }
+}
+
+template <int D>
+__device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
+  __shared__ int found[2];  // sequence, tile within it
+  const int n_real = min(max(p.num_seqs[0], 0), p.S);
+  const int bq = p.tile_tokens;
+  if (threadIdx.x < 32) {
+    // Warp 0 scans the per-sequence tile counts (sequences of 2 or more
+    // tokens) for the sequence that holds tile b.
+    const int lane = threadIdx.x;
+    int before = 0, seq = -1, tile = 0;  // before: tiles of the slots already scanned
+    for (int s0 = 0; s0 < n_real; s0 += 32) {
+      const int s = s0 + lane;
+      const int q_len = s < n_real ? p.cu[s + 1] - p.cu[s] : 0;
+      const int own = q_len >= 2 ? (q_len + bq - 1) / bq : 0;
+      int incl = own;  // inclusive scan over the warp's 32 slots
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const unsigned hit = __ballot_sync(0xffffffffu, before + incl > b);
+      if (hit) {  // uniform across the warp
+        const int first = __ffs(hit) - 1;
+        seq = s0 + first;
+        tile = b - before - (__shfl_sync(0xffffffffu, incl, first) - __shfl_sync(0xffffffffu, own, first));
+        break;
+      }
+      before += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) {
+      found[0] = seq;
+      found[1] = tile;
     }
   }
   __syncthreads();
+  const int s = found[0];
+  if (s < 0) return;  // past the last tile (the grid is sized from T and S)
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32, g = lane >> 2;
+  const int group = p.group;
+  const int q_start = p.cu[s], q_len = p.cu[s + 1] - q_start, kv_len = p.kv_lens[s];
+  const int tok0 = found[1] * bq;
+  const int n_tok = min(bq, q_len - tok0);
+  const int pos0 = kv_len - q_len + tok0;  // absolute position of the tile's first token
+  const int kv_cap = min(kv_len, p.maxp * p.page_size);
+
+  // Rows g and g + 8 of this warp: token r / group, head r % group.
+  int lo[2], hi[2];
+  const __nv_bfloat16* q_row[2];
 #pragma unroll
-  for (int r = 0; r < kOutQuads; ++r) {
-    const int i = tid + r * kThreads;
-    if (i < group * kQuads) {
-      const int g = i / kQuads, d0 = (i % kQuads) * 4;
-      const float l = l_s[g];
-      const float inv = l > 0.f ? 1.f / l : 0.f;
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o_ptr + g * D + d0);
-      dst[0] = __floats2bfloat162_rn(acc[r].x * inv, acc[r].y * inv);
-      dst[1] = __floats2bfloat162_rn(acc[r].z * inv, acc[r].w * inv);
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    const int k = r / group;
+    const int pos = pos0 + k;
+    q_row[i] = nullptr;
+    lo[i] = hi[i] = 0;
+    if (k < n_tok) {
+      q_row[i] = p.q + ((size_t)(q_start + tok0 + k) * p.n_heads + (size_t)h * group + r % group) * D;
+      lo[i] = p.window > 0 ? max(0, pos - p.window + 1) : 0;
+      hi[i] = min(pos + 1, kv_cap);
     }
   }
+  const int begin = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
+  const int end = min(pos0 + n_tok, kv_cap);
+
+  uint32_t qa[D / 16][4];
+  load_q<D>(qa, q_row[0], q_row[1]);
+  WarpAcc<D> acc;
+  acc.init();
+  if (end > begin)
+    walk<D, 1>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, qa, acc, lo, hi,
+               ring);
+  acc.row_sums();
+
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!q_row[i]) continue;
+    const float inv = acc.l[i] > 0.f ? 1.f / acc.l[i] : 0.f;
+    __nv_bfloat16* dst = p.out + (q_row[i] - p.q);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc.o[n][2 * i] * inv, acc.o[n][2 * i + 1] * inv);
+  }
+}
+
+// Block (x, KV head): x < tile_blocks is a tile block, the rest are split
+// blocks (slot, split) = ((x - tile_blocks) / splits, % splits).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) ragged_paged_attention_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int x = blockIdx.x, h = blockIdx.y;
+  griddep_launch();  // the merge may start; it waits for this grid before it reads
+  if (x < p.tile_blocks)
+    tile_block<D>(p, x, h, ring);
+  else
+    split_block<D>(p, x - p.tile_blocks, h, ring);
+}
+
+// Block (t, c): q row t, its quads (4 dims of one head) c * kThreads ..,
+// one a thread. A split row merges its slot's partials in split order,
+// over the splits that hold some of its KV range (the others are empty); a
+// padding row (and a split row without KV) writes zeros; a tile row is
+// left to its tile block.
+template <int D>
+__global__ void __launch_bounds__(kThreads) ragged_paged_attention_merge_kernel(const Params p) {
+  constexpr int kQuads = D / 4;
+  const int t = blockIdx.x;
+  const int n_real = min(max(p.num_seqs[0], 0), p.S);
+  int s = -1, row = 0, kv_len = 0;  // s: the split slot whose row t is, else -1 (zeros)
+  bool tile_row = false;
+  if (t < p.cu[n_real]) {
+    int lo = 0, hi = p.S - 1;
+    while (lo < hi) {  // the first s with cu[s + 1] > t
+      const int mid = (lo + hi) >> 1;
+      if (p.cu[mid + 1] > t) hi = mid; else lo = mid + 1;
+    }
+    if (split_slot(p, lo, n_real, row, kv_len)) s = lo; else tile_row = true;
+  }
+  // Every block waits, so that this grid ends after the attention grid and
+  // the kernels behind it see its rows.
+  griddep_wait();
+  const int i = blockIdx.y * kThreads + threadIdx.x;
+  if (tile_row || i >= p.n_heads * kQuads) return;
+  const int hq = i / kQuads, d = (i % kQuads) * 4;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  float l = 0.f;
+  if (s >= 0) {
+    int lo, hi;
+    split_range(p, kv_len, lo, hi);
+    const int sp0 = lo / p.split_len, sp1 = hi > lo ? (hi - 1) / p.split_len + 1 : sp0;
+    const size_t part0 = (size_t)s * p.splits * p.n_heads + hq;  // split sp: + sp * n_heads
+    float m = -INFINITY;
+#pragma unroll 8
+    for (int sp = sp0; sp < sp1; ++sp) m = fmaxf(m, p.ml_part[part0 + (size_t)sp * p.n_heads].x);
+#pragma unroll 4
+    for (int sp = sp0; sp < sp1; ++sp) {
+      const size_t part = part0 + (size_t)sp * p.n_heads;
+      const float2 ml = p.ml_part[part];
+      const float4 v = *reinterpret_cast<const float4*>(p.o_part + part * D + d);
+      const float w = exp2_approx(ml.x - m);
+      o.x += w * v.x;
+      o.y += w * v.y;
+      o.z += w * v.z;
+      o.w += w * v.w;
+      l += w * ml.y;
+    }
+  }
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.out + ((size_t)t * p.n_heads + hq) * D + d);
+  dst[0] = __floats2bfloat162_rn(o.x * inv, o.y * inv);
+  dst[1] = __floats2bfloat162_rn(o.z * inv, o.w * inv);
+}
+
+template <int D>
+constexpr int ring_bytes() {
+  return kStages * 2 * kStage * D * (int)sizeof(__nv_bfloat16);
+}
+static_assert(kWarps * 16 * (64 + kRedPad + 2) * 4 <= ring_bytes<64>(), "warp merge fits the ring");
+static_assert(kWarps * 16 * (128 + kRedPad + 2) * 4 <= ring_bytes<128>(), "warp merge fits the ring");
+
+template <int D>
+int launch(const Params& p, cudaStream_t st) {
+  static const int smem_rc = (int)cudaFuncSetAttribute(
+      ragged_paged_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes<D>());
+  if (smem_rc) return smem_rc;
+  const dim3 grid(p.tile_blocks + p.S * p.splits, p.n_kv_heads);
+  ragged_paged_attention_kernel<D><<<grid, kThreads, ring_bytes<D>(), st>>>(p);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  // The merge is the attention grid's programmatic dependent: it is launched
+  // while that grid runs, finds its slot, then waits for it.
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.T, (p.n_heads * (D / 4) + kThreads - 1) / kThreads);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, ragged_paged_attention_merge_kernel<D>, p);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it never synchronises.
+// Plain C entry point, loaded with ctypes. Launches the attention kernel and
+// the merge on `stream` and returns cudaGetLastError() (0 on success); it
+// never synchronises. `scratch` holds S * splits * n_heads * (head_dim + 2)
+// floats (the wrapper allocates it); splits and split_len come from the
+// wrapper's split plan.
 extern "C" int scalellm_ragged_paged_attention(
-    const void* q, const void* kv_pages, const void* kv_lens,
-    const void* page_indices, const void* cu_q_lens, const void* num_seqs,
-    void* out, int num_tokens, int num_seq_slots, int maxp, int page_size,
-    int n_heads, int n_kv_heads, int head_dim, float sm_scale, int window,
-    float soft_cap, void* stream) {
+    const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
+    const void* cu_q_lens, const void* num_seqs, void* out, void* scratch, int num_tokens,
+    int num_seq_slots, int maxp, int page_size, int n_heads, int n_kv_heads, int head_dim,
+    int splits, int split_len, float sm_scale, int window, float soft_cap,
+    void* stream) {
   if (num_tokens == 0) return 0;
-  if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_heads / n_kv_heads > kMaxGroup)
+  if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_heads / n_kv_heads > kMaxGroup ||
+      num_seq_slots <= 0 || maxp <= 0 || page_size <= 0 || splits <= 0 || split_len <= 0 ||
+      split_len % kStage != 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(num_tokens, n_kv_heads);
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.kv = static_cast<const __nv_bfloat16*>(kv_pages);
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.table = static_cast<const int*>(page_indices);
+  p.cu = static_cast<const int*>(cu_q_lens);
+  p.num_seqs = static_cast<const int*>(num_seqs);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.o_part = static_cast<float*>(scratch);
+  p.ml_part = reinterpret_cast<float2*>(p.o_part + (size_t)num_seq_slots * splits * n_heads * head_dim);
+  p.T = num_tokens;
+  p.S = num_seq_slots;
+  p.maxp = maxp;
+  p.page_size = page_size;
+  p.page_shift = (page_size & (page_size - 1)) == 0 ? __builtin_ctz(page_size) : -1;
+  p.n_heads = n_heads;
+  p.n_kv_heads = n_kv_heads;
+  p.group = n_heads / n_kv_heads;
+  p.splits = splits;
+  p.split_len = split_len;
+  p.tile_tokens = kTileRows / p.group;
+  // Sequences of 2 or more tokens hold at most T / tile_tokens + S tiles.
+  p.tile_blocks = (num_tokens + p.tile_tokens - 1) / p.tile_tokens + min(num_seq_slots, num_tokens);
+  p.window = window;
+  p.sm_scale = sm_scale;
+  p.soft_cap = soft_cap;
+  p.scale_log2 = sm_scale * kLog2e;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define SCALELLM_RPA_LAUNCH(D)                                                \
-  ragged_paged_attention_kernel<D><<<grid, kThreads, 0, st>>>(                \
-      static_cast<const __nv_bfloat16*>(q),                                   \
-      static_cast<const __nv_bfloat16*>(kv_pages),                            \
-      static_cast<const int*>(kv_lens), static_cast<const int*>(page_indices), \
-      static_cast<const int*>(cu_q_lens), static_cast<const int*>(num_seqs),   \
-      static_cast<__nv_bfloat16*>(out), num_seq_slots, maxp, page_size,       \
-      n_heads, n_kv_heads, sm_scale, window, soft_cap)
   switch (head_dim) {
-    case 64: SCALELLM_RPA_LAUNCH(64); break;
-    case 128: SCALELLM_RPA_LAUNCH(128); break;
+    case 64: return launch<64>(p, st);
+    case 128: return launch<128>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef SCALELLM_RPA_LAUNCH
-  return (int)cudaGetLastError();
 }

@@ -8,7 +8,8 @@ applies the lm_head. Weights are nn.Parameters in torch's [out, in] layout,
 with q/k/v fused into qkv_proj and gate/up into gate_up_proj as in the
 reference's fused layout. The layers run as a Python loop; the attention
 implementation is a hook (attn_impl) so a caller can swap the kernel for the
-plain version.
+plain version (ops/attention.py:plain_ragged_paged_attention); it is called
+with the step's decode_only.
 
 Weight-only quantized models (args.quant_args) hold each projection as a
 QuantLinear (kernel-layout qweight, scales, zeros, and for GPTQ desc_act the
@@ -296,7 +297,7 @@ class DecoderModel(nn.Module):
         kv_cache: torch.Tensor,  # [L, P, page, 2*Hkv, Dh], updated in place
         mi: ModelInputs,
         all_hidden: bool = False,
-        decode_only: bool = False,  # unused: K1 takes decode-only and mixed steps alike
+        decode_only: bool = False,  # every sequence slot has one token; passed to attn_impl
     ) -> torch.Tensor:
         """Returns the final hidden states of the selected rows [S, D] (all
         rows [T, D] with all_hidden). The KV cache is written in place."""
@@ -325,7 +326,7 @@ class DecoderModel(nn.Module):
             o = self.attn_impl(
                 q.contiguous(), kvc, mi.kv_lens, mi.block_tables, mi.cu_q_lens,
                 mi.num_seqs, sm_scale=sm_scale, sliding_window=window,
-                logit_soft_cap=soft_cap,
+                logit_soft_cap=soft_cap, decode_only=decode_only,
             )
             h = h + self._proj(o.reshape(T, q_n), layer.o_proj)
 

@@ -5,7 +5,10 @@ interpret mode. Run them on the card with
 
 Ragged paged attention: tolerance 2e-2 absolute: both sum in f32, the kernel
 with an online softmax; the outputs are rounded to bf16 (8 bits of mantissa)
-from values of magnitude <= ~3.
+from values of magnitude <= ~3. And row by row (token, head): the largest
+error within 2e-2 of the row's largest magnitude (chip_smoke.py's
+ATTENTION_REL_TOL; a bf16 step is at most 0.8% of it), which a merge that
+lost one piece of a long context fails.
 
 Quantized matmuls (w4a8, group, dequant): the integer dots are exact on
 both sides; the f32 sums over groups and k-blocks run in another order, the
@@ -21,6 +24,9 @@ import torch
 # Imported by its own name (pytest puts tests/ on sys.path), so that an
 # installed top-level package named `tests` cannot shadow this directory.
 from torch_port_util import ragged_batch
+
+from chip_smoke import ATTENTION_REL_TOL, attention_row_rel_err, dropped_piece
+from scalellm_tpu_torch.ops import attention
 
 TOL = 2e-2
 
@@ -52,6 +58,16 @@ SHAPES = {
 }
 
 
+def _assert_matches_plain(got, want, n_real):
+    """Within TOL of the plain version, and row by row within
+    ATTENTION_REL_TOL of the row's size (a lost KV piece moves a long
+    context's small rows by less than TOL); padding rows zero."""
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    assert attention_row_rel_err(torch, got, want) <= ATTENTION_REL_TOL
+    assert torch.all(got[n_real:] == 0)
+
+
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_kernel_matches_plain_version(cuda, shape):
     from scalellm_tpu_torch.ops.attention import ragged_paged_attention
@@ -71,9 +87,107 @@ def test_kernel_matches_plain_version(cuda, shape):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     want = ref_ragged_paged_attention(**inputs, **kw)
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
-    assert torch.all(got[sum(q_lens):] == 0)
+    _assert_matches_plain(got, want, sum(q_lens))
+
+
+def _attention_case(device, q_lens, kv_lens, S, T, H, Hkv, D, page, seed=0):
+    rng = np.random.default_rng(seed)
+    return _on(ragged_batch(
+        rng, q_lens=q_lens, kv_lens=kv_lens, S=S, T=T, n_heads=H, n_kv_heads=Hkv,
+        head_dim=D, page_size=page, num_pages=1 + sum(-(-k // page) for k in kv_lens),
+    ), device)
+
+
+def _check_attention(inputs, kw, n_real):
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention_cuda as kernel
+    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+
+    before = kernel.launches
+    got = kernel(**inputs, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = ref_ragged_paged_attention(**inputs, **kw)
+    _assert_matches_plain(got, want, n_real)
+    return got, want
+
+
+# Decode batches that split: (kv_lens, S, T, n_heads, n_kv_heads, head_dim,
+# window, soft_cap, page).
+SPLIT_CASES = {
+    "long_d128_gqa4": ([8192, 2048, 5000], 4, 16, 32, 8, 128, None, None, 16),
+    "long_d64_gqa8_page4": ([4096, 3000, 100], 4, 16, 32, 4, 64, None, None, 4),
+    "window_mid_split": ([6000, 2048, 77], 4, 4, 32, 8, 128, 700, None, 16),
+    "past_kv_len": ([2048, 70, 1, 300], 4, 16, 32, 8, 128, None, None, 16),
+    "group16_softcap": ([3000, 2500], 2, 16, 32, 2, 128, None, 30.0, 16),
+    "mha_d64_window_softcap_page4": ([2100, 640], 2, 2, 8, 8, 64, 333, 20.0, 4),
+}
+
+
+def _split_case(device, case):
+    from scalellm_tpu_torch.ops.attention import split_kv_plan
+
+    kv_lens, S, T, H, Hkv, D, window, cap, page = SPLIT_CASES[case]
+    inputs = _attention_case(device, [1] * len(kv_lens), kv_lens, S, T, H, Hkv, D, page)
+    maxp = inputs["page_indices"].shape[1]
+    assert split_kv_plan(maxp * page, S, Hkv, torch.cuda.get_device_properties(device).multi_processor_count)[0] > 1
+    return inputs, dict(sm_scale=D ** -0.5, sliding_window=window, logit_soft_cap=cap)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_cases_match_plain_version(cuda, case):
+    inputs, kw = _split_case(cuda, case)
+    _check_attention(inputs, kw, len(SPLIT_CASES[case][0]))
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_row_check_fails_a_merge_that_lost_a_piece(cuda, case):
+    """The check above passes the kernel and fails the plain split-and-merge
+    with the longest slot's middle piece left out: what the kernel would
+    give had its merge lost that piece."""
+    from scalellm_tpu_torch.ops.attention import plain_split_kv_attention
+
+    inputs, kw = _split_case(cuda, case)
+    kv_lens, S, _, _, Hkv, _, window, _, _ = SPLIT_CASES[case]
+    got, want = _check_attention(inputs, kw, len(kv_lens))
+    spec = dict(kv_lens=kv_lens, S=S, Hkv=Hkv, window=window)
+    lost = plain_split_kv_attention(**inputs, **kw, drop=dropped_piece(attention, spec, inputs))
+    assert attention_row_rel_err(torch, lost, want) > ATTENTION_REL_TOL
+    assert attention_row_rel_err(torch, got, lost) > ATTENTION_REL_TOL
+
+
+# Mixed batches whose chunks are no multiple of the tile's tokens (64 /
+# group): (q_lens, kv_lens, S, T, n_heads, n_kv_heads, head_dim, window,
+# soft_cap, page).
+MIXED_CASES = {
+    "chunks_d128_gqa4": ([37, 16, 17, 1, 1, 3], [37, 300, 1000, 2048, 5, 3], 8, 128, 32, 8, 128, None, None, 16),
+    "chunks_d64_gqa8_window_page4": ([9, 23, 1, 2], [100, 23, 700, 2], 4, 64, 32, 4, 64, 50, 20.0, 4),
+    "group16_d64": ([33, 1], [40, 600], 2, 64, 32, 2, 64, None, None, 16),
+    "group6_d128": ([25, 7, 1], [25, 107, 333], 4, 64, 24, 4, 128, None, None, 16),
+    "mha_d128": ([130, 1], [200, 90], 2, 256, 4, 4, 128, None, None, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(MIXED_CASES))
+def test_mixed_cases_match_plain_version(cuda, case):
+    q_lens, kv_lens, S, T, H, Hkv, D, window, cap, page = MIXED_CASES[case]
+    inputs = _attention_case(cuda, q_lens, kv_lens, S, T, H, Hkv, D, page)
+    _check_attention(inputs, dict(sm_scale=D ** -0.5, sliding_window=window, logit_soft_cap=cap),
+                     sum(q_lens))
+
+
+@pytest.mark.parametrize("batch", ["decode", "mixed"])
+def test_attention_is_bit_identical_across_calls(cuda, batch):
+    """No float atomics: 20 calls give the same bits, on a decode batch
+    (split blocks only) and a mixed one (tile and split blocks)."""
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention_cuda as kernel
+
+    if batch == "decode":
+        inputs = _attention_case(cuda, [1] * 4, [5000, 2048, 700, 1], 8, 16, 32, 8, 128, 16)
+    else:
+        inputs = _attention_case(cuda, [200, 1, 1, 77], [300, 4096, 900, 77], 8, 512, 32, 8, 128, 16)
+    first = kernel(**inputs, sm_scale=128 ** -0.5)
+    for _ in range(19):
+        assert torch.equal(kernel(**inputs, sm_scale=128 ** -0.5), first)
 
 
 def test_kernel_refuses_what_it_does_not_cover(cuda):
