@@ -49,7 +49,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
         rows, the padding rows sharing their experts) and in the T=1 layout
         (one token over 8 rows, 6 experts, starts given); bound: the active
         experts' weight and scale bytes (yardstick: torch._grouped_mm on
-        weights dequantized ahead of time).
+        weights dequantized ahead of time); each with the rate at which it
+        reads those bytes and the stream probe's (K12c) on as many.
      e. the small-M variants gemv (K12a) and w4a8g (K12b) at the phase-3b
         Llama-3.1-8B shapes (o also asymmetric) at M = 1, 16, 64, beside K2,
         K3 and the bf16 matmul; the stream probe (K12c) at the same shapes,
@@ -837,17 +838,29 @@ def phase_moe_mla_kernels(torch, card):
 MOE_QUANT_TOL = 1e-4
 
 
-def phase_moe_quant_kernels(torch, card):
-    """K8 (gate and up, 2048 -> 1408) and K7 (down, 1408 -> 2048) at
-    DeepSeek-V2-Lite's decode step (96 rows routed as in phase 3c) and in
-    the T=1 layout (one token over 8 rows, 6 experts, starts given), int4
-    at G = 128 and int8."""
+def moe_probe(torch, nbytes, row_bytes):
+    """The stream probe's operands for `nbytes` of weights (whole rows of
+    row_bytes, int8, one scale group, weights only): a call that reads the
+    same bytes as a routed-expert call reads of weights and scales."""
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    rows = -(-nbytes // row_bytes)
+    x = torch.zeros(1, row_bytes, dtype=torch.bfloat16, device=DEVICE)
+    q = torch.zeros(rows, row_bytes, dtype=torch.int8, device=DEVICE)
+    s = torch.ones(1, rows, device=DEVICE)
+    return rows * row_bytes, lambda: Q.quant_stream_probe_cuda(x, q, s, None, 8, row_bytes, weights_only=True)
+
+
+def moe_quant_cases(torch, gen):
+    """Phase 3d's cases, one dict each: K8 (gate and up, 2048 -> 1408) and
+    K7 (down, 1408 -> 2048) at DeepSeek-V2-Lite's decode step (96 rows
+    routed as in phase 3c) and in the T=1 layout (one token over 8 rows, 6
+    experts, starts given), int4 at G = 128 and int8. `args` are the
+    wrapper's (xs, qweight, scales[, qweight, scales], sizes, active,
+    starts); `order` sorts the rows in groups by expert."""
     from scalellm_tpu_torch.layers.moe import single_token_layout
     from scalellm_tpu_torch.ops import moe_quant as MQ
 
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(SEED + 3)
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     cfg = DEEPSEEK_V2_LITE
     D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
 
@@ -858,7 +871,6 @@ def phase_moe_quant_kernels(torch, card):
     def rows(n, K):
         return torch.randn(n, K, generator=gen, device=DEVICE).to(torch.bfloat16)
 
-    results = {}
     for bits in (4, 8):
         gate, up, down = experts(D, Fm, bits), experts(D, Fm, bits), experts(Fm, D, bits)
         for layout in ("decode", "t1"):
@@ -871,56 +883,81 @@ def phase_moe_quant_kernels(torch, card):
                 topk_e = torch.randperm(E, generator=gen, device=DEVICE)[:k].reshape(1, k)
                 Tp, sizes, starts, active, _ = single_token_layout(topk_e, torch.ones(1, k, device=DEVICE), E)
                 xs, h = rows(1, D).expand(Tp, -1).contiguous(), rows(Tp, Fm)
-                order = torch.argsort(topk_e[0])  # the library call wants rows sorted by expert
-            n_active = int((active >= 0).sum())
-            covered = int(sizes.sum())
+                order = torch.argsort(topk_e[0])
             for proj, x, weights, K, N in (("gate_up", xs, (gate, up), D, Fm), ("down", h, (down,), Fm, D)):
-                flat = [t for pair in weights for t in pair]
-                if proj == "gate_up":
-                    kernel = lambda: MQ.grouped_quant_matmul_pair_cuda(x, *flat, sizes, active, starts)
-                    plain = lambda: MQ.plain_grouped_quant_matmul_pair(x, *flat, sizes, active, starts)
-                else:
-                    kernel = lambda: (MQ.grouped_quant_matmul_cuda(x, *flat, sizes, active, starts),)
-                    plain = lambda: (MQ.plain_grouped_quant_matmul(x, *flat, sizes, active, starts),)
-                got = kernel()
-                torch.cuda.synchronize()
-                want = plain()
-                name = f"{proj}_int{bits}_{layout}"
-                if not all(torch.isfinite(g).all() for g in got):
-                    fail(f"moe_quant {name}: kernel output is not finite")
-                top = max(w.abs().max().item() for w in want)
-                err = max((g - w).abs().max().item() for g, w in zip(got, want))
-                if not err <= MOE_QUANT_TOL * top:
-                    fail(f"moe_quant {name}: differs from the plain version by {err} at magnitude {top}")
-                if not all(torch.all(g[covered:] == 0) for g in got):
-                    fail(f"moe_quant {name}: rows outside every group are not zero")
-                ms = time_ms(torch, kernel, flush)
-                plain_ms = time_ms(torch, plain, flush, runs=3)
-                # Yardstick: torch._grouped_mm (or the matmul loop) over the
-                # same rows in expert order, on bf16 weights dequantized ahead
-                # of time.
-                x_sorted = x[:covered][order[:covered]].contiguous()
-                libs = [library_grouped_mm(torch, x_sorted, MQ.dequantize_experts(q, sc, K).to(torch.bfloat16), sizes)
-                        for q, sc in weights]
-                lib_name = libs[0][0]
-                library_ms = time_ms(torch, lambda: [fn() for _, fn in libs], flush)
-                del libs
-                w_bytes = sum(q[0].numel() * q.element_size() + sc[0].numel() * sc.element_size() for q, sc in weights)
-                nbytes = (x.numel() * 2 + n_active * w_bytes + len(weights) * x.shape[0] * N * 4
-                          + (active.numel() + starts.numel() + sizes.numel()) * 4)
-                ops = 2 * covered * K * N * len(weights)
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
-                r = dict(max_abs_err=err, out_magnitude=top, ms=ms, plain_ms=plain_ms,
-                         bound_ms=1e3 * max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
-                results[(proj, bits, layout)] = r
-                emit(dict(phase="kernel", kernel="moe_quant_decode_pair" if proj == "gate_up" else "moe_quant_decode",
-                          shape=name, R=x.shape[0], K=K, N=N, E=E, bits=bits, group=GROUP if bits == 4 else None,
-                          active_experts=n_active, rows_in_groups=covered, tol=MOE_QUANT_TOL * top, bytes=nbytes,
-                          ops=ops, library=lib_name + " on pre-dequantized bf16 weights", **r,
-                          card=card["nvidia_smi"]))
+                yield dict(name=f"{proj}_int{bits}_{layout}", proj=proj, bits=bits, layout=layout, K=K, N=N, E=E,
+                           x=x, weights=weights, sizes=sizes, active=active, starts=starts, order=order,
+                           n_active=int((active >= 0).sum()), covered=int(sizes.sum()),
+                           args=(x, *[t for pair in weights for t in pair], sizes, active, starts))
         del gate, up, down
         torch.cuda.empty_cache()
+
+
+def check_moe_quant(torch, name, got, want, covered):
+    """Outputs finite, within MOE_QUANT_TOL of the plain version's largest
+    magnitude, and 0 on the rows outside every group: (error, magnitude)."""
+    if not all(torch.isfinite(g).all() for g in got):
+        fail(f"moe_quant {name}: kernel output is not finite")
+    top = max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not err <= MOE_QUANT_TOL * top:
+        fail(f"moe_quant {name}: differs from the plain version by {err} at magnitude {top}")
+    if not all(torch.all(g[covered:] == 0) for g in got):
+        fail(f"moe_quant {name}: rows outside every group are not zero")
+    return err, top
+
+
+def phase_moe_quant_kernels(torch, card):
+    """Every moe_quant_cases case against its plain version, timed beside
+    the library yardstick, with the rate at which it reads the active
+    experts' weights and scales and the stream probe's on the same bytes."""
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 3)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    results = {}
+    for c in moe_quant_cases(torch, gen):
+        args, weights, K, N, sizes = c["args"], c["weights"], c["K"], c["N"], c["sizes"]
+        if c["proj"] == "gate_up":
+            kernel = lambda: MQ.grouped_quant_matmul_pair_cuda(*args)
+            plain = lambda: MQ.plain_grouped_quant_matmul_pair(*args)
+        else:
+            kernel = lambda: (MQ.grouped_quant_matmul_cuda(*args),)
+            plain = lambda: (MQ.plain_grouped_quant_matmul(*args),)
+        got = kernel()
+        torch.cuda.synchronize()
+        err, top = check_moe_quant(torch, c["name"], got, plain(), c["covered"])
+        ms = time_ms(torch, kernel, flush)
+        plain_ms = time_ms(torch, plain, flush, runs=3)
+        # Yardstick: torch._grouped_mm (or the matmul loop) over the same
+        # rows in expert order, on bf16 weights dequantized ahead of time.
+        x, covered, n_active = c["x"], c["covered"], c["n_active"]
+        x_sorted = x[:covered][c["order"][:covered]].contiguous()
+        libs = [library_grouped_mm(torch, x_sorted, MQ.dequantize_experts(q, sc, K).to(torch.bfloat16), sizes)
+                for q, sc in weights]
+        lib_name = libs[0][0]
+        library_ms = time_ms(torch, lambda: [fn() for _, fn in libs], flush)
+        del libs
+        w_bytes = sum(q[0].numel() * q.element_size() + sc[0].numel() * sc.element_size() for q, sc in weights)
+        nbytes = (x.numel() * 2 + n_active * w_bytes + len(weights) * x.shape[0] * N * 4
+                  + (c["active"].numel() + c["starts"].numel() + sizes.numel()) * 4)
+        ops = 2 * covered * K * N * len(weights)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+        probe_bytes, probe = moe_probe(torch, n_active * w_bytes, weights[0][0].shape[-1])
+        probe_ms = time_ms(torch, probe, flush)
+        rate, probe_rate = n_active * w_bytes / (ms * 1e-3), probe_bytes / (probe_ms * 1e-3)
+        r = dict(max_abs_err=err, out_magnitude=top, ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms,
+                 weight_gb_per_s=rate / 1e9, probe_ms=probe_ms, probe_gb_per_s=probe_rate / 1e9,
+                 of_probe=rate / probe_rate)
+        del probe
+        results[(c["proj"], c["bits"], c["layout"])] = r
+        emit(dict(phase="kernel", kernel="moe_quant_decode_pair" if c["proj"] == "gate_up" else "moe_quant_decode",
+                  shape=c["name"], R=x.shape[0], K=K, N=N, E=c["E"], bits=c["bits"],
+                  group=GROUP if c["bits"] == 4 else None, active_experts=n_active, rows_in_groups=covered,
+                  tol=MOE_QUANT_TOL * top, bytes=nbytes, ops=ops,
+                  library=lib_name + " on pre-dequantized bf16 weights", **r, card=card["nvidia_smi"]))
     return results
 
 

@@ -3,10 +3,14 @@
 // K3/K4 tile kernel (quant_matmul.cu).
 //
 // Users: quant_gemv.cu (K12a gemv, scalellm_tpu/ops/quant_matmul.py:304
-// _gemv_kernel) and quant_mlp.cu (K11, scalellm_tpu/ops/quant_mlp.py:78
-// _mlp_kernel, both of its matmuls). Layouts as in quant_matmul.cu: x bf16
-// [M, K]; qweight [N, K/2] int4 or [N, K] int8, K-contiguous; scales f32 or
-// bf16 [K/G, N]; zeros s8 [K/G, N] or none.
+// _gemv_kernel), quant_mlp.cu (K11, scalellm_tpu/ops/quant_mlp.py:78
+// _mlp_kernel, both of its matmuls) and moe_quant.cu (K7/K8, the routed
+// experts: a job's weight rows start at its expert's first row of a stacked
+// [E N, K] map, its x box at the expert's first token row, and int8's
+// channel scale is applied after the whole-K sum, so the job has no scales).
+// Layouts as in quant_matmul.cu: x bf16 [M, K]; qweight [N, K/2] int4 or
+// [N, K] int8, K-contiguous; scales f32 or bf16 [K/G, N]; zeros s8 [K/G, N]
+// or none.
 //
 // What it computes, for the R weight rows of a block and M <= 64 tokens:
 // per span of K (128 where G % 128 == 0, else 32) an f32 dot of the bf16
@@ -39,7 +43,8 @@
 //     unchanged and no shared-memory read has a bank conflict. int4 unpacks
 //     by quant_unpack.cuh's unpack_int4_step (13 instructions a k16 step:
 //     unpack_int4_frag's bit placement with one logic op a register), int8
-//     by its int8_pair;
+//     by its int8_step (the f32 2^23 bit placement: no int-to-float
+//     converts, whose quarter rate held int8 back);
 //   - a ring of up to 8 stages in shared memory, as deep as the shared
 //     memory of the blocks an SM holds allows, filled by one producer warp
 //     with TMA alone (the stage's x as one 3-D box of 32- or 16-K pieces,
@@ -260,10 +265,10 @@ struct SmStage {
 // token tile's rows past M read whatever follows (the next piece, the
 // weights), which only reaches the output columns of tokens past M, never
 // written. The layout below leaves room for the 8 NT rows.
-__host__ __device__ inline SmStage sm_stage(int bits, int nt, int rw, int ks, int span, int parts) {
+__host__ __device__ inline SmStage sm_stage(int bits, int nt, int rw, int ks, int span, int parts, int wide = 1) {
   SmStage s;
   s.rh = 8 * rw;
-  const int base = bits == 4 ? 2 : 1;  // chunks of one 128-byte weight box
+  const int base = (bits == 4 ? 2 : 1) * wide;  // chunks of `wide` 128-byte weight boxes
   s.cps = ks > base ? ks : base;
   s.xk = bits == 4 ? 32 : 16;
   const int stage_k = kSmChunkK * s.cps;
@@ -275,19 +280,23 @@ __host__ __device__ inline SmStage sm_stage(int bits, int nt, int rw, int ks, in
   return s;
 }
 
-// One job: R = 2 rh rows of one weight matrix over all of its K.
+// One job: R = 2 rh rows of one weight matrix over all of its K. K need
+// only be a multiple of 16 bytes of weights: a last chunk past K reads the
+// zeros TMA fills in (x and weights alike) and folds no span past K.
 struct SmJob {
   const CUtensorMap* xmap;   // B operand, bf16 [M, K] as pieces of xk K (piece_map), boxes of M rows, a stage
   const CUtensorMap* wmap;   // qweight, u8 [rows, K * bits / 8], boxes [rh, 128], 128-byte swizzle
   const CUtensorMap* xsmap;  // sums of x, f32 [(K / span) * parts, 8 NT], boxes [xs_rows, 8 NT]; null: symmetric
-  const void* scales;        // [K / G, ld]
+  const void* scales;        // [K / G, ld]; null: every scale 1
   const int8_t* zeros;       // [K / G, ld] or null
   int ld;                    // the scales' row length: the weight's N
-  int row_a, row_b;          // first weight row of each half
+  int row_a, row_b;          // first weight row of each half (of the scales; of wmap less w_row0)
   int valid_a, valid_b;      // rows of each half below N (0 .. rh)
   int K, G, span, parts;
   int rw, ks;                // row warps, K slices (rw * ks consumer warps, at most 8)
   SmStage st;
+  int w_row0 = 0;            // wmap's row of the scales' row 0 (an expert's first row)
+  int x_row = 0;             // the x box's first token row
 };
 
 // The producer warp: every stage of the job into the ring, all of it by
@@ -311,24 +320,24 @@ __device__ __forceinline__ void sm_produce(const SmJob& j, uint8_t* ring, int sl
     if (g >= stages) mbar_wait(&empty[slot], (g / stages - 1) & 1);
     uint8_t* st = ring + (size_t)slot * slot_bytes;
     const int k0 = t * stage_k;
-    const int kn = sm_min(stage_k, j.K - k0);  // a multiple of 128
+    const int kn = sm_min(stage_k, j.K - k0);  // short at the end of a K that is no multiple of the stage
     const int nwb = (kn * BITS / 8 + 127) / 128;
     if (lane == 0) {
       const int halves = (j.valid_a > 0) + (j.valid_b > 0);
       mbar_arrive_expect_tx(&full[slot], x_bytes + halves * nwb * wbox + (j.xsmap != nullptr ? xs_bytes : 0));
-      tma_load_3d(st + s.x_off, j.xmap, 0, 0, k0 / s.xk, &full[slot]);
+      tma_load_3d(st + s.x_off, j.xmap, 0, j.x_row, k0 / s.xk, &full[slot]);
       if (j.xsmap != nullptr) tma_load_2d(st + s.xs_off, j.xsmap, 0, k0 / j.span * j.parts, &full[slot]);
     }
     __syncwarp();
     if (lane < 2 * nwb) {
       const int h = lane >= nwb, b = lane - h * nwb;
       if ((h ? j.valid_b : j.valid_a) > 0)
-        tma_load_2d(st + s.w_off + (h * nwb_half + b) * wbox, j.wmap, k0 * BITS / 8 + 128 * b, h ? j.row_b : j.row_a,
-                    &full[slot]);
+        tma_load_2d(st + s.w_off + (h * nwb_half + b) * wbox, j.wmap, k0 * BITS / 8 + 128 * b,
+                    j.w_row0 + (h ? j.row_b : j.row_a), &full[slot]);
     }
     // The stage's scale and zero-point rows into L2 (a 128-byte line a lane),
     // where the consumers read them.
-    const int g0 = k0 / j.G, nw = (k0 + kn - 1) / j.G - g0 + 1;
+    const int g0 = k0 / j.G, nw = j.scales != nullptr ? (k0 + kn - 1) / j.G - g0 + 1 : 0;
     for (int i = lane; i < 2 * nw; i += 32) {
       const int h = i & 1;
       const int valid = h ? j.valid_b : j.valid_a;
@@ -355,7 +364,7 @@ __device__ __forceinline__ void sm_prefetch_weights(const SmJob& j, int stages, 
   for (int i = lane; i < 2 * nwb * n_st; i += 32) {
     const int t = i / (2 * nwb), h = (i / nwb) & 1, b = i % nwb;
     if ((h ? j.valid_b : j.valid_a) > 0)
-      tma_prefetch_2d(j.wmap, t * stage_k * BITS / 8 + 128 * b, h ? j.row_b : j.row_a);
+      tma_prefetch_2d(j.wmap, t * stage_k * BITS / 8 + 128 * b, j.w_row0 + (h ? j.row_b : j.row_a));
   }
 }
 
@@ -406,6 +415,7 @@ __device__ __forceinline__ void sm_consume(const SmJob& j, const uint8_t* ring, 
   const uint32_t xbox = M * s.xk * 2;  // a piece of x: M token rows
   const int nwb_half = stage_k * BITS / 8 / 128;
   const bool asym = j.zeros != nullptr;
+  const bool unit = j.scales == nullptr;
   const int es = scales_bf16 ? 2 : 4;
   const __nv_bfloat162 off = __float2bfloat162_rn(136.f);
   const uint32_t mask = 0x000F000Fu, magic = 0x43084308u;  // unpack_int4_step's constants
@@ -424,7 +434,7 @@ __device__ __forceinline__ void sm_consume(const SmJob& j, const uint8_t* ring, 
   for (int t = 0; t < n_st; ++t, ++g) {
     const int slot = g % stages;
     const int k0 = t * stage_k;
-    const int n_ck = sm_min(stage_k, j.K - k0) / kSmChunkK;
+    const int n_ck = (sm_min(stage_k, j.K - k0) + kSmChunkK - 1) / kSmChunkK;
     mbar_wait(&full[slot], (g / stages) & 1);
     const uint32_t st = smem_addr(ring) + (uint32_t)(slot * slot_bytes);
     for (int c = slice; c < n_ck; c += j.ks) {
@@ -437,15 +447,17 @@ __device__ __forceinline__ void sm_consume(const SmJob& j, const uint8_t* ring, 
           e_a += j.ld;
           e_b += j.ld;
         }
-        sa[h] = sb[h] = za[h] = zb[h] = 0.f;
-        if (es == 2) {
+        sa[h] = sb[h] = unit ? 1.f : 0.f;
+        za[h] = zb[h] = 0.f;
+        const bool live = !unit && kc + kSpan * h < j.K;  // a span past K folds a zero dot, times 0
+        if (live && es == 2) {
           if (ok_a) sa[h] = __bfloat162float(static_cast<const bf16*>(j.scales)[e_a]);
           if (ok_b) sb[h] = __bfloat162float(static_cast<const bf16*>(j.scales)[e_b]);
-        } else {
+        } else if (live) {
           if (ok_a) sa[h] = static_cast<const float*>(j.scales)[e_a];
           if (ok_b) sb[h] = static_cast<const float*>(j.scales)[e_b];
         }
-        if (asym) {
+        if (asym && live) {
           if (ok_a) za[h] = (float)j.zeros[e_a];
           if (ok_b) zb[h] = (float)j.zeros[e_b];
         }
@@ -494,10 +506,7 @@ __device__ __forceinline__ void sm_consume(const SmJob& j, const uint8_t* ring, 
           // token's 4t..4t+3.
           if (k % 2 == 0) ldmatrix_x4(wrow + (((k + lm_col) ^ lm_row) << 4), wr);
           const int p = k & 1;
-          a[0] = int8_pair<false>(wr[2 * p] & 0xFFFFu, 0.f, 0.f, false);
-          a[1] = int8_pair<false>(wr[2 * p + 1] & 0xFFFFu, 0.f, 0.f, false);
-          a[2] = int8_pair<false>(wr[2 * p] >> 16, 0.f, 0.f, false);
-          a[3] = int8_pair<false>(wr[2 * p + 1] >> 16, 0.f, 0.f, false);
+          int8_step(wr[2 * p], wr[2 * p + 1], a);
 #pragma unroll
           for (int n = 0; n < NT; ++n) {
             const uint2 xv = lds64(xc + k * xbox + (8 * n + gid) * 32 + tig * 8);

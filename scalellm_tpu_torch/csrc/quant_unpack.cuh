@@ -115,4 +115,21 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t pair, float s, float z, b
   return pack_bf16x2(q[0], q[1]);
 }
 
+// The four A-fragment words of one k16 step of int8 weights (wa: row r0's
+// 4 consecutive K, wb: row r1's): out = [r0 K 0-1, r1 K 0-1, r0 K 2-3, r1
+// K 2-3] as bf16 pairs, exact and without integer-to-float converts: a
+// weight q made unsigned (q + 128) in the low byte of the f32 2^23 reads as
+// 2^23 + q + 128, one subtraction gives q, and an integer |q| <= 128 in f32
+// has its bf16 in the high half, so one byte-permute packs two.
+__device__ __forceinline__ void int8_step(uint32_t wa, uint32_t wb, uint32_t (&out)[4]) {
+  const uint32_t w[2] = {wa ^ 0x80808080u, wb ^ 0x80808080u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t word = w[j & 1], b0 = 2 * (j >> 1);
+    const float f0 = __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440 | b0)) - 8388736.f;
+    const float f1 = __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440 | (b0 + 1))) - 8388736.f;
+    out[j] = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  }
+}
+
 }  // namespace scalellm_quant

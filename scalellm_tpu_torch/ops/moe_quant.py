@@ -23,8 +23,8 @@ Dispatch (the reference's decisions):
   - rows <= 256 and the TPU kernel's VMEM budget (fits_decode_kernel, kept
     because it decides which numerics an int4 call gets): K7 (one
     projection) or K8 (gate and up in one launch), over the active experts.
-    int4: per-group f32 dots times the group's scale; int8: the whole-K dot
-    times the channel scale.
+    int4: per-span f32 dots (a span is the group at G = 128) times the
+    group's scale; int8: the whole-K dot times the channel scale.
   - otherwise the experts are dequantized to bf16 (int4: q * s in f32,
     rounded once; int8: q cast) and run through K6 (ops/grouped_matmul.py),
     then int8 rows are multiplied by their expert's channel scales. K6 needs
@@ -206,20 +206,35 @@ def ref_grouped_quant_matmul(xs: torch.Tensor, qweight: torch.Tensor, scales: to
     return out
 
 
+def fold_span(bits: int, G: int) -> int:
+    """The K of one f32 dot the kernels fold into a row's sum: int4 128
+    where G % 128 == 0 (one group at G = 128), else 32; int8 128 (its
+    channel scale comes after the whole-K sum)."""
+    return 128 if bits == 8 or G % 128 == 0 else 32
+
+
 def _plain_rows(xs, qweight, scales, lo, hi, e, bits):
-    """What the kernel computes for rows [lo, hi) of expert e, f32."""
+    """What the kernel computes for rows [lo, hi) of expert e, f32: the f32
+    dot of each span of K (fold_span; a last span past K is short), int4
+    times the span's group scale, added in span order; int8's sum times the
+    channel scale."""
     x = xs[lo:hi].to(torch.bfloat16).float()
     K = xs.shape[1]
-    if bits == 8:
-        return (x @ qweight[e].float().T) * scales[e].float()
-    n_g = scales.shape[1]
-    G = K // n_g
-    q = unpack_experts(qweight[e]).float()  # [N, K]
-    dots = torch.bmm(x.view(-1, n_g, G).transpose(0, 1), q.view(-1, n_g, G).permute(1, 2, 0))
-    s = scales[e].float()
+    q = (qweight[e] if bits == 8 else unpack_experts(qweight[e])).float()  # [N, K]
+    G = K // scales.shape[1] if bits == 4 else K
+    span = fold_span(bits, G)
+    n_sp = -(-K // span)
+    pad = n_sp * span - K
+    x, q = torch.nn.functional.pad(x, (0, pad)), torch.nn.functional.pad(q, (0, pad))
+    dots = torch.bmm(x.view(-1, n_sp, span).transpose(0, 1), q.view(-1, n_sp, span).permute(1, 2, 0))
     y = torch.zeros_like(dots[0])
-    for grp in range(n_g):  # the groups in order, as the kernel adds them
-        y += dots[grp] * s[grp]
+    if bits == 8:
+        for sp in range(n_sp):  # the spans in order, as the kernel adds them
+            y += dots[sp]
+        return y * scales[e].float()
+    s = scales[e].float()
+    for sp in range(n_sp):
+        y += dots[sp] * s[sp * span // G]
     return y
 
 
@@ -228,9 +243,10 @@ def plain_grouped_quant_matmul(xs: torch.Tensor, qweight: torch.Tensor, scales: 
                                starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """What csrc/moe_quant.cu's K7 computes, f32 [R, N]: for each active
     expert (every expert with rows when active is None), its rows of xs
-    (bf16) times its weights, int4 as per-group f32 dots times the group's
-    scale summed in group order, int8 as the whole-K dot times the channel
-    scale; 0 on rows outside every group."""
+    (bf16) times its weights, int4 as f32 dots over spans of K (one group
+    at G = 128) times the span's group scale summed in span order, int8 as
+    the whole-K dot times the channel scale; 0 on rows outside every
+    group."""
     R, K = xs.shape
     bits = expert_bits(K, qweight)
     E = qweight.shape[0]
@@ -392,7 +408,7 @@ def _check_cuda_operands(xs, weights, group_sizes, active, starts):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     G = K // scales.shape[1] if bits == 4 else K
-    if N % 8 or -(-N // 128) > 65535 or (G % 32 if bits == 4 else K % 64):
+    if N % 8 or (G % 32 if bits == 4 else K % 64):
         raise NotImplementedError(
             f"the routed-expert kernels need N % 8 == 0 and, for int4, G % 32 == 0, for int8, "
             f"K % 64 == 0; got K={K}, N={N}, G={G}, bits={bits}")

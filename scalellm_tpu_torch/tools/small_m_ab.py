@@ -9,6 +9,9 @@ kernels they replaced (the sources of commit 94e0989).
 headers into build/; their entry points take the scratch of the first
 kernels (gemv: the inverse RMS and the split-K partials, split as the w4a8g
 wrapper still splits; quant_mlp: the per-slice partials and a rows tile).
+A base whose gemv entry point takes `k_slices` (commit 47fae36 on, e.g.
+`git archive 0c56751` into build/small_m_parent) has the wrappers' own
+interface: its libraries are then called through the wrappers themselves.
 
 Cases: chip_smoke.py phase 3e's gemv shapes at M = 1, 16, 64 (the RMSNorm
 prologue inside the call where plan() fuses it) and K11 at the 8B MLP at M
@@ -57,17 +60,32 @@ def build_base(csrc):
     return jobs
 
 
-def bind_base(jobs):
+def bind_base(jobs, same_interface):
+    """{name: entry point}, or with same_interface {name: library}."""
     fns = {}
     for name, (proc, lib) in jobs.items():
         log, _ = proc.communicate(timeout=900)
         if proc.returncode != 0:
             CS.fail(f"the base {name}.cu did not build:\n{log[-4000:]}")
+        if same_interface:
+            fns[name] = ctypes.CDLL(str(lib))
+            continue
         entry = BASE_SOURCES[name]
         fn = getattr(ctypes.CDLL(str(lib)), entry)
         fn.argtypes, fn.restype = BASE_ARGTYPES[entry], ctypes.c_int
         fns[name] = fn
     return fns
+
+
+def through(libs, fn):
+    """fn() with the port's wrappers loading the base libraries (a base with
+    the wrappers' interface)."""
+    real = _build.load
+    _build.load = lambda name: libs[name]
+    try:
+        return fn()
+    finally:
+        _build.load = real
 
 
 def base_gemv(fn, x, qweight, scales, zeros, bits, gamma, eps=1e-5):
@@ -112,7 +130,7 @@ def base_mlp(fn, x, gate_up, down, F, bits):
     return out
 
 
-def gemv_ab(card, fns, flush):
+def gemv_ab(card, fns, flush, same_interface):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(CS.SEED + 4)
     for shape, asym in CS.SMALL_M_SHAPES:
@@ -131,7 +149,10 @@ def gemv_ab(card, fns, flush):
                     x, gamma = Q.rms_prologue(x, gamma, 1e-5), None
             args = (x, qweight, scales, zeros, bits)
             new = lambda: Q.quant_gemv_cuda(*args, gamma, 1e-5)
-            old = lambda: base_gemv(fns["quant_gemv"], *args, gamma)
+            if same_interface:
+                old = lambda: through(fns, new)
+            else:
+                old = lambda: base_gemv(fns["quant_gemv"], *args, gamma)
             want = Q.plain_gemv(*args, gamma, 1e-5).to(torch.bfloat16)
             errs = [CS.check_quant(torch, f"{tag} gemv {shape} M={M}", fn(), want)[0]
                     for tag, fn in (("base", old), ("new", new))]
@@ -145,7 +166,7 @@ def gemv_ab(card, fns, flush):
         torch.cuda.empty_cache()
 
 
-def mlp_ab(card, fns, flush):
+def mlp_ab(card, fns, flush, same_interface):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(CS.SEED + 5)
     D, F = CS.MLP_D, CS.MLP_F
@@ -156,7 +177,10 @@ def mlp_ab(card, fns, flush):
     for M in CS.MLP_ROWS:
         x = (torch.randn(M, D, generator=gen, device="cuda") + 0.25).to(torch.bfloat16)
         new = lambda: QM.quant_mlp_cuda(x, gate_up, down, F, 4, "silu")
-        old = lambda: base_mlp(fns["quant_mlp"], x, gate_up, down, F, 4)
+        if same_interface:
+            old = lambda: through(fns, new)
+        else:
+            old = lambda: base_mlp(fns["quant_mlp"], x, gate_up, down, F, 4)
         want = QM.plain_quant_mlp(x, gate_up, down, F, 4, "silu")
         top = want.abs().max().item()
         errs = []
@@ -175,13 +199,15 @@ def mlp_ab(card, fns, flush):
 def main():
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         CS.fail("usage on a CUDA card: python3 -m scalellm_tpu_torch.tools.small_m_ab BASE_CSRC_DIR")
+    with open(os.path.join(sys.argv[1], "quant_gemv.cu")) as f:
+        same_interface = "int k_slices" in f.read()
     card = CS.phase_device(torch)
     jobs = build_base(sys.argv[1])
     _build.build(["quant_gemv", "quant_mlp"])
-    fns = bind_base(jobs)
+    fns = bind_base(jobs, same_interface)
     flush = torch.empty(CS.FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    gemv_ab(card, fns, flush)
-    mlp_ab(card, fns, flush)
+    gemv_ab(card, fns, flush, same_interface)
+    mlp_ab(card, fns, flush, same_interface)
 
 
 if __name__ == "__main__":

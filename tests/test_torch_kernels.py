@@ -518,8 +518,17 @@ MOE_QUANT_CASES = {
     "v2_lite_down_int8": (16, 8, 64, 6, 1408, 2048, 8, 0),
     # Groups of 32 (4-byte weight loads) and experts without rows.
     "int4_g32_empty_experts": (8, 4, 16, 2, 256, 64, 4, 32),
-    # 192 rows over 8 experts: each expert walks two or more 16-row tiles.
+    # 192 rows over 8 experts: each expert walks two or more boxes of 16 rows.
     "t32_row_tiles": (32, 0, 8, 6, 256, 128, 4, 128),
+    # N = 264, no multiple of a block's rows (64-128): a last block of 8.
+    "n264_ragged_row_block": (16, 8, 16, 4, 256, 264, 4, 128),
+    # G = 96 (spans of 32) at K = 288, no multiple of the 128-K chunk.
+    "int4_g96_k288": (16, 0, 16, 4, 288, 136, 4, 96),
+    # 11 groups of 32 (K = 352) and an int8 K of 192: a last chunk past K.
+    "int4_g32_k352": (8, 0, 8, 2, 352, 64, 4, 32),
+    "int8_k192": (16, 0, 16, 4, 192, 128, 8, 0),
+    # Two rows in all: x's box of 8 rows reaches past R.
+    "two_rows": (1, 0, 8, 2, 256, 64, 4, 128),
 }
 
 
@@ -572,6 +581,88 @@ def test_moe_quant_kernels_take_the_single_token_layout(cuda):
         for got, want in ((g, want_g), (d, want_d)):
             torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
             assert torch.all(got[k:] == 0)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_moe_quant_kernels_walk_an_expert_of_200_rows(cuda, bits):
+    """256 rows, 200 of them one expert's (its weights re-read for each box
+    of rows), one expert without rows and 4 rows outside every group."""
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    rng = np.random.default_rng(4)
+    E, K, N = 4, 256, 128
+    sizes = torch.tensor([200, 30, 0, 22], dtype=torch.int32, device=cuda)
+    xs = torch.from_numpy(rng.standard_normal((256, K)).astype(np.float32)).to(cuda, torch.bfloat16)
+    (qg, sg), (qu, su) = (_quant_experts(rng, E, K, N, bits, 128, cuda) for _ in range(2))
+    active, starts = MQ.active_experts(sizes), MQ.expert_starts(sizes)
+    g, u = MQ.grouped_quant_matmul_pair_cuda(xs, qg, sg, qu, su, sizes, active, starts)
+    only_u = MQ.grouped_quant_matmul_cuda(xs, qu, su, sizes, active, starts)
+    torch.cuda.synchronize()
+    want_g, want_u = MQ.plain_grouped_quant_matmul_pair(xs, qg, sg, qu, su, sizes, active, starts)
+    for got, want in ((g, want_g), (u, want_u)):
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+        assert torch.all(got[252:] == 0)
+    assert torch.equal(only_u, u)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_moe_quant_kernel_fragment_order(cuda, bits):
+    """One nonzero weight a row, every scale 1: row n of expert e holds v(n)
+    at K = (7 n + 37 e + 3) % K, so out[t, n] = v(n) * xs[t, that K], exact.
+    A K, column or row out of place moves the output to another element of
+    xs. N = 264 (a last row block of 8), rows of 3 experts in the T=1
+    order (starts not sorted) and one row outside every group."""
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    E, K, N, R = 3, 512, 264, 9
+    sizes = torch.tensor([3, 2, 3], dtype=torch.int32)
+    starts = torch.tensor([5, 0, 2], dtype=torch.int32)
+    n = torch.arange(N)
+    v = (n % 15) - 7
+    v[v == 0] = 7
+    cols = torch.stack([(7 * n + 37 * e + 3) % K for e in range(E)])  # [E, N]
+    w = torch.zeros(E, N, K, dtype=torch.int32)
+    w.scatter_(2, cols[..., None], v.expand(E, N)[..., None].to(torch.int32))
+    if bits == 4:
+        qw = ((w[..., 0::2] & 0xF) | ((w[..., 1::2] & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+        sc = torch.ones(E, K // 128, N, dtype=torch.bfloat16)
+    else:
+        qw, sc = w.to(torch.int8), torch.ones(E, N)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((R, K)).astype(np.float32)).to(torch.bfloat16)
+    active = torch.tensor([2, 0, 1], dtype=torch.int32)
+    got = MQ.grouped_quant_matmul_cuda(x.to(cuda), qw.to(cuda), sc.to(cuda), sizes.to(cuda), active.to(cuda),
+                                       starts.to(cuda))
+    torch.cuda.synchronize()
+    want = torch.zeros(R, N)
+    for e in range(E):
+        rows = slice(int(starts[e]), int(starts[e] + sizes[e]))
+        want[rows] = v.float() * x[rows].float()[:, cols[e]]
+    assert torch.equal(got.cpu(), want)
+
+
+def test_moe_quant_kernels_give_the_same_bits_on_every_call(cuda):
+    """20 calls of K8 and K7 at the T=1 layout and at the decode step (96
+    rows, 64 experts) give the same bits: no atomics, a fixed fold order."""
+    from scalellm_tpu_torch.layers.moe import single_token_layout
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    rng = np.random.default_rng(7)
+    E, k, D, F = 64, 6, 2048, 1408
+    (qg, sg), (qu, su) = (_quant_experts(rng, E, D, F, 4, 128, cuda) for _ in range(2))
+    qd, sd = _quant_experts(rng, E, F, D, 4, 128, cuda)
+    topk_e = torch.from_numpy(rng.permutation(E)[:k].reshape(1, k)).to(cuda)
+    Tp, sizes1, starts1, active1, _ = single_token_layout(topk_e, torch.ones(1, k, device=cuda), E)
+    xs, sizes = _routed_rows(rng, 16, E, k, D, 8)
+    xs, sizes = torch.from_numpy(xs).to(cuda, torch.bfloat16), torch.from_numpy(sizes).to(cuda)
+    layouts = [(xs[:Tp].contiguous(), sizes1, active1, starts1),
+               (xs, sizes, MQ.active_experts(sizes, E), MQ.expert_starts(sizes))]
+    for x, gs, active, starts in layouts:
+        h = x[:, :F].contiguous()
+        calls = lambda: (*MQ.grouped_quant_matmul_pair_cuda(x, qg, sg, qu, su, gs, active, starts),
+                         MQ.grouped_quant_matmul_cuda(h, qd, sd, gs, active, starts))
+        first = calls()
+        for _ in range(19):
+            assert all(torch.equal(a, b) for a, b in zip(calls(), first))
 
 
 def test_moe_quant_dispatch_takes_the_grouped_gemm_past_256_rows(cuda):

@@ -12,6 +12,12 @@ inputs:
   a power of two). Inputs are bf16 values, so every product is exact in f32
   on both sides and only the order of the f32 sums differs: tolerance 1e-5
   of the output's largest magnitude;
+- the plain K7/K8's fold (fold_span: f32 dots over 128- or 32-K spans,
+  int4 times the span's group scale, added in span order; int8's sum times
+  the channel scale) against a numpy emulation of that order and against
+  the float reference, at G = 128, 256, 96 and 32 and at a K that is no
+  multiple of the kernels' 128-K chunk (tolerance 1e-6 of the output's
+  largest magnitude against the emulation, 1e-5 against the reference);
 - the dispatcher's decision (fits_decode_kernel) at 96, 192 and 384 rows at
   DeepSeek-V2-Lite's expert shapes, equal to the reference's;
 - the >256-row path against the JAX package's CPU grouped_quant_matmul,
@@ -171,6 +177,47 @@ def test_plain_decode_kernels_match_pallas_interpret_and_reference(bits, layout)
         port_ref = TQ.ref_grouped_quant_matmul(_t(x), *port_w, _t(sizes),
                                                None if starts is None else _t(starts))
         _close(port_ref.numpy(), np.asarray(ref))
+
+
+# (bits, K, G): one span a group (int4 at G = 128), two spans a group (G =
+# 256), spans of 32 (G = 96 at K = 288, G = 32 at K = 352: K no multiple of
+# 128), int8 whole-K sums with a last span of 64 (K = 192) and without.
+FOLD_CASES = [(4, 256, 128), (4, 512, 256), (4, 288, 96), (4, 352, 32), (8, 192, 0), (8, 256, 0)]
+
+
+def _span_fold(x, q, s, bits, G):
+    """The kernels' order in numpy: each span's dot (exact products, summed
+    in float64 and rounded to f32 once), int4 times its group's scale, added
+    in f32 in span order; int8's sum times the channel scale in f32."""
+    K = x.shape[1]
+    span = TQ.fold_span(bits, G)
+    y = np.zeros((x.shape[0], q.shape[0]), np.float32)
+    for k0 in range(0, K, span):
+        d = (x[:, k0:k0 + span].astype(np.float64) @ q[:, k0:k0 + span].T.astype(np.float64)).astype(np.float32)
+        y = y + (d * s[k0 // G] if bits == 4 else d)
+    return y if bits == 4 else y * s
+
+
+@pytest.mark.parametrize("bits,K,G", FOLD_CASES)
+def test_plain_kernels_follow_the_span_fold(bits, K, G):
+    rng = np.random.default_rng(60 + K + bits)
+    N = 24
+    w = (rng.standard_normal((E, K, N)) * 0.05).astype(np.float32)
+    jq, js = JQ.quantize_experts_int4(w, G) if bits == 4 else JQ.quantize_experts_int8(w)
+    pq, ps = _t(jq).transpose(1, 2).contiguous(), _t(js)
+    sizes = np.array([2, 0, 3, 1, 0, 0, 2, 0], np.int32)
+    xs = _bf16_values(rng.standard_normal((9, K)))  # the last row in no group
+    got = TQ.plain_grouped_quant_matmul(_t(xs), pq, ps, _t(sizes)).numpy()
+    q = (TQ.unpack_experts(pq) if bits == 4 else pq).float().numpy()  # [E, N, K]
+    s = ps.float().numpy()  # int4 [E, K/G, N]; int8 [E, N]
+    want = np.zeros_like(got)
+    for e, lo in enumerate(np.cumsum(sizes) - sizes):
+        if sizes[e]:
+            want[lo:lo + sizes[e]] = _span_fold(xs[lo:lo + sizes[e]], q[e], s[e], bits, G)
+    _close(got, want, 1e-6)
+    assert (got[8] == 0).all()
+    ref = JQ._ref_grouped_quant_matmul(jnp.asarray(xs), jnp.asarray(jq), jnp.asarray(js), jnp.asarray(sizes))
+    _close(got, np.asarray(ref))
 
 
 def test_active_list_and_starts_on_the_device():
