@@ -38,7 +38,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
         and prefill (3072 rows) steps, for gate/up (2048 -> 1408) and down
         (1408 -> 2048) (yardstick: torch._grouped_mm where the build has it,
         else a loop of torch.matmul over the experts with rows), and each
-        with both row tiles (16 and 64 rows a block); the MLA decode kernel
+        with both block shapes (weight rows x tokens: 64 x 16 and 128 x
+        64); the int4 expert dequantization that feeds K6
+        in phase 7, at the same two projections (64 experts, group 128), bit
+        for bit against its plain version, beside the PyTorch form it
+        replaced; the MLA decode kernel
         (K9) at 8 sequences of 16-600 tokens and
         the MLA prefill kernel (K10) on a mixed T = 512, S = 8 batch, 16
         heads over the 576-wide latent cache (yardstick:
@@ -102,7 +106,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
      quantize="int4"): experts and projections quantized on the card. Every
      engine step must launch exactly what the path implies: per MoE layer
      K8 and K7 once where the step's routed rows take the decode kernel (T
-     <= 32), else the grouped GEMM 3 times; K9/K10 as in phase 6; each
+     <= 32), else the expert dequantization and the grouped GEMM 3 times; K9/K10 as in phase 6; each
      quantized projection's kernel (w4a8 or dequant) as plan() picks it.
      Then the profile and the same kernel-vs-plain logits check, the
      kernels run twice: the two runs' logits must be the same bits (the MoE
@@ -712,6 +716,21 @@ def mla_library_inputs(torch, spec, inputs, v_dim):
     return qs, ks, ks[..., :v_dim], mask
 
 
+def gmm_cases(torch, gen):
+    """Phase 3c's K6 inputs at DeepSeek-V2-Lite's widths, as the engine runs
+    them: a decode step of 8 tokens padded to T=16 (the 8 padding rows
+    share one input), 96 rows; a 512-token step, 3072 rows; each for
+    gate/up (2048 -> 1408) and down (1408 -> 2048). Yields (step, proj, xs,
+    w, group sizes)."""
+    cfg = DEEPSEEK_V2_LITE
+    D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
+    for step, T, n_pad in (("decode", 16, 8), ("prefill", 512, 0)):
+        for proj, K, N in (("gate_up", D, Fm), ("down", Fm, D)):
+            xs, sizes = routed_rows(torch, gen, T, E, k, K, n_pad)
+            w = (torch.randn(E, N, K, generator=gen, device=DEVICE) * K ** -0.5).to(torch.bfloat16)
+            yield step, proj, xs, w, sizes
+
+
 def phase_moe_mla_kernels(torch, card):
     import torch.nn.functional as F
 
@@ -722,53 +741,50 @@ def phase_moe_mla_kernels(torch, card):
     gen.manual_seed(SEED + 2)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     cfg = DEEPSEEK_V2_LITE
-    D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
     gmm = {}
-    # As the engine runs them: a decode step of 8 tokens padded to T=16 (the
-    # 8 padding rows share one input), 96 rows; a 512-token step, 3072 rows.
-    for step, T, n_pad in (("decode", 16, 8), ("prefill", 512, 0)):
-        for proj, K, N in (("gate_up", D, Fm), ("down", Fm, D)):
-            xs, sizes = routed_rows(torch, gen, T, E, k, K, n_pad)
-            w = (torch.randn(E, N, K, generator=gen, device=DEVICE) * K ** -0.5).to(torch.bfloat16)
-            got = G.grouped_matmul_cuda(xs, w, sizes)
-            torch.cuda.synchronize()
-            want = G.plain_grouped_matmul(xs, w, sizes)
-            if not torch.isfinite(got).all():
-                fail(f"grouped_matmul {step} {proj}: kernel output is not finite")
-            top = want.abs().max().item()
-            err = (got - want).abs().max().item()
-            if not err <= GMM_TOL * top:
-                fail(f"grouped_matmul {step} {proj}: differs from the plain version by {err} at magnitude {top}")
-            lib_name, lib = library_grouped_mm(torch, xs, w, sizes)
-            lib_out = lib()  # one tensor, or the active experts' rows in order
-            lib_out = lib_out if isinstance(lib_out, torch.Tensor) else torch.cat(lib_out)
-            lib_err = (lib_out.float() - want).abs().max().item()
-            del lib_out
-            ms = time_ms(torch, lambda: G.grouped_matmul_cuda(xs, w, sizes), flush)
-            # The row tile's A/B: 16 rows a block (m_tiles 1) against 64 (4).
-            tiles = {m: time_ms(torch, lambda m=m: G.grouped_matmul_cuda(xs, w, sizes, m_tiles=m), flush)
-                     for m in (1, 4)}
-            tile_err = (G.grouped_matmul_cuda(xs, w, sizes, m_tiles=1)
-                        - G.grouped_matmul_cuda(xs, w, sizes, m_tiles=4)).abs().max().item()
-            emit(dict(phase="kernel_probe", kernel="grouped_matmul", shape=f"{step}_{proj}",
-                      what="row tile of 16 (m_tiles=1) vs 64 (m_tiles=4)", ms_m_tiles_1=tiles[1],
-                      ms_m_tiles_4=tiles[4], max_abs_diff=tile_err,
-                      default_m_tiles=4 if xs.shape[0] >= G.WIDE_TILE_ROWS_PER_EXPERT * E else 1,
-                      card=card["nvidia_smi"]))
-            plain_ms = time_ms(torch, lambda: G.plain_grouped_matmul(xs, w, sizes), flush, runs=3)
-            library_ms = time_ms(torch, lib, flush)
-            active = int((sizes > 0).sum())
-            nbytes = xs.numel() * 2 + active * N * K * 2 + sizes.numel() * 4 + xs.shape[0] * N * 4
-            ops = 2 * xs.shape[0] * K * N
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
-            r = dict(max_abs_err=err, out_magnitude=top, ms=ms, plain_ms=plain_ms,
-                     bound_ms=1e3 * max(t_bytes, t_ops),
-                     bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
-            gmm[(step, proj)] = r
-            emit(dict(phase="kernel", kernel="grouped_matmul", shape=f"{step}_{proj}", R=xs.shape[0], K=K,
-                      N=N, E=E, active_experts=active, tol=GMM_TOL * top, bytes=nbytes, ops=ops,
-                      library=lib_name, library_max_abs_err=lib_err, **r, card=card["nvidia_smi"]))
-            del xs, w, got, want
+    for step, proj, xs, w, sizes in gmm_cases(torch, gen):
+        E, N, K = w.shape
+        got = G.grouped_matmul_cuda(xs, w, sizes)
+        torch.cuda.synchronize()
+        want = G.plain_grouped_matmul(xs, w, sizes)
+        if not torch.isfinite(got).all():
+            fail(f"grouped_matmul {step} {proj}: kernel output is not finite")
+        top = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not err <= GMM_TOL * top:
+            fail(f"grouped_matmul {step} {proj}: differs from the plain version by {err} at magnitude {top}")
+        lib_name, lib = library_grouped_mm(torch, xs, w, sizes)
+        lib_out = lib()  # one tensor, or the active experts' rows in order
+        lib_out = lib_out if isinstance(lib_out, torch.Tensor) else torch.cat(lib_out)
+        lib_err = (lib_out.float() - want).abs().max().item()
+        del lib_out
+        ms = time_ms(torch, lambda: G.grouped_matmul_cuda(xs, w, sizes), flush)
+        # The block shapes' A/B: every (weight rows, tokens) of G.TILES
+        # on the same inputs, each against the wrapper's choice.
+        by_tile, diff_by_tile = {}, {}
+        for t, (rows, toks) in enumerate(G.TILES):
+            name = f"{rows}x{toks}"
+            by_tile[name] = time_ms(torch, lambda t=t: G.grouped_matmul_cuda(xs, w, sizes, tile=t), flush)
+            diff_by_tile[name] = (G.grouped_matmul_cuda(xs, w, sizes, tile=t) - got).abs().max().item()
+        default = G.TILES[G.tile_for(xs.shape[0], E)]
+        emit(dict(phase="kernel_probe", kernel="grouped_matmul", shape=f"{step}_{proj}",
+                  what="block shape (weight rows x tokens) A/B", ms_by_tile=by_tile,
+                  max_abs_diff_vs_default=diff_by_tile, default_tile=f"{default[0]}x{default[1]}",
+                  card=card["nvidia_smi"]))
+        plain_ms = time_ms(torch, lambda: G.plain_grouped_matmul(xs, w, sizes), flush, runs=3)
+        library_ms = time_ms(torch, lib, flush)
+        active = int((sizes > 0).sum())
+        nbytes = xs.numel() * 2 + active * N * K * 2 + sizes.numel() * 4 + xs.shape[0] * N * 4
+        ops = 2 * xs.shape[0] * K * N
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+        r = dict(max_abs_err=err, out_magnitude=top, ms=ms, plain_ms=plain_ms,
+                 bound_ms=1e3 * max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
+        gmm[(step, proj)] = r
+        emit(dict(phase="kernel", kernel="grouped_matmul", shape=f"{step}_{proj}", R=xs.shape[0], K=K,
+                  N=N, E=E, active_experts=active, tol=GMM_TOL * top, bytes=nbytes, ops=ops,
+                  library=lib_name, library_max_abs_err=lib_err, **r, card=card["nvidia_smi"]))
+        del xs, w, got, want
     torch.cuda.empty_cache()
 
     H, Dc, vd = cfg["num_attention_heads"], cfg["kv_lora_rank"] + cfg["qk_rope_head_dim"], cfg["kv_lora_rank"]
@@ -828,6 +844,62 @@ def phase_moe_mla_kernels(torch, card):
                   real_tokens=n_real, H=H, Dc=Dc, v_dim=vd, tol=KERNEL_TOL, bytes=nbytes, flops=flops,
                   library="scaled_dot_product_attention", **r, card=card["nvidia_smi"]))
     return gmm, mla
+
+
+def pytorch_expert_dequant(torch, qweight, scales, K):
+    """The PyTorch form that the expert dequantization kernel replaced in
+    ops/moe_quant.py: the sign-extended nibbles of each half, then one int8
+    x bf16 broadcast product a half, rounded once, with each row's even K
+    first and its odd K after."""
+    E, N, _ = qweight.shape
+    n_g = scales.shape[1]
+    s = scales.transpose(1, 2)[..., None]
+    w = torch.empty(E, N, 2, K // 2, dtype=torch.bfloat16, device=qweight.device)
+    for half, nibbles in enumerate(((qweight << 4) >> 4, qweight >> 4)):
+        torch.mul(nibbles.view(E, N, n_g, -1), s, out=w[:, :, half].view(E, N, n_g, -1))
+    return w.view(E, N, K)
+
+
+def phase_expert_dequant(torch, card):
+    """The INT4 expert dequantization at DeepSeek-V2-Lite's routed experts
+    (64 of them, group 128): gate/up (2048 -> 1408) and down (1408 -> 2048),
+    bit for bit against the plain version, timed beside the PyTorch form it
+    replaced and its bound (packed weights and scales read once, bf16
+    weights written once, over 3.35 TB/s)."""
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 4)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    cfg = DEEPSEEK_V2_LITE
+    D, Fm, E = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"]
+    results = {}
+    for proj, K, N in (("gate_up", D, Fm), ("down", Fm, D)):
+        qweight = torch.randint(-128, 128, (E, N, K // 2), generator=gen, device=DEVICE, dtype=torch.int8)
+        scales = ((torch.rand(E, K // GROUP, N, generator=gen, device=DEVICE) + 0.5) * 0.01).to(torch.bfloat16)
+        got = MQ.expert_dequant_cuda(qweight, scales, K)
+        torch.cuda.synchronize()
+        want = MQ.plain_dequantize_experts_bf16(qweight, scales, K)
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            fail(f"expert_dequant {proj}: the kernel's bf16 weights are not the plain version's bits")
+        old = pytorch_expert_dequant(torch, qweight, scales, K)
+        same_values = torch.equal(old, torch.cat([got[..., 0::2], got[..., 1::2]], dim=-1))
+        del old, want
+        ms = time_ms(torch, lambda: MQ.expert_dequant_cuda(qweight, scales, K), flush)
+        plain_ms = time_ms(torch, lambda: MQ.plain_dequantize_experts_bf16(qweight, scales, K), flush, runs=3)
+        form_ms = time_ms(torch, lambda: pytorch_expert_dequant(torch, qweight, scales, K), flush)
+        nbytes = qweight.numel() + scales.numel() * 2 + got.numel() * 2
+        r = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                 bound_by="bytes", library_ms=None)
+        results[proj] = r
+        emit(dict(phase="kernel", kernel="expert_dequant", shape=proj, E=E, K=K, N=N, G=GROUP, bytes=nbytes,
+                  bit_identical=True, replaced_pytorch_form_ms=form_ms,
+                  replaced_form_same_values_even_k_first=same_values, **r, card=card["nvidia_smi"]))
+        if not same_values:
+            fail(f"expert_dequant {proj}: the replaced PyTorch form gives other values")
+        del qweight, scales, got
+    torch.cuda.empty_cache()
+    return results
 
 
 # ------------------------------------------------------------------ phase 3d
@@ -1289,10 +1361,10 @@ def batch_inputs(torch, seqs, page=16):
 
 
 def device_breakdown(prof, wall_s, steps):
-    """Device time by kernel from a profiler trace, in six groups (the
+    """Device time by kernel from a profiler trace, in seven groups (the
     attention kernels, the quantized matmul kernels with their activation
-    quantization, the grouped GEMM, the routed quantized-expert kernels,
-    library matrix products, the rest), the K3/K4 tile kernel's share of
+    quantization, the grouped GEMM, the routed quantized-expert kernels, the
+    int4 expert dequantization, library matrix products, the rest), the K3/K4 tile kernel's share of
     the quantized group (with its pre-pass), the kernels launched per
     engine step, and the share of `wall_s` the device was idle. Kernels run
     on one stream, so their times add up to the device's busy time."""
@@ -1304,10 +1376,12 @@ def device_breakdown(prof, wall_s, steps):
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     groups = dict(attention_ms=0.0, quant_matmul_ms=0.0, grouped_matmul_ms=0.0, moe_quant_ms=0.0,
-                  matmul_ms=0.0, other_ms=0.0)
+                  expert_dequant_ms=0.0, matmul_ms=0.0, other_ms=0.0)
     for name, (ms, _) in per_name.items():
         low = name.lower()
-        if any(w in low for w in ("ragged_paged_attention", "mla_decode_kernel", "mla_prefill_kernel")):
+        if "expert_dequant" in low:
+            groups["expert_dequant_ms"] += ms
+        elif any(w in low for w in ("ragged_paged_attention", "mla_decode_kernel", "mla_prefill_kernel")):
             groups["attention_ms"] += ms
         elif "grouped_matmul_kernel" in low:
             groups["grouped_matmul_ms"] += ms
@@ -1875,7 +1949,7 @@ def deepseek_counters():
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
     return (G.grouped_matmul_cuda, MQ.grouped_quant_matmul_pair_cuda, MQ.grouped_quant_matmul_cuda,
-            M.mla_decode_attention_cuda, M.mla_prefill_attention_cuda, Q.quant_matmul_w4a8_cuda,
+            MQ.expert_dequant_cuda, M.mla_decode_attention_cuda, M.mla_prefill_attention_cuda, Q.quant_matmul_w4a8_cuda,
             Q.quant_matmul_group_cuda, Q.quant_matmul_dequant_cuda)
 
 
@@ -1885,7 +1959,8 @@ def deepseek_step_launches(model, T, S, decode_only):
     three times for bf16 experts, and for quantized ones K8 (gate and up)
     and K7 (down) where the T * top_k routed rows take the decode kernel
     (the dispatcher's takes_decode_kernel), else K6 in their place (two for
-    the pair, one for down); and each quantized projection's kernel as
+    the pair, one for down), each after one int4 expert dequantization;
+    and each quantized projection's kernel as
     plan() picks it (M = T; the lm_head's M = S)."""
     from scalellm_tpu_torch.models.common import QuantExperts, QuantLinear
     from scalellm_tpu_torch.ops import moe_quant as MQ
@@ -1908,6 +1983,8 @@ def deepseek_step_launches(model, T, S, decode_only):
                 want[kernel] += 1
             else:
                 want["grouped_matmul_cuda"] += calls
+                if w.bits == 4:  # each K6 call on experts dequantized by the kernel
+                    want["expert_dequant_cuda"] += calls
     for name, m in model.named_modules():
         if isinstance(m, QuantLinear):
             K = m.qweight.shape[1] * (2 if m.bits == 4 else 1)
@@ -2109,6 +2186,7 @@ def main() -> None:
     attention_results = phase_kernels(torch, card)
     quant_results = phase_quant_kernels(torch, card)
     gmm_results, mla_results = phase_moe_mla_kernels(torch, card)
+    dequant_results = phase_expert_dequant(torch, card)
     moe_quant_results = phase_moe_quant_kernels(torch, card)
     small_m_results, mlp_launches = phase_small_m_kernels(torch, card)
     bf16_launches = phase_end_to_end(torch, card)
@@ -2129,7 +2207,8 @@ def main() -> None:
     # path gives it: attention at the 8-sequence decode batch, w4a8 at the
     # decode step's gate_up projection (T = 16), dequant and group at the
     # 512-token step's; the grouped GEMM at the decode step's gate/up (96
-    # rows, padding included), the MLA decode kernel at the 8-sequence decode
+    # rows, padding included), the int4 expert dequantization at gate/up (as
+    # phase 7's prefill steps run it before K6), the MLA decode kernel at the 8-sequence decode
     # batch, the MLA prefill kernel at the mixed T = 512 batch; K8 and K7 at
     # the INT4 decode step (96 rows) of gate/up and down; gemv, w4a8g and
     # the stream probe at the decode step's gate_up projection (T = 16; the
@@ -2159,6 +2238,9 @@ def main() -> None:
         kernel_entry("grouped_matmul", "scalellm_tpu_torch/csrc/grouped_matmul.cu",
                      "scalellm_tpu/layers/moe.py:70", launched("grouped_matmul_cuda"),
                      gmm_results, ("decode", "gate_up")),
+        kernel_entry("expert_dequant", "scalellm_tpu_torch/csrc/expert_dequant.cu",
+                     "scalellm_tpu/ops/moe_quant.py:633", launched("expert_dequant_cuda"), dequant_results,
+                     "gate_up"),
         kernel_entry("moe_quant_decode", moe_source, "scalellm_tpu/ops/moe_quant.py:541",
                      launched("grouped_quant_matmul_cuda"),
                      {c: r for c, r in moe_quant_results.items() if c[0] == "down"}, ("down", 4, "decode")),

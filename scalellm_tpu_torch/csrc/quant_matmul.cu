@@ -120,6 +120,7 @@ namespace {
 using scalellm_quant::act_quant_kernel;
 using scalellm_quant::bf16x2_bits;
 using scalellm_quant::bf16x2_from_bits;
+using scalellm_quant::fence_regs;
 using scalellm_quant::int8_pair;
 using scalellm_quant::kActThreads;
 using scalellm_quant::kPrepThreads;
@@ -132,9 +133,13 @@ using scalellm_quant::mbar_wait;
 using scalellm_quant::pack_bf16x2;
 using scalellm_quant::prep_kernel;
 using scalellm_quant::smem_addr;
+using scalellm_quant::sw128_desc;
 using scalellm_quant::tensor_map;
 using scalellm_quant::tma_load_2d;
 using scalellm_quant::unpack_int4_frag;
+using scalellm_quant::wgmma_commit;
+using scalellm_quant::wgmma_fence;
+using scalellm_quant::wgmma_wait;
 
 typedef __nv_bfloat16 bf16;
 
@@ -342,29 +347,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src
 // wgmma: D[64 x N] (+)= A[64 x 16] B[16 x N], A from registers (per warp the
 // mma.sync m16n8k16 A fragment of its 16 rows), B from shared memory through
 // a descriptor. scale_d 0 starts the sum at 0.
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins the accumulators at this point of the program, so that the compiler
-// moves no access to them across an asynchronous wgmma's issue or wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]));
-}
-// The same for A fragments in registers: keeps them live (unchanged) until
-// the wgmma that reads them has completed.
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i]));
-}
-
 __device__ __forceinline__ void wgmma_m64n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
                                            int scale_d) {
   asm volatile(
@@ -426,15 +408,6 @@ template <bool FIRST, class T>
 __device__ __forceinline__ T& pick(T& a, T& b) {
   if constexpr (FIRST) return a;
   else return b;
-}
-
-// Descriptor of a K-major bf16 operand in shared memory with the 128-byte
-// swizzle: rows of 64 values (128 bytes), 8-row groups 1024 bytes apart
-// (SBO), the tile 1024-byte aligned; the k16 step ks starts 32 * ks bytes in.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile, int ks) {
-  const uint32_t addr = smem_addr(tile) + 32 * ks;
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
 }
 
 // A block: WGS warpgroups, each owning 64 of the block's weight rows

@@ -146,6 +146,41 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 __device__ __forceinline__ void griddep_launch() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
 __device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
 
+// wgmma (the K3/K4 tile kernel, quant_matmul.cu; the grouped GEMM,
+// grouped_matmul.cu): the fence before a warpgroup's products, their commit
+// and the wait for all but N of the committed groups.
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins the accumulators at this point of the program, so that the compiler
+// moves no access to them across an asynchronous wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]));
+}
+// The same for A fragments in registers: keeps them live (unchanged) until
+// the wgmma that reads them has completed.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i]));
+}
+
+// Descriptor of a K-major bf16 operand in shared memory with the 128-byte
+// swizzle: rows of 64 values (128 bytes), 8-row groups 1024 bytes apart
+// (SBO), the tile 1024-byte aligned; the k16 step ks starts 32 * ks bytes in.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile, int ks) {
+  const uint32_t addr = smem_addr(tile) + 32 * ks;
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
 // cuTensorMapEncodeTiled, looked up through the runtime (no link to
 // libcuda): builds the TMA descriptors of x and of the weights.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

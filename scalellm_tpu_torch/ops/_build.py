@@ -32,6 +32,7 @@ SOURCES = {
     "moe_quant": "moe_quant.cu",
     "quant_gemv": "quant_gemv.cu",
     "quant_mlp": "quant_mlp.cu",
+    "expert_dequant": "expert_dequant.cu",
 }
 
 NVCC_FLAGS = [

@@ -42,11 +42,20 @@ def plain_grouped_matmul(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.T
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Parameters of scalellm_grouped_matmul in csrc/grouped_matmul.cu, in order:
-# xs, w, group_sizes, out; R, K, N, E, m_tiles; stream.
+# xs, w, group_sizes, out; R, K, N, E, tile; stream.
 ENTRY_POINTS = {"scalellm_grouped_matmul": [_P] * 4 + [_I] * 5 + [_P]}
-# The average rows per expert from which a block takes four m16 row tiles
-# (a 64-row tile reuses each weight fragment four times) instead of one.
-WIDE_TILE_ROWS_PER_EXPERT = 32
+# The kernel's block shapes, as (weight rows, tokens): `tile` i is TILES[i].
+TILES = ((64, 16), (128, 64))
+
+
+def tile_for(R: int, E: int) -> int:
+    """The block shape for R expert-sorted rows over E experts, from shapes
+    alone (no host sync): 64 weight rows x 16 tokens while the average
+    expert has at most 8 rows (decode: an expert of 1-3 rows wastes little
+    of the token tile, and small items spread the weights over the SMs),
+    else 128 x 64 (prefill: 48 rows an expert at DeepSeek-V2-Lite's T =
+    512, where most experts fit one token tile)."""
+    return 0 if R <= 8 * E else 1
 
 
 def _library() -> ctypes.CDLL:
@@ -60,11 +69,11 @@ def _library() -> ctypes.CDLL:
 
 
 def grouped_matmul_cuda(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
-                        m_tiles: int | None = None) -> torch.Tensor:
+                        tile: int | None = None) -> torch.Tensor:
     """Launch the grouped GEMM kernel on the current stream; returns f32
-    [R, N] with uncovered rows unwritten. m_tiles (1 or 4 m16 row tiles a
-    block) defaults to the choice by WIDE_TILE_ROWS_PER_EXPERT.
-    `grouped_matmul_cuda.launches` counts the launches."""
+    [R, N] with uncovered rows unwritten. tile (an index into TILES)
+    defaults to tile_for(R, E). `grouped_matmul_cuda.launches` counts the
+    launches."""
     if xs.device.type != "cuda":
         raise ValueError(f"xs must be a CUDA tensor, got {xs.device}")
     if xs.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
@@ -74,22 +83,23 @@ def grouped_matmul_cuda(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Te
     for name, t in (("xs", xs), ("w", w), ("group_sizes", group_sizes)):
         if t.device != xs.device:
             raise ValueError(f"{name} is on {t.device}, xs on {xs.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     R, K = xs.shape
     E, N, Kw = w.shape
     if Kw != K or group_sizes.shape != (E,):
         raise ValueError(f"xs {tuple(xs.shape)}, w {tuple(w.shape)} and group_sizes "
                          f"{tuple(group_sizes.shape)} do not match")
-    if K % 32 or N % 8 or -(-N // 128) > 65535:
-        raise NotImplementedError(f"the grouped GEMM kernel needs K % 32 == 0 and N % 8 == 0; got K={K}, N={N}")
-    if m_tiles is None:
-        m_tiles = 4 if R >= WIDE_TILE_ROWS_PER_EXPERT * E else 1
-    elif m_tiles not in (1, 4):
-        raise ValueError(f"m_tiles must be 1 or 4, got {m_tiles}")
+    if K % 32 or N % 8 or E * N >= 2**31:
+        raise NotImplementedError(f"the grouped GEMM kernel needs K % 32 == 0, N % 8 == 0 and E * N < 2^31; "
+                                  f"got K={K}, N={N}, E={E}")
+    if tile is None:
+        tile = tile_for(R, E)
+    elif tile not in range(len(TILES)):
+        raise ValueError(f"tile must index TILES {TILES}, got {tile}")
     out = torch.empty(R, N, dtype=torch.float32, device=xs.device)
     rc = _library().scalellm_grouped_matmul(
-        xs.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), R, K, N, E, m_tiles,
+        xs.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), R, K, N, E, tile,
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if rc != 0:

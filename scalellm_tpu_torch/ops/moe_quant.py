@@ -26,9 +26,10 @@ Dispatch (the reference's decisions):
     int4: per-span f32 dots (a span is the group at G = 128) times the
     group's scale; int8: the whole-K dot times the channel scale.
   - otherwise the experts are dequantized to bf16 (int4: q * s in f32,
-    rounded once; int8: q cast) and run through K6 (ops/grouped_matmul.py),
-    then int8 rows are multiplied by their expert's channel scales. K6 needs
-    expert-sorted rows, so an explicit starts/active layout raises there.
+    rounded once, in natural K order, by csrc/expert_dequant.cu on the card;
+    int8: q cast) and run through K6 (ops/grouped_matmul.py), then int8 rows
+    are multiplied by their expert's channel scales. K6 needs expert-sorted
+    rows, so an explicit starts/active layout raises there.
   - the pair takes K8 whenever gate and up have the same shapes and the
     decode kernel fits; else two single calls, with the same values. The
     reference's separate 12 MB VMEM budget for the pair is a limit of the
@@ -111,24 +112,23 @@ def dequantize_experts(qweight: torch.Tensor, scales: torch.Tensor, K: int) -> t
     return (q * scales.float().transpose(1, 2)[..., None]).view(E, N, K)
 
 
-def dequantize_experts_bf16(qweight: torch.Tensor, scales: torch.Tensor, K: int) -> torch.Tensor:
+def plain_dequantize_experts_bf16(qweight: torch.Tensor, scales: torch.Tensor, K: int) -> torch.Tensor:
     """The bf16 weights [E, N, K] the grouped GEMM takes on steps too large
     for the decode kernel, as the reference's TPU path makes them: int4 q * s
-    rounded once to bf16 (a bf16 product is the f32 product rounded once,
-    and q * s is exact in f32), int8 q cast exactly (its channel scale comes
-    after the product). int4 comes out with each row's K reordered, the
-    even K first and then the odd K, so that the low and high nibbles are
-    written as two halves and no pass interleaves them; the caller orders
-    xs's K the same way (the product sums over K in any order)."""
+    in f32 rounded once to bf16 (q * s is exact in f32), in natural K order;
+    int8 q cast exactly (its channel scale comes after the product)."""
     if expert_bits(K, qweight) == 8:
         return qweight.to(torch.bfloat16)
-    E, N, _ = qweight.shape
-    n_g = scales.shape[1]
-    s = scales.transpose(1, 2)[..., None]  # [E, N, n_g, 1]
-    w = torch.empty(E, N, 2, K // 2, dtype=torch.bfloat16, device=qweight.device)
-    for half, nibbles in enumerate(((qweight << 4) >> 4, qweight >> 4)):  # sign-extended
-        torch.mul(nibbles.view(E, N, n_g, -1), s, out=w[:, :, half].view(E, N, n_g, -1))
-    return w.view(E, N, K)
+    return dequantize_experts(qweight, scales, K).to(torch.bfloat16)
+
+
+def dequantize_experts_bf16(qweight: torch.Tensor, scales: torch.Tensor, K: int, plain: bool = False) -> torch.Tensor:
+    """plain_dequantize_experts_bf16's weights: int4 on a CUDA tensor through
+    the kernel of csrc/expert_dequant.cu (the same bits), on a CPU tensor or
+    with `plain` through the plain version; int8 by one cast."""
+    if plain or qweight.device.type == "cpu" or expert_bits(K, qweight) == 8:
+        return plain_dequantize_experts_bf16(qweight, scales, K)
+    return expert_dequant_cuda(qweight, scales, K)
 
 
 # ---------------------------------------------------------------- device-side layout
@@ -296,11 +296,8 @@ def _dequant_grouped(plain, xs, qweight, scales, group_sizes, active, starts):
         raise ValueError("an explicit active/starts layout needs the decode kernel: the grouped GEMM "
                          f"takes expert-sorted rows only (got {xs.shape[0]} rows)")
     R, K = xs.shape
-    x = xs.to(torch.bfloat16)
-    if expert_bits(K, qweight) == 4:  # dequantize_experts_bf16's order of K
-        x = torch.cat([x[:, 0::2], x[:, 1::2]], dim=1)
     gmm = plain_grouped_matmul if plain else grouped_matmul_cuda
-    y = gmm(x.contiguous(), dequantize_experts_bf16(qweight, scales, K), group_sizes)
+    y = gmm(xs.to(torch.bfloat16).contiguous(), dequantize_experts_bf16(qweight, scales, K, plain), group_sizes)
     rows = torch.arange(R, device=xs.device)
     if expert_bits(K, qweight) == 8:
         e_of_row = torch.searchsorted(torch.cumsum(group_sizes, 0), rows, right=True)
@@ -458,3 +455,57 @@ def grouped_quant_matmul_pair_cuda(xs, qweight_gate, scales_gate, qweight_up, sc
 
 
 grouped_quant_matmul_pair_cuda.launches = 0
+
+
+# Parameters of scalellm_expert_dequant_int4 in csrc/expert_dequant.cu, in
+# order: qweight, scales, out; E, N, K, G; stream.
+DEQUANT_ENTRY_POINTS = {"scalellm_expert_dequant_int4": [_P] * 3 + [_I] * 4 + [_P]}
+
+
+def _dequant_library() -> ctypes.CDLL:
+    lib = _build.load("expert_dequant")
+    for name, argtypes in DEQUANT_ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def expert_dequant_cuda(qweight: torch.Tensor, scales: torch.Tensor, K: int) -> torch.Tensor:
+    """Launch the INT4 expert dequantization on the current stream: packed
+    int4 [E, N, K/2] and bf16 scales [E, K/G, N] -> bf16 [E, N, K], equal to
+    plain_dequantize_experts_bf16 bit for bit. Takes every even K and every
+    G that divides it; raises on anything else. `expert_dequant_cuda.launches`
+    counts the launches."""
+    if qweight.device.type != "cuda":
+        raise ValueError(f"qweight must be a CUDA tensor, got {qweight.device}")
+    if qweight.dtype not in (torch.int8, torch.uint8) or qweight.dim() != 3 or qweight.shape[2] * 2 != K:
+        raise NotImplementedError(f"the expert dequantization takes packed int4 [E, N, K/2] at K={K}, got "
+                                  f"{qweight.dtype} {tuple(qweight.shape)}")
+    E, N, _ = qweight.shape
+    n_groups = scales.shape[1] if scales.dim() == 3 else 0
+    if (scales.dtype != torch.bfloat16 or scales.dim() != 3 or scales.shape[0] != E or scales.shape[2] != N
+            or n_groups == 0 or K % n_groups):
+        raise NotImplementedError(f"the expert dequantization takes bf16 scales [E, K/G, N] with G dividing "
+                                  f"K={K}, got {scales.dtype} {tuple(scales.shape)}")
+    if E > 65535 or N * K // 2 >= 2**31:
+        raise NotImplementedError(f"the expert dequantization takes E <= 65535 and N K / 2 < 2^31, got E={E}, "
+                                  f"N={N}, K={K}")
+    for name, t in (("qweight", qweight), ("scales", scales)):
+        if t.device != qweight.device:
+            raise ValueError(f"{name} is on {t.device}, qweight on {qweight.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty(E, N, K, dtype=torch.bfloat16, device=qweight.device)
+    rc = _dequant_library().scalellm_expert_dequant_int4(
+        qweight.data_ptr(), scales.data_ptr(), out.data_ptr(), E, N, K, K // n_groups,
+        torch.cuda.current_stream(qweight.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"expert dequantization kernel launch failed: CUDA error {rc}")
+    expert_dequant_cuda.launches += 1
+    return out
+
+
+expert_dequant_cuda.launches = 0

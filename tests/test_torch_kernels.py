@@ -398,8 +398,9 @@ GMM_CASES = {
 }
 
 
+@pytest.mark.parametrize("tile", [None, 0, 1])  # the wrapper's choice, then each block shape
 @pytest.mark.parametrize("case", list(GMM_CASES))
-def test_grouped_matmul_kernel_matches_plain_version(cuda, case):
+def test_grouped_matmul_kernel_matches_plain_version(cuda, case, tile):
     from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_cuda, plain_grouped_matmul
 
     T, n_pad, E, k, K, N, extra = GMM_CASES[case]
@@ -410,7 +411,7 @@ def test_grouped_matmul_kernel_matches_plain_version(cuda, case):
     w = torch.from_numpy(rng.standard_normal((E, N, K)).astype(np.float32) / np.sqrt(K)).to(cuda, torch.bfloat16)
     gs = torch.from_numpy(sizes).to(cuda)
     before = grouped_matmul_cuda.launches
-    got = grouped_matmul(xs, w, gs)
+    got = grouped_matmul(xs, w, gs) if tile is None else grouped_matmul_cuda(xs, w, gs, tile=tile)
     torch.cuda.synchronize()
     assert grouped_matmul_cuda.launches == before + 1
     want = plain_grouped_matmul(xs, w, gs)
@@ -418,9 +419,64 @@ def test_grouped_matmul_kernel_matches_plain_version(cuda, case):
     top = want.abs().max().item()
     assert torch.isfinite(got[:covered]).all()
     torch.testing.assert_close(got[:covered], want[:covered], atol=1e-4 * top, rtol=0)
-    for m_tiles in (1, 4):  # both row tiles, whichever the wrapper picked
-        other = grouped_matmul_cuda(xs, w, gs, m_tiles=m_tiles)
-        torch.testing.assert_close(other[:covered], want[:covered], atol=1e-4 * top, rtol=0)
+
+
+def _gmm_into(out, xs, w, gs, tile):
+    """The kernel's C entry point into a given output buffer (the wrapper
+    allocates its own), so a test can see which rows it wrote."""
+    from scalellm_tpu_torch.ops import grouped_matmul as G
+
+    R, K = xs.shape
+    E, N, _ = w.shape
+    rc = G._library().scalellm_grouped_matmul(xs.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(), R, K,
+                                              N, E, tile, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+
+
+# group sizes of 64 rows of K = 192 -> N = 200 (three weight tiles of 64, the
+# last short): experts of 1-40 rows whose token tiles straddle the next
+# expert's rows, one expert past the end of xs (its rows are cut at R), and
+# no expert at all.
+GMM_ROW_CASES = {
+    "tiles_straddle_experts": [5, 17, 0, 1, 9, 3, 0, 20, 2],
+    "last_expert_cut_at_r": [30, 0, 40],
+    "all_rows_uncovered": [0, 0, 0, 0],
+}
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+@pytest.mark.parametrize("case", list(GMM_ROW_CASES))
+def test_grouped_matmul_kernel_writes_only_its_experts_rows(cuda, case, tile):
+    from scalellm_tpu_torch.ops.grouped_matmul import plain_grouped_matmul
+
+    sizes = np.array(GMM_ROW_CASES[case], np.int32)
+    R, K, N, E = 64, 192, 200, len(sizes)
+    rng = np.random.default_rng(7)
+    xs = torch.from_numpy(rng.standard_normal((R, K)).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((E, N, K)).astype(np.float32) / np.sqrt(K)).to(cuda, torch.bfloat16)
+    gs = torch.from_numpy(sizes).to(cuda)
+    out = torch.full((R, N), float("nan"), device=cuda)
+    _gmm_into(out, xs, w, gs, tile)
+    covered = min(int(sizes.sum()), R)
+    want = plain_grouped_matmul(xs, w, gs)
+    torch.testing.assert_close(out[:covered], want[:covered], atol=1e-4 * want.abs().max().item(), rtol=0)
+    assert torch.isnan(out[covered:]).all()  # rows past the groups are never written
+
+
+def test_grouped_matmul_kernel_gives_the_same_bits_on_every_call(cuda):
+    from scalellm_tpu_torch.ops.grouped_matmul import TILES, grouped_matmul_cuda
+
+    rng = np.random.default_rng(8)
+    for T, n_pad, E, k in ((16, 8, 64, 6), (512, 0, 16, 4)):  # a decode step and a prefill step
+        xs, sizes = _routed_rows(rng, T, E, k, 256, n_pad)
+        xs = torch.from_numpy(xs).to(cuda, torch.bfloat16)
+        w = torch.from_numpy(rng.standard_normal((E, 136, 256)).astype(np.float32) / 16).to(cuda, torch.bfloat16)
+        gs = torch.from_numpy(sizes).to(cuda)
+        for tile in range(len(TILES)):
+            first = grouped_matmul_cuda(xs, w, gs, tile=tile)
+            for _ in range(19):
+                assert torch.equal(grouped_matmul_cuda(xs, w, gs, tile=tile), first)
 
 
 def test_grouped_matmul_kernel_refuses_what_it_does_not_cover(cuda):
@@ -676,16 +732,59 @@ def test_moe_quant_dispatch_takes_the_grouped_gemm_past_256_rows(cuda):
     gs = torch.from_numpy(sizes).to(cuda)
     for bits, G in ((4, 128), (8, 0)):
         qw, sc = _quant_experts(rng, E, K, N, bits, G, cuda)
-        before = (grouped_matmul_cuda.launches, MQ.grouped_quant_matmul_cuda.launches)
+        counters = (grouped_matmul_cuda, MQ.grouped_quant_matmul_cuda, MQ.expert_dequant_cuda)
+        before = [c.launches for c in counters]
         got = MQ.grouped_quant_matmul(xs, qw, sc, gs, max_active=E)
         torch.cuda.synchronize()
-        assert (grouped_matmul_cuda.launches, MQ.grouped_quant_matmul_cuda.launches) == (before[0] + 1, before[1])
+        assert [c.launches for c in counters] == [before[0] + 1, before[1], before[2] + (bits == 4)]
         want = MQ.grouped_quant_matmul(xs, qw, sc, gs, max_active=E, variant="plain")
         torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
-        if bits == 4:  # the int8 shifts and the bf16 product on the card: q * s rounded once
-            want_w = MQ.dequantize_experts(qw, sc, K).to(torch.bfloat16)
-            assert torch.equal(MQ.dequantize_experts_bf16(qw, sc, K),
-                               torch.cat([want_w[..., 0::2], want_w[..., 1::2]], dim=-1))
+        if bits == 4:  # the dequantization kernel: q * s rounded once, natural K order
+            assert torch.equal(MQ.dequantize_experts_bf16(qw, sc, K), MQ.plain_dequantize_experts_bf16(qw, sc, K))
+
+
+# (experts, N, K, G): DeepSeek-V2-Lite's gate/up and down widths at G =
+# 128 and 32 (a 16-byte word of packed weights in one group), then shapes
+# the byte path takes (K % 8 or G % 8 not 0).
+EXPERT_DEQUANT_CASES = {
+    "v2_lite_gate_up_g128": (4, 1408, 2048, 128),
+    "v2_lite_down_g128": (4, 2048, 1408, 128),
+    "v2_lite_down_g32": (3, 2048, 1408, 32),
+    "bytes_g12": (3, 40, 36, 12),
+    "bytes_k6_g3": (2, 24, 6, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(EXPERT_DEQUANT_CASES))
+def test_expert_dequant_kernel_gives_the_plain_versions_bits(cuda, case):
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    E, N, K, G = EXPERT_DEQUANT_CASES[case]
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.standard_normal((E, N, K)).astype(np.float32) * 0.05)
+    qw, sc = MQ.quantize_experts_int4(w, G)
+    qw, sc = qw.to(cuda), sc.to(cuda)
+    before = MQ.expert_dequant_cuda.launches
+    got = MQ.dequantize_experts_bf16(qw, sc, K)
+    torch.cuda.synchronize()
+    assert MQ.expert_dequant_cuda.launches == before + 1
+    want = MQ.plain_dequantize_experts_bf16(qw, sc, K)
+    assert got.shape == (E, N, K) and torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_expert_dequant_kernel_refuses_what_it_does_not_cover(cuda):
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    qw = torch.zeros(2, 16, 64, dtype=torch.int8, device=cuda)
+    sc = torch.ones(2, 4, 16, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):  # f32 scales
+        MQ.expert_dequant_cuda(qw, sc.float(), 128)
+    with pytest.raises(NotImplementedError):  # 3 groups do not divide K = 128
+        MQ.expert_dequant_cuda(qw, sc[:, :3].contiguous(), 128)
+    with pytest.raises(NotImplementedError):  # K does not match the packed rows
+        MQ.expert_dequant_cuda(qw, sc, 96)
+    with pytest.raises(ValueError):  # CPU tensors take the plain version, not the kernel
+        MQ.expert_dequant_cuda(qw.cpu(), sc.cpu(), 128)
 
 
 def test_moe_quant_kernels_refuse_what_they_do_not_cover(cuda):

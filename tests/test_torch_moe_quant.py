@@ -127,10 +127,25 @@ def test_quantizers_match_jax_bit_for_bit(bits):
         else:
             want = want_q.astype(np.float32) * want_s[:, None, :]
         np.testing.assert_array_equal(deq.transpose(1, 2).numpy(), want)
-        if bits == 4:  # the grouped GEMM's bf16 weights: q * s rounded once, even K first
-            want_bf16 = deq.to(torch.bfloat16)
-            assert torch.equal(TQ.dequantize_experts_bf16(got_q, got_s, K),
-                               torch.cat([want_bf16[..., 0::2], want_bf16[..., 1::2]], dim=-1))
+        if bits == 4:  # the grouped GEMM's bf16 weights: q * s rounded once, in natural K order
+            assert torch.equal(TQ.dequantize_experts_bf16(got_q, got_s, K), deq.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("K", [1408, 2048])
+@pytest.mark.parametrize("G", [32, 128])
+def test_plain_bf16_dequant_is_jax_dequant_rounded_to_bf16(K, G):
+    """The weights the grouped GEMM takes past 256 rows (what the expert
+    dequantization kernel computes): JAX's _dequant_int4 rounded to bf16,
+    bit for bit, in natural K order, at DeepSeek-V2-Lite's two K."""
+    rng = np.random.default_rng(K + G)
+    n_e, n = 2, 24
+    w = (rng.standard_normal((n_e, K, n)) * 0.05).astype(np.float32)
+    jq, js = JQ.quantize_experts_int4(w, G)
+    want = np.stack([np.asarray(JQ._dequant_int4(jq[e], js[e], G)) for e in range(n_e)])  # [E, K, N] f32
+    want = torch.from_numpy(want.astype(ml_dtypes.bfloat16).view(np.int16)).view(torch.bfloat16)
+    got = TQ.plain_dequantize_experts_bf16(_t(jq).transpose(1, 2).contiguous(), _t(js), K)
+    assert got.shape == (n_e, n, K)
+    assert torch.equal(got.view(torch.int16), want.transpose(1, 2).view(torch.int16))
 
 
 @pytest.mark.parametrize("bits", [8, 4])

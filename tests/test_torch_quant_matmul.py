@@ -292,7 +292,8 @@ def _entry_points():
               (quant_mlp.ENTRY_POINTS, "quant_mlp.cu"),
               (mla_attention.ENTRY_POINTS, "mla_attention.cu"),
               (grouped_matmul.ENTRY_POINTS, "grouped_matmul.cu"),
-              (moe_quant.ENTRY_POINTS, "moe_quant.cu"))
+              (moe_quant.ENTRY_POINTS, "moe_quant.cu"),
+              (moe_quant.DEQUANT_ENTRY_POINTS, "expert_dequant.cu"))
     return {entry: (table[entry], source) for table, source in tables for entry in table}
 
 
