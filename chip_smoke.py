@@ -31,7 +31,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
         the DeepSeek-V2-Lite shared experts' down projection as phase 7
         quantizes it (K = 2816, N = 2048, G = 32, bf16 scales) at its decode
         M = 16 (yardstick: one bf16 matmul on weights dequantized ahead of
-        time); per M = 512 shape the bytes the chosen tiles move through L2.
+        time); per M = 512 shape the bytes the chosen tiles move through L2;
+        per shape at M = 16 the device time of w4a8's pre-pass and of its
+        main grid (torch.profiler), and w4a8's floor: one block of rows.
      c. the DeepSeek-V2-Lite kernels: the grouped GEMM (K6) at the decode
         (96 rows: 8 tokens and 8 padding rows x 6 experts, routed by a
         seeded softmax over 64 experts, the padding rows all to the same 6)
@@ -610,14 +612,34 @@ def phase_quant_kernels(torch, card):
                           l2_bytes_64x64=l2_bytes(M, K, N, bits, 64, 64)))
             del qweight, scales, zeros, x, got
         torch.cuda.empty_cache()
-    # What a w4a8 call costs before any weight byte counts: one block's
-    # worth of output columns, so the time is the activation kernel plus one
-    # block walking K.
+    # What bounds a w4a8 call now. Its pre-pass (act_quant_kernel: the
+    # RMSNorm where it fuses, the int8 quantization, each span's sums and
+    # scale) against the main grid, which starts as its programmatic
+    # dependent and streams its first weight stages meanwhile: device time a
+    # call of each, under torch.profiler, at the decode step's shapes (M =
+    # 16; L2 flushed before each call). And the floor of a call: one block's
+    # worth of rows (N = 32, four K slices of 8 rows a half), so the time is
+    # the pre-pass, one ring fill and one block walking K.
+    for shape, (K, N, bits, has_norm) in QUANT_SHAPES.items():
+        tile_n = Q.LM_HEAD_TILE_N if shape == "lm_head" else Q.DEFAULT_TILE_N
+        qweight, scales, _ = quant_operands(torch, gen, K, N, bits, False)
+        x = (torch.randn(16, K, generator=gen, device=DEVICE) + 0.25).to(torch.bfloat16)
+        gamma = (torch.rand(K, generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16) if has_norm else None
+        _, block_k, fuse = Q.plan(16, K, N, bits, GROUP, scales.element_size(), has_norm, tile_n=tile_n)
+        if gamma is not None and not fuse:
+            x, gamma = Q.rms_prologue(x, gamma, 1e-5), None
+        split = kernel_split(torch, lambda: wrappers["w4a8"](x, qweight, scales, None, bits, block_k, gamma, 1e-5),
+                             flush, dict(pre_pass_ms=("act_quant_kernel",), main_ms=("w4a8_kernel",)))
+        emit(dict(phase="kernel_probe", kernel="quant_matmul_w4a8", shape=shape, M=16, K=K, N=N,
+                  rms_prologue=gamma is not None,
+                  what="device ms a call: the pre-pass, and the main grid that overlaps it", **split,
+                  card=card["nvidia_smi"]))
+        del qweight, scales, x
     for K in (4096, 14336):
-        qweight, scales, _ = quant_operands(torch, gen, K, 8, 4, False)
+        qweight, scales, _ = quant_operands(torch, gen, K, 32, 4, False)
         x = torch.randn(16, K, generator=gen, device=DEVICE).to(torch.bfloat16)
         ms = time_ms(torch, lambda: wrappers["w4a8"](x, qweight, scales, None, 4, 2048, None, 1e-5), flush)
-        emit(dict(phase="kernel_probe", kernel="quant_matmul_w4a8", what="one block: M=16, N=8",
+        emit(dict(phase="kernel_probe", kernel="quant_matmul_w4a8", what="one block: M=16, N=32",
                   K=K, ms=ms, card=card["nvidia_smi"]))
     return results
 
@@ -1360,21 +1382,39 @@ def batch_inputs(torch, seqs, page=16):
     return mi, next_page
 
 
+def union_ms(spans):
+    """The time (ms) covered by (start_us, end_us, ...) intervals."""
+    total, end = 0.0, None
+    for start, stop, *_ in sorted(spans):
+        if end is None or start > end:
+            total, end = total + stop - start, stop
+        elif stop > end:
+            total, end = total + stop - end, stop
+    return total / 1e3
+
+
 def device_breakdown(prof, wall_s, steps):
     """Device time by kernel from a profiler trace, in seven groups (the
     attention kernels, the quantized matmul kernels with their activation
     quantization, the grouped GEMM, the routed quantized-expert kernels, the
-    int4 expert dequantization, library matrix products, the rest), the K3/K4 tile kernel's share of
-    the quantized group (with its pre-pass), the kernels launched per
-    engine step, and the share of `wall_s` the device was idle. Kernels run
-    on one stream, so their times add up to the device's busy time."""
+    int4 expert dequantization, library matrix products, the rest), the
+    shares of the quantized group of the K3/K4 tile kernel (with its
+    pre-pass) and of K2 (w4a8_ms: w4a8_kernel with its pre-pass
+    act_quant_kernel, which K12b shares), the kernels launched per engine
+    step, and the share of `wall_s` the device was idle. Kernels run on one
+    stream, but a grid launched as a programmatic dependent (K2's main grid,
+    K1's merge, gemv) starts while the one before it runs: the groups sum
+    each kernel's own time, while the busy time and w4a8_ms are the union
+    of the kernels' device intervals, so an overlap counts once."""
     from torch.autograd import DeviceType
 
     per_name = {}
+    spans = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            spans.append((e.time_range.start, e.time_range.end, e.name))
     groups = dict(attention_ms=0.0, quant_matmul_ms=0.0, grouped_matmul_ms=0.0, moe_quant_ms=0.0,
                   expert_dequant_ms=0.0, matmul_ms=0.0, other_ms=0.0)
     for name, (ms, _) in per_name.items():
@@ -1388,19 +1428,21 @@ def device_breakdown(prof, wall_s, steps):
         elif "moe_quant_kernel" in low:
             groups["moe_quant_ms"] += ms
         elif any(w in low for w in ("w4a8_kernel", "tile_kernel", "prep_kernel", "act_quant_kernel",
-                                    "gemv_kernel<", "w4a8g_kernel", "stream_probe_kernel", "split_sum_kernel")):
+                                    "gemv_kernel<", "w4a8g_kernel", "stream_probe_kernel")):
             groups["quant_matmul_ms"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
             groups["matmul_ms"] += ms
         else:
             groups["other_ms"] += ms
-    busy_ms = sum(groups.values())
+    busy_ms = union_ms(spans)
     tile_ms = sum(ms for name, (ms, _) in per_name.items() if "tile_kernel" in name or "prep_kernel" in name)
+    w4a8_ms = union_ms([sp for sp in spans if "w4a8_kernel" in sp[2] or "act_quant_kernel" in sp[2]])
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
     return dict(
-        device_busy_ms=busy_ms if per_name else None,
+        device_busy_ms=busy_ms if per_name else None, kernel_sum_ms=sum(groups.values()),
         idle_share=1.0 - busy_ms / (1e3 * wall_s) if per_name else None,
         kernels_per_step=sum(n for _, n in per_name.values()) / steps, **groups, tile_kernel_ms=tile_ms,
+        w4a8_ms=w4a8_ms,
         top=[dict(name=name[:90], ms=ms, count=n) for name, (ms, n) in top],
     )
 
@@ -1828,6 +1870,24 @@ def device_ms(prof, *names):
 
     return sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
                if e.device_type == DeviceType.CUDA and any(n in e.name for n in names))
+
+
+def kernel_split(torch, fn, flush, groups, calls=10):
+    """Device ms a call of fn, by groups of kernel names ({key: names}),
+    under torch.profiler over `calls` calls, L2 flushed before each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    split = {key: device_ms(prof, *names) / calls for key, names in groups.items()}
+    if not all(ms > 0 for ms in split.values()):
+        fail(f"kernel split: no device time read for {split}")
+    return split
 
 
 def phase_stream_probe_in_model(torch, card, model, prefill, decode, n_pages):

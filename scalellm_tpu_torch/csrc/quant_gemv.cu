@@ -20,9 +20,9 @@
 //     dots; at G = 32 or 64 the scale distributes over the group's spans.
 //   w4a8g: x quantized to int8 per (row, k-block) exactly as K2 does it
 //     (quant_act.cuh); per span of 128 K (inside one group: G % 128 == 0)
-//     an int32 dot of the int8 activations with the int8-widened weights,
-//     (dot - xsum * zero) * scale * sx in f32, spans summed in f32. G = 128
-//     makes the span the TPU kernel's group.
+//     an int32 dot of the int8 activations with the weights, (dot - xsum *
+//     zero) * scale * sx in f32, spans summed in f32. G = 128 makes the span
+//     the TPU kernel's group.
 //   stream probe: reads every byte of qweight, scales and zeros (without the
 //     scales in weights-only mode), and writes the TPU probe's "touch" so
 //     that its output can be held against the TPU package: for every output
@@ -35,14 +35,14 @@
 // group dots into one MXU dot, has no meaning here.
 //
 // What bounds them on an H100. The weight bytes: a (4096, 28672) int4
-// projection is 59 MB, 17.5 us at 3.35 TB/s. gemv runs on the tensor-core
-// small-M mainloop of quant_small_m.cuh (mma.sync on weights unpacked in
-// registers, a TMA ring of weights and x, a producer warp), so at M <= 64
-// its products cost little beside the bytes: 2 * M * K * N flops, 3.8 GFLOP
-// at M = 16 for that projection, 4 us at 989 TFLOP/s. w4a8g is a CUDA-core
-// GEMV: from a few rows up dp4a's issue rate bounds it (4 MACs an
-// instruction at half the FMA issue rate). The probe is bound by the bytes
-// alone.
+// projection is 59 MB, 17.5 us at 3.35 TB/s. gemv and w4a8g run on the
+// tensor-core small-M mainloops of quant_small_m.cuh (mma.sync on weights
+// from a TMA ring of weights and x, a producer warp; gemv unpacks to bf16,
+// w4a8g multiplies int8 activations by the int4/int8 weights on the
+// integer path), so at M <= 64 their products cost little beside the
+// bytes: 2 * M * K * N operations, 3.8 G at M = 16 for that projection, 4
+// us at 989 TFLOP/s (2 us at 1979 TOP/s int8). The probe is bound by the
+// bytes alone.
 //
 // Design of gemv: see quant_small_m.cuh. A block owns R = 128 / k_slices
 // output columns (weight rows) for every token and all of K; where N / 128
@@ -51,20 +51,9 @@
 // added in slice order in shared memory. A pre-pass (prep_kernel, one block
 // a row) runs the RMSNorm prologue into a bf16 copy of x and, with zero
 // points, the sums of x per span.
-// Design of w4a8g, simple first:
-//   - a block of 8 warps owns 32 output columns and one tile of up to MT
-//     rows (MT = 1, 4, 8 or 16; more rows take more tiles, which run side by
-//     side over the same columns, so their weights come from L2);
-//   - 8 lanes share a column: lane s reads the column's K-contiguous 16-byte
-//     words of span s of each 1024-K chunk (64 bytes int4, 128 int8), one
-//     chunk ahead of its use, with the span's scales and zero points;
-//   - the block stages each chunk of xq (int8) in shared memory, 16-byte
-//     pieces swizzled by span so that the 8 lanes of a column read 8
-//     different bank groups;
-//   - at the end the 8 lanes of a column add their sums by shuffles (fixed
-//     order); where N gives fewer than 2 blocks an SM, the chunks are split
-//     over blockIdx.y and the f32 partials summed in split order by a second
-//     kernel: deterministic, no float atomics.
+// Design of w4a8g: K2's (quant_matmul.cu), with the fold above: the W4A8
+// mainloop of quant_small_m.cuh behind act_quant_kernel, the same blocks
+// and K slices as gemv; no split-K partials in device memory.
 // Probe: the whole grid (at most 4 blocks an SM) streams qweight, then the
 // scales and the zero points, each as one range in memory order (K-contiguous
 // rows, as K2/K4 read them), 16-byte loads, 8 in flight a thread; every word
@@ -77,16 +66,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "quant_act.cuh"
 #include "quant_small_m.cuh"
 
 namespace {
 
-using scalellm_quant::act_quant_kernel;
 using scalellm_quant::griddep_wait;
-using scalellm_quant::kActThreads;
 using scalellm_quant::kPrepThreads;
 using scalellm_quant::kSmThreads;
 using scalellm_quant::kSmChunkK;
@@ -98,87 +83,20 @@ using scalellm_quant::sm_consume;
 using scalellm_quant::sm_prefetch_weights;
 using scalellm_quant::sm_produce;
 using scalellm_quant::sm_reduce_slices;
+using scalellm_quant::sm_row_warps;
 using scalellm_quant::sm_ring;
 using scalellm_quant::sm_smem_bytes;
 using scalellm_quant::sm_stage;
 using scalellm_quant::sm_stages;
 using scalellm_quant::sm_tiles;
+using scalellm_quant::sm_w4a8_block;
 using scalellm_quant::SmJob;
 using scalellm_quant::SmRing;
 using scalellm_quant::SmStage;
+using scalellm_quant::SmW4a8Kernel;
 using scalellm_quant::tensor_map;
 
 typedef __nv_bfloat16 bf16;
-
-constexpr int kGvThreads = 256;
-constexpr int kGvWarps = kGvThreads / 32;
-constexpr int kSpanK = 128;                             // K of one lane's span
-constexpr int kLanesPerCol = 8;                         // spans of a chunk
-constexpr int kColsPerWarp = 32 / kLanesPerCol;         // 4
-constexpr int kGvCols = kGvWarps * kColsPerWarp;        // 32 columns a block
-constexpr int kChunkK = kLanesPerCol * kSpanK;          // 1024 K a step
-
-// 16-byte piece q of a staged row -> its slot: the three low bits are xored
-// with the span's index, so the 8 spans' pieces j sit in 8 bank groups.
-__device__ __forceinline__ int swz(int q, int pieces_per_span_log2) {
-  return q ^ ((q >> pieces_per_span_log2) & 7);
-}
-
-// ------------------------------------------------------------ split sums
-
-// out = bf16(part[0] + part[1] + ...), in split order.
-__global__ void split_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                                 int splits, size_t count) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = part[i];
-    for (int s = 1; s < splits; ++s) v += part[(size_t)s * count + i];
-    out[i] = __float2bfloat16_rn(v);
-  }
-}
-
-// The block's rows, columns and chunks; shared by gemv and w4a8g.
-struct Tile {
-  int m0, rows, col, sp, c_begin, c_end;
-  bool col_ok;
-};
-
-template <int MT>
-__device__ __forceinline__ Tile tile_of(int M, int N, int K, int chunks_per_split) {
-  Tile t;
-  const int n_mt = (M + MT - 1) / MT;
-  const int mt = blockIdx.x % n_mt, cb = blockIdx.x / n_mt;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  t.m0 = mt * MT;
-  t.rows = min(MT, M - t.m0);
-  t.col = cb * kGvCols + warp * kColsPerWarp + lane / kLanesPerCol;
-  t.sp = lane % kLanesPerCol;
-  t.col_ok = t.col < N;
-  const int n_chunks = (K + kChunkK - 1) / kChunkK;
-  t.c_begin = blockIdx.y * chunks_per_split;
-  t.c_end = min(n_chunks, t.c_begin + chunks_per_split);
-  return t;
-}
-
-// The 8 lanes of a column add their sums (xor 1, 2, 4: a fixed order), and
-// the span-0 lane writes the column: bf16 out, or f32 partials of this split.
-template <int MT>
-__device__ __forceinline__ void finish(const Tile& t, float (&acc)[MT], bf16* out, float* part,
-                                       int M, int N) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int o = 1; o < kLanesPerCol; o <<= 1) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
-  }
-  if (t.sp != 0 || !t.col_ok) return;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m >= t.rows) break;
-    const size_t i = (size_t)(t.m0 + m) * N + t.col;
-    if (part != nullptr) part[(size_t)blockIdx.y * M * N + i] = acc[m];
-    else out[i] = __float2bfloat16_rn(acc[m]);
-  }
-}
 
 // ------------------------------------------------------------ gemv (K12a)
 
@@ -241,137 +159,25 @@ __global__ void __launch_bounds__(kSmThreads, NT <= 4 ? 2 : 1) gemv_kernel(
 
 // ------------------------------------------------------------ w4a8g (K12b)
 
-// xq: int8 [M, K] from act_quant_kernel (each 8 K as evens, then odds);
-// sx f32 [M, K / block_k]; xsum s32 [M, K / 128] or null.
-template <int MT, int BITS, bool ASYM>
-__global__ void __launch_bounds__(kGvThreads) w4a8g_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx, const int* __restrict__ xsum,
-    const uint8_t* __restrict__ qw, const void* __restrict__ scales, int scales_bf16,
-    const int8_t* __restrict__ zeros, bf16* __restrict__ out, float* __restrict__ part,
-    int M, int K, int N, int G, int block_k, int chunks_per_split) {
-  constexpr int kVecs = BITS == 4 ? 4 : 8;
-  constexpr int kPieces = kChunkK / 16;  // 16-byte pieces of a staged int8 row
-  __shared__ __align__(16) uint4 xs[MT * kPieces];
-  __shared__ float sx_s[MT][kLanesPerCol];
-  __shared__ int xsum_s[MT][kLanesPerCol];
+// The W4A8 mainloop of quant_small_m.cuh with K12b's fold: each span's sum
+// times its activation scale. NT: token tiles of 8 (1, 2, 4, 8).
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kSmThreads, NT <= 4 ? 2 : 1) w4a8g_kernel(
+    const __grid_constant__ CUtensorMap w_map, const int8_t* __restrict__ xq, const float* __restrict__ xs,
+    const void* __restrict__ scales, int scales_bf16, const int8_t* __restrict__ zeros, bf16* __restrict__ out, int M,
+    int K, int N, int G, int block_k, int rw, int ks, int stages, int slot_bytes) {
+  extern __shared__ uint8_t smem_raw[];
+  sm_w4a8_block<BITS, NT, false>(smem_raw, &w_map, xq, xs, scales, scales_bf16, zeros, out, M, K, N, G,
+                                 block_k, rw, ks, stages, slot_bytes);
+}
 
-  const Tile t = tile_of<MT>(M, N, K, chunks_per_split);
-  const size_t row_bytes = BITS == 4 ? (size_t)K / 2 : (size_t)K;
-  const uint8_t* wrow = qw + (size_t)(t.col_ok ? t.col : 0) * row_bytes;
-  const int n_kb = K / block_k, n_spans = K / kSpanK;
-
-  float acc[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-
-  uint4 cur[kVecs], nxt[kVecs];
-  float s_cur = 0.f, s_nxt = 0.f;
-  int z_cur = 0, z_nxt = 0;
-  auto fetch = [&](int c, uint4 (&v)[kVecs], float& s, int& z) {
-    const int k = c * kChunkK + t.sp * kSpanK;
-    const bool ok = t.col_ok && k < K;
-    const uint4* p = reinterpret_cast<const uint4*>(wrow + (BITS == 4 ? k / 2 : k));
-#pragma unroll
-    for (int i = 0; i < kVecs; ++i) v[i] = ok ? __ldg(p + i) : make_uint4(0, 0, 0, 0);
-    s = 0.f;
-    z = 0;
-    if (ok) {
-      const size_t gi = (size_t)(k / G) * N + t.col;
-      s = load_f32_or_bf16(scales, gi, scales_bf16);
-      if (ASYM) z = zeros[gi];
-    }
-  };
-  if (t.c_begin < t.c_end) fetch(t.c_begin, cur, s_cur, z_cur);
-
-  for (int c = t.c_begin; c < t.c_end; ++c) {
-    const int k0 = c * kChunkK;
-    const int kc = min(kChunkK, K - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < MT * kPieces; i += kGvThreads) {
-      const int r = i / kPieces, q = i % kPieces;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < t.rows && q * 16 < kc)
-        v = __ldg(reinterpret_cast<const uint4*>(xq + (size_t)(t.m0 + r) * K + k0) + q);
-      xs[r * kPieces + swz(q, 3)] = v;
-    }
-    if (threadIdx.x < MT * kLanesPerCol) {
-      const int r = threadIdx.x / kLanesPerCol, s = threadIdx.x % kLanesPerCol;
-      const int k = k0 + s * kSpanK;
-      const bool ok = r < t.rows && k < K;
-      sx_s[r][s] = ok ? sx[(size_t)(t.m0 + r) * n_kb + k / block_k] : 0.f;
-      xsum_s[r][s] = ok && ASYM ? xsum[(size_t)(t.m0 + r) * n_spans + k / kSpanK] : 0;
-    }
-    __syncthreads();
-    if (c + 1 < t.c_end) fetch(c + 1, nxt, s_nxt, z_nxt);
-
-    if (t.col_ok && t.sp * kSpanK < kc) {
-      int d[MT];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) d[m] = 0;
-      const int q0 = t.sp * (kSpanK / 16);
-      if (BITS == 4) {
-        // A 16-byte word holds 32 K; nibbles are used as 16 times their
-        // value (masks, no sign extension) and the sum shifted back.
-#pragma unroll
-        for (int i = 0; i < kVecs; ++i) {
-          const uint32_t w[4] = {cur[i].x, cur[i].y, cur[i].z, cur[i].w};
-          uint32_t lo[4], hi[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            lo[j] = (w[j] << 4) & 0xF0F0F0F0u;  // even K
-            hi[j] = w[j] & 0xF0F0F0F0u;         // odd K
-          }
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m >= t.rows) break;
-            const uint4 a = xs[m * kPieces + swz(q0 + 2 * i, 3)];
-            const uint4 b = xs[m * kPieces + swz(q0 + 2 * i + 1, 3)];
-            int v = d[m];
-            v = __dp4a((int)a.x, (int)lo[0], v);
-            v = __dp4a((int)a.y, (int)hi[0], v);
-            v = __dp4a((int)a.z, (int)lo[1], v);
-            v = __dp4a((int)a.w, (int)hi[1], v);
-            v = __dp4a((int)b.x, (int)lo[2], v);
-            v = __dp4a((int)b.y, (int)hi[2], v);
-            v = __dp4a((int)b.z, (int)lo[3], v);
-            v = __dp4a((int)b.w, (int)hi[3], v);
-            d[m] = v;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < kVecs; ++i) {
-          const uint32_t e0 = __byte_perm(cur[i].x, cur[i].y, 0x6420);
-          const uint32_t o0 = __byte_perm(cur[i].x, cur[i].y, 0x7531);
-          const uint32_t e1 = __byte_perm(cur[i].z, cur[i].w, 0x6420);
-          const uint32_t o1 = __byte_perm(cur[i].z, cur[i].w, 0x7531);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m >= t.rows) break;
-            const uint4 a = xs[m * kPieces + swz(q0 + i, 3)];
-            int v = d[m];
-            v = __dp4a((int)a.x, (int)e0, v);
-            v = __dp4a((int)a.y, (int)o0, v);
-            v = __dp4a((int)a.z, (int)e1, v);
-            v = __dp4a((int)a.w, (int)o1, v);
-            d[m] = v;
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m >= t.rows) break;
-        int v = BITS == 4 ? d[m] >> 4 : d[m];
-        if (ASYM) v -= xsum_s[m][t.sp] * z_cur;
-        acc[m] += (float)v * s_cur * sx_s[m][t.sp];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kVecs; ++i) cur[i] = nxt[i];
-    s_cur = s_nxt;
-    z_cur = z_nxt;
+SmW4a8Kernel w4a8g_kernel_for(int bits, int nt) {
+  switch (nt) {
+    case 1: return bits == 4 ? w4a8g_kernel<4, 1> : w4a8g_kernel<8, 1>;
+    case 2: return bits == 4 ? w4a8g_kernel<4, 2> : w4a8g_kernel<8, 2>;
+    case 4: return bits == 4 ? w4a8g_kernel<4, 4> : w4a8g_kernel<8, 4>;
+    default: return bits == 4 ? w4a8g_kernel<4, 8> : w4a8g_kernel<8, 8>;
   }
-  finish<MT>(t, acc, out, part, M, N);
 }
 
 // ------------------------------------------------------------ stream probe (K12c)
@@ -443,36 +249,6 @@ __global__ void __launch_bounds__(kStreamThreads) stream_probe_kernel(
 
 // ------------------------------------------------------------ launch
 
-int rows_tile(int M) { return M <= 1 ? 1 : (M <= 4 ? 4 : (M <= 8 ? 8 : 16)); }
-
-int finish_splits(const float* part, void* out, int splits, int M, int N, cudaStream_t st) {
-  int rc = (int)cudaGetLastError();
-  if (rc != 0 || splits <= 1) return rc;
-  const size_t count = (size_t)M * N;
-  const int blocks = (int)std::min<size_t>((count + 255) / 256, 4096);
-  split_sum_kernel<<<blocks, 256, 0, st>>>(part, static_cast<bf16*>(out), splits, count);
-  return (int)cudaGetLastError();
-}
-
-// Row warps of a one-slice gemv block (4 to 8, 64 to 128 rows): where 128
-// rows give at most two blocks an SM (all resident at once), the count
-// whose blocks, spread evenly over the SMs, give the busiest SM the fewest
-// rows (the larger on a tie: x is read once a block); at the 8B gate_up (N
-// = 28672, 132 SMs) 7: 256 blocks of 112 rows, two on all but 8 SMs, where
-// 128 rows give 224 blocks and leave 40 SMs one. Larger grids run in waves
-// that even themselves out: 8.
-int gemv_row_warps(int N) {
-  const int sms = scalellm_quant::sm_count();
-  int best = kSmWarps, best_rows = 1 << 30;
-  if ((N + 16 * kSmWarps - 1) / (16 * kSmWarps) > 2 * sms) return kSmWarps;
-  for (int rw = kSmWarps; rw >= 4 && sms > 0; --rw) {
-    const int rows = 16 * rw, blocks = (N + rows - 1) / rows;
-    const int busiest = (blocks + sms - 1) / sms * rows;
-    if (busiest < best_rows) best = rw, best_rows = busiest;
-  }
-  return best;
-}
-
 // gemv at one instantiation: the stage layout, the ring's depth for the
 // blocks an SM the registers allow (2 up to NT = 4), the tensor maps (x:
 // the stage's pieces of [8 NT tokens, xk K] in one box; weights: [rh rows,
@@ -482,7 +258,7 @@ template <int BITS, int NT, bool SPAN32>
 int launch_gemv(const bf16* x, const void* qweight, const void* scales, const void* zeros, const float* xsum,
                 void* out, int M, int K, int N, int G, int scales_bf16, int ks, bool after_prep, cudaStream_t st) {
   const auto kernel = gemv_kernel<BITS, NT, SPAN32>;
-  const int rw = ks == 1 ? gemv_row_warps(N) : kSmWarps / ks, rh = 8 * rw;
+  const int rw = ks == 1 ? sm_row_warps(N) : kSmWarps / ks, rh = 8 * rw;
   const int span = SPAN32 ? 32 : 128;
   const SmStage s = sm_stage(BITS, NT, rw, ks, span, 1);
   const int red = (ks - 1) * rw * NT * 4 * 32 * 4;
@@ -524,8 +300,6 @@ int launch_gemv(const bf16* x, const void* qweight, const void* scales, const vo
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream` and
 // returns cudaGetLastError() (0 on success); none synchronises or allocates.
-// `splits` is the split-K the caller chose (1: none) and `part` its scratch,
-// f32 [splits, M, N] (null when splits is 1).
 
 // xn bf16 [M, K] (with rms_gamma) and xsum f32 [K / span, M padded to 8,
 // 16, 32 or 64] (with zeros; span 128 where G % 128 == 0, else 32) are
@@ -579,59 +353,24 @@ extern "C" int scalellm_quant_gemv(
   return (int)cudaErrorInvalidValue;
 }
 
-// xq s8 [M, K], sx f32 [M, K / block_k] and xsum s32 [M, K / 128] (null when
-// zeros is null) are scratch. M <= 64, G % 128 == 0, K <= 32768.
+// xq s8 [K / 32, M padded to 8, 16, 32 or 64, 32] and xs f32 [K / 64, M
+// padded] (xq in 32-K pieces, and per 128-K span the int32 sums of xq and
+// the activation scales, as the ring's stages take them) are scratch;
+// k_slices as for gemv. M <= 64, G % 128 == 0, block_k a multiple of G that
+// divides K, K <= 32768; x and qweight 16-byte aligned (TMA).
 extern "C" int scalellm_quant_w4a8_gemv(
     const void* x, const void* qweight, const void* scales, const void* zeros,
-    const void* rms_gamma, void* xq, void* sx, void* xsum, void* part, void* out, int M, int K,
-    int N, int group_size, int bits, int scales_bf16, int gamma_bf16, int block_k, int splits,
-    float rms_eps, void* stream) {
+    const void* rms_gamma, void* xq, void* xs, void* out, int M, int K, int N,
+    int group_size, int bits, int scales_bf16, int gamma_bf16, int block_k, int k_slices, float rms_eps,
+    void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const int G = group_size;
-  const int n_chunks = (K + kChunkK - 1) / kChunkK;
-  if ((bits != 4 && bits != 8) || M > 64 || G <= 0 || G % kSpanK != 0 || K % G != 0 ||
-      block_k <= 0 || block_k % G != 0 || K % block_k != 0 || K > 32 * 1024 || splits < 1 ||
-      splits > n_chunks || (splits > 1 && part == nullptr) ||
-      (zeros != nullptr && xsum == nullptr))
+  if ((bits != 4 && bits != 8) || M > 64 || G <= 0 || G % 128 != 0 || K % G != 0 || block_k <= 0 ||
+      block_k % G != 0 || K % block_k != 0 || K > 32 * 1024 || (k_slices != 1 && k_slices != 2 && k_slices != 4))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int act_smem = 3 * K;  // bf16 values and int8 values of one row
-  if (act_smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        act_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, act_smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  // The int32 sums of xq over each 128-K span (the span of one dot).
-  act_quant_kernel<<<M, kActThreads, act_smem, st>>>(
-      static_cast<const bf16*>(x), rms_gamma, gamma_bf16, rms_eps, static_cast<int8_t*>(xq),
-      static_cast<float*>(sx), zeros != nullptr ? static_cast<int*>(xsum) : nullptr, K, block_k,
-      kSpanK);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const int mt = rows_tile(M);
-  const int cps = (n_chunks + splits - 1) / splits;
-  const dim3 grid(((M + mt - 1) / mt) * ((N + kGvCols - 1) / kGvCols), (n_chunks + cps - 1) / cps);
-  float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
-#define SCALELLM_W4A8G(MT, BITS, ASYM)                                                    \
-  w4a8g_kernel<MT, BITS, ASYM><<<grid, kGvThreads, 0, st>>>(                              \
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),                      \
-      static_cast<const int*>(xsum), static_cast<const uint8_t*>(qweight), scales,        \
-      scales_bf16, static_cast<const int8_t*>(zeros), static_cast<bf16*>(out), p, M, K, N, \
-      G, block_k, cps)
-#define SCALELLM_W4A8G_MT(BITS, ASYM)            \
-  if (mt == 1) SCALELLM_W4A8G(1, BITS, ASYM);    \
-  else if (mt == 4) SCALELLM_W4A8G(4, BITS, ASYM); \
-  else if (mt == 8) SCALELLM_W4A8G(8, BITS, ASYM); \
-  else SCALELLM_W4A8G(16, BITS, ASYM)
-  const bool asym = zeros != nullptr;
-  if (bits == 4) {
-    if (asym) { SCALELLM_W4A8G_MT(4, true); } else { SCALELLM_W4A8G_MT(4, false); }
-  } else {
-    if (asym) { SCALELLM_W4A8G_MT(8, true); } else { SCALELLM_W4A8G_MT(8, false); }
-  }
-#undef SCALELLM_W4A8G_MT
-#undef SCALELLM_W4A8G
-  return finish_splits(p, out, (int)grid.y, M, N, st);
+  return scalellm_quant::sm_w4a8_call(w4a8g_kernel_for, x, qweight, scales, zeros, rms_gamma, xq, xs, out, M, K,
+                                      N, G, bits, scales_bf16, gamma_bf16, block_k, k_slices, rms_eps,
+                                      reinterpret_cast<cudaStream_t>(stream));
 }
 
 // sink u32 [blocks * 8] receives the xor of the words each warp read;

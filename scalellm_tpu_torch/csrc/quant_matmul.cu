@@ -10,11 +10,11 @@
 // counterpart here:
 //   the dynamic layer offset into the stacked tensor -> the qweight, scales
 //     and zeros pointers of the call are that layer's own;
-//   the depth-3 DMA ring of weight tiles -> w4a8_kernel's ring of registers
-//     (16-byte weight loads kW4Prefetch segments ahead of their use) and
-//     tile_kernel's 4-stage TMA ring through shared memory;
+//   the depth-3 DMA ring of weight tiles -> the TMA rings of w4a8_kernel
+//     (quant_small_m.cuh's W4A8 mainloop) and tile_kernel;
 //   the norm computed once per call, ahead of the streamed tiles ->
-//     act_quant_kernel (w4a8) and prep_kernel (group, dequant; quant_small_m.cuh).
+//     act_quant_kernel (w4a8; quant_act.cuh) and prep_kernel (group,
+//     dequant; quant_small_m.cuh).
 // Plain PyTorch versions: scalellm_tpu_torch/ops/quant_matmul.py.
 //
 // Layout (the port's own; scalellm_tpu_torch/ops/quant_matmul.py converts):
@@ -32,9 +32,10 @@
 // What each computes:
 //   w4a8: x (after the optional RMSNorm, rounded to bf16) is quantized to
 //     int8 per (row, k-block of block_k): sx = max(absmax, 1e-10) * (1/127),
-//     xq = clip(rint(x / sx), -127, 127). Per weight group an int8 x int8
-//     dot with int32 sums; (dot - xsum * zero) * group scale, summed over
-//     the k-block's groups in f32, times sx, summed over k-blocks. M <= 64.
+//     xq = clip(rint(x / sx), -127, 127). Per 128-K span (the weight group
+//     at G = 128) an int8 x int8 dot with int32 sums; (dot - xsum * zero) *
+//     group scale, summed over the k-block's spans in f32, times sx, summed
+//     over k-blocks. M <= 64, G % 128 == 0.
 //   group: per weight group a bf16 x bf16(q) dot with f32 sums, then
 //     (dot - xsum * zero) * scale, summed over groups in f32.
 //   dequant: w = bf16(bf16(q - zero) * bf16(scale)), one bf16 dot over all
@@ -52,19 +53,17 @@
 // a warpgroup cannot overlap with its own unpacking) sets its time.
 //
 // Design, simple first:
-//   w4a8: a small kernel (one block per row) normalises and quantizes x once
-//     into scratch (one pass over x in device memory, the rest from shared
-//     memory), writing xq with every 8 consecutive K stored as
-//     [k0 k2 k4 k6 k1 k3 k5 k7] so that the main kernel's A fragments are
-//     plain 32-bit loads that line up with nibbles unpacked by two masks.
-//     The main kernel gives a block 8 output columns; its 4 warps split the
-//     weight groups of K between them (the TPU kernel's sequential k grid
-//     becomes a loop in the block plus a fixed-order reduction in shared
-//     memory), each running mma.sync m16n8k32 s8 on 16-byte weight loads
-//     that run a few segments ahead of their use in a ring of registers,
-//     together with the group's scales and zero points.
-//     int4 nibbles are used as (nibble << 4), i.e. 16 times the value, and
-//     the int32 dot is shifted back: no sign-extension arithmetic.
+//   w4a8: the W4A8 mainloop of quant_small_m.cuh (shared with K12b): a
+//     pre-pass (act_quant_kernel, quant_act.cuh, a block per row and k-block) normalises
+//     and quantizes x once into scratch, in the K order of the mainloop's A
+//     fragments, with each span's int32 sum of xq and activation scale; the
+//     main grid, launched as its programmatic dependent, has its first
+//     stages' weights in flight before it waits for the pre-pass. out^T =
+//     W xq^T on mma.sync m16n8k32 s8: the weights are the 16-row A operand
+//     (int4 nibbles used as 16 times their value by two masks, int8 as they
+//     are), the int8 tokens the n = 8 B operand, both from a TMA ring that
+//     one producer warp keeps full; K split over a block's warps where N is
+//     small, their sums added in slice order.
 //   group / dequant (tile_kernel): the transposed product, out^T[rows,
 //     tokens] = W[rows, K] x^T, so that the weights are wgmma's 64-row A
 //     operand, unpacked (and for dequant scaled, with both bf16 roundings)
@@ -94,15 +93,12 @@
 //     of the first kernel. The epilogue writes the tile through shared
 //     memory as rows of out. The RMSNorm prologue runs in prep_kernel,
 //     once per row, into a bf16 scratch copy of x that the TMA then reads.
-// Measured limits (H100, chip_smoke.py): a w4a8 call's time at decode is
-// the latency chain of one block (its warps walk K in order and wait for
-// the activation fragments of every group), not bytes. The tile kernel is
-// bound by the consumers' unpacking, not by bytes or tensor time: a
-// deeper ring changes nothing, and the unpacking of a stage outlasts its
-// products. Later work: a cheaper unpack (fewer integer ops a weight), a
-// larger token tile (fewer unpackings a weight) within the 168 registers a
-// thread has, split-K for decode shapes of few column tiles, and for w4a8
-// activation fragments through shared memory.
+// Measured limits (H100, chip_smoke.py): the tile kernel is bound by the
+// consumers' unpacking, not by bytes or tensor time: a deeper ring changes
+// nothing, and the unpacking of a stage outlasts its products. Later work:
+// a cheaper unpack (fewer integer ops a weight), a larger token tile (fewer
+// unpackings a weight) within the 168 registers a thread has. w4a8: see
+// quant_small_m.cuh and PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -117,13 +113,12 @@
 
 namespace {
 
-using scalellm_quant::act_quant_kernel;
 using scalellm_quant::bf16x2_bits;
 using scalellm_quant::bf16x2_from_bits;
 using scalellm_quant::fence_regs;
 using scalellm_quant::int8_pair;
-using scalellm_quant::kActThreads;
 using scalellm_quant::kPrepThreads;
+using scalellm_quant::kSmThreads;
 using scalellm_quant::load_f32_or_bf16;
 using scalellm_quant::mbar_arrive;
 using scalellm_quant::mbar_arrive_cp_async;
@@ -132,7 +127,9 @@ using scalellm_quant::mbar_init;
 using scalellm_quant::mbar_wait;
 using scalellm_quant::pack_bf16x2;
 using scalellm_quant::prep_kernel;
+using scalellm_quant::sm_w4a8_block;
 using scalellm_quant::smem_addr;
+using scalellm_quant::SmW4a8Kernel;
 using scalellm_quant::sw128_desc;
 using scalellm_quant::tensor_map;
 using scalellm_quant::tma_load_2d;
@@ -143,192 +140,26 @@ using scalellm_quant::wgmma_wait;
 
 typedef __nv_bfloat16 bf16;
 
-// ------------------------------------------------------------ w4a8
+// ------------------------------------------------------------ w4a8 (K2)
 
-constexpr int kW4Threads = 128;
-constexpr int kW4Warps = kW4Threads / 32;
-constexpr int kW4Cols = 8;  // output columns per block (one n8 mma tile)
-constexpr int kW4PrefetchInt4 = 4;  // weight loads a warp keeps in flight
-constexpr int kW4PrefetchInt8 = 1;  // (a deeper ring costs the int8 kernels their occupancy)
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                       uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// The W4A8 mainloop of quant_small_m.cuh with K2's fold: the k-block's
+// span sums times its activation scale. NT: token tiles of 8 (1, 2, 4, 8).
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kSmThreads, NT <= 4 ? 2 : 1) w4a8_kernel(
+    const __grid_constant__ CUtensorMap w_map, const int8_t* __restrict__ xq, const float* __restrict__ xs,
+    const void* __restrict__ scales, int scales_bf16, const int8_t* __restrict__ zeros, bf16* __restrict__ out, int M,
+    int K, int N, int G, int block_k, int rw, int ks, int stages, int slot_bytes) {
+  extern __shared__ uint8_t smem_raw[];
+  sm_w4a8_block<BITS, NT, true>(smem_raw, &w_map, xq, xs, scales, scales_bf16, zeros, out, M, K, N, G,
+                                block_k, rw, ks, stages, slot_bytes);
 }
 
-// MT: 16-row tiles of M (1, 2 or 4). BITS: 4 or 8.
-template <int MT, int BITS>
-__global__ void __launch_bounds__(kW4Threads) w4a8_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx, const int* __restrict__ xsum,
-    const uint8_t* __restrict__ qw, const void* __restrict__ scales, int scales_bf16,
-    const int8_t* __restrict__ zeros, bf16* __restrict__ out,
-    int M, int K, int N, int G, int block_k) {
-  constexpr int kSegK = BITS == 4 ? 128 : 64;  // K per 64-byte segment of a weight row
-  constexpr int kLaneK = kSegK / 4;            // K per lane's 16-byte load
-  constexpr int kAVecs = kLaneK / 16;          // 16-byte loads of xq per row and segment
-  constexpr int kW4Prefetch = BITS == 4 ? kW4PrefetchInt4 : kW4PrefetchInt8;
-  __shared__ float red[kW4Warps][MT * 16][kW4Cols];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * kW4Cols;
-  const int n_groups = K / G, n_kb = K / block_k;
-  const int segs_per_group = G / kSegK, groups_per_kb = block_k / G;
-  const size_t row_bytes = BITS == 4 ? (size_t)K / 2 : (size_t)K;
-  const uint8_t* wrow = qw + (size_t)(n0 + gid) * row_bytes + tig * 16;
-  const int col = n0 + tig * 2;  // this thread's two C columns: col, col + 1
-
-  float acc[MT][4], tot[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[mt][i] = tot[mt][i] = 0.f;
-
-  auto flush = [&](int kb) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = mt * 16 + gid + h * 8;
-        const float s = r < M ? sx[(size_t)r * n_kb + kb] : 0.f;
-        acc[mt][2 * h] += tot[mt][2 * h] * s;
-        acc[mt][2 * h + 1] += tot[mt][2 * h + 1] * s;
-        tot[mt][2 * h] = tot[mt][2 * h + 1] = 0.f;
-      }
-  };
-
-  // This warp's weight groups are warp, warp + kW4Warps, ...; a group is
-  // segs_per_group 64-byte segments of the weight row. The segments' 16-byte
-  // loads, and with them the group's scales and zero points (cold in device
-  // memory, like the weights), run kW4Prefetch ahead of their use, in a ring
-  // of registers.
-  const int my_groups = n_groups > warp ? (n_groups - warp + kW4Warps - 1) / kW4Warps : 0;
-  const int total = my_groups * segs_per_group;
-  auto weight_vec = [&](int g, int s) {
-    const int k0 = g * G + s * kSegK;
-    return __ldg(reinterpret_cast<const uint4*>(wrow + (BITS == 4 ? k0 / 2 : k0)));
-  };
-  uint4 ring[kW4Prefetch];
-  float ring_s[kW4Prefetch][2];
-  int ring_z[kW4Prefetch][2];
-  int pg = warp, ps = 0;  // the next segment to load
-  auto prefetch = [&](int u) {
-    ring[u] = weight_vec(pg, ps);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      ring_s[u][j] = load_f32_or_bf16(scales, (size_t)pg * N + col + j, scales_bf16);
-      ring_z[u][j] = zeros != nullptr ? (int)zeros[(size_t)pg * N + col + j] : 0;
-    }
-    if (++ps == segs_per_group) { ps = 0; pg += kW4Warps; }
-  };
-#pragma unroll
-  for (int u = 0; u < kW4Prefetch; ++u) {
-    ring[u] = make_uint4(0, 0, 0, 0);
-    ring_s[u][0] = ring_s[u][1] = 0.f;
-    ring_z[u][0] = ring_z[u][1] = 0;
-    if (u < total) prefetch(u);
-  }
-
-  int c[MT][4];
-  int cur_kb = -1;
-  int g = warp, s = 0;  // the segment in use
-  for (int t0 = 0; t0 < total; t0 += kW4Prefetch) {
-#pragma unroll
-    for (int u = 0; u < kW4Prefetch; ++u) {
-      const int t = t0 + u;
-      if (t >= total) break;
-      if (s == 0) {
-        const int kb = g / groups_per_kb;
-        if (kb != cur_kb) {
-          if (cur_kb >= 0) flush(cur_kb);
-          cur_kb = kb;
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) c[mt][i] = 0;
-      }
-      const uint4 wv = ring[u];
-      const float s0 = ring_s[u][0], s1 = ring_s[u][1];
-      const int z0 = ring_z[u][0], z1 = ring_z[u][1];
-      if (t + kW4Prefetch < total) prefetch(u);
-      const uint32_t w[4] = {wv.x, wv.y, wv.z, wv.w};
-      const int ka = g * G + s * kSegK + tig * kLaneK;  // first K of this lane's weights
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a_lo[kAVecs * 4], a_hi[kAVecs * 4];  // rows gid and gid + 8
-        const int r_lo = mt * 16 + gid, r_hi = r_lo + 8;
-#pragma unroll
-        for (int v = 0; v < kAVecs; ++v) {
-          uint4 lo = make_uint4(0, 0, 0, 0), hi = make_uint4(0, 0, 0, 0);
-          if (r_lo < M) lo = __ldg(reinterpret_cast<const uint4*>(xq + (size_t)r_lo * K + ka) + v);
-          if (r_hi < M) hi = __ldg(reinterpret_cast<const uint4*>(xq + (size_t)r_hi * K + ka) + v);
-          a_lo[4 * v] = lo.x; a_lo[4 * v + 1] = lo.y; a_lo[4 * v + 2] = lo.z; a_lo[4 * v + 3] = lo.w;
-          a_hi[4 * v] = hi.x; a_hi[4 * v + 1] = hi.y; a_hi[4 * v + 2] = hi.z; a_hi[4 * v + 3] = hi.w;
-        }
-        // Each step multiplies 8 consecutive K of this lane: xq holds them
-        // as [evens | odds], and so do b0 | b1.
-        if constexpr (BITS == 4) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint32_t b0 = (w[j] << 4) & 0xF0F0F0F0u;  // low nibbles: even K, times 16
-            const uint32_t b1 = w[j] & 0xF0F0F0F0u;         // high nibbles: odd K, times 16
-            mma_s8(c[mt], a_lo[2 * j], a_hi[2 * j], a_lo[2 * j + 1], a_hi[2 * j + 1], b0, b1);
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const uint32_t b0 = __byte_perm(w[2 * j], w[2 * j + 1], 0x6420);
-            const uint32_t b1 = __byte_perm(w[2 * j], w[2 * j + 1], 0x7531);
-            mma_s8(c[mt], a_lo[2 * j], a_hi[2 * j], a_lo[2 * j + 1], a_hi[2 * j + 1], b0, b1);
-          }
-        }
-      }
-      if (++s < segs_per_group) continue;
-
-      // Group epilogue: (dot - xsum * zero) * scale into the k-block's total.
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = mt * 16 + gid + h * 8;
-          int d0 = c[mt][2 * h], d1 = c[mt][2 * h + 1];
-          if (BITS == 4) {  // the nibbles were multiplied as 16 times their value
-            d0 >>= 4;
-            d1 >>= 4;
-          }
-          if (zeros != nullptr && r < M) {
-            const int xs = xsum[(size_t)r * n_groups + g];
-            d0 -= xs * z0;
-            d1 -= xs * z1;
-          }
-          tot[mt][2 * h] += (float)d0 * s0;
-          tot[mt][2 * h + 1] += (float)d1 * s1;
-        }
-      s = 0;
-      g += kW4Warps;
-    }
-  }
-  if (cur_kb >= 0) flush(cur_kb);
-
-  // The warps' partial sums, added in warp order.
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      red[warp][mt * 16 + gid + (i >> 1) * 8][tig * 2 + (i & 1)] = acc[mt][i];
-  __syncthreads();
-  for (int i = tid; i < MT * 16 * kW4Cols; i += kW4Threads) {
-    const int r = i / kW4Cols, cc = i % kW4Cols;
-    if (r >= M) continue;
-    float v = 0.f;
-#pragma unroll
-    for (int w2 = 0; w2 < kW4Warps; ++w2) v += red[w2][r][cc];
-    out[(size_t)r * N + n0 + cc] = __float2bfloat16_rn(v);
+SmW4a8Kernel w4a8_kernel_for(int bits, int nt) {
+  switch (nt) {
+    case 1: return bits == 4 ? w4a8_kernel<4, 1> : w4a8_kernel<8, 1>;
+    case 2: return bits == 4 ? w4a8_kernel<4, 2> : w4a8_kernel<8, 2>;
+    case 4: return bits == 4 ? w4a8_kernel<4, 4> : w4a8_kernel<8, 4>;
+    default: return bits == 4 ? w4a8_kernel<4, 8> : w4a8_kernel<8, 8>;
   }
 }
 
@@ -802,52 +633,27 @@ int launch_tile(const void* x, const void* qweight, const void* scales, const vo
 // Plain C entry points, loaded with ctypes. Each launches on `stream` and
 // returns cudaGetLastError() (0 on success); none synchronises or allocates.
 
-// xq s8 [M, K], sx f32 [M, K / block_k] and xsum s32 [M, K / G] (null when
-// zeros is null) are scratch the caller allocates. M <= 64.
+// xq s8 [K / 32, M padded to 8, 16, 32 or 64, 32] and xs f32 [K / 64, M
+// padded] (xq in 32-K pieces, and per 128-K span the int32 sums of xq and
+// the activation scales, as the ring's stages take them) are scratch the
+// caller allocates; k_slices: the K slices of a block (1, 2 or 4; the
+// wrapper's small_m_slices). M <= 64, G % 128 == 0, block_k a multiple of G
+// that divides K, K <= 32768; x and qweight 16-byte aligned (TMA).
 extern "C" int scalellm_quant_matmul_w4a8(
     const void* x, const void* qweight, const void* scales, const void* zeros,
-    const void* rms_gamma, void* xq, void* sx, void* xsum, void* out, int M, int K, int N,
-    int group_size, int bits, int scales_bf16, int gamma_bf16, int block_k, float rms_eps,
+    const void* rms_gamma, void* xq, void* xs, void* out, int M, int K, int N,
+    int group_size, int bits, int scales_bf16, int gamma_bf16, int block_k, int k_slices, float rms_eps,
     void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const int G = group_size;
-  const int seg_k = bits == 4 ? 128 : 64;
-  if ((bits != 4 && bits != 8) || M > 64 || G <= 0 || G % seg_k != 0 || K % G != 0 ||
-      block_k <= 0 || block_k % G != 0 || K % block_k != 0 || N % kW4Cols != 0 || K % 16 != 0 ||
-      K > 32 * 1024 || (zeros != nullptr && xsum == nullptr))
+  if ((bits != 4 && bits != 8) || M > 64 || G <= 0 || G % 128 != 0 || K % G != 0 || block_k <= 0 ||
+      block_k % G != 0 || K % block_k != 0 || K > 32 * 1024 || (k_slices != 1 && k_slices != 2 && k_slices != 4))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int act_smem = 3 * K;  // bf16 values and int8 values of one row
-  if (act_smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        act_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, act_smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  act_quant_kernel<<<M, kActThreads, act_smem, st>>>(
-      static_cast<const bf16*>(x), rms_gamma, gamma_bf16, rms_eps, static_cast<int8_t*>(xq),
-      static_cast<float*>(sx), zeros != nullptr ? static_cast<int*>(xsum) : nullptr, K, block_k, G);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const int grid = N / kW4Cols;
-#define SCALELLM_W4A8_LAUNCH(MT, BITS)                                                   \
-  w4a8_kernel<MT, BITS><<<grid, kW4Threads, 0, st>>>(                                    \
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),                     \
-      static_cast<const int*>(xsum), static_cast<const uint8_t*>(qweight), scales,       \
-      scales_bf16, static_cast<const int8_t*>(zeros), static_cast<bf16*>(out), M, K, N,  \
-      G, block_k)
-  const int mt = M <= 16 ? 1 : (M <= 32 ? 2 : 4);
-  if (bits == 4) {
-    if (mt == 1) SCALELLM_W4A8_LAUNCH(1, 4);
-    else if (mt == 2) SCALELLM_W4A8_LAUNCH(2, 4);
-    else SCALELLM_W4A8_LAUNCH(4, 4);
-  } else {
-    if (mt == 1) SCALELLM_W4A8_LAUNCH(1, 8);
-    else if (mt == 2) SCALELLM_W4A8_LAUNCH(2, 8);
-    else SCALELLM_W4A8_LAUNCH(4, 8);
-  }
-#undef SCALELLM_W4A8_LAUNCH
-  return (int)cudaGetLastError();
+  return scalellm_quant::sm_w4a8_call(w4a8_kernel_for, x, qweight, scales, zeros, rms_gamma, xq, xs, out, M, K, N,
+                                      G, bits, scales_bf16, gamma_bf16, block_k, k_slices, rms_eps,
+                                      reinterpret_cast<cudaStream_t>(stream));
 }
+
 // xn bf16 [M, K] (with rms_gamma) and xsum f32 [K / 32, M] (group with
 // zeros) are scratch the caller allocates; tile is the block shape the
 // caller chose (launch_tile_bits).

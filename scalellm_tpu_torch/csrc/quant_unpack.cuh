@@ -1,8 +1,8 @@
 // Device helpers shared by the quantized kernels (quant_matmul.cu, the
-// projections' K2-K4; moe_quant.cu, the routed experts' K7/K8; and the
-// small-M mainloop of quant_small_m.cuh, K11 and K12a): the bf16
-// tensor-core product, the exact unpacking of int4 weights to bf16, and the
-// byte-permute gathers of mma A fragments from packed weights.
+// projections' K3/K4; moe_quant.cu, the routed experts' K7/K8; and the
+// small-M mainloops of quant_small_m.cuh, K2, K11, K12a and K12b): the bf16
+// and int8 tensor-core products, the exact unpacking of int4 weights to
+// bf16, and the byte-permute gathers of mma A fragments from packed weights.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,6 +17,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a * b, one m16n8k32 int8 product with int32 accumulation.
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 

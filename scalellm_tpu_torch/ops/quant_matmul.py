@@ -26,15 +26,17 @@ Dequantized weight: w = (q - z) * s.
 
 Variants (the reference's, chosen per call by plan()):
   "w4a8"    activations quantized to int8 per (row, k-block of block_k),
-            int8 x int8 group dots with int32 sums; decode (M <= 64)
+            int8 x int8 group dots with int32 sums; decode (M <= 64). Its
+            kernel and w4a8g's share the integer tensor-core mainloop of
+            csrc/quant_small_m.cuh
   "group"   bf16 x int group dots with f32 sums, scale applied after the dot
   "dequant" weight dequantized to bf16 (two roundings), one bf16 dot; what
             the reference's tiled storage runs for M > 64 and for G < 128
   "gemv"    the group variant's function for small M: per span of K an f32
             dot, folded with its scale and zero point, on tensor cores
             (csrc/quant_gemv.cu, csrc/quant_small_m.cuh); opt-in, any G
-  "w4a8g"   the W4A8 function for small M, as dp4a dots over 128-K spans;
-            opt-in
+  "w4a8g"   the W4A8 function for small M, each 128-K span's integer dot
+            folded with its own activation scale; opt-in
   "stream"  the weight-stream probe: reads every weight, scale and zero
             byte and returns the reference probe's one-row "touch", not a
             matmul (timing only)
@@ -183,16 +185,25 @@ def _group_operands(x, qweight, scales, bits):
     return M, K, n_g, G, w
 
 
-def plain_w4a8(x, qweight, scales, zeros, bits, block_k, rms_gamma=None, rms_eps=1e-6):
-    """What csrc/quant_matmul.cu:w4a8_kernel computes, in float32 [M, N].
-    x is bf16. The integer dots run as float32 matmuls of integers whose
+W4A8_SPAN = 128  # K of one integer dot of the W4A8 kernels (inside one group: G % 128 == 0)
+
+
+def _w4a8_spans(x, qweight, scales, zeros, bits, block_k, rms_gamma, rms_eps, span_sx):
+    """The W4A8 kernels' arithmetic in float32 [M, N]: x (bf16) quantized to
+    int8 per (row, k-block); per 128-K span an integer dot, dot - sum(xq) *
+    zero, times the scale; then, per k-block, the spans' sum times sx
+    (span_sx False) or each span times sx (span_sx True), summed over
+    k-blocks. The integer dots run as float32 matmuls of integers whose
     partial sums stay below 2**24, so they are exact."""
     if rms_gamma is not None:
         x = rms_prologue(x, rms_gamma, rms_eps)
-    M, K, n_g, G, w = _group_operands(x, qweight, scales, bits)
-    s = scales.float()
-    z = None if zeros is None else zeros.float()
-    per_block = block_k // G
+    M, K = x.shape
+    G = K // scales.shape[0]
+    span = W4A8_SPAN
+    w = unpack_signed(qweight, bits).float().T.reshape(K // span, span, -1)  # [spans, span, N]
+    per, per_kb = G // span, block_k // span
+    s = scales.float().repeat_interleave(per, 0)  # [spans, N]
+    z = None if zeros is None else zeros.float().repeat_interleave(per, 0)
     acc = torch.zeros(M, w.shape[-1], dtype=torch.float32, device=x.device)
     for kb in range(K // block_k):
         xf = x[:, kb * block_k:(kb + 1) * block_k].float()
@@ -201,13 +212,27 @@ def plain_w4a8(x, qweight, scales, zeros, bits, block_k, rms_gamma=None, rms_eps
         # differ in the last bit, which flips quantized activations on ties.
         sx = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-10) * (1.0 / 127.0)
         xq = torch.clamp(torch.round(xf / sx), -127, 127)  # round half to even
-        xg = xq.reshape(M, per_block, G).transpose(0, 1)  # [groups, M, G]
-        groups = slice(kb * per_block, (kb + 1) * per_block)
-        dots = torch.bmm(xg, w[groups])  # [groups, M, N]
+        xg = xq.reshape(M, per_kb, span).transpose(0, 1)  # [spans, M, span]
+        spans = slice(kb * per_kb, (kb + 1) * per_kb)
+        dots = torch.bmm(xg, w[spans])  # [spans, M, N]
         if z is not None:
-            dots = dots - xg.sum(dim=2)[:, :, None] * z[groups][:, None, :]
-        acc += (dots * s[groups][:, None, :]).sum(dim=0) * sx
+            dots = dots - xg.sum(dim=2)[:, :, None] * z[spans][:, None, :]
+        if span_sx:
+            acc += (dots * s[spans][:, None, :] * sx).sum(dim=0)
+        else:
+            acc += (dots * s[spans][:, None, :]).sum(dim=0) * sx
     return acc
+
+
+def plain_w4a8(x, qweight, scales, zeros, bits, block_k, rms_gamma=None, rms_eps=1e-6):
+    """What csrc/quant_matmul.cu:w4a8_kernel (K2) computes, in float32 [M,
+    N]: per 128-K span (dot - sum(xq) * zero) * scale, summed over the
+    k-block's spans, times the k-block's activation scale, summed over
+    k-blocks. G = 128 makes the span the reference's group; at G = 256, ...
+    the scale distributes over the group's spans. (The kernel adds the spans
+    in order within each of its K slices, then the slices in order: another
+    f32 order of the same sum.)"""
+    return _w4a8_spans(x, qweight, scales, zeros, bits, block_k, rms_gamma, rms_eps, span_sx=False)
 
 
 def plain_group(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6):
@@ -264,35 +289,11 @@ def plain_gemv(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6):
     return (dots * scales.float().repeat_interleave(per, 0)[:, None, :]).sum(dim=0)
 
 
-W4A8G_SPAN = 128
-
-
 def plain_w4a8g(x, qweight, scales, zeros, bits, block_k, rms_gamma=None, rms_eps=1e-6):
-    """What csrc/quant_gemv.cu:w4a8g_kernel computes, in float32 [M, N]:
-    activations quantized as plain_w4a8 quantizes them; per 128-K span an
-    integer dot, (dot - sum(xq) * zero) * scale * sx, summed over the spans.
-    The integer dots run as f32 matmuls of integers (exact)."""
-    if rms_gamma is not None:
-        x = rms_prologue(x, rms_gamma, rms_eps)
-    M, K = x.shape
-    G = K // scales.shape[0]
-    span = W4A8G_SPAN
-    w = unpack_signed(qweight, bits).float().T.reshape(K // span, span, -1)
-    per, per_kb = G // span, block_k // span
-    s = scales.float().repeat_interleave(per, 0)  # [spans, N]
-    z = None if zeros is None else zeros.float().repeat_interleave(per, 0)
-    acc = torch.zeros(M, w.shape[-1], dtype=torch.float32, device=x.device)
-    for kb in range(K // block_k):
-        xf = x[:, kb * block_k:(kb + 1) * block_k].float()
-        sx = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-10) * (1.0 / 127.0)
-        xq = torch.clamp(torch.round(xf / sx), -127, 127)
-        xg = xq.reshape(M, per_kb, span).transpose(0, 1)  # [spans, M, span]
-        spans = slice(kb * per_kb, (kb + 1) * per_kb)
-        dots = torch.bmm(xg, w[spans])
-        if z is not None:
-            dots = dots - xg.sum(dim=2)[:, :, None] * z[spans][:, None, :]
-        acc += (dots * s[spans][:, None, :] * sx).sum(dim=0)
-    return acc
+    """What csrc/quant_gemv.cu:w4a8g_kernel (K12b) computes, in float32 [M,
+    N]: activations quantized as plain_w4a8 quantizes them; per 128-K span
+    (dot - sum(xq) * zero) * scale * sx, summed over the spans."""
+    return _w4a8_spans(x, qweight, scales, zeros, bits, block_k, rms_gamma, rms_eps, span_sx=True)
 
 
 def plain_stream(x, qweight, scales, zeros, bits, block_k):
@@ -466,9 +467,10 @@ def plain_quant_matmul(
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Parameters of the C entry points of csrc/quant_matmul.cu, in order.
-# w4a8: x, qweight, scales, zeros, rms_gamma, xq, sx, xsum, out; M, K, N,
-# group_size, bits, scales_bf16, gamma_bf16, block_k; rms_eps; stream.
-_W4A8_ARGTYPES = [_P] * 9 + [_I] * 8 + [_F, _P]
+# w4a8 (and csrc/quant_gemv.cu's w4a8g): x, qweight, scales, zeros,
+# rms_gamma, xq, xs, out; M, K, N, group_size, bits, scales_bf16,
+# gamma_bf16, block_k, k_slices; rms_eps; stream.
+_W4A8_ARGTYPES = [_P] * 8 + [_I] * 9 + [_F, _P]
 # group and dequant: x, qweight, scales, zeros, rms_gamma, xn, xsum, out; M,
 # K, N, group_size, bits, scales_bf16, gamma_bf16, tile; rms_eps; stream.
 _TILE_ARGTYPES = [_P] * 8 + [_I] * 8 + [_F, _P]
@@ -478,7 +480,7 @@ ENTRY_POINTS = {
     "scalellm_quant_matmul_dequant": _TILE_ARGTYPES,
 }
 W4A8_MAX_M = 64
-W4A8_MAX_K = 32 * 1024  # the activation kernel stages a row of xq in shared memory
+W4A8_MAX_K = 32 * 1024  # the activation kernel stages a row of x and xq in shared memory
 
 
 def _library() -> ctypes.CDLL:
@@ -534,31 +536,12 @@ def _is_bf16(t: Optional[torch.Tensor]) -> int:
 
 def quant_matmul_w4a8_cuda(x, qweight, scales, zeros, bits, block_k,
                            rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
-    """Launch the W4A8 kernel (activation quantization, then the int8
-    matmul, one C call) on the current stream; returns bf16 [M, N].
-    `quant_matmul_w4a8_cuda.launches` counts the launches."""
-    M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
-    seg_k = 128 if bits == 4 else 64
-    if M > W4A8_MAX_M:
-        raise NotImplementedError(f"the W4A8 kernel takes M <= {W4A8_MAX_M}, got {M}")
-    if G % seg_k or N % 8 or K % 16 or K > W4A8_MAX_K:
-        raise NotImplementedError(
-            f"the W4A8 kernel needs G % {seg_k} == 0, N % 8 == 0, K % 16 == 0 and "
-            f"K <= {W4A8_MAX_K}; got K={K}, N={N}, G={G}")
-    if block_k <= 0 or block_k % G or K % block_k:
-        raise ValueError(f"block_k={block_k} must be a multiple of G={G} that divides K={K}")
-    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
-    xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
-    sx = torch.empty(M, K // block_k, dtype=torch.float32, device=x.device)
-    xsum = None if zeros is None else torch.empty(M, K // G, dtype=torch.int32, device=x.device)
-    rc = _library().scalellm_quant_matmul_w4a8(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
-        xq.data_ptr(), sx.data_ptr(), _ptr(xsum), out.data_ptr(), M, K, N, G, bits,
-        _is_bf16(scales), _is_bf16(rms_gamma), block_k, float(rms_eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"quant_matmul w4a8 kernel launch failed: CUDA error {rc}")
+    """Launch the W4A8 kernel (K2: activation quantization, then the int8
+    matmul on the integer small-M mainloop, one C call) on the current
+    stream; returns bf16 [M, N]. `quant_matmul_w4a8_cuda.launches` counts the
+    launches."""
+    out = _w4a8_cuda(_library, "scalellm_quant_matmul_w4a8", "w4a8", x, qweight, scales, zeros, bits,
+                     block_k, rms_gamma, rms_eps)
     quant_matmul_w4a8_cuda.launches += 1
     return out
 
@@ -649,24 +632,21 @@ quant_matmul_dequant_cuda.launches = 0
 # ---------------------------------------------------------------- small-M variants and the probe
 #
 # csrc/quant_gemv.cu: gemv (K12a, on the tensor-core mainloop of
-# csrc/quant_small_m.cuh), w4a8g (K12b), the stream probe (K12c).
+# csrc/quant_small_m.cuh), w4a8g (K12b, on its integer mainloop, with K2),
+# the stream probe (K12c).
 
 # gemv: x, qweight, scales, zeros, rms_gamma, xn, xsum, out; M, K, N,
 # group_size, bits, scales_bf16, gamma_bf16, k_slices; rms_eps; stream.
-# w4a8g: x, qweight, scales, zeros, rms_gamma, xq, sx, xsum, part, out; M, K,
-# N, group_size, bits, scales_bf16, gamma_bf16, block_k, splits; rms_eps;
-# stream.
+# w4a8g: as w4a8 (_W4A8_ARGTYPES).
 # stream probe: x, qweight, scales, zeros, sink, out; M, K, N, group_size,
 # bits, scales_bf16, block_k, weights_only, blocks; stream.
 GEMV_ENTRY_POINTS = {
     "scalellm_quant_gemv": [_P] * 8 + [_I] * 8 + [_F, _P],
-    "scalellm_quant_w4a8_gemv": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "scalellm_quant_w4a8_gemv": _W4A8_ARGTYPES,
     "scalellm_quant_stream_probe": [_P] * 6 + [_I] * 9 + [_P],
 }
 SMALL_M_ROWS = 128  # weight rows of a small-M mainloop block with one K slice (8 warps x 16)
 SMALL_M_MAX_SLICES = 4
-W4A8G_COLS = 32  # output columns of a w4a8g block
-W4A8G_CHUNK_K = 1024  # K a w4a8g block stages at a time
 STREAM_THREADS = 256  # threads of a probe block, one sink word a warp
 STREAM_LOADS = 8  # 16-byte loads a probe thread keeps in flight
 
@@ -699,26 +679,52 @@ def small_m_pad(M: int) -> int:
     return 8 if M <= 8 else 16 if M <= 16 else 32 if M <= 32 else 64
 
 
-def _w4a8g_splits(M: int, K: int, N: int, device) -> int:
-    """Split-K of a w4a8g call: 1 where the output tiles give at least two
-    blocks an SM, else enough whole 1024-K chunks per split to reach that
-    (the kernel adds the splits' f32 partials in order)."""
-    rows = 1 if M <= 1 else 4 if M <= 4 else 8 if M <= 8 else 16
-    blocks = -(-M // rows) * -(-N // W4A8G_COLS)
-    want = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    n_chunks = -(-K // W4A8G_CHUNK_K)
-    if blocks >= want:
-        return 1
-    per = -(-n_chunks // min(n_chunks, -(-want // blocks)))
-    return -(-n_chunks // per)
-
-
 def _check_small_m(name, M, K, G, g_mult):
     if M > W4A8_MAX_M:
         raise NotImplementedError(f"the {name} kernel takes M <= {W4A8_MAX_M}, got {M}")
     if G % g_mult or K % 128:
         raise NotImplementedError(
             f"the {name} kernel needs G % {g_mult} == 0 and K % 128 == 0; got K={K}, G={G}")
+
+
+def check_w4a8(name: str, M: int, K: int, G: int, block_k: int) -> None:
+    """Raise on what the W4A8 kernels (w4a8, w4a8g) do not take: M > 64, G
+    not a multiple of 128 (a span of the integer mainloop lies inside one
+    group; int8 weights at G = 64, which the first K2 took, are refused), K
+    past 32768 (the pre-pass holds a row in shared memory); a block_k that
+    is no multiple of G dividing K is a ValueError."""
+    _check_small_m(name, M, K, G, W4A8_SPAN)
+    if K > W4A8_MAX_K:
+        raise NotImplementedError(f"the {name} kernel takes K <= {W4A8_MAX_K}, got {K}")
+    if block_k <= 0 or block_k % G or K % block_k:
+        raise ValueError(f"block_k={block_k} must be a multiple of G={G} that divides K={K}")
+
+
+def _w4a8_cuda(library, entry, name, x, qweight, scales, zeros, bits, block_k, rms_gamma, rms_eps):
+    """One C call of a W4A8 kernel (K2's or K12b's entry point of the library
+    `library()` loads): its pre-pass and the integer mainloop; returns bf16
+    [M, N]."""
+    M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
+    check_w4a8(name, M, K, G, block_k)
+    if x.data_ptr() % 16 or qweight.data_ptr() % 16:
+        raise NotImplementedError(f"the {name} kernel loads x and qweight in 16-byte pieces: 16-byte aligned starts")
+    dev = x.device
+    slices = small_m_slices(N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    # Scratch of the pre-pass, in the layout of the ring's stages, M padded to
+    # the token tiles: xq in 32-K pieces, and per 128-K span the sums of xq
+    # (int32) and the activation scales.
+    pad = small_m_pad(M)
+    xq = torch.empty(K // 32, pad, 32, dtype=torch.int8, device=dev)
+    xs = torch.empty(K // W4A8_SPAN * 2, pad, dtype=torch.float32, device=dev)
+    rc = getattr(library(), entry)(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
+        xq.data_ptr(), xs.data_ptr(), out.data_ptr(), M, K, N, G, bits, _is_bf16(scales),
+        _is_bf16(rms_gamma), block_k, slices, float(rms_eps), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul {name} kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def quant_gemv_cuda(x, qweight, scales, zeros, bits, rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
@@ -753,30 +759,12 @@ quant_gemv_cuda.launches = 0
 
 def quant_w4a8_gemv_cuda(x, qweight, scales, zeros, bits, block_k,
                          rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
-    """Launch the w4a8g kernel (K12b: activation quantization, then the dp4a
-    GEMV, one C call) on the current stream; returns bf16 [M, N].
+    """Launch the w4a8g kernel (K12b: activation quantization, then the int8
+    matmul on the integer small-M mainloop with each span's own activation
+    scale, one C call) on the current stream; returns bf16 [M, N].
     `quant_w4a8_gemv_cuda.launches` counts the launches."""
-    M, K, N, G = _check_cuda_operands(x, qweight, scales, zeros, bits, rms_gamma)
-    _check_small_m("w4a8g", M, K, G, W4A8G_SPAN)
-    if K > W4A8_MAX_K:
-        raise NotImplementedError(f"the w4a8g kernel takes K <= {W4A8_MAX_K}, got {K}")
-    if block_k <= 0 or block_k % G or K % block_k:
-        raise ValueError(f"block_k={block_k} must be a multiple of G={G} that divides K={K}")
-    splits = _w4a8g_splits(M, K, N, x.device)
-    dev = x.device
-    out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
-    part = torch.empty(splits, M, N, dtype=torch.float32, device=dev) if splits > 1 else None
-    xq = torch.empty(M, K, dtype=torch.int8, device=dev)
-    sx = torch.empty(M, K // block_k, dtype=torch.float32, device=dev)
-    xsum = None if zeros is None else torch.empty(M, K // W4A8G_SPAN, dtype=torch.int32, device=dev)
-    rc = _gemv_library().scalellm_quant_w4a8_gemv(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _ptr(zeros), _ptr(rms_gamma),
-        xq.data_ptr(), sx.data_ptr(), _ptr(xsum), _ptr(part), out.data_ptr(), M, K, N, G, bits,
-        _is_bf16(scales), _is_bf16(rms_gamma), block_k, splits, float(rms_eps),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"quant_matmul w4a8g kernel launch failed: CUDA error {rc}")
+    out = _w4a8_cuda(_gemv_library, "scalellm_quant_w4a8_gemv", "w4a8g", x, qweight, scales, zeros, bits,
+                     block_k, rms_gamma, rms_eps)
     quant_w4a8_gemv_cuda.launches += 1
     return out
 

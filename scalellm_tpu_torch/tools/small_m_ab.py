@@ -88,10 +88,24 @@ def through(libs, fn):
         _build.load = real
 
 
+def base_splits(M, K, N, device):
+    """The first gemv's split-K: 1 where its output tiles (1-16 rows x 32
+    columns) give at least two blocks an SM, else enough whole 1024-K chunks
+    per split to reach that."""
+    rows = 1 if M <= 1 else 4 if M <= 4 else 8 if M <= 8 else 16
+    blocks = -(-M // rows) * -(-N // 32)
+    want = 2 * torch.cuda.get_device_properties(device).multi_processor_count
+    n_chunks = -(-K // 1024)
+    if blocks >= want:
+        return 1
+    per = -(-n_chunks // min(n_chunks, -(-want // blocks)))
+    return -(-n_chunks // per)
+
+
 def base_gemv(fn, x, qweight, scales, zeros, bits, gamma, eps=1e-5):
     M, K = x.shape
     N = qweight.shape[0]
-    splits = Q._w4a8g_splits(M, K, N, x.device)  # the first gemv's split rule, which w4a8g keeps
+    splits = base_splits(M, K, N, x.device)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
     part = torch.empty(splits, M, N, dtype=torch.float32, device=x.device) if splits > 1 else None
     inv = torch.empty(M, dtype=torch.float32, device=x.device) if gamma is not None else None

@@ -231,35 +231,6 @@ def _check_quant(got, want):
     assert diff.mean().item() <= 1e-3 * top, (diff.mean().item(), top)
 
 
-# (M, K, N, G, bits, asym, rms, scales dtype, block_k)
-W4A8_CASES = {
-    "m1_int4": (1, 512, 64, 128, 4, False, False, torch.float32, 256),
-    "m8_int4_asym_rms": (8, 1024, 128, 128, 4, True, True, torch.float32, 1024),
-    "m16_int4_bf16_scales": (16, 4096, 4096, 128, 4, False, "bf16", torch.bfloat16, 4096),
-    "m33_int4_asym": (33, 2048, 256, 128, 4, True, False, torch.bfloat16, 1024),
-    "m64_int4_kblocks": (64, 14336, 512, 128, 4, False, False, torch.float32, 2048),
-    "m5_int4_g256": (5, 1024, 64, 256, 4, True, False, torch.float32, 512),
-    "m8_int8": (8, 4096, 1024, 128, 8, False, False, torch.bfloat16, 2048),
-    "m64_int8_asym_rms": (64, 512, 64, 128, 8, True, True, torch.float32, 512),
-}
-
-
-@pytest.mark.parametrize("case", list(W4A8_CASES))
-def test_w4a8_kernel_matches_plain_version(cuda, case):
-    from scalellm_tpu_torch.ops import quant_matmul as Q
-
-    M, K, N, G, bits, asym, rms, sdt, block_k = W4A8_CASES[case]
-    t = _quant_case(cuda, M=M, K=K, N=N, G=G, bits=bits, asym=asym, rms=rms, scales_dtype=sdt)
-    before = Q.quant_matmul_w4a8_cuda.launches
-    got = Q.quant_matmul_w4a8_cuda(t["x"], t["qweight"], t["scales"], t["zeros"], bits, block_k,
-                                   t["rms_gamma"], 1e-5)
-    torch.cuda.synchronize()
-    assert Q.quant_matmul_w4a8_cuda.launches == before + 1
-    want = Q.plain_w4a8(t["x"], t["qweight"], t["scales"], t["zeros"], bits, block_k,
-                        t["rms_gamma"], 1e-5)
-    _check_quant(got, want.to(torch.bfloat16))
-
-
 # (M, K, N, G, bits, asym, rms, scales dtype)
 TILE_CASES = {
     "m8_g32_int4": (8, 256, 64, 32, 4, False, False, torch.float32),
@@ -362,6 +333,10 @@ def test_quant_kernels_refuse_what_they_do_not_cover(cuda):
         Q.quant_matmul_w4a8_cuda(t["x"].float(), *args, 256)
     with pytest.raises(NotImplementedError):
         Q.quant_matmul_w4a8_cuda(t["x"].repeat(16, 1), *args, 256)  # M = 128
+    g64 = _quant_case(cuda, M=8, K=256, N=64, G=64, bits=8, asym=False, rms=False,
+                      scales_dtype=torch.float32)
+    with pytest.raises(NotImplementedError):  # int8 at G = 64: a 128-K span lies inside one group
+        Q.quant_matmul_w4a8_cuda(g64["x"], g64["qweight"], g64["scales"], None, 8, 256)
     with pytest.raises(ValueError):
         Q.quant_matmul_dequant_cuda(t["x"].cpu(), *args)
     with pytest.raises(ValueError):
@@ -987,6 +962,124 @@ def test_small_m_kernels_refuse_what_they_do_not_cover(cuda):
                       scales_dtype=torch.float32)
     with pytest.raises(NotImplementedError):  # w4a8g needs G % 128 == 0
         Q.quant_w4a8_gemv_cuda(g64["x"], g64["qweight"], g64["scales"], None, 4, 256)
+
+
+# ---------------------------------------------------------------- W4A8 mainloop (K2, K12b)
+#
+# K2 (w4a8) and K12b (w4a8g) on the integer small-M mainloop of
+# csrc/quant_small_m.cuh, against plain_w4a8 / plain_w4a8g: the integer dots
+# are exact on both sides, the f32 sums run in another order (K slices),
+# _check_quant's tolerance. Every token tile (M 1, 5, 8, 16, 33, 64), int4
+# and int8, symmetric and with zero points, G 128 and 256, f32 and bf16
+# scales, the prologue (one k-block spanning K), several k-blocks, N that
+# leaves a partial block, blocks of one K slice (N >= 15206 on 132 SMs; 7
+# row warps at N = 28672) and of 2 or 4. (M, K, N, G, bits, asym, rms,
+# scales dtype, block_k)
+W4A8_CASES = {
+    "m1_int4": (1, 512, 64, 128, 4, False, False, torch.float32, 256),
+    "m8_int4_asym_rms": (8, 1024, 128, 128, 4, True, True, torch.float32, 1024),
+    "m16_int4_bf16_scales": (16, 4096, 4096, 128, 4, False, "bf16", torch.bfloat16, 4096),
+    "m33_int4_asym": (33, 2048, 256, 128, 4, True, False, torch.bfloat16, 1024),
+    "m64_int4_kblocks": (64, 14336, 512, 128, 4, False, False, torch.float32, 2048),
+    "m5_int4_g256": (5, 1024, 64, 256, 4, True, False, torch.float32, 512),
+    "m8_int8": (8, 4096, 1024, 128, 8, False, False, torch.bfloat16, 2048),
+    "m64_int8_asym_rms": (64, 512, 64, 128, 8, True, True, torch.float32, 512),
+    # The integer mainloop's edges:
+    "m1_int4_one_slice": (1, 1024, 16384, 128, 4, False, False, torch.float32, 512),
+    "m1_int8_asym_ragged_n": (1, 512, 96, 128, 8, True, False, torch.float32, 256),
+    "m8_int4_asym_rms_ragged_n": (8, 1024, 200, 128, 4, True, "bf16", torch.float32, 1024),
+    "m8_int4_asym_seven_row_warps": (8, 1024, 28672, 128, 4, True, False, torch.bfloat16, 512),
+    "m16_int4_g256_kblocks_ragged_n": (16, 4096, 1000, 256, 4, False, False, torch.bfloat16, 1024),
+    "m16_int8_one_slice_ragged_n": (16, 1024, 16400, 128, 8, False, False, torch.bfloat16, 512),
+    "m33_int8_asym_g256": (33, 2048, 520, 256, 8, True, False, torch.float32, 512),
+    "m33_int4_rms_bf16_scales": (33, 4096, 6144, 128, 4, False, True, torch.bfloat16, 4096),
+    "m64_int4_asym_down_kblocks": (64, 14336, 512, 128, 4, True, False, torch.float32, 2048),
+    "m64_int8_rms_two_slices": (64, 4096, 9000, 128, 8, False, "bf16", torch.float32, 4096),
+}
+
+
+def _w4a8_variant(variant):
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    if variant == "w4a8":
+        return Q.quant_matmul_w4a8_cuda, Q.plain_w4a8, Q._library, "scalellm_quant_matmul_w4a8"
+    return Q.quant_w4a8_gemv_cuda, Q.plain_w4a8g, Q._gemv_library, "scalellm_quant_w4a8_gemv"
+
+
+@pytest.mark.parametrize("variant", ["w4a8", "w4a8g"])
+@pytest.mark.parametrize("case", list(W4A8_CASES))
+def test_w4a8_kernel_matches_plain_version(cuda, case, variant):
+    M, K, N, G, bits, asym, rms, sdt, block_k = W4A8_CASES[case]
+    kernel, plain, _, _ = _w4a8_variant(variant)
+    t = _quant_case(cuda, M=M, K=K, N=N, G=G, bits=bits, asym=asym, rms=rms, scales_dtype=sdt)
+    args = (t["x"], t["qweight"], t["scales"], t["zeros"], bits, block_k, t["rms_gamma"], 1e-5)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _check_quant(got, plain(*args).to(torch.bfloat16))
+
+
+def test_w4a8_kernels_give_the_same_bits_on_every_call(cuda):
+    """20 calls each, K slices, zero points and the prologue included: the
+    sums run in a fixed order (no atomics)."""
+    t = _quant_case(cuda, M=16, K=4096, N=2048, G=128, bits=4, asym=True, rms="bf16",
+                    scales_dtype=torch.float32)
+    for variant in ("w4a8", "w4a8g"):
+        kernel = _w4a8_variant(variant)[0]
+        args = (t["x"], t["qweight"], t["scales"], t["zeros"], 4, 4096, t["rms_gamma"], 1e-5)
+        first = kernel(*args)
+        for _ in range(19):
+            assert torch.equal(kernel(*args), first)
+
+
+@pytest.mark.parametrize("variant", ["w4a8", "w4a8g"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_w4a8_kernel_fragment_order(cuda, bits, variant):
+    """One nonzero weight per column (3 at K = n, scale 1, K = 256, two
+    spans): the output is 3 sx xq[:, n], which the kernel gives with the
+    plain version's bits only if every nibble (or byte) lands at its own K
+    in the mma fragment and xq is stored with the same permutation of K."""
+    M, K, N = 24, 256, 256
+    kernel, plain, _, _ = _w4a8_variant(variant)
+    w = torch.zeros(N, K, dtype=torch.int32)
+    w[torch.arange(N), torch.arange(N)] = 3
+    if bits == 4:
+        qweight = ((w[:, 0::2] & 0xF) | ((w[:, 1::2] & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+    else:
+        qweight = w.to(torch.int8)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+    scales = torch.ones(K // 128, N)
+    got = kernel(x.to(cuda), qweight.to(cuda), scales.to(cuda), None, bits, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), plain(x, qweight, scales, None, bits, K).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("variant", ["w4a8", "w4a8g"])
+@pytest.mark.parametrize("M,N", [(1, 200), (33, 1000), (64, 16400)])
+def test_w4a8_kernels_write_every_row_and_none_past_m(cuda, variant, M, N):
+    """Through the C entry point into a NaN-filled output of M + 5 rows:
+    every element of the M rows is written (finite, and equal to the
+    wrapper's result), the rows past M, which the padded token tiles
+    compute, are never written."""
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    K, G, bits, block_k = 1024, 128, 4, 512
+    kernel, _, library, entry = _w4a8_variant(variant)
+    t = _quant_case(cuda, M=M, K=K, N=N, G=G, bits=bits, asym=True, rms=False, scales_dtype=torch.float32)
+    out = torch.full((M + 5, N), float("nan"), dtype=torch.bfloat16, device=cuda)
+    xq = torch.empty(K // 32, Q.small_m_pad(M), 32, dtype=torch.int8, device=cuda)
+    xs = torch.empty(K // 64, Q.small_m_pad(M), dtype=torch.float32, device=cuda)
+    slices = Q.small_m_slices(N, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    rc = getattr(library(), entry)(
+        t["x"].data_ptr(), t["qweight"].data_ptr(), t["scales"].data_ptr(), t["zeros"].data_ptr(), None,
+        xq.data_ptr(), xs.data_ptr(), out.data_ptr(), M, K, N, G, bits, 0, 0, block_k, slices, 1e-5,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = kernel(t["x"], t["qweight"], t["scales"], t["zeros"], bits, block_k)
+    assert torch.equal(out[:M], want)
+    assert torch.isnan(out[M:].float()).all()
 
 
 # ---------------------------------------------------------------- fused quantized MLP (K11)

@@ -120,6 +120,9 @@ W4A8 = {
     "m1_dispatch": (1, 1024, 256, 128, 4, True, False, 0, "f32"),
     "m8_int8_two_kblocks": (8, 512, 128, 128, 8, False, False, 256, "bf16"),
     "m64_int8_asym_rms": (64, 512, 128, 128, 8, True, True, 0, "bf16"),
+    # G = 256: the kernels fold each 128-K span, the reference each group.
+    "m8_g256_asym_two_kblocks": (8, 1024, 128, 256, 4, True, False, 512, "f32"),
+    "m16_int8_g256": (16, 512, 128, 256, 8, False, False, 512, "bf16"),
 }
 
 
@@ -278,6 +281,20 @@ def test_cpu_dispatch_refuses_bad_arguments():
         TQ.quant_matmul(x[:, :128], t_qw, t_sc)
     with pytest.raises(ValueError):
         TQ.quant_matmul_w4a8_cuda(x.to(torch.bfloat16), t_qw, t_sc, None, 4, 256)
+
+
+@pytest.mark.parametrize("M,K,G", [(65, 1024, 128), (8, 512, 64), (8, 1152, 192), (8, 65536, 128)])
+def test_w4a8_kernels_refuse_what_they_do_not_take(M, K, G):
+    """M past 64, a group that is no multiple of 128 (the integer mainloop
+    folds 128-K spans, each inside one group: int8 at G = 64 is refused
+    since it), K past 32768; a block_k that is no multiple of G dividing K
+    is a ValueError."""
+    for name in ("w4a8", "w4a8g"):
+        with pytest.raises(NotImplementedError):
+            TQ.check_w4a8(name, M, K, G, K)
+    TQ.check_w4a8("w4a8", 64, 4096, 256, 2048)
+    with pytest.raises(ValueError):
+        TQ.check_w4a8("w4a8", 16, 4096, 256, 384)
 
 
 # ------------------------------------------------------------ ctypes
