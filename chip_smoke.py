@@ -45,10 +45,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
         in phase 7, at the same two projections (64 experts, group 128), bit
         for bit against its plain version, beside the PyTorch form it
         replaced; the MLA decode kernel
-        (K9) at 8 sequences of 16-600 tokens and
-        the MLA prefill kernel (K10) on a mixed T = 512, S = 8 batch, 16
-        heads over the 576-wide latent cache (yardstick:
-        scaled_dot_product_attention on gathered rows).
+        (K9) at 8 sequences of 16-600 tokens, one of 8192 tokens and 64 of
+        128-2048 tokens (split-KV), and the MLA prefill kernel (K10) on a
+        mixed T = 512, S = 8 batch, 16 heads over the 576-wide latent cache
+        (yardstick: scaled_dot_product_attention on gathered rows); each
+        held against its plain version within KERNEL_TOL and row by row
+        within ATTENTION_REL_TOL, the decode batches' row check shown to
+        fail the plain split-and-merge with one piece left out, and each
+        call's device time split between the attention grid and its merge
+        (torch.profiler).
      d. the routed quantized-expert kernels at DeepSeek-V2-Lite's widths:
         K8 (gate and up, 2048 -> 1408, one launch) and K7 (down, 1408 ->
         2048), int4 at group 128 and int8, at the decode step of 3c (96
@@ -738,6 +743,22 @@ def mla_library_inputs(torch, spec, inputs, v_dim):
     return qs, ks, ks[..., :v_dim], mask
 
 
+# Phase 3c: K9 and K10 at DeepSeek-V2-Lite's heads (16) over the 576-wide
+# latent cache. K9 takes the decode-only batches, K10 the mixed one.
+MLA_SHAPES = {
+    # 8 decodes, padded to T=16, S=8: the engine's decode step.
+    "decode": dict(q_lens=[1] * 8, kv_lens=[16, 40, 90, 150, 233, 310, 480, 600], S=8, T=16),
+    # Two prefill chunks and six decodes padded to T=512.
+    "mixed": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                  S=8, T=512),
+    # One sequence of 8192 tokens: 9.4 MB of latent rows that only
+    # split-KV spreads over the card.
+    "decode_8192": dict(q_lens=[1], kv_lens=[8192], S=1, T=16),
+    # 64 decodes of 128-2048 tokens, spread evenly: about 80 MB.
+    "decode_64": dict(q_lens=[1] * 64, kv_lens=[128 + round(i * 1920 / 63) for i in range(64)], S=64, T=64),
+}
+
+
 def gmm_cases(torch, gen):
     """Phase 3c's K6 inputs at DeepSeek-V2-Lite's widths, as the engine runs
     them: a decode step of 8 tokens padded to T=16 (the 8 padding rows
@@ -756,6 +777,7 @@ def gmm_cases(torch, gen):
 def phase_moe_mla_kernels(torch, card):
     import torch.nn.functional as F
 
+    from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops import grouped_matmul as G
     from scalellm_tpu_torch.ops import mla_attention as M
 
@@ -810,29 +832,22 @@ def phase_moe_mla_kernels(torch, card):
     torch.cuda.empty_cache()
 
     H, Dc, vd = cfg["num_attention_heads"], cfg["kv_lora_rank"] + cfg["qk_rope_head_dim"], cfg["kv_lora_rank"]
-    specs = {
-        # 8 decodes, padded to T=16, S=8: K9.
-        "decode": dict(q_lens=[1] * 8, kv_lens=[16, 40, 90, 150, 233, 310, 480, 600], S=8, T=16),
-        # Two prefill chunks and six decodes padded to T=512: K10.
-        "mixed": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
-                      S=8, T=512),
-    }
     # The model's softmax scale: (qk head dim)^-0.5 times yarn's mscale^2.
     from scalellm_tpu_torch.models.deepseek import yarn_get_mscale
 
     yarn = cfg["rope_scaling"]
     sm_scale = ((cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]) ** -0.5
                 * yarn_get_mscale(yarn["factor"], yarn["mscale_all_dim"]) ** 2)
-    mla = {}
-    for name, spec in specs.items():
+    mla = {"mla_decode": {}, "mla_prefill": {}}
+    for name, spec in MLA_SHAPES.items():
         spec = dict(spec, H=H, Dc=Dc)
         inputs = latent_batch(torch, gen, q_lens=spec["q_lens"], kv_lens=spec["kv_lens"], S=spec["S"],
                               T=spec["T"], H=H, Dc=Dc)
-        decode_only = name == "decode"
+        decode_only = all(n == 1 for n in spec["q_lens"])
         kernel_name = "mla_decode" if decode_only else "mla_prefill"
+        dec_args = (inputs["q"], inputs["k_pages"], inputs["kv_lens"], inputs["page_indices"])
         if decode_only:
-            kernel = lambda: M.mla_decode_attention_cuda(inputs["q"], inputs["k_pages"], inputs["kv_lens"],
-                                                         inputs["page_indices"], sm_scale=sm_scale, v_dim=vd)
+            kernel = lambda: M.mla_decode_attention_cuda(*dec_args, sm_scale=sm_scale, v_dim=vd)
         else:
             kernel = lambda: M.mla_prefill_attention_cuda(**inputs, sm_scale=sm_scale, v_dim=vd)
         plain = lambda: M.plain_mla_paged_attention(**inputs, sm_scale=sm_scale, v_dim=vd,
@@ -842,18 +857,41 @@ def phase_moe_mla_kernels(torch, card):
         want = plain()
         n_real = sum(spec["q_lens"])
         if not torch.isfinite(got).all():
-            fail(f"{kernel_name}: kernel output is not finite")
+            fail(f"{kernel_name} {name}: kernel output is not finite")
         if not torch.all(got[n_real:] == 0):
-            fail(f"{kernel_name}: padding rows are not zero")
+            fail(f"{kernel_name} {name}: padding rows are not zero")
         err = (got.float() - want.float()).abs().max().item()
         if not err <= KERNEL_TOL:
-            fail(f"{kernel_name}: differs from the plain version by {err} > {KERNEL_TOL}")
+            fail(f"{kernel_name} {name}: differs from the plain version by {err} > {KERNEL_TOL}")
+        rel_err = attention_row_rel_err(torch, got, want)
+        if not rel_err <= ATTENTION_REL_TOL:
+            fail(f"{kernel_name} {name}: differs from the plain version by {rel_err} of a row > {ATTENTION_REL_TOL}")
+        capacity = inputs["page_indices"].shape[1] * inputs["k_pages"].shape[1]
+        splits, split_len = M.mla_split_plan(capacity, spec["S"], -(-H // M.HEAD_GROUP),
+                                             attention._sm_count(inputs["q"].device))
+        planted = {}
+        if decode_only:
+            # The check must see a merge that lost a piece: the plain
+            # split-and-merge with the longest slot's middle piece left out.
+            s_long = max(range(len(spec["kv_lens"])), key=lambda i: spec["kv_lens"][i])
+            drop = (s_long, (spec["kv_lens"][s_long] - 1) // split_len // 2)
+            lost = M.plain_mla_split_decode(*dec_args, sm_scale=sm_scale, v_dim=vd, drop=drop)
+            planted = dict(planted_drop=drop, planted_rel_err=attention_row_rel_err(torch, lost, want),
+                           planted_abs_err=(lost.float() - want.float()).abs().max().item())
+            if not planted["planted_rel_err"] > ATTENTION_REL_TOL:
+                fail(f"{kernel_name} {name}: the check passes a merge that lost piece {drop}: {planted}")
+            del lost
         ms = time_ms(torch, kernel, flush)
         plain_ms = time_ms(torch, plain, flush, runs=5)
         qs, ks, vs, mask = mla_library_inputs(torch, spec, inputs, vd)
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                                              scale=sm_scale), flush)
         del qs, ks, vs, mask
+        # The attention grid's and the merge's device time a call.
+        split = kernel_split(torch, kernel, flush, dict(attention_ms=["mla_attention_kernel"],
+                                                        merge_ms=["mla_merge_kernel"]))
+        emit(dict(phase="kernel_probe", kernel=kernel_name, shape=name, what="device ms a call by grid",
+                  **split, card=card["nvidia_smi"]))
         tok, seq = kv_ranges(spec["q_lens"], spec["kv_lens"], None)
         nbytes = (sum(e - b for b, e in seq) * Dc * 2 + n_real * H * (Dc + vd) * 2
                   + sum(inputs[x].numel() * 4 for x in ("kv_lens", "page_indices", "cu_q_lens", "num_seqs")))
@@ -861,10 +899,14 @@ def phase_moe_mla_kernels(torch, card):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
         r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
-        mla[kernel_name] = r
+        mla[kernel_name][name] = r
         emit(dict(phase="kernel", kernel=kernel_name, shape=name, T=spec["T"], S=spec["S"],
-                  real_tokens=n_real, H=H, Dc=Dc, v_dim=vd, tol=KERNEL_TOL, bytes=nbytes, flops=flops,
+                  real_tokens=n_real, H=H, Dc=Dc, v_dim=vd, splits=splits, split_len=split_len,
+                  tile_tokens=None if decode_only else M.TILE_TOKENS, tol=KERNEL_TOL,
+                  rel_tol=ATTENTION_REL_TOL, max_row_rel_err=rel_err, **planted, bytes=nbytes, flops=flops,
                   library="scaled_dot_product_attention", **r, card=card["nvidia_smi"]))
+        del inputs, got, want
+        torch.cuda.empty_cache()
     return gmm, mla
 
 
@@ -1403,7 +1445,7 @@ def device_breakdown(prof, wall_s, steps):
     act_quant_kernel, which K12b shares), the kernels launched per engine
     step, and the share of `wall_s` the device was idle. Kernels run on one
     stream, but a grid launched as a programmatic dependent (K2's main grid,
-    K1's merge, gemv) starts while the one before it runs: the groups sum
+    K1's and K9/K10's merges, gemv) starts while the one before it runs: the groups sum
     each kernel's own time, while the busy time and w4a8_ms are the union
     of the kernels' device intervals, so an overlap counts once."""
     from torch.autograd import DeviceType
@@ -1421,7 +1463,7 @@ def device_breakdown(prof, wall_s, steps):
         low = name.lower()
         if "expert_dequant" in low:
             groups["expert_dequant_ms"] += ms
-        elif any(w in low for w in ("ragged_paged_attention", "mla_decode_kernel", "mla_prefill_kernel")):
+        elif any(w in low for w in ("ragged_paged_attention", "mla_attention_kernel", "mla_merge_kernel")):
             groups["attention_ms"] += ms
         elif "grouped_matmul_kernel" in low:
             groups["grouped_matmul_ms"] += ms
@@ -2310,10 +2352,10 @@ def main() -> None:
                      ("gate_up", 4, "decode")),
         kernel_entry("mla_decode", "scalellm_tpu_torch/csrc/mla_attention.cu",
                      "scalellm_tpu/ops/mla_attention.py:96", launched("mla_decode_attention_cuda"),
-                     {"k": mla_results["mla_decode"]}, "k"),
+                     mla_results["mla_decode"], "decode"),
         kernel_entry("mla_prefill", "scalellm_tpu_torch/csrc/mla_attention.cu",
                      "scalellm_tpu/ops/mla_attention.py:271", launched("mla_prefill_attention_cuda"),
-                     {"k": mla_results["mla_prefill"]}, "k"),
+                     mla_results["mla_prefill"], "mixed"),
         kernel_entry("quant_gemv", gemv_source, "scalellm_tpu/ops/quant_matmul.py:304",
                      launched("quant_gemv_cuda"), small_m_results["gemv"], ("gate_up_proj", 16)),
         kernel_entry("quant_w4a8_gemv", gemv_source, "scalellm_tpu/ops/quant_matmul.py:466",

@@ -14,10 +14,19 @@ columns of the same rows, so the pages hold K only: [P, page_size, 1, Dc].
     truth; gathers [T, MAXP * page_size, Dc]).
   - plain_mla_decode / plain_mla_prefill: plain PyTorch versions of the two
     kernels, what the CPU runs and what the kernels are held to on the card.
+  - mla_split_plan: the pieces a 1-token sequence's latent range is cut
+    into (split-KV), from shapes the host knows;
+    plain_mla_split_decode: the split-and-merge in plain PyTorch under that
+    plan, for the CPU tests and, with a piece left out, the planted fault
+    that shows the kernel checks catch a lost piece. Nothing on the main
+    path calls it.
   - mla_decode_attention_cuda (K9, the counterpart of _mla_decode_kernel)
     and mla_prefill_attention_cuda (K10, of _mla_prefill_kernel): wrappers
     of the Hopper kernels in csrc/mla_attention.cu, each counting its
-    launches.
+    launches. Both launch one attention grid and a merge: every sequence of
+    one token takes split blocks (f32 partials in a scratch the wrapper
+    allocates, merged in split order), every longer one (K10) q tiles of
+    TILE_TOKENS tokens.
   - mla_paged_attention: the dispatcher. A CUDA tensor goes to K9 for a
     decode-only batch (one token per sequence slot, token s of sequence s)
     and to K10 otherwise; a CPU tensor goes to the plain versions. There is
@@ -32,16 +41,22 @@ cu_q_lens[num_seqs] of a mixed batch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from scalellm_tpu_torch.ops import _build
+from scalellm_tpu_torch.ops.attention import H100_SMS, _sm_count
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The kernels are built for DeepSeek-V2's widths (V2, V2-Lite and V3 alike):
 # kv_lora_rank 512 plus 64 rope dims.
 KERNEL_LATENT_DIM, KERNEL_V_DIM = 576, 512
+HEAD_GROUP = 16  # kHeads in the kernel: query heads a block, the mma M tile
+MLA_STEP = 64  # kStep in the kernel: latent rows a step; pieces are whole steps
+MLA_BLOCKS_PER_SM = 2  # split blocks an SM the plan aims at, at the block table's length
+MLA_MAX_SPLIT_LEN = 256  # rows: so that contexts of unequal length balance over the blocks
+TILE_TOKENS = 2  # kTileTokens in the kernel: tokens of a K10 tile block
 
 
 def set_latent_cache(
@@ -163,16 +178,81 @@ def plain_mla_prefill(
     return out
 
 
+def mla_split_plan(kv_capacity: int, n_slots: int, n_head_groups: int,
+                   n_sm: int = H100_SMS) -> Tuple[int, int]:
+    """(splits, split_len) of the split blocks: a 1-token sequence's latent
+    range is cut into `splits` pieces of `split_len` rows, a multiple of
+    MLA_STEP. Sized from what the host knows, never from a device value: the
+    block table's length kv_capacity = maxp * page_size (the longest context
+    it allows), the slots, the head groups and the SM count, so that a batch
+    whose every slot reached kv_capacity would give about MLA_BLOCKS_PER_SM
+    blocks an SM, and no piece is longer than MLA_MAX_SPLIT_LEN rows."""
+    steps = max(1, -(-kv_capacity // MLA_STEP))
+    want = max(1, -(-MLA_BLOCKS_PER_SM * n_sm // max(1, n_slots * n_head_groups)),
+               -(-kv_capacity // MLA_MAX_SPLIT_LEN))
+    per_split = -(-steps // min(want, steps))
+    return -(-steps // per_split), per_split * MLA_STEP
+
+
+def plain_mla_split_decode(
+    q: torch.Tensor,  # [T, H, Dc], T >= S: token s is sequence s's only query
+    k_pages: torch.Tensor,  # [P, page_size, 1, Dc]
+    kv_lens: torch.Tensor,  # i32[S]
+    page_indices: torch.Tensor,  # i32[S, MAXP]
+    *,
+    sm_scale: float,
+    v_dim: int,
+    drop: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:  # [T, H, v_dim]
+    """K9's split-and-merge in plain PyTorch: each slot's latent range is cut
+    into the pieces mla_split_plan() gives on an H100, each piece gives
+    (o, m, l) in f32 (an empty piece gives m = -inf, l = 0), and the pieces
+    merge in split order. Rows past S and slots with kv_len 0 are zeros.
+    drop = (slot, piece) leaves that piece out of the merge: a planted
+    fault, the output of a merge that lost a piece."""
+    T, H, Dc = q.shape
+    S, maxp = page_indices.shape
+    capacity = maxp * k_pages.shape[1]
+    splits, split_len = mla_split_plan(capacity, S, -(-H // HEAD_GROUP))
+    out = torch.zeros(T, H, v_dim, dtype=torch.float32, device=q.device)
+    for s in range(min(S, T)):
+        hi = min(int(kv_lens[s]), capacity)
+        k = k_pages[page_indices[s].long()].reshape(capacity, Dc).float()
+        qs = q[s].float()
+        o_run = torch.zeros(H, v_dim, dtype=torch.float32, device=q.device)
+        m_run = torch.full((H,), float("-inf"), device=q.device)
+        l_run = torch.zeros(H, device=q.device)
+        for sp in range(splits):
+            a, b = sp * split_len, min(hi, (sp + 1) * split_len)
+            if b <= a or drop == (s, sp):
+                continue  # an empty piece: l = 0 leaves the merge as it is
+            sc = (qs @ k[a:b].T) * sm_scale  # [H, rows]
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[:, None])
+            l = p.sum(-1)
+            o = p @ k[a:b, :v_dim]
+            m_new = torch.maximum(m_run, m)
+            alpha, w = torch.exp(m_run - m_new), torch.exp(m - m_new)
+            o_run = o_run * alpha[:, None] + o * w[:, None]
+            l_run = l_run * alpha + l * w
+            m_run = m_new
+        inv = torch.where(l_run > 0, 1.0 / l_run.clamp_min(1e-30), torch.zeros_like(l_run))
+        out[s] = o_run * inv[:, None]
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------- CUDA wrappers
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Parameters of the C entry points of csrc/mla_attention.cu, in order.
-# decode: q, k_pages, kv_lens, page_indices, out; num_rows, num_seqs (S),
-# maxp, page_size, n_heads, latent_dim, v_dim; sm_scale; stream.
-_DECODE_ARGTYPES = [_P] * 5 + [_I] * 7 + [_F, _P]
-# prefill: q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, out;
-# num_tokens, S, maxp, page_size, n_heads, latent_dim, v_dim; sm_scale; stream.
-_PREFILL_ARGTYPES = [_P] * 7 + [_I] * 7 + [_F, _P]
+# decode: q, k_pages, kv_lens, page_indices, out, scratch; num_rows,
+# num_seqs (S), maxp, page_size, n_heads, latent_dim, v_dim, splits,
+# split_len; sm_scale; stream.
+_DECODE_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _P]
+# prefill: q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, out,
+# scratch; num_tokens, S, maxp, page_size, n_heads, latent_dim, v_dim,
+# splits, split_len; sm_scale; stream.
+_PREFILL_ARGTYPES = [_P] * 8 + [_I] * 9 + [_F, _P]
 ENTRY_POINTS = {
     "scalellm_mla_decode": _DECODE_ARGTYPES,
     "scalellm_mla_prefill": _PREFILL_ARGTYPES,
@@ -212,10 +292,20 @@ def _check_cuda_operands(q, k_pages, v_dim, **index_tensors):
             raise ValueError(f"{name} must be contiguous")
         if name not in ("q", "k_pages") and t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if q.data_ptr() % 16 or k_pages.data_ptr() % 16:
+        raise ValueError("q and k_pages must be 16-byte aligned (the kernels copy 16 bytes at a time)")
     S, maxp = index_tensors["page_indices"].shape
     if index_tensors["kv_lens"].shape != (S,):
         raise ValueError("kv_lens must be [S]")
     return T, H, Dc, S, maxp, k_pages.shape[1]
+
+
+def _split_scratch(q, S, kv_capacity, H, v_dim):
+    """The split plan and its f32 partials: o [S, splits, H, v_dim], then
+    (m, l) [S, splits, H], allocated on the current stream."""
+    splits, split_len = mla_split_plan(kv_capacity, S, -(-H // HEAD_GROUP), _sm_count(q.device))
+    scratch = torch.empty(S * splits * H * (v_dim + 2), dtype=torch.float32, device=q.device)
+    return splits, split_len, scratch
 
 
 def mla_decode_attention_cuda(q, k_pages, kv_lens, page_indices, *, sm_scale, v_dim) -> torch.Tensor:
@@ -227,10 +317,11 @@ def mla_decode_attention_cuda(q, k_pages, kv_lens, page_indices, *, sm_scale, v_
     if T < S:
         raise ValueError(f"a decode-only batch has a row per sequence slot: T={T} < S={S}")
     out = torch.empty(T, H, v_dim, dtype=torch.bfloat16, device=q.device)
+    splits, split_len, scratch = _split_scratch(q, S, maxp * page, H, v_dim)
     rc = _library().scalellm_mla_decode(
         q.data_ptr(), k_pages.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
-        out.data_ptr(), T, S, maxp, page, H, Dc, v_dim, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), scratch.data_ptr(), T, S, maxp, page, H, Dc, v_dim, splits, split_len,
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"mla decode kernel launch failed: CUDA error {rc}")
@@ -243,19 +334,22 @@ mla_decode_attention_cuda.launches = 0
 
 def mla_prefill_attention_cuda(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
                                sm_scale, v_dim) -> torch.Tensor:
-    """Launch K10 on the current stream over a ragged mixed batch. Returns
-    bf16 [T, H, v_dim]. `mla_prefill_attention_cuda.launches` counts the
-    launches."""
+    """Launch K10 on the current stream over a ragged mixed batch: q tiles
+    of TILE_TOKENS tokens for sequences of 2 or more tokens, split blocks
+    for the others. Returns bf16 [T, H, v_dim].
+    `mla_prefill_attention_cuda.launches` counts the launches."""
     T, H, Dc, S, maxp, page = _check_cuda_operands(
         q, k_pages, v_dim, kv_lens=kv_lens, page_indices=page_indices, cu_q_lens=cu_q_lens,
         num_seqs=num_seqs)
     if cu_q_lens.shape != (S + 1,) or num_seqs.shape != (1,):
         raise ValueError("cu_q_lens and num_seqs must be [S+1] and [1]")
     out = torch.empty(T, H, v_dim, dtype=torch.bfloat16, device=q.device)
+    splits, split_len, scratch = _split_scratch(q, S, maxp * page, H, v_dim)
     rc = _library().scalellm_mla_prefill(
         q.data_ptr(), k_pages.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
-        cu_q_lens.data_ptr(), num_seqs.data_ptr(), out.data_ptr(), T, S, maxp, page, H, Dc,
-        v_dim, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        cu_q_lens.data_ptr(), num_seqs.data_ptr(), out.data_ptr(), scratch.data_ptr(), T, S,
+        maxp, page, H, Dc, v_dim, splits, split_len, float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"mla prefill kernel launch failed: CUDA error {rc}")

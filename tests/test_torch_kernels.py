@@ -477,7 +477,28 @@ MLA_CASES = {
     "decode_padding_slots": ([1] * 3, [5, 33, 64], 8, 16, 4, 576, 512),
     "mixed_v2_lite": ([37, 64, 1, 1, 1, 1, 1, 1], [37, 200, 17, 90, 301, 5, 77, 600], 16, 256, 16, 576, 512),
     "mixed_two_head_groups": ([9, 1, 1], [40, 70, 3], 4, 16, 20, 576, 512),
+    # The split-KV decode at long contexts: one 8192-token sequence, 64 of
+    # 128-2048 tokens, full V2's 128 heads (8 head groups), and pieces past
+    # kv_len (the block table is as long as the 2048-token slot's).
+    "decode_8192": ([1], [8192], 1, 16, 16, 576, 512),
+    "decode_64_of_128_2048": ([1] * 64, [128 + round(i * 1920 / 63) for i in range(64)], 64, 64, 16, 576, 512),
+    "decode_h128": ([1] * 4, [100, 700, 1500, 33], 4, 16, 128, 576, 512),
+    "decode_splits_past_kv_len": ([1] * 4, [2048, 70, 1, 300], 4, 16, 16, 576, 512),
+    # Chunks that are no multiple of a tile's tokens (2 or 4), beside
+    # decodes of 900 and 1024 tokens, a 1-token context and a padding slot.
+    "mixed_odd_chunks": ([37, 17, 1, 1, 5, 3, 1], [37, 300, 900, 1024, 5, 90, 1], 8, 128, 16, 576, 512),
 }
+# The decode cases whose slots the plan cuts into more than one piece.
+MLA_SPLIT_CASES = ["decode_v2_lite", "decode_8192", "decode_64_of_128_2048", "decode_h128",
+                   "decode_splits_past_kv_len"]
+
+
+def _mla_case(device, case, seed=0):
+    from torch_port_util import latent_batch
+
+    q_lens, kv_lens, S, T, H, Dc, _ = MLA_CASES[case]
+    rng = np.random.default_rng(seed)
+    return _on(latent_batch(rng, q_lens=q_lens, kv_lens=kv_lens, S=S, T=T, n_heads=H, latent_dim=Dc), device)
 
 
 @pytest.mark.parametrize("case", list(MLA_CASES))
@@ -504,6 +525,66 @@ def test_mla_kernels_match_plain_versions(cuda, case):
     if decode_only:  # the same batch through K10 gives the same rows
         mixed = M.mla_prefill_attention_cuda(**{k: v for k, v in inputs.items()}, sm_scale=0.0723, v_dim=vd)
         torch.testing.assert_close(mixed.float(), got.float(), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", MLA_SPLIT_CASES)
+def test_mla_split_decode_passes_the_row_check_that_fails_a_lost_piece(cuda, case):
+    """K9 within ATTENTION_REL_TOL of each (token, head) row's size, as its
+    plain split-and-merge is; that split-and-merge with the longest slot's
+    middle piece left out fails the check."""
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    q_lens, kv_lens, S, T, H, Dc, vd = MLA_CASES[case]
+    inputs = _mla_case(cuda, case)
+    args = (inputs["q"], inputs["k_pages"], inputs["kv_lens"], inputs["page_indices"])
+    capacity = inputs["page_indices"].shape[1] * inputs["k_pages"].shape[1]
+    splits, split_len = M.mla_split_plan(capacity, S, -(-H // M.HEAD_GROUP),
+                                         torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert splits > 1
+    got = M.mla_decode_attention_cuda(*args, sm_scale=0.0723, v_dim=vd)
+    torch.cuda.synchronize()
+    want = M.plain_mla_decode(*args, sm_scale=0.0723, v_dim=vd)
+    _assert_matches_plain(got, want, len(q_lens))
+    merged = M.plain_mla_split_decode(*args, sm_scale=0.0723, v_dim=vd)
+    assert attention_row_rel_err(torch, merged, want) <= ATTENTION_REL_TOL
+    s = max(range(len(kv_lens)), key=lambda i: kv_lens[i])
+    drop = (s, (kv_lens[s] - 1) // split_len // 2)
+    lost = M.plain_mla_split_decode(*args, sm_scale=0.0723, v_dim=vd, drop=drop)
+    assert attention_row_rel_err(torch, lost, want) > ATTENTION_REL_TOL
+    assert attention_row_rel_err(torch, got, lost) > ATTENTION_REL_TOL
+
+
+@pytest.mark.parametrize("case", ["mixed_v2_lite", "mixed_two_head_groups", "mixed_odd_chunks"])
+def test_mla_prefill_passes_the_row_check(cuda, case):
+    """K10 on the mixed batches within TOL and row by row within
+    ATTENTION_REL_TOL; padding rows zero."""
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    q_lens = MLA_CASES[case][0]
+    inputs = _mla_case(cuda, case)
+    got = M.mla_prefill_attention_cuda(**inputs, sm_scale=0.0723, v_dim=512)
+    torch.cuda.synchronize()
+    want = M.plain_mla_prefill(**inputs, sm_scale=0.0723, v_dim=512)
+    _assert_matches_plain(got, want, sum(q_lens))
+
+
+@pytest.mark.parametrize("batch", ["decode", "mixed"])
+def test_mla_kernels_give_the_same_bits_on_every_call(cuda, batch):
+    """No float atomics: 20 calls give the same bits (K9 on a decode batch
+    of split blocks, K10 on a mixed one of tiles and split blocks), with the
+    merge's scratch allocated anew on each call."""
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    if batch == "decode":
+        inputs = _mla_case(cuda, "decode_splits_past_kv_len")
+        call = lambda: M.mla_decode_attention_cuda(inputs["q"], inputs["k_pages"], inputs["kv_lens"],
+                                                   inputs["page_indices"], sm_scale=0.0723, v_dim=512)
+    else:
+        inputs = _mla_case(cuda, "mixed_odd_chunks")
+        call = lambda: M.mla_prefill_attention_cuda(**inputs, sm_scale=0.0723, v_dim=512)
+    first = call()
+    for _ in range(19):
+        assert torch.equal(call(), first)
 
 
 def test_mla_kernels_refuse_what_they_do_not_cover(cuda):
