@@ -73,10 +73,22 @@ Phases (any failure exits non-zero, and the result line is not printed):
         it reads the weights; then K11's own path, its entry point
         quant_mlp at M = 1, 8, 16, 32, 64 (no model calls it, as in the
         reference).
+  Phases 4-7 serve each model twice, on fresh engines in the same call:
+  first with CUDA graphs (the main path: every engine step replays the
+  graph of its bucket, the "full" warmup captures every bucket of the
+  serving envelope at init, SERVE_ENVELOPE), then eagerly; each serve is a
+  warm-up request, a timed generate of 8 prompts (32 greedy tokens each)
+  and the same traffic with other text under torch.profiler. Both serves
+  must sample the same token ids at every step. Each step's launches are
+  held exactly to what the path implies, counted by the wrappers (an eager
+  step, or the eager run and the recording of a capture) or, for a replay,
+  as its graph's wrappers counted when it was recorded. Hooks that act
+  when a step's Python runs (phase 5's variant serves, the in-model probe,
+  phases 6 and 7's routing replay) run on the eager engine's model.
   4. end to end, bf16: a TinyLlama-1.1B-shaped checkpoint (random weights
      from a seed) served by scalellm_tpu_torch.LLM with chunked prefill and
      the prefix cache; every request must finish and every engine step must
-     go through the attention kernel. Then one prefill batch and the
+     go through the attention kernel once a layer. Then one prefill batch and the
      decode step after it (every sequence one token: K1's split-KV blocks)
      run through the model twice, with the kernel and with the plain
      attention, and the logits must agree.
@@ -1490,10 +1502,8 @@ def device_breakdown(prof, wall_s, steps):
 
 
 def phase_end_to_end(torch, card):
-    from scalellm_tpu_torch import LLM, SamplingParams
     from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops.attention import plain_ragged_paged_attention
-    from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
 
     cfg = TINYLLAMA
     L = cfg["num_hidden_layers"]
@@ -1503,66 +1513,25 @@ def phase_end_to_end(torch, card):
         t0 = time.monotonic()
         nbytes = write_checkpoint(torch, tmp, cfg)
         t_write = time.monotonic() - t0
-        t0 = time.monotonic()
-        # Defaults (device cuda), with chunked prefill on: a 512-token step
-        # budget splits the longer prompts.
-        llm = LLM(tmp, max_tokens_per_batch=512)
-        torch.cuda.synchronize()
-        t_load = time.monotonic() - t0
-        engine = llm._handler.engine
-        emit(dict(phase="e2e_setup", checkpoint_bytes=nbytes, write_s=t_write, load_s=t_load,
-                  kv_blocks=engine.block_manager.options.num_blocks))
-
-        greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
-        llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
-        ps = prompts()
-        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
-        ttft_before = (ttft.total, ttft.count)
-        steps_before = COUNTERS.get("num_engine_steps")
-        kernel = attention.ragged_paged_attention_cuda
-        kernel.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        outs = llm.generate(ps, greedy)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launches = kernel.launches
-        steps = int(COUNTERS.get("num_engine_steps") - steps_before)
-        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
-        mean_ttft = (ttft.total - ttft_before[0]) / max(ttft.count - ttft_before[1], 1)
-
-        if len(outs) != len(ps):
-            fail(f"{len(outs)} of {len(ps)} requests returned")
-        # Generated tokens are counted from usage: the char tokenizer names
-        # ids below 256 only, and the output's token_ids hold only the ids
-        # that decoded to text (the random model mostly picks higher ids).
-        for o in outs:
-            if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
-                fail(f"request did not finish with 32 tokens: {o.status}, {o.usage}")
-        if steps <= 0 or launches < L * steps:
-            fail(f"kernel launched {launches} times in {steps} engine steps (need >= {L} per step)")
-        n_tokens = sum(o.usage.num_generated_tokens for o in outs)
-        emit(dict(phase="e2e", requests=len(outs), prompt_chars=[len(p) for p in ps],
-                  output_tokens=n_tokens, wall_s=wall, output_tok_per_s=n_tokens / wall,
-                  mean_ttft_s=mean_ttft, engine_steps=steps, kernel_launches=launches,
-                  launches_per_step=launches / steps, card=card["nvidia_smi"]))
-
-        # Where the device time goes: the same workload (other text, same
-        # prompt lengths) once more under torch.profiler. The profiler slows
-        # the host, so the idle share is taken against the unprofiled run's
-        # wall time above.
-        from torch.profiler import ProfilerActivity, profile
-
-        steps_before = COUNTERS.get("num_engine_steps")
-        t0 = time.monotonic()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            llm.generate(prompts(SEED + 1), greedy)
+        runs = {}
+        # With CUDA graphs (the main path), then eagerly on a fresh engine.
+        for graphs in (True, False):
+            t0 = time.monotonic()
+            llm = serving_llm(tmp, graphs)
             torch.cuda.synchronize()
-        profiled_wall = time.monotonic() - t0
-        profiled_steps = int(COUNTERS.get("num_engine_steps") - steps_before)
-        emit(dict(phase="e2e_profile", engine_steps=profiled_steps, profiled_wall_s=profiled_wall,
-                  unprofiled_wall_s=wall, **device_breakdown(prof, wall, profiled_steps),
-                  card=card["nvidia_smi"]))
+            t_load = time.monotonic() - t0
+            engine = llm._handler.engine
+            emit(dict(phase="e2e_setup" if graphs else "e2e_eager_setup", graphs=graphs, checkpoint_bytes=nbytes,
+                      write_s=t_write, load_s=t_load, kv_blocks=engine.block_manager.options.num_blocks,
+                      **graph_stats(engine)))
+            # K1 exactly once a layer each step.
+            runs[graphs] = serve(torch, card, "e2e", llm, (attention.ragged_paged_attention_cuda,),
+                                 lambda T, S, decode_only: {"ragged_paged_attention_cuda": L}, graphs)
+            if graphs:
+                engine = None
+                llm.close()
+                llm = None
+        compare_serves(card, "e2e", runs[True], runs[False])
 
         # One prefill batch and the decode step after it (every sequence one
         # token: the split-KV blocks) through the model twice, over the same
@@ -1575,6 +1544,7 @@ def phase_end_to_end(torch, card):
         llm.close()
         llm = None
         torch.cuda.empty_cache()
+        ps = prompts()
         ids = [tok.encode(ps[0])[:200], tok.encode(ps[5])]
         prefill, n_pages = batch_inputs(torch, [(t, 0, len(t) + 1) for t in ids])
         decode, _ = batch_inputs(torch, [([7 + i], len(t), len(t) + 1) for i, t in enumerate(ids)])
@@ -1602,7 +1572,7 @@ def phase_end_to_end(torch, card):
                       argmax_agreement=same_argmax, tol=LOGITS_TOL))
             if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
                 fail(f"{which}: kernel logits differ from plain-attention logits by {err} > {LOGITS_TOL}")
-        return launches
+        return runs[True]["launches"]["ragged_paged_attention_cuda"]
     finally:
         if llm is not None:
             llm.close()
@@ -1680,30 +1650,214 @@ def write_gptq_checkpoint(torch, path, cfg):
     return offset
 
 
+# The phases' serving envelope: a 512-token step budget (chunked prefill
+# on), 8 sequences a step, contexts of up to 1024 tokens (the 600-char
+# prompts plus 32 tokens fit).
+SERVE_ENVELOPE = dict(max_tokens_per_batch=512, max_seqs_per_batch=8, max_context_len=1024)
+
+
+def serving_llm(path, graphs, **kw):
+    """An LLM for `path` on the card at SERVE_ENVELOPE. With graphs, every
+    engine step replays a CUDA graph of its bucket, and the "full" warmup
+    captures every bucket of the envelope at init; without, every step runs
+    eagerly. warmup_mode and max_context_len are fields of LLMHandlerOptions
+    that LLM does not take (nor does the reference's LLM), so its handler is
+    built from the options here. One request-handling thread enqueues the
+    prompts in the order given (several race), so that two serves of the
+    same traffic build the same batches and can be compared step by step."""
+    from scalellm_tpu_torch import LLM
+    from scalellm_tpu_torch.handlers.llm_handler import LLMHandler, LLMHandlerOptions
+
+    llm = LLM.__new__(LLM)
+    llm._handler = LLMHandler(LLMHandlerOptions(
+        model_path=path, devices=DEVICE, enable_cuda_graph=graphs, warmup_mode="full" if graphs else "off",
+        num_handling_threads=1, **SERVE_ENVELOPE, **kw))
+    return llm
+
+
+def all_counters():
+    """Every kernel wrapper of the port; each counts its launches."""
+    from scalellm_tpu_torch.ops import attention, quant_mlp
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    wrappers = (attention.ragged_paged_attention_cuda, Q.quant_gemv_cuda, Q.quant_w4a8_gemv_cuda,
+                Q.quant_stream_probe_cuda, quant_mlp.quant_mlp_cuda) + deepseek_counters()
+    return tuple({w.__name__: w for w in wrappers}.values())
+
+
+def count_captured_launches():
+    """Make every StepGraphs capture note, on the captured step, how far
+    each kernel wrapper's counter advanced while the graph was recorded:
+    the launches each replay of it makes. A wrapper counts when it is
+    called, which for a graph is at the capture; a replay launches the
+    recorded kernels without calling the wrappers."""
+    from scalellm_tpu_torch.engine.executor import StepGraphs
+
+    real = StepGraphs.record
+    if getattr(real, "counts_launches", False):
+        return
+
+    def record(self, step):
+        counters = all_counters()
+        before = [c.launches for c in counters]
+        real(self, step)
+        step.launches = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+
+    record.counts_launches = True
+    StepGraphs.record = record
+
+
 def watch_steps(engine, counters):
     """Record, per engine step, the padded token and sequence counts, whether
-    the step was decode-only, and how often each kernel wrapper launched.
-    Returns the list it appends to."""
-    log = []
-    real = engine.executor.execute
+    the step was decode-only, how many times it ran on the device (2 for a
+    step that captured its graph on the card: the eager run before the
+    capture, then the replay), and how often each kernel wrapper's kernel
+    was launched: what the wrappers counted (an eager step; the eager run
+    and the recording of a capture, whose count equals its replay's), plus,
+    for a step that replayed an earlier capture, the launches noted at that
+    capture (count_captured_launches). Also each step's sampled token ids
+    of the real sequences (device tensors), and the host clock at each
+    step's start. Returns (log, sampled, starts)."""
+    log, sampled, starts = [], [], []
+    ex = engine.executor
+    real = ex.execute
 
     def execute(mi, si, decode_only=False):
+        starts.append(time.monotonic())
         before = [c.launches for c in counters]
+        known = set(ex.graphs.graphs) if ex.graphs is not None else set()
         out = real(mi, si, decode_only=decode_only)
-        log.append((mi.token_ids.shape[0], mi.selected_idxes.shape[0], decode_only,
-                    *[c.launches - b for c, b in zip(counters, before)]))
+        got = [c.launches - b for c, b in zip(counters, before)]
+        runs = 1
+        if ex.graphs is not None:
+            if ex.graphs.last_key in known:
+                recorded = getattr(ex.graphs.graphs[ex.graphs.last_key], "launches", {})
+                got = [n + recorded.get(c.__name__, 0) for n, c in zip(got, counters)]
+            elif ex.graphs.cuda:
+                runs = 2
+        log.append((mi.token_ids.shape[0], mi.selected_idxes.shape[0], decode_only, runs, *got))
+        sampled.append(out.next_tokens[: int(mi.num_seqs[0])])
         return out
 
-    engine.executor.execute = execute
-    return log
+    ex.execute = execute
+    return log, sampled, starts
+
+
+def graph_stats(engine):
+    """The engine's step graphs: how many, the seconds spent capturing them
+    (each capture's eager run included) and the bytes of their memory pool."""
+    g = engine.executor.graphs
+    if g is None:
+        return dict(graphs_captured=0, capture_s=0.0, graph_pool_bytes=0)
+    return dict(graphs_captured=len(g.graphs), capture_s=g.capture_s, graph_pool_bytes=g.pool_bytes())
+
+
+def serve(torch, card, tag, llm, counters, want, graphs):
+    """The phase's traffic through `llm`: a warm-up request, then one timed
+    generate of the 8 prompts (32 greedy tokens each) with every engine
+    step's launches held to want(T, S, decode_only) (launches by wrapper
+    name) times the step's device runs, then the same traffic with other
+    text under torch.profiler (the idle share is taken against the timed
+    run's wall). Emits `{tag}_e2e` and `{tag}_profile` (`{tag}_eager_...`
+    without graphs). Returns the outputs, each step's sampled ids, the
+    launches by wrapper name and the figures the graphs/eager line holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scalellm_tpu_torch import SamplingParams
+    from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
+
+    name = tag if graphs else f"{tag}_eager"
+    engine = llm._handler.engine
+    greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
+    ps = prompts()
+    ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
+    ttft_before = (ttft.total, ttft.count)
+    steps_log, sampled, starts = watch_steps(engine, counters)
+    compiles = COUNTERS.get("num_mid_serve_compiles")
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    outs = llm.generate(ps, greedy)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    compiles = COUNTERS.get("num_mid_serve_compiles") - compiles
+    ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
+    mean_ttft = (ttft.total - ttft_before[0]) / max(ttft.count - ttft_before[1], 1)
+    if len(outs) != len(ps):
+        fail(f"{name}: {len(outs)} of {len(ps)} requests returned")
+    # Generated tokens are counted from usage: the char tokenizer names
+    # ids below 256 only, and the output's token_ids hold only the ids
+    # that decoded to text (the random model mostly picks higher ids).
+    for o in outs:
+        if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
+            fail(f"{name}: request did not finish with 32 tokens: {o.status}, {o.usage}")
+    if not steps_log:
+        fail(f"{name}: no engine step ran")
+    names = [c.__name__ for c in counters]
+    per_step = {}
+    for T, S, decode_only, runs, *got in steps_log:
+        step_want = want(T, S, decode_only)
+        expected = [runs * step_want.get(n, 0) for n in names]
+        if got != expected:
+            fail(f"{name}: a step of T={T}, S={S}, decode_only={decode_only} ({runs} device runs) launched "
+                 f"{dict(zip(names, got))}, expected {dict(zip(names, expected))}")
+        per_step[f"T={T},S={S},decode_only={decode_only}"] = {k: v for k, v in step_want.items() if v}
+    launches = {n: sum(st[4 + i] for st in steps_log) for i, n in enumerate(names)}
+    tokens = [t.cpu() for t in sampled]
+    n_tokens = sum(o.usage.num_generated_tokens for o in outs)
+    # Host wall a step: from its start to the next step's (the last to the
+    # generate's end), decode-only steps and the others apart.
+    spans = [(b - a) * 1e3 for a, b in zip(starts, starts[1:] + [t0 + wall])]
+    decode_ms = [ms for ms, st in zip(spans, steps_log) if st[2]]
+    other_ms = [ms for ms, st in zip(spans, steps_log) if not st[2]]
+    result = dict(graphs=graphs, output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft, wall_s=wall,
+                  engine_steps=len(steps_log),
+                  decode_step_ms=statistics.median(decode_ms) if decode_ms else None,
+                  other_step_ms=statistics.fmean(other_ms) if other_ms else None,
+                  mid_serve_compiles=compiles, **graph_stats(engine))
+    emit(dict(phase=f"{name}_e2e", **result, requests=len(outs), output_tokens=n_tokens,
+              decode_only_steps=sum(1 for st in steps_log if st[2]),
+              prefill_steps=sum(1 for st in steps_log if st[0] > 64),
+              captured_in_serve=sum(1 for st in steps_log if st[3] == 2),
+              step_tokens=sorted({st[0] for st in steps_log}),
+              launches={k: v for k, v in launches.items() if v}, per_step=per_step, card=card["nvidia_smi"]))
+
+    del steps_log[:]
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        llm.generate(prompts(SEED + 1), greedy)
+        torch.cuda.synchronize()
+    profiled_wall = time.monotonic() - t0
+    breakdown = device_breakdown(prof, wall, len(steps_log))
+    del prof
+    emit(dict(phase=f"{name}_profile", graphs=graphs, engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
+              unprofiled_wall_s=wall, **breakdown, card=card["nvidia_smi"]))
+    del engine.executor.execute  # the wrapper of watch_steps
+    result.update(idle_share=breakdown["idle_share"], kernels_per_step=breakdown["kernels_per_step"],
+                  device_busy_ms=breakdown["device_busy_ms"])
+    return dict(outs=outs, tokens=tokens, launches=launches, figures=result)
+
+
+def compare_serves(card, tag, with_graphs, eager):
+    """Emit the graphs/eager line of a phase (both serves' figures, from the
+    same call), and fail unless both serves sampled the same token ids at
+    every step and gave the same texts."""
+    same_ids = (len(with_graphs["tokens"]) == len(eager["tokens"])
+                and all(a.equal(b) for a, b in zip(with_graphs["tokens"], eager["tokens"])))
+    same_text = [o.outputs[0].text for o in with_graphs["outs"]] == [o.outputs[0].text for o in eager["outs"]]
+    emit(dict(phase=f"{tag}_graphs_vs_eager", same_token_ids=same_ids, same_text=same_text,
+              graphs=with_graphs["figures"], eager=eager["figures"], card=card["nvidia_smi"]))
+    if not (same_ids and same_text):
+        fail(f"{tag}: the serve with CUDA graphs sampled other token ids than the eager serve")
 
 
 def phase_end_to_end_int4(torch, card, n_layers):
-    from scalellm_tpu_torch import LLM, SamplingParams
+    from scalellm_tpu_torch import SamplingParams
     from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops import quant_matmul as Q
     from scalellm_tpu_torch.ops.attention import plain_ragged_paged_attention
-    from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
 
     cfg = dict(LLAMA31_8B_INT4, num_hidden_layers=n_layers)
     L = n_layers
@@ -1713,61 +1867,44 @@ def phase_end_to_end_int4(torch, card, n_layers):
     counters = (k1, w4a8, group, dequant, gemv, w4a8g)
     tmp = tempfile.mkdtemp(prefix="scalellm_llama8b_int4_")
     llm = None
+
+    def want(T, S, decode_only):
+        # The lm_head sees the padded count of selected rows.
+        out = {k1.__name__: L, w4a8.__name__: 0, dequant.__name__: 0}
+        out[(dequant if T > 64 else w4a8).__name__] += 4 * L
+        out[(dequant if S > 64 else w4a8).__name__] += 1
+        return out
+
     try:
         t0 = time.monotonic()
         nbytes = write_gptq_checkpoint(torch, tmp, cfg)
         t_write = time.monotonic() - t0
-        t0 = time.monotonic()
-        llm = LLM(tmp, max_tokens_per_batch=512, quantize_lm_head=True)
-        torch.cuda.synchronize()
-        t_load = time.monotonic() - t0
-        engine = llm._handler.engine
-        model = engine.model
-        weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
-        emit(dict(phase="int4_setup", layers=L, full_depth=L == LLAMA31_8B_INT4["num_hidden_layers"],
-                  checkpoint_bytes=nbytes, write_s=t_write, load_s=t_load,
-                  weight_bytes_on_card=weight_bytes, lm_head_bits=model.lm_head.bits,
-                  kv_blocks=engine.block_manager.options.num_blocks))
-
-        greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
-        llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
+        runs = {}
+        # With CUDA graphs (the main path), then eagerly on a fresh engine,
+        # which then serves the variant runs below: their quant_impl hook
+        # acts when a step's Python runs, which a replayed graph skips.
+        for graphs in (True, False):
+            t0 = time.monotonic()
+            llm = serving_llm(tmp, graphs, quantize_lm_head=True)
+            torch.cuda.synchronize()
+            t_load = time.monotonic() - t0
+            engine = llm._handler.engine
+            model = engine.model
+            weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+            emit(dict(phase="int4_setup" if graphs else "int4_eager_setup", graphs=graphs, layers=L,
+                      full_depth=L == LLAMA31_8B_INT4["num_hidden_layers"], checkpoint_bytes=nbytes,
+                      write_s=t_write, load_s=t_load, weight_bytes_on_card=weight_bytes,
+                      lm_head_bits=model.lm_head.bits, kv_blocks=engine.block_manager.options.num_blocks,
+                      **graph_stats(engine)))
+            runs[graphs] = serve(torch, card, "int4", llm, counters, want, graphs)
+            if graphs:
+                engine = model = None
+                llm.close()
+                llm = None
+        compare_serves(card, "int4", runs[True], runs[False])
+        launches = dict(runs[True]["launches"])
         ps = prompts()
-        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
-        ttft_before = (ttft.total, ttft.count)
-        steps_log = watch_steps(engine, counters)
-        for c in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        outs = llm.generate(ps, greedy)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launches = {c.__name__: c.launches for c in counters}
-        steps = len(steps_log)
-        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
-        mean_ttft = (ttft.total - ttft_before[0]) / max(ttft.count - ttft_before[1], 1)
-
-        if len(outs) != len(ps):
-            fail(f"int4: {len(outs)} of {len(ps)} requests returned")
-        for o in outs:
-            if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
-                fail(f"int4: request did not finish with 32 tokens: {o.status}, {o.usage}")
-        if steps <= 0:
-            fail("int4: no engine step ran")
-        for T, S, _, *got in steps_log:
-            # The lm_head sees the padded count of selected rows.
-            want = [L, 0, 0, 0, 0, 0]
-            want[3 if T > 64 else 1] += 4 * L
-            want[3 if S > 64 else 1] += 1
-            if got != want:
-                fail(f"int4: a step of T={T}, S={S} launched (K1, w4a8, group, dequant, gemv, w4a8g) = "
-                     f"{tuple(got)}, expected {tuple(want)}")
-        n_tokens = sum(o.usage.num_generated_tokens for o in outs)
-        emit(dict(phase="int4_e2e", layers=L, requests=len(outs), output_tokens=n_tokens,
-                  wall_s=wall, output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft,
-                  engine_steps=steps, prefill_steps=sum(1 for st in steps_log if st[0] > 64),
-                  step_tokens=sorted({st[0] for st in steps_log}), launches=launches,
-                  quant_launches_per_step=4 * L + 1, card=card["nvidia_smi"]))
+        steps_log, _, _ = watch_steps(engine, counters)
 
         # The same path through the group kernel, two requests: the model's
         # quantized matmul with variant="group".
@@ -1782,6 +1919,8 @@ def phase_end_to_end_int4(torch, card, n_layers):
         group_launches = group.launches
         if not all(o.finished and o.status.ok for o in short):
             fail("int4: a request of the group-variant run did not finish")
+        if any(st[3] != 1 for st in steps_log):
+            fail("int4: a step of the eager engine ran more than once")
         if (group_launches != (4 * L + 1) * len(steps_log) or w4a8.launches or dequant.launches
                 or k1.launches != L * len(steps_log)):
             fail(f"int4: the group-variant run launched group {group_launches}, w4a8 "
@@ -1808,34 +1947,19 @@ def phase_end_to_end_int4(torch, card, n_layers):
                 model.quant_impl = Q.quant_matmul
             if not all(o.finished and o.status.ok and o.usage.num_generated_tokens == 8 for o in short):
                 fail(f"int4: a request of the {variant}-variant run did not finish")
-            for T, S, _, *got in steps_log:
-                want = {k1: L, w4a8: 0, group: 0, dequant: 0, gemv: 0, w4a8g: 0}
-                want[dequant if T > 64 else wrapper] += 4 * L
-                want[wrapper] += 1  # S <= 64 here
-                if got != [want[c] for c in counters]:
+            for T, S, _, runs_, *got in steps_log:
+                step_want = {k1: L, w4a8: 0, group: 0, dequant: 0, gemv: 0, w4a8g: 0}
+                step_want[dequant if T > 64 else wrapper] += 4 * L
+                step_want[wrapper] += 1  # S <= 64 here
+                if runs_ != 1 or got != [step_want[c] for c in counters]:
                     fail(f"int4: a {variant}-variant step of T={T}, S={S} launched (K1, w4a8, group, "
-                         f"dequant, gemv, w4a8g) = {tuple(got)}, expected {tuple(want[c] for c in counters)}")
+                         f"dequant, gemv, w4a8g) = {tuple(got)}, expected {tuple(step_want[c] for c in counters)}")
             emit(dict(phase=f"int4_{variant}_variant", engine_steps=len(steps_log),
                       step_tokens=sorted({st[0] for st in steps_log}), launches=wrapper.launches,
                       dequant_launches=dequant.launches))
             launches[wrapper.__name__] = wrapper.launches
             launches[dequant.__name__] += dequant.launches
             launches[k1.__name__] += k1.launches
-
-        # Where the device time goes: the 8-prompt workload once more under
-        # torch.profiler (idle share against the unprofiled wall time).
-        from torch.profiler import ProfilerActivity, profile
-
-        del steps_log[:]
-        t0 = time.monotonic()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            llm.generate(prompts(SEED + 1), greedy)
-            torch.cuda.synchronize()
-        profiled_wall = time.monotonic() - t0
-        emit(dict(phase="int4_profile", engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
-                  unprofiled_wall_s=wall, **device_breakdown(prof, wall, len(steps_log)),
-                  card=card["nvidia_smi"]))
-        del prof
 
         # A prefill batch (T = 512: dequant) and the decode step after it
         # (T = 16: w4a8; K1's split-KV blocks) through the model twice over
@@ -2099,13 +2223,11 @@ def deepseek_step_launches(model, T, S, decode_only):
 def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
     """Serve the checkpoint at `path` with LLM(path, quantize=quantize):
     phase 6 in bf16, phase 7 with runtime-INT4 experts and projections."""
-    from scalellm_tpu_torch import LLM, SamplingParams
     from scalellm_tpu_torch.layers.moe import quant_expert_ffn
     from scalellm_tpu_torch.models.common import QuantExperts
     from scalellm_tpu_torch.ops import grouped_matmul as G
     from scalellm_tpu_torch.ops import mla_attention as M
     from scalellm_tpu_torch.ops import quant_matmul as Q
-    from scalellm_tpu_torch.utils.metrics import HISTOGRAMS
 
     import gc
 
@@ -2113,77 +2235,41 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
     counters = deepseek_counters()
     gc.collect()  # the previous phase's model, before this one loads
     depth = dict(layers=n_layers, full_depth=n_layers == DEEPSEEK_V2_LITE["num_hidden_layers"])
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     llm = None
     try:
-        t0 = time.monotonic()
-        llm = LLM(path, max_tokens_per_batch=512, quantize=quantize)
-        torch.cuda.synchronize()
-        t_load = time.monotonic() - t0
-        engine = llm._handler.engine
-        model = engine.model
-        weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
-        experts = [m for m in model.modules() if isinstance(m, QuantExperts)]
-        emit(dict(phase=f"{tag}_setup", **depth, quantize=quantize or None, load_s=t_load,
-                  # the peak of LLM(...): loading, quantizing, then the KV cache (90% of what is left)
-                  peak_bytes_at_start=torch.cuda.max_memory_allocated(), weight_bytes_on_card=weight_bytes,
-                  expert_bits=experts[0].bits if experts else 16,
-                  expert_group=experts[0].group_size if experts else None,
-                  kv_blocks=engine.block_manager.options.num_blocks,
-                  kv_cache_shape=list(engine.executor.kv_cache.shape)))
-
-        greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
-        llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
-        ps = prompts()
-        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
-        ttft_before = (ttft.total, ttft.count)
-        steps_log = watch_steps(engine, counters)
-        for c in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        outs = llm.generate(ps, greedy)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launches = {c.__name__: c.launches for c in counters}
-        ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
-        mean_ttft = (ttft.total - ttft_before[0]) / max(ttft.count - ttft_before[1], 1)
-        if len(outs) != len(ps):
-            fail(f"{tag}: {len(outs)} of {len(ps)} requests returned")
-        for o in outs:
-            if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
-                fail(f"{tag}: request did not finish with 32 tokens: {o.status}, {o.usage}")
-        if not steps_log:
-            fail(f"{tag}: no engine step ran")
-        kinds = {}
-        for T, S, decode_only, *counts in steps_log:
-            want = deepseek_step_launches(model, T, S, decode_only)
-            got = dict(zip((c.__name__ for c in counters), counts))
-            if got != want:
-                fail(f"{tag}: a step of T={T}, S={S}, decode_only={decode_only} launched {got}, expected {want}")
-            kinds[f"T={T},S={S}"] = {k: v for k, v in want.items() if v}
-        n_tokens = sum(o.usage.num_generated_tokens for o in outs)
-        emit(dict(phase=f"{tag}_e2e", **depth, requests=len(outs), output_tokens=n_tokens, wall_s=wall,
-                  output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft, engine_steps=len(steps_log),
-                  decode_only_steps=sum(1 for st in steps_log if st[2]),
-                  step_tokens=sorted({st[0] for st in steps_log}),
-                  launches={k: v for k, v in launches.items() if v}, per_step=kinds,
-                  card=card["nvidia_smi"]))
-
-        # Where the device time goes: the same workload under torch.profiler.
-        from torch.profiler import ProfilerActivity, profile
-
-        del steps_log[:]
-        t0 = time.monotonic()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            llm.generate(prompts(SEED + 1), greedy)
+        runs = {}
+        # With CUDA graphs (the main path), then eagerly on a fresh engine,
+        # whose model the routing replay below runs: the replay and
+        # recording hooks act when a step's Python runs, which a replayed
+        # graph skips.
+        for graphs in (True, False):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            llm = serving_llm(path, graphs, quantize=quantize)
             torch.cuda.synchronize()
-        profiled_wall = time.monotonic() - t0
-        emit(dict(phase=f"{tag}_profile", engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
-                  unprofiled_wall_s=wall, **device_breakdown(prof, wall, len(steps_log)),
-                  card=card["nvidia_smi"]))
-        del prof
+            t_load = time.monotonic() - t0
+            engine = llm._handler.engine
+            model = engine.model
+            weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+            experts = [m for m in model.modules() if isinstance(m, QuantExperts)]
+            emit(dict(phase=f"{tag}_setup" if graphs else f"{tag}_eager_setup", graphs=graphs, **depth,
+                      quantize=quantize or None, load_s=t_load,
+                      # the peak of LLM(...): loading, quantizing, the KV cache
+                      # (90% of what is left), then the warmup's captures
+                      peak_bytes_at_start=torch.cuda.max_memory_allocated(), weight_bytes_on_card=weight_bytes,
+                      expert_bits=experts[0].bits if experts else 16,
+                      expert_group=experts[0].group_size if experts else None,
+                      kv_blocks=engine.block_manager.options.num_blocks,
+                      kv_cache_shape=list(engine.executor.kv_cache.shape), **graph_stats(engine)))
+            runs[graphs] = serve(torch, card, tag, llm, counters,
+                                 functools.partial(deepseek_step_launches, model), graphs)
+            if graphs:
+                engine = model = experts = None
+                llm.close()
+                llm = None
+        compare_serves(card, tag, runs[True], runs[False])
+        ps = prompts()
 
         # A prefill batch (K10; quantized: K4 and the experts through K6) and
         # the decode step after it (K9; quantized: K2, K8, K7) through the
@@ -2243,7 +2329,7 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
                       same_routing=True, tol=LOGITS_TOL))
             if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
                 fail(f"{tag} {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
-        return launches
+        return runs[True]["launches"]
     finally:
         if llm is not None:
             llm.close()
@@ -2276,6 +2362,7 @@ def main() -> None:
                         help="depth of the DeepSeek-V2-Lite runs, bf16 and INT4 (their widths are never cut)")
     opts = parser.parse_args()
 
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2291,6 +2378,7 @@ def main() -> None:
     dequant_results = phase_expert_dequant(torch, card)
     moe_quant_results = phase_moe_quant_kernels(torch, card)
     small_m_results, mlp_launches = phase_small_m_kernels(torch, card)
+    count_captured_launches()
     bf16_launches = phase_end_to_end(torch, card)
     int4_launches = phase_end_to_end_int4(torch, card, opts.int4_layers)
     # Phases 6 and 7 serve one DeepSeek-V2-Lite checkpoint, written once.
@@ -2304,8 +2392,11 @@ def main() -> None:
         shutil.rmtree(path, ignore_errors=True)
 
     # Each kernel's launches on the main paths (counts set to 0 before each
-    # path and read after it; the checks above launch outside that window),
-    # summed over the paths that run it, and its timing at a shape the main
+    # path and read after it, with each replayed step graph adding what its
+    # wrappers counted when it was captured; the checks above, and the
+    # eager serves beside the graph ones, launch outside that window; phase
+    # 5's variant serves run on its eager engine), summed over the paths
+    # that run it, and its timing at a shape the main
     # path gives it: attention at the 8-sequence decode batch, w4a8 at the
     # decode step's gate_up projection (T = 16), dequant and group at the
     # 512-token step's; the grouped GEMM at the decode step's gate/up (96
@@ -2368,6 +2459,7 @@ def main() -> None:
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"the main paths never launched {k['name']}")
+    emit(dict(phase="elapsed", seconds=time.monotonic() - t_start))
     emit({"kernels": kernels})
     print(card["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
 Init: load the model onto the device (a quantized checkpoint as it is; a
 dense one quantized on the device when `quantize` asks) -> size the KV cache
 from the device memory that is free once the weights are in place ->
-allocate blocks.
+allocate blocks -> with CUDA graphs on, size the step buffer for the serving
+envelope and capture the warmup buckets (engine/executor.py).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from scalellm_tpu_torch.engine.batch import Batch
-from scalellm_tpu_torch.engine.executor import Executor
+from scalellm_tpu_torch.engine.executor import WARMUP_MODES, Executor
 from scalellm_tpu_torch.memory.block_manager import BlockManager, BlockManagerOptions
 from scalellm_tpu_torch.model_loader.loader import HFModelLoader
 from scalellm_tpu_torch.models.registry import ModelRegistry
@@ -45,6 +46,16 @@ class EngineOptions:
     # Quantize the lm_head at load: False, True (int8) or "int4". Takes
     # effect on a quantized model only (a quantized checkpoint, or `quantize`).
     quantize_lm_head: "bool | str" = False
+    # Serve each step bucket through a CUDA graph captured once (the CPU
+    # keeps the same buckets and runs them eagerly); off: every step eager.
+    enable_cuda_graph: bool = True
+    # Buckets captured at init: "off", "fast" (2 decode buckets) or "full"
+    # (every bucket of the serving envelope below).
+    warmup_mode: str = "fast"
+    # Serving envelope: sizes the step buffer and the "full" warmup.
+    max_tokens_per_batch: int = 512
+    max_seqs_per_batch: int = 128
+    max_context_len: int = 0  # 0 = the model's max_position_embeddings
 
 
 class LLMEngine:
@@ -63,6 +74,8 @@ class LLMEngine:
         factory = ModelRegistry.get_causal_lm_factory(self.model_args.model_type)
         if factory is None:
             raise ValueError(f"no causal LM for {self.model_args.model_type!r}")
+        if options.warmup_mode not in WARMUP_MODES:
+            raise ValueError(f"warmup_mode must be one of {WARMUP_MODES}, got {options.warmup_mode!r}")
         if options.quantize not in ("", "int4", "int8"):
             raise ValueError(f"quantize must be '', 'int4' or 'int8', got {options.quantize!r}")
         if options.quantize_lm_head and self.model_args.quant_args:
@@ -99,6 +112,12 @@ class LLMEngine:
             "kv cache: %d blocks x %d slots (%.2f GiB)", num_blocks, options.block_size,
             self.executor.kv_cache_bytes(num_blocks, options.block_size) / 2**30,
         )
+        if options.enable_cuda_graph:
+            envelope = dict(
+                max_tokens=options.max_tokens_per_batch, max_seqs=options.max_seqs_per_batch,
+                max_context_len=options.max_context_len or self.model_args.max_position_embeddings)
+            self.executor.init_graphs(options.block_size, **envelope)
+            self.executor.warmup(options.block_size, options.warmup_mode, **envelope)
         self._step_counter = 0
 
     def kv_cache_slot_size_in_bytes(self) -> int:

@@ -2,6 +2,8 @@
 
 The batch builds them from numpy arrays padded to the bucket ladders of
 engine/batch.py; to(device) turns every field into a tensor on the device.
+StepInputs keeps the ModelInputs of every bucket in one device buffer that
+a captured step program reads (engine/executor.py).
 
 Shapes:
   T    — padded total new tokens this step (flattened across sequences)
@@ -100,3 +102,82 @@ class ModelOutputs:
     # [S, K] top-k alternative ids/logprobs (K = 0 when top logprobs are off)
     top_ids: torch.Tensor
     top_logprobs: torch.Tensor
+
+
+# ModelInputs' fields in the order StepInputs lays them out, each with its
+# length as a function of the bucket (T, S, MAXP); seq_mask (f32) is kept as
+# its bits. lora_ids is not ported.
+STEP_FIELDS = (
+    ("token_ids", lambda T, S, P: T),
+    ("positions", lambda T, S, P: T),
+    ("token_seg", lambda T, S, P: T),
+    ("new_kv_slot_ids", lambda T, S, P: T),
+    ("block_tables", lambda T, S, P: S * P),
+    ("kv_lens", lambda T, S, P: S),
+    ("cu_q_lens", lambda T, S, P: S + 1),
+    ("num_seqs", lambda T, S, P: 1),
+    ("selected_idxes", lambda T, S, P: S),
+    ("seq_mask", lambda T, S, P: S),
+)
+
+
+def step_words(T: int, S: int, MAXP: int) -> int:
+    """int32 words of one bucket's ModelInputs in StepInputs' layout."""
+    return sum(n(T, S, MAXP) for _, n in STEP_FIELDS)
+
+
+class StepInputs:
+    """Every ModelInputs field of a step in one flat int32 device buffer,
+    sized once for the largest bucket and never reallocated (a captured
+    step program keeps its pointers). A bucket (T, S, MAXP) reads
+    contiguous views of its front, in STEP_FIELDS order; `fill` writes a
+    step's padded arrays, padding included, into a host staging buffer
+    (pinned on a CUDA device) and sends them with one copy."""
+
+    def __init__(self, words: int, device):
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        self.buffer = torch.zeros(words, dtype=torch.int32, device=self.device)
+        self._staging = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
+        self._host = self._staging.numpy()
+        # The last copy out of the staging buffer, waited for before the
+        # next fill overwrites it.
+        self._sent = torch.cuda.Event() if cuda else None
+
+    def _words(self, T: int, S: int, MAXP: int) -> int:
+        words = step_words(T, S, MAXP)
+        if words > self.buffer.numel():
+            raise ValueError(f"bucket T={T} S={S} MAXP={MAXP} exceeds the step buffer of "
+                             f"{self.buffer.numel()} words (the serving envelope)")
+        return words
+
+    def views(self, T: int, S: int, MAXP: int) -> ModelInputs:
+        """The bucket's ModelInputs: views of the device buffer."""
+        self._words(T, S, MAXP)
+        out, off = {}, 0
+        for name, n in STEP_FIELDS:
+            k = n(T, S, MAXP)
+            out[name] = self.buffer[off : off + k]
+            off += k
+        out["block_tables"] = out["block_tables"].view(S, MAXP)
+        out["seq_mask"] = out["seq_mask"].view(torch.float32)
+        return ModelInputs(**out)
+
+    def fill(self, mi: ModelInputs) -> None:
+        """Write the padded numpy arrays of one step into the buffer's
+        front with one host-to-device copy."""
+        T, (S, MAXP) = mi.token_ids.shape[0], mi.block_tables.shape
+        words = self._words(T, S, MAXP)
+        if self._sent is not None:
+            self._sent.synchronize()
+        off = 0
+        for name, n in STEP_FIELDS:
+            a = np.asarray(getattr(mi, name))
+            k = n(T, S, MAXP)
+            if a.size != k:
+                raise ValueError(f"{name} has {a.size} entries, bucket T={T} S={S} MAXP={MAXP} takes {k}")
+            self._host[off : off + k] = a.reshape(-1).view(np.int32) if a.dtype == np.float32 else a.reshape(-1)
+            off += k
+        self.buffer[:words].copy_(self._staging[:words], non_blocking=True)
+        if self._sent is not None:
+            self._sent.record()

@@ -5,12 +5,14 @@ Builds the engine from the options, owns the scheduler loop thread and the
 request-handling thread pool, validates sampling params, applies chat
 templates and keeps tokenization off the scheduler's hot path.
 
-The options keep the reference package's field names. Those that ask for a
-feature this package has not ported yet (speculative decoding, tensor or
-sequence parallelism, multi-host serving, int8 KV, KV swap, async scheduling,
-multi-step decode, LoRA, CUDA graphs, bucket warmup, model-args overrides) raise NotImplementedError; none is silently
-ignored. Per request, guided decoding and prompt logprobs are refused with
-an UNIMPLEMENTED status.
+The options keep the reference package's field names and defaults: CUDA
+graphs on (enable_cuda_graph, one graph per step bucket, where the
+reference warms its jit bucket cache) with warmup_mode "fast". Those that
+ask for a feature this package has not ported yet (speculative decoding,
+tensor or sequence parallelism, multi-host serving, int8 KV, KV swap, async
+scheduling, multi-step decode, LoRA, model-args overrides) raise
+NotImplementedError; none is silently ignored. Per request, guided decoding
+and prompt logprobs are refused with an UNIMPLEMENTED status.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import List, Optional, Sequence
 
 
 from scalellm_tpu_torch.engine.batch import TOKEN_BUCKETS
+from scalellm_tpu_torch.engine.executor import WARMUP_MODES
 from scalellm_tpu_torch.engine.llm_engine import EngineOptions, LLMEngine
 from scalellm_tpu_torch.errors import ValidationError
 from scalellm_tpu_torch.request.output import Priority, RequestOutput, Status, StatusCode
@@ -51,7 +54,7 @@ class LLMHandlerOptions:
     max_cache_size: int = 0
     max_memory_utilization: float = 0.9
     enable_prefix_cache: bool = True
-    enable_cuda_graph: bool = False  # CUDA graphs are not ported
+    enable_cuda_graph: bool = True  # one CUDA graph per step bucket
     max_tokens_per_batch: int = 512
     max_seqs_per_batch: int = 128
     num_speculative_tokens: int = 0
@@ -61,7 +64,7 @@ class LLMHandlerOptions:
     num_blocks: int = 0  # direct override (tests)
     max_context_len: int = 0  # 0 = model's max_position_embeddings
     kv_cache_dtype: str = "auto"
-    warmup_mode: str = "off"  # no compiled buckets to warm in eager mode
+    warmup_mode: str = "fast"  # "off" | "fast" | "full" (buckets captured at init)
     distributed: bool = False
     quantize_lm_head: "bool | str" = False
     quantize: str = ""
@@ -75,15 +78,16 @@ class LLMHandlerOptions:
         return "cuda" if self.devices == "auto" else self.devices
 
     def check_ported(self) -> None:
-        """Raise NotImplementedError for options that ask for unported features."""
+        """Raise NotImplementedError for options that ask for unported
+        features, ValueError for an unknown warmup_mode."""
+        if self.warmup_mode not in WARMUP_MODES:
+            raise ValueError(f"warmup_mode must be one of {WARMUP_MODES}, got {self.warmup_mode!r}")
         asks = {
             "draft_model_path (speculative decoding)": bool(self.draft_model_path),
             "num_speculative_tokens (speculative decoding)": self.num_speculative_tokens > 0,
-            "enable_cuda_graph (CUDA graphs)": self.enable_cuda_graph,
             "tp_size (tensor parallelism)": self.tp_size != 1,
             "sequence_parallel": self.sequence_parallel,
             "kv_cache_dtype (int8 KV cache)": self.kv_cache_dtype != "auto",
-            "warmup_mode (bucket warmup)": self.warmup_mode != "off",
             "distributed (multi-host serving)": self.distributed,
             "host_swap_bytes (KV swap)": self.host_swap_bytes > 0,
             "enable_async_scheduling": self.enable_async_scheduling,
@@ -111,6 +115,11 @@ class LLMHandler:
                 num_blocks=options.num_blocks,
                 quantize=options.quantize,
                 quantize_lm_head=options.quantize_lm_head,
+                enable_cuda_graph=options.enable_cuda_graph,
+                warmup_mode=options.warmup_mode,
+                max_tokens_per_batch=options.max_tokens_per_batch,
+                max_seqs_per_batch=options.max_seqs_per_batch,
+                max_context_len=options.max_context_len,
             )
         )
         self.tokenizer = self.engine.tokenizer

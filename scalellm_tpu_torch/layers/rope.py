@@ -43,11 +43,24 @@ def compute_inv_freq(args: ModelArgs) -> np.ndarray:
     return inv_freq.astype(np.float32)
 
 
-def compute_cos_sin(args: ModelArgs, positions: torch.Tensor):
-    """cos/sin tables for the given positions: each [T, rot_dim // 2] f32."""
-    inv_freq = torch.from_numpy(compute_inv_freq(args)).to(positions.device)
+def inv_freq_buffer(inv_freq: np.ndarray, device) -> torch.Tensor:
+    """A model's inverse-frequency table as a tensor: on `device`, or on the
+    CPU for a model built on the meta device (the loader moves it to the
+    weights' device). Models register it as a buffer, so that no step copies
+    it from the host."""
+    return torch.from_numpy(inv_freq).to("cpu" if torch.device(device).type == "meta" else device)
+
+
+def cos_sin(inv_freq: torch.Tensor, positions: torch.Tensor):
+    """cos/sin tables for the given positions from an inv_freq tensor on
+    their device: each [T, rot_dim // 2] f32."""
     freqs = positions.float()[:, None] * inv_freq[None, :]
     return torch.cos(freqs), torch.sin(freqs)
+
+
+def compute_cos_sin(args: ModelArgs, positions: torch.Tensor):
+    """cos/sin tables for the given positions: each [T, rot_dim // 2] f32."""
+    return cos_sin(torch.from_numpy(compute_inv_freq(args)).to(positions.device), positions)
 
 
 def apply_rope(

@@ -3,8 +3,10 @@
 
 generate(prompts, sampling_params) schedules the whole batch, then drains
 the scheduler with run_until_complete. Chunked prefill is off by default (a
-huge max_tokens_per_batch), as in the reference package. The model runs on
-the CUDA device unless `devices` names another ("cpu" in the tests).
+huge max_tokens_per_batch), as in the reference package, and CUDA graphs
+are on (one per step bucket, the two "fast" warmup buckets captured at
+init). The model runs on the CUDA device unless `devices` names another
+("cpu" in the tests).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ class LLM:
         max_cache_size: int = 0,
         max_memory_utilization: float = 0.9,
         enable_prefix_cache: bool = True,
-        enable_cuda_graph: bool = False,
+        enable_cuda_graph: bool = True,
         max_tokens_per_batch: int = 409600,  # chunked prefill off by default
         max_seqs_per_batch: int = 2048,
         num_speculative_tokens: int = 0,

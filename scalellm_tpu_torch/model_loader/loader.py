@@ -230,6 +230,7 @@ class HFModelLoader:
         stacked[stack].add(slot)
 
     def load_model(self, model: torch.nn.Module, device) -> torch.nn.Module:
-        """Fill a model built on the meta device with the checkpoint."""
+        """Fill a model built on the meta device with the checkpoint; the
+        buffers it builds itself (rope tables) go to the same device."""
         model.load_state_dict(self.load_state_dict(model, device), assign=True)
-        return model
+        return model.to(device)

@@ -39,7 +39,7 @@ from scalellm_tpu_torch.config import ModelArgs
 from scalellm_tpu_torch.engine.params import ModelInputs
 from scalellm_tpu_torch.layers.activations import act_with_mul
 from scalellm_tpu_torch.layers.norms import rms_norm
-from scalellm_tpu_torch.layers.rope import apply_rope, compute_cos_sin
+from scalellm_tpu_torch.layers.rope import apply_rope, compute_inv_freq, cos_sin, inv_freq_buffer
 from scalellm_tpu_torch.ops.attention import ragged_paged_attention
 from scalellm_tpu_torch.ops.kv_update import set_kv_cache
 from scalellm_tpu_torch.ops.moe_quant import quantize_experts_int4, quantize_experts_int8
@@ -215,6 +215,8 @@ class DecoderModel(nn.Module):
             DecoderLayer(args, self.dtype, device) for _ in range(args.n_layers)
         )
         self.final_norm = _param(D, dtype=self.dtype, device=device)
+        self.register_buffer("rope_inv_freq", inv_freq_buffer(compute_inv_freq(args), device),
+                             persistent=False)
         if not args.tie_word_embeddings:
             if self._lm_head_quant():
                 self.lm_head = QuantLinear(
@@ -310,7 +312,7 @@ class DecoderModel(nn.Module):
         h = self.embed_tokens[mi.token_ids]  # [T, D]
         if a.normalize_embedding:
             h = (h.float() * math.sqrt(a.hidden_size)).to(h.dtype)
-        cos, sin = compute_cos_sin(a, mi.positions)
+        cos, sin = cos_sin(self.rope_inv_freq, mi.positions)
         T = h.shape[0]
 
         for layer, kvc, window in zip(self.layers, kv_cache, self._layer_windows()):

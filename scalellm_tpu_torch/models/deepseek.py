@@ -79,7 +79,7 @@ from scalellm_tpu_torch.layers.moe import (
     single_token_layout,
 )
 from scalellm_tpu_torch.layers.norms import rms_norm
-from scalellm_tpu_torch.layers.rope import apply_rope
+from scalellm_tpu_torch.layers.rope import apply_rope, cos_sin, inv_freq_buffer
 from scalellm_tpu_torch.models.common import (
     QuantExperts,
     QuantLinear,
@@ -254,6 +254,10 @@ class MLALayer(nn.Module):
 class MLADecoderModel(nn.Module):
     """DeepSeek-V2 causal LM."""
 
+    # Its decode-only steps take another attention kernel (K9), so the
+    # executor keeps a decode-only step program apart from the mixed one.
+    mla = True
+
     def __init__(self, args: ModelArgs, attn_impl=None, device="cpu"):
         super().__init__()
         quant = active_quant(args)
@@ -277,7 +281,8 @@ class MLADecoderModel(nn.Module):
         self.qk_head_dim = a.qk_nope_head_dim + a.qk_rope_head_dim
         self.latent_dim = a.kv_lora_rank + a.qk_rope_head_dim
         self.n_dense = n_dense_layers(a)
-        self.inv_freq, self.rope_mscale = rope_inv_freq(a)
+        inv_freq, self.rope_mscale = rope_inv_freq(a)
+        self.register_buffer("rope_inv_freq", inv_freq_buffer(inv_freq, device), persistent=False)
         self.sm_scale = self.qk_head_dim ** -0.5
         y = parse_yarn(a)
         if y is not None:
@@ -305,9 +310,8 @@ class MLADecoderModel(nn.Module):
     # ------------------------------------------------------------ forward
 
     def _rope_tables(self, positions: torch.Tensor):
-        inv_freq = torch.from_numpy(self.inv_freq).to(positions.device)
-        freqs = positions.float()[:, None] * inv_freq[None, :]
-        return torch.cos(freqs) * self.rope_mscale, torch.sin(freqs) * self.rope_mscale
+        cos, sin = cos_sin(self.rope_inv_freq, positions)
+        return cos * self.rope_mscale, sin * self.rope_mscale
 
     def _attention(self, layer: MLALayer, h, mi: ModelInputs, cos, sin, kvc, decode_only):
         a = self.args

@@ -40,4 +40,5 @@ def quantize_model(dense_model, quant: QuantArgs):
             raise ValueError(f"{name}: {tuple(sd[name].shape)} != {tuple(spec.shape)}")
     with torch.no_grad():
         qmodel.load_state_dict(sd, assign=True)
+    qmodel.rope_inv_freq = dense_model.rope_inv_freq  # not in the state_dict
     return qmodel

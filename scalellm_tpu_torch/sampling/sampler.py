@@ -10,10 +10,20 @@ logprobs of the processed distribution.
 Random rows draw their Gumbel noise from a torch.Generator seeded with the
 row's per-step seed, on the logits' device; the draws differ from the JAX
 package's (another generator), so tests compare distributions.
+
+Which stages run, which rows sample and their seeds are decided on the host
+(SamplingPlan, from the step's host arrays), so the sampler reads nothing
+back from the device. A stage that no row asks for is skipped: it would
+leave every logit as it is (a bias of 0, penalties of 0 and 1, an all-ones
+mask, T <= 0, no top-k or top-p).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from scalellm_tpu_torch.engine.params import ModelOutputs, SamplingInputs
@@ -47,14 +57,13 @@ def apply_repetition_penalty(
     vals = logits.gather(1, ids)
     p = repetition_penalties[:, None]
     penalized = torch.where(vals > 0, vals / p, vals * p)
-    # Padding entries (count 0) share id 0: keep token 0's own value there,
-    # so a duplicate-index write cannot clobber it.
-    penalized = torch.where(unique_counts > 0, penalized, vals)
-    seen = unique_counts > 0
-    out = logits.clone()
-    rows = torch.arange(logits.shape[0], device=logits.device)[:, None].expand_as(ids)
-    out[rows[seen], ids[seen]] = penalized[seen]
-    return out
+    # Padding entries (count 0) share id 0: they write to a spare column past
+    # V, which is dropped, so no duplicate-index write can clobber token 0
+    # (and no boolean mask reads a count back to the host).
+    V = logits.shape[-1]
+    ids = torch.where(unique_counts > 0, ids, V)
+    out = torch.cat([logits, logits[:, :1]], dim=1).scatter(1, ids, penalized)
+    return out[:, :V].contiguous()
 
 
 def apply_logit_bias(
@@ -118,39 +127,82 @@ def gumbel_noise(seed: int, n: int, device) -> torch.Tensor:
 
 def sample(
     logits: torch.Tensor,  # [S, V] processed logits (f32)
-    do_sample: torch.Tensor,  # [S] bool, on the host
-    seeds: torch.Tensor,  # [S] per-step seeds, on the host
+    rows: Tuple[int, ...],  # the rows that sample, from the host
+    seeds: Tuple[int, ...],  # their per-step seeds, from the host
 ) -> torch.Tensor:
-    """Greedy argmax, or Gumbel-max categorical for rows that sample."""
-    out = torch.argmax(logits, dim=-1)
-    rows = torch.nonzero(do_sample).flatten().tolist()
-    if rows:
-        V = logits.shape[-1]
-        noise = torch.stack([gumbel_noise(int(seeds[r]), V, logits.device) for r in rows])
-        idx = torch.tensor(rows, device=logits.device)
-        out[idx] = torch.argmax(logits[idx] + noise, dim=-1)
-    return out
+    """Greedy argmax, or Gumbel-max categorical for rows that sample. The
+    greedy rows' noise is 0, which leaves their logits as they are."""
+    if not rows:
+        return torch.argmax(logits, dim=-1)
+    noise = torch.zeros_like(logits)
+    for r, seed in zip(rows, seeds):
+        noise[r] = gumbel_noise(seed, logits.shape[-1], logits.device)
+    return torch.argmax(logits + noise, dim=-1)
 
 
-def process_logits(logits: torch.Tensor, si: SamplingInputs) -> torch.Tensor:
-    """The full logits-processing pipeline, in the reference's order."""
+@dataclass(frozen=True)
+class SamplingPlan:
+    """The sampler's decisions for one step, taken on the host: which
+    processing stages some row needs, and which rows sample with which
+    seeds."""
+
+    bias: bool
+    penalties: bool
+    repetition: bool
+    allowed_mask: bool
+    temperature: bool
+    top_k_top_p: bool
+    sample_rows: Tuple[int, ...]
+    sample_seeds: Tuple[int, ...]
+
+    @classmethod
+    def of(cls, si: SamplingInputs) -> "SamplingPlan":
+        """The plan of host SamplingInputs (numpy arrays or CPU tensors)."""
+        a = {name: np.asarray(getattr(si, name)) for name in (
+            "bias_values", "frequency_penalties", "presence_penalties", "repetition_penalties",
+            "allowed_mask", "temperatures", "top_ks", "top_ps", "seeds")}
+        rows = np.flatnonzero(a["temperatures"] > 0.0)
+        return cls(
+            bias=bool((a["bias_values"] != 0.0).any()),
+            penalties=bool((a["frequency_penalties"] != 0.0).any() | (a["presence_penalties"] != 0.0).any()),
+            repetition=bool((a["repetition_penalties"] != 1.0).any()),
+            allowed_mask=a["allowed_mask"].shape[1] > 1,
+            temperature=rows.size > 0,
+            top_k_top_p=bool((a["top_ks"] > 0).any() | (a["top_ps"] < 1.0).any()),
+            sample_rows=tuple(int(r) for r in rows),
+            sample_seeds=tuple(int(s) for s in a["seeds"][rows]),
+        )
+
+    @property
+    def reads_inputs(self) -> bool:
+        """Whether a stage reads SamplingInputs on the device (a plain greedy
+        step reads none)."""
+        return (self.bias or self.penalties or self.repetition or self.allowed_mask
+                or self.temperature or self.top_k_top_p)
+
+
+def process_logits(logits: torch.Tensor, si: SamplingInputs, plan: "SamplingPlan | None" = None) -> torch.Tensor:
+    """The full logits-processing pipeline, in the reference's order. plan
+    defaults to the plan of si, which must then be on the host."""
+    plan = plan or SamplingPlan.of(si)
     logits = logits.float()
-    if bool((si.bias_values != 0.0).any()):
+    if plan.bias:
         logits = apply_logit_bias(logits, si.bias_token_ids, si.bias_values)
-    if bool((si.frequency_penalties != 0.0).any() | (si.presence_penalties != 0.0).any()):
+    if plan.penalties:
         logits = apply_frequency_presence_penalties(
             logits, si.unique_token_ids, si.unique_token_counts,
             si.frequency_penalties, si.presence_penalties,
         )
-    if bool((si.repetition_penalties != 1.0).any()):
+    if plan.repetition:
         logits = apply_repetition_penalty(
             logits, si.unique_token_ids, si.unique_token_counts,
             si.repetition_penalties,
         )
-    if si.allowed_mask.shape[1] > 1:
+    if plan.allowed_mask:
         logits = apply_allowed_mask(logits, si.allowed_mask)
-    logits = apply_temperature(logits, si.temperatures)
-    if bool((si.top_ks > 0).any() | (si.top_ps < 1.0).any()):
+    if plan.temperature:
+        logits = apply_temperature(logits, si.temperatures)
+    if plan.top_k_top_p:
         logits = apply_top_k_top_p(logits, si.top_ks, si.top_ps)
     return logits
 
@@ -159,10 +211,14 @@ def sample_tokens(
     logits: torch.Tensor,  # [S, V] raw model logits
     si: SamplingInputs,
     max_top_logprobs: int = 0,
+    plan: "SamplingPlan | None" = None,
 ) -> ModelOutputs:
-    """Process, sample and take logprobs in one call."""
-    processed = process_logits(logits, si)
-    next_tokens = sample(processed, si.temperatures.cpu() > 0.0, si.seeds.cpu())
+    """Process, sample and take logprobs in one call. plan: the host
+    decisions (SamplingPlan.of the host arrays); without it si must be on
+    the host, and only stages it asks for read si."""
+    plan = plan or SamplingPlan.of(si)
+    processed = process_logits(logits, si, plan)
+    next_tokens = sample(processed, plan.sample_rows, plan.sample_seeds)
     logprobs_all = torch.log_softmax(processed, dim=-1)
     chosen_lp = logprobs_all.gather(1, next_tokens[:, None]).squeeze(-1)
     if max_top_logprobs > 0:

@@ -15,7 +15,12 @@ both sides; the f32 sums over groups and k-blocks run in another order, the
 prologue's rsqrt may differ in its last bit (a rare +-1 in a quantized
 activation), and the output is rounded to bf16. Tolerance: 1% of the
 output's largest magnitude (two to three bf16 steps there), and a mean
-error below 0.1% of it."""
+error below 0.1% of it.
+
+CUDA graphs: each main-path wrapper captured in a graph and replayed on new
+inputs gives the bits of an eager call; the executor with step graphs gives
+the eager tokens and logits bits (tiny random-weight Llama and DeepSeek-V2,
+bf16 and INT4)."""
 
 import numpy as np
 import pytest
@@ -1296,3 +1301,234 @@ def test_moe_routed_path_is_bit_identical_across_calls(cuda):
     torch.cuda.synchronize()
     assert first.shape == (T, D) and torch.isfinite(first).all()
     assert torch.equal(first, second)
+
+
+# ---------------------------------------------------------------- CUDA graphs
+#
+# Each main-path wrapper captured in a CUDA graph (after one eager call on a
+# side stream, as the executor's StepGraphs does), new values copied into its
+# static inputs, two replays: each must give the bits of an eager call on
+# those values. The wrappers' launch counters advance at the capture, not at
+# a replay.
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def _replays_give_eager_bits(fn, inputs, new_inputs, kernels):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = fn(**inputs)
+        first = [o.clone() for o in (first if isinstance(first, tuple) else (first,))]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = [k.launches for k in kernels]
+    with torch.cuda.graph(graph):
+        out = fn(**inputs)
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    outs = out if isinstance(out, tuple) else (out,)
+    for name, t in new_inputs.items():
+        inputs[name].copy_(t)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([o.clone() for o in outs])
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    want = fn(**inputs)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    for got in replays:
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+    # The replays read the new values: they differ from the first call's.
+    assert not torch.equal(_bits(replays[0][0]), _bits(first[0]))
+
+
+def _graph_case_attention(device, case, seed):
+    q_lens, kv_lens, S, T, H, Hkv, D, window, cap, page = SHAPES[case]
+    return _attention_case(device, q_lens, kv_lens, S, T, H, Hkv, D, page, seed=seed)
+
+
+def _graph_case_quant(device, seed, M):
+    t = _quant_case(device, M=M, K=4096, N=4096, G=128, bits=4, asym=False, rms="bf16",
+                    scales_dtype=torch.bfloat16, seed=seed)
+    return {k: v for k, v in t.items() if v is not None}
+
+
+def _graph_case_gmm(device, case, seed):
+    T, n_pad, E, k, K, N, _ = GMM_CASES[case]
+    rng = np.random.default_rng(seed)
+    xs, sizes = _routed_rows(rng, T, E, k, K, n_pad)
+    w = rng.standard_normal((E, N, K)).astype(np.float32) / np.sqrt(K)
+    return dict(xs=torch.from_numpy(xs).to(device, torch.bfloat16),
+                w=torch.from_numpy(w).to(device, torch.bfloat16), gs=torch.from_numpy(sizes).to(device))
+
+
+def _graph_case_moe_quant(device, case, seed):
+    T, n_pad, E, k, K, N, bits, G = MOE_QUANT_CASES[case]
+    rng = np.random.default_rng(seed)
+    xs, sizes = _routed_rows(rng, T, E, k, K, n_pad)
+    (qg, sg), (qu, su) = (_quant_experts(rng, E, K, N, bits, G, device) for _ in range(2))
+    return dict(xs=torch.from_numpy(xs).to(device, torch.bfloat16), gs=torch.from_numpy(sizes).to(device),
+                qg=qg, sg=sg, qu=qu, su=su)
+
+
+def _graph_case_dequant(device, seed):
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+
+    E, N, K, G = EXPERT_DEQUANT_CASES["v2_lite_gate_up_g128"]
+    rng = np.random.default_rng(seed)
+    qw, sc = MQ.quantize_experts_int4(torch.from_numpy(rng.standard_normal((E, N, K)).astype(np.float32) * 0.05), G)
+    return dict(qweight=qw.to(device), scales=sc.to(device))
+
+
+def _graph_cases():
+    """name -> (inputs of a seed, the wrapper call, the counters it advances)."""
+    from scalellm_tpu_torch.ops import grouped_matmul as GM
+    from scalellm_tpu_torch.ops import mla_attention as M
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention_cuda as k1
+
+    def attention(case):
+        return (lambda dev, seed: _graph_case_attention(dev, case, seed),
+                lambda **t: k1(**t, sm_scale=0.125), [k1])
+
+    def mla(case, kernel):
+        def inputs(dev, seed):
+            t = _mla_case(dev, case, seed)
+            return t if kernel is M.mla_prefill_attention_cuda else {
+                k: v for k, v in t.items() if k not in ("cu_q_lens", "num_seqs")}
+        return inputs, lambda **t: kernel(**t, sm_scale=0.0723, v_dim=512), [kernel]
+
+    return {
+        "k1_decode": attention("decode_gqa8_d64"),
+        "k1_mixed": attention("mixed_padded"),
+        "k2_w4a8_prologue": (
+            lambda dev, seed: _graph_case_quant(dev, seed, 16),
+            lambda x, qweight, scales, rms_gamma: Q.quant_matmul_w4a8_cuda(
+                x, qweight, scales, None, 4, 4096, rms_gamma, 1e-5), [Q.quant_matmul_w4a8_cuda]),
+        "k4_dequant": (
+            lambda dev, seed: _graph_case_quant(dev, seed, 512),
+            lambda x, qweight, scales, rms_gamma: Q.quant_matmul_dequant_cuda(
+                x, qweight, scales, None, 4, rms_gamma, 1e-5), [Q.quant_matmul_dequant_cuda]),
+        "k6_decode": (lambda dev, seed: _graph_case_gmm(dev, "decode_r96_e64_padded", seed),
+                      lambda xs, w, gs: GM.grouped_matmul_cuda(xs, w, gs), [GM.grouped_matmul_cuda]),
+        "k6_prefill": (lambda dev, seed: _graph_case_gmm(dev, "prefill_wide_tile", seed),
+                       lambda xs, w, gs: GM.grouped_matmul_cuda(xs, w, gs), [GM.grouped_matmul_cuda]),
+        "expert_dequant": (_graph_case_dequant,
+                           lambda qweight, scales: MQ.expert_dequant_cuda(qweight, scales, 2048),
+                           [MQ.expert_dequant_cuda]),
+        # K8 then K7 through the dispatcher: the active list and starts are
+        # computed on the device inside the graph.
+        "k8_k7_decode": (
+            lambda dev, seed: _graph_case_moe_quant(dev, "v2_lite_gate_up_int4", seed),
+            lambda xs, gs, qg, sg, qu, su: (
+                *MQ.grouped_quant_matmul_pair(xs, qg, sg, qu, su, gs, max_active=64),
+                MQ.grouped_quant_matmul(xs, qg, sg, gs, max_active=64)),
+            [MQ.grouped_quant_matmul_pair_cuda, MQ.grouped_quant_matmul_cuda]),
+        "k9_decode": mla("decode_v2_lite", M.mla_decode_attention_cuda),
+        "k10_mixed": mla("mixed_v2_lite", M.mla_prefill_attention_cuda),
+    }
+
+
+GRAPH_CASES = ["k1_decode", "k1_mixed", "k2_w4a8_prologue", "k4_dequant", "k6_decode", "k6_prefill",
+               "expert_dequant", "k8_k7_decode", "k9_decode", "k10_mixed"]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_captured_kernel_replays_give_the_eager_bits(cuda, case):
+    make, fn, kernels = _graph_cases()[case]
+    _replays_give_eager_bits(fn, make(cuda, 0), make(cuda, 1), kernels)
+
+
+# The executor with graphs against itself without: tiny Llama and DeepSeek-V2
+# models of random weights at widths the kernels take (bf16; DeepSeek also
+# with runtime INT4), a prefill step (K4, K6 after the expert dequantization)
+# and decode steps (K2, K7/K8, K9) through Executor.execute: the same tokens
+# and the same logits bits.
+
+TINY_LLAMA_CFG = dict(
+    model_type="llama", torch_dtype="bfloat16", hidden_size=512, intermediate_size=1024,
+    num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2, vocab_size=512,
+    max_position_embeddings=2048, rms_norm_eps=1e-5, rope_theta=10000.0, hidden_act="silu")
+TINY_DEEPSEEK_CFG = dict(
+    model_type="deepseek_v2", torch_dtype="bfloat16", hidden_size=512, intermediate_size=1024,
+    num_hidden_layers=3, num_attention_heads=16, vocab_size=512, max_position_embeddings=4096,
+    rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="silu", q_lora_rank=None, kv_lora_rank=512,
+    qk_nope_head_dim=64, qk_rope_head_dim=64, v_head_dim=64, first_k_dense_replace=1,
+    n_routed_experts=8, num_experts_per_tok=2, moe_intermediate_size=256, n_shared_experts=1,
+    topk_method="greedy", rope_scaling=dict(type="yarn", factor=40, original_max_position_embeddings=4096,
+                                            beta_fast=32, beta_slow=1, mscale=0.707, mscale_all_dim=0.707))
+
+
+def _random_model(device, cfg, quantize=""):
+    import scalellm_tpu_torch.models  # noqa: F401  (registers the models)
+    from scalellm_tpu_torch.config import QuantArgs
+    from scalellm_tpu_torch.models.registry import ModelRegistry
+    from scalellm_tpu_torch.quantization.runtime import quantize_model
+
+    args = ModelRegistry.get_model_args_loader(cfg["model_type"])(dict(cfg))
+    model = ModelRegistry.get_causal_lm_factory(cfg["model_type"])(args, device=device)
+    g = torch.Generator(device=device).manual_seed(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.05, generator=g)
+    if quantize:
+        model = quantize_model(model, QuantArgs(quant_method="internal", bits=4, group_size=128))
+    return model
+
+
+def _greedy_si(S):
+    from scalellm_tpu_torch.engine.params import SamplingInputs
+
+    return SamplingInputs(
+        temperatures=np.zeros(S, np.float32), top_ks=np.zeros(S, np.int32), top_ps=np.ones(S, np.float32),
+        frequency_penalties=np.zeros(S, np.float32), presence_penalties=np.zeros(S, np.float32),
+        repetition_penalties=np.ones(S, np.float32), unique_token_ids=np.zeros((S, 1), np.int32),
+        unique_token_counts=np.zeros((S, 1), np.int32), bias_token_ids=np.zeros((S, 1), np.int32),
+        bias_values=np.zeros((S, 1), np.float32), allowed_mask=np.full((S, 1), 0xFFFFFFFF, np.uint32),
+        seeds=np.zeros(S, np.uint32))
+
+
+@pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4"])
+def test_executor_with_graphs_gives_the_eager_tokens_and_logits_bits(cuda, model_name):
+    from chip_smoke import batch_inputs
+    from scalellm_tpu_torch.engine.executor import Executor
+
+    cfg = TINY_LLAMA_CFG if model_name == "llama" else TINY_DEEPSEEK_CFG
+    model = _random_model(cuda, cfg, quantize="int4" if model_name == "deepseek_int4" else "")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (60, 37, 100)]  # 197 tokens: T = 256
+    steps = [(batch_inputs(torch, [(p, 0, len(p) + 8) for p in prompts])[0], False)]
+    for i in range(3):  # decode steps in one bucket (T = 16, S = 4)
+        steps.append((batch_inputs(torch, [([int(rng.integers(1, 512))], len(p) + i, len(p) + 8)
+                                           for p in prompts])[0], True))
+    runs = {}
+    for graphs in (True, False):
+        ex = Executor(model, cuda)
+        ex.init_kv_cache(64, 16)
+        eager_logits, forward = [], ex._forward
+        if graphs:
+            ex.init_graphs(16, max_tokens=256, max_seqs=4, max_context_len=1024)
+        else:
+            ex._forward = lambda mi, d: eager_logits.append(forward(mi, d)) or eager_logits[-1]
+        tokens, logprobs, logits = [], [], []
+        for mi, decode_only in steps:
+            out = ex.execute(mi, _greedy_si(mi.kv_lens.shape[0]), decode_only=decode_only)
+            tokens.append(out.next_tokens.cpu())
+            logprobs.append(out.logprobs.cpu())
+            # The graph's static logits, read before the next replay.
+            logits.append((ex.graphs.graphs[ex.graphs.last_key].logits if graphs else eager_logits[-1]).cpu())
+        if graphs:
+            assert len(ex.graphs.graphs) == 2
+            assert sum(ex.graphs.replays.values()) == len(steps)
+        runs[graphs] = tokens, logprobs, logits
+    for got, want in zip(runs[True], runs[False]):
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
