@@ -73,16 +73,32 @@ Phases (any failure exits non-zero, and the result line is not printed):
         it reads the weights; then K11's own path, its entry point
         quant_mlp at M = 1, 8, 16, 32, 64 (no model calls it, as in the
         reference).
-  Phases 4-7 serve each model twice, on fresh engines in the same call:
-  first with CUDA graphs (the main path: every engine step replays the
-  graph of its bucket, the "full" warmup captures every bucket of the
-  serving envelope at init, SERVE_ENVELOPE), then eagerly; each serve is a
-  warm-up request, a timed generate of 8 prompts (32 greedy tokens each)
-  and the same traffic with other text under torch.profiler. Both serves
-  must sample the same token ids at every step. Each step's launches are
-  held exactly to what the path implies, counted by the wrappers (an eager
-  step, or the eager run and the recording of a capture) or, for a replay,
-  as its graph's wrappers counted when it was recorded. Hooks that act
+  Phases 4-7 serve each model four times, on fresh engines in the same
+  call: three times with CUDA graphs (every engine step replays the graph
+  of its bucket, the "full" warmup captures every bucket of the serving
+  envelope at init, SERVE_ENVELOPE): "sync", one step at a time; "async",
+  the default, one step in flight with its
+  pending tokens merged on the card; "ms4", num_decode_steps=4, where a
+  decode-only batch runs 4 micro-steps in one graph replay (the warmup also
+  captures the 4-step graph of every decode bucket); then eagerly (sync).
+  Each serve is a warm-up request, a timed generate of 8 prompts (32
+  greedy tokens each) and the same traffic with other text under
+  torch.profiler. The eager serve must sample the sync serve's token ids
+  at every step. The async and ms4 serves need not build the same steps
+  (async skips a sequence whose pending token reaches its limit; K1's and
+  K9's split plans depend on the step's S and block table), so they are
+  held to the sync serve request by request: the same ids, or every token
+  a greedy choice up to kernel rounding (a teacher-forced prefill of prompt
+  and output through the model: each generated token's logit within
+  LOGITS_TOL of its position's largest); the async serve must take async
+  dispatches and the ms4 serve multi-step ones, and no graph serve may
+  capture a graph inside its timed generate. Each dispatch's launches are
+  held exactly to what the path implies (N times a decode step's for N
+  micro-steps), counted by the wrappers (an eager step, or the eager run
+  and the recording of a capture) or, for a replay, as its graph's
+  wrappers counted when it was recorded. Phase 4 also checks that
+  finalizing an async step waits for that step alone: it returns while a
+  device spin enqueued after the next step still runs. Hooks that act
   when a step's Python runs (phase 5's variant serves, the in-model probe,
   phases 6 and 7's routing replay) run on the eager engine's model.
   4. end to end, bf16: a TinyLlama-1.1B-shaped checkpoint (random weights
@@ -171,6 +187,7 @@ LOGITS_TOL = 0.25
 TIMED_RUNS = 20
 FLUSH_BYTES = 128 * 2**20  # read before each timed call: 2.5x the 50 MB L2
 SPIN_CYCLES = 1_000_000  # about 0.5 ms of device spin before each timed call
+FETCH_SPIN_CYCLES = 1 << 30  # about half a second of device spin (check_fetch_overlap)
 SEED = 0
 DEVICE = "cuda"
 
@@ -1513,25 +1530,30 @@ def phase_end_to_end(torch, card):
         t0 = time.monotonic()
         nbytes = write_checkpoint(torch, tmp, cfg)
         t_write = time.monotonic() - t0
-        runs = {}
-        # With CUDA graphs (the main path), then eagerly on a fresh engine.
-        for graphs in (True, False):
+        runs, modes = {}, {}
+        # With CUDA graphs (sync: the main path; async; 4-step decode), then
+        # eagerly, each on a fresh engine.
+        for mode in SERVES:
+            graphs = mode != "eager"
             t0 = time.monotonic()
-            llm = serving_llm(tmp, graphs)
+            llm = serving_llm(tmp, graphs, mode if graphs else "sync")
             torch.cuda.synchronize()
             t_load = time.monotonic() - t0
             engine = llm._handler.engine
-            emit(dict(phase="e2e_setup" if graphs else "e2e_eager_setup", graphs=graphs, checkpoint_bytes=nbytes,
+            emit(dict(phase=serve_setup("e2e", mode), graphs=graphs, checkpoint_bytes=nbytes,
                       write_s=t_write, load_s=t_load, kv_blocks=engine.block_manager.options.num_blocks,
                       **graph_stats(engine)))
             # K1 exactly once a layer each step.
-            runs[graphs] = serve(torch, card, "e2e", llm, (attention.ragged_paged_attention_cuda,),
-                                 lambda T, S, decode_only: {"ragged_paged_attention_cuda": L}, graphs)
+            runs[mode] = serve(torch, card, "e2e", llm, (attention.ragged_paged_attention_cuda,),
+                               lambda T, S, decode_only: {"ragged_paged_attention_cuda": L}, graphs,
+                               mode if graphs else "sync")
+            after_serve(torch, card, "e2e", mode, llm, runs, modes)
             if graphs:
                 engine = None
                 llm.close()
                 llm = None
-        compare_serves(card, "e2e", runs[True], runs[False])
+        compare_serves(card, "e2e", runs["sync"], runs["eager"])
+        emit_modes(card, "e2e", runs, modes)
 
         # One prefill batch and the decode step after it (every sequence one
         # token: the split-KV blocks) through the model twice, over the same
@@ -1572,7 +1594,7 @@ def phase_end_to_end(torch, card):
                       argmax_agreement=same_argmax, tol=LOGITS_TOL))
             if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
                 fail(f"{which}: kernel logits differ from plain-attention logits by {err} > {LOGITS_TOL}")
-        return runs[True]["launches"]["ragged_paged_attention_cuda"]
+        return main_path_launches(runs)["ragged_paged_attention_cuda"]
     finally:
         if llm is not None:
             llm.close()
@@ -1656,22 +1678,33 @@ def write_gptq_checkpoint(torch, path, cfg):
 SERVE_ENVELOPE = dict(max_tokens_per_batch=512, max_seqs_per_batch=8, max_context_len=1024)
 
 
-def serving_llm(path, graphs, **kw):
-    """An LLM for `path` on the card at SERVE_ENVELOPE. With graphs, every
-    engine step replays a CUDA graph of its bucket, and the "full" warmup
-    captures every bucket of the envelope at init; without, every step runs
-    eagerly. warmup_mode and max_context_len are fields of LLMHandlerOptions
-    that LLM does not take (nor does the reference's LLM), so its handler is
-    built from the options here. One request-handling thread enqueues the
-    prompts in the order given (several race), so that two serves of the
-    same traffic build the same batches and can be compared step by step."""
+# The serves of phases 4-7 with CUDA graphs, each on a fresh engine: "sync"
+# (one step at a time), "async" (the default:
+# one step in flight, its pending tokens merged on the card) and "ms4"
+# (num_decode_steps=4: a decode-only batch runs 4 micro-steps in one graph
+# replay; async on, as the reference defaults it). The eager serve is "sync"
+# without graphs.
+MODES = {"sync": dict(enable_async_scheduling=False), "async": dict(enable_async_scheduling=True),
+         "ms4": dict(num_decode_steps=4)}
+
+
+def serving_llm(path, graphs, mode="sync", **kw):
+    """An LLM for `path` on the card at SERVE_ENVELOPE, stepping as `mode`
+    (MODES) asks. With graphs, every engine step replays a CUDA graph of its
+    bucket, and the "full" warmup captures every bucket of the envelope at
+    init (with "ms4", also the 4-step graph of every decode bucket);
+    without, every step runs eagerly. warmup_mode and max_context_len are
+    fields of LLMHandlerOptions that LLM does not take (nor does the
+    reference's LLM), so its handler is built from the options here. One
+    request-handling thread enqueues the prompts in the order given (several
+    race), so that two serves of the same traffic build the same batches."""
     from scalellm_tpu_torch import LLM
     from scalellm_tpu_torch.handlers.llm_handler import LLMHandler, LLMHandlerOptions
 
     llm = LLM.__new__(LLM)
     llm._handler = LLMHandler(LLMHandlerOptions(
         model_path=path, devices=DEVICE, enable_cuda_graph=graphs, warmup_mode="full" if graphs else "off",
-        num_handling_threads=1, **SERVE_ENVELOPE, **kw))
+        num_handling_threads=1, **SERVE_ENVELOPE, **MODES[mode], **kw))
     return llm
 
 
@@ -1688,9 +1721,10 @@ def all_counters():
 def count_captured_launches():
     """Make every StepGraphs capture note, on the captured step, how far
     each kernel wrapper's counter advanced while the graph was recorded:
-    the launches each replay of it makes. A wrapper counts when it is
-    called, which for a graph is at the capture; a replay launches the
-    recorded kernels without calling the wrappers."""
+    the launches each replay of it makes (for a multi-step graph, those of
+    all its micro-steps). A wrapper counts when it is called, which for a
+    graph is at the capture; a replay launches the recorded kernels without
+    calling the wrappers."""
     from scalellm_tpu_torch.engine.executor import StepGraphs
 
     real = StepGraphs.record
@@ -1708,73 +1742,110 @@ def count_captured_launches():
 
 
 def watch_steps(engine, counters):
-    """Record, per engine step, the padded token and sequence counts, whether
-    the step was decode-only, how many times it ran on the device (2 for a
-    step that captured its graph on the card: the eager run before the
-    capture, then the replay), and how often each kernel wrapper's kernel
-    was launched: what the wrappers counted (an eager step; the eager run
-    and the recording of a capture, whose count equals its replay's), plus,
-    for a step that replayed an earlier capture, the launches noted at that
-    capture (count_captured_launches). Also each step's sampled token ids
-    of the real sequences (device tensors), and the host clock at each
-    step's start. Returns (log, sampled, starts)."""
-    log, sampled, starts = [], [], []
+    """Record, per engine dispatch (Executor.execute, one step, or
+    execute_multi, N decode micro-steps), the padded token and sequence
+    counts, whether it was decode-only, how many times a step's kernels ran
+    on the device (the micro-steps, times 2 for a dispatch that captured its
+    graph on the card: the eager run before the capture, then the replay),
+    and how often each kernel wrapper's kernel was launched: what the
+    wrappers counted (an eager dispatch; the eager run and the recording of
+    a capture, whose count equals its replay's), plus, for a dispatch that
+    replayed an earlier capture, the launches noted at that capture
+    (count_captured_launches). Also each dispatch's sampled token ids of the
+    real sequences (device tensors, [N, S] for N micro-steps), the host
+    clock at each dispatch's start and each dispatch's micro-steps.
+    Returns (log, sampled, starts, micro)."""
+    log, sampled, starts, micro = [], [], [], []
     ex = engine.executor
-    real = ex.execute
 
-    def execute(mi, si, decode_only=False):
-        starts.append(time.monotonic())
-        before = [c.launches for c in counters]
-        known = set(ex.graphs.graphs) if ex.graphs is not None else set()
-        out = real(mi, si, decode_only=decode_only)
-        got = [c.launches - b for c, b in zip(counters, before)]
-        runs = 1
-        if ex.graphs is not None:
-            if ex.graphs.last_key in known:
-                recorded = getattr(ex.graphs.graphs[ex.graphs.last_key], "launches", {})
-                got = [n + recorded.get(c.__name__, 0) for n, c in zip(got, counters)]
-            elif ex.graphs.cuda:
-                runs = 2
-        log.append((mi.token_ids.shape[0], mi.selected_idxes.shape[0], decode_only, runs, *got))
-        sampled.append(out.next_tokens[: int(mi.num_seqs[0])])
-        return out
+    def watched(real, multi):
+        def run(mi, si, *args, **kw):
+            starts.append(time.monotonic())
+            before = [c.launches for c in counters]
+            known = set(ex.graphs.graphs) if ex.graphs is not None else set()
+            out = real(mi, si, *args, **kw)
+            got = [c.launches - b for c, b in zip(counters, before)]
+            n = (args[0] if args else kw["num_steps"]) if multi else 1
+            runs = n
+            if ex.graphs is not None:
+                if ex.graphs.last_key in known:
+                    recorded = getattr(ex.graphs.graphs[ex.graphs.last_key], "launches", {})
+                    got = [k + recorded.get(c.__name__, 0) for k, c in zip(got, counters)]
+                elif ex.graphs.cuda:
+                    runs = 2 * n
+            decode_only = True if multi else kw.get("decode_only", args[0] if args else False)
+            log.append((mi.token_ids.shape[0], mi.selected_idxes.shape[0], decode_only, runs, *got))
+            sampled.append(out.next_tokens[..., : int(mi.num_seqs[0])])
+            micro.append(n)
+            return out
+        return run
 
-    ex.execute = execute
-    return log, sampled, starts
+    ex.execute = watched(ex.execute, False)
+    ex.execute_multi = watched(ex.execute_multi, True)
+    return log, sampled, starts, micro
+
+
+def unwatch_steps(engine):
+    """Remove the wrappers of watch_steps."""
+    for name in ("execute", "execute_multi"):
+        engine.executor.__dict__.pop(name, None)
 
 
 def graph_stats(engine):
-    """The engine's step graphs: how many, the seconds spent capturing them
-    (each capture's eager run included) and the bytes of their memory pool."""
+    """The engine's step graphs: how many (multi-step ones apart), the
+    seconds spent capturing them (each capture's eager run included) and the
+    bytes of their memory pool."""
     g = engine.executor.graphs
     if g is None:
-        return dict(graphs_captured=0, capture_s=0.0, graph_pool_bytes=0)
-    return dict(graphs_captured=len(g.graphs), capture_s=g.capture_s, graph_pool_bytes=g.pool_bytes())
+        return dict(graphs_captured=0, multi_step_graphs=0, capture_s=0.0, graph_pool_bytes=0)
+    return dict(graphs_captured=len(g.graphs), multi_step_graphs=sum(1 for k in g.graphs if len(k) > 4),
+                capture_s=g.capture_s, graph_pool_bytes=g.pool_bytes())
 
 
-def serve(torch, card, tag, llm, counters, want, graphs):
+def record_outputs(llm):
+    """Make the scheduler note each finished request's prompt and generated
+    ids (the output's token_ids hold only the ids that decode to text) by
+    prompt text. Returns the dict it fills."""
+    sched = llm._handler.scheduler
+    real, ids = sched._finish_request, {}
+
+    def finish(request):
+        seq = request.sequences[0]
+        ids[request.prompt] = (list(seq.token_ids[: seq.num_prompt_tokens]),
+                               list(seq.token_ids[seq.num_prompt_tokens :]))
+        real(request)
+
+    sched._finish_request = finish
+    return ids
+
+
+def serve(torch, card, tag, llm, counters, want, graphs, mode="sync"):
     """The phase's traffic through `llm`: a warm-up request, then one timed
-    generate of the 8 prompts (32 greedy tokens each) with every engine
-    step's launches held to want(T, S, decode_only) (launches by wrapper
-    name) times the step's device runs, then the same traffic with other
-    text under torch.profiler (the idle share is taken against the timed
-    run's wall). Emits `{tag}_e2e` and `{tag}_profile` (`{tag}_eager_...`
-    without graphs). Returns the outputs, each step's sampled ids, the
-    launches by wrapper name and the figures the graphs/eager line holds."""
+    generate of the 8 prompts (32 greedy tokens each) with every dispatch's
+    launches held to want(T, S, decode_only) (launches by wrapper name)
+    times the dispatch's device runs of a step (micro-steps included), then
+    the same traffic with other text under torch.profiler (the idle share is
+    taken against the timed run's wall). Emits `{tag}_e2e` and
+    `{tag}_profile` (`{tag}_eager_...` without graphs, `{tag}_async_...` and
+    `{tag}_ms4_...` for those modes). Returns the outputs, each dispatch's
+    sampled ids, each request's prompt and generated ids, the launches by
+    wrapper name and the figures the comparison lines hold."""
     from torch.profiler import ProfilerActivity, profile
 
     from scalellm_tpu_torch import SamplingParams
-    from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
+    from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS, STEP_COUNTERS
 
-    name = tag if graphs else f"{tag}_eager"
+    name = (tag if mode == "sync" else f"{tag}_{mode}") if graphs else f"{tag}_eager"
     engine = llm._handler.engine
     greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
     llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
     ps = prompts()
     ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
     ttft_before = (ttft.total, ttft.count)
-    steps_log, sampled, starts = watch_steps(engine, counters)
+    steps_log, sampled, starts, micro = watch_steps(engine, counters)
+    ids = record_outputs(llm)
     compiles = COUNTERS.get("num_mid_serve_compiles")
+    steps_before = {c: COUNTERS.get(c) for c in STEP_COUNTERS}
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -1783,9 +1854,10 @@ def serve(torch, card, tag, llm, counters, want, graphs):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     compiles = COUNTERS.get("num_mid_serve_compiles") - compiles
+    step_counts = {c: COUNTERS.get(c) - v for c, v in steps_before.items()}
     ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
     mean_ttft = (ttft.total - ttft_before[0]) / max(ttft.count - ttft_before[1], 1)
-    if len(outs) != len(ps):
+    if len(outs) != len(ps) or sorted(ids) != sorted(ps):
         fail(f"{name}: {len(outs)} of {len(ps)} requests returned")
     # Generated tokens are counted from usage: the char tokenizer names
     # ids below 256 only, and the output's token_ids hold only the ids
@@ -1793,38 +1865,44 @@ def serve(torch, card, tag, llm, counters, want, graphs):
     for o in outs:
         if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
             fail(f"{name}: request did not finish with 32 tokens: {o.status}, {o.usage}")
+    if any(len(gen) != 32 or min(gen) < 0 for _, gen in ids.values()):
+        fail(f"{name}: a request's generated ids are not 32 resolved tokens")
     if not steps_log:
         fail(f"{name}: no engine step ran")
+    if graphs and compiles:
+        fail(f"{name}: {compiles} graphs were captured inside the timed generate")
     names = [c.__name__ for c in counters]
     per_step = {}
-    for T, S, decode_only, runs, *got in steps_log:
+    for (T, S, decode_only, runs, *got), n in zip(steps_log, micro):
         step_want = want(T, S, decode_only)
-        expected = [runs * step_want.get(n, 0) for n in names]
+        expected = [runs * step_want.get(k, 0) for k in names]
         if got != expected:
-            fail(f"{name}: a step of T={T}, S={S}, decode_only={decode_only} ({runs} device runs) launched "
-                 f"{dict(zip(names, got))}, expected {dict(zip(names, expected))}")
+            fail(f"{name}: a dispatch of T={T}, S={S}, decode_only={decode_only}, {n} micro-steps ({runs} "
+                 f"device runs of a step) launched {dict(zip(names, got))}, expected {dict(zip(names, expected))}")
         per_step[f"T={T},S={S},decode_only={decode_only}"] = {k: v for k, v in step_want.items() if v}
-    launches = {n: sum(st[4 + i] for st in steps_log) for i, n in enumerate(names)}
+    launches = {k: sum(st[4 + i] for st in steps_log) for i, k in enumerate(names)}
     tokens = [t.cpu() for t in sampled]
     n_tokens = sum(o.usage.num_generated_tokens for o in outs)
-    # Host wall a step: from its start to the next step's (the last to the
-    # generate's end), decode-only steps and the others apart.
+    # Host wall a dispatch: from its start to the next one's (the last to
+    # the generate's end), decode-only dispatches and the others apart.
     spans = [(b - a) * 1e3 for a, b in zip(starts, starts[1:] + [t0 + wall])]
     decode_ms = [ms for ms, st in zip(spans, steps_log) if st[2]]
     other_ms = [ms for ms, st in zip(spans, steps_log) if not st[2]]
-    result = dict(graphs=graphs, output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft, wall_s=wall,
-                  engine_steps=len(steps_log),
+    result = dict(graphs=graphs, mode=mode, output_tok_per_s=n_tokens / wall, mean_ttft_s=mean_ttft, wall_s=wall,
+                  engine_steps=len(steps_log), multi_step_dispatches=sum(1 for n in micro if n > 1),
+                  **{c: step_counts[c] for c in ("num_engine_steps", "num_async_steps", "num_multi_steps")},
+                  host_ms_per_dispatch=wall * 1e3 / len(steps_log), host_ms_per_token=wall * 1e3 / n_tokens,
                   decode_step_ms=statistics.median(decode_ms) if decode_ms else None,
                   other_step_ms=statistics.fmean(other_ms) if other_ms else None,
                   mid_serve_compiles=compiles, **graph_stats(engine))
-    emit(dict(phase=f"{name}_e2e", **result, requests=len(outs), output_tokens=n_tokens,
-              decode_only_steps=sum(1 for st in steps_log if st[2]),
-              prefill_steps=sum(1 for st in steps_log if st[0] > 64),
-              captured_in_serve=sum(1 for st in steps_log if st[3] == 2),
-              step_tokens=sorted({st[0] for st in steps_log}),
-              launches={k: v for k, v in launches.items() if v}, per_step=per_step, card=card["nvidia_smi"]))
+    line = dict(phase=f"{name}_e2e", requests=len(outs), output_tokens=n_tokens,
+                decode_only_steps=sum(1 for st in steps_log if st[2]),
+                prefill_steps=sum(1 for st in steps_log if st[0] > 64),
+                captured_in_serve=sum(1 for st, n in zip(steps_log, micro) if st[3] == 2 * n),
+                step_tokens=sorted({st[0] for st in steps_log}),
+                launches={k: v for k, v in launches.items() if v}, per_step=per_step)
 
-    del steps_log[:]
+    del steps_log[:], micro[:]
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         llm.generate(prompts(SEED + 1), greedy)
@@ -1832,12 +1910,85 @@ def serve(torch, card, tag, llm, counters, want, graphs):
     profiled_wall = time.monotonic() - t0
     breakdown = device_breakdown(prof, wall, len(steps_log))
     del prof
-    emit(dict(phase=f"{name}_profile", graphs=graphs, engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
-              unprofiled_wall_s=wall, **breakdown, card=card["nvidia_smi"]))
-    del engine.executor.execute  # the wrapper of watch_steps
+    unwatch_steps(engine)
     result.update(idle_share=breakdown["idle_share"], kernels_per_step=breakdown["kernels_per_step"],
                   device_busy_ms=breakdown["device_busy_ms"])
-    return dict(outs=outs, tokens=tokens, launches=launches, figures=result)
+    emit(dict(line, **result, card=card["nvidia_smi"]))
+    emit(dict(phase=f"{name}_profile", graphs=graphs, mode=mode, engine_steps=len(steps_log),
+              profiled_wall_s=profiled_wall, unprofiled_wall_s=wall, **breakdown, card=card["nvidia_smi"]))
+    return dict(outs=outs, tokens=tokens, ids=ids, launches=launches, figures=result)
+
+
+def teacher_forced_gap(torch, model, prompt_ids, generated):
+    """The largest gap, over the generated positions, between a position's
+    largest logit and the logit of the token generated there, from one
+    prefill of prompt + output through `model` (its kernels): 0 for a
+    greedy choice, within LOGITS_TOL for one that kernel rounding can
+    explain."""
+    ids = prompt_ids + generated
+    mi, n_pages = batch_inputs(torch, [(ids, 0, len(ids) + 1)])
+    with torch.inference_mode():
+        kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
+        rows = model(kv, mi.to(DEVICE), all_hidden=True)[len(prompt_ids) - 1 : len(ids) - 1]
+        logits = model.logits(rows).float()
+        chosen = logits.gather(1, torch.tensor(generated, device=DEVICE)[:, None])[:, 0]
+        return (logits.max(-1).values - chosen).max().item()
+
+
+def check_mode(torch, tag, mode, model, sync_run, run):
+    """Hold a mode's serve to the sync serve with graphs, request by
+    request: the same generated ids, or, where they differ (the serves need
+    not build the same steps: async skips a sequence whose pending token
+    reaches its limit, and K1's and K9's split plans depend on S and the
+    block table's width), every token of the mode's a greedy choice up to
+    kernel rounding (teacher_forced_gap within LOGITS_TOL, through the
+    mode's engine's model). Fails unless the mode took its dispatches
+    (num_async_steps, num_multi_steps). Returns the figures of the
+    `{tag}_modes` line."""
+    differing, gaps = [], []
+    for prompt, (prompt_ids, gen) in run["ids"].items():
+        if gen != sync_run["ids"][prompt][1]:
+            differing.append(prompt)
+            gaps.append(teacher_forced_gap(torch, model, prompt_ids, gen))
+    figures = run["figures"]
+    out = dict(requests_differing=len(differing), largest_gap=max(gaps, default=0.0), tol=LOGITS_TOL,
+               **{k: figures[k] for k in ("output_tok_per_s", "mean_ttft_s", "engine_steps", "num_async_steps",
+                                          "num_multi_steps", "host_ms_per_dispatch", "host_ms_per_token",
+                                          "idle_share", "mid_serve_compiles", "graphs_captured",
+                                          "multi_step_graphs", "graph_pool_bytes")})
+    if any(not g <= LOGITS_TOL for g in gaps):
+        fail(f"{tag} {mode}: a request's tokens differ from the sync serve's by more than kernel rounding "
+             f"(largest gap {max(gaps)} > {LOGITS_TOL})")
+    key = {"async": "num_async_steps", "ms4": "num_multi_steps"}[mode]
+    if not figures[key] > 0:
+        fail(f"{tag} {mode}: the serve took no {key}")
+    return out
+
+
+def check_fetch_overlap(torch, card, tag, engine):
+    """Finalizing a dispatched step waits for that step alone: with the
+    next step dispatched and a device spin enqueued after it, the first
+    step's fetch must return while the spin still runs."""
+    from scalellm_tpu_torch.engine.executor import HostOutputs, minimal_inputs, minimal_sampling_inputs
+
+    ex = engine.executor
+    mi, si = minimal_inputs(16, 1, 4), minimal_sampling_inputs(1)  # KV on the reserved page 0
+    torch.cuda.synchronize()
+    first = HostOutputs(ex.execute(mi, si, decode_only=True), logprobs=True)
+    ex.execute(mi, si, decode_only=True)
+    torch.cuda._sleep(FETCH_SPIN_CYCLES)
+    spun = torch.cuda.Event()
+    spun.record()
+    t0 = time.monotonic()
+    first.wait()
+    wait_ms = (time.monotonic() - t0) * 1e3
+    returned_during_spin = not spun.query()
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    emit(dict(phase=f"{tag}_fetch_overlap", returned_during_spin=returned_during_spin, fetch_wait_ms=wait_ms,
+              spin_left_ms=(time.monotonic() - t0) * 1e3, card=card["nvidia_smi"]))
+    if not returned_during_spin:
+        fail(f"{tag}: finalizing a step waited for work enqueued after the next step's dispatch")
 
 
 def compare_serves(card, tag, with_graphs, eager):
@@ -1851,6 +2002,46 @@ def compare_serves(card, tag, with_graphs, eager):
               graphs=with_graphs["figures"], eager=eager["figures"], card=card["nvidia_smi"]))
     if not (same_ids and same_text):
         fail(f"{tag}: the serve with CUDA graphs sampled other token ids than the eager serve")
+
+
+# A phase's serves, in order: the three modes with CUDA graphs, then eager.
+SERVES = ("sync", "async", "ms4", "eager")
+
+
+def serve_setup(tag, mode):
+    """The name of a serve's setup line."""
+    return f"{tag}_setup" if mode == "sync" else f"{tag}_{mode}_setup"
+
+
+def after_serve(torch, card, tag, mode, llm, runs, modes):
+    """What a phase checks on a serve's engine before it is closed: the
+    async and ms4 serves against the sync one (check_mode, through the
+    serve's model), and, in phase 4, the async engine's fetch
+    (check_fetch_overlap)."""
+    if mode in ("async", "ms4"):
+        modes[mode] = check_mode(torch, tag, mode, llm._handler.engine.model, runs["sync"], runs[mode])
+    if mode == "async" and tag == "e2e":
+        check_fetch_overlap(torch, card, tag, llm._handler.engine)
+
+
+def emit_modes(card, tag, runs, modes):
+    """The `{tag}_modes` line: the sync serve with graphs and, beside it,
+    the async and ms4 serves' figures and how many requests differed from
+    it (and the largest teacher-forced gap of those), from the same call."""
+    sync = runs["sync"]["figures"]
+    emit(dict(phase=f"{tag}_modes", sync={k: sync[k] for k in (
+        "output_tok_per_s", "mean_ttft_s", "engine_steps", "host_ms_per_dispatch", "host_ms_per_token",
+        "idle_share", "mid_serve_compiles", "graphs_captured", "graph_pool_bytes")}, **modes,
+        card=card["nvidia_smi"]))
+
+
+def main_path_launches(runs):
+    """A phase's launches on its main paths: the serves with graphs."""
+    out = {}
+    for mode in ("sync", "async", "ms4"):
+        for k, v in runs[mode]["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def phase_end_to_end_int4(torch, card, n_layers):
@@ -1879,32 +2070,36 @@ def phase_end_to_end_int4(torch, card, n_layers):
         t0 = time.monotonic()
         nbytes = write_gptq_checkpoint(torch, tmp, cfg)
         t_write = time.monotonic() - t0
-        runs = {}
-        # With CUDA graphs (the main path), then eagerly on a fresh engine,
-        # which then serves the variant runs below: their quant_impl hook
-        # acts when a step's Python runs, which a replayed graph skips.
-        for graphs in (True, False):
+        runs, modes = {}, {}
+        # With CUDA graphs (sync: the main path; async; 4-step decode), then
+        # eagerly, each on a fresh engine; the eager one then serves the
+        # variant runs below: their quant_impl hook acts when a step's Python
+        # runs, which a replayed graph skips.
+        for mode in SERVES:
+            graphs = mode != "eager"
             t0 = time.monotonic()
-            llm = serving_llm(tmp, graphs, quantize_lm_head=True)
+            llm = serving_llm(tmp, graphs, mode if graphs else "sync", quantize_lm_head=True)
             torch.cuda.synchronize()
             t_load = time.monotonic() - t0
             engine = llm._handler.engine
             model = engine.model
             weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
-            emit(dict(phase="int4_setup" if graphs else "int4_eager_setup", graphs=graphs, layers=L,
+            emit(dict(phase=serve_setup("int4", mode), graphs=graphs, layers=L,
                       full_depth=L == LLAMA31_8B_INT4["num_hidden_layers"], checkpoint_bytes=nbytes,
                       write_s=t_write, load_s=t_load, weight_bytes_on_card=weight_bytes,
                       lm_head_bits=model.lm_head.bits, kv_blocks=engine.block_manager.options.num_blocks,
                       **graph_stats(engine)))
-            runs[graphs] = serve(torch, card, "int4", llm, counters, want, graphs)
+            runs[mode] = serve(torch, card, "int4", llm, counters, want, graphs, mode if graphs else "sync")
+            after_serve(torch, card, "int4", mode, llm, runs, modes)
             if graphs:
                 engine = model = None
                 llm.close()
                 llm = None
-        compare_serves(card, "int4", runs[True], runs[False])
-        launches = dict(runs[True]["launches"])
+        compare_serves(card, "int4", runs["sync"], runs["eager"])
+        emit_modes(card, "int4", runs, modes)
+        launches = main_path_launches(runs)
         ps = prompts()
-        steps_log, _, _ = watch_steps(engine, counters)
+        steps_log, *_ = watch_steps(engine, counters)
 
         # The same path through the group kernel, two requests: the model's
         # quantized matmul with variant="group".
@@ -2237,23 +2432,24 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
     depth = dict(layers=n_layers, full_depth=n_layers == DEEPSEEK_V2_LITE["num_hidden_layers"])
     llm = None
     try:
-        runs = {}
-        # With CUDA graphs (the main path), then eagerly on a fresh engine,
-        # whose model the routing replay below runs: the replay and
-        # recording hooks act when a step's Python runs, which a replayed
-        # graph skips.
-        for graphs in (True, False):
+        runs, modes = {}, {}
+        # With CUDA graphs (sync: the main path; async; 4-step decode), then
+        # eagerly, each on a fresh engine; the routing replay below runs the
+        # eager one's model: the replay and recording hooks act when a
+        # step's Python runs, which a replayed graph skips.
+        for mode in SERVES:
+            graphs = mode != "eager"
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.monotonic()
-            llm = serving_llm(path, graphs, quantize=quantize)
+            llm = serving_llm(path, graphs, mode if graphs else "sync", quantize=quantize)
             torch.cuda.synchronize()
             t_load = time.monotonic() - t0
             engine = llm._handler.engine
             model = engine.model
             weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
             experts = [m for m in model.modules() if isinstance(m, QuantExperts)]
-            emit(dict(phase=f"{tag}_setup" if graphs else f"{tag}_eager_setup", graphs=graphs, **depth,
+            emit(dict(phase=serve_setup(tag, mode), graphs=graphs, **depth,
                       quantize=quantize or None, load_s=t_load,
                       # the peak of LLM(...): loading, quantizing, the KV cache
                       # (90% of what is left), then the warmup's captures
@@ -2262,13 +2458,15 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
                       expert_group=experts[0].group_size if experts else None,
                       kv_blocks=engine.block_manager.options.num_blocks,
                       kv_cache_shape=list(engine.executor.kv_cache.shape), **graph_stats(engine)))
-            runs[graphs] = serve(torch, card, tag, llm, counters,
-                                 functools.partial(deepseek_step_launches, model), graphs)
+            runs[mode] = serve(torch, card, tag, llm, counters, functools.partial(deepseek_step_launches, model),
+                               graphs, mode if graphs else "sync")
+            after_serve(torch, card, tag, mode, llm, runs, modes)
             if graphs:
                 engine = model = experts = None
                 llm.close()
                 llm = None
-        compare_serves(card, tag, runs[True], runs[False])
+        compare_serves(card, tag, runs["sync"], runs["eager"])
+        emit_modes(card, tag, runs, modes)
         ps = prompts()
 
         # A prefill batch (K10; quantized: K4 and the experts through K6) and
@@ -2329,7 +2527,7 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
                       same_routing=True, tol=LOGITS_TOL))
             if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
                 fail(f"{tag} {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
-        return runs[True]["launches"]
+        return main_path_launches(runs)
     finally:
         if llm is not None:
             llm.close()
@@ -2391,11 +2589,12 @@ def main() -> None:
     finally:
         shutil.rmtree(path, ignore_errors=True)
 
-    # Each kernel's launches on the main paths (counts set to 0 before each
-    # path and read after it, with each replayed step graph adding what its
-    # wrappers counted when it was captured; the checks above, and the
-    # eager serves beside the graph ones, launch outside that window; phase
-    # 5's variant serves run on its eager engine), summed over the paths
+    # Each kernel's launches on the main paths (the sync, async and ms4
+    # serves with graphs: counts set to 0 before each timed generate and
+    # read after it, with each replayed step graph adding what its wrappers
+    # counted when it was captured; the checks above, and the eager serves
+    # beside the graph ones, launch outside that window; phase 5's variant
+    # serves run on its eager engine), summed over the paths
     # that run it, and its timing at a shape the main
     # path gives it: attention at the 8-sequence decode batch, w4a8 at the
     # decode step's gate_up projection (T = 16), dequant and group at the

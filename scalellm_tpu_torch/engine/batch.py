@@ -1,6 +1,8 @@
 """Batch — turns scheduled Sequences and their token budgets into padded
 model inputs, and writes sampled tokens back
-(counterpart of scalellm_tpu/engine/batch.py, synchronous path).
+(counterpart of scalellm_tpu/engine/batch.py): synchronously, as N samples
+a sequence of a multi-step dispatch, or as pending tokens of an async step
+that are resolved when its outputs are fetched.
 
 Arrays are padded to the same bucket ladders as the reference package, so a
 batch here has the same shapes, padding included:
@@ -50,6 +52,10 @@ class Batch:
     """One scheduler step's worth of sequences."""
 
     entries: List[BatchEntry] = field(default_factory=list)
+    # (mask [T] bool, gather [T] int32) of the token rows whose value is the
+    # previous step's sample, still on the device, or None. Set by
+    # prepare_model_inputs; the engine merges those rows on the device.
+    pending_fix: Optional[Tuple[np.ndarray, np.ndarray]] = field(default=None, init=False, repr=False)
 
     def add(self, seq: Sequence, num_tokens: int) -> None:
         cached = seq.num_kv_cache_tokens()
@@ -124,6 +130,11 @@ class Batch:
         bias_ids = np.zeros((S, max(B, 1)), dtype=np.int32)
         bias_vals = np.zeros((S, max(B, 1)), dtype=np.float32)
 
+        # Async stepping: token rows whose value is still on the device (the
+        # previous step's sample), with their row in that step's outputs.
+        pending_rows: List[int] = []
+        pending_srcs: List[int] = []
+
         t = 0
         for s, e in enumerate(self.entries):
             seq = e.seq
@@ -131,6 +142,10 @@ class Batch:
             end = start + e.num_tokens
             bids = seq.block_ids_array()
             token_ids[t : t + e.num_tokens] = seq.token_ids[start:end]
+            if e.num_tokens == 1 and token_ids[t] < 0:  # pending: a placeholder of -1
+                pending_rows.append(t)
+                pending_srcs.append(seq.pending_src)
+                token_ids[t] = 0
             positions[t : t + e.num_tokens] = np.arange(start, end)
             token_seg[t : t + e.num_tokens] = s
             new_kv_slot_ids[t : t + e.num_tokens] = seq.kv_slots_array(start, end)
@@ -162,6 +177,13 @@ class Batch:
 
         # Padding rows repeat the last cumulative value (zero-length chunks).
         cu_q_lens[S_real + 1 :] = cu_q_lens[S_real]
+        self.pending_fix = None
+        if pending_rows:
+            mask = np.zeros(T, dtype=bool)
+            mask[pending_rows] = True
+            gather = np.zeros(T, dtype=np.int32)
+            gather[pending_rows] = pending_srcs
+            self.pending_fix = (mask, gather)
         mi = ModelInputs(
             token_ids=token_ids,
             positions=positions,
@@ -189,6 +211,101 @@ class Batch:
             seeds=seeds,
         )
         return mi, si, needs_sample
+
+    def needs_sync(self) -> bool:
+        """True when this batch cannot run under async stepping: guided
+        decoding and penalties need the previous token resolved on the host
+        before the next step's masks and histograms are built, and prompt
+        scoring runs another program (the reference's gate)."""
+        for e in self.entries:
+            sp = e.seq.sampling_params
+            if e.seq.guided is not None:
+                return True
+            if sp.frequency_penalty != 0.0 or sp.presence_penalty != 0.0 or sp.repetition_penalty != 1.0:
+                return True
+            if sp.prompt_logprobs is not None:
+                return True
+        return False
+
+    def can_multi_step(self) -> bool:
+        """True when the batch can run as one multi-step decode dispatch:
+        decode-only, every row samples, no row's token is pending on the
+        device, and nothing needs per-token host feedback (the reference's
+        gate)."""
+        if not self.is_decode_only:
+            return False
+        for e in self.entries:
+            if not e.needs_sample or e.seq.has_pending:
+                return False
+        return not self.needs_sync()
+
+    def process_multi_sample_output(
+        self,
+        next_tokens: np.ndarray,  # [N, S]
+        logprobs: Optional[np.ndarray],  # [N, S]
+        top_ids: Optional[np.ndarray],  # [N, S, K]
+        top_logprobs: Optional[np.ndarray],  # [N, S, K]
+        tokenizer=None,
+    ) -> None:
+        """Append up to N samples a sequence, dropping every one after a
+        finish (EOS, stop, max_tokens: the device decoded on). Micro-step i
+        writes the KV of its input token, so a sequence that accepts n
+        tokens has KV committed for its input plus n - 1 fed-back tokens;
+        the last sample's KV is written by the next step, as on the
+        single-step path."""
+        N = next_tokens.shape[0]
+        for s, e in enumerate(self.entries):
+            seq = e.seq
+            seq.commit_kv_cache(e.num_tokens)
+            for i in range(N):
+                tid = int(next_tokens[i, s])
+                lp = self._build_logprob(
+                    seq, tid, s,
+                    logprobs[i] if logprobs is not None else None,
+                    top_ids[i] if top_ids is not None else None,
+                    top_logprobs[i] if top_logprobs is not None else None,
+                    tokenizer,
+                )
+                seq.append_token(tid, lp)
+                if seq.is_finished():
+                    break
+                if i < N - 1:
+                    seq.commit_kv_cache(1)
+
+    def append_pending_tokens(self) -> None:
+        """Async dispatch: commit KV progress and append a pending
+        placeholder for each sample of this step (its value is resolved
+        when the step's outputs are fetched)."""
+        for s, e in enumerate(self.entries):
+            e.seq.commit_kv_cache(e.num_tokens)
+            if e.needs_sample:
+                e.seq.append_pending_token(src_row=s)
+
+    def resolve_sample_output(
+        self,
+        next_tokens: np.ndarray,  # [S]
+        logprobs: Optional[np.ndarray],
+        top_ids: Optional[np.ndarray],
+        top_logprobs: Optional[np.ndarray],
+        tokenizer=None,
+    ) -> None:
+        """Async resolve: fill this step's pending tokens with the fetched
+        values (KV was committed at dispatch). A sequence that finished or
+        was cancelled while the step was in flight drops its sample."""
+        for s, e in enumerate(self.entries):
+            seq = e.seq
+            if not e.needs_sample or not seq.has_pending:
+                continue
+            if seq.is_finished():
+                # finished while in flight: the sample is overshoot
+                seq.pop_pending_token()
+                continue
+            tid = int(next_tokens[s])
+            lp = self._build_logprob(seq, tid, s, logprobs, top_ids, top_logprobs, tokenizer)
+            seq.resolve_pending_token(tid, lp)
+            if seq.is_finished() and seq.has_pending:
+                # the next step (already dispatched) sampled past the finish
+                seq.pop_pending_token()
 
     @staticmethod
     def _build_logprob(

@@ -12,15 +12,26 @@ buckets ahead). Here, with graphs on (init_graphs), forward + logits of a
 bucket are captured once into a CUDA graph (StepGraphs) and replayed on
 every later step of that bucket; the sampler runs eagerly after the
 replay, on the graph's logits. With graphs off the step runs eagerly.
+
+Multi-step decode (execute_multi, the reference's _build_multi_step_fn):
+one dispatch runs N decode micro-steps, each recomputing positions, KV
+lengths and KV slots on the device and feeding its sampled tokens to the
+next; with graphs on, the N micro-steps, sampler included, are ONE CUDA
+graph per (N, T, S, MAXP, sampling plan). Async stepping merges a step's
+pending tokens (the previous step's samples, still on the device) into its
+token ids before the forward (merge_pending_tokens). Every step's outputs
+are copied to pinned host memory right after its sampler (HostOutputs), and
+a fetch waits for that copy alone, not for later steps on the stream.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +40,7 @@ from scalellm_tpu_torch.engine.batch import PAGE_BUCKETS, SEQ_BUCKETS, TOKEN_BUC
 from scalellm_tpu_torch.engine.params import (
     ModelInputs, ModelOutputs, SamplingInputs, StepInputs, step_words,
 )
-from scalellm_tpu_torch.sampling.sampler import SamplingPlan, sample_tokens
+from scalellm_tpu_torch.sampling.sampler import SamplingPlan, sample_tokens, step_seeds
 from scalellm_tpu_torch.utils.metrics import COUNTERS
 
 logger = logging.getLogger(__name__)
@@ -37,6 +48,8 @@ logger = logging.getLogger(__name__)
 WARMUP_MODES = ("off", "fast", "full")
 
 Bucket = Tuple[int, int, int, bool]  # (T, S, MAXP, decode_only)
+# A multi-step graph's key: (T, S, MAXP, True, N, page_size, SamplingPlan).
+MultiKey = Tuple[int, int, int, bool, int, int, SamplingPlan]
 
 
 def warmup_buckets(block_size: int, mode: str, max_tokens: int, max_seqs: int,
@@ -93,12 +106,73 @@ def minimal_inputs(T: int, S: int, MAXP: int) -> ModelInputs:
     )
 
 
+def minimal_sampling_inputs(S: int) -> SamplingInputs:
+    """The reference's warmup sampling inputs: every row greedy, no stage."""
+    return SamplingInputs(
+        temperatures=np.zeros(S, np.float32), top_ks=np.zeros(S, np.int32), top_ps=np.ones(S, np.float32),
+        frequency_penalties=np.zeros(S, np.float32), presence_penalties=np.zeros(S, np.float32),
+        repetition_penalties=np.ones(S, np.float32), unique_token_ids=np.zeros((S, 1), np.int32),
+        unique_token_counts=np.zeros((S, 1), np.int32), bias_token_ids=np.zeros((S, 1), np.int32),
+        bias_values=np.zeros((S, 1), np.float32), allowed_mask=np.full((S, 1), 0xFFFFFFFF, np.uint32),
+        seeds=np.zeros(S, np.uint32),
+    )
+
+
+def merge_pending_tokens(token_ids: torch.Tensor, prev_next_tokens: torch.Tensor, gather: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Device-side token feedback of async stepping (the reference's
+    _merge_pending_tokens): rows with a nonzero mask take the previous
+    step's sampled token at row gather[t]; the others keep their id."""
+    prev = prev_next_tokens.to(token_ids.dtype)[gather.long()]
+    return torch.where(mask != 0, prev, token_ids)
+
+
+def check_multi_step_plan(plan: SamplingPlan) -> None:
+    """A multi-step dispatch feeds its samples back on the device, so no
+    stage may need host feedback between micro-steps: penalties read token
+    histograms and the allowed mask a guided state, both rebuilt on the
+    host every token. The scheduler sends such batches single-step
+    (Batch.can_multi_step), as the reference does."""
+    if plan.penalties or plan.repetition or plan.allowed_mask:
+        raise ValueError("a multi-step dispatch cannot run penalties or an allowed mask "
+                         "(Batch.can_multi_step sends such batches single-step)")
+
+
+class HostOutputs:
+    """A step's outputs, and their copy to host memory, enqueued right after
+    the step's sampler: `outs` stays on the device (the next step's pending
+    merge reads outs.next_tokens), `wait` returns numpy arrays once that
+    copy alone is done (an event recorded after it; pinned memory on a CUDA
+    device), whatever was enqueued after it. Logprobs are copied only when
+    `logprobs` is set."""
+
+    NAMES = ("next_tokens", "logprobs", "top_ids", "top_logprobs")
+
+    def __init__(self, outs: ModelOutputs, logprobs: bool):
+        self.outs = outs
+        cuda = outs.next_tokens.is_cuda
+        names = self.NAMES if logprobs else self.NAMES[:1]
+        self._host = {n: getattr(outs, n).to("cpu", non_blocking=cuda) for n in names}
+        self._copied = None
+        if cuda:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    def wait(self) -> Dict[str, Optional[np.ndarray]]:
+        """The outputs as numpy arrays (None for those not copied)."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        return {n: self._host[n].numpy() if n in self._host else None for n in self.NAMES}
+
+
 @dataclass
 class _Captured:
     inputs: ModelInputs  # views of the step buffer
     decode_only: bool
     graph: Optional["torch.cuda.CUDAGraph"] = None
-    logits: Optional[torch.Tensor] = None  # the graph's static output [S, V]
+    logits: Optional[torch.Tensor] = None  # the graph's static output ([S, V]; ModelOutputs [N, ...] for N steps)
+    fn: Optional[Callable] = None  # what the graph runs, on the step's static inputs
+    bias: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # an N-step graph's static bias ids/values
 
 
 class StepGraphs:
@@ -108,8 +182,11 @@ class StepGraphs:
     A key is (T, S, MAXP, decode_only), where decode_only is kept only for a
     model with a decode kernel of its own (`model.mla`); dense models share
     one program for decode-only and mixed steps, as the reference's
-    _step_fn_for does. Every key reads views of one StepInputs buffer, which
-    each step rewrites whole, padding included.
+    _step_fn_for does. A multi-step graph (run_multi) holds N decode
+    micro-steps, the sampler included, under the key (T, S, MAXP, True, N,
+    page_size, plan): the plan's stages are baked into the graph. Every key
+    reads views of one StepInputs buffer, which each step rewrites whole,
+    padding included.
 
     On a CUDA device a key is captured (after one eager run on a side
     stream, which does the kernels' one-time setup outside the capture)
@@ -119,17 +196,18 @@ class StepGraphs:
     the buffer's views. A capture outside warmup is the reference's
     mid-serve compile: COUNTERS num_mid_serve_compiles counts it."""
 
-    def __init__(self, forward, device, words: int, mla: bool):
+    def __init__(self, forward, device, words: int, mla: bool, multi=None):
         self._forward = forward  # (ModelInputs, decode_only) -> logits
+        self._multi = multi  # (ModelInputs, SamplingInputs, plan, N, page_size) -> ModelOutputs [N, ...]
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.mla = mla
         self.inputs = StepInputs(words, self.device)
-        self.graphs: Dict[Bucket, _Captured] = {}
+        self.graphs: Dict[tuple, _Captured] = {}
         self.replays: Counter = Counter()
         self.capture_s = 0.0
         self.in_warmup = False
-        self.last_key: Optional[Bucket] = None
+        self.last_key: Optional[tuple] = None
         if self.cuda:
             self._pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(self.device)
@@ -137,50 +215,100 @@ class StepGraphs:
     def key(self, T: int, S: int, MAXP: int, decode_only: bool) -> Bucket:
         return (T, S, MAXP, bool(decode_only and self.mla))
 
-    def run(self, mi: ModelInputs, decode_only: bool) -> torch.Tensor:
-        """One step of the padded host arrays `mi`: fill the buffer, capture
-        the bucket's key if it is new, replay it. Returns the static logits
-        [S, V], valid until the next run."""
+    def multi_key(self, T: int, S: int, MAXP: int, N: int, page_size: int, plan: SamplingPlan) -> MultiKey:
+        return (T, S, MAXP, True, N, page_size, plan)
+
+    def run(self, mi: ModelInputs, decode_only: bool, pending=None) -> torch.Tensor:
+        """One step of the padded host arrays `mi`: fill the buffer, merge
+        the pending tokens (pending: (mask [T], gather [T], the previous
+        step's next_tokens on the device) or None), capture the bucket's key
+        if it is new, replay it. Returns the static logits [S, V], valid
+        until the next run."""
         T, (S, MAXP) = mi.token_ids.shape[0], mi.block_tables.shape
         key = self.key(T, S, MAXP, decode_only)
-        self.inputs.fill(mi)
+        self.inputs.fill(mi, pending=pending[:2] if pending is not None else None)
+        if pending is not None:
+            tok = self.inputs.views(T, S, MAXP).token_ids
+            extra = self.inputs.extra_views(T, S, MAXP)
+            tok.copy_(merge_pending_tokens(tok, pending[2], extra["pending_gather"], extra["pending_mask"]))
         step = self.graphs.get(key)
         if step is None:
-            step = self._capture(key)
+            views = self.inputs.views(T, S, MAXP)
+            step = self._capture(key, _Captured(
+                views, key[3], fn=lambda: self._forward(views, key[3])))
         self._replay(step)
         self.replays[key] += 1
         self.last_key = key
         return step.logits
 
-    def _capture(self, key: Bucket) -> _Captured:
+    def run_multi(self, mi: ModelInputs, si: SamplingInputs, plan: SamplingPlan, N: int,
+                  page_size: int) -> ModelOutputs:
+        """N decode micro-steps of the padded host arrays (mi, si) through
+        one graph of key (T, S, MAXP, True, N, page_size, plan). Returns the
+        static ModelOutputs [N, ...], valid until the next run."""
+        check_multi_step_plan(plan)
+        T, (S, MAXP) = mi.token_ids.shape[0], mi.block_tables.shape
+        key = self.multi_key(T, S, MAXP, N, page_size, plan)
+        self.inputs.fill(mi, si)
+        step = self.graphs.get(key)
+        if step is None:
+            views = self.inputs.views(T, S, MAXP)
+            extra = self.inputs.extra_views(T, S, MAXP)
+            bias = None
+            if plan.bias:
+                bias = (torch.zeros((S, plan.bias_width), dtype=torch.int32, device=self.device),
+                        torch.zeros((S, plan.bias_width), dtype=torch.float32, device=self.device))
+            sv = SamplingInputs(
+                temperatures=extra["temperatures"], top_ks=extra["top_ks"], top_ps=extra["top_ps"],
+                frequency_penalties=None, presence_penalties=None, repetition_penalties=None,
+                unique_token_ids=None, unique_token_counts=None,
+                bias_token_ids=bias[0] if bias else None, bias_values=bias[1] if bias else None,
+                allowed_mask=None, seeds=extra["seeds"])
+            step = _Captured(views, True, bias=bias,
+                             fn=lambda: self._multi(views, sv, plan, N, page_size))
+            self._copy_bias(step, si)
+            step = self._capture(key, step)
+        else:
+            self._copy_bias(step, si)
+        self._replay(step)
+        self.replays[key] += 1
+        self.last_key = key
+        return step.logits
+
+    def _copy_bias(self, step: _Captured, si: SamplingInputs) -> None:
+        if step.bias is not None:
+            step.bias[0].copy_(torch.from_numpy(np.asarray(si.bias_token_ids, np.int32)), non_blocking=True)
+            step.bias[1].copy_(torch.from_numpy(np.asarray(si.bias_values, np.float32)), non_blocking=True)
+
+    def _capture(self, key: tuple, step: _Captured) -> _Captured:
         t0 = time.monotonic()
-        T, S, MAXP, decode_only = key
-        step = _Captured(self.inputs.views(T, S, MAXP), decode_only)
         if self.cuda:
             self._side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(self._side):
-                self._forward(step.inputs, decode_only)
+                step.fn()
             torch.cuda.current_stream(self.device).wait_stream(self._side)
             self.record(step)
         self.graphs[key] = step
         self.capture_s += time.monotonic() - t0
         if not self.in_warmup:
             COUNTERS.inc("num_mid_serve_compiles")
-            logger.info("mid-serve capture: bucket T=%d S=%d MAXP=%d decode_only=%s", *key)
+            logger.info("mid-serve capture: bucket T=%d S=%d MAXP=%d decode_only=%s%s", *key[:4],
+                        f" steps={key[4]}" if len(key) > 4 else "")
         return step
 
     def record(self, step: _Captured) -> None:
-        """Capture the step's forward + logits into a CUDA graph (nothing
-        runs on the device)."""
+        """Capture the step's function (forward + logits, or N micro-steps
+        with their sampler) into a CUDA graph (nothing runs on the
+        device)."""
         step.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(step.graph, pool=self._pool):
-            step.logits = self._forward(step.inputs, step.decode_only)
+            step.logits = step.fn()
 
     def _replay(self, step: _Captured) -> None:
         if self.cuda:
             step.graph.replay()
         else:
-            step.logits = self._forward(step.inputs, step.decode_only)
+            step.logits = step.fn()
 
     def pool_bytes(self) -> int:
         """Device bytes the graphs' shared memory pool holds (0 on the CPU)."""
@@ -219,35 +347,93 @@ class Executor:
         sized for the serving envelope."""
         self.graphs = StepGraphs(
             self._forward, self.device, envelope_words(block_size, max_tokens, max_seqs, max_context_len),
-            mla=getattr(self.model, "mla", False))
+            mla=getattr(self.model, "mla", False), multi=self._multi_steps)
 
     def _forward(self, mi: ModelInputs, decode_only: bool) -> torch.Tensor:
         hidden = self.model(self.kv_cache, mi, decode_only=decode_only)
         return self.model.logits(hidden)
 
+    def _multi_steps(self, mi: ModelInputs, si: SamplingInputs, plan: SamplingPlan, N: int,
+                     page_size: int) -> ModelOutputs:
+        """N decode micro-steps on the device (the reference's
+        _build_multi_step_fn): micro-step i runs at positions + i and
+        kv_lens + i, each token's KV slot recomputed from the block table
+        (a window may cross a page), then forward, logits and the sampler
+        with the seeds folded for step i; its samples are the next step's
+        tokens. Bucket-padding rows (past cu_q_lens[num_seqs]) write their
+        KV to the reserved page 0; a position past a sequence's pages takes
+        the block table's last column, zero padding where the sequence
+        holds fewer pages, so page 0 again. Reads nothing back to the host.
+        Returns ModelOutputs whose fields have a leading [N] dim."""
+        T, MAXP = mi.token_ids.shape[0], mi.block_tables.shape[1]
+        rows = torch.arange(T, dtype=torch.int32, device=mi.token_ids.device)
+        valid = rows < mi.cu_q_lens.index_select(0, mi.num_seqs.long())
+        seg = mi.token_seg.long()
+        tokens = mi.token_ids
+        outs = []
+        for i in range(N):
+            pos = mi.positions + i
+            page = torch.clamp(pos // page_size, max=MAXP - 1).long()
+            blocks = mi.block_tables[seg, page]
+            slots = torch.where(valid, blocks * page_size + pos % page_size, torch.zeros_like(blocks))
+            mi_i = dataclasses.replace(mi, token_ids=tokens, positions=pos, new_kv_slot_ids=slots,
+                                       kv_lens=mi.kv_lens + i)
+            logits = self._forward(mi_i, True)
+            si_i = dataclasses.replace(si, seeds=step_seeds(si.seeds, i)) if plan.temperature else si
+            out = sample_tokens(logits, si_i, max_top_logprobs=self.max_top_logprobs, plan=plan)
+            tokens = out.next_tokens[seg].to(mi.token_ids.dtype)
+            outs.append(out)
+        return ModelOutputs(*(torch.stack([getattr(o, f.name) for o in outs])
+                              for f in dataclasses.fields(ModelOutputs)))
+
     @torch.inference_mode()
-    def execute(self, mi: ModelInputs, si: SamplingInputs, decode_only: bool = False) -> ModelOutputs:
+    def execute(self, mi: ModelInputs, si: SamplingInputs, decode_only: bool = False,
+                pending=None) -> ModelOutputs:
         """Run one step of the batch's padded host arrays; the KV cache is
         updated in place. Outputs stay on the device. decode_only: every
         sequence has one token (MLA models take their decode kernel on such
-        a step)."""
+        a step). pending: (mask [T] bool, gather [T] int32, the previous
+        step's next_tokens on the device): async stepping's rows whose token
+        is that step's sample, merged on the device before the forward."""
         if self.kv_cache is None:
             raise RuntimeError("init_kv_cache first")
         if self.graphs is not None:
-            logits = self.graphs.run(mi, decode_only)
+            logits = self.graphs.run(mi, decode_only, pending)
         else:
-            logits = self._forward(mi.to(self.device), decode_only)
+            mi = mi.to(self.device)
+            if pending is not None:
+                mask, gather, prev = pending
+                mi.token_ids = merge_pending_tokens(
+                    mi.token_ids, prev, torch.from_numpy(np.asarray(gather)).to(self.device),
+                    torch.from_numpy(np.asarray(mask)).to(self.device))
+            logits = self._forward(mi, decode_only)
         plan = SamplingPlan.of(si)
         if plan.reads_inputs:
             si = si.to(self.device)
         return sample_tokens(logits, si, max_top_logprobs=self.max_top_logprobs, plan=plan)
 
     @torch.inference_mode()
+    def execute_multi(self, mi: ModelInputs, si: SamplingInputs, num_steps: int, page_size: int) -> ModelOutputs:
+        """Run `num_steps` decode micro-steps of a decode-only batch in one
+        dispatch (with graphs on, one replay); returns ModelOutputs whose
+        fields have a leading [num_steps] dim, on the device. The KV cache
+        is updated in place."""
+        if self.kv_cache is None:
+            raise RuntimeError("init_kv_cache first")
+        plan = SamplingPlan.of(si)
+        if self.graphs is not None:
+            return self.graphs.run_multi(mi, si, plan, num_steps, page_size)
+        check_multi_step_plan(plan)
+        return self._multi_steps(mi.to(self.device), si.to(self.device), plan, num_steps, page_size)
+
+    @torch.inference_mode()
     def warmup(self, block_size: int, mode: str = "fast", max_tokens: int = 512, max_seqs: int = 128,
-               max_context_len: int = 4096) -> None:
+               max_context_len: int = 4096, multi_steps: int = 1) -> None:
         """Capture the reference's warmup buckets (warmup_buckets), largest
         first, each from its minimal batch: the counterpart of the
-        reference's compile at init. Needs init_graphs."""
+        reference's compile at init; with multi_steps > 1 also the
+        multi-step graph of every decode bucket, with the all-greedy plan.
+        Needs init_graphs."""
         buckets = warmup_buckets(block_size, mode, max_tokens, max_seqs, max_context_len)
         if not buckets:
             return
@@ -257,9 +443,15 @@ class Executor:
         self.graphs.in_warmup = True
         try:
             for T, S, MAXP, decode_only in sorted(buckets, reverse=True):
+                mi = minimal_inputs(T, S, MAXP)
                 if self.graphs.key(T, S, MAXP, decode_only) not in self.graphs.graphs:
-                    self.graphs.run(minimal_inputs(T, S, MAXP), decode_only)
+                    self.graphs.run(mi, decode_only)
+                if multi_steps > 1 and decode_only:
+                    si = minimal_sampling_inputs(S)
+                    key = self.graphs.multi_key(T, S, MAXP, multi_steps, block_size, SamplingPlan.of(si))
+                    if key not in self.graphs.graphs:
+                        self.graphs.run_multi(mi, si, key[-1], multi_steps, block_size)
         finally:
             self.graphs.in_warmup = False
-        logger.info("warmed %d buckets (%s) into %d graphs in %.1fs", len(buckets), mode,
-                    len(self.graphs.graphs), time.monotonic() - t0)
+        logger.info("warmed %d buckets (%s, %d-step decode) into %d graphs in %.1fs", len(buckets), mode,
+                    multi_steps, len(self.graphs.graphs), time.monotonic() - t0)

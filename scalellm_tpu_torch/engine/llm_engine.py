@@ -1,11 +1,17 @@
 """LLMEngine — owns the model executor, tokenizer and KV block manager
-(counterpart of scalellm_tpu/engine/llm_engine.py, synchronous path).
+(counterpart of scalellm_tpu/engine/llm_engine.py).
 
 Init: load the model onto the device (a quantized checkpoint as it is; a
 dense one quantized on the device when `quantize` asks) -> size the KV cache
 from the device memory that is free once the weights are in place ->
 allocate blocks -> with CUDA graphs on, size the step buffer for the serving
-envelope and capture the warmup buckets (engine/executor.py).
+envelope and capture the warmup buckets (engine/executor.py), with
+num_decode_steps > 1 the multi-step graphs of the decode buckets too.
+
+A step runs synchronously (execute_model), as N decode micro-steps in one
+dispatch (execute_model_multi), or split in two for async stepping:
+dispatch_model enqueues it and returns, finalize_model waits for its outputs
+alone and resolves its pending tokens.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from scalellm_tpu_torch.engine.batch import Batch
-from scalellm_tpu_torch.engine.executor import WARMUP_MODES, Executor
+from scalellm_tpu_torch.engine.executor import WARMUP_MODES, Executor, HostOutputs
 from scalellm_tpu_torch.memory.block_manager import BlockManager, BlockManagerOptions
 from scalellm_tpu_torch.model_loader.loader import HFModelLoader
 from scalellm_tpu_torch.models.registry import ModelRegistry
@@ -56,6 +62,9 @@ class EngineOptions:
     max_tokens_per_batch: int = 512
     max_seqs_per_batch: int = 128
     max_context_len: int = 0  # 0 = the model's max_position_embeddings
+    # Decode micro-steps a multi-step dispatch runs (the scheduler's
+    # num_decode_steps): warmup also captures their graphs.
+    num_decode_steps: int = 1
 
 
 class LLMEngine:
@@ -117,7 +126,8 @@ class LLMEngine:
                 max_tokens=options.max_tokens_per_batch, max_seqs=options.max_seqs_per_batch,
                 max_context_len=options.max_context_len or self.model_args.max_position_embeddings)
             self.executor.init_graphs(options.block_size, **envelope)
-            self.executor.warmup(options.block_size, options.warmup_mode, **envelope)
+            self.executor.warmup(options.block_size, options.warmup_mode, multi_steps=options.num_decode_steps,
+                                 **envelope)
         self._step_counter = 0
 
     def kv_cache_slot_size_in_bytes(self) -> int:
@@ -140,16 +150,70 @@ class LLMEngine:
             cache_bytes = 256 * 2**20
         return int(max(cache_bytes // block_bytes, 16))
 
+    def _prepare(self, batch: Batch):
+        self._step_counter += 1
+        mi, si, _ = batch.prepare_model_inputs(self.options.block_size, self._step_counter)
+        want_lp = any(e.seq.sampling_params.logprobs for e in batch.entries)
+        return mi, si, want_lp
+
     def execute_model(self, batch: Batch) -> None:
         """Run one engine step for the batch and write its samples back."""
         if not batch.entries:
             return
-        self._step_counter += 1
-        mi, si, _ = batch.prepare_model_inputs(self.options.block_size, self._step_counter)
+        mi, si, want_lp = self._prepare(batch)
         outs = self.executor.execute(mi, si, decode_only=batch.is_decode_only)
-        next_tokens = outs.next_tokens.cpu().numpy()
-        want_lp = any(e.seq.sampling_params.logprobs for e in batch.entries)
-        logprobs = outs.logprobs.cpu().numpy() if want_lp else None
-        top_ids = outs.top_ids.cpu().numpy() if want_lp else None
-        top_lps = outs.top_logprobs.cpu().numpy() if want_lp else None
-        batch.process_sample_output(next_tokens, logprobs, top_ids, top_lps, self.tokenizer)
+        o = HostOutputs(outs, want_lp).wait()
+        batch.process_sample_output(o["next_tokens"], o["logprobs"], o["top_ids"], o["top_logprobs"],
+                                    self.tokenizer)
+
+    # -------------------------------------------------------- multi-step
+
+    @property
+    def supports_multi_step(self) -> bool:
+        """Multi-step decode: N micro-steps a dispatch, tokens fed back on
+        the device (one device, one driving process)."""
+        return True
+
+    def execute_model_multi(self, batch: Batch, num_steps: int) -> None:
+        """Run `num_steps` decode micro-steps in one dispatch (one graph
+        replay with graphs on): one host round trip and one batch prep per N
+        tokens. The scheduler reserves N KV slots a sequence and gates on
+        Batch.can_multi_step; samples after a sequence finishes mid-window
+        are dropped on the host (their KV writes land in the sequence's own
+        reserved slots or the padding page, Executor._multi_steps)."""
+        mi, si, want_lp = self._prepare(batch)
+        outs = self.executor.execute_multi(mi, si, num_steps, self.options.block_size)
+        o = HostOutputs(outs, want_lp).wait()
+        batch.process_multi_sample_output(o["next_tokens"], o["logprobs"], o["top_ids"], o["top_logprobs"],
+                                          self.tokenizer)
+
+    # ------------------------------------------------------------- async step
+
+    @property
+    def supports_async(self) -> bool:
+        """Async stepping (dispatch_model / finalize_model): one process
+        drives the device, so the previous step's samples can be merged on
+        it."""
+        return True
+
+    def dispatch_model(self, batch: Batch, prev_outs: "HostOutputs | None" = None) -> HostOutputs:
+        """Enqueue one step without waiting for its results. Its samples
+        are appended as pending placeholders (Sequence.append_pending_token);
+        rows whose input token is the previous step's sample are merged on
+        the device from `prev_outs.outs.next_tokens`. Pair with
+        finalize_model once the next step has been dispatched."""
+        mi, si, want_lp = self._prepare(batch)
+        pending = None
+        if batch.pending_fix is not None:
+            pending = (*batch.pending_fix, prev_outs.outs.next_tokens)
+        outs = self.executor.execute(mi, si, decode_only=batch.is_decode_only, pending=pending)
+        fetched = HostOutputs(outs, want_lp)
+        batch.append_pending_tokens()
+        return fetched
+
+    def finalize_model(self, batch: Batch, fetched: HostOutputs) -> None:
+        """Wait for a dispatched step's outputs (its own copy, not the steps
+        enqueued after it) and resolve its pending tokens."""
+        o = fetched.wait()
+        batch.resolve_sample_output(o["next_tokens"], o["logprobs"], o["top_ids"], o["top_logprobs"],
+                                    self.tokenizer)

@@ -107,7 +107,7 @@ class ModelOutputs:
 # ModelInputs' fields in the order StepInputs lays them out, each with its
 # length as a function of the bucket (T, S, MAXP); seq_mask (f32) is kept as
 # its bits. lora_ids is not ported.
-STEP_FIELDS = (
+MODEL_FIELDS = (
     ("token_ids", lambda T, S, P: T),
     ("positions", lambda T, S, P: T),
     ("token_seg", lambda T, S, P: T),
@@ -119,30 +119,47 @@ STEP_FIELDS = (
     ("selected_idxes", lambda T, S, P: S),
     ("seq_mask", lambda T, S, P: S),
 )
+# What a step reads beside ModelInputs, after it: the pending-token merge of
+# async stepping (a row's mask, 1 where the token is the previous step's
+# sample, and its row in that step's outputs), and the sampler's per-row
+# inputs that a multi-step graph reads on every replay (f32 fields as their
+# bits, the uint32 seeds as int32).
+EXTRA_FIELDS = (
+    ("pending_mask", lambda T, S, P: T),
+    ("pending_gather", lambda T, S, P: T),
+    ("temperatures", lambda T, S, P: S),
+    ("top_ks", lambda T, S, P: S),
+    ("top_ps", lambda T, S, P: S),
+    ("seeds", lambda T, S, P: S),
+)
+STEP_FIELDS = MODEL_FIELDS + EXTRA_FIELDS
+_F32_FIELDS = ("seq_mask", "temperatures", "top_ps")
 
 
 def step_words(T: int, S: int, MAXP: int) -> int:
-    """int32 words of one bucket's ModelInputs in StepInputs' layout."""
+    """int32 words of one bucket's fields in StepInputs' layout."""
     return sum(n(T, S, MAXP) for _, n in STEP_FIELDS)
 
 
 class StepInputs:
-    """Every ModelInputs field of a step in one flat int32 device buffer,
-    sized once for the largest bucket and never reallocated (a captured
-    step program keeps its pointers). A bucket (T, S, MAXP) reads
-    contiguous views of its front, in STEP_FIELDS order; `fill` writes a
-    step's padded arrays, padding included, into a host staging buffer
-    (pinned on a CUDA device) and sends them with one copy."""
+    """Every field a step reads, in one flat int32 device buffer sized once
+    for the largest bucket and never reallocated (a captured step program
+    keeps its pointers). A bucket (T, S, MAXP) reads contiguous views of its
+    front, in STEP_FIELDS order; `fill` writes a step's padded arrays,
+    padding included, into a host staging buffer (pinned on a CUDA device)
+    and sends them with one copy. Two staging buffers take turns, each
+    reused only once its last copy is done, so that filling the next step
+    while one is in flight never waits for the device."""
 
     def __init__(self, words: int, device):
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
         self.buffer = torch.zeros(words, dtype=torch.int32, device=self.device)
-        self._staging = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
-        self._host = self._staging.numpy()
-        # The last copy out of the staging buffer, waited for before the
-        # next fill overwrites it.
-        self._sent = torch.cuda.Event() if cuda else None
+        self._staging = [torch.zeros(words, dtype=torch.int32, pin_memory=cuda) for _ in range(2)]
+        # The last copy out of each staging buffer, waited for before a fill
+        # overwrites it.
+        self._sent = [torch.cuda.Event() if cuda else None for _ in range(2)]
+        self._turn = 0
 
     def _words(self, T: int, S: int, MAXP: int) -> int:
         words = step_words(T, S, MAXP)
@@ -151,33 +168,58 @@ class StepInputs:
                              f"{self.buffer.numel()} words (the serving envelope)")
         return words
 
-    def views(self, T: int, S: int, MAXP: int) -> ModelInputs:
-        """The bucket's ModelInputs: views of the device buffer."""
+    def _all_views(self, T: int, S: int, MAXP: int) -> dict:
         self._words(T, S, MAXP)
         out, off = {}, 0
         for name, n in STEP_FIELDS:
             k = n(T, S, MAXP)
             out[name] = self.buffer[off : off + k]
+            if name in _F32_FIELDS:
+                out[name] = out[name].view(torch.float32)
             off += k
         out["block_tables"] = out["block_tables"].view(S, MAXP)
-        out["seq_mask"] = out["seq_mask"].view(torch.float32)
-        return ModelInputs(**out)
+        return out
 
-    def fill(self, mi: ModelInputs) -> None:
+    def views(self, T: int, S: int, MAXP: int) -> ModelInputs:
+        """The bucket's ModelInputs: views of the device buffer."""
+        out = self._all_views(T, S, MAXP)
+        return ModelInputs(**{name: out[name] for name, _ in MODEL_FIELDS})
+
+    def extra_views(self, T: int, S: int, MAXP: int) -> dict:
+        """The bucket's EXTRA_FIELDS, by name: views of the device buffer."""
+        out = self._all_views(T, S, MAXP)
+        return {name: out[name] for name, _ in EXTRA_FIELDS}
+
+    def fill(self, mi: ModelInputs, si: "SamplingInputs | None" = None,
+             pending: "tuple | None" = None) -> None:
         """Write the padded numpy arrays of one step into the buffer's
-        front with one host-to-device copy."""
+        front with one host-to-device copy: `mi`, the per-row sampler
+        inputs of `si` (zeros without it: greedy), and the pending-token
+        merge's (mask [T] bool, gather [T] int32) (zeros without it)."""
         T, (S, MAXP) = mi.token_ids.shape[0], mi.block_tables.shape
         words = self._words(T, S, MAXP)
-        if self._sent is not None:
-            self._sent.synchronize()
+        turn = self._turn
+        self._turn ^= 1
+        if self._sent[turn] is not None:
+            self._sent[turn].synchronize()
+        host = self._staging[turn].numpy()
+        arrays = {name: getattr(mi, name) for name, _ in MODEL_FIELDS}
+        if pending is not None:
+            arrays["pending_mask"], arrays["pending_gather"] = pending
+        if si is not None:
+            arrays.update({name: getattr(si, name) for name in ("temperatures", "top_ks", "top_ps", "seeds")})
         off = 0
         for name, n in STEP_FIELDS:
-            a = np.asarray(getattr(mi, name))
             k = n(T, S, MAXP)
-            if a.size != k:
-                raise ValueError(f"{name} has {a.size} entries, bucket T={T} S={S} MAXP={MAXP} takes {k}")
-            self._host[off : off + k] = a.reshape(-1).view(np.int32) if a.dtype == np.float32 else a.reshape(-1)
+            if name not in arrays:
+                host[off : off + k] = 0
+            else:
+                a = np.asarray(arrays[name])
+                if a.size != k:
+                    raise ValueError(f"{name} has {a.size} entries, bucket T={T} S={S} MAXP={MAXP} takes {k}")
+                a = a.reshape(-1)
+                host[off : off + k] = a.view(np.int32) if a.dtype in (np.float32, np.uint32) else a
             off += k
-        self.buffer[:words].copy_(self._staging[:words], non_blocking=True)
-        if self._sent is not None:
-            self._sent.record()
+        self.buffer[:words].copy_(self._staging[turn][:words], non_blocking=True)
+        if self._sent[turn] is not None:
+            self._sent[turn].record()

@@ -7,11 +7,13 @@ templates and keeps tokenization off the scheduler's hot path.
 
 The options keep the reference package's field names and defaults: CUDA
 graphs on (enable_cuda_graph, one graph per step bucket, where the
-reference warms its jit bucket cache) with warmup_mode "fast". Those that
-ask for a feature this package has not ported yet (speculative decoding,
-tensor or sequence parallelism, multi-host serving, int8 KV, KV swap, async
-scheduling, multi-step decode, LoRA, model-args overrides) raise
-NotImplementedError; none is silently ignored. Per request, guided decoding
+reference warms its jit bucket cache) with warmup_mode "fast", async
+scheduling on (enable_async_scheduling: one step in flight) and one decode
+step a dispatch (num_decode_steps; N > 1 runs N micro-steps in one graph).
+Those that ask for a feature this package has not ported yet (speculative
+decoding, tensor or sequence parallelism, multi-host serving, int8 KV, KV
+swap, LoRA, model-args overrides) raise NotImplementedError; none is
+silently ignored. Per request, guided decoding
 and prompt logprobs are refused with an UNIMPLEMENTED status.
 """
 
@@ -69,7 +71,9 @@ class LLMHandlerOptions:
     quantize_lm_head: "bool | str" = False
     quantize: str = ""
     host_swap_bytes: int = 0
-    enable_async_scheduling: bool = False  # async scheduling is not ported
+    # Async stepping: one step in flight (SchedulerOptions).
+    enable_async_scheduling: bool = True
+    # Decode micro-steps per dispatch (SchedulerOptions.num_decode_steps).
     num_decode_steps: int = 1
     lora_modules: "Optional[dict]" = None
     model_args_overrides: "Optional[list]" = None
@@ -90,8 +94,6 @@ class LLMHandlerOptions:
             "kv_cache_dtype (int8 KV cache)": self.kv_cache_dtype != "auto",
             "distributed (multi-host serving)": self.distributed,
             "host_swap_bytes (KV swap)": self.host_swap_bytes > 0,
-            "enable_async_scheduling": self.enable_async_scheduling,
-            "num_decode_steps (multi-step decode)": self.num_decode_steps != 1,
             "lora_modules (LoRA)": bool(self.lora_modules),
             "model_args_overrides": bool(self.model_args_overrides),
         }
@@ -120,6 +122,7 @@ class LLMHandler:
                 max_tokens_per_batch=options.max_tokens_per_batch,
                 max_seqs_per_batch=options.max_seqs_per_batch,
                 max_context_len=options.max_context_len,
+                num_decode_steps=options.num_decode_steps,
             )
         )
         self.tokenizer = self.engine.tokenizer
@@ -131,6 +134,8 @@ class LLMHandler:
             SchedulerOptions(
                 max_tokens_per_batch=options.max_tokens_per_batch,
                 max_seqs_per_batch=options.max_seqs_per_batch,
+                enable_async_scheduling=options.enable_async_scheduling,
+                num_decode_steps=options.num_decode_steps,
             ),
             response_handler=self._response_handler,
         )

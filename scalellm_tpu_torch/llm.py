@@ -3,9 +3,10 @@
 
 generate(prompts, sampling_params) schedules the whole batch, then drains
 the scheduler with run_until_complete. Chunked prefill is off by default (a
-huge max_tokens_per_batch), as in the reference package, and CUDA graphs
-are on (one per step bucket, the two "fast" warmup buckets captured at
-init). The model runs on the CUDA device unless `devices` names another
+huge max_tokens_per_batch), as in the reference package, CUDA graphs are on
+(one per step bucket, the two "fast" warmup buckets captured at init) and so
+is async scheduling (one step in flight); num_decode_steps > 1 runs that many
+decode micro-steps a dispatch. The model runs on the CUDA device unless `devices` names another
 ("cpu" in the tests).
 """
 
@@ -40,7 +41,7 @@ class LLM:
         quantize: str = "",
         quantize_lm_head: "bool | str" = False,
         host_swap_bytes: int = 0,
-        enable_async_scheduling: bool = False,
+        enable_async_scheduling: bool = True,
         num_decode_steps: int = 1,
         lora_modules=None,
     ) -> None:

@@ -7,15 +7,19 @@ logit bias -> frequency/presence penalties -> repetition penalty -> allowed
 mask -> temperature -> top-k/top-p -> sample (greedy or Gumbel-max) ->
 logprobs of the processed distribution.
 
-Random rows draw their Gumbel noise from a torch.Generator seeded with the
-row's per-step seed, on the logits' device; the draws differ from the JAX
-package's (another generator), so tests compare distributions.
+Random rows draw their Gumbel noise from a counter-based hash of (the row's
+uint32 seed, the vocabulary index), computed with integer tensor ops from
+the seeds on the logits' device: the port's counterpart of the reference's
+fold_in(PRNGKey(0), seed). Nothing is seeded from the host, so a captured
+CUDA graph draws anew on every replay from the seeds its step buffer holds
+(engine/executor.py), and the eager and replayed draws are the same. The
+draws differ from the JAX package's (another generator), so tests compare
+distributions.
 
-Which stages run, which rows sample and their seeds are decided on the host
-(SamplingPlan, from the step's host arrays), so the sampler reads nothing
-back from the device. A stage that no row asks for is skipped: it would
-leave every logit as it is (a bias of 0, penalties of 0 and 1, an all-ones
-mask, T <= 0, no top-k or top-p).
+Which stages run is decided on the host (SamplingPlan, from the step's host
+arrays), so the sampler reads nothing back from the device. A stage that no
+row asks for is skipped: it would leave every logit as it is (a bias of 0,
+penalties of 0 and 1, an all-ones mask, T <= 0, no top-k or top-p).
 """
 
 from __future__ import annotations
@@ -115,36 +119,63 @@ def apply_top_k_top_p(
     return torch.where(logits >= thresh, logits, torch.full_like(logits, _NEG_INF))
 
 
-def gumbel_noise(seed: int, n: int, device) -> torch.Tensor:
-    """[n] standard Gumbel noise from a generator seeded with `seed`."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    u = torch.rand(n, generator=gen, device=device, dtype=torch.float32)
-    tiny = torch.finfo(torch.float32).tiny
-    e = -torch.log(u.clamp_min(tiny))  # standard exponential
-    return -torch.log(e.clamp_min(tiny))
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer (lowbias32: xor-shift, multiply, twice) on
+    uint32 values held in int64. The products exceed 32 bits; their low 32
+    bits are kept."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & _MASK32
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seeds: torch.Tensor, V: int) -> torch.Tensor:
+    """[S, V] standard Gumbel noise, row s a function of seeds[s] (uint32
+    values, any integer dtype, on the device) alone: u = hash(seed, v) in
+    (0, 1) from 24 bits of a hash of the vocabulary index keyed by the
+    hashed seed, then -log(-log(u))."""
+    key = _mix32((seeds.long() & _MASK32) ^ 0x9E3779B9)
+    v = torch.arange(V, dtype=torch.int64, device=seeds.device)
+    x = _mix32((_mix32(v[None, :] ^ key[:, None]) + key[:, None]) & _MASK32)
+    u = ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def step_seeds(seeds: torch.Tensor, i: int) -> torch.Tensor:
+    """Micro-step i's seeds: seeds + i * 2654435761 (mod 2^32), as the
+    reference's multi-step program folds them, so that a sampling row does
+    not repeat its draw."""
+    return (seeds.long() + i * 2654435761) & _MASK32
 
 
 def sample(
     logits: torch.Tensor,  # [S, V] processed logits (f32)
-    rows: Tuple[int, ...],  # the rows that sample, from the host
-    seeds: Tuple[int, ...],  # their per-step seeds, from the host
+    temperatures: "torch.Tensor | None",  # [S]; rows with T > 0 sample
+    seeds: "torch.Tensor | None",  # [S] per-step seeds (uint32 values)
 ) -> torch.Tensor:
-    """Greedy argmax, or Gumbel-max categorical for rows that sample. The
-    greedy rows' noise is 0, which leaves their logits as they are."""
-    if not rows:
+    """Greedy argmax, or Gumbel-max categorical for rows with T > 0. The
+    greedy rows' noise is 0, which leaves their logits as they are. With
+    temperatures None (no row samples, SamplingPlan.temperature off) the
+    step is greedy and reads neither tensor."""
+    if temperatures is None:
         return torch.argmax(logits, dim=-1)
-    noise = torch.zeros_like(logits)
-    for r, seed in zip(rows, seeds):
-        noise[r] = gumbel_noise(seed, logits.shape[-1], logits.device)
+    noise = gumbel_noise(seeds, logits.shape[-1])
+    noise = torch.where(temperatures[:, None] > 0.0, noise, torch.zeros_like(noise))
     return torch.argmax(logits + noise, dim=-1)
 
 
 @dataclass(frozen=True)
 class SamplingPlan:
     """The sampler's decisions for one step, taken on the host: which
-    processing stages some row needs, and which rows sample with which
-    seeds."""
+    processing stages some row needs (temperature: some row samples), and
+    the width of the per-row bias arrays. A captured multi-step graph bakes
+    the stages in, so the plan is part of its key (a multi-step dispatch
+    runs no penalty or mask stage, so the widths of the unique-token and
+    mask arrays are 1 there)."""
 
     bias: bool
     penalties: bool
@@ -152,25 +183,22 @@ class SamplingPlan:
     allowed_mask: bool
     temperature: bool
     top_k_top_p: bool
-    sample_rows: Tuple[int, ...]
-    sample_seeds: Tuple[int, ...]
+    bias_width: int = 1
 
     @classmethod
     def of(cls, si: SamplingInputs) -> "SamplingPlan":
         """The plan of host SamplingInputs (numpy arrays or CPU tensors)."""
         a = {name: np.asarray(getattr(si, name)) for name in (
             "bias_values", "frequency_penalties", "presence_penalties", "repetition_penalties",
-            "allowed_mask", "temperatures", "top_ks", "top_ps", "seeds")}
-        rows = np.flatnonzero(a["temperatures"] > 0.0)
+            "allowed_mask", "temperatures", "top_ks", "top_ps")}
         return cls(
             bias=bool((a["bias_values"] != 0.0).any()),
             penalties=bool((a["frequency_penalties"] != 0.0).any() | (a["presence_penalties"] != 0.0).any()),
             repetition=bool((a["repetition_penalties"] != 1.0).any()),
             allowed_mask=a["allowed_mask"].shape[1] > 1,
-            temperature=rows.size > 0,
+            temperature=bool((a["temperatures"] > 0.0).any()),
             top_k_top_p=bool((a["top_ks"] > 0).any() | (a["top_ps"] < 1.0).any()),
-            sample_rows=tuple(int(r) for r in rows),
-            sample_seeds=tuple(int(s) for s in a["seeds"][rows]),
+            bias_width=a["bias_values"].shape[1],
         )
 
     @property
@@ -218,7 +246,10 @@ def sample_tokens(
     the host, and only stages it asks for read si."""
     plan = plan or SamplingPlan.of(si)
     processed = process_logits(logits, si, plan)
-    next_tokens = sample(processed, plan.sample_rows, plan.sample_seeds)
+    if plan.temperature:
+        next_tokens = sample(processed, si.temperatures, si.seeds)
+    else:
+        next_tokens = sample(processed, None, None)
     logprobs_all = torch.log_softmax(processed, dim=-1)
     chosen_lp = logprobs_all.gather(1, next_tokens[:, None]).squeeze(-1)
     if max_top_logprobs > 0:

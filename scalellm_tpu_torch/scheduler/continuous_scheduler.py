@@ -1,8 +1,8 @@
 """ContinuousScheduler — continuous batching with chunked prefill,
-preemption, priorities and prefix-cache-aware n/best_of expansion
-(counterpart of scalellm_tpu/scheduler/continuous_scheduler.py, synchronous
-stepping only: async pipelining, multi-step decode, KV swap and speculative
-slots are not ported).
+preemption, priorities, prefix-cache-aware n/best_of expansion, async
+stepping and multi-step decode
+(counterpart of scalellm_tpu/scheduler/continuous_scheduler.py; KV swap and
+speculative slots are not ported).
 
   - intake queue -> priority order (HIGH/NORMAL/LOW, then FCFS)
   - per-step batch under a token budget (max_tokens_per_batch) and a
@@ -13,6 +13,12 @@ slots are not ported).
     through the prefix cache
   - releases the blocks of finished sequences; streams deltas through the
     ResponseHandler
+  - async stepping (enable_async_scheduling): one step in flight; the next
+    is built and dispatched before the previous one's outputs are fetched,
+    its pending tokens merged on the device
+  - multi-step decode (num_decode_steps = N): a decode-only batch runs N
+    micro-steps in one dispatch; each decode sequence reserves N - 1 extra
+    KV slots
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from scalellm_tpu_torch.engine.batch import Batch
 from scalellm_tpu_torch.request.request import Request
@@ -38,6 +44,16 @@ class SchedulerOptions:
     max_seqs_per_batch: int = 128
     # Intake queue capacity.
     max_pending_requests: int = 100_000
+    # Async stepping: dispatch step N+1 (its pending tokens merged on the
+    # device) before fetching step N's outputs, so the host's fetch and batch
+    # prep overlap the device's step. Batches with penalties, guided
+    # decoding or prompt logprobs run synchronously (Batch.needs_sync).
+    enable_async_scheduling: bool = True
+    # Multi-step decode: a decode-only batch runs N micro-steps per dispatch
+    # (one graph replay with CUDA graphs on). A sequence that finishes
+    # mid-window drops up to N - 1 samples. Batches that need per-token host
+    # feedback run single-step (Batch.can_multi_step).
+    num_decode_steps: int = 1
 
 
 class ContinuousScheduler:
@@ -60,6 +76,15 @@ class ContinuousScheduler:
         self._requests: List[Request] = []
         self._pending = 0
         self._pending_lock = threading.Lock()
+        self._async = options.enable_async_scheduling and getattr(engine, "supports_async", False)
+        self._multi_n = (options.num_decode_steps
+                         if options.num_decode_steps > 1 and getattr(engine, "supports_multi_step", False)
+                         else 1)
+        # The dispatched step whose outputs are not fetched yet: (Batch, HostOutputs).
+        self._inflight: Optional[Tuple[Batch, object]] = None
+        # Set when a pipelined build could not allocate: the next step runs
+        # synchronously, where preemption can make room.
+        self._starved = False
 
     @property
     def max_seq_tokens(self) -> int:
@@ -88,11 +113,50 @@ class ContinuousScheduler:
 
     def step(self, timeout_s: float = 0.5) -> int:
         """Build one batch, run the engine, deliver outputs. Returns the
-        number of sequences stepped."""
+        number of sequences stepped.
+
+        With async stepping the steady state keeps ONE step in flight: build
+        and dispatch step N+1 (its pending tokens read step N's samples on
+        the device), then fetch and deliver step N."""
+        if self._inflight is not None and self._multi_n > 1:
+            # Multi-step and async do not compose (the reference's rule): a
+            # pipelined build marks rows pending, which disqualifies
+            # can_multi_step. Drain first.
+            self._resolve_inflight()
+        if self._inflight is not None:
+            # Build the next batch before resolving the in-flight step.
+            nxt = self._build_batch(0.0, pipelined=True)
+            if nxt.entries:
+                COUNTERS.inc("num_engine_steps")
+            if nxt.entries and not self._starved and not nxt.needs_sync():
+                outs = self._engine.dispatch_model(nxt, prev_outs=self._inflight[1])
+                resolved = self._resolve_inflight()
+                self._inflight = (nxt, outs)
+                COUNTERS.inc("num_async_steps")
+                return max(len(nxt.entries), resolved)
+            # This batch cannot be pipelined: drain, then run it
+            # synchronously (its pending rows resolve first).
+            resolved = self._resolve_inflight()
+            if not nxt.entries:
+                return resolved
+            self._execute_sync(nxt)
+            return len(nxt.entries)
+
         batch = self._build_batch(timeout_s)
         if not batch.entries:
             return 0
         COUNTERS.inc("num_engine_steps")
+        if self._multi_n > 1 and batch.can_multi_step():
+            t0 = time.monotonic()
+            self._engine.execute_model_multi(batch, self._multi_n)
+            HISTOGRAMS.observe("execute_model_latency_seconds", time.monotonic() - t0)
+            self._process_outputs(batch)
+            COUNTERS.inc("num_multi_steps")
+            return len(batch.entries)
+        if self._async and not batch.needs_sync():
+            self._inflight = (batch, self._engine.dispatch_model(batch))
+            COUNTERS.inc("num_async_steps")
+            return len(batch.entries)
         self._execute_sync(batch)
         return len(batch.entries)
 
@@ -102,11 +166,25 @@ class ContinuousScheduler:
         HISTOGRAMS.observe("execute_model_latency_seconds", time.monotonic() - t0)
         self._process_outputs(batch)
 
+    def _resolve_inflight(self) -> int:
+        """Fetch the in-flight step's outputs and deliver them."""
+        if self._inflight is None:
+            return 0
+        batch, outs = self._inflight
+        self._inflight = None
+        t0 = time.monotonic()
+        self._engine.finalize_model(batch, outs)
+        HISTOGRAMS.observe("execute_model_latency_seconds", time.monotonic() - t0)
+        self._process_outputs(batch)
+        return len(batch.entries)
+
     def run_until_complete(self) -> None:
-        """Loop until all scheduled work is done."""
+        """Loop until all scheduled work is done, the in-flight step
+        included."""
         while True:
             stepped = self.step(timeout_s=0.0)
-            if stepped == 0 and self.num_pending_requests == 0 and not self._requests:
+            if (stepped == 0 and self._inflight is None and self.num_pending_requests == 0
+                    and not self._requests):
                 break
         self._response_handler.wait_for_complete()
 
@@ -141,8 +219,14 @@ class ContinuousScheduler:
         )
         COUNTERS.inc("responsing_rounds" if request.stream else "non_stream_responses")
 
-    def _build_batch(self, timeout_s: float) -> Batch:
+    def _build_batch(self, timeout_s: float, pipelined: bool = False) -> Batch:
+        """pipelined=True builds the next step while one is in flight: no
+        preemption (an in-flight victim's pages are still being written), no
+        n/best_of expansion (the parent's last token is unresolved), and
+        sequences whose pending token already reaches a length limit are
+        left for the resolve."""
         t0 = time.monotonic()
+        self._starved = False
         self._drain_intake(timeout_s)
         opts = self._options
 
@@ -161,11 +245,19 @@ class ContinuousScheduler:
         # Lazy n/best_of expansion once the prefill KV exists.
         for req in self._requests:
             if req.should_expand_sequences():
+                if pipelined:
+                    # the parent's sample is in flight: expand after the
+                    # pipeline drains (this request sits out one build)
+                    self._starved = True
+                    continue
                 req.expand_sequences()
 
         batch = Batch()
         token_budget = opts.max_tokens_per_batch
         seq_budget = opts.max_seqs_per_batch
+        # Decode sequences reserve KV slots for the micro-steps of a
+        # multi-step dispatch.
+        spec_overhead = self._multi_n - 1
         for req in self._requests:
             if token_budget <= 0 or seq_budget <= 0:
                 break
@@ -174,14 +266,25 @@ class ContinuousScheduler:
                     break
                 if seq.is_finished():
                     continue
+                if pipelined and seq.has_pending and seq.would_finish_by_length():
+                    # the in-flight token already reaches max_tokens or the
+                    # context: a step for it would be discarded
+                    continue
                 cached = seq.num_kv_cache_tokens()
                 uncached = seq.num_tokens - cached
                 if uncached <= 0:
                     continue
                 # Chunked prefill: clamp to the remaining token budget.
                 n = min(uncached, token_budget)
-                target = cached + n
-                if not self._allocate_with_preemption(req, seq, target, batch):
+                extra = spec_overhead if uncached == 1 else 0
+                target = cached + n + extra
+                if pipelined:
+                    # No preemption while a step is in flight; a starved
+                    # sequence makes the next step run synchronously.
+                    if not self._block_manager.allocate_blocks_for(seq, target):
+                        self._starved = True
+                        continue
+                elif not self._allocate_with_preemption(req, seq, target, batch):
                     continue  # out of memory even after preemption: wait
                 # A prefix-cache hit during allocation may have served part
                 # of the prompt from shared blocks — recompute the chunk, and
@@ -190,10 +293,10 @@ class ContinuousScheduler:
                 n = min(seq.num_tokens - cached, token_budget)
                 if n <= 0:
                     continue
-                if cached + n > target and not self._block_manager.allocate_blocks_for(
-                    seq, cached + n
+                if cached + n + extra > target and not self._block_manager.allocate_blocks_for(
+                    seq, cached + n + extra
                 ):
-                    n = seq.kv_cache_capacity - cached  # what the blocks cover
+                    n = seq.kv_cache_capacity - extra - cached  # what the blocks cover
                     if n <= 0:
                         continue
                 batch.add(seq, n)
@@ -249,6 +352,8 @@ class ContinuousScheduler:
                 if seq.is_finished() and seq.blocks:
                     self._block_manager.deallocate(seq)
             if req.is_finished():
+                # A request finished at the previous resolve may still own a
+                # (discarded) row in this async step: it was retired then.
                 if req in self._requests:
                     self._requests.remove(req)
                     self._finish_request(req)

@@ -123,6 +123,13 @@ class HistogramFamily(_Family):
 
 
 COUNTERS = CounterFamily()
+# The scheduler's step counters: every engine step (one a dispatch), and of
+# them the async dispatches and the multi-step ones (multi_step_fraction =
+# num_multi_steps / num_engine_steps). Registered at 0 so /metrics shows them
+# before the first step.
+STEP_COUNTERS = ("num_engine_steps", "num_async_steps", "num_multi_steps")
+for _name in STEP_COUNTERS:
+    COUNTERS.inc(_name, 0.0)
 GAUGES = GaugeFamily()
 HISTOGRAMS = HistogramFamily()
 HISTOGRAMS.define("time_to_first_token_latency_seconds", LATENCY_BUCKETS_FAST)

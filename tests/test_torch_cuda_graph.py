@@ -14,7 +14,8 @@ step buffer, keys and counters as the CUDA form:
   Executor.warmup, recorded through an execute that only notes the
   bucket) for "fast" and "full";
 - num_mid_serve_compiles counts the captures outside warmup only;
-- the handler's options: CUDA graphs and warmup accepted, the rest still
+- the handler's options: CUDA graphs, warmup, async scheduling and
+  multi-step decode accepted with the reference's defaults, the rest still
   refused, an unknown warmup mode a ValueError;
 - the sampler reads no SamplingInputs on a greedy step (its branches come
   from the host arrays).
@@ -32,7 +33,7 @@ import torch
 
 import tests.fixtures as fixtures
 from tests.test_torch_model import _inputs
-from tests.torch_port_util import tiny_llama
+from tests.torch_port_util import shared_checkpoint, tiny_llama
 
 PROMPTS = [
     "the quick brown fox jumps over",
@@ -59,9 +60,14 @@ def _tiny_deepseek(d, seed):
     return d
 
 
+def shared_tiny_deepseek():
+    """_tiny_deepseek at seed 0, built once for every test process."""
+    return shared_checkpoint("tiny_deepseek_v2_yarn_f32_seed0_tok", lambda d: _tiny_deepseek(d, seed=0))
+
+
 @pytest.fixture(scope="module")
-def deepseek(tmp_path_factory):
-    return _tiny_deepseek(str(tmp_path_factory.mktemp("tiny_deepseek_graphs")), seed=0)
+def deepseek():
+    return shared_tiny_deepseek()
 
 
 @pytest.fixture(scope="module")
@@ -228,13 +234,19 @@ def test_handler_takes_graphs_and_warmup_and_refuses_the_rest():
     defaults = LLMHandlerOptions()
     assert defaults.enable_cuda_graph is True and defaults.warmup_mode == "fast"
     assert inspect.signature(LLM).parameters["enable_cuda_graph"].default is True
+    # Async scheduling and multi-step decode: the reference's defaults, accepted.
+    assert defaults.enable_async_scheduling is True and defaults.num_decode_steps == 1
+    assert inspect.signature(LLM).parameters["enable_async_scheduling"].default is True
+    assert inspect.signature(LLM).parameters["num_decode_steps"].default == 1
     for mode in ("off", "fast", "full"):
         LLMHandlerOptions(enable_cuda_graph=True, warmup_mode=mode).check_ported()
     LLMHandlerOptions(enable_cuda_graph=False).check_ported()
+    for ported in (dict(enable_async_scheduling=True), dict(enable_async_scheduling=False),
+                   dict(num_decode_steps=4), dict(num_decode_steps=4, enable_async_scheduling=False)):
+        LLMHandlerOptions(**ported).check_ported()
     with pytest.raises(ValueError, match="warmup_mode"):
         LLMHandlerOptions(warmup_mode="all").check_ported()
-    for unported in (dict(enable_async_scheduling=True), dict(num_decode_steps=4),
-                     dict(num_speculative_tokens=2), dict(tp_size=2), dict(kv_cache_dtype="int8"),
+    for unported in (dict(num_speculative_tokens=2), dict(tp_size=2), dict(kv_cache_dtype="int8"),
                      dict(host_swap_bytes=1), dict(lora_modules={"a": "b"})):
         with pytest.raises(NotImplementedError):
             LLMHandlerOptions(**unported).check_ported()
@@ -253,14 +265,15 @@ def test_a_greedy_step_reads_no_sampling_input():
         bias_values=np.zeros((S, 1), np.float32), allowed_mask=np.full((S, 1), 0xFFFFFFFF, np.uint32),
         seeds=np.arange(S, dtype=np.uint32))
     plan = SamplingPlan.of(host)
-    assert not plan.reads_inputs and plan.sample_rows == ()
+    assert not plan.reads_inputs and not plan.temperature
     logits = torch.randn(S, V, generator=torch.Generator().manual_seed(0))
     unread = SamplingInputs(**{f.name: None for f in dataclasses.fields(SamplingInputs)})
     out = sample_tokens(logits, unread, max_top_logprobs=2, plan=plan)
     assert torch.equal(out.next_tokens, logits.argmax(-1).int())
     want = sample_tokens(logits, host.to("cpu"), max_top_logprobs=2)
     assert torch.equal(out.logprobs, want.logprobs) and torch.equal(out.top_ids, want.top_ids)
-    # A sampling row: the plan names it and its seed.
+    # A sampling row: the plan's temperature stage reads the rows and their
+    # seeds on the device.
     host.temperatures[2], host.seeds[2] = 0.7, 99
     plan = SamplingPlan.of(host)
-    assert plan.reads_inputs and plan.temperature and (plan.sample_rows, plan.sample_seeds) == ((2,), (99,))
+    assert plan.reads_inputs and plan.temperature

@@ -204,10 +204,10 @@ def test_greedy_generate_matches_jax(ckpt):
         assert engine.kv_cache_slot_size_in_bytes() == 3 * 1 * 24 * 4
         real = engine.executor.execute
 
-        def execute(mi, si, decode_only=False):
+        def execute(mi, si, decode_only=False, **kw):  # kw: an async step's pending merge
             n = int(mi.num_seqs[0])
             steps.append((decode_only, bool((mi.cu_q_lens[1 : n + 1] - mi.cu_q_lens[:n] == 1).all())))
-            return real(mi, si, decode_only=decode_only)
+            return real(mi, si, decode_only=decode_only, **kw)
 
         engine.executor.execute = execute
 

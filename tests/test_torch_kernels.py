@@ -20,7 +20,11 @@ error below 0.1% of it.
 CUDA graphs: each main-path wrapper captured in a graph and replayed on new
 inputs gives the bits of an eager call; the executor with step graphs gives
 the eager tokens and logits bits (tiny random-weight Llama and DeepSeek-V2,
-bf16 and INT4)."""
+bf16 and INT4). Multi-step decode: the N-step graph's replay gives the eager
+N-step loop's bits (tokens, logprobs, KV cache), greedy and sampling; the
+device sampler draws the same noise eagerly and in a replay; a fetch
+returns while a later step runs; async and N = 4 serves with graphs give
+the sync serve's tokens."""
 
 import numpy as np
 import pytest
@@ -1532,3 +1536,140 @@ def test_executor_with_graphs_gives_the_eager_tokens_and_logits_bits(cuda, model
         runs[graphs] = tokens, logprobs, logits
     for got, want in zip(runs[True], runs[False]):
         assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+# Multi-step decode and async stepping on the card: the N-step graph's replay
+# against the eager N-step loop, bit for bit (tokens and logprobs), with a
+# greedy and a sampling plan and fresh inputs on the second replay; the
+# device sampler's noise eagerly and in a replay; a fetch that returns while
+# a later step still runs; async against sync serves with graphs.
+
+
+def _sampling_si(S, seed0):
+    si = _greedy_si(S)
+    si.temperatures[:] = np.where(np.arange(S) % 2 == 1, 0.8, 0.0)
+    si.top_ks[:] = np.where(np.arange(S) % 4 == 1, 20, 0)
+    si.seeds[:] = np.arange(S, dtype=np.uint32) * 7919 + seed0
+    return si
+
+
+@pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4"])
+def test_multi_step_graph_replay_gives_the_eager_loop_bits(cuda, model_name):
+    from chip_smoke import batch_inputs
+    from scalellm_tpu_torch.engine.executor import Executor
+
+    cfg = TINY_LLAMA_CFG if model_name == "llama" else TINY_DEEPSEEK_CFG
+    model = _random_model(cuda, cfg, quantize="int4" if model_name == "deepseek_int4" else "")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (30, 17, 50)]  # 97 tokens: T = 128
+    prefill = batch_inputs(torch, [(p, 0, len(p) + 24) for p in prompts])[0]
+    decodes = [batch_inputs(torch, [([int(rng.integers(1, 512))], len(p) + 4 * i, len(p) + 24)
+                                    for p in prompts])[0] for i in range(3)]
+    runs = {}
+    for graphs in (True, False):
+        ex = Executor(model, cuda, max_top_logprobs=2)
+        ex.init_kv_cache(64, 16)
+        if graphs:
+            ex.init_graphs(16, max_tokens=128, max_seqs=4, max_context_len=1024)
+        ex.execute(prefill, _greedy_si(4))
+        got = []
+        # A greedy window, then two sampling windows with other seeds: a
+        # replay must read the new step buffer, not what it was captured on.
+        for mi, si in zip(decodes, (_greedy_si(4), _sampling_si(4, 11), _sampling_si(4, 12345))):
+            out = ex.execute_multi(mi, si, 4, 16)
+            got.append([t.cpu() for t in (out.next_tokens, out.logprobs, out.top_ids, out.top_logprobs)])
+        if graphs:
+            multi = [k for k in ex.graphs.graphs if len(k) > 4]
+            assert len(multi) == 2  # the greedy plan's graph and the sampling plan's
+            assert sum(ex.graphs.replays[k] for k in multi) == 3
+        runs[graphs] = got, ex.kv_cache.clone()
+    (got, kv_g), (want, kv_e) = runs[True], runs[False]
+    for a, b in zip(got, want):
+        assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+    # The pages of the real tokens. Page 0 takes the padding rows' writes:
+    # many rows to one slot (the winner is unordered), whose values MLA's
+    # decode kernel leaves unset.
+    assert torch.equal(_bits(kv_g[:, 1:]), _bits(kv_e[:, 1:]))
+    assert got[0][0].shape == (4, 4)
+    # The two sampling windows drew differently.
+    assert not torch.equal(got[1][0], got[2][0]) or not torch.equal(got[1][1], got[2][1])
+
+
+def test_device_sampler_noise_is_the_same_eagerly_and_in_a_replay(cuda):
+    from scalellm_tpu_torch.sampling import sampler
+
+    V = 32000
+    seeds = torch.tensor([1, 2, 3, 2**32 - 5], dtype=torch.int64, device=cuda)
+    logits = torch.randn(4, V, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    temps = torch.tensor([0.0, 0.7, 1.0, 1.3], device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sampler.sample(logits, temps, seeds)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        noise = sampler.gumbel_noise(seeds, V)
+        picked = sampler.sample(logits, temps, seeds)
+    for new in ([9, 8, 7, 6], [1, 2, 3, 2**32 - 5]):
+        seeds.copy_(torch.tensor(new, dtype=torch.int64))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(noise, sampler.gumbel_noise(seeds, V))
+        assert torch.equal(picked, sampler.sample(logits, temps, seeds))
+        assert picked[0] == logits[0].argmax()  # the greedy row
+    # The hash is integer arithmetic: the same draws as on the CPU.
+    cpu = sampler.sample(logits.cpu(), temps.cpu(), seeds.cpu())
+    assert torch.equal(picked.cpu(), cpu)
+
+
+def test_fetch_returns_while_a_later_step_runs(cuda):
+    """A step's fetch waits on its own copy's event: with the next step
+    dispatched and a device spin enqueued after it, finalizing the first
+    step returns while the spin still runs (a .cpu() would wait for it)."""
+    from scalellm_tpu_torch.engine.executor import Executor, HostOutputs, minimal_inputs
+
+    ex = Executor(_random_model(cuda, TINY_LLAMA_CFG), cuda)
+    ex.init_kv_cache(16, 16)
+    ex.init_graphs(16, max_tokens=16, max_seqs=1, max_context_len=64)
+    mi, si = minimal_inputs(16, 1, 4), _greedy_si(1)
+    ex.execute(mi, si)  # capture
+    torch.cuda.synchronize()
+    first = HostOutputs(ex.execute(mi, si), logprobs=True)
+    second = HostOutputs(ex.execute(mi, si), logprobs=False)
+    torch.cuda._sleep(2**31)  # about a second of device spin after the second step
+    spun = torch.cuda.Event()
+    spun.record()
+    out = first.wait()
+    assert not spun.query(), "the fetch waited for work enqueued after its step"
+    assert out["next_tokens"].shape == (1,) and out["logprobs"].shape == (1,)
+    torch.cuda.synchronize()
+    assert second.wait()["logprobs"] is None
+
+
+def test_async_serve_with_graphs_gives_the_sync_tokens(cuda, tmp_path):
+    """LLM on a random-weight tiny Llama checkpoint: async and N = 4 serves
+    with graphs give the sync serve's token ids (prompts prefilled in one
+    step, one max_tokens: the serves run the same buckets), and take async
+    and multi-step dispatches."""
+    import chip_smoke
+    from scalellm_tpu_torch import LLM, SamplingParams
+    from scalellm_tpu_torch.utils.metrics import COUNTERS
+
+    # A vocabulary of the char tokenizer's 256 ids: every sampled id is text.
+    cfg = dict(TINY_LLAMA_CFG, vocab_size=256, architectures=["LlamaForCausalLM"], tie_word_embeddings=False,
+               bos_token_id=1, eos_token_id=2)
+    chip_smoke.write_checkpoint(torch, str(tmp_path), cfg)
+    prompts = ["the quick brown fox", "paged attention kernel", "abc", "decode and prefill " * 3]
+    sp = SamplingParams(max_tokens=13, temperature=0.0, ignore_eos=True)
+    got = {}
+    for name, kw in (("sync", dict(enable_async_scheduling=False)), ("async", {}), ("ms4", dict(num_decode_steps=4))):
+        before = COUNTERS.get("num_async_steps"), COUNTERS.get("num_multi_steps")
+        with LLM(str(tmp_path), devices="cuda", num_blocks=64, num_handling_threads=1, **kw) as llm:
+            outs = llm.generate(prompts, sp)
+            got[name] = [o.outputs[0].token_ids for o in outs]
+            assert all(o.usage.num_generated_tokens == 13 for o in outs)
+        took = COUNTERS.get("num_async_steps") - before[0], COUNTERS.get("num_multi_steps") - before[1]
+        assert took[0] > 0 if name == "async" else True
+        assert took[1] > 0 if name == "ms4" else took[1] == 0
+    assert got["async"] == got["sync"] and got["ms4"] == got["sync"]

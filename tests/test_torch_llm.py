@@ -51,7 +51,7 @@ def test_greedy_outputs_match_jax(tiny_model):
 def test_unported_options_raise(tiny_model):
     from scalellm_tpu_torch import LLM
 
-    with pytest.raises(NotImplementedError):
-        LLM(tiny_model, devices="cpu", enable_async_scheduling=True)
+    # Async scheduling (the default) and multi-step decode are ported.
+    LLM(tiny_model, devices="cpu", enable_async_scheduling=True, num_decode_steps=4).close()
     with pytest.raises(NotImplementedError):
         LLM(tiny_model, devices="cpu", num_speculative_tokens=2)

@@ -113,3 +113,60 @@ def test_same_seed_same_draw():
     logits = torch.zeros(2, 16)
     out = sampler.sample_tokens(logits, si).next_tokens
     assert out[0] == out[1]
+
+
+# The device-seeded noise (sampler.gumbel_noise): a hash of (seed, vocabulary
+# index) computed with integer tensor ops, so a replayed graph draws anew
+# from the seeds in its step buffer.
+
+
+@pytest.mark.parametrize("fold", ["seeds", "micro_steps"])
+def test_device_seeded_draws_follow_softmax(fold):
+    """Gumbel-max over 6000 draws at T = 0.7 follows the softmax: the
+    chi-square statistic of the counts stays below its p = 0.001 critical
+    value (5 degrees of freedom). "seeds": one row per consecutive seed;
+    "micro_steps": one seed folded for micro-steps 0..5999
+    (sampler.step_seeds), as a multi-step dispatch draws."""
+    V, n = 6, 6000
+    logits = np.array([0.3, -1.0, 1.2, 0.0, 0.8, -0.4], np.float32)
+    if fold == "seeds":
+        seeds = np.arange(77, 77 + n, dtype=np.uint32)
+    else:
+        seeds = np.stack([sampler.step_seeds(torch.tensor([4242]), i) for i in range(n)])[:, 0]
+        seeds = seeds.astype(np.uint32)
+    si, _ = _si(n, V, temperatures=np.full(n, 0.7, np.float32), seeds=seeds)
+    draws = sampler.sample_tokens(torch.from_numpy(np.tile(logits, (n, 1))), si).next_tokens.numpy()
+    probs = torch.softmax(torch.from_numpy(logits) / 0.7, -1).numpy()
+    observed = np.bincount(draws, minlength=V)
+    chi2 = float(((observed - probs * n) ** 2 / (probs * n)).sum())
+    assert chi2 < CHI2_999[5], (chi2, observed, probs * n)
+
+
+def test_device_noise_is_a_function_of_the_row_seed():
+    """A row's noise depends on its own seed alone (not on its row or the
+    batch), the same seed gives the same noise, and it is standard Gumbel
+    (mean 0.5772, std pi / sqrt(6) within 2% over 64000 values)."""
+    seeds = torch.tensor([3, 2**32 - 1, 12345, 3], dtype=torch.int64)
+    g = sampler.gumbel_noise(seeds, 16000)
+    assert torch.equal(g[0], g[3]) and not torch.equal(g[0], g[2])
+    assert torch.equal(sampler.gumbel_noise(seeds[1:2], 16000)[0], g[1])
+    # uint32 seeds held as int32 bits (the step buffer) give the same noise.
+    assert torch.equal(sampler.gumbel_noise(seeds.to(torch.int32), 16000), g)
+    assert torch.isfinite(g).all()
+    assert abs(g.mean().item() - 0.5772) < 0.02 and abs(g.std().item() - np.pi / 6**0.5) < 0.03
+
+
+def test_greedy_rows_are_untouched_by_sampling_rows():
+    """In a batch that mixes greedy and sampling rows, the greedy rows pick
+    argmax and keep the logprobs of an all-greedy batch, bit for bit."""
+    rng = np.random.default_rng(3)
+    S, V = 6, 40
+    logits = torch.from_numpy(rng.standard_normal((S, V)).astype(np.float32) * 2)
+    temps = np.array([0.0, 0.9, 0.0, 1.3, 0.0, 0.5], np.float32)
+    mixed, _ = _si(S, V, temperatures=temps, seeds=np.arange(S, dtype=np.uint32) + 9)
+    greedy, _ = _si(S, V)
+    got = sampler.sample_tokens(logits, mixed, max_top_logprobs=2)
+    want = sampler.sample_tokens(logits, greedy, max_top_logprobs=2)
+    rows = temps == 0.0
+    assert torch.equal(got.next_tokens[rows], logits.argmax(-1).int()[rows])
+    assert torch.equal(got.logprobs[rows], want.logprobs[rows])
