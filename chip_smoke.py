@@ -17,8 +17,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
      a. ragged paged attention (K1) in bf16 at seven shapes of the serving
         paths: decode batches, whose every sequence takes the split-KV
         blocks ((a) and (c), 8 decodes; (f) one sequence of 8192 tokens;
-        (g) 64 decodes of 128-2048 tokens), and the mixed T = 512 batches
-        (b), (d), (e), whose chunks take the q-tiled tensor-core blocks and
+        (g) 64 decodes of 128-2048 tokens; (h) 8 decodes at Qwen2-MoE's
+        heads, GQA group 1, head dim 128), and the mixed T = 512 batches
+        (b), (d), (e), (i) (Qwen2-MoE's heads), whose chunks take the
+        q-tiled tensor-core blocks and
         whose decodes the split blocks (yardstick:
         scaled_dot_product_attention on gathered K/V). Each is held against
         the plain version within KERNEL_TOL and, row by row, within
@@ -41,8 +43,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
         (1408 -> 2048) (yardstick: torch._grouped_mm where the build has it,
         else a loop of torch.matmul over the experts with rows), and each
         with both block shapes (weight rows x tokens: 64 x 16 and 128 x
-        64); the int4 expert dequantization that feeds K6
-        in phase 7, at the same two projections (64 experts, group 128), bit
+        64); the same at Mixtral-8x7B's experts (8, top-2, 4096 <-> 14336:
+        32 and 1024 rows) and Qwen1.5-MoE-A2.7B's (60, top-4, 2048 <->
+        1408: 64 and 2048 rows); the int4 expert dequantization that feeds
+        K6 in phases 7 and 8, at V2-Lite's two projections (64 experts,
+        group 128) and Mixtral's (8 experts), bit
         for bit against its plain version, beside the PyTorch form it
         replaced; the MLA decode kernel
         (K9) at 8 sequences of 16-600 tokens, one of 8192 tokens and 64 of
@@ -58,7 +63,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
         K8 (gate and up, 2048 -> 1408, one launch) and K7 (down, 1408 ->
         2048), int4 at group 128 and int8, at the decode step of 3c (96
         rows, the padding rows sharing their experts) and in the T=1 layout
-        (one token over 8 rows, 6 experts, starts given); bound: the active
+        (one token over 8 rows, 6 experts, starts given), then int4 at
+        Qwen1.5-MoE-A2.7B's decode step (60 experts, top-4, 64 rows; down's
+        11 groups of 128); bound: the active
         experts' weight and scale bytes (yardstick: torch._grouped_mm on
         weights dequantized ahead of time); each with the rate at which it
         reads those bytes and the stream probe's (K12c) on as many.
@@ -73,7 +80,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
         it reads the weights; then K11's own path, its entry point
         quant_mlp at M = 1, 8, 16, 32, 64 (no model calls it, as in the
         reference).
-  Phases 4-7 serve each model four times, on fresh engines in the same
+  Phases 4-7 serve each model four times (phases 8 and 9 twice: async with
+  graphs, then eager), on fresh engines in the same
   call: three times with CUDA graphs (every engine step replays the graph
   of its bucket, the "full" warmup captures every bucket of the serving
   envelope at init, SERVE_ENVELOPE): "sync", one step at a time; "async",
@@ -124,19 +132,19 @@ Phases (any failure exits non-zero, and the result line is not printed):
      gemv and w4a8g. Last the reference's in-model probe: one decode step
      under torch.profiler with the real kernels, then with the stream probe
      (K12c) in every layer projection, and the fraction of the stream
-     ceiling that the projections reach. --int4-layers N cuts the depth
-     (default 32).
+     ceiling that the projections reach. --int4-layers N sets the depth
+     (default 16 of 32: the script's time limit, since phases 8 and 9).
   6. end to end, bf16 MoE + MLA: a DeepSeek-V2-Lite checkpoint at the
      published widths (random bf16 weights from a seed, one tensor per
-     expert, 31 GB on disk, written once for phases 6 and 7 and removed
-     after them) served by LLM(path) with the same traffic. Every engine
+     expert, 16 GB on disk at 14 layers, written once for phases 6 and 7
+     and removed after them) served by LLM(path) with the same traffic. Every engine
      step must launch the grouped GEMM 3 times per MoE layer, the MLA
      decode kernel once per layer on decode-only steps and the MLA prefill
      kernel once per layer on the others. Then a prefill and a decode batch
      run through the model twice, with the kernels and with the plain
      versions, the second run replaying the first one's routing, and the
-     logits must agree. --deepseek-layers N cuts the depth of phases 6 and
-     7 (default 27).
+     logits must agree. --deepseek-layers N sets the depth of phases 6 and
+     7 (default 14 of 27: the script's time limit, since phases 8 and 9).
   7. end to end, INT4 MoE + MLA: the same checkpoint served by LLM(path,
      quantize="int4"): experts and projections quantized on the card. Every
      engine step must launch exactly what the path implies: per MoE layer
@@ -146,7 +154,23 @@ Phases (any failure exits non-zero, and the result line is not printed):
      Then the profile and the same kernel-vs-plain logits check, the
      kernels run twice: the two runs' logits must be the same bits (the MoE
      combine adds each token's rows in a fixed order, no atomics).
-  8. a `kernels` JSON line, then the result line.
+  8. end to end, Mixtral-8x7B at its published widths, 16 of its 32
+     layers (--mixtral-layers; 47 GB bf16), one checkpoint written once and
+     removed after: bf16, then LLM(path, quantize="int4") (int4 experts at
+     G = 128: every step dequantizes the 8 experts and runs K6, the decode
+     kernel's gate refusing their 58.7 MB weight ring), each served async
+     with graphs (the default) and then eagerly, every request of the
+     async serve getting the eager serve's ids, with phase 6/7's per-step
+     launch checks (K1 once a layer in place of K9/K10), the routing-pinned
+     logits check and, for INT4, the repeat's bits.
+  9. the same for Qwen1.5-MoE-A2.7B at its published widths and depth (60
+     experts of 1408, top-4, a shared expert of 5632 with its sigmoid gate,
+     the qkv bias, MHA: K1 at GQA group 1; 28.6 GB bf16); INT4 decode steps
+     take K8 and K7.
+  Every LLM.close() is followed by a line of the memory left on the card
+  (`{tag}_closed`), and fails if the caching allocator kept more than
+  CLOSED_SLACK_BYTES of the closed engine's freed blocks.
+  10. a `kernels` JSON line, then the result line.
 
 It needs the repository (it fails in a directory that holds only this
 script) and a CUDA device (it fails where torch.cuda.is_available() is
@@ -424,6 +448,12 @@ ATTENTION_SHAPES = {
     # about 285 MB of KV, where splitting should nearly stop.
     "g_batch64_d128": dict(q_lens=[1] * 64, kv_lens=[128 + round(i * 1920 / 63) for i in range(64)],
                            S=64, T=64, H=32, Hkv=8, D=128, window=None, cap=None),
+    # Qwen1.5-MoE-A2.7B's heads (phase 9): 16 query heads over 16 KV heads,
+    # GQA group 1 (MHA), head dim 128; its decode step and its mixed step.
+    "h_decode_mha_d128": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=16, Hkv=16, D=128, window=None,
+                              cap=None),
+    "i_mixed_mha_d128": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                             S=8, T=512, H=16, Hkv=16, D=128, window=None, cap=None),
 }
 
 
@@ -695,6 +725,42 @@ DEEPSEEK_V2_LITE = dict(
     rope_scaling=dict(type="yarn", factor=40, original_max_position_embeddings=4096,
                       beta_fast=32, beta_slow=1, mscale=0.707, mscale_all_dim=0.707),
 )
+# mistralai/Mixtral-8x7B-v0.1 config.json, in bf16 (phase 8 cuts its depth).
+MIXTRAL_8X7B = dict(
+    model_type="mixtral", architectures=["MixtralForCausalLM"], torch_dtype="bfloat16",
+    hidden_size=4096, intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, vocab_size=32000, max_position_embeddings=32768, rms_norm_eps=1e-5,
+    rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False, bos_token_id=1, eos_token_id=2,
+    sliding_window=None, num_local_experts=8, num_experts_per_tok=2, router_aux_loss_coef=0.02,
+)
+# Phases 5-7's depths: cut (from 32 and 27) to keep the whole script within
+# about half its time limit once phases 8 and 9 serve their larger models.
+INT4_LAYERS = 16
+DEEPSEEK_LAYERS = 14
+# Phase 8's depth: 16 of Mixtral-8x7B's 32 layers (1.451 B parameters, 2.90
+# GB, a layer) hold 47.0 GB in bf16 with the embedding and lm_head, and the
+# runtime INT4 quantization of that on the card peaks near 59 GB.
+MIXTRAL_LAYERS = 16
+# Qwen/Qwen1.5-MoE-A2.7B's widths (the reference loader's qwen2_moe
+# defaults), in bf16.
+QWEN15_MOE_A27B = dict(
+    model_type="qwen2_moe", architectures=["Qwen2MoeForCausalLM"], torch_dtype="bfloat16",
+    hidden_size=2048, intermediate_size=5632, num_hidden_layers=24, num_attention_heads=16,
+    num_key_value_heads=16, vocab_size=151936, max_position_embeddings=8192, rms_norm_eps=1e-6,
+    rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False, bos_token_id=151643,
+    eos_token_id=151643, num_experts=60, num_experts_per_tok=4, moe_intermediate_size=1408,
+    shared_expert_intermediate_size=5632, norm_topk_prob=False, decoder_sparse_step=1, mlp_only_layers=[],
+)
+# The routed experts of each MoE model the phases serve: (hidden, expert
+# width, experts, top-k).
+MOE_WIDTHS = {
+    "v2_lite": (DEEPSEEK_V2_LITE["hidden_size"], DEEPSEEK_V2_LITE["moe_intermediate_size"],
+                DEEPSEEK_V2_LITE["n_routed_experts"], DEEPSEEK_V2_LITE["num_experts_per_tok"]),
+    "mixtral": (MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"],
+                MIXTRAL_8X7B["num_local_experts"], MIXTRAL_8X7B["num_experts_per_tok"]),
+    "qwen2_moe": (QWEN15_MOE_A27B["hidden_size"], QWEN15_MOE_A27B["moe_intermediate_size"],
+                  QWEN15_MOE_A27B["num_experts"], QWEN15_MOE_A27B["num_experts_per_tok"]),
+}
 # The grouped GEMM against its plain version: both sum exact bf16 products
 # in f32, in another order: 1e-4 of the output's largest magnitude.
 GMM_TOL = 1e-4
@@ -789,18 +855,23 @@ MLA_SHAPES = {
 
 
 def gmm_cases(torch, gen):
-    """Phase 3c's K6 inputs at DeepSeek-V2-Lite's widths, as the engine runs
-    them: a decode step of 8 tokens padded to T=16 (the 8 padding rows
-    share one input), 96 rows; a 512-token step, 3072 rows; each for
-    gate/up (2048 -> 1408) and down (1408 -> 2048). Yields (step, proj, xs,
-    w, group sizes)."""
-    cfg = DEEPSEEK_V2_LITE
-    D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
-    for step, T, n_pad in (("decode", 16, 8), ("prefill", 512, 0)):
-        for proj, K, N in (("gate_up", D, Fm), ("down", Fm, D)):
-            xs, sizes = routed_rows(torch, gen, T, E, k, K, n_pad)
-            w = (torch.randn(E, N, K, generator=gen, device=DEVICE) * K ** -0.5).to(torch.bfloat16)
-            yield step, proj, xs, w, sizes
+    """Phase 3c's K6 inputs at each MOE_WIDTHS model's widths, as the engine
+    runs them: a decode step of 8 tokens padded to T=16 (the 8 padding rows
+    share one input), 16 k rows (V2-Lite 96, Mixtral 32, Qwen2-MoE 64); a
+    512-token step, 512 k rows; each for gate/up (D -> Fm) and down (Fm ->
+    D). Yields (model, step, proj, xs, w, group sizes)."""
+    for model, (D, Fm, E, k) in MOE_WIDTHS.items():
+        for step, T, n_pad in (("decode", 16, 8), ("prefill", 512, 0)):
+            for proj, K, N in (("gate_up", D, Fm), ("down", Fm, D)):
+                xs, sizes = routed_rows(torch, gen, T, E, k, K, n_pad)
+                w = (torch.randn(E, N, K, generator=gen, device=DEVICE) * K ** -0.5).to(torch.bfloat16)
+                yield model, step, proj, xs, w, sizes
+                del xs, w
+
+
+def moe_shape(model, name):
+    """A phase-3 shape name: V2-Lite's as before, the others prefixed."""
+    return name if model == "v2_lite" else f"{model}_{name}"
 
 
 def phase_moe_mla_kernels(torch, card):
@@ -815,17 +886,18 @@ def phase_moe_mla_kernels(torch, card):
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     cfg = DEEPSEEK_V2_LITE
     gmm = {}
-    for step, proj, xs, w, sizes in gmm_cases(torch, gen):
+    for model, step, proj, xs, w, sizes in gmm_cases(torch, gen):
         E, N, K = w.shape
+        shape = moe_shape(model, f"{step}_{proj}")
         got = G.grouped_matmul_cuda(xs, w, sizes)
         torch.cuda.synchronize()
         want = G.plain_grouped_matmul(xs, w, sizes)
         if not torch.isfinite(got).all():
-            fail(f"grouped_matmul {step} {proj}: kernel output is not finite")
+            fail(f"grouped_matmul {shape}: kernel output is not finite")
         top = want.abs().max().item()
         err = (got - want).abs().max().item()
         if not err <= GMM_TOL * top:
-            fail(f"grouped_matmul {step} {proj}: differs from the plain version by {err} at magnitude {top}")
+            fail(f"grouped_matmul {shape}: differs from the plain version by {err} at magnitude {top}")
         lib_name, lib = library_grouped_mm(torch, xs, w, sizes)
         lib_out = lib()  # one tensor, or the active experts' rows in order
         lib_out = lib_out if isinstance(lib_out, torch.Tensor) else torch.cat(lib_out)
@@ -840,7 +912,7 @@ def phase_moe_mla_kernels(torch, card):
             by_tile[name] = time_ms(torch, lambda t=t: G.grouped_matmul_cuda(xs, w, sizes, tile=t), flush)
             diff_by_tile[name] = (G.grouped_matmul_cuda(xs, w, sizes, tile=t) - got).abs().max().item()
         default = G.TILES[G.tile_for(xs.shape[0], E)]
-        emit(dict(phase="kernel_probe", kernel="grouped_matmul", shape=f"{step}_{proj}",
+        emit(dict(phase="kernel_probe", kernel="grouped_matmul", shape=shape,
                   what="block shape (weight rows x tokens) A/B", ms_by_tile=by_tile,
                   max_abs_diff_vs_default=diff_by_tile, default_tile=f"{default[0]}x{default[1]}",
                   card=card["nvidia_smi"]))
@@ -853,12 +925,12 @@ def phase_moe_mla_kernels(torch, card):
         r = dict(max_abs_err=err, out_magnitude=top, ms=ms, plain_ms=plain_ms,
                  bound_ms=1e3 * max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
-        gmm[(step, proj)] = r
-        emit(dict(phase="kernel", kernel="grouped_matmul", shape=f"{step}_{proj}", R=xs.shape[0], K=K,
+        gmm[(model, step, proj)] = r
+        emit(dict(phase="kernel", kernel="grouped_matmul", shape=shape, R=xs.shape[0], K=K,
                   N=N, E=E, active_experts=active, tol=GMM_TOL * top, bytes=nbytes, ops=ops,
                   library=lib_name, library_max_abs_err=lib_err, **r, card=card["nvidia_smi"]))
         del xs, w, got, want
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
     H, Dc, vd = cfg["num_attention_heads"], cfg["kv_lora_rank"] + cfg["qk_rope_head_dim"], cfg["kv_lora_rank"]
     # The model's softmax scale: (qk head dim)^-0.5 times yarn's mscale^2.
@@ -956,18 +1028,22 @@ def pytorch_expert_dequant(torch, qweight, scales, K):
 def phase_expert_dequant(torch, card):
     """The INT4 expert dequantization at DeepSeek-V2-Lite's routed experts
     (64 of them, group 128): gate/up (2048 -> 1408) and down (1408 -> 2048),
-    bit for bit against the plain version, timed beside the PyTorch form it
-    replaced and its bound (packed weights and scales read once, bf16
-    weights written once, over 3.35 TB/s)."""
+    and at Mixtral-8x7B's (8 of 4096 -> 14336 and 14336 -> 4096: what every
+    INT4 Mixtral step runs before K6), bit for bit against the plain
+    version, timed beside the PyTorch form it replaced and its bound (packed
+    weights and scales read once, bf16 weights written once, over 3.35
+    TB/s)."""
     from scalellm_tpu_torch.ops import moe_quant as MQ
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 4)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
-    cfg = DEEPSEEK_V2_LITE
-    D, Fm, E = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"]
     results = {}
-    for proj, K, N in (("gate_up", D, Fm), ("down", Fm, D)):
+    cases = []
+    for model in ("v2_lite", "mixtral"):
+        D, Fm, E, _ = MOE_WIDTHS[model]
+        cases += [(moe_shape(model, "gate_up"), E, D, Fm), (moe_shape(model, "down"), E, Fm, D)]
+    for proj, E, K, N in cases:
         qweight = torch.randint(-128, 128, (E, N, K // 2), generator=gen, device=DEVICE, dtype=torch.int8)
         scales = ((torch.rand(E, K // GROUP, N, generator=gen, device=DEVICE) + 0.5) * 0.01).to(torch.bfloat16)
         got = MQ.expert_dequant_cuda(qweight, scales, K)
@@ -991,7 +1067,7 @@ def phase_expert_dequant(torch, card):
         if not same_values:
             fail(f"expert_dequant {proj}: the replaced PyTorch form gives other values")
         del qweight, scales, got
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1018,28 +1094,29 @@ def moe_probe(torch, nbytes, row_bytes):
 
 def moe_quant_cases(torch, gen):
     """Phase 3d's cases, one dict each: K8 (gate and up, 2048 -> 1408) and
-    K7 (down, 1408 -> 2048) at DeepSeek-V2-Lite's decode step (96 rows
-    routed as in phase 3c) and in the T=1 layout (one token over 8 rows, 6
-    experts, starts given), int4 at G = 128 and int8. `args` are the
-    wrapper's (xs, qweight, scales[, qweight, scales], sizes, active,
-    starts); `order` sorts the rows in groups by expert."""
+    K7 (down, 1408 -> 2048, 11 groups of 128) at DeepSeek-V2-Lite's decode
+    step (96 rows routed as in phase 3c) and in the T=1 layout (one token
+    over 8 rows, 6 experts, starts given), int4 at G = 128 and int8; then
+    at Qwen1.5-MoE-A2.7B's INT4 decode step (60 experts, top-4: 64 rows;
+    layout "qwen2_moe_decode"). `args` are the wrapper's (xs, qweight,
+    scales[, qweight, scales], sizes, active, starts); `order` sorts the
+    rows in groups by expert."""
     from scalellm_tpu_torch.layers.moe import single_token_layout
     from scalellm_tpu_torch.ops import moe_quant as MQ
 
-    cfg = DEEPSEEK_V2_LITE
-    D, Fm, E, k = cfg["hidden_size"], cfg["moe_intermediate_size"], cfg["n_routed_experts"], cfg["num_experts_per_tok"]
-
-    def experts(K, N, bits):
+    def experts(E, K, N, bits):
         w = torch.randn(E, N, K, generator=gen, device=DEVICE) * K ** -0.5
         return MQ.quantize_experts_int4(w, GROUP) if bits == 4 else MQ.quantize_experts_int8(w)
 
     def rows(n, K):
         return torch.randn(n, K, generator=gen, device=DEVICE).to(torch.bfloat16)
 
-    for bits in (4, 8):
-        gate, up, down = experts(D, Fm, bits), experts(D, Fm, bits), experts(Fm, D, bits)
-        for layout in ("decode", "t1"):
-            if layout == "decode":
+    for model, bits, layouts in (("v2_lite", 4, ("decode", "t1")), ("v2_lite", 8, ("decode", "t1")),
+                                 ("qwen2_moe", 4, ("qwen2_moe_decode",))):
+        D, Fm, E, k = MOE_WIDTHS[model]
+        gate, up, down = experts(E, D, Fm, bits), experts(E, D, Fm, bits), experts(E, Fm, D, bits)
+        for layout in layouts:
+            if layout != "t1":
                 xs, sizes = routed_rows(torch, gen, 16, E, k, D, n_pad=8)
                 h = rows(xs.shape[0], Fm)
                 active, starts = MQ.active_experts(sizes, min(E, xs.shape[0])), MQ.expert_starts(sizes)
@@ -1550,7 +1627,7 @@ def phase_end_to_end(torch, card):
             after_serve(torch, card, "e2e", mode, llm, runs, modes)
             if graphs:
                 engine = None
-                llm.close()
+                close_llm(torch, card, serve_name("e2e", mode), llm)
                 llm = None
         compare_serves(card, "e2e", runs["sync"], runs["eager"])
         emit_modes(card, "e2e", runs, modes)
@@ -1563,9 +1640,8 @@ def phase_end_to_end(torch, card):
         model = engine.model
         tok = llm._handler.tokenizer
         engine = None
-        llm.close()
+        close_llm(torch, card, "e2e_eager", llm)
         llm = None
-        torch.cuda.empty_cache()
         ps = prompts()
         ids = [tok.encode(ps[0])[:200], tok.encode(ps[5])]
         prefill, n_pages = batch_inputs(torch, [(t, 0, len(t) + 1) for t in ids])
@@ -1708,13 +1784,39 @@ def serving_llm(path, graphs, mode="sync", **kw):
     return llm
 
 
+# What a closed engine may leave cached in the caching allocator, free blocks
+# that an empty_cache would hand back: above it, the next engine's loads
+# would land in them and its KV cache would be sized without them.
+CLOSED_SLACK_BYTES = 2**30
+
+
+def close_llm(torch, card, tag, llm):
+    """Close `llm` and emit the device memory left after it: what live
+    tensors hold (allocated; a caller may keep the model), what the caching
+    allocator reserves, what one more empty_cache hands back (released: the
+    closed engine's blocks that its close kept cached) and what the device
+    reports free. Fails if released exceeds CLOSED_SLACK_BYTES. What stays
+    reserved beyond allocated after that is free space inside segments that
+    hold live tensors (the kept model's), which no close can return."""
+    llm.close()
+    torch.cuda.synchronize()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    released = reserved - torch.cuda.memory_reserved()
+    free, total = torch.cuda.mem_get_info()
+    emit(dict(phase=f"{tag}_closed", allocated_bytes=allocated, reserved_bytes=reserved, released_bytes=released,
+              free_bytes=free, total_bytes=total, card=card["nvidia_smi"]))
+    if released > CLOSED_SLACK_BYTES:
+        fail(f"{tag}: a closed engine left {released / 2**30:.2f} GiB cached in the caching allocator")
+
+
 def all_counters():
     """Every kernel wrapper of the port; each counts its launches."""
     from scalellm_tpu_torch.ops import attention, quant_mlp
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
     wrappers = (attention.ragged_paged_attention_cuda, Q.quant_gemv_cuda, Q.quant_w4a8_gemv_cuda,
-                Q.quant_stream_probe_cuda, quant_mlp.quant_mlp_cuda) + deepseek_counters()
+                Q.quant_stream_probe_cuda, quant_mlp.quant_mlp_cuda) + moe_counters()
     return tuple({w.__name__: w for w in wrappers}.values())
 
 
@@ -1935,16 +2037,16 @@ def teacher_forced_gap(torch, model, prompt_ids, generated):
         return (logits.max(-1).values - chosen).max().item()
 
 
-def check_mode(torch, tag, mode, model, sync_run, run):
-    """Hold a mode's serve to the sync serve with graphs, request by
-    request: the same generated ids, or, where they differ (the serves need
-    not build the same steps: async skips a sequence whose pending token
-    reaches its limit, and K1's and K9's split plans depend on S and the
-    block table's width), every token of the mode's a greedy choice up to
-    kernel rounding (teacher_forced_gap within LOGITS_TOL, through the
-    mode's engine's model). Fails unless the mode took its dispatches
-    (num_async_steps, num_multi_steps). Returns the figures of the
-    `{tag}_modes` line."""
+def check_mode(torch, tag, mode, model, sync_run, run, exact=False):
+    """Hold a mode's serve to a sync serve (phases 4-7: the sync serve with
+    graphs), request by request: the same generated ids, or, where they
+    differ (the serves need not build the same steps: async skips a
+    sequence whose pending token reaches its limit, and K1's and K9's split
+    plans depend on S and the block table's width), every token of the
+    mode's a greedy choice up to kernel rounding (teacher_forced_gap within
+    LOGITS_TOL, through `model`). With exact, any request whose ids differ
+    fails. Fails unless the mode took its dispatches (num_async_steps,
+    num_multi_steps). Returns the figures of the `{tag}_modes` line."""
     differing, gaps = [], []
     for prompt, (prompt_ids, gen) in run["ids"].items():
         if gen != sync_run["ids"][prompt][1]:
@@ -1959,6 +2061,9 @@ def check_mode(torch, tag, mode, model, sync_run, run):
     if any(not g <= LOGITS_TOL for g in gaps):
         fail(f"{tag} {mode}: a request's tokens differ from the sync serve's by more than kernel rounding "
              f"(largest gap {max(gaps)} > {LOGITS_TOL})")
+    if exact and differing:
+        fail(f"{tag} {mode}: {len(differing)} of {len(run['ids'])} requests got other ids than the sync serve's "
+             f"(largest gap {max(gaps)})")
     key = {"async": "num_async_steps", "ms4": "num_multi_steps"}[mode]
     if not figures[key] > 0:
         fail(f"{tag} {mode}: the serve took no {key}")
@@ -2006,11 +2111,18 @@ def compare_serves(card, tag, with_graphs, eager):
 
 # A phase's serves, in order: the three modes with CUDA graphs, then eager.
 SERVES = ("sync", "async", "ms4", "eager")
+# Phases 8 and 9 serve twice: the default (async, graphs), then eager (sync).
+MOE_SERVES = ("async", "eager")
+
+
+def serve_name(tag, mode):
+    """A serve's name, which prefixes its lines: the sync serve's is the tag."""
+    return tag if mode == "sync" else f"{tag}_{mode}"
 
 
 def serve_setup(tag, mode):
     """The name of a serve's setup line."""
-    return f"{tag}_setup" if mode == "sync" else f"{tag}_{mode}_setup"
+    return f"{serve_name(tag, mode)}_setup"
 
 
 def after_serve(torch, card, tag, mode, llm, runs, modes):
@@ -2018,7 +2130,7 @@ def after_serve(torch, card, tag, mode, llm, runs, modes):
     async and ms4 serves against the sync one (check_mode, through the
     serve's model), and, in phase 4, the async engine's fetch
     (check_fetch_overlap)."""
-    if mode in ("async", "ms4"):
+    if mode in ("async", "ms4") and "sync" in runs:
         modes[mode] = check_mode(torch, tag, mode, llm._handler.engine.model, runs["sync"], runs[mode])
     if mode == "async" and tag == "e2e":
         check_fetch_overlap(torch, card, tag, llm._handler.engine)
@@ -2039,7 +2151,7 @@ def main_path_launches(runs):
     """A phase's launches on its main paths: the serves with graphs."""
     out = {}
     for mode in ("sync", "async", "ms4"):
-        for k, v in runs[mode]["launches"].items():
+        for k, v in runs.get(mode, {"launches": {}})["launches"].items():
             out[k] = out.get(k, 0) + v
     return out
 
@@ -2093,7 +2205,7 @@ def phase_end_to_end_int4(torch, card, n_layers):
             after_serve(torch, card, "int4", mode, llm, runs, modes)
             if graphs:
                 engine = model = None
-                llm.close()
+                close_llm(torch, card, serve_name("int4", mode), llm)
                 llm = None
         compare_serves(card, "int4", runs["sync"], runs["eager"])
         emit_modes(card, "int4", runs, modes)
@@ -2162,9 +2274,8 @@ def phase_end_to_end_int4(torch, card, n_layers):
         # of all of them.
         tok = llm._handler.tokenizer
         engine = None
-        llm.close()
+        close_llm(torch, card, "int4_eager", llm)
         llm = None
-        torch.cuda.empty_cache()
         ids = [tok.encode(ps[0])[:200], tok.encode(ps[5])]
         prefill, n_pages = batch_inputs(torch, [(t, 0, len(t) + 1) for t in ids])
         decode, _ = batch_inputs(torch, [([7 + i], len(t), len(t) + 1) for i, t in enumerate(ids)])
@@ -2345,38 +2456,104 @@ def deepseek_checkpoint_tensors(cfg):
     return out
 
 
-def write_deepseek_checkpoint(torch, n_layers):
-    """The DeepSeek-V2-Lite checkpoint that phases 6 and 7 serve, written
-    once to a new temp dir: (dir, bytes, seconds to write)."""
-    cfg = dict(DEEPSEEK_V2_LITE, num_hidden_layers=n_layers)
-    tmp = tempfile.mkdtemp(prefix="scalellm_deepseek_v2_lite_")
-    tensors = deepseek_checkpoint_tensors(cfg)
+def write_temp_checkpoint(torch, name, cfg, tensors, flag=None):
+    """A checkpoint of `tensors` (write_checkpoint) written once to a new
+    temp dir for the phases that serve it: (dir, bytes, seconds to write).
+    Fails before writing where the disk lacks room, naming `flag` where
+    one cuts the depth."""
+    tmp = tempfile.mkdtemp(prefix=f"scalellm_{name}_")
     need = sum(2 * functools.reduce(lambda a, b: a * b, shape, 1) for _, shape, _ in tensors)
     free = shutil.disk_usage(tmp).free
     if free < need + 2**30:
         shutil.rmtree(tmp, ignore_errors=True)
-        fail(f"deepseek: the {need / 1e9:.1f} GB checkpoint does not fit the {free / 1e9:.1f} GB free "
-             f"under {tmp}; --deepseek-layers cuts the depth")
+        fail(f"{name}: the {need / 1e9:.1f} GB checkpoint does not fit the {free / 1e9:.1f} GB free "
+             f"under {tmp}" + (f"; {flag} cuts the depth" if flag else ""))
     t0 = time.monotonic()
     nbytes = write_checkpoint(torch, tmp, cfg, tensors)
     return tmp, nbytes, time.monotonic() - t0
 
 
-def deepseek_counters():
-    """The kernel wrappers a DeepSeek step may launch, by name."""
+def mixtral_checkpoint_tensors(cfg):
+    """(HF name, shape, is norm) of every tensor of a Mixtral checkpoint:
+    attention, the router and one tensor per expert and projection (w1
+    gate, w3 up, w2 down) each layer."""
+    D, F_, V, E = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"], cfg["num_local_experts"]
+    Dh = D // cfg["num_attention_heads"]
+    Hq, Hkv = cfg["num_attention_heads"] * Dh, cfg["num_key_value_heads"] * Dh
+    out = [("model.embed_tokens.weight", (V, D), False)]
+    for l in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{l}."
+        out += [
+            (p + "input_layernorm.weight", (D,), True),
+            (p + "post_attention_layernorm.weight", (D,), True),
+            (p + "self_attn.q_proj.weight", (Hq, D), False),
+            (p + "self_attn.k_proj.weight", (Hkv, D), False),
+            (p + "self_attn.v_proj.weight", (Hkv, D), False),
+            (p + "self_attn.o_proj.weight", (D, Hq), False),
+            (p + "block_sparse_moe.gate.weight", (E, D), False),
+        ]
+        for e in range(E):
+            q = f"{p}block_sparse_moe.experts.{e}."
+            out += [(q + "w1.weight", (F_, D), False), (q + "w3.weight", (F_, D), False),
+                    (q + "w2.weight", (D, F_), False)]
+    out += [("model.norm.weight", (D,), True), ("lm_head.weight", (V, D), False)]
+    return out
+
+
+def qwen2_moe_checkpoint_tensors(cfg):
+    """(HF name, shape, is norm) of every tensor of a Qwen2-MoE checkpoint:
+    attention with its q/k/v biases, the router, one tensor per expert and
+    projection, the shared expert and its sigmoid gate, each layer."""
+    D, V, E = cfg["hidden_size"], cfg["vocab_size"], cfg["num_experts"]
+    Fm, Fs = cfg["moe_intermediate_size"], cfg["shared_expert_intermediate_size"]
+    Dh = D // cfg["num_attention_heads"]
+    Hq, Hkv = cfg["num_attention_heads"] * Dh, cfg["num_key_value_heads"] * Dh
+    out = [("model.embed_tokens.weight", (V, D), False)]
+    for l in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{l}."
+        out += [
+            (p + "input_layernorm.weight", (D,), True),
+            (p + "post_attention_layernorm.weight", (D,), True),
+            (p + "self_attn.q_proj.weight", (Hq, D), False),
+            (p + "self_attn.k_proj.weight", (Hkv, D), False),
+            (p + "self_attn.v_proj.weight", (Hkv, D), False),
+            (p + "self_attn.q_proj.bias", (Hq,), False),
+            (p + "self_attn.k_proj.bias", (Hkv,), False),
+            (p + "self_attn.v_proj.bias", (Hkv,), False),
+            (p + "self_attn.o_proj.weight", (D, Hq), False),
+            (p + "mlp.gate.weight", (E, D), False),
+        ]
+        for e in range(E):
+            q = f"{p}mlp.experts.{e}."
+            out += [(q + "gate_proj.weight", (Fm, D), False), (q + "up_proj.weight", (Fm, D), False),
+                    (q + "down_proj.weight", (D, Fm), False)]
+        out += [(p + "mlp.shared_expert.gate_proj.weight", (Fs, D), False),
+                (p + "mlp.shared_expert.up_proj.weight", (Fs, D), False),
+                (p + "mlp.shared_expert.down_proj.weight", (D, Fs), False),
+                (p + "mlp.shared_expert_gate.weight", (1, D), False)]
+    out += [("model.norm.weight", (D,), True), ("lm_head.weight", (V, D), False)]
+    return out
+
+
+def moe_counters():
+    """The kernel wrappers an MoE model's step may launch (DeepSeek-V2,
+    Mixtral, Qwen2-MoE), by name."""
+    from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops import grouped_matmul as G
     from scalellm_tpu_torch.ops import mla_attention as M
     from scalellm_tpu_torch.ops import moe_quant as MQ
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
-    return (G.grouped_matmul_cuda, MQ.grouped_quant_matmul_pair_cuda, MQ.grouped_quant_matmul_cuda,
-            MQ.expert_dequant_cuda, M.mla_decode_attention_cuda, M.mla_prefill_attention_cuda, Q.quant_matmul_w4a8_cuda,
-            Q.quant_matmul_group_cuda, Q.quant_matmul_dequant_cuda)
+    return (attention.ragged_paged_attention_cuda, G.grouped_matmul_cuda, MQ.grouped_quant_matmul_pair_cuda,
+            MQ.grouped_quant_matmul_cuda, MQ.expert_dequant_cuda, M.mla_decode_attention_cuda,
+            M.mla_prefill_attention_cuda, Q.quant_matmul_w4a8_cuda, Q.quant_matmul_group_cuda,
+            Q.quant_matmul_dequant_cuda)
 
 
-def deepseek_step_launches(model, T, S, decode_only):
+def moe_step_launches(model, T, S, decode_only):
     """What one engine step of T tokens and S selected rows must launch, by
-    wrapper name: K9 (decode-only) or K10 once a layer; per MoE layer K6
+    wrapper name: attention once a layer (DeepSeek: K9 on decode-only steps,
+    else K10; DecoderModel: K1); per MoE layer K6
     three times for bf16 experts, and for quantized ones K8 (gate and up)
     and K7 (down) where the T * top_k routed rows take the decode kernel
     (the dispatcher's takes_decode_kernel), else K6 in their place (two for
@@ -2388,8 +2565,11 @@ def deepseek_step_launches(model, T, S, decode_only):
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
     a = model.args
-    want = {c.__name__: 0 for c in deepseek_counters()}
-    want["mla_decode_attention_cuda" if decode_only else "mla_prefill_attention_cuda"] = a.n_layers
+    want = {c.__name__: 0 for c in moe_counters()}
+    if getattr(model, "mla", False):
+        want["mla_decode_attention_cuda" if decode_only else "mla_prefill_attention_cuda"] = a.n_layers
+    else:
+        want["ragged_paged_attention_cuda"] = a.n_layers
     rows = T * a.n_experts_per_token
     for layer in model.layers:
         if not layer.moe:
@@ -2415,32 +2595,43 @@ def deepseek_step_launches(model, T, S, decode_only):
     return want
 
 
-def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
-    """Serve the checkpoint at `path` with LLM(path, quantize=quantize):
-    phase 6 in bf16, phase 7 with runtime-INT4 experts and projections."""
+def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpoint_bytes, quantize="",
+                         serves=SERVES):
+    """Serve the MoE checkpoint at `path` with LLM(path, quantize=quantize):
+    phase 6 (DeepSeek-V2-Lite, name "deepseek") in bf16 and phase 7 with
+    runtime-INT4 experts and projections, each serving SERVES; phases 8
+    (Mixtral-8x7B) and 9 (Qwen1.5-MoE-A2.7B) the same, serving "async" with
+    graphs and then "eager", each request of the async serve held to the
+    eager one's ids. Each load must find the checkpoint's bytes free on the
+    card. Returns the launches of the serves with graphs."""
     from scalellm_tpu_torch.layers.moe import quant_expert_ffn
     from scalellm_tpu_torch.models.common import QuantExperts
+    from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops import grouped_matmul as G
     from scalellm_tpu_torch.ops import mla_attention as M
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
     import gc
 
-    tag = f"deepseek_{quantize}" if quantize else "deepseek"
-    counters = deepseek_counters()
+    tag = f"{name}_{quantize}" if quantize else name
+    counters = moe_counters()
     gc.collect()  # the previous phase's model, before this one loads
-    depth = dict(layers=n_layers, full_depth=n_layers == DEEPSEEK_V2_LITE["num_hidden_layers"])
+    depth = dict(layers=n_layers, full_depth=n_layers == full_layers)
     llm = None
     try:
         runs, modes = {}, {}
-        # With CUDA graphs (sync: the main path; async; 4-step decode), then
-        # eagerly, each on a fresh engine; the routing replay below runs the
-        # eager one's model: the replay and recording hooks act when a
-        # step's Python runs, which a replayed graph skips.
-        for mode in SERVES:
+        # With CUDA graphs (the main paths), then eagerly, each on a fresh
+        # engine; the routing replay below runs the eager one's model: the
+        # replay and recording hooks act when a step's Python runs, which a
+        # replayed graph skips.
+        for mode in serves:
             graphs = mode != "eager"
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            free = torch.cuda.mem_get_info()[0]
+            if free < checkpoint_bytes + 2**30:
+                fail(f"{tag} {mode}: {free / 1e9:.1f} GB free on the card, the load needs "
+                     f"{checkpoint_bytes / 1e9:.1f} GB and more")
             t0 = time.monotonic()
             llm = serving_llm(path, graphs, mode if graphs else "sync", quantize=quantize)
             torch.cuda.synchronize()
@@ -2449,8 +2640,8 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
             model = engine.model
             weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
             experts = [m for m in model.modules() if isinstance(m, QuantExperts)]
-            emit(dict(phase=serve_setup(tag, mode), graphs=graphs, **depth,
-                      quantize=quantize or None, load_s=t_load,
+            emit(dict(phase=serve_setup(tag, mode), graphs=graphs, **depth, model_type=model.args.model_type,
+                      quantize=quantize or None, free_bytes_before_load=free, load_s=t_load,
                       # the peak of LLM(...): loading, quantizing, the KV cache
                       # (90% of what is left), then the warmup's captures
                       peak_bytes_at_start=torch.cuda.max_memory_allocated(), weight_bytes_on_card=weight_bytes,
@@ -2458,28 +2649,35 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
                       expert_group=experts[0].group_size if experts else None,
                       kv_blocks=engine.block_manager.options.num_blocks,
                       kv_cache_shape=list(engine.executor.kv_cache.shape), **graph_stats(engine)))
-            runs[mode] = serve(torch, card, tag, llm, counters, functools.partial(deepseek_step_launches, model),
+            runs[mode] = serve(torch, card, tag, llm, counters, functools.partial(moe_step_launches, model),
                                graphs, mode if graphs else "sync")
             after_serve(torch, card, tag, mode, llm, runs, modes)
             if graphs:
                 engine = model = experts = None
-                llm.close()
+                close_llm(torch, card, serve_name(tag, mode), llm)
                 llm = None
-        compare_serves(card, tag, runs["sync"], runs["eager"])
-        emit_modes(card, tag, runs, modes)
+        if "sync" in runs:
+            compare_serves(card, tag, runs["sync"], runs["eager"])
+            emit_modes(card, tag, runs, modes)
+        else:
+            # The async serve with graphs against the eager one (sync), request
+            # by request, through the eager engine's model: the same ids.
+            held = check_mode(torch, tag, "async", model, runs["eager"], runs["async"], exact=True)
+            emit(dict(phase=f"{tag}_async_vs_eager", **held, eager={k: runs["eager"]["figures"][k] for k in (
+                "output_tok_per_s", "mean_ttft_s", "engine_steps", "decode_step_ms", "host_ms_per_token",
+                "idle_share", "device_busy_ms")}, card=card["nvidia_smi"]))
         ps = prompts()
 
-        # A prefill batch (K10; quantized: K4 and the experts through K6) and
-        # the decode step after it (K9; quantized: K2, K8, K7) through the
+        # A prefill batch (K10 or K1; quantized: K4 and the experts through
+        # K6) and the decode step after it (K9 or K1; quantized: K2, K8, K7) through the
         # model twice over the same weights: the kernels, then the plain
         # versions. The plain run replays the kernel run's routing, layer by
         # layer: with random weights a near-tie in a router could otherwise
         # send a token to another expert, which is no fault of a kernel.
         tok = llm._handler.tokenizer
         engine = None
-        llm.close()
+        close_llm(torch, card, f"{tag}_eager", llm)
         llm = None
-        torch.cuda.empty_cache()
         ids = [tok.encode(ps[0])[:200], tok.encode(ps[5])]
         prefill, n_pages = batch_inputs(torch, [(t, 0, len(t) + 1) for t in ids])
         decode, _ = batch_inputs(torch, [([7 + i], len(t), len(t) + 1) for i, t in enumerate(ids)])
@@ -2492,13 +2690,15 @@ def phase_end_to_end_deepseek(torch, card, path, n_layers, quantize=""):
             return out
 
         logits = {}
-        # Phase 7 runs the kernels twice (the second time routing afresh):
+        attn = ((M.mla_paged_attention, M.plain_mla_paged_attention) if getattr(model, "mla", False)
+                else (attention.ragged_paged_attention, attention.plain_ragged_paged_attention))
+        # INT4 runs the kernels twice (the second time routing afresh):
         # the two results must be the same bits.
         impls = ("kernel", "kernel_again", "plain") if quantize else ("kernel", "plain")
         with torch.inference_mode():
             for impl in impls:
                 plain = impl == "plain"
-                model.attn_impl = M.plain_mla_paged_attention if plain else M.mla_paged_attention
+                model.attn_impl = attn[plain]
                 model.gmm_impl = G.plain_grouped_matmul if plain else G.grouped_matmul
                 model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
                 model.qexperts_impl = (functools.partial(quant_expert_ffn, variant="plain") if plain
@@ -2554,10 +2754,12 @@ def main() -> None:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--int4-layers", type=int, default=LLAMA31_8B_INT4["num_hidden_layers"],
-                        help="depth of the INT4 Llama-3.1-8B run (its widths are never cut)")
-    parser.add_argument("--deepseek-layers", type=int, default=DEEPSEEK_V2_LITE["num_hidden_layers"],
-                        help="depth of the DeepSeek-V2-Lite runs, bf16 and INT4 (their widths are never cut)")
+    parser.add_argument("--int4-layers", type=int, default=INT4_LAYERS,
+                        help="depth of the INT4 Llama-3.1-8B run (of 32; its widths are never cut)")
+    parser.add_argument("--deepseek-layers", type=int, default=DEEPSEEK_LAYERS,
+                        help="depth of the DeepSeek-V2-Lite runs, bf16 and INT4 (of 27; their widths are never cut)")
+    parser.add_argument("--mixtral-layers", type=int, default=MIXTRAL_LAYERS,
+                        help="depth of the Mixtral-8x7B runs, bf16 and INT4 (of 32; their widths are never cut)")
     opts = parser.parse_args()
 
     t_start = time.monotonic()
@@ -2579,15 +2781,32 @@ def main() -> None:
     count_captured_launches()
     bf16_launches = phase_end_to_end(torch, card)
     int4_launches = phase_end_to_end_int4(torch, card, opts.int4_layers)
-    # Phases 6 and 7 serve one DeepSeek-V2-Lite checkpoint, written once.
-    path, nbytes, t_write = write_deepseek_checkpoint(torch, opts.deepseek_layers)
-    try:
-        emit(dict(phase="deepseek_checkpoint", layers=opts.deepseek_layers, checkpoint_bytes=nbytes,
-                  write_s=t_write))
-        ds_launches = phase_end_to_end_deepseek(torch, card, path, opts.deepseek_layers)
-        ds4_launches = phase_end_to_end_deepseek(torch, card, path, opts.deepseek_layers, quantize="int4")
-    finally:
-        shutil.rmtree(path, ignore_errors=True)
+    # Phases 6-9: each MoE checkpoint written once, served in bf16 and
+    # then with runtime INT4, and removed.
+    moe_launches = {}
+    for name, base, tensors_of, flag, layers, serves in (
+            ("deepseek", DEEPSEEK_V2_LITE, deepseek_checkpoint_tensors, "--deepseek-layers", opts.deepseek_layers,
+             SERVES),
+            ("mixtral", MIXTRAL_8X7B, mixtral_checkpoint_tensors, "--mixtral-layers", opts.mixtral_layers,
+             MOE_SERVES),
+            ("qwen2_moe", QWEN15_MOE_A27B, qwen2_moe_checkpoint_tensors, None,
+             QWEN15_MOE_A27B["num_hidden_layers"], MOE_SERVES)):
+        cfg = dict(base, num_hidden_layers=layers)
+        path, nbytes, t_write = write_temp_checkpoint(torch, name, cfg, tensors_of(cfg), flag)
+        try:
+            emit(dict(phase=f"{name}_checkpoint", layers=layers, checkpoint_bytes=nbytes, write_s=t_write))
+            for quantize in ("", "int4"):
+                moe_launches[(name, quantize)] = phase_end_to_end_moe(
+                    torch, card, name, path, layers, base["num_hidden_layers"], nbytes, quantize, serves)
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+    new_launches = [moe_launches[(name, q)] for name in ("mixtral", "qwen2_moe") for q in ("", "int4")]
+    new_k1 = sum(run.get("ragged_paged_attention_cuda", 0) for run in new_launches)
+    for wrapper in ("ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda",
+                    "grouped_matmul_cuda", "expert_dequant_cuda", "grouped_quant_matmul_cuda",
+                    "grouped_quant_matmul_pair_cuda"):
+        if not sum(run.get(wrapper, 0) for run in new_launches) > 0:
+            fail(f"phases 8 and 9 never launched {wrapper}")
 
     # Each kernel's launches on the main paths (the sync, async and ms4
     # serves with graphs: counts set to 0 before each timed generate and
@@ -2608,7 +2827,7 @@ def main() -> None:
     # the 8B MLP, M = 16, launched by its own path (its entry point at M =
     # 1, 8, 16, 32, 64: no model calls it).
     def launched(name):
-        return sum(run.get(name, 0) for run in (int4_launches, ds_launches, ds4_launches))
+        return sum(run.get(name, 0) for run in (int4_launches, *moe_launches.values()))
 
     source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
     moe_source = "scalellm_tpu_torch/csrc/moe_quant.cu"
@@ -2616,7 +2835,7 @@ def main() -> None:
     kernels = [
         kernel_entry("ragged_paged_attention", "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
                      "scalellm_tpu/ops/attention.py:132",
-                     bf16_launches + int4_launches["ragged_paged_attention_cuda"],
+                     bf16_launches + int4_launches["ragged_paged_attention_cuda"] + new_k1,
                      attention_results, "a_decode"),
         kernel_entry("quant_matmul_w4a8", source, "scalellm_tpu/ops/quant_matmul.py:360",
                      launched("quant_matmul_w4a8_cuda"), quant_results["w4a8"],
@@ -2629,7 +2848,7 @@ def main() -> None:
                      ("gate_up_proj", 512, False)),
         kernel_entry("grouped_matmul", "scalellm_tpu_torch/csrc/grouped_matmul.cu",
                      "scalellm_tpu/layers/moe.py:70", launched("grouped_matmul_cuda"),
-                     gmm_results, ("decode", "gate_up")),
+                     gmm_results, ("v2_lite", "decode", "gate_up")),
         kernel_entry("expert_dequant", "scalellm_tpu_torch/csrc/expert_dequant.cu",
                      "scalellm_tpu/ops/moe_quant.py:633", launched("expert_dequant_cuda"), dequant_results,
                      "gate_up"),

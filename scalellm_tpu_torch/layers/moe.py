@@ -19,12 +19,16 @@ reference does. single_token_layout builds the reference's sort-free T=1
 layout for them: the token's k experts are distinct, so row j belongs to
 top-k slot j's expert and no sort is needed.
 
+routed_experts is the routed part of every MoE model's layer (DecoderModel's
+Mixtral and Qwen2-MoE, MLADecoderModel's DeepSeek-V2): given the router's
+top-k, it dispatches, runs the experts (dense or quantized) and combines.
+
 Not ported yet: expert parallelism (ep_axis, moe_mlp_a2a).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -111,6 +115,40 @@ def single_token_layout(topk_e: torch.Tensor, topk_w: torch.Tensor, n_experts: i
     return Tp, sizes, starts, e_sel, w_col
 
 
+def single_token_fits(k: int, hidden: int, gate, down) -> bool:
+    """Whether both routed calls of the T=1 layout (k rows) take the decode
+    kernel, which that layout needs. Down's K is gate's N, whatever the
+    bits."""
+    return (takes_decode_kernel(k, hidden, gate.qweight, gate.scales)
+            and takes_decode_kernel(k, gate.qweight.shape[1], down.qweight, down.scales))
+
+
+def routed_experts(x: torch.Tensor, topk_w: torch.Tensor, topk_e: torch.Tensor, gate, up, down,
+                   act: str = "silu", *, gmm: Callable = grouped_matmul, qexperts: Callable = quant_expert_ffn,
+                   t1_fits: Optional[Callable[[], bool]] = None) -> torch.Tensor:
+    """x [T, D] through the experts the router picked (topk_w, topk_e [T,
+    k]), weighted and summed: f32 [T, D]. Dense experts (tensors [E, N, K])
+    take the sorted dispatch and three grouped GEMMs; quantized ones
+    (modules holding qweight and scales) the T=1 layout where T = 1 and
+    t1_fits() (by default single_token_fits) allows it, else the sorted
+    dispatch through qexperts. The work is sized from shapes alone
+    (max_active = min(E, T * k)), so a CUDA graph can capture it."""
+    k, T = topk_e.shape[-1], x.shape[0]
+    if isinstance(gate, torch.Tensor):
+        order, token_of, group_sizes = dispatch(topk_e, gate.shape[0])
+        y = expert_ffn(x[token_of], gate, up, down, group_sizes, act, gmm)
+        return combine(y, topk_w, order, token_of, T)
+    E = gate.qweight.shape[0]
+    if T == 1 and (t1_fits() if t1_fits is not None else single_token_fits(k, x.shape[1], gate, down)):
+        Tp, sizes, starts, active, w_col = single_token_layout(topk_e, topk_w, E)
+        y = qexperts(x.expand(Tp, -1).contiguous(), gate, up, down, sizes, act,
+                     active=active, starts=starts, max_active=min(E, k))
+        return (y * w_col[:, None]).sum(dim=0, keepdim=True)
+    order, token_of, group_sizes = dispatch(topk_e, E)
+    y = qexperts(x[token_of], gate, up, down, group_sizes, act, max_active=min(E, T * k))
+    return combine(y, topk_w, order, token_of, T)
+
+
 def combine(y: torch.Tensor, topk_w: torch.Tensor, order: torch.Tensor, token_of: torch.Tensor,
             n_tokens: int) -> torch.Tensor:
     """Add each token's k expert rows (y, sorted by expert), weighted by
@@ -131,6 +169,4 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor, up_w:
     """x [T, D] -> f32 [T, D]: softmax top-k routing over router_w [E, D],
     then the experts' gated FFNs."""
     topk_w, topk_e = softmax_topk(x, router_w, top_k, norm_topk_prob)
-    order, token_of, group_sizes = dispatch(topk_e, router_w.shape[0])
-    y = expert_ffn(x[token_of], gate_w, up_w, down_w, group_sizes, act, gmm)
-    return combine(y, topk_w, order, token_of, x.shape[0])
+    return routed_experts(x, topk_w, topk_e, gate_w, up_w, down_w, act, gmm=gmm)

@@ -121,13 +121,21 @@ class LLM:
         return self._handler.apply_chat_template(messages)
 
     def close(self) -> None:
-        """Stop the handler's threads and drop the engine, so its device
-        memory (weights and KV cache) can be freed."""
+        """Stop the handler's threads, drop the engine and give its device
+        memory (weights, KV cache, graph pools) back to the device. The
+        caching allocator keeps freed blocks for reuse; left there, the next
+        engine's first allocations are carved out of the freed KV cache's
+        block, which then can never be returned, and that engine sizes its
+        own KV cache from what the device reports free beside it."""
         import gc
+
+        import torch
 
         self._handler.stop()
         self._handler = None
         gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
 
     def __enter__(self):
         return self

@@ -1,15 +1,33 @@
-"""Decoder-only transformer, the Llama subset of
-scalellm_tpu/models/common.py:DecoderModel.
+"""Decoder-only transformer, the Llama / Mistral / Qwen2 / Mixtral /
+Qwen2-MoE subset of scalellm_tpu/models/common.py:DecoderModel.
 
-Embedding -> per layer (RMSNorm, fused qkv projection, rope, in-place KV
-scatter, ragged paged attention, o projection, RMSNorm, fused gate/up
-projection, gated activation, down projection) -> final RMSNorm; logits()
+Embedding -> per layer (RMSNorm, fused qkv projection plus the optional qkv
+bias, rope, in-place KV scatter, ragged paged attention, o projection,
+RMSNorm, then a dense FFN (fused gate/up projection, gated activation, down
+projection) or, with n_experts, an MoE block) -> final RMSNorm; logits()
 applies the lm_head. Weights are nn.Parameters in torch's [out, in] layout,
-with q/k/v fused into qkv_proj and gate/up into gate_up_proj as in the
-reference's fused layout. The layers run as a Python loop; the attention
-implementation is a hook (attn_impl) so a caller can swap the kernel for the
-plain version (ops/attention.py:plain_ragged_paged_attention); it is called
-with the step's decode_only.
+with q/k/v fused into qkv_proj (their biases into qkv_bias) and gate/up into
+gate_up_proj as in the reference's fused layout. The layers run as a Python
+loop; the attention implementation is a hook (attn_impl) so a caller can
+swap the kernel for the plain version
+(ops/attention.py:plain_ragged_paged_attention); it is called with the
+step's decode_only. The qkv bias is added in f32 to the projection's
+output, which is already rounded to x's type, and the sum is rounded again
+(the reference adds it to the f32 product, rounding once).
+
+An MoE layer (the reference's moe_mlp): the router [E, D] picks top-k
+experts by an f32 softmax (optionally renormalised over the k, clamped at
+1e-20; layers/moe.py:softmax_topk, exposed as the _router hook), and
+layers/moe.py:routed_experts runs them: experts_gate / experts_up [E, Fm, D]
+and experts_down [E, D, Fm] through the grouped GEMM (K6, the gmm_impl
+hook), or, quantized, through quant_expert_ffn (K8 + K7 on decode-sized
+steps, the qexperts_impl hook). With moe_shared_intermediate > 0 a shared
+expert of that width (gate_up_proj / down_proj) is added, scaled by
+sigmoid(x @ shared_gate) in f32 (Qwen2-MoE); the shared expert's output is
+rounded to x's type first (the reference's stays f32). The post-attention norm of an
+MoE layer is never folded into a prologue; the experts and the shared expert
+read the normed x. Which layers are MoE: every one (the reference ignores
+Qwen2-MoE's decoder_sparse_step / mlp_only_layers, and so does this model).
 
 Weight-only quantized models (args.quant_args) hold each projection as a
 QuantLinear (kernel-layout qweight, scales, zeros, and for GPTQ desc_act the
@@ -20,10 +38,18 @@ quantized projection into the kernel's prologue, so does this model: the
 projection then gets the un-normed input. The lm_head is quantized at load
 when quant_args.quantize_lm_head asks (int8; "int4" on request).
 
+Runtime-quantized MoE models (quant_method "internal") follow the
+reference's expert rule: int4 experts per (expert, G, channel) with G =
+group_size or 128 where G divides both the hidden and the expert width, else
+int8 experts per (expert, channel) (not DeepSeek's expert_group, which
+halves G until it divides). The router and shared_gate stay dense.
+GPTQ/AWQ MoE checkpoints are refused: the reference declares dense experts
+for them, and its loader finds no dense expert weights in such a checkpoint.
+
 Features of the reference's DecoderModel that this subset does not carry
-(MoE, LoRA, tensor/sequence parallelism, int8 KV, biases, layer norm, ALiBi,
-qk-norm, parallel residual) raise NotImplementedError when the model args
-ask for them.
+(LoRA, tensor/sequence/expert parallelism, int8 KV, o/mlp/lm_head/norm
+biases, layer norm, ALiBi, qk-norm, parallel residual, MLA) raise
+NotImplementedError when the model args ask for them.
 """
 
 from __future__ import annotations
@@ -38,9 +64,11 @@ import torch.nn.functional as F
 from scalellm_tpu_torch.config import ModelArgs
 from scalellm_tpu_torch.engine.params import ModelInputs
 from scalellm_tpu_torch.layers.activations import act_with_mul
+from scalellm_tpu_torch.layers.moe import quant_expert_ffn, routed_experts, softmax_topk
 from scalellm_tpu_torch.layers.norms import rms_norm
 from scalellm_tpu_torch.layers.rope import apply_rope, compute_inv_freq, cos_sin, inv_freq_buffer
 from scalellm_tpu_torch.ops.attention import ragged_paged_attention
+from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul
 from scalellm_tpu_torch.ops.kv_update import set_kv_cache
 from scalellm_tpu_torch.ops.moe_quant import quantize_experts_int4, quantize_experts_int8
 from scalellm_tpu_torch.ops.quant_matmul import (
@@ -56,6 +84,7 @@ from scalellm_tpu_torch.ops.quant_matmul import (
 FUSED_PROJECTIONS = {
     "qkv_proj": ("q_proj", "k_proj", "v_proj"),
     "gate_up_proj": ("gate_proj", "up_proj"),
+    "qkv_bias": ("q_bias", "k_bias", "v_bias"),
 }
 
 
@@ -71,12 +100,11 @@ def model_dtype(args: ModelArgs) -> torch.dtype:
 
 def _unsupported(args: ModelArgs) -> List[str]:
     checks = {
-        "MoE": args.n_experts > 0,
         "MLA": args.kv_lora_rank > 0,
         "int8 KV cache": args.kv_cache_dtype != "auto",
         "layer norm": args.norm_type != "rms_norm",
         "non-rope positions": args.pos_embedding_type != "rope",
-        "biases": args.qkv_bias or args.o_proj_bias or args.mlp_bias
+        "o/mlp/lm_head/norm biases": args.o_proj_bias or args.mlp_bias
         or args.lm_head_bias or args.norm_bias,
         "qk norm": args.use_qk_norm,
         "parallel residual": args.parallel_residual,
@@ -157,12 +185,29 @@ class QuantExperts(nn.Module):
         return {"qweight": qweight, "scales": scales}
 
 
+def expert_quant(args: ModelArgs) -> Tuple[int, int]:
+    """(bits, group size) of the routed experts: (0, 0) dense; under
+    runtime quantization int4 at G = group_size or 128 where G divides the
+    hidden and the expert width, else int8 per (expert, channel) (G 0): the
+    reference's rule (scalellm_tpu/models/common.py:145-170)."""
+    quant = active_quant(args)
+    if quant is None or args.n_experts == 0:
+        return 0, 0
+    G = quant.group_size or 128
+    if quant.bits == 4 and args.hidden_size % G == 0 and args.moe_intermediate_size % G == 0:
+        return 4, G
+    return 8, 0
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, args: ModelArgs, dtype: torch.dtype, device):
         super().__init__()
-        D, F_, Dh = args.hidden_size, args.intermediate_size, args.head_dim
+        D, Dh = args.hidden_size, args.head_dim
         H, Hkv = args.n_heads, args.n_kv_heads
         quant = active_quant(args)
+        self.moe = args.n_experts > 0
+        # A dense layer's FFN, or an MoE layer's shared expert (width 0: none).
+        F_ = args.moe_shared_intermediate if self.moe else args.intermediate_size
 
         def proj(k: int, n: int):
             if quant is None:
@@ -182,8 +227,30 @@ class DecoderLayer(nn.Module):
             self.v_proj = proj(D, Hkv * Dh)
         else:
             self.qkv_proj = proj(D, (H + 2 * Hkv) * Dh)
+        if args.qkv_bias and quant is not None and quant.desc_act:
+            self.q_bias = _param(H * Dh, dtype=dtype, device=device)
+            self.k_bias = _param(Hkv * Dh, dtype=dtype, device=device)
+            self.v_bias = _param(Hkv * Dh, dtype=dtype, device=device)
+        elif args.qkv_bias:
+            self.qkv_bias = _param((H + 2 * Hkv) * Dh, dtype=dtype, device=device)
         self.o_proj = proj(H * Dh, D)
         self.post_norm = _param(D, dtype=dtype, device=device)
+        if self.moe:
+            E, Fm = args.n_experts, args.moe_intermediate_size
+            self.router = _param(E, D, dtype=dtype, device=device)
+            bits, G = expert_quant(args)
+            if bits:
+                self.experts_gate = QuantExperts(E, D, Fm, bits=bits, group_size=G, device=device)
+                self.experts_up = QuantExperts(E, D, Fm, bits=bits, group_size=G, device=device)
+                self.experts_down = QuantExperts(E, Fm, D, bits=bits, group_size=G, device=device)
+            else:
+                self.experts_gate = _param(E, Fm, D, dtype=dtype, device=device)
+                self.experts_up = _param(E, Fm, D, dtype=dtype, device=device)
+                self.experts_down = _param(E, D, Fm, dtype=dtype, device=device)
+            if F_ > 0:
+                self.shared_gate = _param(1, D, dtype=dtype, device=device)
+        if F_ == 0:
+            return
         if quant is not None and quant.desc_act:
             self.gate_proj = proj(D, F_)
             self.up_proj = proj(D, F_)
@@ -205,9 +272,16 @@ class DecoderModel(nn.Module):
         self.args = args
         self.attn_impl = attn_impl or ragged_paged_attention
         self.quant_impl = quant_matmul
+        self.gmm_impl = grouped_matmul
+        self.qexperts_impl = quant_expert_ffn
         self.quant = active_quant(args)
         if self.quant is not None and self.quant.bits not in (4, 8):
             raise ValueError(f"quantization to {self.quant.bits} bits is not supported")
+        if self.quant is not None and args.n_experts > 0 and self.quant.quant_method != "internal":
+            raise NotImplementedError(
+                f"{args.model_type}: {self.quant.quant_method} MoE checkpoints are not supported (nor by the "
+                "reference: its loader finds no dense expert weights in them); serve the bf16 checkpoint "
+                "with quantize='int4' or 'int8'")
         self.dtype = model_dtype(args)
         D, V = args.hidden_size, args.vocab_size
         self.embed_tokens = _param(V, D, dtype=self.dtype, device=device)
@@ -286,7 +360,11 @@ class DecoderModel(nn.Module):
     def _fused_norm(self, layer: DecoderLayer, proj: str, norm: torch.Tensor):
         """(gamma, eps) when the RMSNorm before `proj` folds into the quant
         matmul's prologue (a fused quantized projection without a row
-        permutation), else None."""
+        permutation; never the post-attention norm of an MoE layer), else
+        None. A qkv bias does not stop it: it is added to the matmul's
+        output."""
+        if layer.moe and proj == "gate_up_proj":
+            return None
         w = getattr(layer, proj, None)
         if not isinstance(w, QuantLinear) or "perm" in w._buffers:
             return None
@@ -319,9 +397,15 @@ class DecoderModel(nn.Module):
             rms = self._fused_norm(layer, "qkv_proj", layer.input_norm)
             x = h if rms else rms_norm(h, layer.input_norm, a.rms_norm_eps, a.zero_centered_norm)
             if hasattr(layer, "qkv_proj"):
-                q, k, v = self._proj(x, layer.qkv_proj, rms).split([q_n, kv_n, kv_n], dim=-1)
+                qkv = self._proj(x, layer.qkv_proj, rms)
+                if a.qkv_bias:
+                    qkv = (qkv.float() + layer.qkv_bias.float()).to(h.dtype)
+                q, k, v = qkv.split([q_n, kv_n, kv_n], dim=-1)
             else:  # desc_act: unfused projections
                 q, k, v = (self._proj(x, w) for w in (layer.q_proj, layer.k_proj, layer.v_proj))
+                if a.qkv_bias:
+                    q, k, v = ((t.float() + b.float()).to(h.dtype)
+                               for t, b in zip((q, k, v), (layer.q_bias, layer.k_bias, layer.v_bias)))
             q = apply_rope(q.reshape(T, H, Dh), cos, sin, a.interleaved_rope)
             k = apply_rope(k.reshape(T, Hkv, Dh), cos, sin, a.interleaved_rope)
             set_kv_cache(kvc, k, v.reshape(T, Hkv, Dh), mi.new_kv_slot_ids)
@@ -334,17 +418,42 @@ class DecoderModel(nn.Module):
 
             rms = self._fused_norm(layer, "gate_up_proj", layer.post_norm)
             x = h if rms else rms_norm(h, layer.post_norm, a.rms_norm_eps, a.zero_centered_norm)
-            if hasattr(layer, "gate_up_proj"):
-                g, u = self._proj(x, layer.gate_up_proj, rms).chunk(2, dim=-1)
+            if layer.moe:
+                h = h + self._moe(layer, x).to(h.dtype)
             else:
-                g, u = self._proj(x, layer.gate_proj), self._proj(x, layer.up_proj)
-            m = act_with_mul(a.hidden_act, g.float(), u.float()).to(x.dtype)
-            h = h + self._proj(m, layer.down_proj)
+                h = h + self._dense_ffn(layer, x, rms)
 
         h = rms_norm(h, self.final_norm, a.rms_norm_eps, a.zero_centered_norm)
         if all_hidden:
             return h
         return h[mi.selected_idxes]
+
+    def _dense_ffn(self, layer: DecoderLayer, x: torch.Tensor, rms=None) -> torch.Tensor:
+        """The gated FFN (a dense layer's, or an MoE layer's shared expert)
+        in x's type; rms as in _proj."""
+        if hasattr(layer, "gate_up_proj"):
+            g, u = self._proj(x, layer.gate_up_proj, rms).chunk(2, dim=-1)
+        else:
+            g, u = self._proj(x, layer.gate_proj), self._proj(x, layer.up_proj)
+        m = act_with_mul(self.args.hidden_act, g.float(), u.float()).to(x.dtype)
+        return self._proj(m, layer.down_proj)
+
+    def _router(self, x: torch.Tensor, router_w: torch.Tensor):
+        """Routing weights and experts [T, k] (the reference moe_mlp's: f32
+        softmax, top-k, optional renormalisation)."""
+        a = self.args
+        return softmax_topk(x, router_w, a.n_experts_per_token, a.norm_topk_prob)
+
+    def _moe(self, layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
+        """The routed experts plus the gated shared expert, f32 [T, D]
+        (the shared expert's output rounded to x's type before its gate)."""
+        topk_w, topk_e = self._router(x, layer.router)
+        out = routed_experts(x, topk_w, topk_e, layer.experts_gate, layer.experts_up, layer.experts_down,
+                             self.args.hidden_act, gmm=self.gmm_impl, qexperts=self.qexperts_impl)
+        if hasattr(layer, "shared_gate"):
+            gate = torch.sigmoid(x.float() @ layer.shared_gate.float().T)  # [T, 1]
+            out = out + self._dense_ffn(layer, x).float() * gate
+        return out
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """[S, D] -> [S, V] float32 logits."""
@@ -366,7 +475,13 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
     arrays [L, N_pad/W, R, W] (or flat [L, R, N]): each is untiled, cut back
     to the projection's N, and qweight goes to the kernel layout. Scales keep
     their type (bf16 or f32), so their values carry over exactly; zeros are
-    dropped for a symmetric model, as its matmuls never read them."""
+    dropped for a symmetric model, as its matmuls never read them.
+
+    MoE layers: the router [D, E] and shared_gate [D, 1] are transposed, the
+    experts moe_{gate,up,down} [E, K, N] go to [E, N, K] (quantized:
+    qweight [E, K/2 or K, N] to [E, N, K/2 or K], scales as they are), the
+    shared expert rides the dense FFN's names at its own width; the qkv
+    biases carry over as they are."""
     import numpy as np
 
     def tensor(x) -> torch.Tensor:
@@ -377,7 +492,8 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
 
     quant = active_quant(args)
     symmetric = quant is not None and bool(quant.is_sym and not quant.zero_point)
-    D, F_, Dh = args.hidden_size, args.intermediate_size, args.head_dim
+    D, Dh = args.hidden_size, args.head_dim
+    F_ = args.moe_shared_intermediate if args.n_experts else args.intermediate_size
     q_n, kv_n = args.n_heads * Dh, args.n_kv_heads * Dh
     widths = {
         "qkv_proj": q_n + 2 * kv_n, "q_proj": q_n, "k_proj": kv_n, "v_proj": kv_n,
@@ -410,8 +526,20 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
         else:
             sd["lm_head"] = tensor(lm).T.contiguous()
     for l in range(args.n_layers):
-        for name in ("input_norm", "post_norm"):
-            sd[f"layers.{l}.{name}"] = tensor(np.asarray(layers[name])[l])
+        for name in ("input_norm", "post_norm", "qkv_bias", "q_bias", "k_bias", "v_bias"):
+            if name in layers:
+                sd[f"layers.{l}.{name}"] = tensor(np.asarray(layers[name])[l])
+        for name in ("router", "shared_gate"):
+            if name in layers:
+                sd[f"layers.{l}.{name}"] = tensor(np.asarray(layers[name])[l]).T.contiguous()
+        for part in ("gate", "up", "down"):
+            node = layers.get(f"moe_{part}")
+            if isinstance(node, dict):
+                sd[f"layers.{l}.experts_{part}.qweight"] = tensor(
+                    np.asarray(node["qweight"])[l]).transpose(1, 2).contiguous()
+                sd[f"layers.{l}.experts_{part}.scales"] = tensor(np.asarray(node["scales"])[l])
+            elif node is not None:
+                sd[f"layers.{l}.experts_{part}"] = tensor(np.asarray(node)[l]).transpose(1, 2).contiguous()
         for name, n in widths.items():
             if name not in layers:
                 continue

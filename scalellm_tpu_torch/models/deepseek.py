@@ -15,8 +15,9 @@ on cos/sin and mscale_all_dim^2 on the softmax scale).
 
 MoE layers (from first_k_dense_replace on): softmax routing, greedy or
 group-limited top-k, then routed_scaling_factor or (norm_topk_prob) a
-renormalisation; the routed experts through layers/moe.py's sorted dispatch
-and grouped GEMMs (K6, three launches a layer); the shared experts as one
+renormalisation; the routed experts through layers/moe.py's routed_experts
+(sorted dispatch and grouped GEMMs, K6, three launches a layer; the same
+function serves DecoderModel's MoE families); the shared experts as one
 plain gated FFN added without a gate.
 
 Weights are nn.Parameters in torch's [out, in] layout, per layer: the dense
@@ -71,13 +72,7 @@ import torch.nn.functional as F
 from scalellm_tpu_torch.config import ModelArgs, hf_dtype
 from scalellm_tpu_torch.engine.params import ModelInputs
 from scalellm_tpu_torch.layers.activations import act_with_mul
-from scalellm_tpu_torch.layers.moe import (
-    combine,
-    dispatch,
-    expert_ffn,
-    quant_expert_ffn,
-    single_token_layout,
-)
+from scalellm_tpu_torch.layers.moe import quant_expert_ffn, routed_experts, single_token_fits
 from scalellm_tpu_torch.layers.norms import rms_norm
 from scalellm_tpu_torch.layers.rope import apply_rope, cos_sin, inv_freq_buffer
 from scalellm_tpu_torch.models.common import (
@@ -90,7 +85,6 @@ from scalellm_tpu_torch.models.common import (
 from scalellm_tpu_torch.models.registry import ModelRegistry
 from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul
 from scalellm_tpu_torch.ops.mla_attention import mla_paged_attention, set_latent_cache
-from scalellm_tpu_torch.ops.moe_quant import takes_decode_kernel
 from scalellm_tpu_torch.ops.quant_matmul import DEFAULT_TILE_N, quant_matmul, untile_quant_layout
 
 
@@ -369,39 +363,21 @@ class MLADecoderModel(nn.Module):
         return topk_w, topk_e
 
     def _moe_ffn(self, layer: MLALayer, x: torch.Tensor) -> torch.Tensor:
-        """Routed experts (sorted dispatch, three grouped GEMMs; quantized:
-        the pair and down, or the T=1 layout) plus the shared experts; f32
-        [T, D]."""
-        a = self.args
-        E, k, T = a.n_experts, a.n_experts_per_token, x.shape[0]
+        """Routed experts (layers/moe.py:routed_experts) plus the shared
+        experts; f32 [T, D]."""
+        k = self.args.n_experts_per_token
         topk_w, topk_e = self._router(x, layer.router)
-        gate, up, down = layer.experts_gate, layer.experts_up, layer.experts_down
-        if not isinstance(gate, QuantExperts):
-            order, token_of, group_sizes = dispatch(topk_e, E)
-            y = expert_ffn(x[token_of], gate, up, down, group_sizes, "silu", self.gmm_impl)
-            out = combine(y, topk_w, order, token_of, T)
-        elif T == 1 and self._single_token_fits(layer, k):
-            Tp, sizes, starts, active, w_col = single_token_layout(topk_e, topk_w, E)
-            y = self.qexperts_impl(x.expand(Tp, -1).contiguous(), gate, up, down, sizes, "silu",
-                                   active=active, starts=starts, max_active=min(E, k))
-            out = (y * w_col[:, None]).sum(dim=0, keepdim=True)
-        else:
-            order, token_of, group_sizes = dispatch(topk_e, E)
-            y = self.qexperts_impl(x[token_of], gate, up, down, group_sizes, "silu",
-                                   max_active=min(E, T * k))
-            out = combine(y, topk_w, order, token_of, T)
+        out = routed_experts(x, topk_w, topk_e, layer.experts_gate, layer.experts_up, layer.experts_down,
+                             "silu", gmm=self.gmm_impl, qexperts=self.qexperts_impl,
+                             t1_fits=lambda: self._single_token_fits(layer, k))
         if hasattr(layer, "shared_experts"):
             out = out + self._dense_ffn(layer.shared_experts, x).float()
         return out
 
     @staticmethod
     def _single_token_fits(layer: MLALayer, k: int) -> bool:
-        """Whether both routed calls of the T=1 layout (k rows) take the
-        decode kernel, which that layout needs. Down's K is gate's N,
-        whatever the bits."""
-        gate, down = layer.experts_gate, layer.experts_down
-        return (takes_decode_kernel(k, layer.post_norm.shape[0], gate.qweight, gate.scales)
-                and takes_decode_kernel(k, gate.qweight.shape[1], down.qweight, down.scales))
+        """Whether the T=1 layout applies (layers/moe.py:single_token_fits)."""
+        return single_token_fits(k, layer.post_norm.shape[0], layer.experts_gate, layer.experts_down)
 
     def _dense_ffn(self, mod, x: torch.Tensor) -> torch.Tensor:
         g, u = self._proj(x, mod.gate_up_proj).chunk(2, dim=-1)

@@ -50,13 +50,17 @@ def load_llama_model_args(cfg: Dict[str, Any]) -> ModelArgs:
 
 # HF checkpoint name -> this model's state_dict name ({} is the layer index).
 # Checkpoint weights are already in torch's [out, in] layout. The loader
-# fuses q/k/v and gate/up (models/common.py FUSED_PROJECTIONS).
+# fuses q/k/v, their biases and gate/up (models/common.py FUSED_PROJECTIONS).
 LLAMA_WEIGHT_RULES: List[tuple] = [
     (r"model\.embed_tokens\.weight", "embed_tokens"),
     (r"model\.layers\.(\d+)\.self_attn\.q_proj\.weight", "layers.{}.q_proj"),
     (r"model\.layers\.(\d+)\.self_attn\.k_proj\.weight", "layers.{}.k_proj"),
     (r"model\.layers\.(\d+)\.self_attn\.v_proj\.weight", "layers.{}.v_proj"),
     (r"model\.layers\.(\d+)\.self_attn\.o_proj\.weight", "layers.{}.o_proj"),
+    # The qkv biases (attention_bias; qwen2), fused into qkv_bias.
+    (r"model\.layers\.(\d+)\.self_attn\.q_proj\.bias", "layers.{}.q_bias"),
+    (r"model\.layers\.(\d+)\.self_attn\.k_proj\.bias", "layers.{}.k_bias"),
+    (r"model\.layers\.(\d+)\.self_attn\.v_proj\.bias", "layers.{}.v_bias"),
     (r"model\.layers\.(\d+)\.mlp\.gate_proj\.weight", "layers.{}.gate_proj"),
     (r"model\.layers\.(\d+)\.mlp\.up_proj\.weight", "layers.{}.up_proj"),
     (r"model\.layers\.(\d+)\.mlp\.down_proj\.weight", "layers.{}.down_proj"),

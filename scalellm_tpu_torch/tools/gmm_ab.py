@@ -11,7 +11,8 @@ dequantization against the PyTorch form it replaced.
 headers into build/; its entry point takes the same arguments as the new
 one, its last int being the row tile (1 or 4 m16 tiles a block, chosen as
 its wrapper chose it: 4 from 32 rows per expert on average). Cases: every
-chip_smoke.py phase-3c shape (chip_smoke.gmm_cases). Each kernel's output is
+chip_smoke.py phase-3c shape at DeepSeek-V2-Lite's widths
+(chip_smoke.gmm_cases). Each kernel's output is
 held against the plain version within chip_smoke.GMM_TOL of its magnitude,
 then base and new are timed in turns (base, new, new, base) with
 chip_smoke.time_ms. Then, at DeepSeek-V2-Lite's gate/up and down (64
@@ -75,7 +76,9 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(CS.SEED + 2)
     flush = torch.empty(CS.FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for step, proj, xs, w, sizes in CS.gmm_cases(torch, gen):
+    for model, step, proj, xs, w, sizes in CS.gmm_cases(torch, gen):
+        if model != "v2_lite":  # the shapes the base kernel was timed at
+            continue
         want = G.plain_grouped_matmul(xs, w, sizes)
         top = want.abs().max().item()
         old = lambda: base_call(lib, xs, w, sizes)

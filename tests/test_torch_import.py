@@ -28,6 +28,8 @@ def test_import_loads_no_jax():
         "import scalellm_tpu_torch.layers.moe, scalellm_tpu_torch.models.deepseek\n"
         "import scalellm_tpu_torch.ops.moe_quant, scalellm_tpu_torch.models.common\n"
         "import scalellm_tpu_torch.ops.quant_mlp, scalellm_tpu_torch.ops._build\n"
+        "import scalellm_tpu_torch.models.mixtral, scalellm_tpu_torch.models.qwen2_moe\n"
+        "import scalellm_tpu_torch.models.qwen2, scalellm_tpu_torch.models.mistral\n"
         f"banned = {BANNED!r}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(json.dumps(bad))\n"
@@ -52,7 +54,11 @@ def test_sources_name_no_jax_import():
             "scalellm_tpu_torch/layers/moe.py",
             "scalellm_tpu_torch/models/deepseek.py",
             "scalellm_tpu_torch/ops/moe_quant.py",
-            "scalellm_tpu_torch/ops/quant_mlp.py"} <= names
+            "scalellm_tpu_torch/ops/quant_mlp.py",
+            "scalellm_tpu_torch/models/mixtral.py",
+            "scalellm_tpu_torch/models/qwen2_moe.py",
+            "scalellm_tpu_torch/models/qwen2.py",
+            "scalellm_tpu_torch/models/mistral.py"} <= names
     banned = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(BANNED) + r")\b", re.M)
     for path in sources:
         text = path.read_text()

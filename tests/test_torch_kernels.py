@@ -19,12 +19,14 @@ error below 0.1% of it.
 
 CUDA graphs: each main-path wrapper captured in a graph and replayed on new
 inputs gives the bits of an eager call; the executor with step graphs gives
-the eager tokens and logits bits (tiny random-weight Llama and DeepSeek-V2,
-bf16 and INT4). Multi-step decode: the N-step graph's replay gives the eager
-N-step loop's bits (tokens, logprobs, KV cache), greedy and sampling; the
+the eager tokens and logits bits (tiny random-weight Llama, DeepSeek-V2,
+Mixtral and Qwen2-MoE, bf16 and INT4). Multi-step decode: the N-step
+graph's replay gives the eager N-step loop's bits (tokens, logprobs, KV cache), greedy and sampling; the
 device sampler draws the same noise eagerly and in a replay; a fetch
 returns while a later step runs; async and N = 4 serves with graphs give
-the sync serve's tokens."""
+the sync serve's tokens. Mixtral and Qwen2-MoE: kernels against every
+plain version with the routing pinned. A closed engine gives its memory
+back to the card."""
 
 import numpy as np
 import pytest
@@ -129,6 +131,8 @@ SPLIT_CASES = {
     "past_kv_len": ([2048, 70, 1, 300], 4, 16, 32, 8, 128, None, None, 16),
     "group16_softcap": ([3000, 2500], 2, 16, 32, 2, 128, None, 30.0, 16),
     "mha_d64_window_softcap_page4": ([2100, 640], 2, 2, 8, 8, 64, 333, 20.0, 4),
+    # Qwen1.5-MoE-A2.7B's heads: 16 over 16 KV heads (group 1), head dim 128.
+    "qwen2_moe_mha_d128": ([4096, 600, 17, 1024], 4, 16, 16, 16, 128, None, None, 16),
 }
 
 
@@ -173,6 +177,7 @@ MIXED_CASES = {
     "group16_d64": ([33, 1], [40, 600], 2, 64, 32, 2, 64, None, None, 16),
     "group6_d128": ([25, 7, 1], [25, 107, 333], 4, 64, 24, 4, 128, None, None, 16),
     "mha_d128": ([130, 1], [200, 90], 2, 256, 4, 4, 128, None, None, 16),
+    "qwen2_moe_mha_d128": ([250, 200, 1, 1], [250, 300, 900, 17], 4, 512, 16, 16, 128, None, None, 16),
 }
 
 
@@ -379,6 +384,10 @@ GMM_CASES = {
     "decode_r96_e64_padded": (16, 8, 64, 6, 256, 136, 0),
     "prefill_wide_tile": (512, 0, 8, 2, 128, 256, 0),
     "uncovered_rows": (20, 0, 16, 2, 96, 64, 5),
+    # Mixtral-8x7B's gate/up (8 experts, top-2) and Qwen1.5-MoE-A2.7B's
+    # (60 experts, top-4) at the decode step: 32 and 64 rows.
+    "mixtral_decode_e8": (16, 8, 8, 2, 4096, 14336, 0),
+    "qwen2_moe_decode_e60": (16, 8, 60, 4, 2048, 1408, 0),
 }
 
 
@@ -650,6 +659,10 @@ MOE_QUANT_CASES = {
     "int8_k192": (16, 0, 16, 4, 192, 128, 8, 0),
     # Two rows in all: x's box of 8 rows reaches past R.
     "two_rows": (1, 0, 8, 2, 256, 64, 4, 128),
+    # Qwen1.5-MoE-A2.7B's INT4 decode step: 60 experts, top-4, 64 rows;
+    # down's 11 groups take the E x groups x N scale term of the gate.
+    "qwen2_moe_gate_up_int4": (16, 8, 60, 4, 2048, 1408, 4, 128),
+    "qwen2_moe_down_int4_11_groups": (16, 8, 60, 4, 1408, 2048, 4, 128),
 }
 
 
@@ -1467,6 +1480,22 @@ TINY_DEEPSEEK_CFG = dict(
     n_routed_experts=8, num_experts_per_tok=2, moe_intermediate_size=256, n_shared_experts=1,
     topk_method="greedy", rope_scaling=dict(type="yarn", factor=40, original_max_position_embeddings=4096,
                                             beta_fast=32, beta_slow=1, mscale=0.707, mscale_all_dim=0.707))
+# Mixtral (8 experts, top-2, GQA 4) and Qwen2-MoE (60 experts, top-4, MHA,
+# the qkv bias and the gated shared expert). Qwen2-MoE's expert width 384 is
+# 3 groups of 128 under INT4: no multiple of 8, as V2-Lite's and Qwen1.5's
+# 11 are not.
+TINY_MIXTRAL_CFG = dict(
+    model_type="mixtral", torch_dtype="bfloat16", hidden_size=512, intermediate_size=1024,
+    num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2, vocab_size=512,
+    max_position_embeddings=2048, rms_norm_eps=1e-5, rope_theta=1e6, hidden_act="silu",
+    num_local_experts=8, num_experts_per_tok=2)
+TINY_QWEN2_MOE_CFG = dict(
+    model_type="qwen2_moe", torch_dtype="bfloat16", hidden_size=512, intermediate_size=1024,
+    num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=8, vocab_size=512,
+    max_position_embeddings=2048, rms_norm_eps=1e-6, rope_theta=1e6, hidden_act="silu", num_experts=60,
+    num_experts_per_tok=4, moe_intermediate_size=384, shared_expert_intermediate_size=1024, norm_topk_prob=False)
+TINY_CFGS = {"llama": TINY_LLAMA_CFG, "deepseek": TINY_DEEPSEEK_CFG, "mixtral": TINY_MIXTRAL_CFG,
+             "qwen2_moe": TINY_QWEN2_MOE_CFG}
 
 
 def _random_model(device, cfg, quantize=""):
@@ -1501,13 +1530,13 @@ def _greedy_si(S):
         seeds=np.zeros(S, np.uint32))
 
 
-@pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4"])
+@pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4", "mixtral", "qwen2_moe_int4"])
 def test_executor_with_graphs_gives_the_eager_tokens_and_logits_bits(cuda, model_name):
     from chip_smoke import batch_inputs
     from scalellm_tpu_torch.engine.executor import Executor
 
-    cfg = TINY_LLAMA_CFG if model_name == "llama" else TINY_DEEPSEEK_CFG
-    model = _random_model(cuda, cfg, quantize="int4" if model_name == "deepseek_int4" else "")
+    name, _, quantize = model_name.partition("_int")
+    model = _random_model(cuda, TINY_CFGS[name], quantize="int4" if quantize else "")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 512, n).tolist() for n in (60, 37, 100)]  # 197 tokens: T = 256
     steps = [(batch_inputs(torch, [(p, 0, len(p) + 8) for p in prompts])[0], False)]
@@ -1553,13 +1582,14 @@ def _sampling_si(S, seed0):
     return si
 
 
-@pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4"])
+@pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4", "mixtral", "mixtral_int4",
+                                        "qwen2_moe", "qwen2_moe_int4"])
 def test_multi_step_graph_replay_gives_the_eager_loop_bits(cuda, model_name):
     from chip_smoke import batch_inputs
     from scalellm_tpu_torch.engine.executor import Executor
 
-    cfg = TINY_LLAMA_CFG if model_name == "llama" else TINY_DEEPSEEK_CFG
-    model = _random_model(cuda, cfg, quantize="int4" if model_name == "deepseek_int4" else "")
+    name, _, quantize = model_name.partition("_int")
+    model = _random_model(cuda, TINY_CFGS[name], quantize="int4" if quantize else "")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, 512, n).tolist() for n in (30, 17, 50)]  # 97 tokens: T = 128
     prefill = batch_inputs(torch, [(p, 0, len(p) + 24) for p in prompts])[0]
@@ -1673,3 +1703,76 @@ def test_async_serve_with_graphs_gives_the_sync_tokens(cuda, tmp_path):
         assert took[0] > 0 if name == "async" else True
         assert took[1] > 0 if name == "ms4" else took[1] == 0
     assert got["async"] == got["sync"] and got["ms4"] == got["sync"]
+
+
+# Mixtral and Qwen2-MoE on DecoderModel: a prefill batch and the decode step
+# after it through the kernels (K1, K6 or K2/K4 and K8/K7 and the expert
+# dequantization), then through every plain version with the kernel run's
+# routing replayed layer by layer (a near-tie in a random router could
+# otherwise pick another expert). Tolerance: chip_smoke.LOGITS_TOL.
+
+
+@pytest.mark.parametrize("model_name", ["mixtral", "mixtral_int4", "qwen2_moe", "qwen2_moe_int4"])
+def test_moe_families_kernels_match_plain_versions_with_routing_pinned(cuda, model_name):
+    import functools
+
+    from chip_smoke import LOGITS_TOL, batch_inputs
+    from scalellm_tpu_torch.layers.moe import quant_expert_ffn
+    from scalellm_tpu_torch.ops import grouped_matmul as G
+    from scalellm_tpu_torch.ops import moe_quant as MQ
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    name, _, quantize = model_name.partition("_int")
+    model = _random_model(cuda, TINY_CFGS[name], quantize="int4" if quantize else "")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (150, 61)]
+    prefill, n_pages = batch_inputs(torch, [(p, 0, len(p) + 1) for p in prompts])
+    decode, _ = batch_inputs(torch, [([7 + i], len(p), len(p) + 1) for i, p in enumerate(prompts)])
+    routes, real_router = [], model._router
+    counters = (attention.ragged_paged_attention_cuda, G.grouped_matmul_cuda, MQ.grouped_quant_matmul_cuda,
+                MQ.grouped_quant_matmul_pair_cuda)
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "plain"):
+            plain = impl == "plain"
+            before = [c.launches for c in counters]
+            model.attn_impl = attention.plain_ragged_paged_attention if plain else attention.ragged_paged_attention
+            model.gmm_impl = G.plain_grouped_matmul if plain else G.grouped_matmul
+            model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
+            model.qexperts_impl = functools.partial(quant_expert_ffn, variant="plain") if plain else quant_expert_ffn
+            model._router = ((lambda x, w: routes.pop(0)) if plain
+                             else lambda x, w: routes.append(real_router(x, w)) or routes[-1])
+            kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=cuda)
+            a = model.logits(model(kv, prefill.to(cuda), all_hidden=True)[: sum(map(len, prompts))])
+            b = model.logits(model(kv, decode.to(cuda), decode_only=True)[: len(prompts)])
+            logits[impl] = (a, b)
+            launched = [c.launches - n for c, n in zip(counters, before)]
+            if plain:
+                assert launched == [0] * len(counters)
+            else:  # K1 every layer of both steps; the experts through K6, or K8 + K7 at decode
+                assert launched[0] == 2 * model.args.n_layers and sum(launched[1:]) > 0
+    assert not routes
+    for got, want in zip(logits["kernel"], logits["plain"]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= LOGITS_TOL
+
+
+def test_a_closed_engine_gives_its_memory_back(cuda, tmp_path):
+    """Two engines in a row in one process, each sizing its KV cache from
+    the card's free memory: the second gets as many blocks as the first,
+    and after each close the caching allocator keeps no more than
+    chip_smoke.CLOSED_SLACK_BYTES of freed memory (LLM.close empties it)."""
+    import chip_smoke
+    from scalellm_tpu_torch import LLM, SamplingParams
+
+    cfg = dict(TINY_LLAMA_CFG, vocab_size=256, architectures=["LlamaForCausalLM"], tie_word_embeddings=False,
+               bos_token_id=1, eos_token_id=2)
+    chip_smoke.write_checkpoint(torch, str(tmp_path), cfg)
+    blocks = []
+    for _ in range(2):
+        llm = LLM(str(tmp_path), devices="cuda", num_handling_threads=1)
+        blocks.append(llm._handler.engine.block_manager.options.num_blocks)
+        llm.generate(["the quick brown fox"], SamplingParams(max_tokens=4, temperature=0.0))
+        llm.close()
+        assert torch.cuda.memory_reserved() - torch.cuda.memory_allocated() <= chip_smoke.CLOSED_SLACK_BYTES
+    assert blocks[1] >= 0.99 * blocks[0], blocks

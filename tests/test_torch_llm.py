@@ -55,3 +55,25 @@ def test_unported_options_raise(tiny_model):
     LLM(tiny_model, devices="cpu", enable_async_scheduling=True, num_decode_steps=4).close()
     with pytest.raises(NotImplementedError):
         LLM(tiny_model, devices="cpu", num_speculative_tokens=2)
+
+
+def test_close_frees_the_engine_then_empties_the_device_cache(tiny_model, monkeypatch):
+    """LLM.close drops the engine and then hands the caching allocator's
+    free blocks back to the device: left cached, the next engine's first
+    allocations land in the closed one's KV block, which then cannot be
+    returned, and that engine sizes its own KV cache from the little the
+    device reports free (seen on the card with several engines in one
+    process). On the CPU the CUDA calls are stubbed."""
+    import weakref
+
+    import torch
+
+    from scalellm_tpu_torch import LLM
+
+    llm = LLM(tiny_model, devices="cpu")
+    engine = weakref.ref(llm._handler.engine)
+    alive_at_empty = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: alive_at_empty.append(engine() is not None))
+    llm.close()
+    assert alive_at_empty == [False]
