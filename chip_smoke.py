@@ -18,9 +18,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
         paths: decode batches, whose every sequence takes the split-KV
         blocks ((a) and (c), 8 decodes; (f) one sequence of 8192 tokens;
         (g) 64 decodes of 128-2048 tokens; (h) 8 decodes at Qwen2-MoE's
-        heads, GQA group 1, head dim 128), and the mixed T = 512 batches
-        (b), (d), (e), (i) (Qwen2-MoE's heads), whose chunks take the
-        q-tiled tensor-core blocks and
+        heads, GQA group 1, head dim 128; at head dim 256, (j) 8 decodes
+        at Gemma-2-9B's heads (16 over 8, soft cap 50), (l) 8 at
+        Gemma-2B's (8 over 1) and (m) one of 8192 tokens), and the mixed
+        T = 512 batches (b), (d), (e), (i) (Qwen2-MoE's heads), (k)
+        (Gemma-2-9B's heads, window 128, soft cap 50), whose chunks take
+        the q-tiled tensor-core blocks and
         whose decodes the split blocks (yardstick:
         scaled_dot_product_attention on gathered K/V). Each is held against
         the plain version within KERNEL_TOL and, row by row, within
@@ -167,10 +170,20 @@ Phases (any failure exits non-zero, and the result line is not printed):
      experts of 1408, top-4, a shared expert of 5632 with its sigmoid gate,
      the qkv bias, MHA: K1 at GQA group 1; 28.6 GB bf16); INT4 decode steps
      take K8 and K7.
+  10. the same for Gemma-2-9B at its published widths and depth (head dim
+     256: K1 at D = 256, GQA group 2, soft cap 50 on every layer, a
+     4096-token window on the even layers; the post-block norms, tied
+     embeddings, 18.5 GB bf16; --gemma2-layers, even, cuts the depth),
+     bf16 then runtime INT4 (every projection int4 at G = 128, the lm_head
+     the tied bf16 embedding): every step K1 once a layer and, under INT4,
+     each layer's four projections through K2 or K4 as plan() picks them.
+  11. the same for Qwen3-8B at its published widths and depth (qk norm,
+     head dim 128, GQA group 4, 16.4 GB bf16; --qwen3-layers cuts it).
   Every LLM.close() is followed by a line of the memory left on the card
   (`{tag}_closed`), and fails if the caching allocator kept more than
   CLOSED_SLACK_BYTES of the closed engine's freed blocks.
-  10. a `kernels` JSON line, then the result line.
+  12. a line of the seconds each phase took, a `kernels` JSON line, then
+     the result line.
 
 It needs the repository (it fails in a directory that holds only this
 script) and a CUDA device (it fails where torch.cuda.is_available() is
@@ -454,6 +467,19 @@ ATTENTION_SHAPES = {
                               cap=None),
     "i_mixed_mha_d128": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
                              S=8, T=512, H=16, Hkv=16, D=128, window=None, cap=None),
+    # Head dim 256 (phase 10: Gemma-2-9B's heads, 16 over 8, its attention
+    # soft cap 50 on every layer; Gemma-2B's 8 over 1): its decode step,
+    # its mixed step with the sliding window of its even layers (the only
+    # place the window bites: the served contexts stay below 4096), the
+    # MQA decode and one 8192-token decode.
+    "j_decode_d256_gqa2": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=16, Hkv=8, D=256, window=None,
+                               cap=50.0),
+    "k_mixed_d256_window_softcap": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1],
+                                        kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                                        S=8, T=512, H=16, Hkv=8, D=256, window=128, cap=50.0),
+    "l_decode_mqa_d256": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=8, Hkv=1, D=256, window=None,
+                              cap=None),
+    "m_long_d256": dict(q_lens=[1], kv_lens=[8192], S=1, T=16, H=16, Hkv=8, D=256, window=None, cap=None),
 }
 
 
@@ -500,7 +526,7 @@ def phase_kernels(torch, card):
         ms = time_ms(torch, lambda: kernel(**inputs, **kw), flush)
         plain_ms = time_ms(torch, lambda: plain(**inputs, **kw), flush)
         library_ms = None
-        if spec["cap"] is None:  # SDPA has no soft cap: no library call computes (d)
+        if spec["cap"] is None:  # SDPA has no soft cap: no library call computes (d), (j), (k)
             qs, ks, vs, mask = sdpa_inputs(torch, spec, inputs)
             library_ms = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=kw["sm_scale"]),
@@ -750,6 +776,25 @@ QWEN15_MOE_A27B = dict(
     rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False, bos_token_id=151643,
     eos_token_id=151643, num_experts=60, num_experts_per_tok=4, moe_intermediate_size=1408,
     shared_expert_intermediate_size=5632, norm_topk_prob=False, decoder_sparse_step=1, mlp_only_layers=[],
+)
+# google/gemma-2-9b config.json (its torch_dtype float32 served as bf16;
+# benchmarks/presets.py's gemma2-9b-int8 carries query_pre_attn_scalar 224
+# and vocab 256128 where the published config has 256 and 256000).
+GEMMA2_9B = dict(
+    model_type="gemma2", architectures=["Gemma2ForCausalLM"], torch_dtype="bfloat16",
+    hidden_size=3584, intermediate_size=14336, num_hidden_layers=42, num_attention_heads=16,
+    num_key_value_heads=8, head_dim=256, vocab_size=256000, max_position_embeddings=8192, rms_norm_eps=1e-6,
+    rope_theta=10000.0, hidden_act="gelu_pytorch_tanh", hidden_activation="gelu_pytorch_tanh",
+    query_pre_attn_scalar=256, sliding_window=4096, attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+    tie_word_embeddings=True, bos_token_id=2, eos_token_id=1,
+)
+# Qwen/Qwen3-8B config.json.
+QWEN3_8B = dict(
+    model_type="qwen3", architectures=["Qwen3ForCausalLM"], torch_dtype="bfloat16",
+    hidden_size=4096, intermediate_size=12288, num_hidden_layers=36, num_attention_heads=32,
+    num_key_value_heads=8, head_dim=128, vocab_size=151936, max_position_embeddings=40960, rms_norm_eps=1e-6,
+    rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False, attention_bias=False,
+    use_sliding_window=False, bos_token_id=151643, eos_token_id=151645,
 )
 # The routed experts of each MoE model the phases serve: (hidden, expert
 # width, experts, top-k).
@@ -1435,15 +1480,54 @@ def checkpoint_tensors(cfg):
     return out
 
 
-def write_checkpoint(torch, path, cfg, tensors=None):
-    """config.json, tokenizer.json and model.safetensors (bf16, weights
-    N(0, 0.02) from a seeded generator, norms 1) of the (HF name, shape, is
-    norm) list `tensors`, by default a Llama checkpoint's."""
+def flat_init(cfg):
+    """Phases 4-9's random weights: every weight N(0, 0.02), every norm of
+    weight 1 (stored as 0 where the model's norms are zero-centred)."""
+    norm = 0.0 if cfg["model_type"].startswith("gemma") else 1.0
+    return lambda name, shape, is_norm: norm if is_norm else 0.02
+
+
+def scaled_init(cfg):
+    """Phases 10 and 11's random weights, drawn by fan-in as variance
+    scaling does (PaLM): a weight [out, in] N(0, 1 / sqrt(in)); an untied
+    embedding N(0, 1), a tied one N(0, 1 / sqrt(hidden)) (its fan-in as the
+    lm_head; Gemma scales it by sqrt(hidden) on input); and each residual
+    branch's last op scaled by 1 / sqrt(2 * layers) (GPT-2): o_proj and
+    down_proj, or the post-block norms where the model has them. Norms have
+    weight 1 otherwise, stored as 0 where they are zero-centred (Gemma).
+    With phases 4-9's N(0, 0.02), the layers of these 36- and 42-layer
+    models swamp their embeddings, and rounding alone moves their logits
+    past LOGITS_TOL between any two implementations (PERF.md §6;
+    tools/logits_drift.py)."""
+    L, D = cfg["num_hidden_layers"], cfg["hidden_size"]
+    branch = (2 * L) ** -0.5
+    zero_centred = cfg["model_type"].startswith("gemma")
+    post_norms = ("post_attention_layernorm", "post_feedforward_layernorm") if cfg["model_type"] == "gemma2" else ()
+
+    def init(name, shape, is_norm):
+        if is_norm:
+            w = branch if any(n in name for n in post_norms) else 1.0
+            return w - 1.0 if zero_centred else w
+        if "embed_tokens" in name:
+            return D ** -0.5 if cfg["tie_word_embeddings"] else 1.0
+        std = shape[-1] ** -0.5
+        return std * branch if not post_norms and ("o_proj" in name or "down_proj" in name) else std
+
+    return init
+
+
+def write_checkpoint(torch, path, cfg, tensors=None, init=None):
+    """config.json, tokenizer.json and model.safetensors (bf16, from a
+    seeded generator) of the (HF name, shape, is norm) list `tensors`, by
+    default a Llama checkpoint's: a norm filled with init(name, shape,
+    True), any other tensor N(0, init(name, shape, False)); `init` by
+    default flat_init(cfg)."""
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg, f)
     with open(os.path.join(path, "tokenizer.json"), "w") as f:
         json.dump(char_tokenizer_json(), f)
     tensors = tensors or checkpoint_tensors(cfg)
+    init = init or flat_init(cfg)
     header, offset = {}, 0
     for name, shape, _ in tensors:
         n = 2
@@ -1458,11 +1542,12 @@ def write_checkpoint(torch, path, cfg, tensors=None):
     with open(os.path.join(path, "model.safetensors"), "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for _, shape, is_norm in tensors:
+        for name, shape, is_norm in tensors:
+            value = init(name, shape, is_norm)
             if is_norm:
-                t = torch.ones(shape, dtype=torch.bfloat16)
+                t = torch.full(shape, value, dtype=torch.bfloat16)
             else:
-                t = (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16).cpu()
+                t = (torch.randn(shape, generator=gen, device=DEVICE) * value).to(torch.bfloat16).cpu()
             f.write(memoryview(t.view(torch.uint8).numpy().reshape(-1)))
     return offset
 
@@ -1558,11 +1643,15 @@ def device_breakdown(prof, wall_s, steps):
 
     per_name = {}
     spans = []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-            spans.append((e.time_range.start, e.time_range.end, e.name))
+    # The profiler's raw events: prof.events() first builds a tree of
+    # FunctionEvents over every CPU op, which takes tens of seconds for a
+    # serve of a 36- or 42-layer model (100k kernels and as many ops).
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            ms, n = per_name.get(name, (0.0, 0))
+            per_name[name] = (ms + e.duration_ns() / 1e6, n + 1)
+            spans.append((e.start_ns() / 1e3, e.end_ns() / 1e3, name))
     groups = dict(attention_ms=0.0, quant_matmul_ms=0.0, grouped_matmul_ms=0.0, moe_quant_ms=0.0,
                   expert_dequant_ms=0.0, matmul_ms=0.0, other_ms=0.0)
     for name, (ms, _) in per_name.items():
@@ -2456,8 +2545,8 @@ def deepseek_checkpoint_tensors(cfg):
     return out
 
 
-def write_temp_checkpoint(torch, name, cfg, tensors, flag=None):
-    """A checkpoint of `tensors` (write_checkpoint) written once to a new
+def write_temp_checkpoint(torch, name, cfg, tensors, flag=None, init=None):
+    """A checkpoint of `tensors` (write_checkpoint, `init`) written once to a new
     temp dir for the phases that serve it: (dir, bytes, seconds to write).
     Fails before writing where the disk lacks room, naming `flag` where
     one cuts the depth."""
@@ -2469,7 +2558,7 @@ def write_temp_checkpoint(torch, name, cfg, tensors, flag=None):
         fail(f"{name}: the {need / 1e9:.1f} GB checkpoint does not fit the {free / 1e9:.1f} GB free "
              f"under {tmp}" + (f"; {flag} cuts the depth" if flag else ""))
     t0 = time.monotonic()
-    nbytes = write_checkpoint(torch, tmp, cfg, tensors)
+    nbytes = write_checkpoint(torch, tmp, cfg, tensors, init)
     return tmp, nbytes, time.monotonic() - t0
 
 
@@ -2535,6 +2624,55 @@ def qwen2_moe_checkpoint_tensors(cfg):
     return out
 
 
+def gemma2_checkpoint_tensors(cfg):
+    """(HF name, shape, is norm) of every tensor of a Gemma2 checkpoint:
+    attention at its explicit head dim, the gated MLP, the four norms of a
+    layer (input, post-attention, pre- and post-feedforward), tied
+    embeddings (no lm_head)."""
+    D, F_, V, Dh = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"], cfg["head_dim"]
+    Hq, Hkv = cfg["num_attention_heads"] * Dh, cfg["num_key_value_heads"] * Dh
+    out = [("model.embed_tokens.weight", (V, D), False)]
+    for l in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{l}."
+        out += [(p + name + ".weight", (D,), True) for name in (
+            "input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm", "post_feedforward_layernorm")]
+        out += [
+            (p + "self_attn.q_proj.weight", (Hq, D), False),
+            (p + "self_attn.k_proj.weight", (Hkv, D), False),
+            (p + "self_attn.v_proj.weight", (Hkv, D), False),
+            (p + "self_attn.o_proj.weight", (D, Hq), False),
+            (p + "mlp.gate_proj.weight", (F_, D), False),
+            (p + "mlp.up_proj.weight", (F_, D), False),
+            (p + "mlp.down_proj.weight", (D, F_), False),
+        ]
+    return out + [("model.norm.weight", (D,), True)]
+
+
+def qwen3_checkpoint_tensors(cfg):
+    """(HF name, shape, is norm) of every tensor of a Qwen3 checkpoint: a
+    Llama checkpoint at the explicit head dim with the q and k norms of
+    each layer ([head_dim])."""
+    D, F_, V, Dh = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"], cfg["head_dim"]
+    Hq, Hkv = cfg["num_attention_heads"] * Dh, cfg["num_key_value_heads"] * Dh
+    out = [("model.embed_tokens.weight", (V, D), False)]
+    for l in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{l}."
+        out += [
+            (p + "input_layernorm.weight", (D,), True),
+            (p + "post_attention_layernorm.weight", (D,), True),
+            (p + "self_attn.q_proj.weight", (Hq, D), False),
+            (p + "self_attn.k_proj.weight", (Hkv, D), False),
+            (p + "self_attn.v_proj.weight", (Hkv, D), False),
+            (p + "self_attn.q_norm.weight", (Dh,), True),
+            (p + "self_attn.k_norm.weight", (Dh,), True),
+            (p + "self_attn.o_proj.weight", (D, Hq), False),
+            (p + "mlp.gate_proj.weight", (F_, D), False),
+            (p + "mlp.up_proj.weight", (F_, D), False),
+            (p + "mlp.down_proj.weight", (D, F_), False),
+        ]
+    return out + [("model.norm.weight", (D,), True), ("lm_head.weight", (V, D), False)]
+
+
 def moe_counters():
     """The kernel wrappers an MoE model's step may launch (DeepSeek-V2,
     Mixtral, Qwen2-MoE), by name."""
@@ -2597,13 +2735,15 @@ def moe_step_launches(model, T, S, decode_only):
 
 def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpoint_bytes, quantize="",
                          serves=SERVES):
-    """Serve the MoE checkpoint at `path` with LLM(path, quantize=quantize):
+    """Serve the checkpoint at `path` with LLM(path, quantize=quantize):
     phase 6 (DeepSeek-V2-Lite, name "deepseek") in bf16 and phase 7 with
     runtime-INT4 experts and projections, each serving SERVES; phases 8
-    (Mixtral-8x7B) and 9 (Qwen1.5-MoE-A2.7B) the same, serving "async" with
-    graphs and then "eager", each request of the async serve held to the
-    eager one's ids. Each load must find the checkpoint's bytes free on the
-    card. Returns the launches of the serves with graphs."""
+    (Mixtral-8x7B), 9 (Qwen1.5-MoE-A2.7B) and the dense phases 10
+    (Gemma-2-9B) and 11 (Qwen3-8B) the same, serving "async" with graphs
+    and then "eager", each request of the async serve held to the eager
+    one's ids (a dense model's routing replay below replays nothing). Each
+    load must find the checkpoint's bytes free on the card. Returns the
+    launches of the serves with graphs."""
     from scalellm_tpu_torch.layers.moe import quant_expert_ffn
     from scalellm_tpu_torch.models.common import QuantExperts
     from scalellm_tpu_torch.ops import attention
@@ -2760,7 +2900,14 @@ def main() -> None:
                         help="depth of the DeepSeek-V2-Lite runs, bf16 and INT4 (of 27; their widths are never cut)")
     parser.add_argument("--mixtral-layers", type=int, default=MIXTRAL_LAYERS,
                         help="depth of the Mixtral-8x7B runs, bf16 and INT4 (of 32; their widths are never cut)")
+    parser.add_argument("--gemma2-layers", type=int, default=GEMMA2_9B["num_hidden_layers"],
+                        help="depth of the Gemma-2-9B runs, bf16 and INT4 (of 42; even, so that sliding and "
+                             "global layers both run; the widths are never cut)")
+    parser.add_argument("--qwen3-layers", type=int, default=QWEN3_8B["num_hidden_layers"],
+                        help="depth of the Qwen3-8B runs, bf16 and INT4 (of 36; the widths are never cut)")
     opts = parser.parse_args()
+    if opts.gemma2_layers % 2:
+        parser.error("--gemma2-layers must be even: Gemma2 alternates sliding and global layers")
 
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -2770,29 +2917,42 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        phase_seconds[name] = time.monotonic() - t0
+        return out
+
     card = phase_device(torch)
-    phase_build()
-    attention_results = phase_kernels(torch, card)
-    quant_results = phase_quant_kernels(torch, card)
-    gmm_results, mla_results = phase_moe_mla_kernels(torch, card)
-    dequant_results = phase_expert_dequant(torch, card)
-    moe_quant_results = phase_moe_quant_kernels(torch, card)
-    small_m_results, mlp_launches = phase_small_m_kernels(torch, card)
+    timed("build", phase_build)
+    attention_results = timed("3a", phase_kernels, torch, card)
+    quant_results = timed("3b", phase_quant_kernels, torch, card)
+    gmm_results, mla_results = timed("3c", phase_moe_mla_kernels, torch, card)
+    dequant_results = timed("3c_dequant", phase_expert_dequant, torch, card)
+    moe_quant_results = timed("3d", phase_moe_quant_kernels, torch, card)
+    small_m_results, mlp_launches = timed("3e", phase_small_m_kernels, torch, card)
     count_captured_launches()
-    bf16_launches = phase_end_to_end(torch, card)
-    int4_launches = phase_end_to_end_int4(torch, card, opts.int4_layers)
-    # Phases 6-9: each MoE checkpoint written once, served in bf16 and
-    # then with runtime INT4, and removed.
+    bf16_launches = timed("4", phase_end_to_end, torch, card)
+    int4_launches = timed("5", phase_end_to_end_int4, torch, card, opts.int4_layers)
+    # Phases 6-11: each checkpoint written once, served in bf16 and then
+    # with runtime INT4, and removed.
     moe_launches = {}
-    for name, base, tensors_of, flag, layers, serves in (
-            ("deepseek", DEEPSEEK_V2_LITE, deepseek_checkpoint_tensors, "--deepseek-layers", opts.deepseek_layers,
-             SERVES),
-            ("mixtral", MIXTRAL_8X7B, mixtral_checkpoint_tensors, "--mixtral-layers", opts.mixtral_layers,
+    for phase, name, base, tensors_of, flag, layers, serves in (
+            ("6-7", "deepseek", DEEPSEEK_V2_LITE, deepseek_checkpoint_tensors, "--deepseek-layers",
+             opts.deepseek_layers, SERVES),
+            ("8", "mixtral", MIXTRAL_8X7B, mixtral_checkpoint_tensors, "--mixtral-layers", opts.mixtral_layers,
              MOE_SERVES),
-            ("qwen2_moe", QWEN15_MOE_A27B, qwen2_moe_checkpoint_tensors, None,
-             QWEN15_MOE_A27B["num_hidden_layers"], MOE_SERVES)):
+            ("9", "qwen2_moe", QWEN15_MOE_A27B, qwen2_moe_checkpoint_tensors, None,
+             QWEN15_MOE_A27B["num_hidden_layers"], MOE_SERVES),
+            ("10", "gemma2", GEMMA2_9B, gemma2_checkpoint_tensors, "--gemma2-layers", opts.gemma2_layers,
+             MOE_SERVES),
+            ("11", "qwen3", QWEN3_8B, qwen3_checkpoint_tensors, "--qwen3-layers", opts.qwen3_layers, MOE_SERVES)):
+        t0 = time.monotonic()
         cfg = dict(base, num_hidden_layers=layers)
-        path, nbytes, t_write = write_temp_checkpoint(torch, name, cfg, tensors_of(cfg), flag)
+        path, nbytes, t_write = write_temp_checkpoint(torch, name, cfg, tensors_of(cfg), flag,
+                                                      scaled_init(cfg) if phase in ("10", "11") else None)
         try:
             emit(dict(phase=f"{name}_checkpoint", layers=layers, checkpoint_bytes=nbytes, write_s=t_write))
             for quantize in ("", "int4"):
@@ -2800,13 +2960,19 @@ def main() -> None:
                     torch, card, name, path, layers, base["num_hidden_layers"], nbytes, quantize, serves)
         finally:
             shutil.rmtree(path, ignore_errors=True)
-    new_launches = [moe_launches[(name, q)] for name in ("mixtral", "qwen2_moe") for q in ("", "int4")]
-    new_k1 = sum(run.get("ragged_paged_attention_cuda", 0) for run in new_launches)
-    for wrapper in ("ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda",
-                    "grouped_matmul_cuda", "expert_dequant_cuda", "grouped_quant_matmul_cuda",
-                    "grouped_quant_matmul_pair_cuda"):
-        if not sum(run.get(wrapper, 0) for run in new_launches) > 0:
-            fail(f"phases 8 and 9 never launched {wrapper}")
+        phase_seconds[phase] = time.monotonic() - t0
+    for phases, names, wrappers in (
+            ("8 and 9", ("mixtral", "qwen2_moe"), (
+                "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda",
+                "grouped_matmul_cuda", "expert_dequant_cuda", "grouped_quant_matmul_cuda",
+                "grouped_quant_matmul_pair_cuda")),
+            ("10 and 11", ("gemma2", "qwen3"), (
+                "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda"))):
+        runs = [moe_launches[(name, q)] for name in names for q in ("", "int4")]
+        for wrapper in wrappers:
+            if not sum(run.get(wrapper, 0) for run in runs) > 0:
+                fail(f"phases {phases} never launched {wrapper}")
+    new_k1 = sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values())
 
     # Each kernel's launches on the main paths (the sync, async and ms4
     # serves with graphs: counts set to 0 before each timed generate and
@@ -2877,7 +3043,7 @@ def main() -> None:
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"the main paths never launched {k['name']}")
-    emit(dict(phase="elapsed", seconds=time.monotonic() - t_start))
+    emit(dict(phase="elapsed", seconds=time.monotonic() - t_start, by_phase=phase_seconds))
     emit({"kernels": kernels})
     print(card["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,7 @@
 //     when its split lies past kv_len or before the window;
 //   - tile blocks (tile, KV head) take BQ = 64 / group query tokens of one
 //     sequence of 2 or more tokens: BQ x group = up to 64 q rows, 16 a
-//     warp. The device maps a tile to its sequence (a scan of the
+//     warp (32 rows at D = 256, below). The device maps a tile to its sequence (a scan of the
 //     per-sequence tile counts from cu_q_lens); the grid is sized from T
 //     and S. The tile's KV range (the union of its tokens' ranges) is
 //     walked once, shared by every row, with per-row causal and window
@@ -65,9 +65,22 @@
 //     rows without KV; leaves tile rows alone. It is launched as the
 //     attention grid's programmatic dependent, so its launch and slot
 //     lookup overlap that grid.
+//   - head dim 256 (Gemma, Gemma2): a warp's q A fragments would take 64
+//     registers a thread beside the 128 of its accumulator and the 32 of
+//     its scores, past the 255 a thread has, so at D = 256 each warp stages
+//     its 16 q rows in shared memory behind the ring (swizzled as a stage
+//     is) and loads a k16 step's fragment with one ldmatrix where it needs
+//     it (QOperand). That is enough for the split blocks (16 columns of
+//     scores a warp). A tile block still spilled, so there two pairs of
+//     warps take the same 32 q rows (BQ = 32 / group tokens), each warp of
+//     a pair computing the whole scores but the PV product of its half of
+//     D (an accumulator of 64 registers). The ring keeps its 3 stages of 64
+//     rows (192 KB; with q, 224 KB of the 227 KB a block may take), so a
+//     D = 256 block has an SM to itself; its 2 stages in flight (128 KB)
+//     are more than an SM needs to keep its share of the memory busy.
 // No float atomics: the same inputs give the same bits on every call.
-// Int8 pages with k/v scales, ALiBi and head dims other than 64 and 128 are
-// not covered; the Python wrapper refuses them.
+// Int8 pages with k/v scales, ALiBi and head dims other than 64, 128 and
+// 256 are not covered; the Python wrapper refuses them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,7 +93,6 @@ constexpr int kThreads = 128;                 // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kStage = 64;                    // KV rows per ring stage
 constexpr int kStages = 3;                    // ring depth
-constexpr int kTileRows = 16 * kWarps;        // q rows of a tile block
 constexpr int kMaxGroup = 16;                 // query heads per KV head
 constexpr int kRedPad = 4;                    // floats after each row of the warp merge
 constexpr float kLog2e = 1.4426950408889634f;
@@ -97,7 +109,7 @@ struct Params {
   float2* ml_part;                // [S, splits, H]: (m in base 2, l)
   int T, S, maxp, page_size, page_shift, n_heads, n_kv_heads, group;  // page_shift: log2, or -1
   int splits, split_len;          // split blocks: pieces of a slot's KV range
-  int tile_tokens, tile_blocks;   // tile blocks: tokens a tile, grid share
+  int tile_tokens, tile_blocks;   // tile blocks: tokens a tile, grid share (set by launch<D>)
   int window;
   float sm_scale, soft_cap;
   float scale_log2;               // sm_scale * log2(e): scores in base 2 without a soft cap
@@ -210,17 +222,64 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], const __nv_bfl
   }
 }
 
-// Online-softmax state of one warp's 16 rows; this lane holds rows g
-// (index 0) and g + 8 (index 1). l is the lane's share of the row sum until
-// row_sums() adds the row's 4 lanes.
+// q's A fragments at D = 256 stay in shared memory (see the design notes).
 template <int D>
+__host__ __device__ constexpr bool q_in_smem() {
+  return D > 128;
+}
+
+// The q rows of one warp as the mma A operand: registers up to D = 128,
+// this warp's [16, D] swizzled rows in shared memory at D = 256.
+template <int D>
+struct QOperand {
+  uint32_t reg[q_in_smem<D>() ? 1 : D / 16][4];
+  const __nv_bfloat16* rows;  // q_in_smem: the warp's rows in shared memory
+
+  // Rows g (row_lo) and g + 8 (row_hi) of this warp (null: a padding row,
+  // zeros); `smem` is the warp's [16, D] of shared memory (q_in_smem only).
+  __device__ __forceinline__ void load(const __nv_bfloat16* row_lo, const __nv_bfloat16* row_hi,
+                                       __nv_bfloat16* smem) {
+    if constexpr (q_in_smem<D>()) {
+      const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {  // the row's 16-byte chunks t, t + 4, ...
+        const int ch = t + 4 * i;
+        *reinterpret_cast<uint4*>(smem + swz<D>(g, ch)) =
+            row_lo ? *reinterpret_cast<const uint4*>(row_lo + ch * 8) : zero;
+        *reinterpret_cast<uint4*>(smem + swz<D>(g + 8, ch)) =
+            row_hi ? *reinterpret_cast<const uint4*>(row_hi + ch * 8) : zero;
+      }
+      __syncwarp();
+      rows = smem;
+    } else {
+      load_q<D>(reg, row_lo, row_hi);
+    }
+  }
+
+  // The A fragment of k16 step kk.
+  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
+    if constexpr (q_in_smem<D>()) {
+      const int lane = threadIdx.x & 31;
+      ldmatrix_x4(a, rows + swz<D>(lane & 15, 2 * kk + (lane >> 4)));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = reg[kk][i];
+    }
+  }
+};
+
+// Online-softmax state of one warp's 16 rows over DV output columns; this
+// lane holds rows g (index 0) and g + 8 (index 1). l is the lane's share of
+// the row sum until row_sums() adds the row's 4 lanes.
+template <int DV>
 struct WarpAcc {
-  float o[D / 8][4];
+  float o[DV / 8][4];
   float m[2], l[2];
 
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    for (int n = 0; n < DV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
   }
@@ -234,13 +293,13 @@ struct WarpAcc {
 };
 
 // One warp over NC KV columns [col0, col0 + NC) of a staged tile whose row
-// 0 is KV position `base`: S = q K^T, masks, online softmax, O += P V. A
-// column at position pos is visible to row r (0: g, 1: g + 8) when
-// lo[r] <= pos < hi[r].
-template <int D, int NC>
-__device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const uint32_t (&qa)[D / 16][4],
-                                             WarpAcc<D>& acc, const Params& p, int col0, int base,
-                                             const int (&lo)[2], const int (&hi)[2]) {
+// 0 is KV position `base`: S = q K^T, masks, online softmax, O += P V for
+// the DV output columns [dv0, dv0 + DV). A column at position pos is
+// visible to row r (0: g, 1: g + 8) when lo[r] <= pos < hi[r].
+template <int D, int NC, int DV>
+__device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const QOperand<D>& q,
+                                             WarpAcc<DV>& acc, const Params& p, int col0, int base,
+                                             const int (&lo)[2], const int (&hi)[2], int dv0) {
   static_assert(NC % 16 == 0, "columns in k16 steps");
   const __nv_bfloat16* vs = ks + kStage * D;
   const int lane = threadIdx.x & 31, t = lane & 3, mat = lane >> 3;
@@ -251,13 +310,15 @@ __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const uint
   // S = Q K^T: K rows are the B operand's columns, d-contiguous.
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    q.frag(kk, a);
 #pragma unroll
     for (int n = 0; n < NC / 8; n += 2) {
       uint32_t b[4];
       const int j = col0 + (n + (mat >> 1)) * 8 + (lane & 7);
       ldmatrix_x4(b, ks + swz<D>(j, 2 * kk + (mat & 1)));
-      mma_bf16(s[n], qa[kk], b[0], b[1]);
-      mma_bf16(s[n + 1], qa[kk], b[2], b[3]);
+      mma_bf16(s[n], a, b[0], b[1]);
+      mma_bf16(s[n + 1], a, b[2], b[3]);
     }
   }
 
@@ -301,7 +362,7 @@ __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const uint
 #pragma unroll
   for (int r = 0; r < 2; ++r) acc.l[r] = acc.l[r] * alpha[r] + sum[r];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     acc.o[n][0] *= alpha[0];
     acc.o[n][1] *= alpha[0];
     acc.o[n][2] *= alpha[1];
@@ -317,9 +378,9 @@ __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const uint
                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
     const int j = col0 + kk * 16 + (mat & 1) * 8 + (lane & 7);
 #pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
+    for (int n = 0; n < DV / 8; n += 2) {
       uint32_t b[4];
-      ldmatrix_x4_trans(b, vs + swz<D>(j, n + (mat >> 1)));
+      ldmatrix_x4_trans(b, vs + swz<D>(j, dv0 / 8 + n + (mat >> 1)));
       mma_bf16(acc.o[n], a, b[0], b[1]);
       mma_bf16(acc.o[n + 1], a, b[2], b[3]);
     }
@@ -329,11 +390,12 @@ __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const uint
 // Walks KV positions [begin, end) of one (sequence, KV head) through the
 // ring. Warp w takes columns (w % KW) * (kStage / KW) of every stage: with
 // KW = 1 every warp sees the whole stage (its own 16 q rows), with KW =
-// kWarps the warps share the q rows and split the stage.
-template <int D, int KW>
+// kWarps the warps share the q rows and split the stage. The warp
+// accumulates output columns [dv0, dv0 + DV).
+template <int D, int KW, int DV>
 __device__ __forceinline__ void walk(const Params& p, const __nv_bfloat16* kv_head, const int* table,
-                                     int begin, int end, const uint32_t (&qa)[D / 16][4], WarpAcc<D>& acc,
-                                     const int (&lo)[2], const int (&hi)[2], __nv_bfloat16* ring) {
+                                     int begin, int end, const QOperand<D>& q, WarpAcc<DV>& acc,
+                                     const int (&lo)[2], const int (&hi)[2], __nv_bfloat16* ring, int dv0) {
   constexpr int kCols = kStage / KW;
   constexpr int kStageElems = 2 * kStage * D;
   const int col0 = (threadIdx.x / 32 % KW) * kCols;
@@ -350,8 +412,8 @@ __device__ __forceinline__ void walk(const Params& p, const __nv_bfloat16* kv_he
     if (next < n_tiles)
       load_stage<D>(ring + (next % kStages) * kStageElems, p, kv_head, table, begin + next * kStage, end);
     cp_async_commit();
-    attend_stage<D, kCols>(ring + (it % kStages) * kStageElems, qa, acc, p, col0, begin + it * kStage, lo,
-                           hi);
+    attend_stage<D, kCols, DV>(ring + (it % kStages) * kStageElems, q, acc, p, col0, begin + it * kStage, lo,
+                               hi, dv0);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free for reuse
@@ -374,6 +436,20 @@ __device__ __forceinline__ void split_range(const Params& p, int kv_len, int& lo
   hi = min(kv_len, p.maxp * p.page_size);
 }
 
+// Shared memory: the ring, then (q_in_smem) each warp's 16 q rows.
+template <int D>
+__host__ __device__ constexpr int ring_bytes() {
+  return kStages * 2 * kStage * D * (int)sizeof(__nv_bfloat16);
+}
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return ring_bytes<D>() + (q_in_smem<D>() ? kWarps * 16 * D * (int)sizeof(__nv_bfloat16) : 0);
+}
+template <int D>
+__device__ __forceinline__ __nv_bfloat16* warp_q_smem(__nv_bfloat16* ring) {
+  return ring + ring_bytes<D>() / (int)sizeof(__nv_bfloat16) + (threadIdx.x / 32) * 16 * D;
+}
+
 template <int D>
 __device__ void split_block(const Params& p, int x, int h, __nv_bfloat16* ring) {
   const int s = x / p.splits, sp = x % p.splits;
@@ -394,13 +470,14 @@ __device__ void split_block(const Params& p, int x, int h, __nv_bfloat16* ring) 
   }
 
   const __nv_bfloat16* q_tok = p.q + ((size_t)row * p.n_heads + (size_t)h * group) * D;
-  uint32_t qa[D / 16][4];
-  load_q<D>(qa, g < group ? q_tok + g * D : nullptr, g + 8 < group ? q_tok + (g + 8) * D : nullptr);
+  QOperand<D> q;
+  q.load(g < group ? q_tok + g * D : nullptr, g + 8 < group ? q_tok + (g + 8) * D : nullptr,
+         warp_q_smem<D>(ring));
   WarpAcc<D> acc;
   acc.init();
   const int lo[2] = {begin, begin}, hi[2] = {end, end};
-  walk<D, kWarps>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, qa, acc, lo, hi,
-                  ring);
+  walk<D, kWarps, D>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, q, acc, lo, hi,
+                     ring, 0);
   acc.row_sums();
 
   // The warps' states meet in the (now free) ring: o [warp][16][D + pad].
@@ -439,8 +516,22 @@ __device__ void split_block(const Params& p, int x, int h, __nv_bfloat16* ring) 
   }
 }
 
+// A tile block's warps: kRowWarps<D> of them take 16 q rows each; at D =
+// 256 two pairs of warps take the same 32 rows, each warp of a pair
+// computing the whole scores and the softmax (the same values in both) but
+// the PV product and the output of its half of D: an accumulator of D / 2
+// columns, 64 registers and not 128, which a thread holds beside its scores
+// without spills.
+template <int D>
+constexpr int kRowWarps = D > 128 ? 2 : kWarps;
+template <int D>
+__host__ __device__ constexpr int tile_q_rows() {
+  return 16 * kRowWarps<D>;
+}
+
 template <int D>
 __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
+  constexpr int DV = D * kRowWarps<D> / kWarps;  // output columns a warp accumulates
   __shared__ int found[2];  // sequence, tile within it
   const int n_real = min(max(p.num_seqs[0], 0), p.S);
   const int bq = p.tile_tokens;
@@ -485,12 +576,14 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
   const int pos0 = kv_len - q_len + tok0;  // absolute position of the tile's first token
   const int kv_cap = min(kv_len, p.maxp * p.page_size);
 
-  // Rows g and g + 8 of this warp: token r / group, head r % group.
+  // Rows g and g + 8 of this warp: token r / group, head r % group; its
+  // output columns from dv0.
+  const int dv0 = warp / kRowWarps<D> * DV;
   int lo[2], hi[2];
   const __nv_bfloat16* q_row[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + g + 8 * i;
+    const int r = warp % kRowWarps<D> * 16 + g + 8 * i;
     const int k = r / group;
     const int pos = pos0 + k;
     q_row[i] = nullptr;
@@ -504,13 +597,13 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
   const int begin = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
   const int end = min(pos0 + n_tok, kv_cap);
 
-  uint32_t qa[D / 16][4];
-  load_q<D>(qa, q_row[0], q_row[1]);
-  WarpAcc<D> acc;
+  QOperand<D> q;
+  q.load(q_row[0], q_row[1], warp_q_smem<D>(ring));
+  WarpAcc<DV> acc;
   acc.init();
   if (end > begin)
-    walk<D, 1>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, qa, acc, lo, hi,
-               ring);
+    walk<D, 1, DV>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, q, acc, lo, hi,
+                   ring, dv0);
   acc.row_sums();
 
   const int t = lane & 3;
@@ -518,9 +611,9 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
   for (int i = 0; i < 2; ++i) {
     if (!q_row[i]) continue;
     const float inv = acc.l[i] > 0.f ? 1.f / acc.l[i] : 0.f;
-    __nv_bfloat16* dst = p.out + (q_row[i] - p.q);
+    __nv_bfloat16* dst = p.out + (q_row[i] - p.q) + dv0;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8 + 2 * t) =
           __floats2bfloat162_rn(acc.o[n][2 * i] * inv, acc.o[n][2 * i + 1] * inv);
   }
@@ -595,20 +688,21 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_merge_kernel(
   dst[1] = __floats2bfloat162_rn(o.z * inv, o.w * inv);
 }
 
-template <int D>
-constexpr int ring_bytes() {
-  return kStages * 2 * kStage * D * (int)sizeof(__nv_bfloat16);
-}
 static_assert(kWarps * 16 * (64 + kRedPad + 2) * 4 <= ring_bytes<64>(), "warp merge fits the ring");
 static_assert(kWarps * 16 * (128 + kRedPad + 2) * 4 <= ring_bytes<128>(), "warp merge fits the ring");
+static_assert(kWarps * 16 * (256 + kRedPad + 2) * 4 <= ring_bytes<256>(), "warp merge fits the ring");
+static_assert(smem_bytes<256>() + 16 <= 232448, "ring, q rows and the tile lookup fit a block's shared memory");
 
 template <int D>
-int launch(const Params& p, cudaStream_t st) {
+int launch(Params p, cudaStream_t st) {
+  p.tile_tokens = tile_q_rows<D>() / p.group;
+  // Sequences of 2 or more tokens hold at most T / tile_tokens + S tiles.
+  p.tile_blocks = (p.T + p.tile_tokens - 1) / p.tile_tokens + min(p.S, p.T);
   static const int smem_rc = (int)cudaFuncSetAttribute(
-      ragged_paged_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes<D>());
+      ragged_paged_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
   if (smem_rc) return smem_rc;
   const dim3 grid(p.tile_blocks + p.S * p.splits, p.n_kv_heads);
-  ragged_paged_attention_kernel<D><<<grid, kThreads, ring_bytes<D>(), st>>>(p);
+  ragged_paged_attention_kernel<D><<<grid, kThreads, smem_bytes<D>(), st>>>(p);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   // The merge is the attention grid's programmatic dependent: it is launched
@@ -664,9 +758,6 @@ extern "C" int scalellm_ragged_paged_attention(
   p.group = n_heads / n_kv_heads;
   p.splits = splits;
   p.split_len = split_len;
-  p.tile_tokens = kTileRows / p.group;
-  // Sequences of 2 or more tokens hold at most T / tile_tokens + S tiles.
-  p.tile_blocks = (num_tokens + p.tile_tokens - 1) / p.tile_tokens + min(num_seq_slots, num_tokens);
   p.window = window;
   p.sm_scale = sm_scale;
   p.soft_cap = soft_cap;
@@ -675,6 +766,7 @@ extern "C" int scalellm_ragged_paged_attention(
   switch (head_dim) {
     case 64: return launch<64>(p, st);
     case 128: return launch<128>(p, st);
+    case 256: return launch<256>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,8 @@
 from scalellm_tpu_torch.models.registry import ModelRegistry
 
 # Import model modules for their registration side effects.
-from scalellm_tpu_torch.models import deepseek, llama, mistral, mixtral, qwen2, qwen2_moe  # noqa: F401
+from scalellm_tpu_torch.models import (  # noqa: F401
+    deepseek, gemma, gemma2, llama, mistral, mixtral, qwen, qwen2, qwen2_moe,
+)
 
 __all__ = ["ModelRegistry"]

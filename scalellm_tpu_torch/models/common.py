@@ -1,11 +1,19 @@
-"""Decoder-only transformer, the Llama / Mistral / Qwen2 / Mixtral /
-Qwen2-MoE subset of scalellm_tpu/models/common.py:DecoderModel.
+"""Decoder-only transformer, the Llama / Mistral / Qwen / Qwen2 / Qwen3 /
+Gemma / Gemma2 / Mixtral / Qwen2-MoE subset of
+scalellm_tpu/models/common.py:DecoderModel.
 
-Embedding -> per layer (RMSNorm, fused qkv projection plus the optional qkv
-bias, rope, in-place KV scatter, ragged paged attention, o projection,
-RMSNorm, then a dense FFN (fused gate/up projection, gated activation, down
-projection) or, with n_experts, an MoE block) -> final RMSNorm; logits()
-applies the lm_head. Weights are nn.Parameters in torch's [out, in] layout,
+Embedding (scaled by sqrt(hidden) for Gemma) -> per layer (RMSNorm, fused
+qkv projection plus the optional qkv bias, the optional qk norm (an RMSNorm
+of each head's q and k over head_dim, before rope), rope, in-place KV
+scatter, ragged paged attention, o projection, the optional post-attention
+norm, RMSNorm, then a dense FFN (fused gate/up projection, gated
+activation, down projection) or, with n_experts, an MoE block, then the
+optional post-feedforward norm) -> final RMSNorm; logits() applies the
+lm_head and the optional final soft cap. Gemma's norms are zero-centred
+((1 + w) weights), the qk norm never is. Gemma2's post-block norms
+(residual_post_layernorm) normalise the o projection's output and the
+FFN's output before their residual adds; its pre-feedforward norm sits in
+the post_norm slot. Weights are nn.Parameters in torch's [out, in] layout,
 with q/k/v fused into qkv_proj (their biases into qkv_bias) and gate/up into
 gate_up_proj as in the reference's fused layout. The layers run as a Python
 loop; the attention implementation is a hook (attn_impl) so a caller can
@@ -48,7 +56,7 @@ for them, and its loader finds no dense expert weights in such a checkpoint.
 
 Features of the reference's DecoderModel that this subset does not carry
 (LoRA, tensor/sequence/expert parallelism, int8 KV, o/mlp/lm_head/norm
-biases, layer norm, ALiBi, qk-norm, parallel residual, MLA) raise
+biases, layer norm, ALiBi, parallel residual, MLA) raise
 NotImplementedError when the model args ask for them.
 """
 
@@ -106,9 +114,7 @@ def _unsupported(args: ModelArgs) -> List[str]:
         "non-rope positions": args.pos_embedding_type != "rope",
         "o/mlp/lm_head/norm biases": args.o_proj_bias or args.mlp_bias
         or args.lm_head_bias or args.norm_bias,
-        "qk norm": args.use_qk_norm,
         "parallel residual": args.parallel_residual,
-        "post-block norms": args.residual_post_layernorm,
         "ungated MLP": not args.mlp_gated,
         "embedding norm": args.embedding_norm,
         "qkv clip": args.qkv_clip > 0,
@@ -233,8 +239,14 @@ class DecoderLayer(nn.Module):
             self.v_bias = _param(Hkv * Dh, dtype=dtype, device=device)
         elif args.qkv_bias:
             self.qkv_bias = _param((H + 2 * Hkv) * Dh, dtype=dtype, device=device)
+        if args.use_qk_norm:
+            self.q_norm = _param(Dh, dtype=dtype, device=device)
+            self.k_norm = _param(Dh, dtype=dtype, device=device)
         self.o_proj = proj(H * Dh, D)
         self.post_norm = _param(D, dtype=dtype, device=device)
+        if args.residual_post_layernorm:
+            self.post_attn_norm = _param(D, dtype=dtype, device=device)
+            self.post_ffw_norm = _param(D, dtype=dtype, device=device)
         if self.moe:
             E, Fm = args.n_experts, args.moe_intermediate_size
             self.router = _param(E, D, dtype=dtype, device=device)
@@ -361,8 +373,10 @@ class DecoderModel(nn.Module):
         """(gamma, eps) when the RMSNorm before `proj` folds into the quant
         matmul's prologue (a fused quantized projection without a row
         permutation; never the post-attention norm of an MoE layer), else
-        None. A qkv bias does not stop it: it is added to the matmul's
-        output."""
+        None: the reference's _can_fuse. A qkv bias does not stop it: it is
+        added to the matmul's output. Gemma2's pre-feedforward norm (the
+        post_norm slot) folds as 1 + w in f32; the post-block norms follow
+        a projection and never fold."""
         if layer.moe and proj == "gate_up_proj":
             return None
         w = getattr(layer, proj, None)
@@ -406,22 +420,29 @@ class DecoderModel(nn.Module):
                 if a.qkv_bias:
                     q, k, v = ((t.float() + b.float()).to(h.dtype)
                                for t, b in zip((q, k, v), (layer.q_bias, layer.k_bias, layer.v_bias)))
-            q = apply_rope(q.reshape(T, H, Dh), cos, sin, a.interleaved_rope)
-            k = apply_rope(k.reshape(T, Hkv, Dh), cos, sin, a.interleaved_rope)
+            q, k = q.reshape(T, H, Dh), k.reshape(T, Hkv, Dh)
+            if a.use_qk_norm:
+                q = rms_norm(q, layer.q_norm, a.rms_norm_eps)
+                k = rms_norm(k, layer.k_norm, a.rms_norm_eps)
+            q = apply_rope(q, cos, sin, a.interleaved_rope)
+            k = apply_rope(k, cos, sin, a.interleaved_rope)
             set_kv_cache(kvc, k, v.reshape(T, Hkv, Dh), mi.new_kv_slot_ids)
             o = self.attn_impl(
                 q.contiguous(), kvc, mi.kv_lens, mi.block_tables, mi.cu_q_lens,
                 mi.num_seqs, sm_scale=sm_scale, sliding_window=window,
                 logit_soft_cap=soft_cap, decode_only=decode_only,
             )
-            h = h + self._proj(o.reshape(T, q_n), layer.o_proj)
+            o = self._proj(o.reshape(T, q_n), layer.o_proj)
+            if a.residual_post_layernorm:
+                o = rms_norm(o, layer.post_attn_norm, a.rms_norm_eps, a.zero_centered_norm)
+            h = h + o
 
             rms = self._fused_norm(layer, "gate_up_proj", layer.post_norm)
             x = h if rms else rms_norm(h, layer.post_norm, a.rms_norm_eps, a.zero_centered_norm)
-            if layer.moe:
-                h = h + self._moe(layer, x).to(h.dtype)
-            else:
-                h = h + self._dense_ffn(layer, x, rms)
+            m = self._moe(layer, x).to(h.dtype) if layer.moe else self._dense_ffn(layer, x, rms)
+            if a.residual_post_layernorm:
+                m = rms_norm(m, layer.post_ffw_norm, a.rms_norm_eps, a.zero_centered_norm)
+            h = h + m
 
         h = rms_norm(h, self.final_norm, a.rms_norm_eps, a.zero_centered_norm)
         if all_hidden:
@@ -481,7 +502,7 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
     experts moe_{gate,up,down} [E, K, N] go to [E, N, K] (quantized:
     qweight [E, K/2 or K, N] to [E, N, K/2 or K], scales as they are), the
     shared expert rides the dense FFN's names at its own width; the qkv
-    biases carry over as they are."""
+    biases, the qk norms and the post-block norms carry over as they are."""
     import numpy as np
 
     def tensor(x) -> torch.Tensor:
@@ -526,7 +547,8 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
         else:
             sd["lm_head"] = tensor(lm).T.contiguous()
     for l in range(args.n_layers):
-        for name in ("input_norm", "post_norm", "qkv_bias", "q_bias", "k_bias", "v_bias"):
+        for name in ("input_norm", "post_norm", "qkv_bias", "q_bias", "k_bias", "v_bias", "q_norm", "k_norm",
+                     "post_attn_norm", "post_ffw_norm"):
             if name in layers:
                 sd[f"layers.{l}.{name}"] = tensor(np.asarray(layers[name])[l])
         for name in ("router", "shared_gate"):

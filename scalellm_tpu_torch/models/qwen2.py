@@ -1,17 +1,23 @@
-"""Qwen2 / Qwen2.5 family (counterpart of the qwen2 part of
-scalellm_tpu/models/qwen2.py): Llama-shaped with a qkv bias and the ChatML
-template. The compute graph is models/common.py:DecoderModel. Qwen3 (qk
-norm, no bias) is not registered: DecoderModel refuses its qk norm.
+"""Qwen2 / Qwen2.5 and Qwen3 families (counterpart of
+scalellm_tpu/models/qwen2.py): Qwen2 is Llama-shaped with a qkv bias; Qwen3
+drops the bias and adds an RMSNorm of each head's q and k over head_dim
+(the qk norm) and an explicit head_dim. Both, and Qwen v1 (models/qwen.py),
+use the ChatML template. The compute graph is models/common.py:DecoderModel.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 from scalellm_tpu_torch.config import ModelArgs, hf_dtype
 from scalellm_tpu_torch.models.common import DecoderModel
 from scalellm_tpu_torch.models.llama import LLAMA_WEIGHT_RULES
 from scalellm_tpu_torch.models.registry import ModelRegistry
+
+QWEN3_EXTRA_RULES: List[tuple] = [
+    (r"model\.layers\.(\d+)\.self_attn\.q_norm\.weight", "layers.{}.q_norm"),
+    (r"model\.layers\.(\d+)\.self_attn\.k_norm\.weight", "layers.{}.k_norm"),
+]
 
 
 @ModelRegistry.register_model_args("qwen2")
@@ -41,6 +47,16 @@ def load_qwen2_model_args(cfg: Dict[str, Any]) -> ModelArgs:
     )
 
 
+@ModelRegistry.register_model_args("qwen3")
+def load_qwen3_model_args(cfg: Dict[str, Any]) -> ModelArgs:
+    args = load_qwen2_model_args(cfg)
+    args.model_type = "qwen3"
+    args.qkv_bias = False
+    args.use_qk_norm = True
+    args.head_dim = cfg.get("head_dim", 128)
+    return args
+
+
 @ModelRegistry.register_causal_lm("qwen2")
 def create_qwen2(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
     model = DecoderModel(args, attn_impl, device=device)
@@ -48,7 +64,14 @@ def create_qwen2(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
     return model
 
 
-@ModelRegistry.register_chat_template("qwen", "qwen2")
+@ModelRegistry.register_causal_lm("qwen3")
+def create_qwen3(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device)
+    model.hf_weight_rules = LLAMA_WEIGHT_RULES + QWEN3_EXTRA_RULES
+    return model
+
+
+@ModelRegistry.register_chat_template("qwen", "qwen2", "qwen3")
 def chatml_template(messages) -> str:
     """ChatML (reference: qwen2.h chat template registration)."""
     out = []

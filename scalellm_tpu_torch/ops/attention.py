@@ -12,6 +12,9 @@ slot of a decode step) has its KV range cut into the pieces split_kv_plan()
 sizes from shapes the host knows, each piece gives f32 partials, and a
 merge adds them in split order (split-KV); a sequence of 2 or more tokens
 goes in q tiles of up to 64 rows (tokens x GQA group) on the tensor cores.
+Head dims 64, 128 and 256 (Gemma's; the reference computes that one with
+its jnp reference, since its stock kernel refuses head dims above 128, so
+the kernel is held to the plain version there too).
 The dispatcher takes the engine's decode_only and ignores it, as the
 reference's dispatcher does.
 plain_split_kv_attention is the plain version of the split-and-merge: what
@@ -35,7 +38,7 @@ from scalellm_tpu_torch.ops import _build
 from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
 
 _MAX_GROUP = 16  # kMaxGroup in the kernel
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 KV_STAGE = 64  # kStage in the kernel: KV rows a ring stage; splits are multiples of it
 BLOCKS_PER_SM = 2  # split blocks an SM the plan aims at, at the block table's length
 MAX_SPLIT_LEN = 512  # rows: so that contexts of unequal length balance over the blocks
@@ -100,6 +103,8 @@ def _check_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs):
             raise ValueError(f"{name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned (the kernel copies 16 bytes at a time)")
     if q.dtype != torch.bfloat16 or kv_pages.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA kernel takes bf16 q and pages, got {q.dtype}, {kv_pages.dtype}"

@@ -25,8 +25,10 @@ graph's replay gives the eager N-step loop's bits (tokens, logprobs, KV cache), 
 device sampler draws the same noise eagerly and in a replay; a fetch
 returns while a later step runs; async and N = 4 serves with graphs give
 the sync serve's tokens. Mixtral and Qwen2-MoE: kernels against every
-plain version with the routing pinned. A closed engine gives its memory
-back to the card."""
+plain version with the routing pinned. Gemma2 and Qwen3: kernels against
+the plain versions, bf16 and INT4, and their graphs and N-step replays
+against eager. K1 at head dim 256, GQA groups 1-16, on pages that hold NaN
+past every range. A closed engine gives its memory back to the card."""
 
 import numpy as np
 import pytest
@@ -204,6 +206,54 @@ def test_attention_is_bit_identical_across_calls(cuda, batch):
         assert torch.equal(kernel(**inputs, sm_scale=128 ** -0.5), first)
 
 
+# K1 at head dim 256 (Gemma, Gemma2): (q_lens, kv_lens, S, T, n_heads,
+# n_kv_heads, window, soft_cap, page); GQA groups 1, 2, 8 and 16. The mixed
+# batches stay small: the plain version gathers [T, context, Hkv, 256] f32.
+D256_CASES = {
+    "decode_group2_softcap": ([1] * 6, [17, 300, 1024, 2048, 4096, 5], 8, 16, 16, 8, None, 50.0, 16),
+    "decode_group8_long": ([1] * 4, [8192, 100, 640, 33], 4, 16, 8, 1, None, None, 16),
+    "decode_group16_window": ([1] * 3, [3000, 129, 4000], 4, 4, 16, 1, 128, None, 16),
+    "mixed_group2_window_softcap": ([100, 120, 1, 1, 1], [100, 300, 900, 17, 1500], 8, 256, 16, 8, 128, 50.0, 16),
+    "mixed_group1": ([37, 16, 1, 1], [37, 300, 700, 2048], 4, 64, 8, 8, None, None, 16),
+    "mixed_group16_page4": ([33, 5, 1], [40, 600, 77], 4, 64, 16, 1, None, 30.0, 4),
+}
+
+
+def _nan_outside_ranges(inputs, q_lens, kv_lens, window):
+    """The pages with NaN in every row that no token's KV range reaches: the
+    rows of each sequence before its first token's window and past its
+    context, and every page no sequence owns (page 0 included)."""
+    kv = inputs["kv_pages"]
+    page = kv.shape[1]
+    out = torch.full_like(kv, float("nan"))
+    for s, (ql, kl) in enumerate(zip(q_lens, kv_lens)):
+        lo = max(0, kl - ql - window + 1) if window else 0
+        pos = torch.arange(lo, kl, device=kv.device)
+        pages = inputs["page_indices"][s].long()[pos // page]
+        out[pages, pos % page] = kv[pages, pos % page]
+    return out
+
+
+@pytest.mark.parametrize("case", list(D256_CASES))
+def test_head_dim_256_matches_plain_version(cuda, case):
+    """Through the dispatcher (no fallback: one launch), on pages that hold
+    NaN past every range: the rows of the padding tokens zero, each row
+    within ATTENTION_REL_TOL of its size."""
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention_cuda as kernel
+    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+
+    q_lens, kv_lens, S, T, H, Hkv, window, cap, page = D256_CASES[case]
+    inputs = _attention_case(cuda, q_lens, kv_lens, S, T, H, Hkv, 256, page)
+    kw = dict(sm_scale=256 ** -0.5, sliding_window=window, logit_soft_cap=cap)
+    nan_pages = _nan_outside_ranges(inputs, q_lens, kv_lens, window)
+    before = kernel.launches
+    got = ragged_paged_attention(**{**inputs, "kv_pages": nan_pages}, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _assert_matches_plain(got, ref_ragged_paged_attention(**inputs, **kw), sum(q_lens))
+
+
 def test_kernel_refuses_what_it_does_not_cover(cuda):
     from scalellm_tpu_torch.ops.attention import ragged_paged_attention
 
@@ -216,6 +266,9 @@ def test_kernel_refuses_what_it_does_not_cover(cuda):
         ragged_paged_attention(**inputs, alibi_slopes=torch.ones(4, device=cuda))
     with pytest.raises(NotImplementedError):
         ragged_paged_attention(**{**inputs, "q": inputs["q"].float()})
+    phi2 = _on(ragged_batch(rng, q_lens=[1], kv_lens=[5], S=1, T=1, n_heads=4, n_kv_heads=2, head_dim=80), cuda)
+    with pytest.raises(NotImplementedError, match="head_dim 80"):
+        ragged_paged_attention(**phi2)
 
 
 # ---------------------------------------------------------------- quant matmul
@@ -1494,8 +1547,19 @@ TINY_QWEN2_MOE_CFG = dict(
     num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=8, vocab_size=512,
     max_position_embeddings=2048, rms_norm_eps=1e-6, rope_theta=1e6, hidden_act="silu", num_experts=60,
     num_experts_per_tok=4, moe_intermediate_size=384, shared_expert_intermediate_size=1024, norm_topk_prob=False)
+# Gemma2 (head dim 256, GQA 2, a 32-token window on layer 0, soft caps,
+# post-block norms, tied embeddings) and Qwen3 (qk norm, head dim 128).
+TINY_GEMMA2_CFG = dict(
+    model_type="gemma2", torch_dtype="bfloat16", hidden_size=512, intermediate_size=1024,
+    num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, head_dim=256, vocab_size=512,
+    max_position_embeddings=2048, rms_norm_eps=1e-6, hidden_activation="gelu_pytorch_tanh",
+    query_pre_attn_scalar=256, sliding_window=32, attn_logit_softcapping=50.0, final_logit_softcapping=30.0)
+TINY_QWEN3_CFG = dict(
+    model_type="qwen3", torch_dtype="bfloat16", hidden_size=512, intermediate_size=1024,
+    num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2, head_dim=128, vocab_size=512,
+    max_position_embeddings=2048, rms_norm_eps=1e-6, rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False)
 TINY_CFGS = {"llama": TINY_LLAMA_CFG, "deepseek": TINY_DEEPSEEK_CFG, "mixtral": TINY_MIXTRAL_CFG,
-             "qwen2_moe": TINY_QWEN2_MOE_CFG}
+             "qwen2_moe": TINY_QWEN2_MOE_CFG, "gemma2": TINY_GEMMA2_CFG, "qwen3": TINY_QWEN3_CFG}
 
 
 def _random_model(device, cfg, quantize=""):
@@ -1530,7 +1594,8 @@ def _greedy_si(S):
         seeds=np.zeros(S, np.uint32))
 
 
-@pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4", "mixtral", "qwen2_moe_int4"])
+@pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4", "mixtral", "qwen2_moe_int4",
+                                        "gemma2", "gemma2_int4", "qwen3", "qwen3_int4"])
 def test_executor_with_graphs_gives_the_eager_tokens_and_logits_bits(cuda, model_name):
     from chip_smoke import batch_inputs
     from scalellm_tpu_torch.engine.executor import Executor
@@ -1583,7 +1648,8 @@ def _sampling_si(S, seed0):
 
 
 @pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4", "mixtral", "mixtral_int4",
-                                        "qwen2_moe", "qwen2_moe_int4"])
+                                        "qwen2_moe", "qwen2_moe_int4", "gemma2", "gemma2_int4", "qwen3",
+                                        "qwen3_int4"])
 def test_multi_step_graph_replay_gives_the_eager_loop_bits(cuda, model_name):
     from chip_smoke import batch_inputs
     from scalellm_tpu_torch.engine.executor import Executor
@@ -1752,6 +1818,44 @@ def test_moe_families_kernels_match_plain_versions_with_routing_pinned(cuda, mod
             else:  # K1 every layer of both steps; the experts through K6, or K8 + K7 at decode
                 assert launched[0] == 2 * model.args.n_layers and sum(launched[1:]) > 0
     assert not routes
+    for got, want in zip(logits["kernel"], logits["plain"]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= LOGITS_TOL
+
+
+# Gemma2 and Qwen3 on DecoderModel: a prefill batch and the decode step
+# after it through the kernels (K1 once a layer a step; INT4: each layer's
+# four quantized projections through K2 or K4, Gemma2's lm_head the tied
+# bf16 embedding), then through the plain versions. Tolerance:
+# chip_smoke.LOGITS_TOL.
+
+
+@pytest.mark.parametrize("model_name", ["gemma2", "gemma2_int4", "qwen3", "qwen3_int4"])
+def test_dense_families_kernels_match_plain_versions(cuda, model_name):
+    from chip_smoke import LOGITS_TOL, batch_inputs
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    name, _, quantize = model_name.partition("_int")
+    model = _random_model(cuda, TINY_CFGS[name], quantize="int4" if quantize else "")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (150, 61)]
+    prefill, n_pages = batch_inputs(torch, [(p, 0, len(p) + 1) for p in prompts])
+    decode, _ = batch_inputs(torch, [([7 + i], len(p), len(p) + 1) for i, p in enumerate(prompts)])
+    counters = (attention.ragged_paged_attention_cuda, Q.quant_matmul_w4a8_cuda, Q.quant_matmul_dequant_cuda)
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "plain"):
+            plain = impl == "plain"
+            before = [c.launches for c in counters]
+            model.attn_impl = attention.plain_ragged_paged_attention if plain else attention.ragged_paged_attention
+            model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
+            kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=cuda)
+            a = model.logits(model(kv, prefill.to(cuda), all_hidden=True)[: sum(map(len, prompts))])
+            b = model.logits(model(kv, decode.to(cuda), decode_only=True)[: len(prompts)])
+            logits[impl] = (a, b)
+            launched = [c.launches - n for c, n in zip(counters, before)]
+            L = model.args.n_layers
+            assert launched == ([0, 0, 0] if plain else [2 * L, 4 * L if quantize else 0, 4 * L if quantize else 0])
     for got, want in zip(logits["kernel"], logits["plain"]):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= LOGITS_TOL

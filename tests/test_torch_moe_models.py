@@ -296,15 +296,22 @@ def test_unported_flags_still_raise():
     from scalellm_tpu_torch.config import ModelArgs
     from scalellm_tpu_torch.models.common import DecoderModel
 
-    base = dict(model_type="qwen3", dtype="float32", hidden_size=64, intermediate_size=96, n_layers=1,
+    base = dict(model_type="gpt2", dtype="float32", hidden_size=64, intermediate_size=96, n_layers=1,
                 n_heads=4, n_kv_heads=2, vocab_size=128)
-    for flag, word in (("use_qk_norm", "qk norm"), ("o_proj_bias", "biases"), ("mlp_bias", "biases"),
-                       ("lm_head_bias", "biases"), ("parallel_residual", "parallel residual")):
+    for flags, word in ((dict(norm_type="layer_norm"), "layer norm"),
+                        (dict(pos_embedding_type="learned"), "non-rope positions"),
+                        (dict(o_proj_bias=True), "biases"), (dict(mlp_bias=True), "biases"),
+                        (dict(lm_head_bias=True), "biases"), (dict(norm_bias=True), "biases"),
+                        (dict(parallel_residual=True), "parallel residual"),
+                        (dict(mlp_gated=False), "ungated MLP"), (dict(embedding_norm=True), "embedding norm"),
+                        (dict(qkv_clip=8.0), "qkv clip")):
         with pytest.raises(NotImplementedError, match=word):
-            DecoderModel(ModelArgs(**base, **{flag: True}), device="meta")
-    # What this slice ported builds.
+            DecoderModel(ModelArgs(**base, **flags), device="meta")
+    # What the MoE slice and the Gemma / Qwen slice ported builds.
     DecoderModel(ModelArgs(**base, qkv_bias=True, n_experts=4, n_experts_per_token=2,
                            moe_intermediate_size=32, moe_shared_intermediate=48), device="meta")
+    model = DecoderModel(ModelArgs(**base, use_qk_norm=True, residual_post_layernorm=True), device="meta")
+    assert model.layers[0].q_norm.shape == (16,) and model.layers[0].post_ffw_norm.shape == (64,)
 
 
 def test_a_gptq_moe_checkpoint_is_refused(tmp_path):
