@@ -24,11 +24,16 @@ Phases (any failure exits non-zero, and the result line is not printed):
         T = 512 batches (b), (d), (e), (i) (Qwen2-MoE's heads), (k)
         (Gemma-2-9B's heads, window 128, soft cap 50), whose chunks take
         the q-tiled tensor-core blocks and
-        whose decodes the split blocks (yardstick:
-        scaled_dot_product_attention on gathered K/V). Each is held against
-        the plain version within KERNEL_TOL and, row by row, within
-        ATTENTION_REL_TOL of the row's size; on each decode batch that row
-        check must fail the plain split-and-merge with one piece left out;
+        whose decodes the split blocks; then 8 decodes and the mixed batch
+        each with ALiBi at MPT-7B's heads ((n), (o): 32 over 32, head dim
+        128), at Phi-2's head dim 80 ((p), (q)) and in float32 at GPT-2's
+        heads ((r), (s): 12 over 12, head dim 64, K1's f32 kernel)
+        (yardstick: scaled_dot_product_attention on gathered K/V, with an
+        additive float mask for ALiBi, in f32 for (r) and (s)). Each is held
+        against the plain version within KERNEL_TOL (f32: F32_TOL) and, row
+        by row, within ATTENTION_REL_TOL of the row's size; on each bf16
+        decode batch that row check must fail the plain split-and-merge with
+        one piece left out;
      b. the quantized matmuls at the five Llama-3.1-8B projection shapes:
         w4a8 at M = 1, 8, 16, 64, dequant and group at M = 512 (dequant at
         gate_up also at M = 128 and 256), dequant and group with the RMSNorm
@@ -170,19 +175,34 @@ Phases (any failure exits non-zero, and the result line is not printed):
      experts of 1408, top-4, a shared expert of 5632 with its sigmoid gate,
      the qkv bias, MHA: K1 at GQA group 1; 28.6 GB bf16); INT4 decode steps
      take K8 and K7.
-  10. the same for Gemma-2-9B at its published widths and depth (head dim
+  10. the same for Gemma-2-9B at its published widths (head dim
      256: K1 at D = 256, GQA group 2, soft cap 50 on every layer, a
      4096-token window on the even layers; the post-block norms, tied
-     embeddings, 18.5 GB bf16; --gemma2-layers, even, cuts the depth),
+     embeddings; 16 of its 42 layers, --gemma2-layers, even, sets the depth),
      bf16 then runtime INT4 (every projection int4 at G = 128, the lm_head
      the tied bf16 embedding): every step K1 once a layer and, under INT4,
      each layer's four projections through K2 or K4 as plan() picks them.
-  11. the same for Qwen3-8B at its published widths and depth (qk norm,
-     head dim 128, GQA group 4, 16.4 GB bf16; --qwen3-layers cuts it).
+  11. the same for Qwen3-8B at its published widths (qk norm, head dim
+     128, GQA group 4; 14 of its 36 layers, --qwen3-layers sets the depth).
+  12. the same for Phi-2 at its published widths and depth (head dim 80:
+     K1 at D = 80, MHA; partial rotary 0.4, the parallel residual, LayerNorm
+     and biases everywhere, the untied lm_head with its bias; 5.6 GB bf16;
+     --phi2-layers cuts it), bf16 then runtime INT4.
+  13. the same for MPT-7B (ALiBi at head dim 128, MHA; bias-free LayerNorm;
+     13.3 GB bf16; --mpt-layers cuts it), bf16 then runtime INT4.
+  14. BLOOM-560m at its published widths and depth (ALiBi at head dim 64,
+     the embedding LayerNorm, the per-head interleaved query_key_value,
+     vocab 250880), bf16 only.
+  15. GPT-2 (124M) in float32, as the reference serves its float32
+     checkpoints: K1's f32 kernel and learned positions.
+  Phases 10-15 draw their checkpoints by fan-in (scaled_init), norms of
+  weight 1 and biases 0. Every launch check of phases 6-15 also holds K1's
+  counts of its ALiBi, head-dim-80 and f32 launches to the model's layers
+  (phases 12-15 must have launched each).
   Every LLM.close() is followed by a line of the memory left on the card
   (`{tag}_closed`), and fails if the caching allocator kept more than
   CLOSED_SLACK_BYTES of the closed engine's freed blocks.
-  12. a line of the seconds each phase took, a `kernels` JSON line, then
+  16. a line of the seconds each phase took, a `kernels` JSON line, then
      the result line.
 
 It needs the repository (it fails in a directory that holds only this
@@ -206,6 +226,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 # Quantized matmuls against their plain versions: the integer dots are exact
 # on both sides; the f32 sums run in another order and the output is rounded
@@ -217,6 +238,9 @@ KERNEL_TOL = 2e-2  # bf16 output (8-bit mantissa) of values of magnitude <~ 3
 # 0.05 at 8192 rows of N(0, 1) scores), so KERNEL_TOL alone would pass a
 # merge that lost one of its 16 pieces; that moves the row by ~10% of it.
 ATTENTION_REL_TOL = 2e-2
+# K1's f32 kernel (GPT-2) against the plain version in f32: f32 sums in
+# another order (no TF32, whose 10-bit products would be off by about 1e-3).
+F32_TOL = 1e-4
 # Logits of the 22-layer random-weight model (std ~1): the two attentions
 # round different f32 sums to bf16, and those 1-ulp differences pass through
 # 22 bf16 layers.
@@ -315,18 +339,19 @@ def phase_build():
 # ------------------------------------------------------------------ phase 3
 
 
-def make_batch(torch, gen, *, q_lens, kv_lens, S, T, H, Hkv, D, page=16):
-    """Inputs of ragged paged attention on the card. Sequence i has a chunk
-    of q_lens[i] tokens at the tail of kv_lens[i]; slots past len(q_lens)
-    are padding sequences; rows past sum(q_lens) are bucket padding; pages
-    are distinct and never page 0."""
+def make_batch(torch, gen, *, q_lens, kv_lens, S, T, H, Hkv, D, page=16, dtype=None):
+    """Inputs of ragged paged attention on the card (bf16, or `dtype`).
+    Sequence i has a chunk of q_lens[i] tokens at the tail of kv_lens[i];
+    slots past len(q_lens) are padding sequences; rows past sum(q_lens) are
+    bucket padding; pages are distinct and never page 0."""
+    dtype = dtype or torch.bfloat16
     dev = DEVICE
     n_real = len(q_lens)
     maxp_real = max(-(-k // page) for k in kv_lens)
     maxp = next(b for b in (4, 16, 64, 256, 1024) if b >= maxp_real)
     n_pages = 1 + sum(-(-k // page) for k in kv_lens)
-    q = torch.randn(T, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    kv_pages = torch.randn(n_pages, page, 2 * Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
+    kv_pages = torch.randn(n_pages, page, 2 * Hkv, D, generator=gen, device=dev).to(dtype)
     perm = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).tolist()
     tables = torch.zeros(S, maxp, dtype=torch.int32)
     used = 0
@@ -361,29 +386,34 @@ def kv_ranges(q_lens, kv_lens, window):
 
 
 def bound(spec, inputs):
-    """Least time on the card: each input byte read once, each output byte
-    written once, and the flops this batch's masks need."""
+    """Least time on the card: each input byte read once (the ALiBi slopes
+    too), each output byte written once, and the flops this batch's masks
+    need, at the bf16 tensor-core rate or, in f32, the CUDA cores'."""
     H, Hkv, D = spec["H"], spec["Hkv"], spec["D"]
     tok, seq = kv_ranges(spec["q_lens"], spec["kv_lens"], spec["window"])
-    kv_bytes = sum(e - b for b, e in seq) * Hkv * 2 * D * 2
-    q_bytes = inputs["q"].numel() * 2
+    size = inputs["q"].element_size()
+    kv_bytes = sum(e - b for b, e in seq) * Hkv * 2 * D * size
+    q_bytes = inputs["q"].numel() * size
     index_bytes = sum(inputs[k].numel() * 4 for k in ("kv_lens", "page_indices", "cu_q_lens", "num_seqs"))
-    nbytes = kv_bytes + 2 * q_bytes + index_bytes  # q in, out written
+    nbytes = kv_bytes + 2 * q_bytes + index_bytes + (H * 4 if spec.get("alibi") else 0)  # q in, out written
     flops = sum(e - b for b, e in tok) * H * D * 4  # q.k and p.v, multiply-add
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    rate = F32_FLOPS_PER_S if size == 4 else BF16_FLOPS_PER_S
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations"), nbytes, flops
 
 
-def sdpa_inputs(torch, spec, inputs):
+def sdpa_inputs(torch, spec, inputs, alibi_slopes=None):
     """q, K, V gathered per sequence into padded contiguous tensors with
     K/V heads repeated to the q heads, and the boolean mask of causal,
-    window and length masking."""
+    window and length masking; with ALiBi slopes the mask is additive
+    instead, slope * (kv_pos - q_pos) where visible and -inf elsewhere."""
     H, Hkv, D = spec["H"], spec["Hkv"], spec["D"]
     q_lens, kv_lens, window = spec["q_lens"], spec["kv_lens"], spec["window"]
     S, qmax, lmax = len(q_lens), max(q_lens), max(kv_lens)
     page = inputs["kv_pages"].shape[1]
-    qs = torch.zeros(S, H, qmax, inputs["q"].shape[2], dtype=torch.bfloat16, device=DEVICE)
-    ks = torch.zeros(S, Hkv, lmax, D, dtype=torch.bfloat16, device=DEVICE)
+    dtype = inputs["q"].dtype
+    qs = torch.zeros(S, H, qmax, inputs["q"].shape[2], dtype=dtype, device=DEVICE)
+    ks = torch.zeros(S, Hkv, lmax, D, dtype=dtype, device=DEVICE)
     vs = torch.zeros_like(ks)
     mask = torch.zeros(S, 1, qmax, lmax, dtype=torch.bool, device=DEVICE)
     start = 0
@@ -401,6 +431,11 @@ def sdpa_inputs(torch, spec, inputs):
             m &= j > pos - window
         mask[i, 0, :ql] = m
     rep = H // Hkv
+    if alibi_slopes is not None:
+        pos = torch.tensor([[kl - ql + t for t in range(qmax)] for ql, kl in zip(q_lens, kv_lens)], device=DEVICE)
+        dist = torch.arange(lmax, device=DEVICE)[None, None, :] - pos[:, :, None]  # [S, qmax, lmax]
+        bias = alibi_slopes[None, :, None, None] * dist[:, None].float()
+        mask = torch.where(mask, bias, float("-inf")).to(dtype)
     return qs, ks.repeat_interleave(rep, 1).contiguous(), vs.repeat_interleave(rep, 1).contiguous(), mask
 
 
@@ -480,12 +515,30 @@ ATTENTION_SHAPES = {
     "l_decode_mqa_d256": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=8, Hkv=1, D=256, window=None,
                               cap=None),
     "m_long_d256": dict(q_lens=[1], kv_lens=[8192], S=1, T=16, H=16, Hkv=8, D=256, window=None, cap=None),
+    # ALiBi at MPT-7B's heads (phase 13: 32 over 32, head dim 128), its
+    # decode step and its mixed step; the slopes of layers/alibi.py.
+    "n_decode_alibi_mpt7b": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=32, Hkv=32, D=128, window=None,
+                                 cap=None, alibi=True),
+    "o_mixed_alibi_mpt7b": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                                S=8, T=512, H=32, Hkv=32, D=128, window=None, cap=None, alibi=True),
+    # Head dim 80 at Phi-2's heads (phase 12: 32 over 32).
+    "p_decode_d80_phi2": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=32, Hkv=32, D=80, window=None,
+                              cap=None),
+    "q_mixed_d80_phi2": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                             S=8, T=512, H=32, Hkv=32, D=80, window=None, cap=None),
+    # float32 at GPT-2's heads (phase 15: 12 over 12, head dim 64): K1's f32
+    # kernel, held within F32_TOL.
+    "r_decode_f32_gpt2": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=12, Hkv=12, D=64, window=None,
+                              cap=None, dtype="float32"),
+    "s_mixed_f32_gpt2": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                             S=8, T=512, H=12, Hkv=12, D=64, window=None, cap=None, dtype="float32"),
 }
 
 
 def phase_kernels(torch, card):
     import torch.nn.functional as F
 
+    from scalellm_tpu_torch.layers.alibi import alibi_slopes
     from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention as plain
 
@@ -495,25 +548,30 @@ def phase_kernels(torch, card):
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     results = {}
     for name, spec in ATTENTION_SHAPES.items():
+        f32 = spec.get("dtype") == "float32"
         inputs = make_batch(torch, gen, q_lens=spec["q_lens"], kv_lens=spec["kv_lens"], S=spec["S"],
-                            T=spec["T"], H=spec["H"], Hkv=spec["Hkv"], D=spec["D"])
+                            T=spec["T"], H=spec["H"], Hkv=spec["Hkv"], D=spec["D"],
+                            dtype=torch.float32 if f32 else torch.bfloat16)
         kw = dict(sm_scale=spec["D"] ** -0.5, sliding_window=spec["window"], logit_soft_cap=spec["cap"])
+        if spec.get("alibi"):
+            kw["alibi_slopes"] = torch.tensor(alibi_slopes(spec["H"]), dtype=torch.float32, device=DEVICE)
         got = kernel(**inputs, **kw)
         torch.cuda.synchronize()
         want = plain(**inputs, **kw)
         n_real = sum(spec["q_lens"])
+        tol = F32_TOL if f32 else KERNEL_TOL
         if not torch.isfinite(got).all():
             fail(f"{name}: kernel output is not finite")
         if not torch.all(got[n_real:] == 0):
             fail(f"{name}: padding rows are not zero")
         err = (got.float() - want.float()).abs().max().item()
-        if not err <= KERNEL_TOL:
-            fail(f"{name}: kernel differs from the plain version by {err} > {KERNEL_TOL}")
+        if not err <= tol:
+            fail(f"{name}: kernel differs from the plain version by {err} > {tol}")
         rel_err = attention_row_rel_err(torch, got, want)
         if not rel_err <= ATTENTION_REL_TOL:
             fail(f"{name}: kernel differs from the plain version by {rel_err} of a row > {ATTENTION_REL_TOL}")
         planted = {}
-        if all(n == 1 for n in spec["q_lens"]):
+        if all(n == 1 for n in spec["q_lens"]) and not f32:  # the f32 kernel has no split-KV merge
             # The check must see a merge that lost a piece: the plain
             # split-and-merge with the longest slot's middle piece left out.
             drop = dropped_piece(attention, spec, inputs)
@@ -527,7 +585,7 @@ def phase_kernels(torch, card):
         plain_ms = time_ms(torch, lambda: plain(**inputs, **kw), flush)
         library_ms = None
         if spec["cap"] is None:  # SDPA has no soft cap: no library call computes (d), (j), (k)
-            qs, ks, vs, mask = sdpa_inputs(torch, spec, inputs)
+            qs, ks, vs, mask = sdpa_inputs(torch, spec, inputs, kw.get("alibi_slopes"))
             library_ms = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=kw["sm_scale"]),
                 flush)
@@ -537,10 +595,12 @@ def phase_kernels(torch, card):
         page = inputs["kv_pages"].shape[1]
         splits, split_len = attention.split_kv_plan(inputs["page_indices"].shape[1] * page, spec["S"],
                                                     spec["Hkv"], attention._sm_count(inputs["q"].device))
-        emit(dict(phase="kernel", kernel="ragged_paged_attention", shape=name, tol=KERNEL_TOL,
-                  rel_tol=ATTENTION_REL_TOL, max_row_rel_err=rel_err, **planted, T=spec["T"], S=spec["S"], real_tokens=n_real, H=spec["H"],
-                  Hkv=spec["Hkv"], D=spec["D"], window=spec["window"], soft_cap=spec["cap"], splits=splits,
-                  split_len=split_len, bytes=nbytes, flops=flops, **results[name], card=card["nvidia_smi"]))
+        emit(dict(phase="kernel", kernel="ragged_paged_attention" + ("_f32" if f32 else ""), shape=name, tol=tol,
+                  rel_tol=ATTENTION_REL_TOL, max_row_rel_err=rel_err, **planted, T=spec["T"], S=spec["S"],
+                  real_tokens=n_real, H=spec["H"], Hkv=spec["Hkv"], D=spec["D"], window=spec["window"],
+                  soft_cap=spec["cap"], alibi=bool(spec.get("alibi")), dtype=str(inputs["q"].dtype),
+                  splits=None if f32 else splits, split_len=None if f32 else split_len, bytes=nbytes, flops=flops,
+                  **results[name], card=card["nvidia_smi"]))
         del inputs, got, want
         torch.cuda.empty_cache()
     return results
@@ -767,6 +827,11 @@ DEEPSEEK_LAYERS = 14
 # GB, a layer) hold 47.0 GB in bf16 with the embedding and lm_head, and the
 # runtime INT4 quantization of that on the card peaks near 59 GB.
 MIXTRAL_LAYERS = 16
+# Phases 10 and 11's depths: cut (from 42 and 36) once phases 12-15 came in,
+# so that a slow host keeps the whole script below 900 s (the script's time
+# swings by up to 1.4x between calls: 643 and 907 s for the same tree).
+GEMMA2_LAYERS = 16
+QWEN3_LAYERS = 14
 # Qwen/Qwen1.5-MoE-A2.7B's widths (the reference loader's qwen2_moe
 # defaults), in bf16.
 QWEN15_MOE_A27B = dict(
@@ -796,6 +861,48 @@ QWEN3_8B = dict(
     rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False, attention_bias=False,
     use_sliding_window=False, bos_token_id=151643, eos_token_id=151645,
 )
+# microsoft/phi-2 config.json (the port's loader defaults are Phi-1.5's; its
+# torch_dtype float16 is served as bf16, the reference's dtype rule).
+PHI2 = dict(
+    model_type="phi", architectures=["PhiForCausalLM"], torch_dtype="float16",
+    hidden_size=2560, intermediate_size=10240, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=32, partial_rotary_factor=0.4, vocab_size=51200, hidden_act="gelu_new",
+    layer_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=2048, tie_word_embeddings=False,
+    bos_token_id=50256, eos_token_id=50256,
+)
+# mosaicml/mpt-7b config.json (ALiBi, no biases, clip_qkv and softmax_scale
+# null).
+MPT_7B = dict(
+    model_type="mpt", architectures=["MPTForCausalLM"], torch_dtype="bfloat16",
+    d_model=4096, n_heads=32, n_layers=32, expansion_ratio=4, max_seq_len=2048, vocab_size=50432,
+    no_bias=True, attn_config=dict(alibi=True, alibi_bias_max=8, clip_qkv=None, softmax_scale=None),
+)
+# bigscience/bloom-560m config.json (served as bf16).
+BLOOM_560M = dict(
+    model_type="bloom", architectures=["BloomForCausalLM"], torch_dtype="bfloat16",
+    hidden_size=1024, n_head=16, n_layer=24, vocab_size=250880, layer_norm_epsilon=1e-5,
+    bos_token_id=1, eos_token_id=2,
+)
+# openai-community/gpt2 config.json (the loader's defaults; float32, as
+# the reference serves it).
+GPT2 = dict(
+    model_type="gpt2", architectures=["GPT2LMHeadModel"], torch_dtype="float32",
+    n_embd=768, n_layer=12, n_head=12, n_positions=1024, vocab_size=50257, activation_function="gelu_new",
+    layer_norm_epsilon=1e-5, bos_token_id=50256, eos_token_id=50256,
+)
+# Where a config.json keeps its depth (the rest: num_hidden_layers).
+LAYERS_KEY = {"mpt": "n_layers", "bloom": "n_layer", "gpt2": "n_layer"}
+
+
+def layers_of(cfg) -> int:
+    return cfg[LAYERS_KEY.get(cfg["model_type"], "num_hidden_layers")]
+
+
+def with_layers(cfg, n):
+    """`cfg` cut to depth n."""
+    return dict(cfg, **{LAYERS_KEY.get(cfg["model_type"], "num_hidden_layers"): n})
+
+
 # The routed experts of each MoE model the phases serve: (hidden, expert
 # width, experts, top-k).
 MOE_WIDTHS = {
@@ -1487,53 +1594,76 @@ def flat_init(cfg):
     return lambda name, shape, is_norm: norm if is_norm else 0.02
 
 
+# Names of a checkpoint's embedding tables, and of the last projection of a
+# residual branch (attention's output, the MLP's down), over the families
+# the phases serve.
+EMBEDDINGS = ("embed_tokens", "wte", "wpe", "word_embeddings")
+BRANCH_ENDS = ("o_proj", "down_proj", "attn.c_proj", "mlp.c_proj", "self_attn.dense.", "mlp.fc2", "attn.out_proj",
+               "self_attention.dense.", "dense_4h_to_h")
+
+
 def scaled_init(cfg):
-    """Phases 10 and 11's random weights, drawn by fan-in as variance
-    scaling does (PaLM): a weight [out, in] N(0, 1 / sqrt(in)); an untied
-    embedding N(0, 1), a tied one N(0, 1 / sqrt(hidden)) (its fan-in as the
-    lm_head; Gemma scales it by sqrt(hidden) on input); and each residual
-    branch's last op scaled by 1 / sqrt(2 * layers) (GPT-2): o_proj and
-    down_proj, or the post-block norms where the model has them. Norms have
-    weight 1 otherwise, stored as 0 where they are zero-centred (Gemma).
-    With phases 4-9's N(0, 0.02), the layers of these 36- and 42-layer
-    models swamp their embeddings, and rounding alone moves their logits
-    past LOGITS_TOL between any two implementations (PERF.md §6;
+    """Phases 10-15's random weights, drawn by fan-in as variance scaling
+    does (PaLM): a weight N(0, 1 / sqrt(in)) (GPT-2's Conv1D weights are
+    [in, out], the others [out, in]); an untied embedding N(0, 1), a tied
+    one and GPT-2's learned positions N(0, 1 / sqrt(hidden)) (the tied
+    table's fan-in as the lm_head; Gemma scales it by sqrt(hidden) on
+    input); and each residual branch's last op scaled by 1 / sqrt(2 *
+    layers) (GPT-2): its output projection, or the post-block norms where
+    the model has them. Norms have weight 1 otherwise, stored as 0 where
+    they are zero-centred (Gemma); biases (listed as constants beside the
+    norms) are 0. With phases 4-9's N(0, 0.02), the layers of 24- to
+    42-layer models swamp their embeddings, and rounding alone moves their
+    logits past LOGITS_TOL between any two implementations (PERF.md §6;
     tools/logits_drift.py)."""
-    L, D = cfg["num_hidden_layers"], cfg["hidden_size"]
-    branch = (2 * L) ** -0.5
-    zero_centred = cfg["model_type"].startswith("gemma")
+    import scalellm_tpu_torch.models  # noqa: F401  (registers the loaders)
+    from scalellm_tpu_torch.models.registry import ModelRegistry
+
+    a = ModelRegistry.get_model_args_loader(cfg["model_type"])(dict(cfg))
+    branch = (2 * a.n_layers) ** -0.5
     post_norms = ("post_attention_layernorm", "post_feedforward_layernorm") if cfg["model_type"] == "gemma2" else ()
+    conv1d = cfg["model_type"] == "gpt2"
 
     def init(name, shape, is_norm):
         if is_norm:
+            if name.endswith(".bias"):
+                return 0.0
             w = branch if any(n in name for n in post_norms) else 1.0
-            return w - 1.0 if zero_centred else w
-        if "embed_tokens" in name:
-            return D ** -0.5 if cfg["tie_word_embeddings"] else 1.0
-        std = shape[-1] ** -0.5
-        return std * branch if not post_norms and ("o_proj" in name or "down_proj" in name) else std
+            return w - 1.0 if a.zero_centered_norm else w
+        if any(e in name for e in EMBEDDINGS):
+            return a.hidden_size ** -0.5 if a.tie_word_embeddings or "wpe" in name else 1.0
+        std = (shape[0] if conv1d else shape[-1]) ** -0.5
+        return std * branch if not post_norms and any(b in name for b in BRANCH_ENDS) else std
 
     return init
 
 
+def checkpoint_dtype(torch, cfg):
+    """(torch dtype, safetensors name) of a checkpoint written for `cfg`:
+    float32 where its torch_dtype says so (GPT-2), else bf16."""
+    return (torch.float32, "F32") if cfg.get("torch_dtype") == "float32" else (torch.bfloat16, "BF16")
+
+
 def write_checkpoint(torch, path, cfg, tensors=None, init=None):
-    """config.json, tokenizer.json and model.safetensors (bf16, from a
-    seeded generator) of the (HF name, shape, is norm) list `tensors`, by
-    default a Llama checkpoint's: a norm filled with init(name, shape,
-    True), any other tensor N(0, init(name, shape, False)); `init` by
-    default flat_init(cfg)."""
+    """config.json, tokenizer.json and model.safetensors (bf16, or f32 for a
+    float32 cfg; from a seeded generator) of the (HF name, shape, is a
+    constant) list `tensors`, by default a Llama checkpoint's: a constant
+    (a norm's weight, a bias) filled with init(name, shape, True), any other
+    tensor N(0, init(name, shape, False)); `init` by default
+    flat_init(cfg)."""
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg, f)
     with open(os.path.join(path, "tokenizer.json"), "w") as f:
         json.dump(char_tokenizer_json(), f)
     tensors = tensors or checkpoint_tensors(cfg)
     init = init or flat_init(cfg)
+    dtype, st_dtype = checkpoint_dtype(torch, cfg)
     header, offset = {}, 0
     for name, shape, _ in tensors:
-        n = 2
+        n = dtype.itemsize
         for d in shape:
             n *= d
-        header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + n]}
+        header[name] = {"dtype": st_dtype, "shape": list(shape), "data_offsets": [offset, offset + n]}
         offset += n
     blob = json.dumps(header).encode()
     blob += b" " * (-len(blob) % 8)
@@ -1545,9 +1675,9 @@ def write_checkpoint(torch, path, cfg, tensors=None, init=None):
         for name, shape, is_norm in tensors:
             value = init(name, shape, is_norm)
             if is_norm:
-                t = torch.full(shape, value, dtype=torch.bfloat16)
+                t = torch.full(shape, value, dtype=dtype)
             else:
-                t = (torch.randn(shape, generator=gen, device=DEVICE) * value).to(torch.bfloat16).cpu()
+                t = (torch.randn(shape, generator=gen, device=DEVICE) * value).to(dtype).cpu()
             f.write(memoryview(t.view(torch.uint8).numpy().reshape(-1)))
     return offset
 
@@ -2551,7 +2681,8 @@ def write_temp_checkpoint(torch, name, cfg, tensors, flag=None, init=None):
     Fails before writing where the disk lacks room, naming `flag` where
     one cuts the depth."""
     tmp = tempfile.mkdtemp(prefix=f"scalellm_{name}_")
-    need = sum(2 * functools.reduce(lambda a, b: a * b, shape, 1) for _, shape, _ in tensors)
+    size = checkpoint_dtype(torch, cfg)[0].itemsize
+    need = sum(size * functools.reduce(lambda a, b: a * b, shape, 1) for _, shape, _ in tensors)
     free = shutil.disk_usage(tmp).free
     if free < need + 2**30:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2673,16 +2804,90 @@ def qwen3_checkpoint_tensors(cfg):
     return out + [("model.norm.weight", (D,), True), ("lm_head.weight", (V, D), False)]
 
 
+def phi_checkpoint_tensors(cfg):
+    """(HF name, shape, is a constant) of every tensor of a Phi checkpoint:
+    q/k/v, dense (o), fc1 (up) and fc2 (down) with their biases, one
+    LayerNorm a layer (the parallel residual), the final LayerNorm, the
+    untied lm_head and its bias; biases are constants (0) beside the norms."""
+    D, F_, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    out = [("model.embed_tokens.weight", (V, D), False)]
+    for l in range(layers_of(cfg)):
+        p = f"model.layers.{l}."
+        for name in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.dense"):
+            out += [(p + name + ".weight", (D, D), False), (p + name + ".bias", (D,), True)]
+        out += [(p + "mlp.fc1.weight", (F_, D), False), (p + "mlp.fc1.bias", (F_,), True),
+                (p + "mlp.fc2.weight", (D, F_), False), (p + "mlp.fc2.bias", (D,), True),
+                (p + "input_layernorm.weight", (D,), True), (p + "input_layernorm.bias", (D,), True)]
+    return out + [("model.final_layernorm.weight", (D,), True), ("model.final_layernorm.bias", (D,), True),
+                  ("lm_head.weight", (V, D), False), ("lm_head.bias", (V,), True)]
+
+
+def mpt_checkpoint_tensors(cfg):
+    """(HF name, shape, is a constant) of every tensor of an MPT checkpoint
+    with no_bias: the fused Wqkv, out_proj, the ungated FFN, bias-free
+    LayerNorms, tied embeddings."""
+    D, V = cfg["d_model"], cfg["vocab_size"]
+    F_ = cfg["expansion_ratio"] * D
+    out = [("transformer.wte.weight", (V, D), False)]
+    for l in range(layers_of(cfg)):
+        p = f"transformer.blocks.{l}."
+        out += [(p + "norm_1.weight", (D,), True), (p + "attn.Wqkv.weight", (3 * D, D), False),
+                (p + "attn.out_proj.weight", (D, D), False), (p + "norm_2.weight", (D,), True),
+                (p + "ffn.up_proj.weight", (F_, D), False), (p + "ffn.down_proj.weight", (D, F_), False)]
+    return out + [("transformer.norm_f.weight", (D,), True)]
+
+
+def bloom_checkpoint_tensors(cfg):
+    """(HF name, shape, is a constant) of every tensor of a BLOOM checkpoint:
+    the embedding LayerNorm, per layer the per-head interleaved
+    query_key_value, dense (o), dense_h_to_4h / dense_4h_to_h with their
+    biases and two LayerNorms, the final LayerNorm, tied embeddings."""
+    D, V = cfg["hidden_size"], cfg["vocab_size"]
+    out = [("transformer.word_embeddings.weight", (V, D), False),
+           ("transformer.word_embeddings_layernorm.weight", (D,), True),
+           ("transformer.word_embeddings_layernorm.bias", (D,), True)]
+    for l in range(layers_of(cfg)):
+        p = f"transformer.h.{l}."
+        out += [(p + "input_layernorm.weight", (D,), True), (p + "input_layernorm.bias", (D,), True),
+                (p + "self_attention.query_key_value.weight", (3 * D, D), False),
+                (p + "self_attention.query_key_value.bias", (3 * D,), True),
+                (p + "self_attention.dense.weight", (D, D), False), (p + "self_attention.dense.bias", (D,), True),
+                (p + "post_attention_layernorm.weight", (D,), True), (p + "post_attention_layernorm.bias", (D,), True),
+                (p + "mlp.dense_h_to_4h.weight", (4 * D, D), False), (p + "mlp.dense_h_to_4h.bias", (4 * D,), True),
+                (p + "mlp.dense_4h_to_h.weight", (D, 4 * D), False), (p + "mlp.dense_4h_to_h.bias", (D,), True)]
+    return out + [("transformer.ln_f.weight", (D,), True), ("transformer.ln_f.bias", (D,), True)]
+
+
+def gpt2_checkpoint_tensors(cfg):
+    """(HF name, shape, is a constant) of every tensor of a GPT-2 checkpoint:
+    token and position embeddings, per layer c_attn (q | k | v), c_proj,
+    c_fc and the MLP's c_proj as Conv1D weights [in, out] with their biases,
+    two LayerNorms, the final LayerNorm, tied embeddings."""
+    D, V, P = cfg["n_embd"], cfg["vocab_size"], cfg["n_positions"]
+    out = [("transformer.wte.weight", (V, D), False), ("transformer.wpe.weight", (P, D), False)]
+    for l in range(layers_of(cfg)):
+        p = f"transformer.h.{l}."
+        out += [(p + "ln_1.weight", (D,), True), (p + "ln_1.bias", (D,), True),
+                (p + "attn.c_attn.weight", (D, 3 * D), False), (p + "attn.c_attn.bias", (3 * D,), True),
+                (p + "attn.c_proj.weight", (D, D), False), (p + "attn.c_proj.bias", (D,), True),
+                (p + "ln_2.weight", (D,), True), (p + "ln_2.bias", (D,), True),
+                (p + "mlp.c_fc.weight", (D, 4 * D), False), (p + "mlp.c_fc.bias", (4 * D,), True),
+                (p + "mlp.c_proj.weight", (4 * D, D), False), (p + "mlp.c_proj.bias", (D,), True)]
+    return out + [("transformer.ln_f.weight", (D,), True), ("transformer.ln_f.bias", (D,), True)]
+
+
 def moe_counters():
-    """The kernel wrappers an MoE model's step may launch (DeepSeek-V2,
-    Mixtral, Qwen2-MoE), by name."""
+    """The kernel wrappers a step of phases 6-15 may launch (DeepSeek-V2,
+    Mixtral, Qwen2-MoE and the dense DecoderModel families), by name, with
+    K1's counts of its ALiBi, head-dim-80 and f32 launches."""
     from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops import grouped_matmul as G
     from scalellm_tpu_torch.ops import mla_attention as M
     from scalellm_tpu_torch.ops import moe_quant as MQ
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
-    return (attention.ragged_paged_attention_cuda, G.grouped_matmul_cuda, MQ.grouped_quant_matmul_pair_cuda,
+    k1 = attention.ragged_paged_attention_cuda
+    return (k1, k1.alibi, k1.d80, k1.f32, G.grouped_matmul_cuda, MQ.grouped_quant_matmul_pair_cuda,
             MQ.grouped_quant_matmul_cuda, MQ.expert_dequant_cuda, M.mla_decode_attention_cuda,
             M.mla_prefill_attention_cuda, Q.quant_matmul_w4a8_cuda, Q.quant_matmul_group_cuda,
             Q.quant_matmul_dequant_cuda)
@@ -2691,7 +2896,8 @@ def moe_counters():
 def moe_step_launches(model, T, S, decode_only):
     """What one engine step of T tokens and S selected rows must launch, by
     wrapper name: attention once a layer (DeepSeek: K9 on decode-only steps,
-    else K10; DecoderModel: K1); per MoE layer K6
+    else K10; DecoderModel: K1, each launch also counted as ALiBi, head dim
+    80 or f32 where the model is so); per MoE layer K6
     three times for bf16 experts, and for quantized ones K8 (gate and up)
     and K7 (down) where the T * top_k routed rows take the decode kernel
     (the dispatcher's takes_decode_kernel), else K6 in their place (two for
@@ -2702,12 +2908,17 @@ def moe_step_launches(model, T, S, decode_only):
     from scalellm_tpu_torch.ops import moe_quant as MQ
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
+    import torch
+
     a = model.args
     want = {c.__name__: 0 for c in moe_counters()}
     if getattr(model, "mla", False):
         want["mla_decode_attention_cuda" if decode_only else "mla_prefill_attention_cuda"] = a.n_layers
     else:
         want["ragged_paged_attention_cuda"] = a.n_layers
+        for kind, on in (("alibi", a.pos_embedding_type == "alibi"), ("d80", a.head_dim == 80),
+                         ("f32", model.dtype == torch.float32)):
+            want[f"ragged_paged_attention_{kind}"] = a.n_layers if on else 0
     rows = T * a.n_experts_per_token
     for layer in model.layers:
         if not layer.moe:
@@ -2738,9 +2949,9 @@ def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpo
     """Serve the checkpoint at `path` with LLM(path, quantize=quantize):
     phase 6 (DeepSeek-V2-Lite, name "deepseek") in bf16 and phase 7 with
     runtime-INT4 experts and projections, each serving SERVES; phases 8
-    (Mixtral-8x7B), 9 (Qwen1.5-MoE-A2.7B) and the dense phases 10
-    (Gemma-2-9B) and 11 (Qwen3-8B) the same, serving "async" with graphs
-    and then "eager", each request of the async serve held to the eager
+    (Mixtral-8x7B), 9 (Qwen1.5-MoE-A2.7B) and the dense phases 10-15
+    (Gemma-2-9B, Qwen3-8B, Phi-2, MPT-7B, BLOOM-560m, GPT-2) the same,
+    serving "async" with graphs and then "eager", each request of the async serve held to the eager
     one's ids (a dense model's routing replay below replays nothing). Each
     load must find the checkpoint's bytes free on the card. Returns the
     launches of the serves with graphs."""
@@ -2900,11 +3111,15 @@ def main() -> None:
                         help="depth of the DeepSeek-V2-Lite runs, bf16 and INT4 (of 27; their widths are never cut)")
     parser.add_argument("--mixtral-layers", type=int, default=MIXTRAL_LAYERS,
                         help="depth of the Mixtral-8x7B runs, bf16 and INT4 (of 32; their widths are never cut)")
-    parser.add_argument("--gemma2-layers", type=int, default=GEMMA2_9B["num_hidden_layers"],
+    parser.add_argument("--gemma2-layers", type=int, default=GEMMA2_LAYERS,
                         help="depth of the Gemma-2-9B runs, bf16 and INT4 (of 42; even, so that sliding and "
                              "global layers both run; the widths are never cut)")
-    parser.add_argument("--qwen3-layers", type=int, default=QWEN3_8B["num_hidden_layers"],
+    parser.add_argument("--qwen3-layers", type=int, default=QWEN3_LAYERS,
                         help="depth of the Qwen3-8B runs, bf16 and INT4 (of 36; the widths are never cut)")
+    parser.add_argument("--phi2-layers", type=int, default=layers_of(PHI2),
+                        help="depth of the Phi-2 runs, bf16 and INT4 (of 32; the widths are never cut)")
+    parser.add_argument("--mpt-layers", type=int, default=layers_of(MPT_7B),
+                        help="depth of the MPT-7B runs, bf16 and INT4 (of 32; the widths are never cut)")
     opts = parser.parse_args()
     if opts.gemma2_layers % 2:
         parser.error("--gemma2-layers must be even: Gemma2 alternates sliding and global layers")
@@ -2936,28 +3151,35 @@ def main() -> None:
     count_captured_launches()
     bf16_launches = timed("4", phase_end_to_end, torch, card)
     int4_launches = timed("5", phase_end_to_end_int4, torch, card, opts.int4_layers)
-    # Phases 6-11: each checkpoint written once, served in bf16 and then
-    # with runtime INT4, and removed.
+    # Phases 6-15: each checkpoint written once, served in bf16 and then
+    # with runtime INT4 (phases 14 and 15: bf16 and f32 alone), and removed.
     moe_launches = {}
-    for phase, name, base, tensors_of, flag, layers, serves in (
+    both = ("", "int4")
+    for phase, name, base, tensors_of, flag, layers, serves, quantizes in (
             ("6-7", "deepseek", DEEPSEEK_V2_LITE, deepseek_checkpoint_tensors, "--deepseek-layers",
-             opts.deepseek_layers, SERVES),
+             opts.deepseek_layers, SERVES, both),
             ("8", "mixtral", MIXTRAL_8X7B, mixtral_checkpoint_tensors, "--mixtral-layers", opts.mixtral_layers,
-             MOE_SERVES),
+             MOE_SERVES, both),
             ("9", "qwen2_moe", QWEN15_MOE_A27B, qwen2_moe_checkpoint_tensors, None,
-             QWEN15_MOE_A27B["num_hidden_layers"], MOE_SERVES),
+             QWEN15_MOE_A27B["num_hidden_layers"], MOE_SERVES, both),
             ("10", "gemma2", GEMMA2_9B, gemma2_checkpoint_tensors, "--gemma2-layers", opts.gemma2_layers,
-             MOE_SERVES),
-            ("11", "qwen3", QWEN3_8B, qwen3_checkpoint_tensors, "--qwen3-layers", opts.qwen3_layers, MOE_SERVES)):
+             MOE_SERVES, both),
+            ("11", "qwen3", QWEN3_8B, qwen3_checkpoint_tensors, "--qwen3-layers", opts.qwen3_layers, MOE_SERVES,
+             both),
+            ("12", "phi2", PHI2, phi_checkpoint_tensors, "--phi2-layers", opts.phi2_layers, MOE_SERVES, both),
+            ("13", "mpt7b", MPT_7B, mpt_checkpoint_tensors, "--mpt-layers", opts.mpt_layers, MOE_SERVES, both),
+            ("14", "bloom560m", BLOOM_560M, bloom_checkpoint_tensors, None, layers_of(BLOOM_560M), MOE_SERVES,
+             ("",)),
+            ("15", "gpt2", GPT2, gpt2_checkpoint_tensors, None, layers_of(GPT2), MOE_SERVES, ("",))):
         t0 = time.monotonic()
-        cfg = dict(base, num_hidden_layers=layers)
+        cfg = with_layers(base, layers)
         path, nbytes, t_write = write_temp_checkpoint(torch, name, cfg, tensors_of(cfg), flag,
-                                                      scaled_init(cfg) if phase in ("10", "11") else None)
+                                                      None if phase in ("6-7", "8", "9") else scaled_init(cfg))
         try:
             emit(dict(phase=f"{name}_checkpoint", layers=layers, checkpoint_bytes=nbytes, write_s=t_write))
-            for quantize in ("", "int4"):
+            for quantize in quantizes:
                 moe_launches[(name, quantize)] = phase_end_to_end_moe(
-                    torch, card, name, path, layers, base["num_hidden_layers"], nbytes, quantize, serves)
+                    torch, card, name, path, layers, layers_of(base), nbytes, quantize, serves)
         finally:
             shutil.rmtree(path, ignore_errors=True)
         phase_seconds[phase] = time.monotonic() - t0
@@ -2967,15 +3189,18 @@ def main() -> None:
                 "grouped_matmul_cuda", "expert_dequant_cuda", "grouped_quant_matmul_cuda",
                 "grouped_quant_matmul_pair_cuda")),
             ("10 and 11", ("gemma2", "qwen3"), (
-                "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda"))):
-        runs = [moe_launches[(name, q)] for name in names for q in ("", "int4")]
+                "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda")),
+            ("12-15", ("phi2", "mpt7b", "bloom560m", "gpt2"), (
+                "ragged_paged_attention_alibi", "ragged_paged_attention_d80", "ragged_paged_attention_f32",
+                "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda"))):
+        runs = [run for (name, _), run in moe_launches.items() if name in names]
         for wrapper in wrappers:
             if not sum(run.get(wrapper, 0) for run in runs) > 0:
                 fail(f"phases {phases} never launched {wrapper}")
     new_k1 = sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values())
 
     # Each kernel's launches on the main paths (the sync, async and ms4
-    # serves with graphs: counts set to 0 before each timed generate and
+    # serves with graphs; K1's f32 kernel apart from the bf16 one: counts set to 0 before each timed generate and
     # read after it, with each replayed step graph adding what its wrappers
     # counted when it was captured; the checks above, and the eager serves
     # beside the graph ones, launch outside that window; phase 5's variant
@@ -2998,11 +3223,16 @@ def main() -> None:
     source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
     moe_source = "scalellm_tpu_torch/csrc/moe_quant.cu"
     gemv_source = "scalellm_tpu_torch/csrc/quant_gemv.cu"
+    f32_k1 = launched("ragged_paged_attention_f32")
+    f32_shapes = {n for n, spec in ATTENTION_SHAPES.items() if spec.get("dtype") == "float32"}
     kernels = [
         kernel_entry("ragged_paged_attention", "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
                      "scalellm_tpu/ops/attention.py:132",
-                     bf16_launches + int4_launches["ragged_paged_attention_cuda"] + new_k1,
-                     attention_results, "a_decode"),
+                     bf16_launches + int4_launches["ragged_paged_attention_cuda"] + new_k1 - f32_k1,
+                     {n: r for n, r in attention_results.items() if n not in f32_shapes}, "a_decode"),
+        kernel_entry("ragged_paged_attention_f32", "scalellm_tpu_torch/csrc/ragged_paged_attention_f32.cu",
+                     "scalellm_tpu/ops/attention.py:132", f32_k1,
+                     {n: r for n, r in attention_results.items() if n in f32_shapes}, "r_decode_f32_gpt2"),
         kernel_entry("quant_matmul_w4a8", source, "scalellm_tpu/ops/quant_matmul.py:360",
                      launched("quant_matmul_w4a8_cuda"), quant_results["w4a8"],
                      ("gate_up_proj", 16, False)),

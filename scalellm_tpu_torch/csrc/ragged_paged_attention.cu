@@ -12,8 +12,9 @@
 //   - KV pages [P, page_size, 2*Hkv, D], K at even and V at odd combined
 //     heads, reached through the block table page_indices[S, MAXP];
 //   - GQA (group <= 16), causal masking by absolute position, sliding window
-//     (<= 0 disables it), logit soft cap (<= 0 disables it, applied before
-//     the max);
+//     (<= 0 disables it), ALiBi (score += slope[head] * (kv_pos - q_pos),
+//     after the scale and before the soft cap), logit soft cap (<= 0
+//     disables it, applied before the max);
 //   - rows that own no KV (padding sequences with kv_len 0, and rows at or
 //     past cu_q_lens[num_seqs]) write zeros, never NaN.
 // Page 0 is the reserved padding page: padding tokens write their K/V
@@ -78,9 +79,19 @@
 //     rows (192 KB; with q, 224 KB of the 227 KB a block may take), so a
 //     D = 256 block has an SM to itself; its 2 stages in flight (128 KB)
 //     are more than an SM needs to keep its share of the memory busy.
+//   - head dim 80 (Phi-2): a row is 10 16-byte chunks, which the XOR swizzle
+//     of 8 chunks cannot permute within the row, so an 80-wide row is staged
+//     in a 128-wide stage row (stage_dim) with the D = 128 swizzle; its 6
+//     extra chunks are never written nor read (the loads, QK's k16 steps and
+//     PV's n8 tiles cover 80 columns), and each row still reads 160 bytes
+//     from device memory. The ring is D = 128's (96 KB, two blocks an SM).
+//   - ALiBi (MPT, BLOOM) is a template flag, so the other paths keep their
+//     code: each row adds its head's slope times its distance to every
+//     score, the `whole` fast path included (it skips the masks only).
 // No float atomics: the same inputs give the same bits on every call.
-// Int8 pages with k/v scales, ALiBi and head dims other than 64, 128 and
-// 256 are not covered; the Python wrapper refuses them.
+// Int8 pages with k/v scales and head dims other than 64, 80, 128 and 256
+// are not covered; the Python wrapper refuses them. f32 q and pages go to
+// the kernel of ragged_paged_attention_f32.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,6 +124,7 @@ struct Params {
   int window;
   float sm_scale, soft_cap;
   float scale_log2;               // sm_scale * log2(e): scores in base 2 without a soft cap
+  const float* alibi;             // [H] ALiBi slopes (the kAlibi instances only)
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -169,12 +181,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Element offset of 16-byte chunk `ch` of row `j` in a [kStage, D] stage:
-// the chunk index is XORed with the row's low 3 bits, so the 8 rows one
-// ldmatrix phase reads lie in 8 different bank groups.
+// Elements of a stage row: D, or 128 at D = 80 (10 chunks do not take the
+// 8-chunk XOR swizzle within a row; see the design notes).
+template <int D>
+__host__ __device__ constexpr int stage_dim() {
+  return D == 80 ? 128 : D;
+}
+
+// Element offset of 16-byte chunk `ch` of row `j` in a [kStage, stage_dim]
+// stage: the chunk index is XORed with the row's low 3 bits, so the 8 rows
+// one ldmatrix phase reads lie in 8 different bank groups.
 template <int D>
 __device__ __forceinline__ int swz(int j, int ch) {
-  return j * D + ((ch ^ (j & 7)) << 3);
+  return j * stage_dim<D>() + ((ch ^ (j & 7)) << 3);
 }
 
 // Stage K and V rows [base, base + kStage) of one KV head; rows at or past
@@ -187,7 +206,7 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* ks, const Params& p,
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
   constexpr int kIters = kStage * kChunks / kThreads;
   static_assert(kStage * kChunks % kThreads == 0, "stage chunks");
-  __nv_bfloat16* vs = ks + kStage * D;
+  __nv_bfloat16* vs = ks + kStage * stage_dim<D>();
   const size_t row_stride = (size_t)2 * p.n_kv_heads * D;
 #pragma unroll
   for (int i = 0; i < kIters; ++i) {
@@ -292,16 +311,24 @@ struct WarpAcc {
   }
 };
 
+// One warp's ALiBi rows: the slope of each row's head (0 for a padding row)
+// and its query's absolute position.
+struct RowAlibi {
+  float slope[2];
+  int q_pos[2];
+};
+
 // One warp over NC KV columns [col0, col0 + NC) of a staged tile whose row
-// 0 is KV position `base`: S = q K^T, masks, online softmax, O += P V for
-// the DV output columns [dv0, dv0 + DV). A column at position pos is
-// visible to row r (0: g, 1: g + 8) when lo[r] <= pos < hi[r].
-template <int D, int NC, int DV>
+// 0 is KV position `base`: S = q K^T, ALiBi (kAlibi), masks, online softmax,
+// O += P V for the DV output columns [dv0, dv0 + DV). A column at position
+// pos is visible to row r (0: g, 1: g + 8) when lo[r] <= pos < hi[r].
+template <int D, int NC, int DV, bool kAlibi>
 __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const QOperand<D>& q,
                                              WarpAcc<DV>& acc, const Params& p, int col0, int base,
-                                             const int (&lo)[2], const int (&hi)[2], int dv0) {
+                                             const int (&lo)[2], const int (&hi)[2], int dv0,
+                                             const RowAlibi& al) {
   static_assert(NC % 16 == 0, "columns in k16 steps");
-  const __nv_bfloat16* vs = ks + kStage * D;
+  const __nv_bfloat16* vs = ks + kStage * stage_dim<D>();
   const int lane = threadIdx.x & 31, t = lane & 3, mat = lane >> 3;
   float s[NC / 8][4];
 #pragma unroll
@@ -322,8 +349,8 @@ __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const QOpe
     }
   }
 
-  // Scale, soft cap, masks; base-2 scores and the rows' new maxima. Where
-  // every column of the warp's share is visible to both rows, no masks.
+  // Scale, ALiBi, soft cap, masks; base-2 scores and the rows' new maxima.
+  // Where every column of the warp's share is visible to both rows, no masks.
   const int c0 = base + col0;
   const bool whole = c0 >= lo[0] && c0 + NC <= hi[0] && c0 >= lo[1] && c0 + NC <= hi[1];
   float mx[2] = {-INFINITY, -INFINITY};
@@ -333,8 +360,14 @@ __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const QOpe
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
       const int pos = c0 + n * 8 + 2 * t + (e & 1);
-      float x = p.soft_cap > 0.f ? p.soft_cap * tanhf(s[n][e] * p.sm_scale / p.soft_cap) * kLog2e
-                                 : s[n][e] * p.scale_log2;
+      float x;
+      if constexpr (kAlibi) {
+        x = s[n][e] * p.sm_scale + al.slope[r] * (float)(pos - al.q_pos[r]);
+        x = p.soft_cap > 0.f ? p.soft_cap * tanhf(x / p.soft_cap) * kLog2e : x * kLog2e;
+      } else {
+        x = p.soft_cap > 0.f ? p.soft_cap * tanhf(s[n][e] * p.sm_scale / p.soft_cap) * kLog2e
+                             : s[n][e] * p.scale_log2;
+      }
       if (!whole && !(pos >= lo[r] && pos < hi[r])) x = -INFINITY;
       s[n][e] = x;
       mx[r] = fmaxf(mx[r], x);
@@ -392,12 +425,13 @@ __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const QOpe
 // KW = 1 every warp sees the whole stage (its own 16 q rows), with KW =
 // kWarps the warps share the q rows and split the stage. The warp
 // accumulates output columns [dv0, dv0 + DV).
-template <int D, int KW, int DV>
+template <int D, int KW, int DV, bool kAlibi>
 __device__ __forceinline__ void walk(const Params& p, const __nv_bfloat16* kv_head, const int* table,
                                      int begin, int end, const QOperand<D>& q, WarpAcc<DV>& acc,
-                                     const int (&lo)[2], const int (&hi)[2], __nv_bfloat16* ring, int dv0) {
+                                     const int (&lo)[2], const int (&hi)[2], __nv_bfloat16* ring, int dv0,
+                                     const RowAlibi& al) {
   constexpr int kCols = kStage / KW;
-  constexpr int kStageElems = 2 * kStage * D;
+  constexpr int kStageElems = 2 * kStage * stage_dim<D>();
   const int col0 = (threadIdx.x / 32 % KW) * kCols;
   const int n_tiles = (end - begin + kStage - 1) / kStage;
 #pragma unroll
@@ -412,8 +446,8 @@ __device__ __forceinline__ void walk(const Params& p, const __nv_bfloat16* kv_he
     if (next < n_tiles)
       load_stage<D>(ring + (next % kStages) * kStageElems, p, kv_head, table, begin + next * kStage, end);
     cp_async_commit();
-    attend_stage<D, kCols, DV>(ring + (it % kStages) * kStageElems, q, acc, p, col0, begin + it * kStage, lo,
-                               hi, dv0);
+    attend_stage<D, kCols, DV, kAlibi>(ring + (it % kStages) * kStageElems, q, acc, p, col0,
+                                       begin + it * kStage, lo, hi, dv0, al);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free for reuse
@@ -439,7 +473,7 @@ __device__ __forceinline__ void split_range(const Params& p, int kv_len, int& lo
 // Shared memory: the ring, then (q_in_smem) each warp's 16 q rows.
 template <int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return kStages * 2 * kStage * D * (int)sizeof(__nv_bfloat16);
+  return kStages * 2 * kStage * stage_dim<D>() * (int)sizeof(__nv_bfloat16);
 }
 template <int D>
 __host__ __device__ constexpr int smem_bytes() {
@@ -450,7 +484,7 @@ __device__ __forceinline__ __nv_bfloat16* warp_q_smem(__nv_bfloat16* ring) {
   return ring + ring_bytes<D>() / (int)sizeof(__nv_bfloat16) + (threadIdx.x / 32) * 16 * D;
 }
 
-template <int D>
+template <int D, bool kAlibi>
 __device__ void split_block(const Params& p, int x, int h, __nv_bfloat16* ring) {
   const int s = x / p.splits, sp = x % p.splits;
   const int n_real = min(max(p.num_seqs[0], 0), p.S);
@@ -476,8 +510,14 @@ __device__ void split_block(const Params& p, int x, int h, __nv_bfloat16* ring) 
   WarpAcc<D> acc;
   acc.init();
   const int lo[2] = {begin, begin}, hi[2] = {end, end};
-  walk<D, kWarps, D>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, q, acc, lo, hi,
-                     ring, 0);
+  RowAlibi al = {};
+  if constexpr (kAlibi) {  // rows g and g + 8 are heads h * group + g, + 8; the token sits at kv_len - 1
+    al.slope[0] = g < group ? p.alibi[h * group + g] : 0.f;
+    al.slope[1] = g + 8 < group ? p.alibi[h * group + g + 8] : 0.f;
+    al.q_pos[0] = al.q_pos[1] = kv_len - 1;
+  }
+  walk<D, kWarps, D, kAlibi>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, q, acc,
+                             lo, hi, ring, 0, al);
   acc.row_sums();
 
   // The warps' states meet in the (now free) ring: o [warp][16][D + pad].
@@ -529,7 +569,7 @@ __host__ __device__ constexpr int tile_q_rows() {
   return 16 * kRowWarps<D>;
 }
 
-template <int D>
+template <int D, bool kAlibi>
 __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
   constexpr int DV = D * kRowWarps<D> / kWarps;  // output columns a warp accumulates
   __shared__ int found[2];  // sequence, tile within it
@@ -581,6 +621,7 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
   const int dv0 = warp / kRowWarps<D> * DV;
   int lo[2], hi[2];
   const __nv_bfloat16* q_row[2];
+  RowAlibi al = {};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp % kRowWarps<D> * 16 + g + 8 * i;
@@ -592,6 +633,10 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
       q_row[i] = p.q + ((size_t)(q_start + tok0 + k) * p.n_heads + (size_t)h * group + r % group) * D;
       lo[i] = p.window > 0 ? max(0, pos - p.window + 1) : 0;
       hi[i] = min(pos + 1, kv_cap);
+      if constexpr (kAlibi) {
+        al.slope[i] = p.alibi[h * group + r % group];
+        al.q_pos[i] = pos;
+      }
     }
   }
   const int begin = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
@@ -602,8 +647,8 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
   WarpAcc<DV> acc;
   acc.init();
   if (end > begin)
-    walk<D, 1, DV>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, q, acc, lo, hi,
-                   ring, dv0);
+    walk<D, 1, DV, kAlibi>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, q, acc, lo,
+                           hi, ring, dv0, al);
   acc.row_sums();
 
   const int t = lane & 3;
@@ -621,16 +666,16 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
 
 // Block (x, KV head): x < tile_blocks is a tile block, the rest are split
 // blocks (slot, split) = ((x - tile_blocks) / splits, % splits).
-template <int D>
+template <int D, bool kAlibi>
 __global__ void __launch_bounds__(kThreads, 2) ragged_paged_attention_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
   const int x = blockIdx.x, h = blockIdx.y;
   griddep_launch();  // the merge may start; it waits for this grid before it reads
   if (x < p.tile_blocks)
-    tile_block<D>(p, x, h, ring);
+    tile_block<D, kAlibi>(p, x, h, ring);
   else
-    split_block<D>(p, x - p.tile_blocks, h, ring);
+    split_block<D, kAlibi>(p, x - p.tile_blocks, h, ring);
 }
 
 // Block (t, c): q row t, its quads (4 dims of one head) c * kThreads ..,
@@ -689,20 +734,21 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_merge_kernel(
 }
 
 static_assert(kWarps * 16 * (64 + kRedPad + 2) * 4 <= ring_bytes<64>(), "warp merge fits the ring");
+static_assert(kWarps * 16 * (80 + kRedPad + 2) * 4 <= ring_bytes<80>(), "warp merge fits the ring");
 static_assert(kWarps * 16 * (128 + kRedPad + 2) * 4 <= ring_bytes<128>(), "warp merge fits the ring");
 static_assert(kWarps * 16 * (256 + kRedPad + 2) * 4 <= ring_bytes<256>(), "warp merge fits the ring");
 static_assert(smem_bytes<256>() + 16 <= 232448, "ring, q rows and the tile lookup fit a block's shared memory");
 
-template <int D>
+template <int D, bool kAlibi>
 int launch(Params p, cudaStream_t st) {
   p.tile_tokens = tile_q_rows<D>() / p.group;
   // Sequences of 2 or more tokens hold at most T / tile_tokens + S tiles.
   p.tile_blocks = (p.T + p.tile_tokens - 1) / p.tile_tokens + min(p.S, p.T);
   static const int smem_rc = (int)cudaFuncSetAttribute(
-      ragged_paged_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+      ragged_paged_attention_kernel<D, kAlibi>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
   if (smem_rc) return smem_rc;
   const dim3 grid(p.tile_blocks + p.S * p.splits, p.n_kv_heads);
-  ragged_paged_attention_kernel<D><<<grid, kThreads, smem_bytes<D>(), st>>>(p);
+  ragged_paged_attention_kernel<D, kAlibi><<<grid, kThreads, smem_bytes<D>(), st>>>(p);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   // The merge is the attention grid's programmatic dependent: it is launched
@@ -720,17 +766,23 @@ int launch(Params p, cudaStream_t st) {
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_any(const Params& p, cudaStream_t st) {
+  return p.alibi ? launch<D, true>(p, st) : launch<D, false>(p, st);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Launches the attention kernel and
 // the merge on `stream` and returns cudaGetLastError() (0 on success); it
 // never synchronises. `scratch` holds S * splits * n_heads * (head_dim + 2)
 // floats (the wrapper allocates it); splits and split_len come from the
-// wrapper's split plan.
+// wrapper's split plan. `alibi_slopes`: f32 [n_heads] on the device, or
+// null (no ALiBi).
 extern "C" int scalellm_ragged_paged_attention(
     const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
-    const void* cu_q_lens, const void* num_seqs, void* out, void* scratch, int num_tokens,
-    int num_seq_slots, int maxp, int page_size, int n_heads, int n_kv_heads, int head_dim,
+    const void* cu_q_lens, const void* num_seqs, void* out, void* scratch, const void* alibi_slopes,
+    int num_tokens, int num_seq_slots, int maxp, int page_size, int n_heads, int n_kv_heads, int head_dim,
     int splits, int split_len, float sm_scale, int window, float soft_cap,
     void* stream) {
   if (num_tokens == 0) return 0;
@@ -762,11 +814,13 @@ extern "C" int scalellm_ragged_paged_attention(
   p.sm_scale = sm_scale;
   p.soft_cap = soft_cap;
   p.scale_log2 = sm_scale * kLog2e;
+  p.alibi = static_cast<const float*>(alibi_slopes);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return launch<64>(p, st);
-    case 128: return launch<128>(p, st);
-    case 256: return launch<256>(p, st);
+    case 64: return launch_any<64>(p, st);
+    case 80: return launch_any<80>(p, st);
+    case 128: return launch_any<128>(p, st);
+    case 256: return launch_any<256>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

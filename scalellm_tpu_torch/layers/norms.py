@@ -1,9 +1,11 @@
-"""RMSNorm (counterpart of scalellm_tpu/layers/norms.py:rms_norm).
+"""RMSNorm and LayerNorm (counterparts of scalellm_tpu/layers/norms.py).
 
 Computed in float32 and cast back to the input dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -18,3 +20,17 @@ def rms_norm(
     if zero_centered:
         w = 1.0 + w
     return (xf * w).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float
+) -> torch.Tensor:
+    """LayerNorm with an optional bias: f32 mean and variance, the weight,
+    then the bias, then the cast back."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)

@@ -3,7 +3,10 @@
 
 Reads config.json through the registry's per-model args loader and the
 model's *.safetensors files, one tensor at a time, straight into the model's
-state_dict on the target device, cast to the model's compute dtype. The
+state_dict on the target device, cast to the model's compute dtype. A
+model's weight rule is (regex, target) or (regex, target, transform): the
+transform re-lays the cast tensor out (GPT-2's Conv1D weights [in, out]
+transposed, BLOOM's per-head interleaved query_key_value reordered). The
 safetensors format is read here without the safetensors package: an 8-byte
 little-endian header length, a JSON header naming each tensor's dtype, shape
 and byte range, then the raw bytes (read with torch.frombuffer over a
@@ -137,10 +140,12 @@ class HFModelLoader:
         `device` (floating tensors cast to the model's dtype, quantized ones
         through their rule's transform), with fused projections
         concatenated."""
-        rules = [(rx, target, None) for rx, target in model.hf_weight_rules]
-        if self.quant_args.enabled:
-            rules = build_quant_rules(list(model.hf_weight_rules), self.quant_args)
-        rules = [(re.compile(rx + r"$"), target, fn) for rx, target, fn in rules]
+        dense = [(rule[0], rule[1], rule[2] if len(rule) > 2 else None) for rule in model.hf_weight_rules]
+        rules = build_quant_rules(dense, self.quant_args) if self.quant_args.enabled else dense
+        # A model's own rule (cast) reads its tensor in the model's dtype and
+        # then applies its layout transform; a quantized tensor's rule hands
+        # the raw tensor to its format transform.
+        rules = [(re.compile(rx + r"$"), target, fn, (rx, target, fn) in dense) for rx, target, fn in rules]
         expected = dict(model.state_dict(keep_vars=True))
         dtype = model.dtype
         parts: Dict[str, torch.Tensor] = {}
@@ -149,7 +154,7 @@ class HFModelLoader:
         unmatched = []
         for wf in self.weight_files:
             for ckpt_name, raw in read_safetensors(wf):
-                for rx, target, transform in rules:
+                for rx, target, transform, cast in rules:
                     m = rx.match(ckpt_name)
                     if m is not None:
                         name = target.format(*m.groups())
@@ -160,8 +165,10 @@ class HFModelLoader:
                             # One expert of an [E, ...] parameter, copied into its slot.
                             self._fill_slot(sd, stacked, stack, int(slot), expected[stack], raw, device)
                             break
-                        if transform is None:
+                        if cast:
                             t = raw.to(device=device, dtype=dtype, copy=True)
+                            if transform is not None:
+                                t = transform(t).contiguous()
                         else:
                             t = transform(raw.to(device=device, copy=True))
                         (sd if name in expected else parts)[name] = t

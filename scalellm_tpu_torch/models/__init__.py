@@ -2,7 +2,7 @@ from scalellm_tpu_torch.models.registry import ModelRegistry
 
 # Import model modules for their registration side effects.
 from scalellm_tpu_torch.models import (  # noqa: F401
-    deepseek, gemma, gemma2, llama, mistral, mixtral, qwen, qwen2, qwen2_moe,
+    bloom, deepseek, gemma, gemma2, gpt2, llama, mistral, mixtral, mpt, phi, qwen, qwen2, qwen2_moe,
 )
 
 __all__ = ["ModelRegistry"]

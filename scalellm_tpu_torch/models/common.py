@@ -1,27 +1,40 @@
-"""Decoder-only transformer, the Llama / Mistral / Qwen / Qwen2 / Qwen3 /
-Gemma / Gemma2 / Mixtral / Qwen2-MoE subset of
+"""Decoder-only transformer: the Llama / Mistral / Qwen / Qwen2 / Qwen3 /
+Gemma / Gemma2 / Mixtral / Qwen2-MoE / GPT-2 / Phi / MPT / BLOOM subset of
 scalellm_tpu/models/common.py:DecoderModel.
 
-Embedding (scaled by sqrt(hidden) for Gemma) -> per layer (RMSNorm, fused
-qkv projection plus the optional qkv bias, the optional qk norm (an RMSNorm
-of each head's q and k over head_dim, before rope), rope, in-place KV
-scatter, ragged paged attention, o projection, the optional post-attention
-norm, RMSNorm, then a dense FFN (fused gate/up projection, gated
-activation, down projection) or, with n_experts, an MoE block, then the
-optional post-feedforward norm) -> final RMSNorm; logits() applies the
-lm_head and the optional final soft cap. Gemma's norms are zero-centred
-((1 + w) weights), the qk norm never is. Gemma2's post-block norms
-(residual_post_layernorm) normalise the o projection's output and the
-FFN's output before their residual adds; its pre-feedforward norm sits in
-the post_norm slot. Weights are nn.Parameters in torch's [out, in] layout,
-with q/k/v fused into qkv_proj (their biases into qkv_bias) and gate/up into
-gate_up_proj as in the reference's fused layout. The layers run as a Python
-loop; the attention implementation is a hook (attn_impl) so a caller can
-swap the kernel for the plain version
-(ops/attention.py:plain_ragged_paged_attention); it is called with the
-step's decode_only. The qkv bias is added in f32 to the projection's
-output, which is already rounded to x's type, and the sum is rounded again
-(the reference adds it to the f32 product, rounding once).
+Embedding (scaled by sqrt(hidden) for Gemma; BLOOM's embedding LayerNorm;
+GPT-2's learned positions added) -> per layer (the input norm, fused qkv
+projection plus the optional qkv bias and MPT's qkv clip, the optional qk
+norm (an RMSNorm of each head's q and k over head_dim, before rope), rope
+(rope models only; ALiBi models give the attention their per-head slopes),
+in-place KV scatter, ragged paged attention, o projection plus the optional
+o bias, the optional post-attention norm, the post norm, then a dense FFN
+(fused gate/up projection and a gated activation, or an ungated up
+projection and its activation, each with optional biases; down projection
+and its optional bias) or, with n_experts, an MoE block, then the optional
+post-feedforward norm) -> final norm; logits() applies the lm_head, its
+optional bias and the optional final soft cap. Norms are RMSNorm or
+LayerNorm (with or without biases) by norm_type. Phi's parallel residual:
+attention and MLP read the same normed x, and h + o + m in that order.
+Gemma's norms are zero-centred ((1 + w) weights), the qk norm never is.
+Gemma2's post-block norms (residual_post_layernorm) normalise the o
+projection's output and the FFN's output before their residual adds; its
+pre-feedforward norm sits in the post_norm slot. Weights are nn.Parameters
+in torch's [out, in] layout, with q/k/v fused into qkv_proj (their biases
+into qkv_bias) and gate/up into gate_up_proj as in the reference's fused
+layout. The rope table (rope_inv_freq) and the ALiBi slopes (alibi_slopes,
+f32 [n_heads]) are model buffers, so that captured step graphs read
+persistent tensors. The layers run as a Python loop; the attention
+implementation is a hook (attn_impl) so a caller can swap the kernel for the
+plain version (ops/attention.py:plain_ragged_paged_attention); it is called
+with the step's decode_only (and alibi_slopes on an ALiBi model).
+
+A dense projection whose next operation works in f32 (a bias, MPT's clip,
+the activation, the lm_head's logits) returns the f32 product of its bf16
+operands, as the reference's preferred_element_type=float32 dot does; the
+result is rounded to the model dtype where the reference rounds (after the
+activation, at the residual add). A projection followed by nothing in f32
+rounds once inside F.linear, which is the same.
 
 An MoE layer (the reference's moe_mlp): the router [E, D] picks top-k
 experts by an f32 softmax (optionally renormalised over the k, clamped at
@@ -30,9 +43,8 @@ layers/moe.py:routed_experts runs them: experts_gate / experts_up [E, Fm, D]
 and experts_down [E, D, Fm] through the grouped GEMM (K6, the gmm_impl
 hook), or, quantized, through quant_expert_ffn (K8 + K7 on decode-sized
 steps, the qexperts_impl hook). With moe_shared_intermediate > 0 a shared
-expert of that width (gate_up_proj / down_proj) is added, scaled by
-sigmoid(x @ shared_gate) in f32 (Qwen2-MoE); the shared expert's output is
-rounded to x's type first (the reference's stays f32). The post-attention norm of an
+expert of that width (gate_up_proj / down_proj) is added in f32, scaled by
+sigmoid(x @ shared_gate) in f32 (Qwen2-MoE). The post-attention norm of an
 MoE layer is never folded into a prologue; the experts and the shared expert
 read the normed x. Which layers are MoE: every one (the reference ignores
 Qwen2-MoE's decoder_sparse_step / mlp_only_layers, and so does this model).
@@ -42,9 +54,11 @@ QuantLinear (kernel-layout qweight, scales, zeros, and for GPTQ desc_act the
 row permutation) and run it through ops/quant_matmul.py; quant_impl is a
 hook like attn_impl. With desc_act the projections stay unfused (each has
 its own row order). Where the reference folds the RMSNorm before a fused
-quantized projection into the kernel's prologue, so does this model: the
-projection then gets the un-normed input. The lm_head is quantized at load
-when quant_args.quantize_lm_head asks (int8; "int4" on request).
+quantized projection into the kernel's prologue (a bias-free RMSNorm, no
+parallel residual), so does this model: the projection then gets the
+un-normed input. The lm_head is quantized at load when
+quant_args.quantize_lm_head asks (int8; "int4" on request). Biases stay in
+the model dtype.
 
 Runtime-quantized MoE models (quant_method "internal") follow the
 reference's expert rule: int4 experts per (expert, G, channel) with G =
@@ -55,9 +69,8 @@ GPTQ/AWQ MoE checkpoints are refused: the reference declares dense experts
 for them, and its loader finds no dense expert weights in such a checkpoint.
 
 Features of the reference's DecoderModel that this subset does not carry
-(LoRA, tensor/sequence/expert parallelism, int8 KV, o/mlp/lm_head/norm
-biases, layer norm, ALiBi, parallel residual, MLA) raise
-NotImplementedError when the model args ask for them.
+(LoRA, tensor/sequence/expert parallelism, int8 KV, MLA on this class)
+raise NotImplementedError when the model args ask for them.
 """
 
 from __future__ import annotations
@@ -71,9 +84,10 @@ import torch.nn.functional as F
 
 from scalellm_tpu_torch.config import ModelArgs
 from scalellm_tpu_torch.engine.params import ModelInputs
-from scalellm_tpu_torch.layers.activations import act_with_mul
+from scalellm_tpu_torch.layers.activations import ACT2FN, act_with_mul
+from scalellm_tpu_torch.layers.alibi import alibi_slopes
 from scalellm_tpu_torch.layers.moe import quant_expert_ffn, routed_experts, softmax_topk
-from scalellm_tpu_torch.layers.norms import rms_norm
+from scalellm_tpu_torch.layers.norms import layer_norm, rms_norm
 from scalellm_tpu_torch.layers.rope import apply_rope, compute_inv_freq, cos_sin, inv_freq_buffer
 from scalellm_tpu_torch.ops.attention import ragged_paged_attention
 from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul
@@ -93,6 +107,7 @@ FUSED_PROJECTIONS = {
     "qkv_proj": ("q_proj", "k_proj", "v_proj"),
     "gate_up_proj": ("gate_proj", "up_proj"),
     "qkv_bias": ("q_bias", "k_bias", "v_bias"),
+    "gate_up_bias": ("gate_bias", "up_bias"),
 }
 
 
@@ -106,18 +121,23 @@ def model_dtype(args: ModelArgs) -> torch.dtype:
     }[args.dtype]
 
 
+def dense_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w^T with an f32 result, w [out, in]: the reference's jnp.dot(x, w,
+    preferred_element_type=float32). On the card one product of x's type
+    (bf16) accumulated and returned in f32 (torch.mm's out_dtype); the weight
+    is never widened. On the CPU (no aten::mm.dtype there) both operands are
+    widened, which is exact for bf16: the f32 sums of the same products."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return F.linear(x, w)
+    if x.device.type == "cpu":
+        return x.float() @ w.float().T
+    return torch.mm(x, w.T, out_dtype=torch.float32)
+
+
 def _unsupported(args: ModelArgs) -> List[str]:
     checks = {
         "MLA": args.kv_lora_rank > 0,
         "int8 KV cache": args.kv_cache_dtype != "auto",
-        "layer norm": args.norm_type != "rms_norm",
-        "non-rope positions": args.pos_embedding_type != "rope",
-        "o/mlp/lm_head/norm biases": args.o_proj_bias or args.mlp_bias
-        or args.lm_head_bias or args.norm_bias,
-        "parallel residual": args.parallel_residual,
-        "ungated MLP": not args.mlp_gated,
-        "embedding norm": args.embedding_norm,
-        "qkv clip": args.qkv_clip > 0,
     }
     return [name for name, on in checks.items() if on]
 
@@ -226,7 +246,12 @@ class DecoderLayer(nn.Module):
                 symmetric=bool(quant.is_sym and not quant.zero_point),
                 desc_act=quant.desc_act, device=device)
 
-        self.input_norm = _param(D, dtype=dtype, device=device)
+        def vec(name: str, n: int):
+            setattr(self, name, _param(n, dtype=dtype, device=device))
+
+        vec("input_norm", D)
+        if args.norm_bias:
+            vec("input_norm_bias", D)
         if quant is not None and quant.desc_act:
             self.q_proj = proj(D, H * Dh)
             self.k_proj = proj(D, Hkv * Dh)
@@ -243,10 +268,15 @@ class DecoderLayer(nn.Module):
             self.q_norm = _param(Dh, dtype=dtype, device=device)
             self.k_norm = _param(Dh, dtype=dtype, device=device)
         self.o_proj = proj(H * Dh, D)
-        self.post_norm = _param(D, dtype=dtype, device=device)
+        if args.o_proj_bias:
+            vec("o_bias", D)
+        if not args.parallel_residual:  # Phi's MLP reads the input norm's x
+            vec("post_norm", D)
+            if args.norm_bias:
+                vec("post_norm_bias", D)
         if args.residual_post_layernorm:
-            self.post_attn_norm = _param(D, dtype=dtype, device=device)
-            self.post_ffw_norm = _param(D, dtype=dtype, device=device)
+            vec("post_attn_norm", D)
+            vec("post_ffw_norm", D)
         if self.moe:
             E, Fm = args.n_experts, args.moe_intermediate_size
             self.router = _param(E, D, dtype=dtype, device=device)
@@ -263,12 +293,23 @@ class DecoderLayer(nn.Module):
                 self.shared_gate = _param(1, D, dtype=dtype, device=device)
         if F_ == 0:
             return
-        if quant is not None and quant.desc_act:
+        if not args.mlp_gated:
+            self.up_proj = proj(D, F_)
+        elif quant is not None and quant.desc_act:
             self.gate_proj = proj(D, F_)
             self.up_proj = proj(D, F_)
         else:
             self.gate_up_proj = proj(D, 2 * F_)
         self.down_proj = proj(F_, D)
+        if args.mlp_bias:
+            if not args.mlp_gated:
+                vec("up_bias", F_)
+            elif quant is not None and quant.desc_act:
+                vec("gate_bias", F_)
+                vec("up_bias", F_)
+            else:
+                vec("gate_up_bias", 2 * F_)
+            vec("down_bias", D)
 
 
 class DecoderModel(nn.Module):
@@ -301,8 +342,24 @@ class DecoderModel(nn.Module):
             DecoderLayer(args, self.dtype, device) for _ in range(args.n_layers)
         )
         self.final_norm = _param(D, dtype=self.dtype, device=device)
-        self.register_buffer("rope_inv_freq", inv_freq_buffer(compute_inv_freq(args), device),
-                             persistent=False)
+        if args.norm_bias:
+            self.final_norm_bias = _param(D, dtype=self.dtype, device=device)
+        if args.embedding_norm:  # BLOOM's word_embeddings_layernorm
+            self.embed_norm = _param(D, dtype=self.dtype, device=device)
+            if args.norm_bias:
+                self.embed_norm_bias = _param(D, dtype=self.dtype, device=device)
+        if args.pos_embedding_type == "learned":
+            self.embed_positions = _param(args.max_position_embeddings, D, dtype=self.dtype, device=device)
+        if args.pos_embedding_type == "rope":
+            self.register_buffer("rope_inv_freq", inv_freq_buffer(compute_inv_freq(args), device),
+                                 persistent=False)
+        elif args.pos_embedding_type == "alibi":
+            # Built on the CPU for a meta-device model; the loader moves it.
+            on = "cpu" if torch.device(device).type == "meta" else device
+            self.register_buffer("alibi_slopes", torch.tensor(alibi_slopes(args.n_heads), dtype=torch.float32,
+                                                              device=on), persistent=False)
+        elif args.pos_embedding_type not in ("learned", "none"):
+            raise ValueError(f"{args.model_type}: unknown pos_embedding_type {args.pos_embedding_type!r}")
         if not args.tie_word_embeddings:
             if self._lm_head_quant():
                 self.lm_head = QuantLinear(
@@ -311,6 +368,8 @@ class DecoderModel(nn.Module):
                     tile_n=LM_HEAD_TILE_N, device=device)
             else:
                 self.lm_head = _param(V, D, dtype=self.dtype, device=device)
+            if args.lm_head_bias:
+                self.lm_head_bias = _param(V, dtype=self.dtype, device=device)
 
     def _lm_head_quant(self) -> bool:
         return bool(
@@ -351,40 +410,54 @@ class DecoderModel(nn.Module):
             for i in range(a.n_layers)
         ]
 
-    def _proj(self, x: torch.Tensor, w, rms: Optional[Tuple[torch.Tensor, float]] = None):
-        """x @ W^T for a dense or quantized projection, in x's type.
+    def _proj(self, x: torch.Tensor, w, rms: Optional[Tuple[torch.Tensor, float]] = None, f32: bool = False):
+        """x @ W^T for a dense or quantized projection, in x's type, or with
+        f32 the reference's f32 result: a dense weight's product of x's type
+        in f32 (dense_f32), a quantized one's output (x's type) widened.
         rms=(gamma, eps) asks for the RMSNorm of x first; for a quantized
         projection it goes into the matmul's prologue, and the caller passes
         the un-normed input."""
         if isinstance(w, QuantLinear):
             if "perm" in w._buffers:
                 x = x[:, w.perm]
-            return self.quant_impl(
+            out = self.quant_impl(
                 x, w.qweight, w.scales, w._buffers.get("zeros"), bits=w.bits,
                 symmetric=w.symmetric, tile_n=w.tile_n,
                 rms_gamma=rms[0] if rms is not None else None,
                 rms_eps=float(rms[1]) if rms is not None else 1e-6,
             )
+            return out.float() if f32 else out
         if rms is not None:
             x = rms_norm(x, rms[0], rms[1])
-        return F.linear(x, w)
+        return dense_f32(x, w) if f32 else F.linear(x, w)
+
+    def _norm(self, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The model's norm rule (the reference's _norm): RMSNorm (zero-centred
+        for Gemma), or LayerNorm with its optional bias."""
+        a = self.args
+        if a.norm_type == "rms_norm":
+            return rms_norm(x, w, a.rms_norm_eps, a.zero_centered_norm)
+        return layer_norm(x, w, b, a.layer_norm_eps)
 
     def _fused_norm(self, layer: DecoderLayer, proj: str, norm: torch.Tensor):
         """(gamma, eps) when the RMSNorm before `proj` folds into the quant
         matmul's prologue (a fused quantized projection without a row
         permutation; never the post-attention norm of an MoE layer), else
-        None: the reference's _can_fuse. A qkv bias does not stop it: it is
-        added to the matmul's output. Gemma2's pre-feedforward norm (the
+        None: the reference's _can_fuse (an RMSNorm without a bias, no
+        parallel residual). A qkv bias does not stop it: it is added to the
+        matmul's output. Gemma2's pre-feedforward norm (the
         post_norm slot) folds as 1 + w in f32; the post-block norms follow
         a projection and never fold."""
-        if layer.moe and proj == "gate_up_proj":
+        a = self.args
+        if (layer.moe and proj == "gate_up_proj") or a.norm_type != "rms_norm" or a.norm_bias \
+                or a.parallel_residual:
             return None
         w = getattr(layer, proj, None)
         if not isinstance(w, QuantLinear) or "perm" in w._buffers:
             return None
-        if self.args.zero_centered_norm:
+        if a.zero_centered_norm:
             norm = 1.0 + norm.float()
-        return norm, self.args.rms_norm_eps
+        return norm, a.rms_norm_eps
 
     def forward(
         self,
@@ -404,60 +477,100 @@ class DecoderModel(nn.Module):
         h = self.embed_tokens[mi.token_ids]  # [T, D]
         if a.normalize_embedding:
             h = (h.float() * math.sqrt(a.hidden_size)).to(h.dtype)
-        cos, sin = cos_sin(self.rope_inv_freq, mi.positions)
+        if a.embedding_norm:
+            h = self._norm(h, self.embed_norm, getattr(self, "embed_norm_bias", None))
+        if a.pos_embedding_type == "learned":
+            h = h + self.embed_positions[mi.positions]
+        rope = a.pos_embedding_type == "rope"
+        if rope:
+            cos, sin = cos_sin(self.rope_inv_freq, mi.positions)
+        alibi = {"alibi_slopes": self.alibi_slopes} if a.pos_embedding_type == "alibi" else {}
+        # The qkv product stays f32 where a bias or the clip works on it.
+        qkv_f32 = a.qkv_bias or a.qkv_clip > 0
         T = h.shape[0]
 
         for layer, kvc, window in zip(self.layers, kv_cache, self._layer_windows()):
             rms = self._fused_norm(layer, "qkv_proj", layer.input_norm)
-            x = h if rms else rms_norm(h, layer.input_norm, a.rms_norm_eps, a.zero_centered_norm)
+            x = h if rms else self._norm(h, layer.input_norm, getattr(layer, "input_norm_bias", None))
             if hasattr(layer, "qkv_proj"):
-                qkv = self._proj(x, layer.qkv_proj, rms)
+                qkv = self._proj(x, layer.qkv_proj, rms, f32=qkv_f32)
                 if a.qkv_bias:
-                    qkv = (qkv.float() + layer.qkv_bias.float()).to(h.dtype)
+                    qkv = qkv + layer.qkv_bias.float()
                 q, k, v = qkv.split([q_n, kv_n, kv_n], dim=-1)
             else:  # desc_act: unfused projections
-                q, k, v = (self._proj(x, w) for w in (layer.q_proj, layer.k_proj, layer.v_proj))
+                q, k, v = (self._proj(x, w, f32=qkv_f32) for w in (layer.q_proj, layer.k_proj, layer.v_proj))
                 if a.qkv_bias:
-                    q, k, v = ((t.float() + b.float()).to(h.dtype)
-                               for t, b in zip((q, k, v), (layer.q_bias, layer.k_bias, layer.v_bias)))
+                    q, k, v = (t + b.float() for t, b in zip((q, k, v), (layer.q_bias, layer.k_bias, layer.v_bias)))
+            if a.qkv_clip > 0:  # MPT's clip_qkv, in f32 before the cast
+                q, k, v = (t.clamp(-a.qkv_clip, a.qkv_clip) for t in (q, k, v))
+            q, k, v = (t.to(h.dtype) for t in (q, k, v))
             q, k = q.reshape(T, H, Dh), k.reshape(T, Hkv, Dh)
             if a.use_qk_norm:
                 q = rms_norm(q, layer.q_norm, a.rms_norm_eps)
                 k = rms_norm(k, layer.k_norm, a.rms_norm_eps)
-            q = apply_rope(q, cos, sin, a.interleaved_rope)
-            k = apply_rope(k, cos, sin, a.interleaved_rope)
+            if rope:
+                q = apply_rope(q, cos, sin, a.interleaved_rope)
+                k = apply_rope(k, cos, sin, a.interleaved_rope)
             set_kv_cache(kvc, k, v.reshape(T, Hkv, Dh), mi.new_kv_slot_ids)
             o = self.attn_impl(
                 q.contiguous(), kvc, mi.kv_lens, mi.block_tables, mi.cu_q_lens,
                 mi.num_seqs, sm_scale=sm_scale, sliding_window=window,
-                logit_soft_cap=soft_cap, decode_only=decode_only,
+                logit_soft_cap=soft_cap, decode_only=decode_only, **alibi,
             )
-            o = self._proj(o.reshape(T, q_n), layer.o_proj)
+            o = self._proj(o.reshape(T, q_n), layer.o_proj, f32=a.o_proj_bias)
+            if a.o_proj_bias:
+                o = o + layer.o_bias.float()
+            if a.parallel_residual:  # Phi: the MLP reads the same normed x
+                m = self._mlp(layer, x)
+                h = h + o.to(h.dtype) + m.to(h.dtype)
+                continue
             if a.residual_post_layernorm:
-                o = rms_norm(o, layer.post_attn_norm, a.rms_norm_eps, a.zero_centered_norm)
-            h = h + o
+                o = rms_norm(o.to(h.dtype), layer.post_attn_norm, a.rms_norm_eps, a.zero_centered_norm)
+            h = h + o.to(h.dtype)
 
             rms = self._fused_norm(layer, "gate_up_proj", layer.post_norm)
-            x = h if rms else rms_norm(h, layer.post_norm, a.rms_norm_eps, a.zero_centered_norm)
-            m = self._moe(layer, x).to(h.dtype) if layer.moe else self._dense_ffn(layer, x, rms)
+            x = h if rms else self._norm(h, layer.post_norm, getattr(layer, "post_norm_bias", None))
+            m = self._mlp(layer, x, rms)
             if a.residual_post_layernorm:
-                m = rms_norm(m, layer.post_ffw_norm, a.rms_norm_eps, a.zero_centered_norm)
-            h = h + m
+                m = rms_norm(m.to(h.dtype), layer.post_ffw_norm, a.rms_norm_eps, a.zero_centered_norm)
+            h = h + m.to(h.dtype)
 
-        h = rms_norm(h, self.final_norm, a.rms_norm_eps, a.zero_centered_norm)
+        h = self._norm(h, self.final_norm, getattr(self, "final_norm_bias", None))
         if all_hidden:
             return h
         return h[mi.selected_idxes]
 
-    def _dense_ffn(self, layer: DecoderLayer, x: torch.Tensor, rms=None) -> torch.Tensor:
-        """The gated FFN (a dense layer's, or an MoE layer's shared expert)
-        in x's type; rms as in _proj."""
-        if hasattr(layer, "gate_up_proj"):
-            g, u = self._proj(x, layer.gate_up_proj, rms).chunk(2, dim=-1)
+    def _mlp(self, layer: DecoderLayer, x: torch.Tensor, rms=None) -> torch.Tensor:
+        """The layer's FFN: the MoE block (f32), or the dense FFN in x's type,
+        f32 with its down bias added."""
+        if layer.moe:
+            return self._moe(layer, x)
+        if not self.args.mlp_bias:
+            return self._dense_ffn(layer, x, rms)
+        return self._dense_ffn(layer, x, rms, f32=True) + layer.down_bias.float()
+
+    def _dense_ffn(self, layer: DecoderLayer, x: torch.Tensor, rms=None, f32: bool = False) -> torch.Tensor:
+        """The FFN (a dense layer's, or an MoE layer's shared expert) without
+        its down bias, in x's type or f32; rms as in _proj. The gate and up
+        products stay f32, with their biases, through the activation."""
+        a = self.args
+        if not a.mlp_gated:
+            u = self._proj(x, layer.up_proj, f32=True)
+            if a.mlp_bias:
+                u = u + layer.up_bias.float()
+            m = ACT2FN[a.hidden_act](u)
         else:
-            g, u = self._proj(x, layer.gate_proj), self._proj(x, layer.up_proj)
-        m = act_with_mul(self.args.hidden_act, g.float(), u.float()).to(x.dtype)
-        return self._proj(m, layer.down_proj)
+            if hasattr(layer, "gate_up_proj"):
+                g, u = self._proj(x, layer.gate_up_proj, rms, f32=True).chunk(2, dim=-1)
+                if a.mlp_bias:
+                    gb, ub = layer.gate_up_bias.float().chunk(2)
+                    g, u = g + gb, u + ub
+            else:
+                g, u = self._proj(x, layer.gate_proj, f32=True), self._proj(x, layer.up_proj, f32=True)
+                if a.mlp_bias:
+                    g, u = g + layer.gate_bias.float(), u + layer.up_bias.float()
+            m = act_with_mul(a.hidden_act, g, u)
+        return self._proj(m.to(x.dtype), layer.down_proj, f32=f32)
 
     def _router(self, x: torch.Tensor, router_w: torch.Tensor):
         """Routing weights and experts [T, k] (the reference moe_mlp's: f32
@@ -466,21 +579,22 @@ class DecoderModel(nn.Module):
         return softmax_topk(x, router_w, a.n_experts_per_token, a.norm_topk_prob)
 
     def _moe(self, layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
-        """The routed experts plus the gated shared expert, f32 [T, D]
-        (the shared expert's output rounded to x's type before its gate)."""
+        """The routed experts plus the gated shared expert, f32 [T, D]."""
         topk_w, topk_e = self._router(x, layer.router)
         out = routed_experts(x, topk_w, topk_e, layer.experts_gate, layer.experts_up, layer.experts_down,
                              self.args.hidden_act, gmm=self.gmm_impl, qexperts=self.qexperts_impl)
         if hasattr(layer, "shared_gate"):
             gate = torch.sigmoid(x.float() @ layer.shared_gate.float().T)  # [T, 1]
-            out = out + self._dense_ffn(layer, x).float() * gate
+            out = out + self._dense_ffn(layer, x, f32=True) * gate
         return out
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """[S, D] -> [S, V] float32 logits."""
         a = self.args
         w = self.embed_tokens if a.tie_word_embeddings else self.lm_head
-        logits = self._proj(hidden, w).float()
+        logits = self._proj(hidden, w, f32=True)
+        if a.lm_head_bias and not a.tie_word_embeddings:
+            logits = logits + self.lm_head_bias.float()
         if a.final_logit_soft_cap > 0.0:
             cap = a.final_logit_soft_cap
             logits = cap * torch.tanh(logits / cap)
@@ -501,8 +615,9 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
     MoE layers: the router [D, E] and shared_gate [D, 1] are transposed, the
     experts moe_{gate,up,down} [E, K, N] go to [E, N, K] (quantized:
     qweight [E, K/2 or K, N] to [E, N, K/2 or K], scales as they are), the
-    shared expert rides the dense FFN's names at its own width; the qkv
-    biases, the qk norms and the post-block norms carry over as they are."""
+    shared expert rides the dense FFN's names at its own width; the biases
+    (qkv, o, MLP, norms, lm_head), the qk norms, the post-block norms, the
+    embedding norm and the learned positions carry over as they are."""
     import numpy as np
 
     def tensor(x) -> torch.Tensor:
@@ -536,10 +651,9 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
             sd[f"{prefix}.{key}"] = t.T.contiguous() if key == "qweight" else t.contiguous()
 
     layers = jax_params["layers"]
-    sd = {
-        "embed_tokens": tensor(jax_params["embed_tokens"]),
-        "final_norm": tensor(jax_params["final_norm"]),
-    }
+    sd = {name: tensor(jax_params[name]) for name in (
+        "embed_tokens", "final_norm", "final_norm_bias", "embed_norm", "embed_norm_bias", "embed_positions",
+        "lm_head_bias") if name in jax_params}
     if not args.tie_word_embeddings:
         lm = jax_params["lm_head"]
         if isinstance(lm, dict):
@@ -547,8 +661,9 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
         else:
             sd["lm_head"] = tensor(lm).T.contiguous()
     for l in range(args.n_layers):
-        for name in ("input_norm", "post_norm", "qkv_bias", "q_bias", "k_bias", "v_bias", "q_norm", "k_norm",
-                     "post_attn_norm", "post_ffw_norm"):
+        for name in ("input_norm", "input_norm_bias", "post_norm", "post_norm_bias", "qkv_bias", "q_bias",
+                     "k_bias", "v_bias", "q_norm", "k_norm", "post_attn_norm", "post_ffw_norm", "o_bias",
+                     "gate_up_bias", "gate_bias", "up_bias", "down_bias"):
             if name in layers:
                 sd[f"layers.{l}.{name}"] = tensor(np.asarray(layers[name])[l])
         for name in ("router", "shared_gate"):

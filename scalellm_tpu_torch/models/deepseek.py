@@ -80,6 +80,7 @@ from scalellm_tpu_torch.models.common import (
     QuantLinear,
     _param,
     active_quant,
+    dense_f32,
     model_dtype,
 )
 from scalellm_tpu_torch.models.registry import ModelRegistry
@@ -336,12 +337,14 @@ class MLADecoderModel(nn.Module):
         o = torch.bmm(o_lat.transpose(0, 1), w_kv[:, nope:].transpose(1, 2))  # [H, T, vd]
         return h + self._proj(o.transpose(0, 1).reshape(T, H * vd), layer.o_proj)
 
-    def _proj(self, x: torch.Tensor, w) -> torch.Tensor:
-        """x @ W^T in x's type, for a dense or a quantized projection."""
+    def _proj(self, x: torch.Tensor, w, f32: bool = False) -> torch.Tensor:
+        """x @ W^T in x's type, for a dense or a quantized projection; with
+        f32 the reference's f32 result (DecoderModel._proj)."""
         if isinstance(w, QuantLinear):
-            return self.quant_impl(x, w.qweight, w.scales, None, bits=w.bits, symmetric=True,
-                                   tile_n=w.tile_n)
-        return F.linear(x, w)
+            out = self.quant_impl(x, w.qweight, w.scales, None, bits=w.bits, symmetric=True,
+                                  tile_n=w.tile_n)
+            return out.float() if f32 else out
+        return dense_f32(x, w) if f32 else F.linear(x, w)
 
     def _router(self, x: torch.Tensor, router_w: torch.Tensor):
         """Softmax scores, greedy or group-limited top-k; then top-k
@@ -371,7 +374,7 @@ class MLADecoderModel(nn.Module):
                              "silu", gmm=self.gmm_impl, qexperts=self.qexperts_impl,
                              t1_fits=lambda: self._single_token_fits(layer, k))
         if hasattr(layer, "shared_experts"):
-            out = out + self._dense_ffn(layer.shared_experts, x).float()
+            out = out + self._dense_ffn(layer.shared_experts, x, f32=True)
         return out
 
     @staticmethod
@@ -379,10 +382,12 @@ class MLADecoderModel(nn.Module):
         """Whether the T=1 layout applies (layers/moe.py:single_token_fits)."""
         return single_token_fits(k, layer.post_norm.shape[0], layer.experts_gate, layer.experts_down)
 
-    def _dense_ffn(self, mod, x: torch.Tensor) -> torch.Tensor:
-        g, u = self._proj(x, mod.gate_up_proj).chunk(2, dim=-1)
-        m = act_with_mul(self.args.hidden_act, g.float(), u.float()).to(x.dtype)
-        return self._proj(m, mod.down_proj)
+    def _dense_ffn(self, mod, x: torch.Tensor, f32: bool = False) -> torch.Tensor:
+        """The gated FFN in x's type (f32 with f32); gate and up stay f32
+        through the activation, as the reference's."""
+        g, u = self._proj(x, mod.gate_up_proj, f32=True).chunk(2, dim=-1)
+        m = act_with_mul(self.args.hidden_act, g, u).to(x.dtype)
+        return self._proj(m, mod.down_proj, f32=f32)
 
     def forward(
         self,
@@ -405,7 +410,7 @@ class MLADecoderModel(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """[S, D] -> [S, V] float32 logits."""
         w = self.embed_tokens if self.args.tie_word_embeddings else self.lm_head
-        return self._proj(hidden, w).float()
+        return self._proj(hidden, w, f32=True)
 
 
 # ------------------------------------------------------------------ registry

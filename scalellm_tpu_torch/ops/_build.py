@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scalellm_tpu_torch"
 # Kernel name -> source file in csrc/.
 SOURCES = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
+    "ragged_paged_attention_f32": "ragged_paged_attention_f32.cu",
     "quant_matmul": "quant_matmul.cu",
     "grouped_matmul": "grouped_matmul.cu",
     "mla_attention": "mla_attention.cu",

@@ -7,14 +7,19 @@ hand-written Hopper kernel of csrc/ragged_paged_attention.cu, and a CPU tensor
 goes to the plain version (ops/attention_ref.py). There is no fallback from
 one to the other: a CUDA call the kernel does not cover raises.
 
-The kernel takes every step the same way: each sequence of one token (every
-slot of a decode step) has its KV range cut into the pieces split_kv_plan()
-sizes from shapes the host knows, each piece gives f32 partials, and a
-merge adds them in split order (split-KV); a sequence of 2 or more tokens
-goes in q tiles of up to 64 rows (tokens x GQA group) on the tensor cores.
-Head dims 64, 128 and 256 (Gemma's; the reference computes that one with
-its jnp reference, since its stock kernel refuses head dims above 128, so
-the kernel is held to the plain version there too).
+The bf16 kernel takes every step the same way: each sequence of one token
+(every slot of a decode step) has its KV range cut into the pieces
+split_kv_plan() sizes from shapes the host knows, each piece gives f32
+partials, and a merge adds them in split order (split-KV); a sequence of 2
+or more tokens goes in q tiles of up to 64 rows (tokens x GQA group) on the
+tensor cores. Head dims 64, 80 (Phi-2's), 128 and 256 (Gemma's; the
+reference computes that one with its jnp reference, since its stock kernel
+refuses head dims above 128, so the kernel is held to the plain version
+there too). ALiBi slopes (MPT, BLOOM; f32 [n_heads] on the device) go to
+the kernel; the reference sends ALiBi to its jnp path, so there too the
+kernel is held to the plain version. f32 q and pages (GPT-2's float32
+checkpoints) go to the CUDA-core kernel of csrc/ragged_paged_attention_f32.cu
+(no TF32), which takes the same contract in one launch.
 The dispatcher takes the engine's decode_only and ignores it, as the
 reference's dispatcher does.
 plain_split_kv_attention is the plain version of the split-and-merge: what
@@ -37,29 +42,36 @@ import torch
 from scalellm_tpu_torch.ops import _build
 from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
 
-_MAX_GROUP = 16  # kMaxGroup in the kernel
-_HEAD_DIMS = (64, 128, 256)
+_MAX_GROUP = 16  # kMaxGroup in the kernels
+_HEAD_DIMS = (64, 80, 128, 256)
 KV_STAGE = 64  # kStage in the kernel: KV rows a ring stage; splits are multiples of it
 BLOCKS_PER_SM = 2  # split blocks an SM the plan aims at, at the block table's length
 MAX_SPLIT_LEN = 512  # rows: so that contexts of unequal length balance over the blocks
 H100_SMS = 132
 
 # Parameters of the C entry point scalellm_ragged_paged_attention, in order:
-# 8 pointers (q .. scratch), 9 ints (num_tokens .. split_len), sm_scale,
-# window, soft_cap, stream.
+# 9 pointers (q .. scratch, alibi_slopes), 9 ints (num_tokens .. split_len),
+# sm_scale, window, soft_cap, stream.
 _ARGTYPES = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+)
+# scalellm_ragged_paged_attention_f32: 8 pointers (q .. out, alibi_slopes),
+# 7 ints (num_tokens .. head_dim), sm_scale, window, soft_cap, stream.
+_F32_ARGTYPES = (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 )
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("ragged_paged_attention")
-    fn = lib.scalellm_ragged_paged_attention
+def _bind(name: str, entry: str, argtypes):
+    """The C entry point `entry` of kernel `name` (built on first use), with
+    its argtypes."""
+    fn = getattr(_build.load(name), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,7 +95,7 @@ def split_kv_plan(kv_capacity: int, n_slots: int, n_kv_heads: int, n_sm: int = H
     return -(-stages // per_split), per_split * KV_STAGE
 
 
-def _check_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs):
+def _check_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, alibi_slopes=None):
     """The kernel's operand checks; returns (T, S, maxp, page_size, n_heads,
     n_kv_heads, head_dim)."""
     T, n_heads, head_dim = q.shape
@@ -105,9 +117,9 @@ def _check_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs):
         raise ValueError("q must be contiguous")
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned (the kernel copies 16 bytes at a time)")
-    if q.dtype != torch.bfloat16 or kv_pages.dtype != torch.bfloat16:
+    if q.dtype not in (torch.bfloat16, torch.float32) or kv_pages.dtype != q.dtype:
         raise NotImplementedError(
-            f"the CUDA kernel takes bf16 q and pages, got {q.dtype}, {kv_pages.dtype}"
+            f"the CUDA kernels take bf16 or f32 q and pages of one type, got {q.dtype}, {kv_pages.dtype}"
         )
     if kv_pages.data_ptr() % 16:
         raise ValueError("kv_pages must be 16-byte aligned (the kernel copies 16 bytes at a time)")
@@ -125,12 +137,25 @@ def _check_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs):
         raise NotImplementedError(f"GQA group {n_heads // n_kv_heads} > {_MAX_GROUP}")
     if kv_lens.shape != (S,) or cu_q_lens.shape != (S + 1,) or num_seqs.shape != (1,):
         raise ValueError("kv_lens, cu_q_lens and num_seqs must be [S], [S+1], [1]")
+    if alibi_slopes is not None and (
+            alibi_slopes.dtype != torch.float32 or alibi_slopes.shape != (n_heads,)
+            or alibi_slopes.device != q.device or not alibi_slopes.is_contiguous()):
+        raise ValueError(f"alibi_slopes must be a contiguous f32 [{n_heads}] tensor on {q.device}")
     return T, S, maxp, page_size, n_heads, n_kv_heads, head_dim
 
 
+class LaunchCount:
+    """A count of one kind of the wrapper's launches, read and reset like a
+    wrapper's own `launches`."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
 def ragged_paged_attention_cuda(
-    q: torch.Tensor,  # bf16 [T, n_heads, head_dim]
-    kv_pages: torch.Tensor,  # bf16 [P, page_size, 2*n_kv_heads, head_dim]
+    q: torch.Tensor,  # bf16 or f32 [T, n_heads, head_dim]
+    kv_pages: torch.Tensor,  # q's dtype [P, page_size, 2*n_kv_heads, head_dim]
     kv_lens: torch.Tensor,  # i32[S]
     page_indices: torch.Tensor,  # i32[S, MAXP]
     cu_q_lens: torch.Tensor,  # i32[S+1]
@@ -139,32 +164,51 @@ def ragged_paged_attention_cuda(
     sm_scale: float = 1.0,
     sliding_window: Optional[int] = None,
     logit_soft_cap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,  # f32[n_heads]
 ) -> torch.Tensor:
-    """Launch the Hopper kernel (and its merge) on the current stream;
-    returns bf16 [T, H, D].
+    """Launch the Hopper kernel on the current stream (bf16: the attention
+    grid and its merge; f32: the CUDA-core kernel); returns [T, H, D] in
+    q's dtype.
 
-    `ragged_paged_attention_cuda.launches` counts the calls that launched."""
+    `ragged_paged_attention_cuda.launches` counts the calls that launched;
+    `.alibi`, `.d80` and `.f32` (LaunchCount) count those with ALiBi slopes,
+    at head dim 80 and in f32."""
     T, S, maxp, page_size, n_heads, n_kv_heads, head_dim = _check_operands(
-        q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs)
-    splits, split_len = split_kv_plan(maxp * page_size, S, n_kv_heads, _sm_count(q.device))
+        q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, alibi_slopes)
     out = torch.empty_like(q)
-    # The split path's f32 partials: o [S, splits, H, D], then (m, l) [S, splits, H].
-    scratch = torch.empty(S * splits * n_heads * (head_dim + 2), dtype=torch.float32, device=q.device)
-    rc = _library().scalellm_ragged_paged_attention(
-        q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
-        page_indices.data_ptr(), cu_q_lens.data_ptr(), num_seqs.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), T, S, maxp, page_size, n_heads, n_kv_heads,
-        head_dim, splits, split_len,
-        float(sm_scale), int(sliding_window or 0), float(logit_soft_cap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    alibi = alibi_slopes.data_ptr() if alibi_slopes is not None else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.float32:
+        rc = _bind("ragged_paged_attention_f32", "scalellm_ragged_paged_attention_f32", _F32_ARGTYPES)(
+            q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
+            cu_q_lens.data_ptr(), num_seqs.data_ptr(), out.data_ptr(), alibi, T, S, maxp, page_size,
+            n_heads, n_kv_heads, head_dim, float(sm_scale), int(sliding_window or 0),
+            float(logit_soft_cap or 0.0), stream)
+    else:
+        splits, split_len = split_kv_plan(maxp * page_size, S, n_kv_heads, _sm_count(q.device))
+        # The split path's f32 partials: o [S, splits, H, D], then (m, l) [S, splits, H].
+        scratch = torch.empty(S * splits * n_heads * (head_dim + 2), dtype=torch.float32, device=q.device)
+        rc = _bind("ragged_paged_attention", "scalellm_ragged_paged_attention", _ARGTYPES)(
+            q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
+            page_indices.data_ptr(), cu_q_lens.data_ptr(), num_seqs.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), alibi, T, S, maxp, page_size, n_heads, n_kv_heads,
+            head_dim, splits, split_len,
+            float(sm_scale), int(sliding_window or 0), float(logit_soft_cap or 0.0), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: CUDA error {rc}")
     ragged_paged_attention_cuda.launches += 1
+    for kind, on in ((ragged_paged_attention_cuda.alibi, alibi_slopes is not None),
+                     (ragged_paged_attention_cuda.d80, head_dim == 80),
+                     (ragged_paged_attention_cuda.f32, q.dtype == torch.float32)):
+        kind.launches += on
     return out
 
 
 ragged_paged_attention_cuda.launches = 0
+ragged_paged_attention_cuda.alibi = LaunchCount("ragged_paged_attention_alibi")
+ragged_paged_attention_cuda.d80 = LaunchCount("ragged_paged_attention_d80")
+ragged_paged_attention_cuda.f32 = LaunchCount("ragged_paged_attention_f32")
 
 
 def ragged_paged_attention(
@@ -196,12 +240,10 @@ def ragged_paged_attention(
         )
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError("int8 KV pages (k_scale/v_scale) are not ported")
-    if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi attention is not ported")
     return ragged_paged_attention_cuda(
         q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
         sm_scale=sm_scale, sliding_window=sliding_window,
-        logit_soft_cap=logit_soft_cap,
+        logit_soft_cap=logit_soft_cap, alibi_slopes=alibi_slopes,
     )
 
 
@@ -221,13 +263,13 @@ def plain_ragged_paged_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens, 
 
 
 def plain_split_kv_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
-                             sm_scale=1.0, sliding_window=None, logit_soft_cap=None,
+                             sm_scale=1.0, sliding_window=None, logit_soft_cap=None, alibi_slopes=None,
                              drop: Optional[Tuple[int, int]] = None):
     """The split path's arithmetic in plain PyTorch, for a decode-only batch
     (slot s's one token at row s): each slot's KV range is cut into the
     pieces split_kv_plan() gives on an H100, each piece gives (o, m, l) in
     f32 (an empty piece gives m = -inf, l = 0), and the pieces merge in
-    split order.
+    split order. ALiBi slopes add slope * (kv_pos - pos) after the scale.
     Rows that own no KV (rows past S or past cu_q_lens[num_seqs], slots
     with kv_len 0) are zeros. Returns [T, H, D] in q's dtype.
     drop = (slot, piece) leaves that piece out of the merge: a planted
@@ -259,6 +301,9 @@ def plain_split_kv_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_
             if b <= a or drop == (s, sp):
                 continue  # an empty piece: l = 0 leaves the merge as it is
             sc = torch.einsum("hgd,jhd->hgj", qs, k[a:b]) * sm_scale
+            if alibi_slopes is not None:
+                dist = torch.arange(a, b, device=q.device).float() - pos
+                sc = sc + alibi_slopes.float().reshape(n_kv_heads, group, 1) * dist
             if logit_soft_cap is not None and logit_soft_cap > 0.0:
                 sc = logit_soft_cap * torch.tanh(sc / logit_soft_cap)
             m = sc.amax(-1)

@@ -41,10 +41,12 @@ def gptq_qweight_to_kernel_layout(qweight: torch.Tensor) -> torch.Tensor:
     return (qweight.to(torch.int32) ^ _SIGN_BITS).T.contiguous().view(torch.int8)
 
 
-def build_quant_rules(base_rules: List[Tuple[str, str]], quant: QuantArgs) -> List[Rule]:
+def build_quant_rules(base_rules: List[Tuple], quant: QuantArgs) -> List[Rule]:
     """Rewrite the projections' `.weight` rules into qweight / qzeros /
     scales (and g_idx) rules with their transforms; other rules pass through
-    with no transform."""
+    with their own layout transform (the third element of a rule, None where
+    it has two). A projection rule's layout transform is dropped: the
+    checkpoint's qweight is [K/8, N] whatever the dense weight's layout."""
     method = quant.quant_method
     # "exllama"/"exllamav2" name kernels that read the GPTQ format.
     if method in ("exllama", "exllamav2"):
@@ -66,10 +68,10 @@ def build_quant_rules(base_rules: List[Tuple[str, str]], quant: QuantArgs) -> Li
         return (z.to(torch.int32) - 8).to(torch.int8)
 
     out: List[Rule] = []
-    for rx, target in base_rules:
+    for rx, target, *layout in base_rules:
         is_proj = target.rsplit(".", 1)[-1] in PROJ_NAMES and rx.endswith(r"\.weight")
         if not is_proj:
-            out.append((rx, target, None))
+            out.append((rx, target, layout[0] if layout else None))
             continue
         stem = rx[: -len(r"\.weight")]
         out.append((stem + r"\.qweight", target + ".qweight", qweight_transform))

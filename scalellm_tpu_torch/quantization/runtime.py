@@ -40,5 +40,7 @@ def quantize_model(dense_model, quant: QuantArgs):
             raise ValueError(f"{name}: {tuple(sd[name].shape)} != {tuple(spec.shape)}")
     with torch.no_grad():
         qmodel.load_state_dict(sd, assign=True)
-    qmodel.rope_inv_freq = dense_model.rope_inv_freq  # not in the state_dict
+    for name, buf in dense_model.named_buffers():  # the tables outside the state_dict (rope, ALiBi)
+        if name not in sd:
+            setattr(qmodel, name, buf)
     return qmodel

@@ -7,7 +7,8 @@ query token and KV head, CUDA-core dots from shared memory).
     python3 -m scalellm_tpu_torch.tools.attention_ab build/attention_base/scalellm_tpu_torch/csrc
 
 (from the repository root). Cases: every chip_smoke.py phase-3a shape
-(chip_smoke.ATTENTION_SHAPES). Each kernel's output is held against the
+(chip_smoke.ATTENTION_SHAPES) that the base kernel takes (bf16, head dims
+64 and 128, no ALiBi). Each kernel's output is held against the
 plain version (within chip_smoke.KERNEL_TOL, and row by row within
 chip_smoke.ATTENTION_REL_TOL of the row's size), then base and new are
 timed in turns (base, new, new, base) with chip_smoke.time_ms. One JSON
@@ -83,6 +84,8 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(CS.SEED)
     for name, spec in CS.ATTENTION_SHAPES.items():
+        if spec.get("alibi") or spec.get("dtype") or spec["D"] not in (64, 128):
+            continue
         inputs = CS.make_batch(torch, gen, q_lens=spec["q_lens"], kv_lens=spec["kv_lens"], S=spec["S"],
                                T=spec["T"], H=spec["H"], Hkv=spec["Hkv"], D=spec["D"])
         kw = dict(sm_scale=spec["D"] ** -0.5, sliding_window=spec["window"], logit_soft_cap=spec["cap"])

@@ -262,13 +262,113 @@ def test_kernel_refuses_what_it_does_not_cover(cuda):
                               n_kv_heads=2, head_dim=64), cuda)
     with pytest.raises(NotImplementedError):
         ragged_paged_attention(**inputs, k_scale=0.5, v_scale=0.5)
-    with pytest.raises(NotImplementedError):
-        ragged_paged_attention(**inputs, alibi_slopes=torch.ones(4, device=cuda))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # slopes of another type or length
+        ragged_paged_attention(**inputs, alibi_slopes=torch.ones(4, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        ragged_paged_attention(**inputs, alibi_slopes=torch.ones(3, device=cuda))
+    with pytest.raises(NotImplementedError):  # q and pages of two types
         ragged_paged_attention(**{**inputs, "q": inputs["q"].float()})
-    phi2 = _on(ragged_batch(rng, q_lens=[1], kv_lens=[5], S=1, T=1, n_heads=4, n_kv_heads=2, head_dim=80), cuda)
-    with pytest.raises(NotImplementedError, match="head_dim 80"):
-        ragged_paged_attention(**phi2)
+    with pytest.raises(NotImplementedError):
+        ragged_paged_attention(**{**inputs, "q": inputs["q"].half(), "kv_pages": inputs["kv_pages"].half()})
+    d96 = _on(ragged_batch(rng, q_lens=[1], kv_lens=[5], S=1, T=1, n_heads=4, n_kv_heads=2, head_dim=96), cuda)
+    with pytest.raises(NotImplementedError, match="head_dim 96"):
+        ragged_paged_attention(**d96)
+    g32 = _on(ragged_batch(rng, q_lens=[1], kv_lens=[5], S=1, T=1, n_heads=32, n_kv_heads=1, head_dim=64), cuda)
+    with pytest.raises(NotImplementedError, match="GQA group 32"):
+        ragged_paged_attention(**g32)
+
+
+# K1 with ALiBi (MPT, BLOOM), at head dim 80 (Phi-2) and in f32 (GPT-2):
+# (q_lens, kv_lens, S, T, n_heads, n_kv_heads, head_dim, window, soft_cap,
+# page). ALiBi over GQA groups 1, 4 and 16 at head counts that are no power
+# of two (12, 20, 48: the slopes' interleaved tail); head dim 80 over groups
+# 1, 2 and 8; f32 at head dims 64 and 128. Each through the dispatcher on
+# pages that hold NaN past every range, against the plain version; f32
+# within F32_TOL (f32 sums in another order, no TF32: a TF32 or bf16 score
+# would be off by about 1e-3 of the output).
+ALIBI_CASES = {
+    "decode_group1_h12": ([1] * 6, [17, 300, 1024, 2048, 5, 900], 8, 16, 12, 12, 128, None, None, 16),
+    "mixed_group1_h12_d64": ([100, 37, 1, 1], [100, 300, 700, 2048], 4, 256, 12, 12, 64, None, None, 16),
+    "decode_group4_h20": ([1] * 4, [8192, 100, 640, 33], 4, 16, 20, 5, 64, None, None, 16),
+    "mixed_group4_h20_window_softcap": ([60, 9, 1], [60, 200, 900], 4, 128, 20, 5, 128, 64, 30.0, 16),
+    "decode_group16_h48": ([1] * 3, [3000, 129, 4000], 4, 4, 48, 3, 128, None, None, 16),
+    "mixed_group16_h48_page4": ([33, 5, 1], [40, 600, 77], 4, 64, 48, 3, 64, None, None, 4),
+}
+D80_CASES = {
+    "decode_group1_phi2": ([1] * 8, [17, 64, 129, 256, 400, 640, 900, 1024], 8, 16, 32, 32, 80, None, None, 16),
+    "mixed_group1_phi2": ([120, 60, 1, 1], [120, 300, 500, 17], 4, 256, 32, 32, 80, None, None, 16),
+    "decode_group2_window": ([1] * 4, [5000, 100, 640, 33], 4, 16, 16, 8, 80, 128, None, 16),
+    "mixed_group8_softcap_page4": ([33, 5, 1], [40, 300, 77], 4, 64, 16, 2, 80, None, 30.0, 4),
+}
+F32_CASES = {
+    "decode_d64_gpt2": ([1] * 8, [17, 64, 129, 256, 400, 640, 900, 1024], 8, 16, 12, 12, 64, None, None, 16),
+    "mixed_d64_gpt2": ([100, 37, 1, 1], [100, 300, 700, 1024], 4, 256, 12, 12, 64, None, None, 16),
+    "decode_d128_group4_window": ([1] * 4, [3000, 100, 640, 33], 4, 16, 16, 4, 128, 128, None, 16),
+    "mixed_d128_group8_softcap_page4": ([33, 5, 1], [40, 300, 77], 4, 64, 16, 2, 128, None, 30.0, 4),
+}
+F32_TOL = 1e-4
+
+
+def _k1_case(device, case, dtype=torch.bfloat16):
+    q_lens, kv_lens, S, T, H, Hkv, D, window, cap, page = case
+    rng = np.random.default_rng(0)
+    raw = ragged_batch(rng, q_lens=q_lens, kv_lens=kv_lens, S=S, T=T, n_heads=H, n_kv_heads=Hkv,
+                       head_dim=D, page_size=page, num_pages=1 + sum(-(-k // page) for k in kv_lens))
+    inputs = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    inputs = {k: t.to(dtype) if t.is_floating_point() else t for k, t in inputs.items()}
+    kw = dict(sm_scale=D ** -0.5, sliding_window=window, logit_soft_cap=cap)
+    return inputs, kw, _nan_outside_ranges(inputs, q_lens, kv_lens, window), sum(q_lens)
+
+
+def _through_dispatcher(inputs, nan_pages, kw, kind):
+    """One launch of the dispatcher on the NaN pages, counted as `kind`."""
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention_cuda as kernel
+
+    before = (kernel.launches, getattr(kernel, kind).launches)
+    got = ragged_paged_attention(**{**inputs, "kv_pages": nan_pages}, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches, getattr(kernel, kind).launches) == (before[0] + 1, before[1] + 1)
+    return got
+
+
+@pytest.mark.parametrize("case", list(ALIBI_CASES))
+def test_alibi_matches_plain_version(cuda, case):
+    from scalellm_tpu_torch.layers.alibi import alibi_slopes
+    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+
+    inputs, kw, nan_pages, n_real = _k1_case(cuda, ALIBI_CASES[case])
+    kw["alibi_slopes"] = torch.tensor(alibi_slopes(inputs["q"].shape[1]), dtype=torch.float32, device=cuda)
+    got = _through_dispatcher(inputs, nan_pages, kw, "alibi")
+    _assert_matches_plain(got, ref_ragged_paged_attention(**inputs, **kw), n_real)
+
+
+@pytest.mark.parametrize("case", list(D80_CASES))
+def test_head_dim_80_matches_plain_version(cuda, case):
+    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+
+    inputs, kw, nan_pages, n_real = _k1_case(cuda, D80_CASES[case])
+    got = _through_dispatcher(inputs, nan_pages, kw, "d80")
+    _assert_matches_plain(got, ref_ragged_paged_attention(**inputs, **kw), n_real)
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("case", list(F32_CASES))
+def test_f32_kernel_matches_plain_version(cuda, case, alibi):
+    from scalellm_tpu_torch.layers.alibi import alibi_slopes
+    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+
+    inputs, kw, nan_pages, n_real = _k1_case(cuda, F32_CASES[case], torch.float32)
+    if alibi:
+        kw["alibi_slopes"] = torch.tensor(alibi_slopes(inputs["q"].shape[1]), dtype=torch.float32, device=cuda)
+    got = _through_dispatcher(inputs, nan_pages, kw, "f32")
+    want = ref_ragged_paged_attention(**inputs, **kw)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=F32_TOL, rtol=0)
+    assert torch.all(got[n_real:] == 0)
+    # Same bits on every call: no atomics.
+    for _ in range(3):
+        assert torch.equal(_through_dispatcher(inputs, nan_pages, kw, "f32"), got)
 
 
 # ---------------------------------------------------------------- quant matmul
@@ -1558,8 +1658,23 @@ TINY_QWEN3_CFG = dict(
     model_type="qwen3", torch_dtype="bfloat16", hidden_size=512, intermediate_size=1024,
     num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2, head_dim=128, vocab_size=512,
     max_position_embeddings=2048, rms_norm_eps=1e-6, rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False)
+# GPT-2 (float32: K1's f32 kernel, learned positions, head dim 64), Phi
+# (head dim 80, partial rotary 0.4, the parallel residual, biases), MPT
+# (ALiBi at head dim 128, clip_qkv, bias-free LayerNorm) and BLOOM (ALiBi at
+# head dim 64, the embedding LayerNorm).
+TINY_GPT2_CFG = dict(model_type="gpt2", torch_dtype="float32", n_embd=512, n_layer=2, n_head=8, n_positions=2048,
+                     vocab_size=512, activation_function="gelu_new")
+TINY_PHI_CFG = dict(model_type="phi", torch_dtype="bfloat16", hidden_size=640, intermediate_size=2560,
+                    num_hidden_layers=2, num_attention_heads=8, vocab_size=512, partial_rotary_factor=0.4,
+                    max_position_embeddings=2048, hidden_act="gelu_new")
+TINY_MPT_CFG = dict(model_type="mpt", torch_dtype="bfloat16", d_model=512, n_layers=2, n_heads=4,
+                    expansion_ratio=4, vocab_size=512, max_seq_len=2048, no_bias=True,
+                    attn_config=dict(alibi=True, clip_qkv=6.0))
+TINY_BLOOM_CFG = dict(model_type="bloom", torch_dtype="bfloat16", hidden_size=512, n_layer=2, n_head=8,
+                      vocab_size=512, layer_norm_epsilon=1e-5)
 TINY_CFGS = {"llama": TINY_LLAMA_CFG, "deepseek": TINY_DEEPSEEK_CFG, "mixtral": TINY_MIXTRAL_CFG,
-             "qwen2_moe": TINY_QWEN2_MOE_CFG, "gemma2": TINY_GEMMA2_CFG, "qwen3": TINY_QWEN3_CFG}
+             "qwen2_moe": TINY_QWEN2_MOE_CFG, "gemma2": TINY_GEMMA2_CFG, "qwen3": TINY_QWEN3_CFG,
+             "gpt2": TINY_GPT2_CFG, "phi": TINY_PHI_CFG, "mpt": TINY_MPT_CFG, "bloom": TINY_BLOOM_CFG}
 
 
 def _random_model(device, cfg, quantize=""):
@@ -1595,7 +1710,8 @@ def _greedy_si(S):
 
 
 @pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4", "mixtral", "qwen2_moe_int4",
-                                        "gemma2", "gemma2_int4", "qwen3", "qwen3_int4"])
+                                        "gemma2", "gemma2_int4", "qwen3", "qwen3_int4", "gpt2", "phi",
+                                        "phi_int4", "mpt", "mpt_int4", "bloom"])
 def test_executor_with_graphs_gives_the_eager_tokens_and_logits_bits(cuda, model_name):
     from chip_smoke import batch_inputs
     from scalellm_tpu_torch.engine.executor import Executor
@@ -1649,7 +1765,7 @@ def _sampling_si(S, seed0):
 
 @pytest.mark.parametrize("model_name", ["llama", "deepseek", "deepseek_int4", "mixtral", "mixtral_int4",
                                         "qwen2_moe", "qwen2_moe_int4", "gemma2", "gemma2_int4", "qwen3",
-                                        "qwen3_int4"])
+                                        "qwen3_int4", "gpt2", "phi", "phi_int4", "mpt", "mpt_int4", "bloom"])
 def test_multi_step_graph_replay_gives_the_eager_loop_bits(cuda, model_name):
     from chip_smoke import batch_inputs
     from scalellm_tpu_torch.engine.executor import Executor
@@ -1859,6 +1975,49 @@ def test_dense_families_kernels_match_plain_versions(cuda, model_name):
     for got, want in zip(logits["kernel"], logits["plain"]):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= LOGITS_TOL
+
+
+# GPT-2 (f32), Phi, MPT and BLOOM on DecoderModel: a prefill batch and the
+# decode step after it through the kernels (K1 once a layer a step, each
+# launch counted as f32, head dim 80 or ALiBi; INT4: each layer's four
+# quantized projections, qkv, o, up and down, through K2 or K4), then
+# through the plain versions. Tolerance: chip_smoke.LOGITS_TOL (GPT-2 in
+# f32: F32_TOL).
+LAYERNORM_KINDS = {"gpt2": "f32", "phi": "d80", "mpt": "alibi", "bloom": "alibi"}
+
+
+@pytest.mark.parametrize("model_name", ["gpt2", "phi", "phi_int4", "mpt", "mpt_int4", "bloom"])
+def test_layernorm_families_kernels_match_plain_versions(cuda, model_name):
+    from chip_smoke import LOGITS_TOL, batch_inputs
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    name, _, quantize = model_name.partition("_int")
+    model = _random_model(cuda, TINY_CFGS[name], quantize="int4" if quantize else "")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (150, 61)]
+    prefill, n_pages = batch_inputs(torch, [(p, 0, len(p) + 1) for p in prompts])
+    decode, _ = batch_inputs(torch, [([7 + i], len(p), len(p) + 1) for i, p in enumerate(prompts)])
+    k1 = attention.ragged_paged_attention_cuda
+    counters = (k1, getattr(k1, LAYERNORM_KINDS[name]), Q.quant_matmul_w4a8_cuda, Q.quant_matmul_dequant_cuda)
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "plain"):
+            plain = impl == "plain"
+            before = [c.launches for c in counters]
+            model.attn_impl = attention.plain_ragged_paged_attention if plain else attention.ragged_paged_attention
+            model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
+            kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=cuda)
+            a = model.logits(model(kv, prefill.to(cuda), all_hidden=True)[: sum(map(len, prompts))])
+            b = model.logits(model(kv, decode.to(cuda), decode_only=True)[: len(prompts)])
+            logits[impl] = (a, b)
+            launched = [c.launches - n for c, n in zip(counters, before)]
+            L = model.args.n_layers
+            q = 4 * L if quantize else 0
+            assert launched == ([0, 0, 0, 0] if plain else [2 * L, 2 * L, q, q])
+    tol = F32_TOL if name == "gpt2" else LOGITS_TOL
+    for got, want in zip(logits["kernel"], logits["plain"]):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= tol
 
 
 def test_a_closed_engine_gives_its_memory_back(cuda, tmp_path):

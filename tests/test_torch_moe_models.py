@@ -298,20 +298,24 @@ def test_unported_flags_still_raise():
 
     base = dict(model_type="gpt2", dtype="float32", hidden_size=64, intermediate_size=96, n_layers=1,
                 n_heads=4, n_kv_heads=2, vocab_size=128)
-    for flags, word in ((dict(norm_type="layer_norm"), "layer norm"),
-                        (dict(pos_embedding_type="learned"), "non-rope positions"),
-                        (dict(o_proj_bias=True), "biases"), (dict(mlp_bias=True), "biases"),
-                        (dict(lm_head_bias=True), "biases"), (dict(norm_bias=True), "biases"),
-                        (dict(parallel_residual=True), "parallel residual"),
-                        (dict(mlp_gated=False), "ungated MLP"), (dict(embedding_norm=True), "embedding norm"),
-                        (dict(qkv_clip=8.0), "qkv clip")):
+    for flags, word in ((dict(kv_lora_rank=16), "MLA"), (dict(kv_cache_dtype="int8"), "int8 KV cache")):
         with pytest.raises(NotImplementedError, match=word):
             DecoderModel(ModelArgs(**base, **flags), device="meta")
-    # What the MoE slice and the Gemma / Qwen slice ported builds.
+    # What the MoE slice, the Gemma / Qwen slice and the GPT-2 / Phi / MPT /
+    # BLOOM slice ported builds.
     DecoderModel(ModelArgs(**base, qkv_bias=True, n_experts=4, n_experts_per_token=2,
                            moe_intermediate_size=32, moe_shared_intermediate=48), device="meta")
     model = DecoderModel(ModelArgs(**base, use_qk_norm=True, residual_post_layernorm=True), device="meta")
     assert model.layers[0].q_norm.shape == (16,) and model.layers[0].post_ffw_norm.shape == (64,)
+    model = DecoderModel(ModelArgs(**base, norm_type="layer_norm", norm_bias=True, pos_embedding_type="learned",
+                                   o_proj_bias=True, mlp_bias=True, mlp_gated=False, parallel_residual=True,
+                                   embedding_norm=True, qkv_clip=8.0, lm_head_bias=True), device="meta")
+    layer = model.layers[0]
+    assert layer.up_proj.shape == (96, 64) and layer.up_bias.shape == (96,) and layer.down_bias.shape == (64,)
+    assert not hasattr(layer, "post_norm") and layer.input_norm_bias.shape == (64,)
+    assert model.embed_positions.shape == (4096, 64) and model.lm_head_bias.shape == (128,)
+    alibi = DecoderModel(ModelArgs(**base, pos_embedding_type="alibi"), device="meta")
+    assert alibi.alibi_slopes.dtype == torch.float32 and not hasattr(alibi, "rope_inv_freq")
 
 
 def test_a_gptq_moe_checkpoint_is_refused(tmp_path):
