@@ -27,9 +27,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
         whose decodes the split blocks; then 8 decodes and the mixed batch
         each with ALiBi at MPT-7B's heads ((n), (o): 32 over 32, head dim
         128), at Phi-2's head dim 80 ((p), (q)) and in float32 at GPT-2's
-        heads ((r), (s): 12 over 12, head dim 64, K1's f32 kernel)
+        heads ((r), (s): 12 over 12, head dim 64, K1's f32 kernel); then
+        over int8 pages (KV_INT8_SCALES) 8 decodes and the mixed batch at
+        Llama-3.1-8B's heads ((t), (u)), 8 decodes with ALiBi at MPT-7B's
+        heads ((v)) and 8 decodes in f32 at GPT-2's ((w))
         (yardstick: scaled_dot_product_attention on gathered K/V, with an
-        additive float mask for ALiBi, in f32 for (r) and (s)). Each is held
+        additive float mask for ALiBi, in f32 for (r), (s) and (w), on pages
+        dequantized ahead of time for (t)-(w)). Each is held
         against the plain version within KERNEL_TOL (f32: F32_TOL) and, row
         by row, within ATTENTION_REL_TOL of the row's size; on each bf16
         decode batch that row check must fail the plain split-and-merge with
@@ -60,7 +64,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
         replaced; the MLA decode kernel
         (K9) at 8 sequences of 16-600 tokens, one of 8192 tokens and 64 of
         128-2048 tokens (split-KV), and the MLA prefill kernel (K10) on a
-        mixed T = 512, S = 8 batch, 16 heads over the 576-wide latent cache
+        mixed T = 512, S = 8 batch, both also over int8 latent pages
+        (LATENT_INT8_SCALE) at the 8-decode and the mixed batch, 16 heads
+        over the 576-wide latent cache
         (yardstick: scaled_dot_product_attention on gathered rows); each
         held against its plain version within KERNEL_TOL and row by row
         within ATTENTION_REL_TOL, the decode batches' row check shown to
@@ -199,10 +205,35 @@ Phases (any failure exits non-zero, and the result line is not printed):
   weight 1 and biases 0. Every launch check of phases 6-15 also holds K1's
   counts of its ALiBi, head-dim-80 and f32 launches to the model's layers
   (phases 12-15 must have launched each).
+  16. int8 KV pages on TinyLlama-1.1B (phase 4's checkpoint and traffic):
+     per-layer scales calibrated by eval/kv_calibration.py on
+     tests/data/corpus.txt (the kv_scales.json sidecar), served async with
+     graphs and then eagerly with kv_cache_dtype="int8" (K1 on int8 pages,
+     each launch counted as such: the same ids, logits against the plain
+     path), the int8 cache holding at least KV_BLOCKS_RATIO times phase 4's
+     blocks in the same memory share; KV swap's page moves on its int8 cache
+     (swap_direct_check); then eval/ppl.py over PPL_WINDOWS windows with
+     bf16 KV, int8 KV at the default scale and int8 KV calibrated, the
+     calibrated scales keeping each token's NLL at least as close to bf16
+     KV's as the default scale (the reference's perplexity ratio printed:
+     on random weights it is noise); then GPT-2 in float32 over int8 pages
+     (K1's f32 kernel on int8 pages).
+  17. DeepSeek-V2-Lite (phase 6's checkpoint and depth) with int8 latent
+     pages at the static ModelArgs.kv_scale: K9/K10 on int8 pages, served
+     and checked as phases 8-15.
+  18. KV swap on TinyLlama: the same traffic through an engine with about
+     three requests' blocks and host_swap_bytes (SWAP_POOL_BYTES) for the
+     preempted ones, beside an ample-memory serve and a tight serve without
+     swap: swap-outs and swap-ins must happen, each request gets the ample
+     serve's ids or differs by tokens that are greedy choices up to kernel
+     rounding (the request and step emitted), and swap_direct_check (pages
+     fetched, restored elsewhere and fetched again byte-equal, the fetch
+     and restore rates, a step graph replayed after a restore reading the
+     restored pages).
   Every LLM.close() is followed by a line of the memory left on the card
   (`{tag}_closed`), and fails if the caching allocator kept more than
   CLOSED_SLACK_BYTES of the closed engine's freed blocks.
-  16. a line of the seconds each phase took, a `kernels` JSON line, then
+  19. a line of the seconds each phase took, a `kernels` JSON line, then
      the result line.
 
 It needs the repository (it fails in a directory that holds only this
@@ -241,6 +272,11 @@ ATTENTION_REL_TOL = 2e-2
 # K1's f32 kernel (GPT-2) against the plain version in f32: f32 sums in
 # another order (no TF32, whose 10-bit products would be off by about 1e-3).
 F32_TOL = 1e-4
+# int8 KV pages (phase 3a's int8 shapes): N(0, 1) K and V quantized as the
+# int8 cache holds them, round(x / scale), at these static (k_scale,
+# v_scale); phase 3c's int8 latent pages at DeepSeek's default scale.
+KV_INT8_SCALES = (0.03, 0.05)
+LATENT_INT8_SCALE = 0.0625
 # Logits of the 22-layer random-weight model (std ~1): the two attentions
 # round different f32 sums to bf16, and those 1-ulp differences pass through
 # 22 bf16 layers.
@@ -339,6 +375,25 @@ def phase_build():
 # ------------------------------------------------------------------ phase 3
 
 
+def page_scales(torch, kv, k_scale, v_scale):
+    """[heads, 1] scales of pages [P, page, heads, D]: k_scale at the even
+    (K) combined heads, v_scale at the odd (V) ones; a latent cache's one
+    head is K."""
+    heads = kv.shape[2]
+    return torch.tensor([v_scale if h % 2 else k_scale for h in range(heads)], device=kv.device)[:, None]
+
+
+def quantize_kv_pages(torch, kv, k_scale, v_scale):
+    """Float pages as an int8 cache holds them: round(x / scale) clamped to
+    [-127, 127]."""
+    return torch.round(kv.float() / page_scales(torch, kv, k_scale, v_scale)).clamp(-127, 127).to(torch.int8)
+
+
+def dequantize_kv_pages(torch, kv, k_scale, v_scale, dtype):
+    """int8 pages read back as (int8 -> f32) * scale in `dtype`."""
+    return (kv.float() * page_scales(torch, kv, k_scale, v_scale)).to(dtype)
+
+
 def make_batch(torch, gen, *, q_lens, kv_lens, S, T, H, Hkv, D, page=16, dtype=None):
     """Inputs of ragged paged attention on the card (bf16, or `dtype`).
     Sequence i has a chunk of q_lens[i] tokens at the tail of kv_lens[i];
@@ -387,12 +442,13 @@ def kv_ranges(q_lens, kv_lens, window):
 
 def bound(spec, inputs):
     """Least time on the card: each input byte read once (the ALiBi slopes
-    too), each output byte written once, and the flops this batch's masks
-    need, at the bf16 tensor-core rate or, in f32, the CUDA cores'."""
+    too; int8 pages a byte an element), each output byte written once, and
+    the flops this batch's masks need, at the bf16 tensor-core rate or, in
+    f32, the CUDA cores'."""
     H, Hkv, D = spec["H"], spec["Hkv"], spec["D"]
     tok, seq = kv_ranges(spec["q_lens"], spec["kv_lens"], spec["window"])
     size = inputs["q"].element_size()
-    kv_bytes = sum(e - b for b, e in seq) * Hkv * 2 * D * size
+    kv_bytes = sum(e - b for b, e in seq) * Hkv * 2 * D * inputs["kv_pages"].element_size()
     q_bytes = inputs["q"].numel() * size
     index_bytes = sum(inputs[k].numel() * 4 for k in ("kv_lens", "page_indices", "cu_q_lens", "num_seqs"))
     nbytes = kv_bytes + 2 * q_bytes + index_bytes + (H * 4 if spec.get("alibi") else 0)  # q in, out written
@@ -532,6 +588,19 @@ ATTENTION_SHAPES = {
                               cap=None, dtype="float32"),
     "s_mixed_f32_gpt2": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
                              S=8, T=512, H=12, Hkv=12, D=64, window=None, cap=None, dtype="float32"),
+    # int8 pages (phases 16-18, kv_cache_dtype="int8") at KV_INT8_SCALES:
+    # Llama-3.1-8B's heads (32 over 8, head dim 128), its decode step and
+    # its mixed step; MPT-7B's with ALiBi; GPT-2's in float32 (K1's f32
+    # kernel over int8 pages).
+    "t_decode_int8_llama8b": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=32, Hkv=8, D=128, window=None,
+                                  cap=None, kv_int8=True),
+    "u_mixed_int8_llama8b": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1],
+                                 kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024], S=8, T=512, H=32, Hkv=8, D=128,
+                                 window=None, cap=None, kv_int8=True),
+    "v_decode_int8_alibi_mpt7b": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=32, Hkv=32, D=128,
+                                      window=None, cap=None, alibi=True, kv_int8=True),
+    "w_decode_int8_f32_gpt2": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=12, Hkv=12, D=64, window=None,
+                                   cap=None, dtype="float32", kv_int8=True),
 }
 
 
@@ -555,6 +624,10 @@ def phase_kernels(torch, card):
         kw = dict(sm_scale=spec["D"] ** -0.5, sliding_window=spec["window"], logit_soft_cap=spec["cap"])
         if spec.get("alibi"):
             kw["alibi_slopes"] = torch.tensor(alibi_slopes(spec["H"]), dtype=torch.float32, device=DEVICE)
+        int8 = spec.get("kv_int8", False)
+        if int8:
+            inputs["kv_pages"] = quantize_kv_pages(torch, inputs["kv_pages"], *KV_INT8_SCALES)
+            kw.update(k_scale=KV_INT8_SCALES[0], v_scale=KV_INT8_SCALES[1])
         got = kernel(**inputs, **kw)
         torch.cuda.synchronize()
         want = plain(**inputs, **kw)
@@ -585,7 +658,12 @@ def phase_kernels(torch, card):
         plain_ms = time_ms(torch, lambda: plain(**inputs, **kw), flush)
         library_ms = None
         if spec["cap"] is None:  # SDPA has no soft cap: no library call computes (d), (j), (k)
-            qs, ks, vs, mask = sdpa_inputs(torch, spec, inputs, kw.get("alibi_slopes"))
+            # int8 pages: SDPA over pages dequantized ahead of time (no
+            # PyTorch call reads int8 pages).
+            lib_inputs = inputs if not int8 else dict(inputs, kv_pages=dequantize_kv_pages(
+                torch, inputs["kv_pages"], *KV_INT8_SCALES, inputs["q"].dtype))
+            qs, ks, vs, mask = sdpa_inputs(torch, spec, lib_inputs, kw.get("alibi_slopes"))
+            del lib_inputs
             library_ms = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=kw["sm_scale"]),
                 flush)
@@ -595,7 +673,8 @@ def phase_kernels(torch, card):
         page = inputs["kv_pages"].shape[1]
         splits, split_len = attention.split_kv_plan(inputs["page_indices"].shape[1] * page, spec["S"],
                                                     spec["Hkv"], attention._sm_count(inputs["q"].device))
-        emit(dict(phase="kernel", kernel="ragged_paged_attention" + ("_f32" if f32 else ""), shape=name, tol=tol,
+        emit(dict(phase="kernel", kernel="ragged_paged_attention" + ("_f32" if f32 else "") + ("_int8" if int8 else ""),
+                  shape=name, tol=tol, kv_scales=KV_INT8_SCALES if int8 else None,
                   rel_tol=ATTENTION_REL_TOL, max_row_rel_err=rel_err, **planted, T=spec["T"], S=spec["S"],
                   real_tokens=n_real, H=spec["H"], Hkv=spec["Hkv"], D=spec["D"], window=spec["window"],
                   soft_cap=spec["cap"], alibi=bool(spec.get("alibi")), dtype=str(inputs["q"].dtype),
@@ -1003,6 +1082,11 @@ MLA_SHAPES = {
     "decode_8192": dict(q_lens=[1], kv_lens=[8192], S=1, T=16),
     # 64 decodes of 128-2048 tokens, spread evenly: about 80 MB.
     "decode_64": dict(q_lens=[1] * 64, kv_lens=[128 + round(i * 1920 / 63) for i in range(64)], S=64, T=64),
+    # int8 latent pages (phase 17, kv_cache_dtype="int8") at
+    # LATENT_INT8_SCALE: the decode step and the mixed step.
+    "decode_int8": dict(q_lens=[1] * 8, kv_lens=[16, 40, 90, 150, 233, 310, 480, 600], S=8, T=16, int8=True),
+    "mixed_int8": dict(q_lens=[200, 250, 1, 1, 1, 1, 1, 1], kv_lens=[200, 300, 17, 64, 256, 512, 900, 1024],
+                       S=8, T=512, int8=True),
 }
 
 
@@ -1091,20 +1175,25 @@ def phase_moe_mla_kernels(torch, card):
     yarn = cfg["rope_scaling"]
     sm_scale = ((cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]) ** -0.5
                 * yarn_get_mscale(yarn["factor"], yarn["mscale_all_dim"]) ** 2)
-    mla = {"mla_decode": {}, "mla_prefill": {}}
+    mla = {"mla_decode": {}, "mla_prefill": {}, "mla_decode_int8": {}, "mla_prefill_int8": {}}
     for name, spec in MLA_SHAPES.items():
         spec = dict(spec, H=H, Dc=Dc)
         inputs = latent_batch(torch, gen, q_lens=spec["q_lens"], kv_lens=spec["kv_lens"], S=spec["S"],
                               T=spec["T"], H=H, Dc=Dc)
+        int8 = spec.get("int8", False)
+        scale = {}
+        if int8:
+            inputs["k_pages"] = quantize_kv_pages(torch, inputs["k_pages"], LATENT_INT8_SCALE, None)
+            scale = dict(k_scale=LATENT_INT8_SCALE)
         decode_only = all(n == 1 for n in spec["q_lens"])
-        kernel_name = "mla_decode" if decode_only else "mla_prefill"
+        kernel_name = ("mla_decode" if decode_only else "mla_prefill") + ("_int8" if int8 else "")
         dec_args = (inputs["q"], inputs["k_pages"], inputs["kv_lens"], inputs["page_indices"])
         if decode_only:
-            kernel = lambda: M.mla_decode_attention_cuda(*dec_args, sm_scale=sm_scale, v_dim=vd)
+            kernel = lambda: M.mla_decode_attention_cuda(*dec_args, sm_scale=sm_scale, v_dim=vd, **scale)
         else:
-            kernel = lambda: M.mla_prefill_attention_cuda(**inputs, sm_scale=sm_scale, v_dim=vd)
+            kernel = lambda: M.mla_prefill_attention_cuda(**inputs, sm_scale=sm_scale, v_dim=vd, **scale)
         plain = lambda: M.plain_mla_paged_attention(**inputs, sm_scale=sm_scale, v_dim=vd,
-                                                    decode_only=decode_only)
+                                                    decode_only=decode_only, **scale)
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -1128,7 +1217,7 @@ def phase_moe_mla_kernels(torch, card):
             # split-and-merge with the longest slot's middle piece left out.
             s_long = max(range(len(spec["kv_lens"])), key=lambda i: spec["kv_lens"][i])
             drop = (s_long, (spec["kv_lens"][s_long] - 1) // split_len // 2)
-            lost = M.plain_mla_split_decode(*dec_args, sm_scale=sm_scale, v_dim=vd, drop=drop)
+            lost = M.plain_mla_split_decode(*dec_args, sm_scale=sm_scale, v_dim=vd, drop=drop, **scale)
             planted = dict(planted_drop=drop, planted_rel_err=attention_row_rel_err(torch, lost, want),
                            planted_abs_err=(lost.float() - want.float()).abs().max().item())
             if not planted["planted_rel_err"] > ATTENTION_REL_TOL:
@@ -1136,7 +1225,11 @@ def phase_moe_mla_kernels(torch, card):
             del lost
         ms = time_ms(torch, kernel, flush)
         plain_ms = time_ms(torch, plain, flush, runs=5)
-        qs, ks, vs, mask = mla_library_inputs(torch, spec, inputs, vd)
+        # int8 pages: SDPA over pages dequantized ahead of time.
+        lib_inputs = inputs if not int8 else dict(inputs, k_pages=dequantize_kv_pages(
+            torch, inputs["k_pages"], LATENT_INT8_SCALE, None, torch.bfloat16))
+        qs, ks, vs, mask = mla_library_inputs(torch, spec, lib_inputs, vd)
+        del lib_inputs
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                                              scale=sm_scale), flush)
         del qs, ks, vs, mask
@@ -1146,7 +1239,7 @@ def phase_moe_mla_kernels(torch, card):
         emit(dict(phase="kernel_probe", kernel=kernel_name, shape=name, what="device ms a call by grid",
                   **split, card=card["nvidia_smi"]))
         tok, seq = kv_ranges(spec["q_lens"], spec["kv_lens"], None)
-        nbytes = (sum(e - b for b, e in seq) * Dc * 2 + n_real * H * (Dc + vd) * 2
+        nbytes = (sum(e - b for b, e in seq) * Dc * inputs["k_pages"].element_size() + n_real * H * (Dc + vd) * 2
                   + sum(inputs[x].numel() * 4 for x in ("kv_lens", "page_indices", "cu_q_lens", "num_seqs")))
         flops = sum(e - b for b, e in tok) * H * (Dc + vd) * 2
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
@@ -1889,7 +1982,7 @@ def phase_end_to_end(torch, card):
                       argmax_agreement=same_argmax, tol=LOGITS_TOL))
             if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
                 fail(f"{which}: kernel logits differ from plain-attention logits by {err} > {LOGITS_TOL}")
-        return main_path_launches(runs)["ragged_paged_attention_cuda"]
+        return main_path_launches(runs)["ragged_paged_attention_cuda"], runs["async"]["figures"]["kv_blocks"]
     finally:
         if llm is not None:
             llm.close()
@@ -2215,7 +2308,8 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync"):
                   host_ms_per_dispatch=wall * 1e3 / len(steps_log), host_ms_per_token=wall * 1e3 / n_tokens,
                   decode_step_ms=statistics.median(decode_ms) if decode_ms else None,
                   other_step_ms=statistics.fmean(other_ms) if other_ms else None,
-                  mid_serve_compiles=compiles, **graph_stats(engine))
+                  mid_serve_compiles=compiles, kv_blocks=engine.block_manager.options.num_blocks,
+                  **graph_stats(engine))
     line = dict(phase=f"{name}_e2e", requests=len(outs), output_tokens=n_tokens,
                 decode_only_steps=sum(1 for st in steps_log if st[2]),
                 prefill_steps=sum(1 for st in steps_log if st[0] > 64),
@@ -2249,7 +2343,7 @@ def teacher_forced_gap(torch, model, prompt_ids, generated):
     ids = prompt_ids + generated
     mi, n_pages = batch_inputs(torch, [(ids, 0, len(ids) + 1)])
     with torch.inference_mode():
-        kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
+        kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.kv_cache_dtype(), device=DEVICE)
         rows = model(kv, mi.to(DEVICE), all_hidden=True)[len(prompt_ids) - 1 : len(ids) - 1]
         logits = model.logits(rows).float()
         chosen = logits.gather(1, torch.tensor(generated, device=DEVICE)[:, None])[:, 0]
@@ -2877,9 +2971,10 @@ def gpt2_checkpoint_tensors(cfg):
 
 
 def moe_counters():
-    """The kernel wrappers a step of phases 6-15 may launch (DeepSeek-V2,
+    """The kernel wrappers a step of phases 6-17 may launch (DeepSeek-V2,
     Mixtral, Qwen2-MoE and the dense DecoderModel families), by name, with
-    K1's counts of its ALiBi, head-dim-80 and f32 launches."""
+    K1's counts of its ALiBi, head-dim-80, f32 and int8-page launches and
+    K9's and K10's of theirs on int8 latent pages."""
     from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops import grouped_matmul as G
     from scalellm_tpu_torch.ops import mla_attention as M
@@ -2887,17 +2982,18 @@ def moe_counters():
     from scalellm_tpu_torch.ops import quant_matmul as Q
 
     k1 = attention.ragged_paged_attention_cuda
-    return (k1, k1.alibi, k1.d80, k1.f32, G.grouped_matmul_cuda, MQ.grouped_quant_matmul_pair_cuda,
+    return (k1, k1.alibi, k1.d80, k1.f32, k1.int8, G.grouped_matmul_cuda, MQ.grouped_quant_matmul_pair_cuda,
             MQ.grouped_quant_matmul_cuda, MQ.expert_dequant_cuda, M.mla_decode_attention_cuda,
-            M.mla_prefill_attention_cuda, Q.quant_matmul_w4a8_cuda, Q.quant_matmul_group_cuda,
-            Q.quant_matmul_dequant_cuda)
+            M.mla_prefill_attention_cuda, M.mla_decode_attention_cuda.int8, M.mla_prefill_attention_cuda.int8,
+            Q.quant_matmul_w4a8_cuda, Q.quant_matmul_group_cuda, Q.quant_matmul_dequant_cuda)
 
 
 def moe_step_launches(model, T, S, decode_only):
     """What one engine step of T tokens and S selected rows must launch, by
     wrapper name: attention once a layer (DeepSeek: K9 on decode-only steps,
-    else K10; DecoderModel: K1, each launch also counted as ALiBi, head dim
-    80 or f32 where the model is so); per MoE layer K6
+    else K10, each also counted as int8 where the latent pages are;
+    DecoderModel: K1, each launch also counted as ALiBi, head dim 80, f32 or
+    int8 pages where the model is so); per MoE layer K6
     three times for bf16 experts, and for quantized ones K8 (gate and up)
     and K7 (down) where the T * top_k routed rows take the decode kernel
     (the dispatcher's takes_decode_kernel), else K6 in their place (two for
@@ -2913,11 +3009,13 @@ def moe_step_launches(model, T, S, decode_only):
     a = model.args
     want = {c.__name__: 0 for c in moe_counters()}
     if getattr(model, "mla", False):
-        want["mla_decode_attention_cuda" if decode_only else "mla_prefill_attention_cuda"] = a.n_layers
+        mla = "mla_decode_attention" if decode_only else "mla_prefill_attention"
+        want[f"{mla}_cuda"] = a.n_layers
+        want[f"{mla}_int8"] = a.n_layers if model.kv_quant else 0
     else:
         want["ragged_paged_attention_cuda"] = a.n_layers
         for kind, on in (("alibi", a.pos_embedding_type == "alibi"), ("d80", a.head_dim == 80),
-                         ("f32", model.dtype == torch.float32)):
+                         ("f32", model.dtype == torch.float32), ("int8", model.kv_quant)):
             want[f"ragged_paged_attention_{kind}"] = a.n_layers if on else 0
     rows = T * a.n_experts_per_token
     for layer in model.layers:
@@ -2945,16 +3043,19 @@ def moe_step_launches(model, T, S, decode_only):
 
 
 def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpoint_bytes, quantize="",
-                         serves=SERVES):
+                         serves=SERVES, kv_cache_dtype="auto", figures=None, on_engine=None):
     """Serve the checkpoint at `path` with LLM(path, quantize=quantize):
     phase 6 (DeepSeek-V2-Lite, name "deepseek") in bf16 and phase 7 with
     runtime-INT4 experts and projections, each serving SERVES; phases 8
     (Mixtral-8x7B), 9 (Qwen1.5-MoE-A2.7B) and the dense phases 10-15
     (Gemma-2-9B, Qwen3-8B, Phi-2, MPT-7B, BLOOM-560m, GPT-2) the same,
     serving "async" with graphs and then "eager", each request of the async serve held to the eager
-    one's ids (a dense model's routing replay below replays nothing). Each
-    load must find the checkpoint's bytes free on the card. Returns the
-    launches of the serves with graphs."""
+    one's ids (a dense model's routing replay below replays nothing); with
+    kv_cache_dtype="int8" the same over int8 KV pages (phases 16 and 17).
+    Each load must find the checkpoint's bytes free on the card. Fills
+    `figures` (where given) with each serve's figures, calls on_engine(tag,
+    mode, engine) on each engine before it closes, and returns the launches
+    of the serves with graphs."""
     from scalellm_tpu_torch.layers.moe import quant_expert_ffn
     from scalellm_tpu_torch.models.common import QuantExperts
     from scalellm_tpu_torch.ops import attention
@@ -2964,7 +3065,7 @@ def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpo
 
     import gc
 
-    tag = f"{name}_{quantize}" if quantize else name
+    tag = (f"{name}_{quantize}" if quantize else name) + ("_int8kv" if kv_cache_dtype == "int8" else "")
     counters = moe_counters()
     gc.collect()  # the previous phase's model, before this one loads
     depth = dict(layers=n_layers, full_depth=n_layers == full_layers)
@@ -2984,7 +3085,8 @@ def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpo
                 fail(f"{tag} {mode}: {free / 1e9:.1f} GB free on the card, the load needs "
                      f"{checkpoint_bytes / 1e9:.1f} GB and more")
             t0 = time.monotonic()
-            llm = serving_llm(path, graphs, mode if graphs else "sync", quantize=quantize)
+            llm = serving_llm(path, graphs, mode if graphs else "sync", quantize=quantize,
+                              kv_cache_dtype=kv_cache_dtype)
             torch.cuda.synchronize()
             t_load = time.monotonic() - t0
             engine = llm._handler.engine
@@ -2999,10 +3101,13 @@ def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpo
                       expert_bits=experts[0].bits if experts else 16,
                       expert_group=experts[0].group_size if experts else None,
                       kv_blocks=engine.block_manager.options.num_blocks,
-                      kv_cache_shape=list(engine.executor.kv_cache.shape), **graph_stats(engine)))
+                      kv_cache_shape=list(engine.executor.kv_cache.shape),
+                      kv_cache_dtype=str(engine.executor.kv_cache.dtype), **graph_stats(engine)))
             runs[mode] = serve(torch, card, tag, llm, counters, functools.partial(moe_step_launches, model),
                                graphs, mode if graphs else "sync")
             after_serve(torch, card, tag, mode, llm, runs, modes)
+            if on_engine is not None:
+                on_engine(tag, mode, engine)
             if graphs:
                 engine = model = experts = None
                 close_llm(torch, card, serve_name(tag, mode), llm)
@@ -3056,7 +3161,7 @@ def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpo
                                        else quant_expert_ffn)
                 model._router = ((lambda x, w: routes.pop(0)) if plain
                                  else recording if impl == "kernel" else real_router)
-                kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
+                kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.kv_cache_dtype(), device=DEVICE)
                 a = model.logits(model(kv, prefill.to(DEVICE), all_hidden=True)[:n_tok])
                 b = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[: len(ids)])
                 logits[impl] = (a, b)
@@ -3078,10 +3183,295 @@ def phase_end_to_end_moe(torch, card, name, path, n_layers, full_layers, checkpo
                       same_routing=True, tol=LOGITS_TOL))
             if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
                 fail(f"{tag} {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
+        if figures is not None:
+            figures.update({mode: run["figures"] for mode, run in runs.items()})
         return main_path_launches(runs)
     finally:
         if llm is not None:
             llm.close()
+
+
+# ------------------------------------------------------------------ phases 16-18
+
+PPL_WINDOW = 512  # tokens a scored window (eval/ppl.py's default)
+PPL_WINDOWS = 4
+# The int8 cache's blocks against phase 4's bf16 cache in the same memory
+# share: half the bytes a slot, so about twice the blocks.
+KV_BLOCKS_RATIO = 1.9
+PPL_CALIBRATED_SLACK = 1.001  # the reference's check of calibrated against default int8 KV (tests/test_eval.py)
+SWAP_POOL_BYTES = 2**30
+SWAP_PAGES = 64  # pages of the direct fetch/restore check
+
+
+def corpus_path():
+    """tests/data/corpus.txt of the checkout: the calibration and scoring text."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "corpus.txt")
+
+
+def swap_direct_check(torch, card, tag, engine):
+    """KV swap's page moves on a serving engine's cache, checked directly:
+    SWAP_PAGES pages (random contents; fewer on a small cache) fetched to
+    host memory, restored into other pages and fetched again are the same
+    bytes, timed (GB/s of the
+    fetch, gather and copy to pinned memory, and of the restore, copy and
+    scatter); and a step graph replayed after a restore reads the restored
+    pages: a 120-token sequence prefilled into pages 1-8, its decode step
+    replayed (a warmed bucket), then the pages fetched, wiped, restored into
+    the cache's last 8 pages and the same step replayed over the new block
+    table gives the same logits bits. The cache keeps its address."""
+    import numpy as np
+
+    from scalellm_tpu_torch.engine.executor import minimal_sampling_inputs
+
+    ex = engine.executor
+    kv = ex.kv_cache
+    ptr, P = kv.data_ptr(), kv.shape[1]
+    n = min(SWAP_PAGES, (P - 1) // 2)  # pages 1..n go to the last n
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 18)
+    src = np.arange(1, 1 + n, dtype=np.int32)
+    dst = np.arange(P - n, P, dtype=np.int32)
+    if kv.dtype == torch.int8:
+        kv[:, 1 : 1 + n] = torch.randint(-127, 128, kv[:, 1 : 1 + n].shape, generator=gen, device=DEVICE,
+                                         dtype=torch.int8)
+    else:
+        kv[:, 1 : 1 + n].normal_(generator=gen)
+    ex.fetch_pages(src)  # the pinned host allocation made once, outside the timing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = ex.fetch_pages(src)
+    t_fetch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex.restore_pages(dst, staged)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    again = ex.fetch_pages(dst)
+    byte_equal = torch.equal(staged.view(torch.uint8), again.view(torch.uint8)) and torch.equal(
+        kv[:, 1 : 1 + n].view(torch.uint8), kv[:, P - n :].view(torch.uint8))
+
+    prompt = torch.randint(1, 200, (120,), generator=gen, device=DEVICE).tolist()
+    prefill, _ = batch_inputs(torch, [(prompt, 0, 128)])  # pages 1-8
+    with torch.inference_mode():
+        ex.execute(prefill, minimal_sampling_inputs(prefill.kv_lens.shape[0]))
+
+    def decode(first_page):
+        mi, _ = batch_inputs(torch, [([5], 120, 128)])
+        mi.block_tables[0, :8] = torch.arange(first_page, first_page + 8, dtype=torch.int32)
+        mi.new_kv_slot_ids[0] = int(mi.block_tables[0, 120 // 16]) * 16 + 120 % 16
+        with torch.inference_mode():
+            ex.execute(mi, minimal_sampling_inputs(1), decode_only=True)
+        return ex.graphs.graphs[ex.graphs.last_key].logits.clone()
+
+    want = decode(1)
+    pages = ex.fetch_pages(np.arange(1, 9, dtype=np.int32))
+    kv[:, 1:9].zero_()
+    ex.restore_pages(np.arange(P - 8, P, dtype=np.int32), pages)
+    replays = sum(ex.graphs.replays.values())
+    got = decode(P - 8)
+    replayed = sum(ex.graphs.replays.values()) == replays + 1
+    graph_reads_restored = replayed and torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    nbytes = staged.numel() * staged.element_size()
+    emit(dict(phase=f"{tag}_swap_direct", kv_dtype=str(kv.dtype), pages=n, bytes=nbytes,
+              fetch_ms=t_fetch * 1e3, restore_ms=t_restore * 1e3, fetch_gb_s=nbytes / t_fetch / 1e9,
+              restore_gb_s=nbytes / t_restore / 1e9, byte_equal=byte_equal, replayed=replayed,
+              graph_reads_restored=graph_reads_restored, in_place=kv.data_ptr() == ptr, card=card["nvidia_smi"]))
+    if not (byte_equal and graph_reads_restored and kv.data_ptr() == ptr):
+        fail(f"{tag}: pages fetched and restored are not what was fetched, or a replayed graph did not read them")
+
+
+def token_nlls(torch, model, ids):
+    """Each scored position's next-token NLL over the full PPL_WINDOW windows
+    of `ids`, as eval/ppl.py's scorer forms them (f32 [positions])."""
+    import dataclasses
+
+    from scalellm_tpu_torch.eval.ppl import _window_inputs, window_cache
+
+    base = _window_inputs(PPL_WINDOW, 16).to(DEVICE)
+    kv = window_cache(model, PPL_WINDOW, 16)
+    out = []
+    with torch.inference_mode():
+        for start in range(0, len(ids) - PPL_WINDOW + 1, PPL_WINDOW):
+            tokens = torch.tensor(ids[start : start + PPL_WINDOW], dtype=torch.int32, device=DEVICE)
+            kv.zero_()
+            logits = model.logits(model(kv, dataclasses.replace(base, token_ids=tokens), all_hidden=True))
+            logp = torch.log_softmax(logits[:-1].float(), dim=-1)
+            out.append(-logp.gather(1, tokens[1:].long()[:, None])[:, 0])
+    return torch.cat(out)
+
+
+def phase_kv_int8(torch, card, bf16_blocks):
+    """Phase 16: TinyLlama-1.1B (phase 4's checkpoint and traffic) with
+    kv_cache_dtype="int8". Calibrates the per-layer scales with
+    eval/kv_calibration.py on tests/data/corpus.txt through the char
+    tokenizer (the kv_scales.json sidecar), serves async with graphs and then
+    eagerly (phase_end_to_end_moe: the same ids, logits against the plain
+    path, K1's int8 launches counted), holds the int8 cache's blocks to at
+    least KV_BLOCKS_RATIO times phase 4's, checks KV swap's page moves on
+    int8 pages (swap_direct_check), and scores PPL_WINDOWS windows with
+    eval/ppl.py: bf16 KV, int8 KV at the default scale, int8 KV calibrated.
+    The reference holds the calibrated perplexity to PPL_CALIBRATED_SLACK
+    times the default's on a trained model (tests/test_eval.py; the CPU
+    test tests/test_torch_eval.py holds the port to it there); on these
+    random weights (perplexity above the vocabulary's 32000) the mean NLLs
+    differ by less than their noise, so the phase prints that ratio and
+    fails instead unless the calibrated scales keep each token's NLL at
+    least as close to the bf16-KV one as the default scale does (the mean
+    absolute per-token difference, token_nlls). Then GPT-2 (phase 15's checkpoint) served in
+    float32 over int8 pages: K1's f32 kernel on int8 pages. Returns the
+    launches of the serves with graphs, by model."""
+    import gc
+
+    from scalellm_tpu_torch.eval import kv_calibration, ppl
+    from scalellm_tpu_torch.tokenizer.tokenizer import load_tokenizer
+
+    cfg = TINYLLAMA
+    L = cfg["num_hidden_layers"]
+    tmp = tempfile.mkdtemp(prefix="scalellm_tinyllama_int8kv_")
+    launches = {}
+    try:
+        nbytes = write_checkpoint(torch, tmp, cfg)
+        t0 = time.monotonic()
+        calib = kv_calibration.main(["--model", tmp, "--text", corpus_path(), "--window", str(PPL_WINDOW),
+                                     "--max-tokens", str(PPL_WINDOWS * PPL_WINDOW)])
+        t_calib = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(calib["out"]) as f:
+            sidecar = json.load(f)
+        emit(dict(phase="tinyllama_kv_calibration", seconds=t_calib, windows=PPL_WINDOWS, window=PPL_WINDOW,
+                  k_scale=sidecar["k"], v_scale=sidecar["v"], card=card["nvidia_smi"]))
+        figures = {}
+
+        def check_swap(tag, mode, engine):
+            if mode == "async":
+                swap_direct_check(torch, card, tag, engine)
+
+        launches["tinyllama"] = phase_end_to_end_moe(torch, card, "tinyllama", tmp, L, L, nbytes, "", MOE_SERVES,
+                                                     kv_cache_dtype="int8", figures=figures, on_engine=check_swap)
+        blocks = figures["async"]["kv_blocks"]
+        emit(dict(phase="tinyllama_int8kv_blocks", int8_kv_blocks=blocks, bf16_kv_blocks=bf16_blocks,
+                  ratio=blocks / bf16_blocks, want=KV_BLOCKS_RATIO, card=card["nvidia_smi"]))
+        if not blocks >= KV_BLOCKS_RATIO * bf16_blocks:
+            fail(f"the int8 KV cache holds {blocks} blocks, not {KV_BLOCKS_RATIO}x phase 4's {bf16_blocks}")
+
+        tok = load_tokenizer(tmp, None)
+        with open(corpus_path(), encoding="utf-8") as f:
+            ids = tok.encode(f.read())[: PPL_WINDOWS * PPL_WINDOW]
+        scores, nlls = {}, {}
+        for name, kv in (("bf16_kv", "auto"), ("int8_kv_default_scale", "int8"), ("int8_kv_calibrated", "int8")):
+            t0 = time.monotonic()
+            model = ppl.load_for_eval(tmp, kv_cache_dtype=kv, device=DEVICE)  # the sidecar: calibrated scales
+            if name == "int8_kv_default_scale":
+                model.kv_scales.fill_(model.args.kv_scale)
+            scores[name] = dict(ppl.perplexity(model, ids, window=PPL_WINDOW), seconds=time.monotonic() - t0)
+            nlls[name] = token_nlls(torch, model, ids)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        deviation = {name: (nlls[name] - nlls["bf16_kv"]).abs().mean().item()
+                     for name in ("int8_kv_default_scale", "int8_kv_calibrated")}
+        ratio = scores["int8_kv_calibrated"]["ppl"] / scores["int8_kv_default_scale"]["ppl"]
+        emit(dict(phase="tinyllama_ppl", window=PPL_WINDOW, **scores, mean_abs_token_nll_deviation=deviation,
+                  calibrated_over_default_ppl=ratio, reference_slack=PPL_CALIBRATED_SLACK,
+                  card=card["nvidia_smi"]))
+        if not deviation["int8_kv_calibrated"] <= deviation["int8_kv_default_scale"]:
+            fail(f"calibrated int8 KV scales move each token's NLL further from bf16 KV's than the default scale: "
+                 f"{deviation}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    cfg = GPT2
+    path, nbytes, _ = write_temp_checkpoint(torch, "gpt2", cfg, gpt2_checkpoint_tensors(cfg), None, scaled_init(cfg))
+    try:
+        launches["gpt2"] = phase_end_to_end_moe(torch, card, "gpt2", path, layers_of(cfg), layers_of(cfg), nbytes, "",
+                                                MOE_SERVES, kv_cache_dtype="int8")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def serve_swap(torch, card, tag, path, **kw):
+    """Phase 18's traffic (phase 4's 8 prompts, 32 greedy tokens each)
+    through a fresh engine with graphs, async (the default): each request's
+    prompt and generated ids, the swap and preemption counters' moves, and
+    the wall time; the engine stays open (the caller closes it)."""
+    from scalellm_tpu_torch import SamplingParams
+    from scalellm_tpu_torch.utils.metrics import COUNTERS
+
+    names = ("num_preempted_requests", "num_swap_out", "num_swap_in", "num_swap_evictions", "kv_swap_out_bytes",
+             "kv_swap_in_bytes")
+    llm = serving_llm(path, True, "async", **kw)
+    ids = record_outputs(llm)
+    before = {c: COUNTERS.get(c) for c in names}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    outs = llm.generate(prompts(), SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    moved = {c: COUNTERS.get(c) - v for c, v in before.items()}
+    if len(outs) != 8 or any(len(gen) != 32 for _, gen in ids.values()):
+        fail(f"{tag}: a request did not finish with 32 tokens")
+    emit(dict(phase=f"{tag}_e2e", kv_blocks=llm._handler.engine.block_manager.options.num_blocks, **kw,
+              wall_s=wall, output_tok_per_s=256 / wall, **moved, card=card["nvidia_smi"]))
+    return llm, ids, moved
+
+
+def phase_kv_swap(torch, card):
+    """Phase 18: KV swap on phase 4's checkpoint. The same traffic through
+    three engines with graphs (async): ample memory (the ground truth);
+    num_blocks enough for about three of the eight requests with
+    SWAP_POOL_BYTES of host memory for preempted pages; and the same tight
+    memory without swap (preempted requests re-prefill). The swap serve
+    must swap out and in; each of its requests gets the ample serve's ids,
+    or, where one differs, the phase emits the request and step, and every
+    differing token must be a greedy choice up to kernel rounding
+    (teacher_forced_gap within LOGITS_TOL): a flip from the other batches
+    tight memory builds, which the serve without swap shows too, and not
+    from restored pages. Then swap_direct_check on the swap engine."""
+    import math
+
+    from scalellm_tpu_torch.tokenizer.tokenizer import load_tokenizer
+
+    tmp = tempfile.mkdtemp(prefix="scalellm_tinyllama_swap_")
+    llm = None
+    try:
+        write_checkpoint(torch, tmp, TINYLLAMA)
+        tok = load_tokenizer(tmp, None)
+        need = [math.ceil((len(tok.encode(p)) + 32) / 16) for p in prompts()]
+        tight = 1 + math.ceil(3 * sum(need) / len(need))  # three requests' blocks; page 0 is the padding page
+        llm, ample, _ = serve_swap(torch, card, "swap_ample", tmp)
+        close_llm(torch, card, "swap_ample", llm)
+        llm, swapped, moved = serve_swap(torch, card, "swap_tight", tmp, num_blocks=tight,
+                                         host_swap_bytes=SWAP_POOL_BYTES)
+        if not (moved["num_swap_out"] > 0 and moved["num_swap_in"] > 0):
+            fail(f"swap_tight: no swap-out or swap-in under {tight} blocks: {moved}")
+        engine = llm._handler.engine
+        flips, gaps = [], []
+        for prompt, (prompt_ids, gen) in swapped.items():
+            want = ample[prompt][1]
+            if gen != want:
+                step = next(i for i, (a, b) in enumerate(zip(gen, want)) if a != b)
+                flips.append(dict(request=prompts().index(prompt), step=step))
+                gaps.append(teacher_forced_gap(torch, engine.model, prompt_ids, gen))
+        swap_direct_check(torch, card, "swap_tight", engine)
+        engine = None
+        close_llm(torch, card, "swap_tight", llm)
+        llm, recomputed, _ = serve_swap(torch, card, "swap_tight_no_swap", tmp, num_blocks=tight)
+        close_llm(torch, card, "swap_tight_no_swap", llm)
+        llm = None
+        no_swap_flips = [prompts().index(p) for p, (_, gen) in recomputed.items() if gen != ample[p][1]]
+        same_as_no_swap = [prompts().index(p) for p, (_, gen) in swapped.items() if gen == recomputed[p][1]]
+        emit(dict(phase="swap_ids", tight_blocks=tight, requests_differing=len(flips), flips=flips,
+                  largest_gap=max(gaps, default=0.0), tol=LOGITS_TOL, no_swap_requests_differing=no_swap_flips,
+                  swap_equal_to_no_swap=same_as_no_swap, card=card["nvidia_smi"]))
+        if any(not g <= LOGITS_TOL for g in gaps):
+            fail(f"swap_tight: a request's tokens differ from the ample serve's by more than kernel rounding "
+                 f"(largest gap {max(gaps)} > {LOGITS_TOL}): {flips}")
+    finally:
+        if llm is not None:
+            llm.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 
 # ------------------------------------------------------------------ main
@@ -3149,7 +3539,7 @@ def main() -> None:
     moe_quant_results = timed("3d", phase_moe_quant_kernels, torch, card)
     small_m_results, mlp_launches = timed("3e", phase_small_m_kernels, torch, card)
     count_captured_launches()
-    bf16_launches = timed("4", phase_end_to_end, torch, card)
+    bf16_launches, bf16_blocks = timed("4", phase_end_to_end, torch, card)
     int4_launches = timed("5", phase_end_to_end_int4, torch, card, opts.int4_layers)
     # Phases 6-15: each checkpoint written once, served in bf16 and then
     # with runtime INT4 (phases 14 and 15: bf16 and f32 alone), and removed.
@@ -3180,6 +3570,13 @@ def main() -> None:
             for quantize in quantizes:
                 moe_launches[(name, quantize)] = phase_end_to_end_moe(
                     torch, card, name, path, layers, layers_of(base), nbytes, quantize, serves)
+            if name == "deepseek":
+                # Phase 17: the same checkpoint over int8 latent pages.
+                t17 = time.monotonic()
+                moe_launches[(name, "int8kv")] = phase_end_to_end_moe(
+                    torch, card, name, path, layers, layers_of(base), nbytes, "", MOE_SERVES, kv_cache_dtype="int8")
+                phase_seconds["17"] = time.monotonic() - t17
+                t0 += phase_seconds["17"]
         finally:
             shutil.rmtree(path, ignore_errors=True)
         phase_seconds[phase] = time.monotonic() - t0
@@ -3197,6 +3594,9 @@ def main() -> None:
         for wrapper in wrappers:
             if not sum(run.get(wrapper, 0) for run in runs) > 0:
                 fail(f"phases {phases} never launched {wrapper}")
+    for model, run in timed("16", phase_kv_int8, torch, card, bf16_blocks).items():
+        moe_launches[(model, "int8kv")] = run
+    timed("18", phase_kv_swap, torch, card)
     new_k1 = sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values())
 
     # Each kernel's launches on the main paths (the sync, async and ms4
@@ -3223,16 +3623,31 @@ def main() -> None:
     source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
     moe_source = "scalellm_tpu_torch/csrc/moe_quant.cu"
     gemv_source = "scalellm_tpu_torch/csrc/quant_gemv.cu"
+    # K1's launches by kernel and page type: every f32 launch of an int8-KV
+    # run is on int8 pages.
     f32_k1 = launched("ragged_paged_attention_f32")
-    f32_shapes = {n for n, spec in ATTENTION_SHAPES.items() if spec.get("dtype") == "float32"}
+    int8_k1 = launched("ragged_paged_attention_int8")
+    f32_int8_k1 = sum(run.get("ragged_paged_attention_f32", 0) for (_, v), run in moe_launches.items()
+                      if v == "int8kv")
+
+    def k1_shapes(f32, int8):
+        return {n: r for n, r in attention_results.items()
+                if (ATTENTION_SHAPES[n].get("dtype") == "float32") == f32 and ATTENTION_SHAPES[n].get("kv_int8",
+                                                                                                       False) == int8}
+
+    k1_source, k1_replaces = "scalellm_tpu_torch/csrc/ragged_paged_attention.cu", "scalellm_tpu/ops/attention.py:132"
+    f32_source = "scalellm_tpu_torch/csrc/ragged_paged_attention_f32.cu"
+    mla_source = "scalellm_tpu_torch/csrc/mla_attention.cu"
     kernels = [
-        kernel_entry("ragged_paged_attention", "scalellm_tpu_torch/csrc/ragged_paged_attention.cu",
-                     "scalellm_tpu/ops/attention.py:132",
-                     bf16_launches + int4_launches["ragged_paged_attention_cuda"] + new_k1 - f32_k1,
-                     {n: r for n, r in attention_results.items() if n not in f32_shapes}, "a_decode"),
-        kernel_entry("ragged_paged_attention_f32", "scalellm_tpu_torch/csrc/ragged_paged_attention_f32.cu",
-                     "scalellm_tpu/ops/attention.py:132", f32_k1,
-                     {n: r for n, r in attention_results.items() if n in f32_shapes}, "r_decode_f32_gpt2"),
+        kernel_entry("ragged_paged_attention", k1_source, k1_replaces,
+                     bf16_launches + int4_launches["ragged_paged_attention_cuda"] + new_k1 - f32_k1
+                     - (int8_k1 - f32_int8_k1), k1_shapes(False, False), "a_decode"),
+        kernel_entry("ragged_paged_attention_int8", k1_source, k1_replaces, int8_k1 - f32_int8_k1,
+                     k1_shapes(False, True), "t_decode_int8_llama8b"),
+        kernel_entry("ragged_paged_attention_f32", f32_source, k1_replaces, f32_k1 - f32_int8_k1,
+                     k1_shapes(True, False), "r_decode_f32_gpt2"),
+        kernel_entry("ragged_paged_attention_f32_int8", f32_source, k1_replaces, f32_int8_k1,
+                     k1_shapes(True, True), "w_decode_int8_f32_gpt2"),
         kernel_entry("quant_matmul_w4a8", source, "scalellm_tpu/ops/quant_matmul.py:360",
                      launched("quant_matmul_w4a8_cuda"), quant_results["w4a8"],
                      ("gate_up_proj", 16, False)),
@@ -3255,12 +3670,16 @@ def main() -> None:
                      launched("grouped_quant_matmul_pair_cuda"),
                      {c: r for c, r in moe_quant_results.items() if c[0] == "gate_up"},
                      ("gate_up", 4, "decode")),
-        kernel_entry("mla_decode", "scalellm_tpu_torch/csrc/mla_attention.cu",
-                     "scalellm_tpu/ops/mla_attention.py:96", launched("mla_decode_attention_cuda"),
+        kernel_entry("mla_decode", mla_source, "scalellm_tpu/ops/mla_attention.py:96",
+                     launched("mla_decode_attention_cuda") - launched("mla_decode_attention_int8"),
                      mla_results["mla_decode"], "decode"),
-        kernel_entry("mla_prefill", "scalellm_tpu_torch/csrc/mla_attention.cu",
-                     "scalellm_tpu/ops/mla_attention.py:271", launched("mla_prefill_attention_cuda"),
+        kernel_entry("mla_decode_int8", mla_source, "scalellm_tpu/ops/mla_attention.py:96",
+                     launched("mla_decode_attention_int8"), mla_results["mla_decode_int8"], "decode_int8"),
+        kernel_entry("mla_prefill", mla_source, "scalellm_tpu/ops/mla_attention.py:271",
+                     launched("mla_prefill_attention_cuda") - launched("mla_prefill_attention_int8"),
                      mla_results["mla_prefill"], "mixed"),
+        kernel_entry("mla_prefill_int8", mla_source, "scalellm_tpu/ops/mla_attention.py:271",
+                     launched("mla_prefill_attention_int8"), mla_results["mla_prefill_int8"], "mixed_int8"),
         kernel_entry("quant_gemv", gemv_source, "scalellm_tpu/ops/quant_matmul.py:304",
                      launched("quant_gemv_cuda"), small_m_results["gemv"], ("gate_up_proj", 16)),
         kernel_entry("quant_w4a8_gemv", gemv_source, "scalellm_tpu/ops/quant_matmul.py:466",

@@ -84,8 +84,16 @@
 //     writes its bf16 row; writes zeros for K9's rows past S and for split
 //     rows without KV. It is launched as the attention grid's programmatic
 //     dependent, so its launch and slot lookup overlap that grid.
-// No float atomics: the same inputs give the same bits on every call. int8
-// latent pages are not covered; the Python wrapper refuses them.
+//   - int8 latent pages (kv_cache_dtype="int8") are a template flag. Each
+//     latent row is 576 bytes, a multiple of 16, so the same bulk copy
+//     moves it, into the upper half of its slot row (bytes 576-1151 of the
+//     1168). Once a step's two slots have landed, the block widens them in
+//     place, as the stock kernel does: (int8 -> f32) * k_scale rounded to
+//     bf16 into the row's chunks (every thread reads its 16-byte pieces of
+//     int8 into registers, a barrier, then writes them widened, since a
+//     row's bf16 chunks overlap its int8 bytes). V is the widened rows'
+//     first 512 columns, as with bf16 pages. Two more barriers a step.
+// No float atomics: the same inputs give the same bits on every call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,7 +144,9 @@ static_assert(Cfg<kTileTokens>::kBytes + 64 <= 232448, "227 KB of shared memory 
 
 struct Params {
   const __nv_bfloat16* q;      // [T, H, kDc]
-  const __nv_bfloat16* pages;  // [P, page_size, 1, kDc]
+  const __nv_bfloat16* pages;  // [P, page_size, 1, kDc] (bf16 pages)
+  const int8_t* pages8;        // [P, page_size, 1, kDc] (int8 pages; the kInt8 instances only)
+  float k_scale;               // int8 pages: element = bf16(int8 * k_scale)
   const int* kv_lens;          // [S]
   const int* table;            // [S, maxp]
   const int* cu;               // [S + 1]; null for K9 (row s is slot s's query)
@@ -258,26 +268,64 @@ __device__ __forceinline__ int swz(int r, int ch) {
 // masked p = 0 never meets garbage. Row i lies at page table[i /
 // page_size], slot i % page_size; with `tbl`, table[pg] is read from tbl[pg
 // - tbl_pg0], the entries stage_table() staged in shared memory a step
-// earlier. Called by every thread.
+// earlier. An int8 row lands in bytes [kDc, 2 kDc) of its slot row, for
+// widen_step. Called by every thread.
+template <bool kInt8>
 __device__ __forceinline__ void issue_slot(__nv_bfloat16* dst, uint64_t* bar, const Params& p, const int* table,
                                            const int* tbl, int tbl_pg0, int base, int end) {
+  constexpr int kRowBytes = kInt8 ? kDc : kDc * 2;
   const int n = max(0, min(kSlotRows, end - base));
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     if (lane == 0) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the slot's last reads come first
-      mbar_arrive_expect_tx(bar, n * kDc * 2);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the slot's last reads and writes come first
+      mbar_arrive_expect_tx(bar, n * kRowBytes);
     }
     __syncwarp();
     if (lane < n) {
       const int pos = base + lane, pg = pos / p.page_size;
       const int page = tbl ? tbl[pg - tbl_pg0] : table[pg];
-      bulk_load(dst + lane * kRowElems, p.pages + ((size_t)page * p.page_size + (pos - pg * p.page_size)) * kDc,
-                kDc * 2, bar);
+      const size_t row = (size_t)page * p.page_size + (pos - pg * p.page_size);
+      if constexpr (kInt8)
+        bulk_load(reinterpret_cast<unsigned char*>(dst + lane * kRowElems) + kDc, p.pages8 + row * kDc, kDc, bar);
+      else
+        bulk_load(dst + lane * kRowElems, p.pages + row * kDc, kRowBytes, bar);
     }
   }
   for (int c = threadIdx.x; c < (kSlotRows - n) * kChunks; c += kThreads)
     *reinterpret_cast<uint4*>(dst + lat(n + c / kChunks, c % kChunks)) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// A step's two slots of int8 latent rows (issue_slot<true>), widened in
+// place into the bf16 rows the products read: element e of a row becomes
+// bf16(int8 * k_scale) at chunk e / 8. Every thread reads its 16-byte
+// pieces of int8 (16 elements each; rows at or past the range hold zeros),
+// then, after a barrier (a row's bf16 chunks overlap its int8 bytes), writes
+// each as two bf16 chunks. The caller's next barrier publishes them.
+__device__ __forceinline__ void widen_step(__nv_bfloat16* k0, __nv_bfloat16* k1, float k_scale) {
+  constexpr int kPieces = kDc / 16;                  // 16-byte int8 pieces a row
+  constexpr int kPer = 2 * kSlotRows * kPieces / kThreads;  // a thread's pieces of the step
+  static_assert(2 * kSlotRows * kPieces % kThreads == 0, "whole pieces a thread");
+  uint4 w[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int u = threadIdx.x + i * kThreads, r = u / kPieces % kSlotRows, c = u % kPieces;
+    const __nv_bfloat16* slot = u < kSlotRows * kPieces ? k0 : k1;
+    w[i] = *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned char*>(slot + r * kRowElems) + kDc +
+                                           16 * c);
+  }
+  __syncthreads();  // every piece read before any chunk over it is written
+  const auto el = [&](uint32_t word, int b) { return (float)(int8_t)(word >> (8 * b)) * k_scale; };
+  const auto pair = [&](uint32_t word, int b) { return pack_bf16(el(word, b), el(word, b + 1)); };
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int u = threadIdx.x + i * kThreads, r = u / kPieces % kSlotRows, c = u % kPieces;
+    __nv_bfloat16* row = (u < kSlotRows * kPieces ? k0 : k1) + r * kRowElems;
+    *reinterpret_cast<uint4*>(row + lat(0, 2 * c)) =
+        make_uint4(pair(w[i].x, 0), pair(w[i].x, 2), pair(w[i].y, 0), pair(w[i].y, 2));
+    *reinterpret_cast<uint4*>(row + lat(0, 2 * c + 1)) =
+        make_uint4(pair(w[i].z, 0), pair(w[i].z, 2), pair(w[i].w, 0), pair(w[i].w, 2));
+  }
 }
 
 // The table entries of the pages that hold rows [row0, row0 + kStep)
@@ -455,8 +503,9 @@ __device__ __forceinline__ void attend_step(const __nv_bfloat16* k0, const __nv_
 // query rows of MT tokens (rows row0 .. row0 + n_tok - 1 of q, heads
 // [h0, h0 + 16)): token j sees the rows below min(first_hi + j, end).
 // Leaves st with the unnormalised o, the maxima and the row sums. Uniform
-// across the block; needs end > begin.
-template <int MT>
+// across the block; needs end > begin. kInt8: int8 pages, each step's
+// slots widened (widen_step) before its products.
+template <int MT, bool kInt8>
 __device__ void walk(const Params& p, const int* table, int row0, int n_tok, int h0, int begin, int end,
                      int first_hi, unsigned char* smem, State<MT>& st) {
   using C = Cfg<MT>;
@@ -499,7 +548,8 @@ __device__ void walk(const Params& p, const int* table, int row0, int n_tok, int
   cp_async_commit();
 #pragma unroll
   for (int sl = 0; sl < kSlots - 2; ++sl)
-    if (sl < n_slots) issue_slot(ring + sl * kSlotElems, full + sl, p, table, nullptr, 0, begin + sl * kSlotRows, end);
+    if (sl < n_slots)
+      issue_slot<kInt8>(ring + sl * kSlotElems, full + sl, p, table, nullptr, 0, begin + sl * kSlotRows, end);
   const int hi_own = min(first_hi + wm, end);
   for (int i = 0; i < n_steps; ++i) {
     // Slot sl's use sl / kSlots completes the phase of that parity.
@@ -507,17 +557,20 @@ __device__ void walk(const Params& p, const int* table, int row0, int n_tok, int
     mbar_wait(full + (2 * i + 1) % kSlots, ((2 * i + 1) / kSlots) & 1);
     cp_async_wait<0>();  // q, and step i's table entries
     __syncthreads();     // step i landed; every warp is done with step i - 1
+    if constexpr (kInt8)
+      widen_step(ring + ((2 * i) % kSlots) * kSlotElems, ring + ((2 * i + 1) % kSlots) * kSlotElems, p.k_scale);
     const int* tbl_i = tbl + (i & 1) * kTblMax;
     const int pg0 = win(i) / p.page_size;
 #pragma unroll
     for (int k = 0; k < 2; ++k) {  // into step i - 1's slots
       const int sl = 2 * i + kSlots - 2 + k;
       if (sl < n_slots)
-        issue_slot(ring + (sl % kSlots) * kSlotElems, full + sl % kSlots, p, table, tbl_i, pg0,
-                   begin + sl * kSlotRows, end);
+        issue_slot<kInt8>(ring + (sl % kSlots) * kSlotElems, full + sl % kSlots, p, table, tbl_i, pg0,
+                          begin + sl * kSlotRows, end);
     }
     stage_table(tbl + ((i + 1) & 1) * kTblMax, p, table, win(i + 1), end);  // step i + 1's entries
     cp_async_commit();
+    if constexpr (kInt8) __syncthreads();  // the widened rows are in place
     attend_step<MT>(ring + ((2 * i) % kSlots) * kSlotElems, ring + ((2 * i + 1) % kSlots) * kSlotElems, qs, ps,
                     red_m, st, l_own, begin + i * kStep, hi_own, p.scale_log2);
   }
@@ -559,6 +612,7 @@ __device__ __forceinline__ bool split_slot(const Params& p, int s, int& row, int
   return s < min(max(n_seqs, 0), p.S) && c1 - c0 == 1 && c0 < p.T;
 }
 
+template <bool kInt8>
 __device__ void split_block(const Params& p, int x, int hg, unsigned char* smem) {
   const int s = x / p.splits, sp = x % p.splits;
   int row, kv_len;
@@ -572,7 +626,7 @@ __device__ void split_block(const Params& p, int x, int hg, unsigned char* smem)
     return;
   }
   State<1> st;
-  walk<1>(p, p.table + (size_t)s * p.maxp, row, 1, h0, begin, end, end, smem, st);
+  walk<1, kInt8>(p, p.table + (size_t)s * p.maxp, row, 1, h0, begin, end, end, smem, st);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -590,6 +644,7 @@ __device__ void split_block(const Params& p, int x, int hg, unsigned char* smem)
 // most rows, start first. Blocks past the last tile zero the padding rows
 // (at or past cu_q_lens[num_seqs]), BQ rows each: there are enough of them,
 // since the grid has ceil(T / BQ) + min(S, T) tile blocks.
+template <bool kInt8>
 __device__ void tile_block(const Params& p, int b, int hg, unsigned char* smem) {
   constexpr int BQ = kTileTokens;
   __shared__ int found[5];  // sequence (-1: none), tile within it or spare tile, q_start, q_len, kv_len
@@ -653,7 +708,7 @@ __device__ void tile_block(const Params& p, int b, int hg, unsigned char* smem) 
   const int end = min(pos0 + n_tok, min(kv_len, p.maxp * p.page_size));
   State<BQ> st;
   if (end > 0) {
-    walk<BQ>(p, p.table + (size_t)s * p.maxp, q_start + tok0, n_tok, h0, 0, end, pos0 + 1, smem, st);
+    walk<BQ, kInt8>(p, p.table + (size_t)s * p.maxp, q_start + tok0, n_tok, h0, 0, end, pos0 + 1, smem, st);
   } else {  // nothing visible: zeros
 #pragma unroll
     for (int j = 0; j < BQ; ++j) {
@@ -683,14 +738,15 @@ __device__ void tile_block(const Params& p, int b, int hg, unsigned char* smem) 
 
 // Block (x, head group): x < tile_blocks is a tile block of BQ tokens, the
 // rest are split blocks (slot, split) = ((x - tile_blocks) / splits, % splits).
+template <bool kInt8>
 __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   griddep_launch();  // the merge may start; it waits for this grid before it reads
   const int x = blockIdx.x, hg = blockIdx.y;
   if (x < p.tile_blocks)
-    tile_block(p, x, hg, smem);
+    tile_block<kInt8>(p, x, hg, smem);
   else
-    split_block(p, x - p.tile_blocks, hg, smem);
+    split_block<kInt8>(p, x - p.tile_blocks, hg, smem);
 }
 
 // Block (x, head), 4 columns a thread. K9: q row x (x < T); a row past S
@@ -739,15 +795,16 @@ __global__ void __launch_bounds__(kVd / 4) mla_merge_kernel(const Params p) {
   dst[1] = __floats2bfloat162_rn(o.z * inv, o.w * inv);
 }
 
+template <bool kInt8>
 int launch(const Params& p, cudaStream_t st) {
   constexpr int kSmem = Cfg<kTileTokens>::kBytes;
   static_assert(Cfg<1>::kBytes <= kSmem, "the tile blocks' layout is the larger");
-  static const int smem_rc =
-      (int)cudaFuncSetAttribute(mla_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  static const int smem_rc = (int)cudaFuncSetAttribute(mla_attention_kernel<kInt8>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (smem_rc) return smem_rc;
   const dim3 grid(p.tile_blocks + p.S * p.splits, (p.n_heads + kHeads - 1) / kHeads);
   const int smem = p.tile_blocks ? kSmem : Cfg<1>::kBytes;
-  mla_attention_kernel<<<grid, kThreads, smem, st>>>(p);
+  mla_attention_kernel<kInt8><<<grid, kThreads, smem, st>>>(p);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   // The merge is the attention grid's programmatic dependent: it is launched
@@ -766,6 +823,10 @@ int launch(const Params& p, cudaStream_t st) {
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+int launch_any(const Params& p, cudaStream_t st) {
+  return p.pages8 ? launch<true>(p, st) : launch<false>(p, st);
+}
+
 bool common_ok(int n_heads, int latent_dim, int v_dim, int num_seqs, int maxp, int page_size, int splits,
                int split_len) {
   return n_heads > 0 && n_heads <= 65535 && latent_dim == kDc && v_dim == kVd && num_seqs > 0 && maxp > 0 &&
@@ -774,10 +835,13 @@ bool common_ok(int n_heads, int latent_dim, int v_dim, int num_seqs, int maxp, i
 
 Params make_params(const void* q, const void* k_pages, const void* kv_lens, const void* page_indices,
                    const void* cu_q_lens, const void* num_seqs, void* out, void* scratch, int T, int S,
-                   int maxp, int page_size, int n_heads, int splits, int split_len, float sm_scale) {
+                   int maxp, int page_size, int n_heads, int splits, int split_len, float sm_scale,
+                   int latent_int8, float k_scale) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.pages = static_cast<const __nv_bfloat16*>(k_pages);
+  p.pages = latent_int8 ? nullptr : static_cast<const __nv_bfloat16*>(k_pages);
+  p.pages8 = latent_int8 ? static_cast<const int8_t*>(k_pages) : nullptr;
+  p.k_scale = k_scale;
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.table = static_cast<const int*>(page_indices);
   p.cu = static_cast<const int*>(cu_q_lens);
@@ -804,31 +868,36 @@ Params make_params(const void* q, const void* k_pages, const void* kv_lens, cons
 // success); neither synchronises. latent_dim and v_dim must be 576 and 512.
 // `scratch` holds S * splits * n_heads * (v_dim + 2) floats (the wrapper
 // allocates it); splits and split_len come from the wrapper's
-// mla_split_plan, split_len a multiple of 64.
+// mla_split_plan, split_len a multiple of 64. latent_int8: the pages are
+// int8, each element read as bf16(element * k_scale); else bf16 pages (the
+// scale unused).
 extern "C" int scalellm_mla_decode(const void* q, const void* k_pages, const void* kv_lens,
                                    const void* page_indices, void* out, void* scratch, int num_rows,
                                    int num_seqs, int maxp, int page_size, int n_heads, int latent_dim,
-                                   int v_dim, int splits, int split_len, float sm_scale, void* stream) {
+                                   int v_dim, int splits, int split_len, float sm_scale, int latent_int8,
+                                   float k_scale, void* stream) {
   if (num_rows == 0) return 0;
   if (!common_ok(n_heads, latent_dim, v_dim, num_seqs, maxp, page_size, splits, split_len) ||
       num_rows < num_seqs)
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k_pages, kv_lens, page_indices, nullptr, nullptr, out, scratch, num_rows,
-                               num_seqs, maxp, page_size, n_heads, splits, split_len, sm_scale);
-  return launch(p, reinterpret_cast<cudaStream_t>(stream));
+                               num_seqs, maxp, page_size, n_heads, splits, split_len, sm_scale, latent_int8,
+                               k_scale);
+  return launch_any(p, reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" int scalellm_mla_prefill(const void* q, const void* k_pages, const void* kv_lens,
                                     const void* page_indices, const void* cu_q_lens, const void* num_seqs,
                                     void* out, void* scratch, int num_tokens, int num_seq_slots, int maxp,
                                     int page_size, int n_heads, int latent_dim, int v_dim, int splits,
-                                    int split_len, float sm_scale, void* stream) {
+                                    int split_len, float sm_scale, int latent_int8, float k_scale,
+                                    void* stream) {
   if (num_tokens == 0) return 0;
   if (!common_ok(n_heads, latent_dim, v_dim, num_seq_slots, maxp, page_size, splits, split_len))
     return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, out, scratch, num_tokens,
-                         num_seq_slots, maxp, page_size, n_heads, splits, split_len, sm_scale);
+                         num_seq_slots, maxp, page_size, n_heads, splits, split_len, sm_scale, latent_int8, k_scale);
   // Sequences of 2 or more tokens hold at most T / kTileTokens + S tiles.
   p.tile_blocks = (num_tokens + kTileTokens - 1) / kTileTokens + min(num_seq_slots, num_tokens);
-  return launch(p, reinterpret_cast<cudaStream_t>(stream));
+  return launch_any(p, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
-// Ragged paged attention for Hopper (sm_90a), bf16 pages, f32 online softmax,
-// bf16 tensor-core products (mma.sync m16n8k16).
+// Ragged paged attention for Hopper (sm_90a), bf16 or int8 pages, f32 online
+// softmax, bf16 tensor-core products (mma.sync m16n8k16).
 //
 // Replaces the stock Pallas ragged-paged-attention kernel that
 // scalellm_tpu/ops/attention.py:132 calls. It computes what
@@ -10,7 +10,8 @@
 //     decode tokens; cu_q_lens[S+1] gives the chunk boundaries, kv_lens[S]
 //     the context lengths, and each chunk is the tail of its context;
 //   - KV pages [P, page_size, 2*Hkv, D], K at even and V at odd combined
-//     heads, reached through the block table page_indices[S, MAXP];
+//     heads, reached through the block table page_indices[S, MAXP]; bf16,
+//     or int8 with static k and v scales;
 //   - GQA (group <= 16), causal masking by absolute position, sliding window
 //     (<= 0 disables it), ALiBi (score += slope[head] * (kv_pos - q_pos),
 //     after the scale and before the soft cap), logit soft cap (<= 0
@@ -88,10 +89,21 @@
 //   - ALiBi (MPT, BLOOM) is a template flag, so the other paths keep their
 //     code: each row adds its head's slope times its distance to every
 //     score, the `whole` fast path included (it skips the masks only).
+//   - int8 pages (kv_cache_dtype="int8") are a template flag too. As the
+//     stock kernel does, each element is widened to f32, multiplied by the
+//     static k_scale or v_scale and rounded to bf16 (exact at the model's
+//     scale of 1.0). An int8 row is D bytes, half a 16-byte cp.async per
+//     chunk of 8, so the stage loads go through registers instead: each
+//     thread loads up to 8 of its chunks of K and of V (8 bytes each; 4 at
+//     D = 256) with plain loads, in flight together, then widens them and
+//     stores the 16-byte bf16 chunks at the same swizzled offsets. The ring, the
+//     products and the merge are the bf16 kernel's. The loads are
+//     synchronous: a thread waits for its stage's bytes before it attends
+//     the stage before (a simple form; PERF.md has its time).
 // No float atomics: the same inputs give the same bits on every call.
-// Int8 pages with k/v scales and head dims other than 64, 80, 128 and 256
-// are not covered; the Python wrapper refuses them. f32 q and pages go to
-// the kernel of ragged_paged_attention_f32.cu.
+// Head dims other than 64, 80, 128 and 256 are not covered; the Python
+// wrapper refuses them. f32 q and pages go to the kernel of
+// ragged_paged_attention_f32.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,7 +122,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* q;         // [T, H, D]
-  const __nv_bfloat16* kv;        // [P, page, 2*Hkv, D]
+  const __nv_bfloat16* kv;        // [P, page, 2*Hkv, D] (bf16 pages)
+  const int8_t* kv8;              // [P, page, 2*Hkv, D] (int8 pages; the kInt8 instances only)
   const int* kv_lens;             // [S]
   const int* table;               // [S, maxp]
   const int* cu;                  // [S+1]
@@ -125,6 +138,7 @@ struct Params {
   float sm_scale, soft_cap;
   float scale_log2;               // sm_scale * log2(e): scores in base 2 without a soft cap
   const float* alibi;             // [H] ALiBi slopes (the kAlibi instances only)
+  float k_scale, v_scale;         // int8 pages: element = bf16(int8 * scale)
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -196,32 +210,81 @@ __device__ __forceinline__ int swz(int j, int ch) {
   return j * stage_dim<D>() + ((ch ^ (j & 7)) << 3);
 }
 
+// 8 int8 elements (a 16-byte bf16 chunk's worth), widened to f32, times
+// `scale`, rounded to bf16: the stock kernel's (int8 -> f32) * scale cast to
+// q's type.
+__device__ __forceinline__ uint4 widen8(uint2 w, float scale) {
+  const auto el = [&](uint32_t word, int i) { return (float)(int8_t)(word >> (8 * i)) * scale; };
+  return make_uint4(pack_bf16(el(w.x, 0), el(w.x, 1)), pack_bf16(el(w.x, 2), el(w.x, 3)),
+                    pack_bf16(el(w.y, 0), el(w.y, 1)), pack_bf16(el(w.y, 2), el(w.y, 3)));
+}
+
+// KV head h's first K row element in the pages (V follows D elements on):
+// bf16 pages, or int8 pages in the kInt8 instances.
+template <int D, bool kInt8>
+__device__ __forceinline__ const void* kv_head_of(const Params& p, int h) {
+  if constexpr (kInt8) return p.kv8 + (size_t)(2 * h) * D;
+  return p.kv + (size_t)(2 * h) * D;
+}
+
 // Stage K and V rows [base, base + kStage) of one KV head; rows at or past
 // `end` are zero-filled. Row i lies at page table[i / page_size], slot
-// i % page_size.
-template <int D>
-__device__ __forceinline__ void load_stage(__nv_bfloat16* ks, const Params& p,
-                                           const __nv_bfloat16* kv_head, const int* table,
-                                           int base, int end) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+// i % page_size. bf16 pages: 16-byte cp.async a chunk. int8 pages: 8-byte
+// loads into registers, a batch of up to 8 chunks of K and of V in flight
+// together, widened (widen8) and stored as bf16 at the same offsets.
+template <int D, bool kInt8>
+__device__ __forceinline__ void load_stage(__nv_bfloat16* ks, const Params& p, const void* kv_head,
+                                           const int* table, int base, int end) {
+  constexpr int kChunks = D / 8;  // 16-byte bf16 chunks a row
   constexpr int kIters = kStage * kChunks / kThreads;
   static_assert(kStage * kChunks % kThreads == 0, "stage chunks");
   __nv_bfloat16* vs = ks + kStage * stage_dim<D>();
-  const size_t row_stride = (size_t)2 * p.n_kv_heads * D;
+  const size_t row_stride = (size_t)2 * p.n_kv_heads * D;  // elements
+  const auto row_of = [&](int pos) {
+    const int pg = p.page_shift >= 0 ? pos >> p.page_shift : pos / p.page_size;
+    return ((size_t)table[pg] * p.page_size + (pos - pg * p.page_size)) * row_stride;
+  };
+  if constexpr (!kInt8) {
+    const __nv_bfloat16* head = static_cast<const __nv_bfloat16*>(kv_head);
 #pragma unroll
-  for (int i = 0; i < kIters; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int j = c / kChunks, ch = c % kChunks;
-    const int pos = base + j;
-    const bool valid = pos < end;
-    const __nv_bfloat16* src = kv_head;
-    if (valid) {
-      const int pg = p.page_shift >= 0 ? pos >> p.page_shift : pos / p.page_size;
-      src = kv_head + ((size_t)table[pg] * p.page_size + (pos - pg * p.page_size)) * row_stride + ch * 8;
+    for (int i = 0; i < kIters; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int j = c / kChunks, ch = c % kChunks;
+      const int pos = base + j;
+      const bool valid = pos < end;
+      const __nv_bfloat16* src = valid ? head + row_of(pos) + ch * 8 : head;
+      const int off = swz<D>(j, ch);
+      cp_async16(ks + off, src, valid);
+      cp_async16(vs + off, valid ? src + D : head, valid);
     }
-    const int off = swz<D>(j, ch);
-    cp_async16(ks + off, src, valid);
-    cp_async16(vs + off, valid ? src + D : kv_head, valid);
+  } else {
+    const int8_t* head = static_cast<const int8_t*>(kv_head);
+    // Chunks in flight a batch: 8 (32 registers), 4 at D = 256, whose tile
+    // blocks hold 128 accumulator registers beside them.
+    constexpr int kBatch = D > 128 ? 4 : (kIters < 8 ? kIters : 8);
+    static_assert(kIters % kBatch == 0, "whole batches");
+#pragma unroll
+    for (int i0 = 0; i0 < kIters; i0 += kBatch) {
+      uint2 kw[kBatch], vw[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int c = threadIdx.x + (i0 + i) * kThreads;
+        const int pos = base + c / kChunks;
+        kw[i] = vw[i] = make_uint2(0u, 0u);
+        if (pos < end) {
+          const int8_t* src = head + row_of(pos) + (c % kChunks) * 8;
+          kw[i] = *reinterpret_cast<const uint2*>(src);
+          vw[i] = *reinterpret_cast<const uint2*>(src + D);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int c = threadIdx.x + (i0 + i) * kThreads;
+        const int off = swz<D>(c / kChunks, c % kChunks);
+        *reinterpret_cast<uint4*>(ks + off) = widen8(kw[i], p.k_scale);
+        *reinterpret_cast<uint4*>(vs + off) = widen8(vw[i], p.v_scale);
+      }
+    }
   }
 }
 
@@ -425,8 +488,8 @@ __device__ __forceinline__ void attend_stage(const __nv_bfloat16* ks, const QOpe
 // KW = 1 every warp sees the whole stage (its own 16 q rows), with KW =
 // kWarps the warps share the q rows and split the stage. The warp
 // accumulates output columns [dv0, dv0 + DV).
-template <int D, int KW, int DV, bool kAlibi>
-__device__ __forceinline__ void walk(const Params& p, const __nv_bfloat16* kv_head, const int* table,
+template <int D, int KW, int DV, bool kAlibi, bool kInt8>
+__device__ __forceinline__ void walk(const Params& p, const void* kv_head, const int* table,
                                      int begin, int end, const QOperand<D>& q, WarpAcc<DV>& acc,
                                      const int (&lo)[2], const int (&hi)[2], __nv_bfloat16* ring, int dv0,
                                      const RowAlibi& al) {
@@ -436,7 +499,7 @@ __device__ __forceinline__ void walk(const Params& p, const __nv_bfloat16* kv_he
   const int n_tiles = (end - begin + kStage - 1) / kStage;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_tiles) load_stage<D>(ring + st * kStageElems, p, kv_head, table, begin + st * kStage, end);
+    if (st < n_tiles) load_stage<D, kInt8>(ring + st * kStageElems, p, kv_head, table, begin + st * kStage, end);
     cp_async_commit();
   }
   for (int it = 0; it < n_tiles; ++it) {
@@ -444,7 +507,7 @@ __device__ __forceinline__ void walk(const Params& p, const __nv_bfloat16* kv_he
     __syncthreads();  // tile `it` landed; every warp is done with tile it - 1
     const int next = it + kStages - 1;
     if (next < n_tiles)
-      load_stage<D>(ring + (next % kStages) * kStageElems, p, kv_head, table, begin + next * kStage, end);
+      load_stage<D, kInt8>(ring + (next % kStages) * kStageElems, p, kv_head, table, begin + next * kStage, end);
     cp_async_commit();
     attend_stage<D, kCols, DV, kAlibi>(ring + (it % kStages) * kStageElems, q, acc, p, col0,
                                        begin + it * kStage, lo, hi, dv0, al);
@@ -484,7 +547,7 @@ __device__ __forceinline__ __nv_bfloat16* warp_q_smem(__nv_bfloat16* ring) {
   return ring + ring_bytes<D>() / (int)sizeof(__nv_bfloat16) + (threadIdx.x / 32) * 16 * D;
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kInt8>
 __device__ void split_block(const Params& p, int x, int h, __nv_bfloat16* ring) {
   const int s = x / p.splits, sp = x % p.splits;
   const int n_real = min(max(p.num_seqs[0], 0), p.S);
@@ -516,8 +579,8 @@ __device__ void split_block(const Params& p, int x, int h, __nv_bfloat16* ring) 
     al.slope[1] = g + 8 < group ? p.alibi[h * group + g + 8] : 0.f;
     al.q_pos[0] = al.q_pos[1] = kv_len - 1;
   }
-  walk<D, kWarps, D, kAlibi>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, q, acc,
-                             lo, hi, ring, 0, al);
+  walk<D, kWarps, D, kAlibi, kInt8>(p, kv_head_of<D, kInt8>(p, h), p.table + (size_t)s * p.maxp, begin, end, q,
+                                    acc, lo, hi, ring, 0, al);
   acc.row_sums();
 
   // The warps' states meet in the (now free) ring: o [warp][16][D + pad].
@@ -569,7 +632,7 @@ __host__ __device__ constexpr int tile_q_rows() {
   return 16 * kRowWarps<D>;
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kInt8>
 __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
   constexpr int DV = D * kRowWarps<D> / kWarps;  // output columns a warp accumulates
   __shared__ int found[2];  // sequence, tile within it
@@ -647,8 +710,8 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
   WarpAcc<DV> acc;
   acc.init();
   if (end > begin)
-    walk<D, 1, DV, kAlibi>(p, p.kv + (size_t)(2 * h) * D, p.table + (size_t)s * p.maxp, begin, end, q, acc, lo,
-                           hi, ring, dv0, al);
+    walk<D, 1, DV, kAlibi, kInt8>(p, kv_head_of<D, kInt8>(p, h), p.table + (size_t)s * p.maxp, begin, end, q,
+                                  acc, lo, hi, ring, dv0, al);
   acc.row_sums();
 
   const int t = lane & 3;
@@ -666,16 +729,16 @@ __device__ void tile_block(const Params& p, int b, int h, __nv_bfloat16* ring) {
 
 // Block (x, KV head): x < tile_blocks is a tile block, the rest are split
 // blocks (slot, split) = ((x - tile_blocks) / splits, % splits).
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kInt8>
 __global__ void __launch_bounds__(kThreads, 2) ragged_paged_attention_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
   const int x = blockIdx.x, h = blockIdx.y;
   griddep_launch();  // the merge may start; it waits for this grid before it reads
   if (x < p.tile_blocks)
-    tile_block<D, kAlibi>(p, x, h, ring);
+    tile_block<D, kAlibi, kInt8>(p, x, h, ring);
   else
-    split_block<D, kAlibi>(p, x - p.tile_blocks, h, ring);
+    split_block<D, kAlibi, kInt8>(p, x - p.tile_blocks, h, ring);
 }
 
 // Block (t, c): q row t, its quads (4 dims of one head) c * kThreads ..,
@@ -739,16 +802,16 @@ static_assert(kWarps * 16 * (128 + kRedPad + 2) * 4 <= ring_bytes<128>(), "warp 
 static_assert(kWarps * 16 * (256 + kRedPad + 2) * 4 <= ring_bytes<256>(), "warp merge fits the ring");
 static_assert(smem_bytes<256>() + 16 <= 232448, "ring, q rows and the tile lookup fit a block's shared memory");
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kInt8>
 int launch(Params p, cudaStream_t st) {
   p.tile_tokens = tile_q_rows<D>() / p.group;
   // Sequences of 2 or more tokens hold at most T / tile_tokens + S tiles.
   p.tile_blocks = (p.T + p.tile_tokens - 1) / p.tile_tokens + min(p.S, p.T);
   static const int smem_rc = (int)cudaFuncSetAttribute(
-      ragged_paged_attention_kernel<D, kAlibi>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+      ragged_paged_attention_kernel<D, kAlibi, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
   if (smem_rc) return smem_rc;
   const dim3 grid(p.tile_blocks + p.S * p.splits, p.n_kv_heads);
-  ragged_paged_attention_kernel<D, kAlibi><<<grid, kThreads, smem_bytes<D>(), st>>>(p);
+  ragged_paged_attention_kernel<D, kAlibi, kInt8><<<grid, kThreads, smem_bytes<D>(), st>>>(p);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   // The merge is the attention grid's programmatic dependent: it is launched
@@ -768,7 +831,8 @@ int launch(Params p, cudaStream_t st) {
 
 template <int D>
 int launch_any(const Params& p, cudaStream_t st) {
-  return p.alibi ? launch<D, true>(p, st) : launch<D, false>(p, st);
+  if (p.kv8) return p.alibi ? launch<D, true, true>(p, st) : launch<D, false, true>(p, st);
+  return p.alibi ? launch<D, true, false>(p, st) : launch<D, false, false>(p, st);
 }
 
 }  // namespace
@@ -778,13 +842,15 @@ int launch_any(const Params& p, cudaStream_t st) {
 // never synchronises. `scratch` holds S * splits * n_heads * (head_dim + 2)
 // floats (the wrapper allocates it); splits and split_len come from the
 // wrapper's split plan. `alibi_slopes`: f32 [n_heads] on the device, or
-// null (no ALiBi).
+// null (no ALiBi). kv_int8: the pages are int8, each element read as
+// bf16(element * k_scale) (K) or bf16(element * v_scale) (V); else bf16
+// pages (the scales unused).
 extern "C" int scalellm_ragged_paged_attention(
     const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
     const void* cu_q_lens, const void* num_seqs, void* out, void* scratch, const void* alibi_slopes,
     int num_tokens, int num_seq_slots, int maxp, int page_size, int n_heads, int n_kv_heads, int head_dim,
-    int splits, int split_len, float sm_scale, int window, float soft_cap,
-    void* stream) {
+    int splits, int split_len, float sm_scale, int window, float soft_cap, int kv_int8, float k_scale,
+    float v_scale, void* stream) {
   if (num_tokens == 0) return 0;
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_heads / n_kv_heads > kMaxGroup ||
       num_seq_slots <= 0 || maxp <= 0 || page_size <= 0 || splits <= 0 || split_len <= 0 ||
@@ -792,7 +858,10 @@ extern "C" int scalellm_ragged_paged_attention(
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.kv = static_cast<const __nv_bfloat16*>(kv_pages);
+  p.kv = kv_int8 ? nullptr : static_cast<const __nv_bfloat16*>(kv_pages);
+  p.kv8 = kv_int8 ? static_cast<const int8_t*>(kv_pages) : nullptr;
+  p.k_scale = k_scale;
+  p.v_scale = v_scale;
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.table = static_cast<const int*>(page_indices);
   p.cu = static_cast<const int*>(cu_q_lens);

@@ -16,7 +16,11 @@
 // * (kv_pos - q_pos), after the scale and before the soft cap; null slopes
 // disable it), a logit soft cap (<= 0 disables it), and zero rows for the
 // rows that own no KV (padding sequences with kv_len 0, rows at or past
-// cu_q_lens[num_seqs]).
+// cu_q_lens[num_seqs]). Pages are f32, or int8 (a float32 checkpoint served
+// with kv_cache_dtype="int8"), each element then read as f32(element) *
+// k_scale or * v_scale, the stock kernel's dequantization in q's type: the
+// same registers fetch 4 bytes a chunk of 4 elements where f32 pages take
+// 16, and widen them when they store.
 //
 // What bounds it: a simple kernel, right first. Its blocks take tiles of
 // up to 16 q rows (16 / group tokens of one sequence x the group's heads,
@@ -37,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;             // 4 warps
@@ -48,7 +54,9 @@ constexpr int kMaxGroup = 16;
 
 struct Params {
   const float* q;          // [T, H, D]
-  const float* kv;         // [P, page, 2*Hkv, D]
+  const float* kv;         // [P, page, 2*Hkv, D] (f32 pages)
+  const int8_t* kv8;       // [P, page, 2*Hkv, D] (int8 pages; the kInt8 instances only)
+  float k_scale, v_scale;  // int8 pages: element = f32(int8) * scale
   const int* kv_lens;      // [S]
   const int* table;        // [S, maxp]
   const int* cu;           // [S+1]
@@ -95,45 +103,65 @@ __device__ __forceinline__ void find_tile(const Params& p, int n_real, int b, in
   }
 }
 
+// 4 int8 elements widened to f32, times `scale`.
+__device__ __forceinline__ float4 widen4(uint32_t w, float scale) {
+  return make_float4((float)(int8_t)w * scale, (float)(int8_t)(w >> 8) * scale, (float)(int8_t)(w >> 16) * scale,
+                     (float)(int8_t)(w >> 24) * scale);
+}
+
 // One thread's share of a tile of K and V rows [base, base + kCols) of one
-// KV head: kLoads 16-byte chunks of each, fetched into registers (rows at or
-// past `end` zero) while the block computes the tile before, then stored to
-// shared memory (K rows padded to D + 1 floats).
-template <int D>
+// KV head: kLoads chunks of 4 elements of each (16 bytes of f32 pages, 4 of
+// int8 pages), fetched into registers (rows at or past `end` zero) while the
+// block computes the tile before, then stored to shared memory as f32 (K
+// rows padded to D + 1 floats), int8 ones widened by their scale.
+template <int D, bool kInt8>
 struct TileLoad {
   static constexpr int kLoads = kCols * (D / 4) / kThreads;
   static_assert(kCols * (D / 4) % kThreads == 0, "tile chunks");
-  float4 k[kLoads], v[kLoads];
+  using Chunk = typename std::conditional<kInt8, uint32_t, float4>::type;
+  Chunk k[kLoads], v[kLoads];
 
-  __device__ __forceinline__ void fetch(const Params& p, const float* kv_head, const int* table, int base,
-                                        int end) {
-    const size_t row_stride = (size_t)2 * p.n_kv_heads * D;
+  __device__ __forceinline__ void fetch(const Params& p, int h, const int* table, int base, int end) {
+    const size_t row_stride = (size_t)2 * p.n_kv_heads * D;  // elements
 #pragma unroll
     for (int r = 0; r < kLoads; ++r) {
       const int i = threadIdx.x + r * kThreads;
       const int j = i / (D / 4), c = i % (D / 4), pos = base + j;
-      k[r] = v[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      k[r] = v[r] = Chunk{};
       if (pos < end) {
         const int pg = pos / p.page_size;
-        const float* src =
-            kv_head + ((size_t)table[pg] * p.page_size + (pos - pg * p.page_size)) * row_stride + 4 * c;
-        k[r] = *reinterpret_cast<const float4*>(src);
-        v[r] = *reinterpret_cast<const float4*>(src + D);
+        const size_t off = ((size_t)table[pg] * p.page_size + (pos - pg * p.page_size)) * row_stride +
+                           (size_t)(2 * h) * D + 4 * c;
+        if constexpr (kInt8) {
+          k[r] = *reinterpret_cast<const uint32_t*>(p.kv8 + off);
+          v[r] = *reinterpret_cast<const uint32_t*>(p.kv8 + off + D);
+        } else {
+          k[r] = *reinterpret_cast<const float4*>(p.kv + off);
+          v[r] = *reinterpret_cast<const float4*>(p.kv + off + D);
+        }
       }
     }
   }
 
-  __device__ __forceinline__ void store(float* ks, float* vs) const {
+  __device__ __forceinline__ void store(const Params& p, float* ks, float* vs) const {
 #pragma unroll
     for (int r = 0; r < kLoads; ++r) {
       const int i = threadIdx.x + r * kThreads;
       const int j = i / (D / 4), c = i % (D / 4);
+      float4 kf, vf;
+      if constexpr (kInt8) {
+        kf = widen4(k[r], p.k_scale);
+        vf = widen4(v[r], p.v_scale);
+      } else {
+        kf = k[r];
+        vf = v[r];
+      }
       float* kd = ks + j * (D + 1) + 4 * c;
-      kd[0] = k[r].x;
-      kd[1] = k[r].y;
-      kd[2] = k[r].z;
-      kd[3] = k[r].w;
-      *reinterpret_cast<float4*>(vs + j * D + 4 * c) = v[r];
+      kd[0] = kf.x;
+      kd[1] = kf.y;
+      kd[2] = kf.z;
+      kd[3] = kf.w;
+      *reinterpret_cast<float4*>(vs + j * D + 4 * c) = vf;
     }
   }
 };
@@ -150,7 +178,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Block (b, KV head h).
-template <int D>
+template <int D, bool kInt8>
 __global__ void __launch_bounds__(kThreads) ragged_paged_attention_f32_kernel(const Params p) {
   constexpr int kLaneCols = (D + 31) / 32;  // output columns a lane accumulates
   extern __shared__ __align__(16) float smem[];
@@ -215,7 +243,6 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_f32_kernel(co
   }
   const int begin = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
   const int end = min(pos0 + n_tok, kv_cap);
-  const float* kv_head = p.kv + (size_t)(2 * h) * D;
   const int* table = p.table + (size_t)s * p.maxp;
   float* pw = ps + warp * kWarpRows * kCols;
   const bool warp_live = live[0];  // rows ascend: the warp's first row is live if any is
@@ -223,14 +250,14 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_f32_kernel(co
   // A tile ahead in registers at D = 64 (GPT-2's): at D = 80 and 128 ptxas
   // spills with them (12 and 4 bytes), at 256 they would take 128 registers.
   constexpr bool kAhead = D <= 64;
-  TileLoad<D> next;
-  if (kAhead && begin < end) next.fetch(p, kv_head, table, begin, end);
+  TileLoad<D, kInt8> next;
+  if (kAhead && begin < end) next.fetch(p, h, table, begin, end);
   for (int base = begin; base < end; base += kCols) {
-    if (!kAhead) next.fetch(p, kv_head, table, base, end);
+    if (!kAhead) next.fetch(p, h, table, base, end);
     __syncthreads();  // q rows written; every warp done with the last tile
-    next.store(ks, vs);
+    next.store(p, ks, vs);
     __syncthreads();
-    if (kAhead && base + kCols < end) next.fetch(p, kv_head, table, base + kCols, end);  // in flight below
+    if (kAhead && base + kCols < end) next.fetch(p, h, table, base + kCols, end);  // in flight below
     if (!warp_live) continue;
 
     // Lane j: KV row base + j against the warp's rows.
@@ -293,17 +320,22 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_f32_kernel(co
   }
 }
 
-template <int D>
+template <int D, bool kInt8>
 int launch(Params p, cudaStream_t st) {
   p.tile_tokens = kRows / p.group;
   // Real sequences hold at most T / tile_tokens + S tiles.
   p.tile_blocks = (p.T + p.tile_tokens - 1) / p.tile_tokens + min(p.S, p.T);
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   static const int smem_rc = (int)cudaFuncSetAttribute(
-      ragged_paged_attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      ragged_paged_attention_f32_kernel<D, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (smem_rc) return smem_rc;
-  ragged_paged_attention_f32_kernel<D><<<dim3(p.tile_blocks, p.n_kv_heads), kThreads, bytes, st>>>(p);
+  ragged_paged_attention_f32_kernel<D, kInt8><<<dim3(p.tile_blocks, p.n_kv_heads), kThreads, bytes, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_any(const Params& p, cudaStream_t st) {
+  return p.kv8 ? launch<D, true>(p, st) : launch<D, false>(p, st);
 }
 
 }  // namespace
@@ -311,18 +343,23 @@ int launch(Params p, cudaStream_t st) {
 // Plain C entry point, loaded with ctypes. Launches the kernel on `stream`
 // and returns cudaGetLastError() (0 on success); it never synchronises.
 // `alibi_slopes`: f32 [n_heads] on the device, or null (no ALiBi).
+// kv_int8: the pages are int8, each element read as f32(element) * k_scale
+// (K) or * v_scale (V); else f32 pages (the scales unused).
 extern "C" int scalellm_ragged_paged_attention_f32(
     const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
     const void* cu_q_lens, const void* num_seqs, void* out, const void* alibi_slopes, int num_tokens,
     int num_seq_slots, int maxp, int page_size, int n_heads, int n_kv_heads, int head_dim, float sm_scale,
-    int window, float soft_cap, void* stream) {
+    int window, float soft_cap, int kv_int8, float k_scale, float v_scale, void* stream) {
   if (num_tokens == 0) return 0;
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_heads / n_kv_heads > kMaxGroup ||
       num_seq_slots <= 0 || maxp <= 0 || page_size <= 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const float*>(q);
-  p.kv = static_cast<const float*>(kv_pages);
+  p.kv = kv_int8 ? nullptr : static_cast<const float*>(kv_pages);
+  p.kv8 = kv_int8 ? static_cast<const int8_t*>(kv_pages) : nullptr;
+  p.k_scale = k_scale;
+  p.v_scale = v_scale;
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.table = static_cast<const int*>(page_indices);
   p.cu = static_cast<const int*>(cu_q_lens);
@@ -341,10 +378,10 @@ extern "C" int scalellm_ragged_paged_attention_f32(
   p.soft_cap = soft_cap;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return launch<64>(p, st);
-    case 80: return launch<80>(p, st);
-    case 128: return launch<128>(p, st);
-    case 256: return launch<256>(p, st);
+    case 64: return launch_any<64>(p, st);
+    case 80: return launch_any<80>(p, st);
+    case 128: return launch_any<128>(p, st);
+    case 256: return launch_any<256>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,7 +4,14 @@
 One step is forward -> logits -> sample_tokens, run under
 torch.inference_mode. The paged KV cache is one persistent tensor
 (model.kv_cache_shape: [L, P, page, 2*Hkv, Dh], or [L, P, page, 1, Dc] for
-MLA's latent cache) that every step updates IN PLACE.
+MLA's latent cache; int8 for a model with kv_quant, else the model's dtype)
+that every step updates IN PLACE.
+
+KV swap (memory/kv_swap.py) moves whole pages across it: fetch_pages_async
+gathers pages on the device and starts their copy to pinned host memory
+behind an event (a PendingFetch), fetch_pages waits for it, and
+restore_pages writes staged pages back into other pages of the same tensor,
+in place: the step graphs captured its address.
 
 The reference compiles one XLA program per padded (T, S, MAXP) bucket and
 replays it (its _step_fn_for and jit cache; warmup compiles the serving
@@ -318,6 +325,35 @@ class StepGraphs:
                    if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
 
 
+class PendingFetch:
+    """Pages gathered on the device and on their way to host memory: the
+    gathered copy (kept alive until the host copy is done), the host tensor
+    (pinned on a CUDA device) and the event recorded after the copy. `wait`
+    returns the host tensor once the copy is done."""
+
+    def __init__(self, gathered: torch.Tensor):
+        self._gathered = gathered
+        self._done = None
+        if gathered.is_cuda:
+            self.host = torch.empty(gathered.shape, dtype=gathered.dtype, pin_memory=True)
+            self.host.copy_(gathered, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+        else:
+            self.host = gathered
+
+    @property
+    def nbytes(self) -> int:
+        return self.host.numel() * self.host.element_size()
+
+    def wait(self) -> torch.Tensor:
+        if self._done is not None:
+            self._done.synchronize()
+            self._done = None
+        self._gathered = None
+        return self.host
+
+
 class Executor:
     """Owns the model (weights on the device), the KV cache and, with graphs
     on, the captured step programs."""
@@ -333,14 +369,38 @@ class Executor:
         """Allocate the paged KV cache."""
         self.kv_cache = torch.zeros(
             self.model.kv_cache_shape(num_blocks, block_size),
-            dtype=self.model.dtype, device=self.device,
+            dtype=self.model.kv_cache_dtype(), device=self.device,
         )
 
     def kv_cache_bytes(self, num_blocks: int, block_size: int) -> int:
         n = 1
         for d in self.model.kv_cache_shape(num_blocks, block_size):
             n *= d
-        return n * self.model.dtype.itemsize
+        return n * self.model.kv_cache_dtype().itemsize
+
+    # ------------------------------------------------------------ kv swap
+
+    def fetch_pages_async(self, page_ids: np.ndarray) -> PendingFetch:
+        """Start the copy of the given KV pages ([L, n, page, ...], pages on
+        dim 1) to host memory: a gather on the device on the current stream,
+        then a copy to pinned host memory behind an event; returns without
+        waiting. A step enqueued after it may overwrite the pages: the
+        stream runs the gather first."""
+        ids = torch.as_tensor(np.asarray(page_ids, np.int64)).to(self.device, non_blocking=True)
+        return PendingFetch(self.kv_cache.index_select(1, ids))
+
+    def fetch_pages(self, page_ids: np.ndarray) -> torch.Tensor:
+        """The given KV pages in host memory, [L, n, page, ...]."""
+        return self.fetch_pages_async(page_ids).wait()
+
+    def restore_pages(self, page_ids: np.ndarray, data: torch.Tensor) -> None:
+        """Write staged pages (host [L, n, page, ...]) into pages `page_ids`
+        of the KV cache, in place (index_copy_ on the current stream): the
+        cache keeps its address, which the captured step graphs read."""
+        if data.shape[1] != len(page_ids):
+            raise ValueError(f"{data.shape[1]} staged pages for {len(page_ids)} page ids")
+        ids = torch.as_tensor(np.asarray(page_ids, np.int64)).to(self.device, non_blocking=True)
+        self.kv_cache.index_copy_(1, ids, data.to(self.device, non_blocking=True))
 
     def init_graphs(self, block_size: int, max_tokens: int, max_seqs: int, max_context_len: int) -> None:
         """Serve every later step through StepGraphs, with the step buffer

@@ -2,11 +2,14 @@
 (counterpart of scalellm_tpu/engine/llm_engine.py).
 
 Init: load the model onto the device (a quantized checkpoint as it is; a
-dense one quantized on the device when `quantize` asks) -> size the KV cache
-from the device memory that is free once the weights are in place ->
-allocate blocks -> with CUDA graphs on, size the step buffer for the serving
-envelope and capture the warmup buckets (engine/executor.py), with
-num_decode_steps > 1 the multi-step graphs of the decode buckets too.
+dense one quantized on the device when `quantize` asks; kv_cache_dtype
+"int8" gives it int8 KV pages) -> size the KV cache from the device memory
+that is free once the weights are in place (an int8 slot is one byte an
+element) -> allocate blocks -> with host_swap_bytes, the KV swapper of
+preemption (memory/kv_swap.py) -> with CUDA graphs on, size the step buffer
+for the serving envelope and capture the warmup buckets
+(engine/executor.py), with num_decode_steps > 1 the multi-step graphs of the
+decode buckets too.
 
 A step runs synchronously (execute_model), as N decode micro-steps in one
 dispatch (execute_model_multi), or split in two for async stepping:
@@ -30,6 +33,8 @@ from scalellm_tpu_torch.models.registry import ModelRegistry
 from scalellm_tpu_torch.tokenizer.tokenizer import load_tokenizer
 
 logger = logging.getLogger(__name__)
+
+KV_CACHE_DTYPES = ("auto", "int8")
 
 
 @dataclass
@@ -65,6 +70,12 @@ class EngineOptions:
     # Decode micro-steps a multi-step dispatch runs (the scheduler's
     # num_decode_steps): warmup also captures their graphs.
     num_decode_steps: int = 1
+    # "auto" (the model's dtype) or "int8": int8 KV pages with per-layer
+    # scales (DeepSeek's latent pages: the static ModelArgs.kv_scale).
+    kv_cache_dtype: str = "auto"
+    # Host memory for the KV pages of preempted sequences (0: off; a
+    # preempted sequence then re-prefills).
+    host_swap_bytes: int = 0
 
 
 class LLMEngine:
@@ -87,6 +98,10 @@ class LLMEngine:
             raise ValueError(f"warmup_mode must be one of {WARMUP_MODES}, got {options.warmup_mode!r}")
         if options.quantize not in ("", "int4", "int8"):
             raise ValueError(f"quantize must be '', 'int4' or 'int8', got {options.quantize!r}")
+        if options.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype must be one of {KV_CACHE_DTYPES}, got {options.kv_cache_dtype!r}")
+        if options.kv_cache_dtype != "auto":
+            self.model_args.kv_cache_dtype = options.kv_cache_dtype
         if options.quantize_lm_head and self.model_args.quant_args:
             self.model_args.quant_args.quantize_lm_head = True
         self.model = loader.load_model(factory(self.model_args, device="meta"), self.device)
@@ -117,6 +132,12 @@ class LLMEngine:
             )
         )
         self.executor.init_kv_cache(num_blocks, options.block_size)
+        self.kv_swapper = None
+        if options.host_swap_bytes > 0:
+            from scalellm_tpu_torch.memory.kv_swap import HostKVPool, KVSwapper
+
+            self.kv_swapper = KVSwapper(self.executor, self.block_manager, options.block_size,
+                                        HostKVPool(options.host_swap_bytes))
         logger.info(
             "kv cache: %d blocks x %d slots (%.2f GiB)", num_blocks, options.block_size,
             self.executor.kv_cache_bytes(num_blocks, options.block_size) / 2**30,
@@ -131,9 +152,10 @@ class LLMEngine:
         self._step_counter = 0
 
     def kv_cache_slot_size_in_bytes(self) -> int:
-        """Bytes per KV slot across all layers."""
+        """Bytes per KV slot across all layers (one an element of int8
+        pages)."""
         shape = self.model.kv_cache_shape(1, 1)  # [L, 1, 1, 2*Hkv, Dh] or [L, 1, 1, 1, Dc]
-        return shape[0] * shape[-2] * shape[-1] * self.model.dtype.itemsize
+        return shape[0] * shape[-2] * shape[-1] * self.model.kv_cache_dtype().itemsize
 
     def _profile_num_blocks(self) -> int:
         """Size the KV cache from the device's free memory (the CPU keeps a

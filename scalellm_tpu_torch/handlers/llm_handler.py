@@ -10,10 +10,11 @@ graphs on (enable_cuda_graph, one graph per step bucket, where the
 reference warms its jit bucket cache) with warmup_mode "fast", async
 scheduling on (enable_async_scheduling: one step in flight) and one decode
 step a dispatch (num_decode_steps; N > 1 runs N micro-steps in one graph).
-Those that ask for a feature this package has not ported yet (speculative
-decoding, tensor or sequence parallelism, multi-host serving, int8 KV, KV
-swap, LoRA, model-args overrides) raise NotImplementedError; none is
-silently ignored. Per request, guided decoding
+kv_cache_dtype="int8" serves int8 KV pages, host_swap_bytes > 0 stages
+preempted sequences' KV pages in host memory. Those that ask for a feature
+this package has not ported yet (speculative decoding, tensor or sequence
+parallelism, multi-host serving, LoRA, model-args overrides) raise
+NotImplementedError; none is silently ignored. Per request, guided decoding
 and prompt logprobs are refused with an UNIMPLEMENTED status.
 """
 
@@ -29,7 +30,7 @@ from typing import List, Optional, Sequence
 
 from scalellm_tpu_torch.engine.batch import TOKEN_BUCKETS
 from scalellm_tpu_torch.engine.executor import WARMUP_MODES
-from scalellm_tpu_torch.engine.llm_engine import EngineOptions, LLMEngine
+from scalellm_tpu_torch.engine.llm_engine import KV_CACHE_DTYPES, EngineOptions, LLMEngine
 from scalellm_tpu_torch.errors import ValidationError
 from scalellm_tpu_torch.request.output import Priority, RequestOutput, Status, StatusCode
 from scalellm_tpu_torch.request.request import OnOutput, Request
@@ -83,17 +84,17 @@ class LLMHandlerOptions:
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for options that ask for unported
-        features, ValueError for an unknown warmup_mode."""
+        features, ValueError for an unknown warmup_mode or kv_cache_dtype."""
         if self.warmup_mode not in WARMUP_MODES:
             raise ValueError(f"warmup_mode must be one of {WARMUP_MODES}, got {self.warmup_mode!r}")
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype must be one of {KV_CACHE_DTYPES}, got {self.kv_cache_dtype!r}")
         asks = {
             "draft_model_path (speculative decoding)": bool(self.draft_model_path),
             "num_speculative_tokens (speculative decoding)": self.num_speculative_tokens > 0,
             "tp_size (tensor parallelism)": self.tp_size != 1,
             "sequence_parallel": self.sequence_parallel,
-            "kv_cache_dtype (int8 KV cache)": self.kv_cache_dtype != "auto",
             "distributed (multi-host serving)": self.distributed,
-            "host_swap_bytes (KV swap)": self.host_swap_bytes > 0,
             "lora_modules (LoRA)": bool(self.lora_modules),
             "model_args_overrides": bool(self.model_args_overrides),
         }
@@ -123,6 +124,8 @@ class LLMHandler:
                 max_seqs_per_batch=options.max_seqs_per_batch,
                 max_context_len=options.max_context_len,
                 num_decode_steps=options.num_decode_steps,
+                kv_cache_dtype=options.kv_cache_dtype,
+                host_swap_bytes=options.host_swap_bytes,
             )
         )
         self.tokenizer = self.engine.tokenizer

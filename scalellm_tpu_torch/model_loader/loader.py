@@ -23,6 +23,11 @@ quantized here from the checkpoint's dense one. A rule whose target has one
 more index than a parameter of the model (the experts of an MoE layer,
 "layers.{}.experts_gate.{}") fills that slot of the stacked parameter; a
 slot the checkpoint lacks is a load error.
+
+An int8-KV model's per-layer KV scales (kv_scales [L, 2]) are no checkpoint
+tensor: they come from a kv_scales.json sidecar beside the checkpoint
+({"k": [...], "v": [...]}, written by eval/kv_calibration.py), else from
+ModelArgs.kv_scale.
 """
 
 from __future__ import annotations
@@ -212,6 +217,8 @@ class HFModelLoader:
             absent = sorted(set(range(expected[stack].shape[0])) - slots)
             if absent:
                 raise ValueError(f"{stack}: the checkpoint lacks slots {absent[:8]} (experts)")
+        if "kv_scales" in expected:
+            sd["kv_scales"] = self.kv_scales(expected["kv_scales"].shape[0]).to(device)
         missing = [n for n in expected if n not in sd]
         if missing:
             raise ValueError(f"weights not fully loaded for: {missing[:8]}")
@@ -222,6 +229,21 @@ class HFModelLoader:
                     f"!= model {tuple(param.shape)} {param.dtype}"
                 )
         return sd
+
+    def kv_scales(self, n_layers: int) -> torch.Tensor:
+        """The int8 KV cache's per-layer [k_scale, v_scale], f32 [L, 2]: the
+        calibration sidecar kv_scales.json where the folder has one, else
+        ModelArgs.kv_scale everywhere."""
+        sidecar = os.path.join(self.model_path, "kv_scales.json")
+        if not os.path.exists(sidecar):
+            return torch.full((n_layers, 2), self.model_args.kv_scale, dtype=torch.float32)
+        with open(sidecar) as f:
+            data = json.load(f)
+        scales = torch.tensor([data["k"], data["v"]], dtype=torch.float32).T.contiguous()
+        if scales.shape != (n_layers, 2):
+            raise ValueError(f"{sidecar}: scales {tuple(scales.shape)} for a model of {n_layers} layers")
+        logger.info("loaded calibrated kv scales from %s", sidecar)
+        return scales
 
     @staticmethod
     def _fill_slot(sd, stacked, stack, slot, param, raw, device) -> None:

@@ -68,9 +68,19 @@ halves G until it divides). The router and shared_gate stay dense.
 GPTQ/AWQ MoE checkpoints are refused: the reference declares dense experts
 for them, and its loader finds no dense expert weights in such a checkpoint.
 
+int8 KV cache (kv_cache_dtype="int8", the reference's kv_quant): the pages
+hold round(x / s) clamped to [-127, 127] with per-layer scales s (kv_scales
+[L, 2], f32: [k_scale, v_scale] a layer, ModelArgs.kv_scale unless a
+calibration's kv_scales.json sidecar gives them). The attention kernels take
+only static scales, so the dequantization is applied around them as the
+reference applies it: q is multiplied by the layer's k_scale (scores are
+linear in k) and rounded to q's type, the kernel reads the pages at a scale
+of 1.0 (int8 values are exact in bf16), and the output is multiplied by the
+layer's v_scale and rounded.
+
 Features of the reference's DecoderModel that this subset does not carry
-(LoRA, tensor/sequence/expert parallelism, int8 KV, MLA on this class)
-raise NotImplementedError when the model args ask for them.
+(LoRA, tensor/sequence/expert parallelism, MLA on this class) raise
+NotImplementedError when the model args ask for them.
 """
 
 from __future__ import annotations
@@ -137,7 +147,6 @@ def dense_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _unsupported(args: ModelArgs) -> List[str]:
     checks = {
         "MLA": args.kv_lora_rank > 0,
-        "int8 KV cache": args.kv_cache_dtype != "auto",
     }
     return [name for name, on in checks.items() if on]
 
@@ -336,6 +345,12 @@ class DecoderModel(nn.Module):
                 "reference: its loader finds no dense expert weights in them); serve the bf16 checkpoint "
                 "with quantize='int4' or 'int8'")
         self.dtype = model_dtype(args)
+        # int8 KV cache: per-layer [k_scale, v_scale], filled by the loader
+        # (ModelArgs.kv_scale, or the calibration sidecar).
+        self.kv_quant = args.kv_cache_dtype == "int8"
+        if self.kv_quant:
+            self.register_buffer("kv_scales", torch.full((args.n_layers, 2), args.kv_scale, dtype=torch.float32,
+                                                         device=device))
         D, V = args.hidden_size, args.vocab_size
         self.embed_tokens = _param(V, D, dtype=self.dtype, device=device)
         self.layers = nn.ModuleList(
@@ -388,6 +403,10 @@ class DecoderModel(nn.Module):
         """[L, P, page, 2 * Hkv, Dh], K at even and V at odd combined heads."""
         a = self.args
         return (a.n_layers, num_pages, page_size, 2 * a.n_kv_heads, a.head_dim)
+
+    def kv_cache_dtype(self) -> torch.dtype:
+        """The KV pages' type: int8 with kv_quant, else the model's dtype."""
+        return torch.int8 if self.kv_quant else self.dtype
 
     # ------------------------------------------------------------ forward
 
@@ -485,11 +504,14 @@ class DecoderModel(nn.Module):
         if rope:
             cos, sin = cos_sin(self.rope_inv_freq, mi.positions)
         alibi = {"alibi_slopes": self.alibi_slopes} if a.pos_embedding_type == "alibi" else {}
+        # int8 pages: the kernel reads them at a scale of 1.0; the layer's
+        # scales act on q and o below.
+        unit = {"k_scale": 1.0, "v_scale": 1.0} if self.kv_quant else {}
         # The qkv product stays f32 where a bias or the clip works on it.
         qkv_f32 = a.qkv_bias or a.qkv_clip > 0
         T = h.shape[0]
 
-        for layer, kvc, window in zip(self.layers, kv_cache, self._layer_windows()):
+        for li, (layer, kvc, window) in enumerate(zip(self.layers, kv_cache, self._layer_windows())):
             rms = self._fused_norm(layer, "qkv_proj", layer.input_norm)
             x = h if rms else self._norm(h, layer.input_norm, getattr(layer, "input_norm_bias", None))
             if hasattr(layer, "qkv_proj"):
@@ -511,12 +533,19 @@ class DecoderModel(nn.Module):
             if rope:
                 q = apply_rope(q, cos, sin, a.interleaved_rope)
                 k = apply_rope(k, cos, sin, a.interleaved_rope)
-            set_kv_cache(kvc, k, v.reshape(T, Hkv, Dh), mi.new_kv_slot_ids)
+            ks = vs = None
+            if self.kv_quant:
+                ks, vs = self.kv_scales[li, 0], self.kv_scales[li, 1]
+            set_kv_cache(kvc, k, v.reshape(T, Hkv, Dh), mi.new_kv_slot_ids, k_scale=ks, v_scale=vs)
+            if self.kv_quant:
+                q = (q.float() * ks).to(q.dtype)
             o = self.attn_impl(
                 q.contiguous(), kvc, mi.kv_lens, mi.block_tables, mi.cu_q_lens,
                 mi.num_seqs, sm_scale=sm_scale, sliding_window=window,
-                logit_soft_cap=soft_cap, decode_only=decode_only, **alibi,
+                logit_soft_cap=soft_cap, decode_only=decode_only, **alibi, **unit,
             )
+            if self.kv_quant:
+                o = (o.float() * vs).to(o.dtype)
             o = self._proj(o.reshape(T, q_n), layer.o_proj, f32=a.o_proj_bias)
             if a.o_proj_bias:
                 o = o + layer.o_bias.float()
@@ -617,7 +646,9 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
     qweight [E, K/2 or K, N] to [E, N, K/2 or K], scales as they are), the
     shared expert rides the dense FFN's names at its own width; the biases
     (qkv, o, MLP, norms, lm_head), the qk norms, the post-block norms, the
-    embedding norm and the learned positions carry over as they are."""
+    embedding norm and the learned positions carry over as they are, and so
+    do an int8-KV model's per-layer scales (layers.kv_scales [L, 2], this
+    model's kv_scales)."""
     import numpy as np
 
     def tensor(x) -> torch.Tensor:
@@ -654,6 +685,8 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
     sd = {name: tensor(jax_params[name]) for name in (
         "embed_tokens", "final_norm", "final_norm_bias", "embed_norm", "embed_norm_bias", "embed_positions",
         "lm_head_bias") if name in jax_params}
+    if "kv_scales" in layers:
+        sd["kv_scales"] = tensor(np.asarray(layers["kv_scales"], np.float32))
     if not args.tie_word_embeddings:
         lm = jax_params["lm_head"]
         if isinstance(lm, dict):

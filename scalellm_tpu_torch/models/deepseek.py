@@ -55,8 +55,14 @@ switches are not ported (both choices give the same values; the port takes
 the T=1 layout and the fused pair wherever they apply), nor is its
 BENCH_ABLATE.
 
+int8 latent pages (kv_cache_dtype="int8"): the pages hold round(x / s)
+clamped to [-127, 127] with the reference's static global scale s =
+ModelArgs.kv_scale, and the MLA kernels read them at k_scale = s (the
+reference has no per-layer latent scales and no calibration for MLA, and
+neither has this model).
+
 Not ported (each raises NotImplementedError where the model args ask for
-it): int8 latent pages, tensor and expert parallelism.
+it): tensor and expert parallelism.
 """
 
 from __future__ import annotations
@@ -260,8 +266,6 @@ class MLADecoderModel(nn.Module):
             raise NotImplementedError(
                 f"deepseek_v2: {quant.quant_method} checkpoints are not supported (nor by the reference); "
                 "serve the bf16 checkpoint with quantize='int4' or 'int8'")
-        if args.kv_cache_dtype != "auto":
-            raise NotImplementedError("deepseek_v2: int8 latent pages are not ported")
         self.args = args
         self.attn_impl = attn_impl or mla_paged_attention
         self.gmm_impl = grouped_matmul
@@ -272,6 +276,7 @@ class MLADecoderModel(nn.Module):
         if self.quant_bits not in (0, 4, 8):
             raise ValueError(f"quantization to {self.quant_bits} bits is not supported")
         self.dtype = model_dtype(args)
+        self.kv_quant = args.kv_cache_dtype == "int8"
         a = args
         self.qk_head_dim = a.qk_nope_head_dim + a.qk_rope_head_dim
         self.latent_dim = a.kv_lora_rank + a.qk_rope_head_dim
@@ -302,6 +307,10 @@ class MLADecoderModel(nn.Module):
         """[L, P, page, 1, kv_lora_rank + rope dims]: one K-only latent head."""
         return (self.args.n_layers, num_pages, page_size, 1, self.latent_dim)
 
+    def kv_cache_dtype(self) -> torch.dtype:
+        """The latent pages' type: int8 with kv_quant, else the model's dtype."""
+        return torch.int8 if self.kv_quant else self.dtype
+
     # ------------------------------------------------------------ forward
 
     def _rope_tables(self, positions: torch.Tensor):
@@ -329,10 +338,12 @@ class MLADecoderModel(nn.Module):
         w_kv = layer.kv_b_proj.view(H, nope + vd, R)
         q_abs = torch.bmm(q_nope.transpose(0, 1), w_kv[:, :nope])  # [H, T, R]
         q_cat = torch.cat([q_abs.transpose(0, 1), q_pe], dim=-1)  # [T, H, R + r]
-        set_latent_cache(kvc, torch.cat([c_kv, k_pe], dim=-1), mi.new_kv_slot_ids)
+        kv_scale = a.kv_scale if self.kv_quant else None
+        set_latent_cache(kvc, torch.cat([c_kv, k_pe], dim=-1), mi.new_kv_slot_ids, scale=kv_scale)
         o_lat = self.attn_impl(
             q_cat, kvc, mi.kv_lens, mi.block_tables, mi.cu_q_lens, mi.num_seqs,
             sm_scale=self.sm_scale, v_dim=R, decode_only=decode_only,
+            **({"k_scale": kv_scale} if self.kv_quant else {}),
         )  # [T, H, R]
         o = torch.bmm(o_lat.transpose(0, 1), w_kv[:, nope:].transpose(1, 2))  # [H, T, vd]
         return h + self._proj(o.transpose(0, 1).reshape(T, H * vd), layer.o_proj)

@@ -20,6 +20,11 @@ the kernel; the reference sends ALiBi to its jnp path, so there too the
 kernel is held to the plain version. f32 q and pages (GPT-2's float32
 checkpoints) go to the CUDA-core kernel of csrc/ragged_paged_attention_f32.cu
 (no TF32), which takes the same contract in one launch.
+int8 pages (kv_cache_dtype="int8") go to both kernels with their static
+k_scale and v_scale: each element is read as (int8 -> f32) * scale in q's
+type, as the stock kernel reads them (the bf16 kernel rounds it to bf16; the
+plain version keeps the f32 product, the JAX reference's form: the two agree
+exactly at the scale of 1.0 that DecoderModel passes).
 The dispatcher takes the engine's decode_only and ignores it, as the
 reference's dispatcher does.
 plain_split_kv_attention is the plain version of the split-and-merge: what
@@ -49,18 +54,21 @@ BLOCKS_PER_SM = 2  # split blocks an SM the plan aims at, at the block table's l
 MAX_SPLIT_LEN = 512  # rows: so that contexts of unequal length balance over the blocks
 H100_SMS = 132
 
+# The int8 pages' flag and scales: kv_int8, k_scale, v_scale.
+_INT8_ARGTYPES = [ctypes.c_int, ctypes.c_float, ctypes.c_float]
 # Parameters of the C entry point scalellm_ragged_paged_attention, in order:
 # 9 pointers (q .. scratch, alibi_slopes), 9 ints (num_tokens .. split_len),
-# sm_scale, window, soft_cap, stream.
+# sm_scale, window, soft_cap, kv_int8, k_scale, v_scale, stream.
 _ARGTYPES = (
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + _INT8_ARGTYPES + [ctypes.c_void_p]
 )
 # scalellm_ragged_paged_attention_f32: 8 pointers (q .. out, alibi_slopes),
-# 7 ints (num_tokens .. head_dim), sm_scale, window, soft_cap, stream.
+# 7 ints (num_tokens .. head_dim), sm_scale, window, soft_cap, kv_int8,
+# k_scale, v_scale, stream.
 _F32_ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + _INT8_ARGTYPES + [ctypes.c_void_p]
 )
 
 
@@ -117,9 +125,9 @@ def _check_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, ali
         raise ValueError("q must be contiguous")
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned (the kernel copies 16 bytes at a time)")
-    if q.dtype not in (torch.bfloat16, torch.float32) or kv_pages.dtype != q.dtype:
+    if q.dtype not in (torch.bfloat16, torch.float32) or kv_pages.dtype not in (q.dtype, torch.int8):
         raise NotImplementedError(
-            f"the CUDA kernels take bf16 or f32 q and pages of one type, got {q.dtype}, {kv_pages.dtype}"
+            f"the CUDA kernels take bf16 or f32 q with pages of its type or int8, got {q.dtype}, {kv_pages.dtype}"
         )
     if kv_pages.data_ptr() % 16:
         raise ValueError("kv_pages must be 16-byte aligned (the kernel copies 16 bytes at a time)")
@@ -165,16 +173,24 @@ def ragged_paged_attention_cuda(
     sliding_window: Optional[int] = None,
     logit_soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # f32[n_heads]
+    k_scale: Optional[float] = None,
+    v_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Launch the Hopper kernel on the current stream (bf16: the attention
     grid and its merge; f32: the CUDA-core kernel); returns [T, H, D] in
-    q's dtype.
+    q's dtype. int8 pages are read as (int8 -> f32) * k_scale (K) or
+    v_scale (V) in q's type (a scale of None reads 1.0); pages of q's type
+    take no scales.
 
     `ragged_paged_attention_cuda.launches` counts the calls that launched;
-    `.alibi`, `.d80` and `.f32` (LaunchCount) count those with ALiBi slopes,
-    at head dim 80 and in f32."""
+    `.alibi`, `.d80`, `.f32` and `.int8` (LaunchCount) count those with
+    ALiBi slopes, at head dim 80, in f32 and on int8 pages."""
     T, S, maxp, page_size, n_heads, n_kv_heads, head_dim = _check_operands(
         q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, alibi_slopes)
+    int8 = kv_pages.dtype == torch.int8
+    if not int8 and (k_scale is not None or v_scale is not None):
+        raise NotImplementedError("k_scale/v_scale scale int8 pages; the kernels read float pages as they are")
+    scales = (int(int8), 1.0 if k_scale is None else float(k_scale), 1.0 if v_scale is None else float(v_scale))
     out = torch.empty_like(q)
     alibi = alibi_slopes.data_ptr() if alibi_slopes is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -183,7 +199,7 @@ def ragged_paged_attention_cuda(
             q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
             cu_q_lens.data_ptr(), num_seqs.data_ptr(), out.data_ptr(), alibi, T, S, maxp, page_size,
             n_heads, n_kv_heads, head_dim, float(sm_scale), int(sliding_window or 0),
-            float(logit_soft_cap or 0.0), stream)
+            float(logit_soft_cap or 0.0), *scales, stream)
     else:
         splits, split_len = split_kv_plan(maxp * page_size, S, n_kv_heads, _sm_count(q.device))
         # The split path's f32 partials: o [S, splits, H, D], then (m, l) [S, splits, H].
@@ -193,14 +209,15 @@ def ragged_paged_attention_cuda(
             page_indices.data_ptr(), cu_q_lens.data_ptr(), num_seqs.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), alibi, T, S, maxp, page_size, n_heads, n_kv_heads,
             head_dim, splits, split_len,
-            float(sm_scale), int(sliding_window or 0), float(logit_soft_cap or 0.0), stream,
+            float(sm_scale), int(sliding_window or 0), float(logit_soft_cap or 0.0), *scales, stream,
         )
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: CUDA error {rc}")
     ragged_paged_attention_cuda.launches += 1
     for kind, on in ((ragged_paged_attention_cuda.alibi, alibi_slopes is not None),
                      (ragged_paged_attention_cuda.d80, head_dim == 80),
-                     (ragged_paged_attention_cuda.f32, q.dtype == torch.float32)):
+                     (ragged_paged_attention_cuda.f32, q.dtype == torch.float32),
+                     (ragged_paged_attention_cuda.int8, int8)):
         kind.launches += on
     return out
 
@@ -209,6 +226,7 @@ ragged_paged_attention_cuda.launches = 0
 ragged_paged_attention_cuda.alibi = LaunchCount("ragged_paged_attention_alibi")
 ragged_paged_attention_cuda.d80 = LaunchCount("ragged_paged_attention_d80")
 ragged_paged_attention_cuda.f32 = LaunchCount("ragged_paged_attention_f32")
+ragged_paged_attention_cuda.int8 = LaunchCount("ragged_paged_attention_int8")
 
 
 def ragged_paged_attention(
@@ -238,12 +256,10 @@ def ragged_paged_attention(
             logit_soft_cap=logit_soft_cap, k_scale=k_scale, v_scale=v_scale,
             alibi_slopes=alibi_slopes,
         )
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 KV pages (k_scale/v_scale) are not ported")
     return ragged_paged_attention_cuda(
         q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
         sm_scale=sm_scale, sliding_window=sliding_window,
-        logit_soft_cap=logit_soft_cap, alibi_slopes=alibi_slopes,
+        logit_soft_cap=logit_soft_cap, alibi_slopes=alibi_slopes, k_scale=k_scale, v_scale=v_scale,
     )
 
 
@@ -264,12 +280,14 @@ def plain_ragged_paged_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens, 
 
 def plain_split_kv_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
                              sm_scale=1.0, sliding_window=None, logit_soft_cap=None, alibi_slopes=None,
-                             drop: Optional[Tuple[int, int]] = None):
+                             k_scale=None, v_scale=None, drop: Optional[Tuple[int, int]] = None):
     """The split path's arithmetic in plain PyTorch, for a decode-only batch
     (slot s's one token at row s): each slot's KV range is cut into the
     pieces split_kv_plan() gives on an H100, each piece gives (o, m, l) in
     f32 (an empty piece gives m = -inf, l = 0), and the pieces merge in
     split order. ALiBi slopes add slope * (kv_pos - pos) after the scale.
+    int8 pages are read as the bf16 kernel reads them: (int8 * scale)
+    rounded to q's type.
     Rows that own no KV (rows past S or past cu_q_lens[num_seqs], slots
     with kv_len 0) are zeros. Returns [T, H, D] in q's dtype.
     drop = (slot, piece) leaves that piece out of the merge: a planted
@@ -292,6 +310,9 @@ def plain_split_kv_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_
         hi = min(kv_len, capacity)
         rows = kv_pages[page_indices[s].long()].reshape(capacity, 2 * n_kv_heads, D).float()
         k, v = rows[:, 0::2], rows[:, 1::2]  # [capacity, Hkv, D]
+        if kv_pages.dtype == torch.int8:
+            k = (k * (1.0 if k_scale is None else k_scale)).to(q.dtype).float()
+            v = (v * (1.0 if v_scale is None else v_scale)).to(q.dtype).float()
         qs = q[s].float().reshape(n_kv_heads, group, D)
         o_run = torch.zeros(n_kv_heads, group, D, dtype=torch.float32, device=q.device)
         m_run = torch.full((n_kv_heads, group), float("-inf"), device=q.device)

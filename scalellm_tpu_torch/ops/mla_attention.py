@@ -36,6 +36,15 @@ columns of the same rows, so the pages hold K only: [P, page_size, 1, Dc].
 Rows that own no KV come out as zeros: padding sequence slots (kv_len 0),
 rows past the sequence slots of a decode-only batch, and rows at or past
 cu_q_lens[num_seqs] of a mixed batch.
+
+int8 latent pages (kv_cache_dtype="int8"): set_latent_cache stores
+round(x / scale) clamped to [-127, 127], and the kernels read each element
+as (int8 -> f32) * k_scale rounded to bf16, as the reference's Pallas kernels
+do (scalellm_tpu/ops/mla_attention.py:175-177, :355-357); so do the plain
+versions, which, as the kernels, take k_scale with int8 pages only.
+ref_mla_paged_attention keeps the f32 product (the JAX reference's form);
+the two agree exactly where int8 * k_scale is a bf16 value, as at the
+reference's default scale of 1/16.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from scalellm_tpu_torch.ops import _build
-from scalellm_tpu_torch.ops.attention import H100_SMS, _sm_count
+from scalellm_tpu_torch.ops.attention import H100_SMS, LaunchCount, _sm_count
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The kernels are built for DeepSeek-V2's widths (V2, V2-Lite and V3 alike):
@@ -65,9 +74,10 @@ def set_latent_cache(
     slot_ids: torch.Tensor,  # [T] global slot ids
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Scatter k_lat into k_pages in place; returns k_pages."""
+    """Scatter k_lat into k_pages in place (int8 pages: round(x / scale)
+    clamped to [-127, 127]); returns k_pages."""
     if k_pages.dtype == torch.int8:
-        raise NotImplementedError("int8 latent pages (k_scale) are not ported")
+        k_lat = torch.round(k_lat.float() / scale).clamp(-127, 127)
     P, page_size, one, Dc = k_pages.shape
     flat = k_pages.view(P * page_size, Dc)
     flat.index_copy_(0, slot_ids.long(), k_lat.to(k_pages.dtype))
@@ -113,6 +123,17 @@ def ref_mla_paged_attention(
     return torch.einsum("thj,tjd->thd", p, v_tok).to(q.dtype)
 
 
+def _widen(k: torch.Tensor, k_scale: Optional[float], dtype: torch.dtype) -> torch.Tensor:
+    """Latent rows as the kernels read them: int8 pages (int8 -> f32) *
+    k_scale rounded to q's type; float pages as they are. k_scale scales
+    int8 pages only, as in the kernels."""
+    if k.dtype == torch.int8:
+        return (k.float() * (1.0 if k_scale is None else k_scale)).to(dtype)
+    if k_scale is not None:
+        raise NotImplementedError("k_scale scales int8 latent pages; float pages are read as they are")
+    return k
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, kv_end: torch.Tensor, sm_scale: float, v_dim: int):
     """Softmax attention of q [n, H, Dc] over latent rows k ([KV, Dc] shared
     by all rows, or [n, KV, Dc]) where row i sees k[:kv_end[i]]; rows that
@@ -136,13 +157,14 @@ def plain_mla_decode(
     *,
     sm_scale: float,
     v_dim: int,
+    k_scale: Optional[float] = None,
 ) -> torch.Tensor:  # [T, H, v_dim]
     """Plain version of the decode kernel (K9): one query per sequence slot
     over its first kv_len latent rows; rows past the S slots and slots with
     kv_len 0 are zeros."""
     T, H, Dc = q.shape
     S, MAXP = page_indices.shape
-    k = k_pages[page_indices.long()].reshape(S, MAXP * k_pages.shape[1], Dc)
+    k = _widen(k_pages[page_indices.long()].reshape(S, MAXP * k_pages.shape[1], Dc), k_scale, q.dtype)
     out = torch.zeros(T, H, v_dim, dtype=q.dtype, device=q.device)
     out[:S] = _attend(q[:S], k, kv_lens.long(), sm_scale, v_dim).to(q.dtype)
     return out
@@ -158,6 +180,7 @@ def plain_mla_prefill(
     *,
     sm_scale: float,
     v_dim: int,
+    k_scale: Optional[float] = None,
 ) -> torch.Tensor:  # [T, H, v_dim]
     """Plain version of the ragged prefill kernel (K10): sequence by
     sequence, token i of a chunk of q_len attends its context's rows
@@ -172,7 +195,7 @@ def plain_mla_prefill(
         if end <= start or kv_len <= 0:
             continue
         n_pages = -(-kv_len // page_size)
-        k = k_pages[page_indices[s, :n_pages].long()].reshape(n_pages * page_size, Dc)
+        k = _widen(k_pages[page_indices[s, :n_pages].long()].reshape(n_pages * page_size, Dc), k_scale, q.dtype)
         kv_end = torch.arange(kv_len - (end - start) + 1, kv_len + 1, device=q.device)
         out[start:end] = _attend(q[start:end], k, kv_end, sm_scale, v_dim).to(q.dtype)
     return out
@@ -202,6 +225,7 @@ def plain_mla_split_decode(
     *,
     sm_scale: float,
     v_dim: int,
+    k_scale: Optional[float] = None,
     drop: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:  # [T, H, v_dim]
     """K9's split-and-merge in plain PyTorch: each slot's latent range is cut
@@ -217,7 +241,7 @@ def plain_mla_split_decode(
     out = torch.zeros(T, H, v_dim, dtype=torch.float32, device=q.device)
     for s in range(min(S, T)):
         hi = min(int(kv_lens[s]), capacity)
-        k = k_pages[page_indices[s].long()].reshape(capacity, Dc).float()
+        k = _widen(k_pages[page_indices[s].long()].reshape(capacity, Dc), k_scale, q.dtype).float()
         qs = q[s].float()
         o_run = torch.zeros(H, v_dim, dtype=torch.float32, device=q.device)
         m_run = torch.full((H,), float("-inf"), device=q.device)
@@ -247,12 +271,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Parameters of the C entry points of csrc/mla_attention.cu, in order.
 # decode: q, k_pages, kv_lens, page_indices, out, scratch; num_rows,
 # num_seqs (S), maxp, page_size, n_heads, latent_dim, v_dim, splits,
-# split_len; sm_scale; stream.
-_DECODE_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _P]
+# split_len; sm_scale; latent_int8, k_scale; stream.
+_DECODE_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _I, _F, _P]
 # prefill: q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, out,
 # scratch; num_tokens, S, maxp, page_size, n_heads, latent_dim, v_dim,
-# splits, split_len; sm_scale; stream.
-_PREFILL_ARGTYPES = [_P] * 8 + [_I] * 9 + [_F, _P]
+# splits, split_len; sm_scale; latent_int8, k_scale; stream.
+_PREFILL_ARGTYPES = [_P] * 8 + [_I] * 9 + [_F, _I, _F, _P]
 ENTRY_POINTS = {
     "scalellm_mla_decode": _DECODE_ARGTYPES,
     "scalellm_mla_prefill": _PREFILL_ARGTYPES,
@@ -269,16 +293,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_operands(q, k_pages, v_dim, **index_tensors):
-    """Raise on what the kernels do not take; returns (T, H, Dc, S, maxp, page)."""
+def _check_cuda_operands(q, k_pages, v_dim, k_scale, **index_tensors):
+    """Raise on what the kernels do not take; returns (T, H, Dc, S, maxp,
+    page, the entry points' latent_int8 and k_scale)."""
     if q.device.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor, got {q.device}")
     if k_pages.dim() != 4 or k_pages.shape[2] != 1:
         raise ValueError(f"k_pages must be [P, page, 1, Dc], got {tuple(k_pages.shape)}")
-    if k_pages.dtype == torch.int8:
-        raise NotImplementedError("int8 latent pages (k_scale) are not ported")
-    if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16:
-        raise NotImplementedError(f"the MLA kernels take bf16 q and pages, got {q.dtype}, {k_pages.dtype}")
+    if q.dtype != torch.bfloat16 or k_pages.dtype not in (torch.bfloat16, torch.int8):
+        raise NotImplementedError(f"the MLA kernels take bf16 q and bf16 or int8 pages, got {q.dtype}, "
+                                  f"{k_pages.dtype}")
+    int8 = k_pages.dtype == torch.int8
+    if not int8 and k_scale is not None:
+        raise NotImplementedError("k_scale scales int8 latent pages; the kernels read bf16 pages as they are")
     T, H, Dc = q.shape
     if k_pages.shape[3] != Dc:
         raise ValueError(f"q {tuple(q.shape)} does not match k_pages {tuple(k_pages.shape)}")
@@ -297,7 +324,7 @@ def _check_cuda_operands(q, k_pages, v_dim, **index_tensors):
     S, maxp = index_tensors["page_indices"].shape
     if index_tensors["kv_lens"].shape != (S,):
         raise ValueError("kv_lens must be [S]")
-    return T, H, Dc, S, maxp, k_pages.shape[1]
+    return T, H, Dc, S, maxp, k_pages.shape[1], int(int8), 1.0 if k_scale is None else float(k_scale)
 
 
 def _split_scratch(q, S, kv_capacity, H, v_dim):
@@ -308,12 +335,15 @@ def _split_scratch(q, S, kv_capacity, H, v_dim):
     return splits, split_len, scratch
 
 
-def mla_decode_attention_cuda(q, k_pages, kv_lens, page_indices, *, sm_scale, v_dim) -> torch.Tensor:
+def mla_decode_attention_cuda(q, k_pages, kv_lens, page_indices, *, sm_scale, v_dim,
+                              k_scale: Optional[float] = None) -> torch.Tensor:
     """Launch K9 on the current stream: row s < S attends sequence s (one
     query token each), rows >= S come out zero. Returns bf16 [T, H, v_dim].
-    `mla_decode_attention_cuda.launches` counts the launches."""
-    T, H, Dc, S, maxp, page = _check_cuda_operands(
-        q, k_pages, v_dim, kv_lens=kv_lens, page_indices=page_indices)
+    int8 pages are read as bf16((int8 -> f32) * k_scale) (None reads 1.0).
+    `mla_decode_attention_cuda.launches` counts the launches, `.int8` those
+    on int8 pages."""
+    T, H, Dc, S, maxp, page, int8, scale = _check_cuda_operands(
+        q, k_pages, v_dim, k_scale, kv_lens=kv_lens, page_indices=page_indices)
     if T < S:
         raise ValueError(f"a decode-only batch has a row per sequence slot: T={T} < S={S}")
     out = torch.empty(T, H, v_dim, dtype=torch.bfloat16, device=q.device)
@@ -321,25 +351,28 @@ def mla_decode_attention_cuda(q, k_pages, kv_lens, page_indices, *, sm_scale, v_
     rc = _library().scalellm_mla_decode(
         q.data_ptr(), k_pages.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), T, S, maxp, page, H, Dc, v_dim, splits, split_len,
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(sm_scale), int8, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"mla decode kernel launch failed: CUDA error {rc}")
     mla_decode_attention_cuda.launches += 1
+    mla_decode_attention_cuda.int8.launches += int8
     return out
 
 
 mla_decode_attention_cuda.launches = 0
+mla_decode_attention_cuda.int8 = LaunchCount("mla_decode_attention_int8")
 
 
 def mla_prefill_attention_cuda(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
-                               sm_scale, v_dim) -> torch.Tensor:
+                               sm_scale, v_dim, k_scale: Optional[float] = None) -> torch.Tensor:
     """Launch K10 on the current stream over a ragged mixed batch: q tiles
     of TILE_TOKENS tokens for sequences of 2 or more tokens, split blocks
-    for the others. Returns bf16 [T, H, v_dim].
-    `mla_prefill_attention_cuda.launches` counts the launches."""
-    T, H, Dc, S, maxp, page = _check_cuda_operands(
-        q, k_pages, v_dim, kv_lens=kv_lens, page_indices=page_indices, cu_q_lens=cu_q_lens,
+    for the others. Returns bf16 [T, H, v_dim]. int8 pages as in K9.
+    `mla_prefill_attention_cuda.launches` counts the launches, `.int8` those
+    on int8 pages."""
+    T, H, Dc, S, maxp, page, int8, scale = _check_cuda_operands(
+        q, k_pages, v_dim, k_scale, kv_lens=kv_lens, page_indices=page_indices, cu_q_lens=cu_q_lens,
         num_seqs=num_seqs)
     if cu_q_lens.shape != (S + 1,) or num_seqs.shape != (1,):
         raise ValueError("cu_q_lens and num_seqs must be [S+1] and [1]")
@@ -348,16 +381,18 @@ def mla_prefill_attention_cuda(q, k_pages, kv_lens, page_indices, cu_q_lens, num
     rc = _library().scalellm_mla_prefill(
         q.data_ptr(), k_pages.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
         cu_q_lens.data_ptr(), num_seqs.data_ptr(), out.data_ptr(), scratch.data_ptr(), T, S,
-        maxp, page, H, Dc, v_dim, splits, split_len, float(sm_scale),
+        maxp, page, H, Dc, v_dim, splits, split_len, float(sm_scale), int8, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"mla prefill kernel launch failed: CUDA error {rc}")
     mla_prefill_attention_cuda.launches += 1
+    mla_prefill_attention_cuda.int8.launches += int8
     return out
 
 
 mla_prefill_attention_cuda.launches = 0
+mla_prefill_attention_cuda.int8 = LaunchCount("mla_prefill_attention_int8")
 
 
 def mla_paged_attention(
@@ -379,22 +414,19 @@ def mla_paged_attention(
         return plain_mla_paged_attention(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
                                          sm_scale=sm_scale, v_dim=v_dim, k_scale=k_scale,
                                          decode_only=decode_only)
-    if k_scale is not None:
-        raise NotImplementedError("int8 latent pages (k_scale) are not ported")
     if decode_only:
         return mla_decode_attention_cuda(q, k_pages, kv_lens, page_indices, sm_scale=sm_scale,
-                                         v_dim=v_dim)
+                                         v_dim=v_dim, k_scale=k_scale)
     return mla_prefill_attention_cuda(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-                                      sm_scale=sm_scale, v_dim=v_dim)
+                                      sm_scale=sm_scale, v_dim=v_dim, k_scale=k_scale)
 
 
 def plain_mla_paged_attention(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
                               sm_scale, v_dim, k_scale=None, decode_only=False):
     """mla_paged_attention's plain versions on whatever device q lies: what
     the kernels are held against on the card."""
-    if k_scale is not None:
-        raise NotImplementedError("int8 latent pages (k_scale) are not ported")
     if decode_only:
-        return plain_mla_decode(q, k_pages, kv_lens, page_indices, sm_scale=sm_scale, v_dim=v_dim)
+        return plain_mla_decode(q, k_pages, kv_lens, page_indices, sm_scale=sm_scale, v_dim=v_dim,
+                                k_scale=k_scale)
     return plain_mla_prefill(q, k_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-                             sm_scale=sm_scale, v_dim=v_dim)
+                             sm_scale=sm_scale, v_dim=v_dim, k_scale=k_scale)

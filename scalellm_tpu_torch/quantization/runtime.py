@@ -4,6 +4,8 @@ declares (QuantLinear: group-quantized, and its lm_head when asked or, for
 DeepSeek, always) and its routed experts (QuantExperts: int4 per (expert,
 k-group, channel) or int8 per (expert, channel)) are quantized on the
 device they lie on, so any bf16 checkpoint can be served in INT4 or INT8.
+An int8-KV model's per-layer KV scales carry over from the dense model (or,
+where it has none, start at ModelArgs.kv_scale).
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ def quantize_model(dense_model, quant: QuantArgs):
         if leaf == "qweight":
             for key, t in modules[prefix].quantize(dense[prefix]).items():
                 sd[f"{prefix}.{key}"] = t
+        elif name == "kv_scales" and name not in dense:  # int8 KV asked of the quantized model alone
+            sd[name] = torch.full(spec.shape, args.kv_scale, dtype=torch.float32,
+                                  device=dense["embed_tokens"].device)
         elif leaf != "scales" or prefix not in dense:
             sd[name] = dense[name]
         if name in sd and sd[name].shape != spec.shape:

@@ -1,14 +1,17 @@
 """ContinuousScheduler — continuous batching with chunked prefill,
 preemption, priorities, prefix-cache-aware n/best_of expansion, async
 stepping and multi-step decode
-(counterpart of scalellm_tpu/scheduler/continuous_scheduler.py; KV swap and
-speculative slots are not ported).
+(counterpart of scalellm_tpu/scheduler/continuous_scheduler.py; speculative
+slots are not ported).
 
   - intake queue -> priority order (HIGH/NORMAL/LOW, then FCFS)
   - per-step batch under a token budget (max_tokens_per_batch) and a
     sequence budget (max_seqs_per_batch); chunked prefill falls out of the
     per-sequence token budgets
-  - preemption of the lowest-priority block-holding request when KV runs out
+  - preemption of the lowest-priority block-holding request when KV runs out;
+    with the engine's KV swapper (host_swap_bytes) the victim's pages are
+    staged in host memory and restored when it runs again, and at equal
+    priority a victim whose pages fit the pool's free space goes first
   - lazy n/best_of expansion after prefill, so siblings share the prompt KV
     through the prefix cache
   - releases the blocks of finished sequences; streams deltas through the
@@ -66,6 +69,10 @@ class ContinuousScheduler:
         self._engine = engine
         self._options = options
         self._block_manager = engine.block_manager
+        # KV swap-out preemption (memory/kv_swap.py): with the engine's
+        # swapper a victim's pages are staged in host memory and restored
+        # when it is scheduled again, instead of re-prefilled.
+        self._swapper = getattr(engine, "kv_swapper", None)
         self._response_handler = response_handler or ResponseHandler(
             engine.tokenizer, threaded=False
         )
@@ -211,6 +218,8 @@ class ContinuousScheduler:
     def _finish_request(self, request: Request) -> None:
         for seq in request.sequences:
             self._block_manager.deallocate(seq)
+            if self._swapper is not None:
+                self._swapper.discard(seq)
         self._response_handler.on_request_finish(request)
         with self._pending_lock:
             self._pending -= 1
@@ -228,6 +237,10 @@ class ContinuousScheduler:
         t0 = time.monotonic()
         self._starved = False
         self._drain_intake(timeout_s)
+        if self._swapper is not None:
+            # The host copies of the last preemptions' pages ran behind the
+            # step enqueued after them.
+            self._swapper.finalize_staging()
         opts = self._options
 
         # Priority, then FCFS.
@@ -270,6 +283,12 @@ class ContinuousScheduler:
                     # the in-flight token already reaches max_tokens or the
                     # context: a step for it would be discarded
                     continue
+                if self._swapper is not None and not seq.blocks and self._swapper.has_entry(seq):
+                    # Preempted with staged pages: restore them rather than
+                    # re-prefill. Where the blocks cannot be allocated the
+                    # entry stays and the sequence waits for a later build.
+                    if not self._swapper.swap_in(seq):
+                        continue
                 cached = seq.num_kv_cache_tokens()
                 uncached = seq.num_tokens - cached
                 if uncached <= 0:
@@ -318,23 +337,44 @@ class ContinuousScheduler:
         if self._block_manager.allocate_blocks_for(seq, num_tokens):
             return True
         # Preempt from the lowest-priority end; never `req` itself or a
-        # request already in this step's batch.
+        # request already in this step's batch. At equal priority a victim
+        # whose pages fit the host pool's free space goes first: staging it
+        # evicts no earlier victim's pages (which would turn that swap-in
+        # back into a recompute).
         in_batch = {id(e.seq) for e in batch.entries}
-        for victim in sorted(
-            self._requests, key=lambda r: (int(r.priority), r.arrival_seq), reverse=True
-        ):
+
+        def victim_key(r):
+            fits = 0
+            if self._swapper is not None:
+                fits = int(all(self._swapper.staging_fits(s) for s in r.sequences if s.blocks))
+            return (int(r.priority), fits, r.arrival_seq)
+
+        for victim in sorted(self._requests, key=victim_key, reverse=True):
             if victim is req:
                 continue
             if any(id(s) in in_batch for s in victim.sequences):
                 continue
             if not any(s.blocks for s in victim.sequences):
                 continue
-            for s in victim.sequences:
-                self._block_manager.deallocate(s)  # re-prefills later
+            self._preempt(victim)
             COUNTERS.inc("num_preempted_requests")
             if self._block_manager.allocate_blocks_for(seq, num_tokens):
                 return True
         return self._block_manager.allocate_blocks_for(seq, num_tokens)
+
+    def _preempt(self, request: Request) -> None:
+        """Release all KV of the request. With a KV swapper its pages are
+        staged in host memory first (restored when it is scheduled again);
+        otherwise it re-prefills later (the prefix cache may hold most of
+        it)."""
+        for seq in request.sequences:
+            if self._swapper is not None and self._swapper.swap_out(seq):
+                # The staged pages stand in for a prefix-cache copy: the
+                # blocks are not published, so the swap-in lands in
+                # unshared blocks.
+                self._block_manager.release_without_caching(seq)
+                continue
+            self._block_manager.deallocate(seq)
 
     # ---------------------------------------------------------------- output
 

@@ -51,7 +51,7 @@ def main():
                 rc = lib.scalellm_mla_decode(
                     dec["q"].data_ptr(), dec["k_pages"].data_ptr(), dec["kv_lens"].data_ptr(),
                     dec["page_indices"].data_ptr(), out.data_ptr(), scratch.data_ptr(), n, n, maxp, page, H, DC,
-                    VD, 1, split_len, 0.1, torch.cuda.current_stream().cuda_stream)
+                    VD, 1, split_len, 0.1, 0, 1.0, torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
                     CS.fail(f"mla decode launch failed: CUDA error {rc}")
 

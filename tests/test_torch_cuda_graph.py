@@ -246,8 +246,12 @@ def test_handler_takes_graphs_and_warmup_and_refuses_the_rest():
         LLMHandlerOptions(**ported).check_ported()
     with pytest.raises(ValueError, match="warmup_mode"):
         LLMHandlerOptions(warmup_mode="all").check_ported()
-    for unported in (dict(num_speculative_tokens=2), dict(tp_size=2), dict(kv_cache_dtype="int8"),
-                     dict(host_swap_bytes=1), dict(lora_modules={"a": "b"})):
+    # The int8 KV cache and KV swap: ported; an unknown KV dtype is refused.
+    for ported in (dict(kv_cache_dtype="int8"), dict(host_swap_bytes=1)):
+        LLMHandlerOptions(**ported).check_ported()
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        LLMHandlerOptions(kv_cache_dtype="fp8").check_ported()
+    for unported in (dict(num_speculative_tokens=2), dict(tp_size=2), dict(lora_modules={"a": "b"})):
         with pytest.raises(NotImplementedError):
             LLMHandlerOptions(**unported).check_ported()
 

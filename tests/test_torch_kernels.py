@@ -2039,3 +2039,311 @@ def test_a_closed_engine_gives_its_memory_back(cuda, tmp_path):
         llm.close()
         assert torch.cuda.memory_reserved() - torch.cuda.memory_allocated() <= chip_smoke.CLOSED_SLACK_BYTES
     assert blocks[1] >= 0.99 * blocks[0], blocks
+
+
+# ---------------------------------------------------------------- int8 KV pages
+#
+# K1 (bf16 and f32 q) over int8 pages, and K9/K10 over int8 latent pages:
+# each element read as (int8 -> f32) * scale, rounded to bf16 by the bf16
+# kernels (the stock kernel's cast to q's type), kept in f32 by the f32
+# kernel. The pages are N(0, 1) values quantized as the model writes them
+# (round(x / scale), clamped to 127), so outputs keep the magnitudes of the
+# bf16 tests. Held to the plain versions at the bf16 tolerances (the plain
+# K1 keeps int8 * scale in f32: the bf16 rounding of a scaled element moves a
+# score by about 4e-3 of its size) and the f32 kernel at F32_TOL. "unit": the
+# way DecoderModel calls K1, scales of 1.0 with q pre-multiplied by k_scale
+# and the output by v_scale.
+
+# (q_lens, kv_lens, S, T, n_heads, n_kv_heads, head_dim, window, soft_cap, page, ALiBi)
+INT8_CASES = {
+    "decode_d64_gqa8": ([1] * 8, [17, 64, 129, 256, 400, 640, 900, 1024], 8, 16, 32, 4, 64, None, None, 16, False),
+    "mixed_d64_softcap": ([100, 37, 1, 1], [100, 300, 700, 2048], 4, 256, 32, 4, 64, None, 30.0, 16, False),
+    "decode_d80_phi2": ([1] * 4, [5000, 100, 640, 33], 4, 16, 32, 32, 80, None, None, 16, False),
+    "mixed_d80_window": ([60, 9, 1], [60, 200, 900], 4, 128, 16, 8, 80, 64, None, 16, False),
+    "decode_d128_gqa4": ([1] * 8, [17, 64, 129, 256, 400, 640, 900, 1024], 8, 16, 32, 8, 128, None, None, 16, False),
+    "mixed_d128_alibi": ([120, 60, 1, 1], [120, 300, 500, 17], 4, 256, 32, 32, 128, None, None, 16, True),
+    "decode_d128_alibi_window": ([1] * 4, [3000, 129, 4000, 7], 4, 4, 12, 12, 128, 128, None, 16, True),
+    "decode_d256_softcap": ([1] * 6, [17, 300, 1024, 2048, 4096, 5], 8, 16, 16, 8, 256, None, 50.0, 16, False),
+    "mixed_d256_window_page4": ([33, 5, 1], [40, 600, 77], 4, 64, 16, 1, 256, 16, None, 4, False),
+    "mixed_d64_alibi_page4": ([33, 5, 1], [40, 600, 77], 4, 64, 12, 12, 64, None, None, 4, True),
+}
+from chip_smoke import KV_INT8_SCALES as INT8_SCALES  # noqa: E402
+from chip_smoke import quantize_kv_pages  # noqa: E402
+
+
+def _int8_case(device, case, dtype):
+    q_lens, kv_lens, S, T, H, Hkv, D, window, cap, page, alibi = INT8_CASES[case]
+    inputs, kw, _, n_real = _k1_case(device, (q_lens, kv_lens, S, T, H, Hkv, D, window, cap, page), dtype)
+    inputs["kv_pages"] = quantize_kv_pages(torch, inputs["kv_pages"], *INT8_SCALES)
+    if alibi:
+        from scalellm_tpu_torch.layers.alibi import alibi_slopes
+
+        kw["alibi_slopes"] = torch.tensor(alibi_slopes(H), dtype=torch.float32, device=device)
+    return inputs, kw, n_real
+
+
+@pytest.mark.parametrize("scaled", ["scales", "unit"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_pages_match_plain_version(cuda, case, dtype, scaled):
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention_cuda as kernel
+    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+
+    f32 = dtype == "f32"
+    inputs, kw, n_real = _int8_case(cuda, case, torch.float32 if f32 else torch.bfloat16)
+    ks, vs = INT8_SCALES
+    if scaled == "scales":
+        kw.update(k_scale=ks, v_scale=vs)
+        post = 1.0
+    else:  # DecoderModel's call: q * k_scale in q's type, scales of 1.0, the output * v_scale
+        inputs["q"] = (inputs["q"].float() * ks).to(inputs["q"].dtype)
+        kw.update(k_scale=1.0, v_scale=1.0)
+        post = vs
+    before = (kernel.launches, kernel.int8.launches, kernel.f32.launches)
+    got = ragged_paged_attention(**inputs, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.int8.launches, kernel.f32.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + f32)
+    want = ref_ragged_paged_attention(**inputs, **kw)
+    got, want = (got.float() * post).to(got.dtype), (want.float() * post).to(want.dtype)
+    if f32:
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=F32_TOL, rtol=0)
+        assert torch.all(got[n_real:] == 0)
+    else:
+        _assert_matches_plain(got, want, n_real)
+
+
+@pytest.mark.parametrize("case", ["decode_d64_gqa8", "decode_d128_alibi_window", "decode_d256_softcap"])
+def test_int8_pages_pass_the_row_check_that_fails_a_lost_piece(cuda, case):
+    """K1 on int8 decode batches within ATTENTION_REL_TOL of each row's size,
+    as its plain split-and-merge is; with the longest slot's middle piece
+    left out that split-and-merge fails the check. The same bits on every
+    call."""
+    from scalellm_tpu_torch.ops.attention import plain_split_kv_attention, ragged_paged_attention_cuda
+    from scalellm_tpu_torch.ops.attention_ref import ref_ragged_paged_attention
+
+    q_lens, kv_lens, S, T, H, Hkv, D, window, cap, page, alibi = INT8_CASES[case]
+    inputs, kw, n_real = _int8_case(cuda, case, torch.bfloat16)
+    kw.update(k_scale=INT8_SCALES[0], v_scale=INT8_SCALES[1])
+    got = ragged_paged_attention_cuda(**inputs, **kw)
+    torch.cuda.synchronize()
+    want = ref_ragged_paged_attention(**inputs, **kw)
+    _assert_matches_plain(got, want, n_real)
+    assert attention_row_rel_err(torch, plain_split_kv_attention(**inputs, **kw), want) <= ATTENTION_REL_TOL
+    spec = dict(S=S, Hkv=Hkv, kv_lens=kv_lens, window=window)
+    lost = plain_split_kv_attention(**inputs, **kw, drop=dropped_piece(attention, spec, inputs))
+    assert attention_row_rel_err(torch, lost, want) > ATTENTION_REL_TOL
+    for _ in range(5):
+        assert torch.equal(ragged_paged_attention_cuda(**inputs, **kw), got)
+
+
+def test_int8_pages_refuse_what_the_kernels_do_not_cover(cuda):
+    from scalellm_tpu_torch.ops.attention import ragged_paged_attention
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    inputs, kw, _ = _int8_case(cuda, "decode_d64_gqa8", torch.bfloat16)
+    with pytest.raises(NotImplementedError):  # half q over int8 pages
+        ragged_paged_attention(**{**inputs, "q": inputs["q"].half()}, k_scale=0.1, v_scale=0.1)
+    with pytest.raises(NotImplementedError):  # uint8 pages
+        ragged_paged_attention(**{**inputs, "kv_pages": inputs["kv_pages"].view(torch.uint8)}, k_scale=0.1)
+    mla = _mla_case(cuda, "decode_padding_slots")
+    mla["k_pages"] = torch.round(mla["k_pages"].float() * 16).clamp(-127, 127).to(torch.int8)
+    with pytest.raises(NotImplementedError):  # f32 q over int8 latent pages
+        M.mla_paged_attention(**{**mla, "q": mla["q"].float()}, sm_scale=0.1, v_dim=512, k_scale=0.0625,
+                              decode_only=True)
+
+
+# (MLA case, k_scale): DeepSeek's default 1/16 (int8 * scale exact in bf16),
+# and a scale whose products round.
+MLA_INT8_CASES = [("decode_v2_lite", 0.0625), ("mixed_v2_lite", 0.0625), ("decode_8192", 0.0625),
+                  ("decode_h128", 0.021), ("mixed_odd_chunks", 0.021), ("decode_splits_past_kv_len", 0.021)]
+
+
+@pytest.mark.parametrize("case,k_scale", MLA_INT8_CASES)
+def test_mla_kernels_over_int8_pages_match_plain_versions(cuda, case, k_scale):
+    """K9/K10 over int8 latent pages through the dispatcher against the
+    plain versions (which widen as the kernels do): within TOL and row by
+    row within ATTENTION_REL_TOL; padding rows zero; the same bits on a
+    second call; the split decodes' row check fails a lost piece."""
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    q_lens, kv_lens, S, T, H, Dc, vd = MLA_CASES[case]
+    inputs = _mla_case(cuda, case)
+    inputs["k_pages"] = torch.round(inputs["k_pages"].float() / k_scale).clamp(-127, 127).to(torch.int8)
+    decode_only = all(n == 1 for n in q_lens)
+    kw = dict(sm_scale=0.0723, v_dim=vd, k_scale=k_scale, decode_only=decode_only)
+    kernel = M.mla_decode_attention_cuda if decode_only else M.mla_prefill_attention_cuda
+    before = (kernel.launches, kernel.int8.launches)
+    got = M.mla_paged_attention(**inputs, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.int8.launches) == (before[0] + 1, before[1] + 1)
+    want = M.plain_mla_paged_attention(**inputs, **kw)
+    assert got.shape == (T, H, vd)
+    _assert_matches_plain(got, want, len(q_lens) if decode_only else sum(q_lens))
+    assert torch.equal(M.mla_paged_attention(**inputs, **kw), got)
+    if decode_only and case in MLA_SPLIT_CASES:
+        args = (inputs["q"], inputs["k_pages"], inputs["kv_lens"], inputs["page_indices"])
+        capacity = inputs["page_indices"].shape[1] * inputs["k_pages"].shape[1]
+        _, split_len = M.mla_split_plan(capacity, S, -(-H // M.HEAD_GROUP),
+                                        torch.cuda.get_device_properties(cuda).multi_processor_count)
+        s = max(range(len(kv_lens)), key=lambda i: kv_lens[i])
+        lost = M.plain_mla_split_decode(*args, sm_scale=0.0723, v_dim=vd, k_scale=k_scale,
+                                        drop=(s, (kv_lens[s] - 1) // split_len // 2))
+        assert attention_row_rel_err(torch, lost, want) > ATTENTION_REL_TOL
+
+
+def _random_int8_kv_model(device, cfg):
+    """_random_model with kv_cache_dtype="int8" and per-layer scales near
+    what calibration gives these weights."""
+    import scalellm_tpu_torch.models  # noqa: F401  (registers the models)
+    from scalellm_tpu_torch.models.registry import ModelRegistry
+
+    args = ModelRegistry.get_model_args_loader(cfg["model_type"])(dict(cfg))
+    args.kv_cache_dtype = "int8"
+    model = ModelRegistry.get_causal_lm_factory(cfg["model_type"])(args, device=device)
+    g = torch.Generator(device=device).manual_seed(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.05, generator=g)
+        if hasattr(model, "kv_scales"):
+            model.kv_scales.uniform_(0.01, 0.03, generator=g)
+    return model
+
+
+@pytest.mark.parametrize("model_name", ["llama", "mpt", "gpt2", "deepseek"])
+def test_executor_with_graphs_over_int8_pages_gives_the_eager_bits(cuda, model_name):
+    """An int8-KV model through Executor with step graphs and eagerly: the
+    same tokens and logits bits, over an int8 cache; K1's (K9/K10's) int8
+    launches counted at the captures."""
+    from chip_smoke import batch_inputs
+    from scalellm_tpu_torch.engine.executor import Executor
+    from scalellm_tpu_torch.ops import mla_attention as M
+
+    model = _random_int8_kv_model(cuda, TINY_CFGS[model_name])
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (60, 37, 100)]
+    steps = [(batch_inputs(torch, [(p, 0, len(p) + 8) for p in prompts])[0], False)]
+    for i in range(3):
+        steps.append((batch_inputs(torch, [([int(rng.integers(1, 512))], len(p) + i, len(p) + 8)
+                                           for p in prompts])[0], True))
+    int8_counts = (attention.ragged_paged_attention_cuda.int8, M.mla_decode_attention_cuda.int8,
+                   M.mla_prefill_attention_cuda.int8)
+    runs = {}
+    for graphs in (True, False):
+        before = sum(c.launches for c in int8_counts)
+        ex = Executor(model, cuda)
+        ex.init_kv_cache(64, 16)
+        assert ex.kv_cache.dtype == torch.int8
+        eager_logits, forward = [], ex._forward
+        if graphs:
+            ex.init_graphs(16, max_tokens=256, max_seqs=4, max_context_len=1024)
+        else:
+            ex._forward = lambda mi, d: eager_logits.append(forward(mi, d)) or eager_logits[-1]
+        tokens, logits = [], []
+        for mi, decode_only in steps:
+            out = ex.execute(mi, _greedy_si(mi.kv_lens.shape[0]), decode_only=decode_only)
+            tokens.append(out.next_tokens.cpu())
+            logits.append((ex.graphs.graphs[ex.graphs.last_key].logits if graphs else eager_logits[-1]).cpu())
+        assert sum(c.launches for c in int8_counts) > before
+        runs[graphs] = tokens, logits
+    for got, want in zip(runs[True], runs[False]):
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------- KV swap
+#
+# Executor.fetch_pages_async / restore_pages on the card: the page round trip
+# in place, a replayed step graph reading restored pages, and a fetch ordered
+# before a later step that overwrites the pages it gathers.
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["auto", "int8"])
+def test_pages_restored_into_other_blocks_are_the_pages_fetched(cuda, kv_cache_dtype):
+    from scalellm_tpu_torch.engine.executor import Executor
+
+    model = (_random_int8_kv_model if kv_cache_dtype == "int8" else _random_model)(cuda, TINY_LLAMA_CFG)
+    ex = Executor(model, cuda)
+    ex.init_kv_cache(32, 16)
+    ptr = ex.kv_cache.data_ptr()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if ex.kv_cache.dtype == torch.int8:
+        ex.kv_cache.copy_(torch.randint(-127, 128, ex.kv_cache.shape, generator=g, device=cuda, dtype=torch.int8))
+    else:
+        ex.kv_cache.normal_(generator=g)
+    ids = np.asarray([3, 7, 8, 20], np.int32)
+    first = ex.fetch_pages(ids)
+    assert first.is_pinned() and first.device.type == "cpu"
+    ex.restore_pages(np.asarray([25, 26, 27, 28], np.int32), first)
+    again = ex.fetch_pages(np.asarray([25, 26, 27, 28], np.int32))
+    assert torch.equal(_bits(again), _bits(first))
+    assert torch.equal(_bits(ex.kv_cache[:, 25:29].cpu()), _bits(ex.kv_cache[:, ids].cpu()))
+    assert ex.kv_cache.data_ptr() == ptr
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["auto", "int8"])
+def test_a_replayed_graph_reads_restored_pages(cuda, kv_cache_dtype):
+    """A sequence prefilled into blocks 1-8, its decode step captured and
+    replayed; then its pages are fetched, the blocks wiped, the pages
+    restored into blocks 20-27 and the same decode step replayed over the
+    new block table: the same logits bits (the graph reads the cache in
+    place)."""
+    from chip_smoke import batch_inputs
+    from scalellm_tpu_torch.engine.executor import Executor
+
+    model = (_random_int8_kv_model if kv_cache_dtype == "int8" else _random_model)(cuda, TINY_LLAMA_CFG)
+    ex = Executor(model, cuda)
+    ex.init_kv_cache(32, 16)
+    ex.init_graphs(16, max_tokens=256, max_seqs=1, max_context_len=1024)
+    ptr = ex.kv_cache.data_ptr()
+    prompt = np.random.default_rng(0).integers(1, 512, 120).tolist()
+    prefill, _ = batch_inputs(torch, [(prompt, 0, 128)])  # blocks 1-8
+    ex.execute(prefill, _greedy_si(1))
+
+    def decode(first_block):
+        mi, _ = batch_inputs(torch, [([5], 120, 128)])
+        tables = mi.block_tables.clone()
+        tables[0, :8] = torch.arange(first_block, first_block + 8, dtype=torch.int32)
+        mi.block_tables = tables
+        mi.new_kv_slot_ids = (tables[0, 120 // 16] * 16 + 120 % 16).reshape(1).expand_as(mi.new_kv_slot_ids).clone()
+        mi.new_kv_slot_ids[1:] = 0
+        ex.execute(mi, _greedy_si(1), decode_only=True)
+        return ex.graphs.graphs[ex.graphs.last_key].logits.clone()
+
+    want = decode(1)
+    staged = ex.fetch_pages(np.arange(1, 9, dtype=np.int32))
+    ex.kv_cache[:, 1:9].zero_()
+    ex.restore_pages(np.arange(20, 28, dtype=np.int32), staged)
+    replays = sum(ex.graphs.replays.values())
+    got = decode(20)
+    assert sum(ex.graphs.replays.values()) == replays + 1 and len(ex.graphs.graphs) == 2
+    assert ex.kv_cache.data_ptr() == ptr
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_fetch_is_ordered_before_a_step_that_overwrites_its_pages(cuda):
+    """fetch_pages_async on pages behind a device spin, then a step that
+    writes new KV into the same pages, enqueued before the fetch is waited
+    on: the fetch returns the pages as they were before that step."""
+    from chip_smoke import batch_inputs
+    from scalellm_tpu_torch.engine.executor import Executor
+
+    ex = Executor(_random_model(cuda, TINY_LLAMA_CFG), cuda)
+    ex.init_kv_cache(32, 16)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ex.kv_cache.normal_(generator=g)
+    ids = np.arange(1, 9, dtype=np.int32)
+    before = ex.kv_cache[:, 1:9].cpu()
+    torch.cuda._sleep(2**28)  # the gather waits behind a spin
+    pending = ex.fetch_pages_async(ids)
+    prompt = np.random.default_rng(2).integers(1, 512, 120).tolist()
+    prefill, _ = batch_inputs(torch, [(prompt, 0, 128)])  # writes blocks 1-8
+    ex.execute(prefill, _greedy_si(1))
+    staged = pending.wait()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(staged), _bits(before))
+    assert not torch.equal(_bits(ex.kv_cache[:, 1:9].cpu()), _bits(before))  # the step did overwrite them

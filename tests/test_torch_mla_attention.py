@@ -54,8 +54,11 @@ def test_set_latent_cache_matches_jax():
     out = M.set_latent_cache(got, _t(rows), _t(slots))
     assert out.data_ptr() == got.data_ptr()  # in place
     np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError):
-        M.set_latent_cache(torch.zeros(2, 4, 1, 24, dtype=torch.int8), _t(rows), _t(slots), scale=0.1)
+    # int8 pages: round(x / scale) clamped to [-127, 127], in place, as the JAX function.
+    pages8 = torch.zeros(6, 4, 1, 24, dtype=torch.int8)
+    M.set_latent_cache(pages8, _t(rows), _t(slots), scale=0.1)
+    want8 = J.set_latent_cache(jnp.zeros((6, 4, 1, 24), jnp.int8), jnp.asarray(rows), jnp.asarray(slots), scale=0.1)
+    np.testing.assert_array_equal(pages8.numpy(), np.asarray(want8))
 
 
 def test_ref_matches_jax_on_a_mixed_batch():

@@ -298,9 +298,11 @@ def test_unported_flags_still_raise():
 
     base = dict(model_type="gpt2", dtype="float32", hidden_size=64, intermediate_size=96, n_layers=1,
                 n_heads=4, n_kv_heads=2, vocab_size=128)
-    for flags, word in ((dict(kv_lora_rank=16), "MLA"), (dict(kv_cache_dtype="int8"), "int8 KV cache")):
+    for flags, word in ((dict(kv_lora_rank=16), "MLA"),):
         with pytest.raises(NotImplementedError, match=word):
             DecoderModel(ModelArgs(**base, **flags), device="meta")
+    # The int8 KV cache is ported: per-layer [k_scale, v_scale].
+    assert DecoderModel(ModelArgs(**base, kv_cache_dtype="int8"), device="meta").kv_scales.shape == (1, 2)
     # What the MoE slice, the Gemma / Qwen slice and the GPT-2 / Phi / MPT /
     # BLOOM slice ported builds.
     DecoderModel(ModelArgs(**base, qkv_bias=True, n_experts=4, n_experts_per_token=2,
