@@ -233,7 +233,26 @@ Phases (any failure exits non-zero, and the result line is not printed):
   Every LLM.close() is followed by a line of the memory left on the card
   (`{tag}_closed`), and fails if the caching allocator kept more than
   CLOSED_SLACK_BYTES of the closed engine's freed blocks.
-  19. a line of the seconds each phase took, a `kernels` JSON line, then
+  19. speculative decoding and prompt logprobs: a Llama-2-7B target at its
+     published widths and depth (13.5 GB bf16, scaled_init) with a
+     TinyLlama-1.1B draft (phase 4's checkpoint), k = SPEC_K. Against the
+     plain target serve of the same call, on the same prompts and greedy
+     tokens: (a) the draft model's rounds with graphs (each round one
+     graph replay, K1 exactly k times a draft layer and once a target layer
+     as counted at its capture, none captured in the timed generate), then
+     eagerly (the same ids); the tok/s of both serves, the acceptance, and
+     a round's device time (its replay) split into draft, verify and
+     sampler (the eager round under torch.profiler); (b) TinyLlama as its
+     own draft, acceptance at least SPEC_ACCEPTANCE_MIN; (c) prompt lookup
+     on prompts that repeat text, the target made to repeat its last token
+     (copy_prone: its lm_head set to its embedding table) in the n-gram
+     serve and in its plain serve; (d) sampled speculation (temperature 1,
+     top_p 0.9, seeds) on two fresh engines, the same ids; (e) prompt
+     logprobs (top 5) against a teacher-forced forward with the plain
+     attention, and chunked (64-token batches) against whole. Each served
+     request gets the plain serve's ids, or every differing token is a
+     greedy choice up to kernel rounding (teacher_forced_gap).
+  20. a line of the seconds each phase took, a `kernels` JSON line, then
      the result line.
 
 It needs the repository (it fails in a directory that holds only this
@@ -601,6 +620,11 @@ ATTENTION_SHAPES = {
                                       window=None, cap=None, alibi=True, kv_int8=True),
     "w_decode_int8_f32_gpt2": dict(q_lens=[1] * 8, kv_lens=_DECODE_KV, S=8, T=16, H=12, Hkv=12, D=64, window=None,
                                    cap=None, dtype="float32", kv_int8=True),
+    # Phase 19's verify batch: 8 sequences of k + 1 = 5 queries over 16-600
+    # tokens of context at Llama-2-7B's heads (32 over 32, head dim 128),
+    # T = S (k + 1) = 40 rows, as a speculative round gives the kernel.
+    "x_verify_llama2_7b": dict(q_lens=[5] * 8, kv_lens=[16, 64, 129, 200, 300, 411, 512, 600], S=8, T=40, H=32,
+                               Hkv=32, D=128, window=None, cap=None),
 }
 
 
@@ -2092,7 +2116,7 @@ def serving_llm(path, graphs, mode="sync", **kw):
     llm = LLM.__new__(LLM)
     llm._handler = LLMHandler(LLMHandlerOptions(
         model_path=path, devices=DEVICE, enable_cuda_graph=graphs, warmup_mode="full" if graphs else "off",
-        num_handling_threads=1, **SERVE_ENVELOPE, **MODES[mode], **kw))
+        num_handling_threads=1, **{**SERVE_ENVELOPE, **MODES[mode], **kw}))
     return llm
 
 
@@ -3474,6 +3498,393 @@ def phase_kv_swap(torch, card):
 
 
 
+# ------------------------------------------------------------------ phase 19
+
+# meta-llama/Llama-2-7b-hf config.json: phase 19's target.
+LLAMA2_7B = dict(
+    model_type="llama", architectures=["LlamaForCausalLM"], torch_dtype="bfloat16",
+    hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=32, vocab_size=32000,
+    max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+    hidden_act="silu", tie_word_embeddings=False, bos_token_id=1, eos_token_id=2,
+)
+SPEC_K = 4  # tokens a round proposes
+SPEC_ACCEPTANCE_MIN = 0.9  # (b): greedy self-drafting, where only rounding may reject
+SPEC_TOP = 5  # (e): prompt logprobs' top-k
+SPEC_CHUNK = 64  # (e): the chunked serve's token budget
+
+
+def repeat_prompts(seed=SEED):
+    """8 prompts that repeat text (a phrase of 20-60 chars 4-10 times, up to
+    600 chars): prompt lookup's traffic."""
+    import random
+
+    rng = random.Random(seed)
+    words = ["attention", "kernel", "paged", "cache", "token", "batch", "decode", "prefill", "the", "a", "model"]
+    out = []
+    for n, times in ((20, 4), (30, 6), (40, 8), (60, 10), (24, 5), (36, 7), (50, 9), (28, 10)):
+        phrase = ""
+        while len(phrase) < n:
+            phrase += rng.choice(words) + " "
+        out.append((phrase[:n] * times)[:600])
+    return out
+
+
+def spec_serve(torch, card, name, llm, ps, sp, warm=None):
+    """One timed generate of prompts `ps` under SamplingParams `sp` through
+    `llm` (after one of `warm`, prompts of the same lengths, on the same
+    engine, which captures every graph the timed traffic takes), with every
+    engine dispatch's and round's K1 launches held to the model: a plain
+    step of the target or the draft once a layer (watch_steps: each replay
+    as its capture counted), a draft round k times a draft layer and once a
+    target layer, an n-gram round once a target layer. Fails on a capture
+    inside the timed generate or a request that did not finish with its
+    max_tokens. Returns the ids by prompt, the rounds' accepted rows, the K1
+    launches, the wall time and the figures of the `{name}_e2e` line."""
+    from scalellm_tpu_torch.ops import attention
+    from scalellm_tpu_torch.speculative.spec_executor import round_plan
+    from scalellm_tpu_torch.utils.metrics import COUNTERS
+
+    k1 = attention.ragged_paged_attention_cuda
+    engine = llm._handler.engine
+    spec = getattr(engine, "spec_executor", None)
+    target = getattr(engine, "target", engine)
+    draft = getattr(engine, "draft", None)
+    if warm is not None:
+        llm.generate(warm, sp)
+    watched = [(target, layers_of_model(target))] + ([(draft, layers_of_model(draft))] if draft else [])
+    logs = [watch_steps(e, (k1,))[0] for e, _ in watched]
+    rounds = []
+    if spec is not None:
+        real = spec.run
+        per_round = layers_of_model(target) + (SPEC_K * layers_of_model(draft) if draft else 0)
+
+        def run(arrays, S, MAXP):
+            graphs = spec.target.graphs
+            key = spec.key(S, MAXP, round_plan(arrays))
+            known = graphs is not None and key in graphs.graphs
+            before = k1.launches
+            out = real(arrays, S, MAXP)
+            got = k1.launches - before
+            if known:
+                got += getattr(graphs.graphs[key], "launches", {}).get(k1.__name__, 0)
+            n = int(arrays["num_seqs"][0])
+            rounds.append(dict(rows=out[:n, : SPEC_K + 1], k1=got, captured=graphs is not None and not known))
+            if got != per_round * (2 if rounds[-1]["captured"] and graphs.cuda else 1):
+                fail(f"{name}: a round (S={S}, MAXP={MAXP}) launched K1 {got} times, expected {per_round} a run")
+            return out
+
+        spec.run = run
+    ids = record_outputs(llm)
+    names = ("num_mid_serve_compiles", "num_accepted_tokens_total", "num_draft_tokens_total")
+    before = {c: COUNTERS.get(c) for c in names}
+    k1.launches = 0
+    for log in logs:
+        del log[:]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    outs = llm.generate(ps, sp)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    moved = {c: COUNTERS.get(c) - v for c, v in before.items()}
+    if spec is not None:
+        spec.__dict__.pop("run", None)
+    for e, _ in watched:
+        unwatch_steps(e)
+    launches = sum(r["k1"] for r in rounds)
+    for (e, layers), log in zip(watched, logs):
+        for T, S, decode_only, runs, got in log:
+            if got != runs * layers:
+                fail(f"{name}: a plain step (T={T}, S={S}) launched K1 {got} times, expected {runs * layers}")
+            launches += got
+    n_tokens = sum(o.usage.num_generated_tokens for o in outs)
+    if len(outs) != len(ps) or any(not (o.finished and o.status.ok and o.usage.num_generated_tokens
+                                        == sp.max_tokens) for o in outs):
+        fail(f"{name}: a request did not finish with {sp.max_tokens} tokens")
+    if engine.options.enable_cuda_graph and warm is not None and moved["num_mid_serve_compiles"]:
+        fail(f"{name}: {moved['num_mid_serve_compiles']} graphs were captured inside the timed generate")
+    kept = [int((r >= 0).sum()) - 1 for rd in rounds for r in rd["rows"]]
+    figures = dict(output_tok_per_s=n_tokens / wall, wall_s=wall, rounds=len(rounds),
+                   round_rows=len(kept), acceptance=sum(kept) / (SPEC_K * len(kept)) if kept else None,
+                   plain_steps=sum(len(log) for log in logs), k1_launches=launches,
+                   k1_per_round=rounds[0]["k1"] if rounds else None, **moved,
+                   kv_blocks=engine.block_manager.options.num_blocks)
+    emit(dict(phase=f"{name}_e2e", requests=len(outs), output_tokens=n_tokens, **figures, card=card["nvidia_smi"]))
+    return dict(ids=ids, outs=outs, launches=launches, figures=figures)
+
+
+def copy_prone(torch, model):
+    """Set `model`'s lm_head to its embedding table, in place (the captured
+    graphs read the same tensor): the random model's logits then favour the
+    token it was fed, so that it repeats its last token and prompt lookup's
+    proposals come true, where the random target's own greedy outputs
+    repeat no n-gram in 32 tokens on the card (PERF.md §6). Returns the
+    lm_head as it was."""
+    with torch.no_grad():
+        saved = model.lm_head.clone()
+        model.lm_head.copy_(model.embed_tokens)
+    return saved
+
+
+def layers_of_model(engine):
+    return engine.model_args.n_layers
+
+
+def check_lossless(torch, name, model, plain, run):
+    """Each request of `run` gets the plain serve's ids, or every differing
+    token is a greedy choice up to kernel rounding (teacher_forced_gap
+    through the plain serve's model, the target). Returns the figures."""
+    differing, gaps = [], []
+    for prompt, (prompt_ids, gen) in run["ids"].items():
+        if gen != plain["ids"][prompt][1]:
+            differing.append(prompt)
+            gaps.append(teacher_forced_gap(torch, model, prompt_ids, gen))
+    out = dict(requests_differing=len(differing), largest_gap=max(gaps, default=0.0), tol=LOGITS_TOL)
+    if any(not g <= LOGITS_TOL for g in gaps):
+        fail(f"{name}: a request's tokens differ from the plain serve's by more than kernel rounding "
+             f"(largest gap {max(gaps)} > {LOGITS_TOL})")
+    return out
+
+
+def round_device_split(torch, card, name, engine):
+    """The device time of one round of the widest draft-round graph the
+    serve captured: its replay (CUDA events, on the inputs of the last round
+    of that key, which it rewrites with the same values), and the same round
+    run eagerly under torch.profiler, its kernels' device time split by the
+    three ranges that launched them (draft, verify, sampler;
+    spec_executor.RANGES)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from scalellm_tpu_torch.speculative.spec_executor import RANGES, round_views
+
+    spec = engine.spec_executor
+    graphs = spec.target.graphs
+    keys = [k for k in graphs.graphs if k[0] == spec.kind]
+    kind, S, MAXP, k, plan = max(keys, key=lambda key: key[1])
+    step = graphs.graphs[(kind, S, MAXP, k, plan)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graphs._replay(step)
+    start.record()
+    for _ in range(TIMED_RUNS):
+        graphs._replay(step)
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / TIMED_RUNS
+    views = round_views(step.inputs, S, MAXP, k)
+    runs = 3
+    with torch.inference_mode():
+        spec._round(views, plan, S)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                spec._round(views, plan, S)
+            torch.cuda.synchronize()
+    # Each kernel goes to the range whose host span holds the host event
+    # that launched it (the kernel's linked correlation id).
+    events = list(prof.profiler.kineto_results.events())
+    host = {e.correlation_id(): e.start_ns() for e in events if e.device_type() == DeviceType.CPU}
+    spans = [(e.start_ns(), e.end_ns(), e.name()) for e in events
+             if e.device_type() == DeviceType.CPU and e.name() in RANGES]
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA and e.name() not in RANGES]
+    split = {stage: 0.0 for stage in RANGES}
+    for e in kernels:
+        t = host.get(e.linked_correlation_id())
+        stage = next((n for a, b, n in spans if t is not None and a <= t <= b), None)
+        if stage is not None:
+            split[stage] += e.duration_ns() / 1e6 / runs
+    busy = union_ms([(e.start_ns() / 1e3, e.end_ns() / 1e3) for e in kernels]) / runs
+    line = dict(phase=f"{name}_round_device", S=S, MAXP=MAXP, k=k, replay_ms=replay_ms, eager_device_busy_ms=busy,
+                **{n.split(".")[-1] + "_ms": ms for n, ms in split.items()},
+                unattributed_ms=sum(e.duration_ns() for e in kernels) / 1e6 / runs - sum(split.values()),
+                card=card["nvidia_smi"])
+    emit(line)
+    if not all(ms > 0 for ms in split.values()):
+        fail(f"{name}: the profiler gave no device time to a stage of the round: {split}")
+    return line
+
+
+def prompt_scores(llm, ps):
+    """prompt_logprobs (top SPEC_TOP) of each prompt: [(position, token id,
+    logprob, top ids, top logprobs)]."""
+    from scalellm_tpu_torch import SamplingParams
+
+    outs = llm.generate(ps, SamplingParams(max_tokens=1, temperature=0.0, ignore_eos=True,
+                                           prompt_logprobs=SPEC_TOP))
+    got = []
+    for o in outs:
+        if not (o.finished and o.status.ok and o.prompt_logprobs is not None):
+            fail(f"prompt logprobs: a request did not finish: {o.status}")
+        got.append([(i, lp.token_id, lp.logprob, [d.token_id for d in lp.top_logprobs],
+                     [d.logprob for d in lp.top_logprobs]) for i, lp in enumerate(o.prompt_logprobs) if i > 0])
+    return got
+
+
+def check_prompt_scores(torch, card, model, tok, ps, got):
+    """(e): each position's logprob within LOGITS_TOL of a teacher-forced
+    prefill of the prompt through `model` with the plain attention (f32
+    log_softmax of its logits), and the top ids equal at every rank whose
+    logprob stands more than LOGITS_TOL from both neighbours'."""
+    from scalellm_tpu_torch.ops import attention
+
+    err, checked_ranks, positions = 0.0, 0, 0
+    model.attn_impl = attention.plain_ragged_paged_attention
+    try:
+        for prompt, scores in zip(ps, got):
+            ids = tok.encode(prompt)
+            mi, n_pages = batch_inputs(torch, [(ids, 0, len(ids) + 1)])
+            with torch.inference_mode():
+                kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.kv_cache_dtype(), device=DEVICE)
+                lp = torch.log_softmax(model.logits(model(kv, mi.to(DEVICE), all_hidden=True)[: len(ids)]).float(), -1)
+                del kv
+            if len(scores) != len(ids) - 1:
+                fail(f"prompt logprobs: {len(scores)} scored positions for a prompt of {len(ids)} tokens")
+            ref_top, ref_ids = torch.topk(lp, SPEC_TOP + 1, dim=-1)
+            ref_top, ref_ids = ref_top.cpu(), ref_ids.cpu()
+            for i, tid, value, top_ids, _ in scores:
+                if tid != ids[i]:
+                    fail(f"prompt logprobs: position {i} scored token {tid}, the prompt has {ids[i]}")
+                err = max(err, abs(value - lp[i - 1, tid].item()))
+                v = ref_top[i - 1]
+                for j in range(SPEC_TOP):
+                    if (j == 0 or v[j - 1] - v[j] > LOGITS_TOL) and v[j] - v[j + 1] > LOGITS_TOL:
+                        checked_ranks += 1
+                        if top_ids[j] != ref_ids[i - 1, j].item():
+                            fail(f"prompt logprobs: position {i} rank {j}: id {top_ids[j]}, the plain forward's "
+                                 f"{ref_ids[i - 1, j].item()}")
+                positions += 1
+    finally:
+        model.attn_impl = attention.ragged_paged_attention
+    return dict(positions=positions, max_abs_err=err, top_ranks_checked=checked_ranks, tol=LOGITS_TOL)
+
+
+def phase_speculative(torch, card, tinyllama_path=None):
+    """Phase 19 (see the module docstring). Returns K1's launches on its
+    main paths: the timed serves of the draft-model and n-gram rounds with
+    graphs."""
+    from scalellm_tpu_torch import SamplingParams
+    from scalellm_tpu_torch.tokenizer.tokenizer import load_tokenizer
+
+    cfg = LLAMA2_7B
+    greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    spec = dict(num_speculative_tokens=SPEC_K)
+    tiny = tempfile.mkdtemp(prefix="scalellm_tinyllama_draft_")
+    path = None
+    llm = None
+    launches = 0
+    try:
+        t0 = time.monotonic()
+        write_checkpoint(torch, tiny, TINYLLAMA)
+        path, nbytes, t_write = write_temp_checkpoint(torch, "llama2_7b", cfg, checkpoint_tensors(cfg), None,
+                                                      scaled_init(cfg))
+        emit(dict(phase="spec_checkpoints", target_bytes=nbytes, write_s=time.monotonic() - t0,
+                  target_layers=cfg["num_hidden_layers"], draft_layers=TINYLLAMA["num_hidden_layers"]))
+        tok = load_tokenizer(path, None)
+
+        # The plain target serve: the ground truth of (a), (c) and (e).
+        llm = serving_llm(path, True, "async")
+        plain = spec_serve(torch, card, "spec_plain", llm, prompts(), greedy, warm=prompts(SEED + 1))
+        # (e) on prompts of the same lengths that the engine has not seen
+        # (a scoring request skips the prefix cache in any case).
+        scored = prompts(SEED + 2)
+        model = llm._handler.engine.model
+        whole = prompt_scores(llm, scored)
+        # (c)'s ground truth: the copy-prone target on prompts that repeat.
+        saved = copy_prone(torch, model)
+        plain_rep = spec_serve(torch, card, "spec_plain_repeat", llm, repeat_prompts(), greedy,
+                               warm=repeat_prompts(SEED + 1))
+        with torch.no_grad():
+            model.lm_head.copy_(saved)
+        saved = None
+        # The engine's KV cache is freed first, to leave room for the plain
+        # attention's gathered copies of K and V.
+        close_llm(torch, card, "spec_plain", llm)
+        llm = None
+        scores = check_prompt_scores(torch, card, model, tok, scored, whole)
+        model = None
+        torch.cuda.empty_cache()
+        llm = serving_llm(path, False, "sync", max_tokens_per_batch=SPEC_CHUNK)
+        chunked = prompt_scores(llm, scored)
+        close_llm(torch, card, "spec_plain_chunked", llm)
+        llm = None
+        chunk_err = max(abs(a[2] - b[2]) for p, q in zip(whole, chunked) for a, b in zip(p, q))
+        emit(dict(phase="spec_prompt_logprobs", top=SPEC_TOP, **scores, chunked_tokens_per_batch=SPEC_CHUNK,
+                  chunked_max_abs_diff=chunk_err, card=card["nvidia_smi"]))
+        if not (scores["max_abs_err"] <= LOGITS_TOL and chunk_err <= LOGITS_TOL):
+            fail(f"prompt logprobs differ by {scores['max_abs_err']} from the plain forward, by {chunk_err} "
+                 f"chunked from whole (> {LOGITS_TOL})")
+
+        # (a) the draft model's rounds with graphs, then eagerly.
+        runs = {}
+        for graphs in (True, False):
+            name = "spec_draft" if graphs else "spec_draft_eager"
+            t0 = time.monotonic()
+            llm = serving_llm(path, graphs, "async", draft_model_path=tiny, **spec)
+            emit(dict(phase=f"{name}_setup", load_s=time.monotonic() - t0, **graph_stats(llm._handler.engine.target),
+                      draft_graphs=graph_stats(llm._handler.engine.draft)))
+            runs[graphs] = spec_serve(torch, card, name, llm, prompts(), greedy, warm=prompts(SEED + 1))
+            if graphs:
+                launches += runs[graphs]["launches"]
+                split = round_device_split(torch, card, name, llm._handler.engine)
+            engine = llm._handler.engine
+            lossless = check_lossless(torch, name, engine.target.model, plain, runs[graphs])
+            engine = None
+            close_llm(torch, card, name, llm)
+            llm = None
+            emit(dict(phase=f"{name}_lossless", **lossless, card=card["nvidia_smi"]))
+        same = {p: ids[1] for p, ids in runs[True]["ids"].items()} == {p: ids[1] for p, ids in runs[False]["ids"].items()}
+        emit(dict(phase="spec_draft_graphs_vs_eager", same_ids=same, plain=plain["figures"],
+                  graphs=runs[True]["figures"], eager=runs[False]["figures"], round_device=split,
+                  card=card["nvidia_smi"]))
+        if not same:
+            fail("spec_draft: the serve with graphs gave other ids than the eager serve")
+
+        # (c) prompt lookup on text that repeats, through the copy-prone target.
+        llm = serving_llm(path, True, "async", **spec)
+        copy_prone(torch, llm._handler.engine.target.model)
+        ngram = spec_serve(torch, card, "spec_ngram", llm, repeat_prompts(), greedy, warm=repeat_prompts(SEED + 1))
+        launches += ngram["launches"]
+        lossless = check_lossless(torch, "spec_ngram", llm._handler.engine.target.model, plain_rep, ngram)
+        close_llm(torch, card, "spec_ngram", llm)
+        llm = None
+        emit(dict(phase="spec_ngram_lossless", **lossless, plain=plain_rep["figures"], card=card["nvidia_smi"]))
+        if not ngram["figures"]["num_accepted_tokens_total"] > 0:
+            fail("spec_ngram: no proposal was ever verified (num_accepted_tokens_total 0)")
+        shutil.rmtree(path, ignore_errors=True)
+        path = None
+
+        # (b) TinyLlama as its own draft; (d) sampled speculation, twice.
+        llm = serving_llm(tiny, True, "async", draft_model_path=tiny, **spec)
+        self_draft = spec_serve(torch, card, "spec_self_draft", llm, prompts(), greedy, warm=prompts(SEED + 1))
+        close_llm(torch, card, "spec_self_draft", llm)
+        llm = None
+        acceptance = self_draft["figures"]["acceptance"]
+        if not (acceptance is not None and acceptance >= SPEC_ACCEPTANCE_MIN):
+            fail(f"spec_self_draft: acceptance {acceptance} < {SPEC_ACCEPTANCE_MIN}")
+        sampled = [SamplingParams(max_tokens=32, temperature=1.0, top_p=0.9, seed=100 + i, ignore_eos=True)
+                   for i in range(len(prompts()))]
+        sampled_ids = []
+        for i in range(2):
+            llm = serving_llm(tiny, True, "async", draft_model_path=tiny, **spec)
+            ids = record_outputs(llm)
+            outs = llm.generate(prompts(), sampled)
+            close_llm(torch, card, f"spec_sampled_{i}", llm)
+            llm = None
+            if any(not (o.finished and o.usage.num_generated_tokens == 32) for o in outs):
+                fail("spec_sampled: a request did not finish with 32 tokens")
+            sampled_ids.append({p: gen for p, (_, gen) in ids.items()})
+        emit(dict(phase="spec_sampled", same_ids=sampled_ids[0] == sampled_ids[1],
+                  distinct_outputs=len({tuple(g) for g in sampled_ids[0].values()}), card=card["nvidia_smi"]))
+        if sampled_ids[0] != sampled_ids[1]:
+            fail("spec_sampled: two serves with the same seeds gave other ids")
+        return launches
+    finally:
+        if llm is not None:
+            llm.close()
+        shutil.rmtree(tiny, ignore_errors=True)
+        if path is not None:
+            shutil.rmtree(path, ignore_errors=True)
+
 # ------------------------------------------------------------------ main
 
 
@@ -3597,14 +4008,17 @@ def main() -> None:
     for model, run in timed("16", phase_kv_int8, torch, card, bf16_blocks).items():
         moe_launches[(model, "int8kv")] = run
     timed("18", phase_kv_swap, torch, card)
-    new_k1 = sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values())
+    spec_k1 = timed("19", phase_speculative, torch, card)
+    new_k1 = sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values()) + spec_k1
 
     # Each kernel's launches on the main paths (the sync, async and ms4
     # serves with graphs; K1's f32 kernel apart from the bf16 one: counts set to 0 before each timed generate and
     # read after it, with each replayed step graph adding what its wrappers
     # counted when it was captured; the checks above, and the eager serves
     # beside the graph ones, launch outside that window; phase 5's variant
-    # serves run on its eager engine), summed over the paths
+    # serves run on its eager engine; phase 19's K1 launches those of its
+    # draft-model and n-gram serves with graphs, each round's as its graph
+    # counted at its capture), summed over the paths
     # that run it, and its timing at a shape the main
     # path gives it: attention at the 8-sequence decode batch, w4a8 at the
     # decode step's gate_up projection (T = 16), dequant and group at the

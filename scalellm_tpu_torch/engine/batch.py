@@ -4,6 +4,11 @@ model inputs, and writes sampled tokens back
 a sequence of a multi-step dispatch, or as pending tokens of an async step
 that are resolved when its outputs are fetched.
 
+A batch with a prompt_logprobs sequence whose prompt tokens enter this step
+also carries the prompt-scoring targets (score_targets: each position's
+next prompt token) that the engine's score step reads, and writes the
+teacher-forced logprobs back (process_prompt_scores).
+
 Arrays are padded to the same bucket ladders as the reference package, so a
 batch here has the same shapes, padding included:
   - token slots beyond the real tokens: ids/positions/seg 0, kv slot 0
@@ -56,6 +61,13 @@ class Batch:
     # previous step's sample, still on the device, or None. Set by
     # prepare_model_inputs; the engine merges those rows on the device.
     pending_fix: Optional[Tuple[np.ndarray, np.ndarray]] = field(default=None, init=False, repr=False)
+    # Prompt scoring (SamplingParams.prompt_logprobs), set by
+    # prepare_model_inputs: [T] the next prompt token of each prefill
+    # position (0 elsewhere), the largest top-k asked for (None: no scoring
+    # this step) and each scored entry's (entry, first row, start, end).
+    score_targets: Optional[np.ndarray] = field(default=None, init=False, repr=False)
+    score_top_k: Optional[int] = field(default=None, init=False, repr=False)
+    _score_spans: list = field(default_factory=list, init=False, repr=False)
 
     def add(self, seq: Sequence, num_tokens: int) -> None:
         cached = seq.num_kv_cache_tokens()
@@ -135,6 +147,12 @@ class Batch:
         pending_rows: List[int] = []
         pending_srcs: List[int] = []
 
+        # Prompt scoring: only while a requesting sequence still has prompt
+        # tokens entering the batch, so decode-only steps skip it.
+        self.score_targets = np.zeros(T, dtype=np.int32)
+        self.score_top_k = None
+        self._score_spans = []
+
         t = 0
         for s, e in enumerate(self.entries):
             seq = e.seq
@@ -173,6 +191,14 @@ class Batch:
                 for j, (tid, bv) in enumerate(list(sp.logit_bias.items())[:B]):
                     bias_ids[s, j] = tid
                     bias_vals[s, j] = bv
+            n_prompt = seq.num_prompt_tokens
+            if sp.prompt_logprobs is not None and start < n_prompt:
+                self.score_top_k = max(self.score_top_k or 0, sp.prompt_logprobs)
+                self._score_spans.append((e, t, start, end))
+                # Position p's target is prompt token p + 1, defined through
+                # n_prompt - 2 (the last prompt token's successor is sampled).
+                for p in range(start, min(end, n_prompt - 1)):
+                    self.score_targets[t + (p - start)] = seq.token_ids[p + 1]
             t += e.num_tokens
 
         # Padding rows repeat the last cumulative value (zero-length chunks).
@@ -211,6 +237,32 @@ class Batch:
             seeds=seeds,
         )
         return mi, si, needs_sample
+
+    def process_prompt_scores(
+        self,
+        t_lps: np.ndarray,  # [T]
+        top_ids: Optional[np.ndarray],  # [T, K]
+        top_lps: Optional[np.ndarray],  # [T, K]
+        tokenizer=None,
+    ) -> None:
+        """Record the teacher-forced prompt logprobs on their sequences, by
+        position (Sequence.set_prompt_logprob), so that a prefill recomputed
+        after preemption writes the same entries again."""
+        for e, t0, start, end in self._score_spans:
+            seq = e.seq
+            k = seq.sampling_params.prompt_logprobs or 0
+            for p in range(start, min(end, seq.num_prompt_tokens - 1)):
+                t = t0 + (p - start)
+                tid = seq.token_ids[p + 1]
+                lp = LogProb(token=tokenizer.id_to_token(tid) if tokenizer else "", token_id=tid,
+                             logprob=float(t_lps[t]))
+                if k > 0 and top_ids is not None and top_ids.shape[1]:
+                    lp.top_logprobs = [
+                        LogProbData(token=tokenizer.id_to_token(int(top_ids[t, j])) if tokenizer else "",
+                                    token_id=int(top_ids[t, j]), logprob=float(top_lps[t, j]))
+                        for j in range(min(k, top_ids.shape[1]))
+                    ]
+                seq.set_prompt_logprob(p + 1, lp)
 
     def needs_sync(self) -> bool:
         """True when this batch cannot run under async stepping: guided

@@ -29,6 +29,16 @@ pending tokens (the previous step's samples, still on the device) into its
 token ids before the forward (merge_pending_tokens). Every step's outputs
 are copied to pinned host memory right after its sampler (HostOutputs), and
 a fetch waits for that copy alone, not for later steps on the stream.
+
+A speculative round (speculative/spec_executor.py: k draft steps, the
+target's verify forward and the rejection sampler) is one more kind of key
+in the same StepGraphs (run_round): its inputs are one flat int32 buffer of
+its own, its graph lives in the shared pool.
+
+Prompt scoring (execute_score, the reference's _build_score_step_fn) is an
+eager step: the forward keeps every row's hidden state, the sampler runs on
+the selected rows, and the lm_head, an f32 log_softmax, the target's
+logprob and the top-k run over the rows in chunks of 128.
 """
 
 from __future__ import annotations
@@ -174,12 +184,14 @@ class HostOutputs:
 
 @dataclass
 class _Captured:
-    inputs: ModelInputs  # views of the step buffer
+    inputs: ModelInputs  # views of the step buffer (a round: its own flat int32 buffer)
     decode_only: bool
     graph: Optional["torch.cuda.CUDAGraph"] = None
     logits: Optional[torch.Tensor] = None  # the graph's static output ([S, V]; ModelOutputs [N, ...] for N steps)
     fn: Optional[Callable] = None  # what the graph runs, on the step's static inputs
     bias: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # an N-step graph's static bias ids/values
+    staging: Optional[torch.Tensor] = None  # a round's host staging buffer (pinned on a CUDA device)
+    sent: Optional["torch.cuda.Event"] = None  # the last copy out of `staging`
 
 
 class StepGraphs:
@@ -191,9 +203,11 @@ class StepGraphs:
     one program for decode-only and mixed steps, as the reference's
     _step_fn_for does. A multi-step graph (run_multi) holds N decode
     micro-steps, the sampler included, under the key (T, S, MAXP, True, N,
-    page_size, plan): the plan's stages are baked into the graph. Every key
-    reads views of one StepInputs buffer, which each step rewrites whole,
-    padding included.
+    page_size, plan): the plan's stages are baked into the graph. Every such
+    key reads views of one StepInputs buffer, which each step rewrites
+    whole, padding included. A speculative round (run_round) has a key whose
+    first entry is its kind ("draft_round", "ngram_round") and reads a
+    buffer of its own.
 
     On a CUDA device a key is captured (after one eager run on a side
     stream, which does the kernels' one-time setup outside the capture)
@@ -282,6 +296,41 @@ class StepGraphs:
         self.last_key = key
         return step.logits
 
+    def run_round(self, key: tuple, words: np.ndarray, fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """One speculative round: `words`, the round's padded host inputs as
+        one flat int32 array, go with one copy to the key's own device
+        buffer (allocated at the key's capture and never reallocated), and
+        fn(buffer), the round on the device, is captured once for the key
+        and replayed. Returns the round's static output, valid until the
+        key's next run."""
+        step = self.graphs.get(key)
+        if step is None:
+            buf = torch.zeros(words.size, dtype=torch.int32, device=self.device)
+            step = _Captured(buf, True, fn=lambda: fn(buf),
+                             staging=torch.zeros(words.size, dtype=torch.int32, pin_memory=self.cuda),
+                             sent=torch.cuda.Event() if self.cuda else None)
+            self._send(step, words)
+            step = self._capture(key, step)
+        else:
+            self._send(step, words)
+        self._replay(step)
+        self.replays[key] += 1
+        self.last_key = key
+        return step.logits
+
+    @staticmethod
+    def _send(step: _Captured, words: np.ndarray) -> None:
+        """Write a round's inputs through its staging buffer, once the
+        staging buffer's last copy is done."""
+        if words.size != step.inputs.numel():
+            raise ValueError(f"{words.size} words for a round buffer of {step.inputs.numel()}")
+        if step.sent is not None:
+            step.sent.synchronize()
+        step.staging.numpy()[:] = words
+        step.inputs.copy_(step.staging, non_blocking=True)
+        if step.sent is not None:
+            step.sent.record()
+
     def _copy_bias(self, step: _Captured, si: SamplingInputs) -> None:
         if step.bias is not None:
             step.bias[0].copy_(torch.from_numpy(np.asarray(si.bias_token_ids, np.int32)), non_blocking=True)
@@ -299,8 +348,11 @@ class StepGraphs:
         self.capture_s += time.monotonic() - t0
         if not self.in_warmup:
             COUNTERS.inc("num_mid_serve_compiles")
-            logger.info("mid-serve capture: bucket T=%d S=%d MAXP=%d decode_only=%s%s", *key[:4],
-                        f" steps={key[4]}" if len(key) > 4 else "")
+            if isinstance(key[0], str):
+                logger.info("mid-serve capture: %s S=%d MAXP=%d k=%d", *key[:4])
+            else:
+                logger.info("mid-serve capture: bucket T=%d S=%d MAXP=%d decode_only=%s%s", *key[:4],
+                            f" steps={key[4]}" if len(key) > 4 else "")
         return step
 
     def record(self, step: _Captured) -> None:
@@ -471,6 +523,38 @@ class Executor:
         if plan.reads_inputs:
             si = si.to(self.device)
         return sample_tokens(logits, si, max_top_logprobs=self.max_top_logprobs, plan=plan)
+
+    @torch.inference_mode()
+    def execute_score(self, mi: ModelInputs, si: SamplingInputs, targets: np.ndarray,
+                      top_k: int) -> Tuple[ModelOutputs, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """One step that also scores the prompt (the reference's score step,
+        eager): the forward keeps the hidden states of all T rows, the
+        sampler runs on the selected rows as execute does, and for every row
+        t the f32 log_softmax of its logits gives the logprob of targets[t]
+        and the top_k alternatives; the lm_head runs over chunks of 128 rows
+        (T when T is no multiple of 128), so that [T, V] logits never exist
+        at once. Returns (ModelOutputs, (target logprobs [T], top ids [T,
+        top_k], top logprobs [T, top_k])), on the device."""
+        if self.kv_cache is None:
+            raise RuntimeError("init_kv_cache first")
+        mi = mi.to(self.device)
+        h = self.model(self.kv_cache, mi, all_hidden=True)
+        plan = SamplingPlan.of(si)
+        if plan.reads_inputs:
+            si = si.to(self.device)
+        outs = sample_tokens(self.model.logits(h[mi.selected_idxes]), si, max_top_logprobs=self.max_top_logprobs,
+                             plan=plan)
+        T = h.shape[0]
+        C = 128 if T % 128 == 0 else T
+        tg = torch.from_numpy(np.asarray(targets, np.int64)).to(self.device)
+        t_lps, top_ids, top_lps = [], [], []
+        for c in range(0, T, C):
+            lp = torch.log_softmax(self.model.logits(h[c : c + C]).float(), dim=-1)
+            t_lps.append(lp.gather(1, tg[c : c + C, None])[:, 0])
+            vals, ids = torch.topk(lp, top_k, dim=-1)
+            top_ids.append(ids.int())
+            top_lps.append(vals)
+        return outs, (torch.cat(t_lps), torch.cat(top_ids), torch.cat(top_lps))
 
     @torch.inference_mode()
     def execute_multi(self, mi: ModelInputs, si: SamplingInputs, num_steps: int, page_size: int) -> ModelOutputs:

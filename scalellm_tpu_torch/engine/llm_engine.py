@@ -11,7 +11,13 @@ for the serving envelope and capture the warmup buckets
 (engine/executor.py), with num_decode_steps > 1 the multi-step graphs of the
 decode buckets too.
 
-A step runs synchronously (execute_model), as N decode micro-steps in one
+For speculative decoding (speculative/) a target engine is built with
+extra_kv_slot_bytes, the draft's KV bytes a slot, which its KV sizing
+counts beside its own, and the draft engine with the target's BlockManager
+(shared_block_manager): slot ids map 1:1 across both caches.
+
+A step runs synchronously (execute_model; a batch that scores its prompt
+takes the executor's eager score step), as N decode micro-steps in one
 dispatch (execute_model_multi), or split in two for async stepping:
 dispatch_model enqueues it and returns, finalize_model waits for its outputs
 alone and resolves its pending tokens.
@@ -76,13 +82,18 @@ class EngineOptions:
     # Host memory for the KV pages of preempted sequences (0: off; a
     # preempted sequence then re-prefills).
     host_swap_bytes: int = 0
+    # Speculative decoding (speculative/): a draft model checkpoint, and the
+    # tokens a round proposes (k > 0 without a draft: prompt lookup).
+    draft_model_path: str = ""
+    num_speculative_tokens: int = 0
 
 
 class LLMEngine:
-    def __init__(self, options: EngineOptions):
+    def __init__(self, options: EngineOptions, extra_kv_slot_bytes: int = 0, shared_block_manager=None):
         import scalellm_tpu_torch.models  # noqa: F401  (registers the models)
 
         self.options = options
+        self._extra_kv_slot_bytes = extra_kv_slot_bytes
         self.device = torch.device(options.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for and CUDA is not available")
@@ -123,14 +134,18 @@ class LLMEngine:
             "model %s loaded in %.1fs", self.model_args.model_type, time.monotonic() - t0
         )
 
-        num_blocks = options.num_blocks or self._profile_num_blocks()
-        self.block_manager = BlockManager(
-            BlockManagerOptions(
-                num_blocks=num_blocks,
-                block_size=options.block_size,
-                enable_prefix_cache=options.enable_prefix_cache,
+        if shared_block_manager is not None:
+            num_blocks = shared_block_manager.options.num_blocks
+            self.block_manager = shared_block_manager
+        else:
+            num_blocks = options.num_blocks or self._profile_num_blocks()
+            self.block_manager = BlockManager(
+                BlockManagerOptions(
+                    num_blocks=num_blocks,
+                    block_size=options.block_size,
+                    enable_prefix_cache=options.enable_prefix_cache,
+                )
             )
-        )
         self.executor.init_kv_cache(num_blocks, options.block_size)
         self.kv_swapper = None
         if options.host_swap_bytes > 0:
@@ -159,9 +174,10 @@ class LLMEngine:
 
     def _profile_num_blocks(self) -> int:
         """Size the KV cache from the device's free memory (the CPU keeps a
-        256 MiB default)."""
+        256 MiB default); a block holds a slot of this model's KV and
+        extra_kv_slot_bytes (a draft's)."""
         opts = self.options
-        block_bytes = self.kv_cache_slot_size_in_bytes() * opts.block_size
+        block_bytes = (self.kv_cache_slot_size_in_bytes() + self._extra_kv_slot_bytes) * opts.block_size
         if opts.max_cache_size > 0:
             cache_bytes = opts.max_cache_size
         elif self.device.type == "cuda":
@@ -183,7 +199,11 @@ class LLMEngine:
         if not batch.entries:
             return
         mi, si, want_lp = self._prepare(batch)
-        outs = self.executor.execute(mi, si, decode_only=batch.is_decode_only)
+        if batch.score_top_k is not None:
+            outs, scores = self.executor.execute_score(mi, si, batch.score_targets, batch.score_top_k)
+            batch.process_prompt_scores(*(x.cpu().numpy() for x in scores), self.tokenizer)
+        else:
+            outs = self.executor.execute(mi, si, decode_only=batch.is_decode_only)
         o = HostOutputs(outs, want_lp).wait()
         batch.process_sample_output(o["next_tokens"], o["logprobs"], o["top_ids"], o["top_logprobs"],
                                     self.tokenizer)

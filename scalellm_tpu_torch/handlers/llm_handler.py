@@ -11,11 +11,14 @@ reference warms its jit bucket cache) with warmup_mode "fast", async
 scheduling on (enable_async_scheduling: one step in flight) and one decode
 step a dispatch (num_decode_steps; N > 1 runs N micro-steps in one graph).
 kv_cache_dtype="int8" serves int8 KV pages, host_swap_bytes > 0 stages
-preempted sequences' KV pages in host memory. Those that ask for a feature
-this package has not ported yet (speculative decoding, tensor or sequence
-parallelism, multi-host serving, LoRA, model-args overrides) raise
-NotImplementedError; none is silently ignored. Per request, guided decoding
-and prompt logprobs are refused with an UNIMPLEMENTED status.
+preempted sequences' KV pages in host memory. draft_model_path with
+num_speculative_tokens = k serves draft-model speculative decoding
+(SpeculativeEngine), k > 0 alone prompt lookup (NgramSpeculativeEngine); LoRA
+with either is a ValueError, as in the reference. Those that ask for a
+feature this package has not ported yet (tensor or sequence parallelism,
+multi-host serving, LoRA, model-args overrides) raise NotImplementedError;
+none is silently ignored. Per request, guided decoding is refused with an
+UNIMPLEMENTED status.
 """
 
 from __future__ import annotations
@@ -84,14 +87,16 @@ class LLMHandlerOptions:
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for options that ask for unported
-        features, ValueError for an unknown warmup_mode or kv_cache_dtype."""
+        features; ValueError for an unknown warmup_mode or kv_cache_dtype,
+        and for LoRA with speculative decoding or multi-host serving (the
+        reference's rule)."""
         if self.warmup_mode not in WARMUP_MODES:
             raise ValueError(f"warmup_mode must be one of {WARMUP_MODES}, got {self.warmup_mode!r}")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of {KV_CACHE_DTYPES}, got {self.kv_cache_dtype!r}")
+        if self.lora_modules and (self.draft_model_path or self.num_speculative_tokens > 0 or self.distributed):
+            raise ValueError("LoRA adapters are not supported with speculative decoding or multi-host serving")
         asks = {
-            "draft_model_path (speculative decoding)": bool(self.draft_model_path),
-            "num_speculative_tokens (speculative decoding)": self.num_speculative_tokens > 0,
             "tp_size (tensor parallelism)": self.tp_size != 1,
             "sequence_parallel": self.sequence_parallel,
             "distributed (multi-host serving)": self.distributed,
@@ -107,27 +112,38 @@ class LLMHandler:
     def __init__(self, options: LLMHandlerOptions):
         options.check_ported()
         self.options = options
-        self.engine = LLMEngine(
-            EngineOptions(
-                model_path=options.model_path,
-                device=options.device(),
-                block_size=options.block_size,
-                max_cache_size=options.max_cache_size,
-                max_memory_utilization=options.max_memory_utilization,
-                enable_prefix_cache=options.enable_prefix_cache,
-                num_blocks=options.num_blocks,
-                quantize=options.quantize,
-                quantize_lm_head=options.quantize_lm_head,
-                enable_cuda_graph=options.enable_cuda_graph,
-                warmup_mode=options.warmup_mode,
-                max_tokens_per_batch=options.max_tokens_per_batch,
-                max_seqs_per_batch=options.max_seqs_per_batch,
-                max_context_len=options.max_context_len,
-                num_decode_steps=options.num_decode_steps,
-                kv_cache_dtype=options.kv_cache_dtype,
-                host_swap_bytes=options.host_swap_bytes,
-            )
+        engine_opts = EngineOptions(
+            model_path=options.model_path,
+            device=options.device(),
+            block_size=options.block_size,
+            max_cache_size=options.max_cache_size,
+            max_memory_utilization=options.max_memory_utilization,
+            enable_prefix_cache=options.enable_prefix_cache,
+            num_blocks=options.num_blocks,
+            quantize=options.quantize,
+            quantize_lm_head=options.quantize_lm_head,
+            enable_cuda_graph=options.enable_cuda_graph,
+            warmup_mode=options.warmup_mode,
+            max_tokens_per_batch=options.max_tokens_per_batch,
+            max_seqs_per_batch=options.max_seqs_per_batch,
+            max_context_len=options.max_context_len,
+            num_decode_steps=options.num_decode_steps,
+            kv_cache_dtype=options.kv_cache_dtype,
+            host_swap_bytes=options.host_swap_bytes,
+            draft_model_path=options.draft_model_path or "",
+            num_speculative_tokens=options.num_speculative_tokens,
         )
+        if options.draft_model_path:
+            from scalellm_tpu_torch.speculative.speculative_engine import SpeculativeEngine
+
+            self.engine = SpeculativeEngine(engine_opts)
+        elif options.num_speculative_tokens > 0:
+            # No draft model: prompt lookup (n-gram) speculation.
+            from scalellm_tpu_torch.speculative.ngram import NgramSpeculativeEngine
+
+            self.engine = NgramSpeculativeEngine(engine_opts)
+        else:
+            self.engine = LLMEngine(engine_opts)
         self.tokenizer = self.engine.tokenizer
         self.model_args = self.engine.model_args
 
@@ -139,6 +155,7 @@ class LLMHandler:
                 max_seqs_per_batch=options.max_seqs_per_batch,
                 enable_async_scheduling=options.enable_async_scheduling,
                 num_decode_steps=options.num_decode_steps,
+                num_speculative_tokens=options.num_speculative_tokens,
             ),
             response_handler=self._response_handler,
         )
@@ -182,11 +199,8 @@ class LLMHandler:
         t0 = time.monotonic()
         try:
             sp.verify()
-            if sp.has_guided or sp.prompt_logprobs is not None:
-                raise ValidationError(
-                    StatusCode.UNIMPLEMENTED,
-                    "guided decoding and prompt logprobs are not ported yet",
-                )
+            if sp.has_guided:
+                raise ValidationError(StatusCode.UNIMPLEMENTED, "guided decoding is not ported yet")
             if messages is not None:
                 prompt = self.apply_chat_template(messages)
             prompt_tokens = self.tokenizer.encode(prompt)

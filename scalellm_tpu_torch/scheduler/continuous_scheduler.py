@@ -1,8 +1,7 @@
 """ContinuousScheduler — continuous batching with chunked prefill,
 preemption, priorities, prefix-cache-aware n/best_of expansion, async
 stepping and multi-step decode
-(counterpart of scalellm_tpu/scheduler/continuous_scheduler.py; speculative
-slots are not ported).
+(counterpart of scalellm_tpu/scheduler/continuous_scheduler.py).
 
   - intake queue -> priority order (HIGH/NORMAL/LOW, then FCFS)
   - per-step batch under a token budget (max_tokens_per_batch) and a
@@ -20,8 +19,9 @@ slots are not ported).
     is built and dispatched before the previous one's outputs are fetched,
     its pending tokens merged on the device
   - multi-step decode (num_decode_steps = N): a decode-only batch runs N
-    micro-steps in one dispatch; each decode sequence reserves N - 1 extra
-    KV slots
+    micro-steps in one dispatch; each decode sequence reserves
+    max(k, N - 1) extra KV slots, k the speculative tokens a round writes
+    (num_speculative_tokens)
 """
 
 from __future__ import annotations
@@ -57,6 +57,9 @@ class SchedulerOptions:
     # mid-window drops up to N - 1 samples. Batches that need per-token host
     # feedback run single-step (Batch.can_multi_step).
     num_decode_steps: int = 1
+    # Extra KV slots a decode sequence reserves for a speculative round's
+    # proposals.
+    num_speculative_tokens: int = 0
 
 
 class ContinuousScheduler:
@@ -268,9 +271,9 @@ class ContinuousScheduler:
         batch = Batch()
         token_budget = opts.max_tokens_per_batch
         seq_budget = opts.max_seqs_per_batch
-        # Decode sequences reserve KV slots for the micro-steps of a
-        # multi-step dispatch.
-        spec_overhead = self._multi_n - 1
+        # Decode sequences reserve KV slots for a speculative round's
+        # proposals and for the micro-steps of a multi-step dispatch.
+        spec_overhead = max(opts.num_speculative_tokens, self._multi_n - 1)
         for req in self._requests:
             if token_budget <= 0 or seq_budget <= 0:
                 break

@@ -15,8 +15,9 @@ step buffer, keys and counters as the CUDA form:
   bucket) for "fast" and "full";
 - num_mid_serve_compiles counts the captures outside warmup only;
 - the handler's options: CUDA graphs, warmup, async scheduling and
-  multi-step decode accepted with the reference's defaults, the rest still
-  refused, an unknown warmup mode a ValueError;
+  multi-step decode accepted with the reference's defaults, speculative
+  decoding accepted, the rest still refused, an unknown warmup mode a
+  ValueError;
 - the sampler reads no SamplingInputs on a greedy step (its branches come
   from the host arrays).
 
@@ -251,7 +252,10 @@ def test_handler_takes_graphs_and_warmup_and_refuses_the_rest():
         LLMHandlerOptions(**ported).check_ported()
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         LLMHandlerOptions(kv_cache_dtype="fp8").check_ported()
-    for unported in (dict(num_speculative_tokens=2), dict(tp_size=2), dict(lora_modules={"a": "b"})):
+    # Speculative decoding: ported (LoRA with it is the reference's ValueError).
+    for ported in (dict(num_speculative_tokens=2), dict(draft_model_path="draft", num_speculative_tokens=2)):
+        LLMHandlerOptions(**ported).check_ported()
+    for unported in (dict(distributed=True), dict(tp_size=2), dict(lora_modules={"a": "b"})):
         with pytest.raises(NotImplementedError):
             LLMHandlerOptions(**unported).check_ported()
 

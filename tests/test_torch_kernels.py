@@ -2347,3 +2347,108 @@ def test_fetch_is_ordered_before_a_step_that_overwrites_its_pages(cuda):
     torch.cuda.synchronize()
     assert torch.equal(_bits(staged), _bits(before))
     assert not torch.equal(_bits(ex.kv_cache[:, 1:9].cpu()), _bits(before))  # the step did overwrite them
+
+
+# Speculative decoding on the card: the rejection sampler's draws follow the
+# target distribution on the device; a round's graph (k draft steps, the
+# target's verify forward over k+1 tokens a sequence, the sampler) captured
+# once and replayed at other KV lengths and block tables gives the eager
+# round's ids and KV bits, with K1 launched k times a draft layer and once a
+# target layer at its capture.
+
+
+@pytest.mark.parametrize("onehot", [False, True])
+def test_rejection_sampler_draws_follow_the_target_on_the_device(cuda, onehot):
+    from scipy.stats import chisquare
+
+    from scalellm_tpu_torch.speculative.rejection_sampler import rejection_sample, rejection_sample_onehot
+
+    S, k, V = 40000, 2, 6
+    p = torch.tensor([0.3, 0.25, 0.2, 0.15, 0.07, 0.03], device=cuda)
+    q = torch.tensor([0.05, 0.1, 0.15, 0.2, 0.25, 0.25], device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    target = p.expand(S, k + 1, V).contiguous()
+    draft_ids = (torch.full((S, k), 4, dtype=torch.int32, device=cuda) if onehot
+                 else torch.multinomial(q.expand(S * k, V), 1, generator=g).view(S, k).int())
+    seeds = torch.randint(0, 2**32, (S,), dtype=torch.int64, device=cuda, generator=g)
+    do_sample = torch.ones(S, dtype=torch.bool, device=cuda)
+    if onehot:
+        out = rejection_sample_onehot(draft_ids, target, do_sample, seeds)
+    else:
+        out = rejection_sample(draft_ids, q.expand(S, k, V).contiguous(), target, do_sample, seeds)
+    counts = torch.bincount(out[:, 0].long(), minlength=V).cpu().numpy()
+    expected = p.double().cpu().numpy()
+    assert chisquare(counts, S * expected / expected.sum()).pvalue > 1e-3
+    # Greedy rows: the target's argmax wherever the draft is not it.
+    out = rejection_sample_onehot(torch.where(draft_ids == 0, 1, draft_ids), target, ~do_sample, seeds)
+    assert (out[:, 0] == 0).all() and (out[:, 1:] == -1).all()
+
+
+def _round_arrays(prompts, off, k, cap, sampled, seed0):
+    """A round's host arrays over the prompts' pages as chip_smoke's
+    batch_inputs hands them out (from page 1, `cap` tokens a sequence), its
+    first token at position len(prompt) + off."""
+    from scalellm_tpu_torch.engine.batch import PAGE_BUCKETS, SEQ_BUCKETS, pick_bucket
+
+    rng = np.random.default_rng(seed0)
+    S, MAXP, n = pick_bucket(SEQ_BUCKETS, len(prompts)), pick_bucket(PAGE_BUCKETS, -(-cap // 16)), len(prompts)
+    a = dict(first_tokens=np.zeros(S, np.int32), positions0=np.zeros(S, np.int32),
+             slot_ids=np.zeros((S, k + 1), np.int32), block_tables=np.zeros((S, MAXP), np.int32),
+             seq_mask=(np.arange(S) < n).astype(np.float32), num_seqs=np.array([n], np.int32),
+             temperatures=np.zeros(S, np.float32), top_ks=np.zeros(S, np.int32), top_ps=np.ones(S, np.float32),
+             seeds=rng.integers(0, 2**32, S, dtype=np.uint64).astype(np.uint32),
+             draft_ids=np.zeros((S, k), np.int32))
+    for s, p in enumerate(prompts):
+        pages = np.arange(1 + s * (-(-cap // 16)), 1 + (s + 1) * (-(-cap // 16)), dtype=np.int32)
+        pos = len(p) + off + np.arange(k + 1)
+        a["first_tokens"][s] = rng.integers(1, 512)
+        a["positions0"][s] = pos[0]
+        a["slot_ids"][s] = pages[pos // 16] * 16 + pos % 16
+        a["block_tables"][s, : len(pages)] = pages
+        a["draft_ids"][s] = rng.integers(1, 512, k)
+        if sampled:
+            a["temperatures"][s] = (0.8, 0.0, 1.0)[s % 3]
+            a["top_ps"][s] = 0.9 if s == 2 else 1.0
+    return a, S, MAXP
+
+
+@pytest.mark.parametrize("kind", ["draft_greedy", "draft_sampled", "ngram_sampled"])
+def test_round_graph_replayed_at_other_kv_lens_gives_the_eager_round(cuda, kind):
+    from chip_smoke import batch_inputs
+    from scalellm_tpu_torch.engine.executor import Executor
+    from scalellm_tpu_torch.speculative.ngram import NgramSpecExecutor
+    from scalellm_tpu_torch.speculative.spec_executor import SpecExecutor
+
+    k, cap = 4, 96
+    target = _random_model(cuda, TINY_LLAMA_CFG)
+    draft = _random_model(cuda, dict(TINY_LLAMA_CFG, hidden_size=256, intermediate_size=512,
+                                     num_attention_heads=4, num_key_value_heads=1))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (30, 17, 50)]
+    prefill = batch_inputs(torch, [(p, 0, cap) for p in prompts])[0]
+    rounds = [_round_arrays(prompts, off, k, cap, kind.endswith("sampled"), 10 + off) for off in (0, 9, 23)]
+    runs = {}
+    for graphs in (True, False):
+        ex_t, ex_d = Executor(target, cuda), Executor(draft, cuda)
+        for ex in (ex_t, ex_d):
+            ex.init_kv_cache(32, 16)
+            ex.execute(prefill, _greedy_si(4))
+        if graphs:
+            ex_t.init_graphs(16, max_tokens=128, max_seqs=4, max_context_len=1024)
+        spec = NgramSpecExecutor(ex_t, k) if kind.startswith("ngram") else SpecExecutor(ex_t, ex_d, k)
+        outs, launches = [], []
+        for arrays, S, MAXP in rounds:
+            before = attention.ragged_paged_attention_cuda.launches
+            outs.append(spec.run(arrays, S, MAXP))
+            launches.append(attention.ragged_paged_attention_cuda.launches - before)
+        torch.cuda.synchronize()
+        if graphs:
+            assert len(ex_t.graphs.graphs) == 1 and sum(ex_t.graphs.replays.values()) == 3
+            per_round = 2 if kind.startswith("ngram") else k * 2 + 2  # 2 draft and 2 target layers
+            assert launches == [2 * per_round, 0, 0]  # the capture's eager run and its recording
+        runs[graphs] = outs, ex_t.kv_cache.clone(), ex_d.kv_cache.clone()
+    (got, kv_t, kv_d), (want, kv_te, kv_de) = runs[True], runs[False]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+        assert ((a[:3, : k + 1] >= 0).sum(1) >= 1).all()  # every row keeps a token
+    assert torch.equal(_bits(kv_t[:, 1:]), _bits(kv_te[:, 1:])) and torch.equal(_bits(kv_d[:, 1:]), _bits(kv_de[:, 1:]))

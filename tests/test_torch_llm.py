@@ -51,10 +51,11 @@ def test_greedy_outputs_match_jax(tiny_model):
 def test_unported_options_raise(tiny_model):
     from scalellm_tpu_torch import LLM
 
-    # Async scheduling (the default) and multi-step decode are ported.
+    # Async scheduling (the default), multi-step decode and speculative
+    # decoding are ported.
     LLM(tiny_model, devices="cpu", enable_async_scheduling=True, num_decode_steps=4).close()
     with pytest.raises(NotImplementedError):
-        LLM(tiny_model, devices="cpu", num_speculative_tokens=2)
+        LLM(tiny_model, devices="cpu", tp_size=2)
 
 
 def test_close_frees_the_engine_then_empties_the_device_cache(tiny_model, monkeypatch):
