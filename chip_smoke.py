@@ -168,8 +168,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
      Then the profile and the same kernel-vs-plain logits check, the
      kernels run twice: the two runs' logits must be the same bits (the MoE
      combine adds each token's rows in a fixed order, no atomics).
-  8. end to end, Mixtral-8x7B at its published widths, 16 of its 32
-     layers (--mixtral-layers; 47 GB bf16), one checkpoint written once and
+  8. end to end, Mixtral-8x7B at its published widths, 8 of its 32
+     layers (--mixtral-layers; 23.7 GB bf16), one checkpoint written once and
      removed after: bf16, then LLM(path, quantize="int4") (int4 experts at
      G = 128: every step dequantizes the 8 experts and runs K6, the decode
      kernel's gate refusing their 58.7 MB weight ring), each served async
@@ -252,7 +252,26 @@ Phases (any failure exits non-zero, and the result line is not printed):
      attention, and chunked (64-token batches) against whole. Each served
      request gets the plain serve's ids, or every differing token is a
      greedy choice up to kernel rounding (teacher_forced_gap).
-  20. a line of the seconds each phase took, a `kernels` JSON line, then
+  20. LoRA: two random adapters in the HF PEFT layout (LORA_ADAPTERS: "one"
+     r = 16 on all seven targets, "two" r = 8 on q_proj and v_proj), the 8
+     requests split across base, "one" and "two" (LORA_OF_REQUEST). bf16
+     TinyLlama-1.1B at full width and depth: a base serve (async, graphs:
+     what LoRA costs), then with both adapters sync with graphs, async, 4-step
+     decode and eager, each on a fresh engine, K1 exactly once a layer a
+     step; graphs against eager (the same ids), async and ms4 against sync
+     (check_mode, each request's gaps through its own adapter); a checkpoint
+     merged offline with "one" (W + B A alpha / r, bf16) gives each "one"
+     request the runtime adapter's ids or greedy choices of the LoRA model
+     up to kernel rounding; one prefill and one decode batch with all three
+     slots through the kernels and the plain attention within LOGITS_TOL,
+     and "one" moving the logits from the base's (LORA_MOVE_MIN). Then the
+     GPTQ Llama-3.1-8B of phase 5's depth with both adapters, sync with
+     graphs and eager beside the base serve: the same ids, the quantized
+     kernels exactly 4 layers + 1 a step, no quantized matmul given the
+     RMSNorm prologue, kernels against every plain version within
+     LOGITS_TOL. The `lora_cost` line: tok/s and TTFT of the LoRA serves
+     beside the base serves, and the adapters' bytes.
+  21. a line of the seconds each phase took, a `kernels` JSON line, then
      the result line.
 
 It needs the repository (it fails in a directory that holds only this
@@ -926,10 +945,12 @@ MIXTRAL_8X7B = dict(
 # about half its time limit once phases 8 and 9 serve their larger models.
 INT4_LAYERS = 16
 DEEPSEEK_LAYERS = 14
-# Phase 8's depth: 16 of Mixtral-8x7B's 32 layers (1.451 B parameters, 2.90
-# GB, a layer) hold 47.0 GB in bf16 with the embedding and lm_head, and the
-# runtime INT4 quantization of that on the card peaks near 59 GB.
-MIXTRAL_LAYERS = 16
+# Phase 8's depth: 8 of Mixtral-8x7B's 32 layers (1.451 B parameters, 2.90
+# GB, a layer; 23.7 GB in bf16 with the embedding and lm_head). 16 layers
+# (47.0 GB; the runtime INT4 quantization of that on the card peaks near 59
+# GB) ran until phase 20 came in and the whole script read 937.7 s of its
+# 1200.
+MIXTRAL_LAYERS = 8
 # Phases 10 and 11's depths: cut (from 42 and 36) once phases 12-15 came in,
 # so that a slow host keeps the whole script below 900 s (the script's time
 # swings by up to 1.4x between calls: 643 and 907 s for the same tree).
@@ -1819,12 +1840,13 @@ def prompts(seed=SEED):
     return out
 
 
-def batch_inputs(torch, seqs, page=16):
+def batch_inputs(torch, seqs, page=16, lora=None):
     """ModelInputs of one batch, padded to the bucket ladders. seqs holds one
     (token ids, first position, context length to reserve pages for) per
     sequence; each sequence owns its own pages, handed out in order from
     page 1 (page 0 is reserved), so a later batch with the same reservations
-    finds the same pages. Returns (inputs, pages used)."""
+    finds the same pages. lora: each sequence's LoRA adapter slot (None:
+    no lora_ids). Returns (inputs, pages used)."""
     from scalellm_tpu_torch.engine.batch import PAGE_BUCKETS, SEQ_BUCKETS, TOKEN_BUCKETS, pick_bucket
     from scalellm_tpu_torch.engine.params import ModelInputs
 
@@ -1855,10 +1877,14 @@ def batch_inputs(torch, seqs, page=16):
         sel[s] = t + k - 1
         t += k
     cu[len(n) + 1 :] = cu[len(n)]
+    lora_ids = None
+    if lora is not None:
+        lora_ids = torch.zeros(S, dtype=torch.int32)
+        lora_ids[: len(lora)] = torch.tensor(lora, dtype=torch.int32)
     mi = ModelInputs(token_ids=tok, positions=pos, token_seg=seg, new_kv_slot_ids=slots,
                      block_tables=tables, kv_lens=kv, cu_q_lens=cu,
                      num_seqs=torch.tensor([len(n)], dtype=torch.int32), selected_idxes=sel,
-                     seq_mask=(torch.arange(S) < len(n)).float())
+                     seq_mask=(torch.arange(S) < len(n)).float(), lora_ids=lora_ids)
     return mi, next_page
 
 
@@ -2257,7 +2283,7 @@ def record_outputs(llm):
     return ids
 
 
-def serve(torch, card, tag, llm, counters, want, graphs, mode="sync"):
+def serve(torch, card, tag, llm, counters, want, graphs, mode="sync", lora=None):
     """The phase's traffic through `llm`: a warm-up request, then one timed
     generate of the 8 prompts (32 greedy tokens each) with every dispatch's
     launches held to want(T, S, decode_only) (launches by wrapper name)
@@ -2265,9 +2291,10 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync"):
     the same traffic with other text under torch.profiler (the idle share is
     taken against the timed run's wall). Emits `{tag}_e2e` and
     `{tag}_profile` (`{tag}_eager_...` without graphs, `{tag}_async_...` and
-    `{tag}_ms4_...` for those modes). Returns the outputs, each dispatch's
-    sampled ids, each request's prompt and generated ids, the launches by
-    wrapper name and the figures the comparison lines hold."""
+    `{tag}_ms4_...` for those modes). lora: the LoRA adapter name of each
+    of the 8 requests (phase 20), both times. Returns the outputs, each
+    dispatch's sampled ids, each request's prompt and generated ids, the
+    launches by wrapper name and the figures the comparison lines hold."""
     from torch.profiler import ProfilerActivity, profile
 
     from scalellm_tpu_torch import SamplingParams
@@ -2288,7 +2315,7 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync"):
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    outs = llm.generate(ps, greedy)
+    outs = llm.generate(ps, greedy, lora=lora)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     compiles = COUNTERS.get("num_mid_serve_compiles") - compiles
@@ -2344,7 +2371,7 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync"):
     del steps_log[:], micro[:]
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        llm.generate(prompts(SEED + 1), greedy)
+        llm.generate(prompts(SEED + 1), greedy, lora=lora)
         torch.cuda.synchronize()
     profiled_wall = time.monotonic() - t0
     breakdown = device_breakdown(prof, wall, len(steps_log))
@@ -2358,14 +2385,14 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync"):
     return dict(outs=outs, tokens=tokens, ids=ids, launches=launches, figures=result)
 
 
-def teacher_forced_gap(torch, model, prompt_ids, generated):
+def teacher_forced_gap(torch, model, prompt_ids, generated, lora=None):
     """The largest gap, over the generated positions, between a position's
     largest logit and the logit of the token generated there, from one
-    prefill of prompt + output through `model` (its kernels): 0 for a
-    greedy choice, within LOGITS_TOL for one that kernel rounding can
-    explain."""
+    prefill of prompt + output through `model` (its kernels; `lora`: the
+    LoRA adapter slot it runs under): 0 for a greedy choice, within
+    LOGITS_TOL for one that kernel rounding can explain."""
     ids = prompt_ids + generated
-    mi, n_pages = batch_inputs(torch, [(ids, 0, len(ids) + 1)])
+    mi, n_pages = batch_inputs(torch, [(ids, 0, len(ids) + 1)], lora=None if lora is None else [lora])
     with torch.inference_mode():
         kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.kv_cache_dtype(), device=DEVICE)
         rows = model(kv, mi.to(DEVICE), all_hidden=True)[len(prompt_ids) - 1 : len(ids) - 1]
@@ -2374,7 +2401,7 @@ def teacher_forced_gap(torch, model, prompt_ids, generated):
         return (logits.max(-1).values - chosen).max().item()
 
 
-def check_mode(torch, tag, mode, model, sync_run, run, exact=False):
+def check_mode(torch, tag, mode, model, sync_run, run, exact=False, slots=None):
     """Hold a mode's serve to a sync serve (phases 4-7: the sync serve with
     graphs), request by request: the same generated ids, or, where they
     differ (the serves need not build the same steps: async skips a
@@ -2383,12 +2410,14 @@ def check_mode(torch, tag, mode, model, sync_run, run, exact=False):
     mode's a greedy choice up to kernel rounding (teacher_forced_gap within
     LOGITS_TOL, through `model`). With exact, any request whose ids differ
     fails. Fails unless the mode took its dispatches (num_async_steps,
-    num_multi_steps). Returns the figures of the `{tag}_modes` line."""
+    num_multi_steps). slots: each prompt's LoRA adapter slot (phase 20).
+    Returns the figures of the `{tag}_modes` line."""
     differing, gaps = [], []
     for prompt, (prompt_ids, gen) in run["ids"].items():
         if gen != sync_run["ids"][prompt][1]:
             differing.append(prompt)
-            gaps.append(teacher_forced_gap(torch, model, prompt_ids, gen))
+            gaps.append(teacher_forced_gap(torch, model, prompt_ids, gen,
+                                           None if slots is None else slots[prompt]))
     figures = run["figures"]
     out = dict(requests_differing=len(differing), largest_gap=max(gaps, default=0.0), tol=LOGITS_TOL,
                **{k: figures[k] for k in ("output_tok_per_s", "mean_ttft_s", "engine_steps", "num_async_steps",
@@ -3885,6 +3914,325 @@ def phase_speculative(torch, card, tinyllama_path=None):
         if path is not None:
             shutil.rmtree(path, ignore_errors=True)
 
+# ------------------------------------------------------------------ phase 20
+
+# Phase 20's adapters (HF PEFT layout, random, write_lora_adapter): "one" on
+# all seven targets, "two" on q_proj and v_proj; A and B drawn N(0,
+# LORA_STD), as the base weights of phases 4 and 5.
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+LORA_ADAPTERS = {"one": dict(r=16, alpha=32, targets=LORA_TARGETS, seed=101),
+                 "two": dict(r=8, alpha=8, targets=("q_proj", "v_proj"), seed=102)}
+LORA_STD = 0.02
+# The adapter of each of the 8 requests of prompts(): base, "one" and "two".
+LORA_OF_REQUEST = [None, "one", "two", None, "one", "two", "one", None]
+# "one" against the base on the same tokens, through the same kernels: the
+# delta was applied.
+LORA_MOVE_MIN = 1e-3
+
+
+def lora_dims(cfg):
+    """target -> (K, N) of a Llama config's projections."""
+    D, F_ = cfg["hidden_size"], cfg["intermediate_size"]
+    Dh = D // cfg["num_attention_heads"]
+    q, kv = cfg["num_attention_heads"] * Dh, cfg["num_key_value_heads"] * Dh
+    return {"q_proj": (D, q), "k_proj": (D, kv), "v_proj": (D, kv), "o_proj": (q, D),
+            "gate_proj": (D, F_), "up_proj": (D, F_), "down_proj": (F_, D)}
+
+
+def lora_group(target):
+    return "self_attn" if target in ("q_proj", "k_proj", "v_proj", "o_proj") else "mlp"
+
+
+def write_safetensors(torch, path, tensors):
+    """A .safetensors file of {name: CPU tensor} (f32 or bf16). Returns the
+    bytes of tensor data."""
+    kinds = {torch.float32: "F32", torch.bfloat16: "BF16"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": kinds[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().view(torch.uint8).numpy().reshape(-1)))
+    return offset
+
+
+def write_lora_adapters(torch, root, cfg):
+    """LORA_ADAPTERS at cfg's widths, each in the HF PEFT layout under root
+    (adapter_config.json, adapter_model.safetensors: A [r, K] and B [N, r]
+    f32 for every layer and target, from a seeded generator). Returns
+    ({name: directory}, {name: {(layer, target): (A, B)}}, bytes of tensor
+    data)."""
+    dims, dirs, mats, nbytes = lora_dims(cfg), {}, {}, 0
+    for name, spec in LORA_ADAPTERS.items():
+        path = os.path.join(root, f"adapter_{name}")
+        os.makedirs(path, exist_ok=True)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(spec["seed"])
+        tensors, mats[name] = {}, {}
+        for layer in range(layers_of(cfg)):
+            for t in spec["targets"]:
+                K, N = dims[t]
+                A = (torch.randn(spec["r"], K, generator=gen, device=DEVICE) * LORA_STD).cpu()
+                B = (torch.randn(N, spec["r"], generator=gen, device=DEVICE) * LORA_STD).cpu()
+                prefix = f"base_model.model.model.layers.{layer}.{lora_group(t)}.{t}"
+                tensors[f"{prefix}.lora_A.weight"], tensors[f"{prefix}.lora_B.weight"] = A, B
+                mats[name][(layer, t)] = (A, B)
+        nbytes += write_safetensors(torch, os.path.join(path, "adapter_model.safetensors"), tensors)
+        with open(os.path.join(path, "adapter_config.json"), "w") as f:
+            json.dump({"peft_type": "LORA", "r": spec["r"], "lora_alpha": spec["alpha"],
+                       "target_modules": list(spec["targets"])}, f)
+        dirs[name] = path
+    return dirs, mats, nbytes
+
+
+def write_merged_checkpoint(torch, path, base, mats, scaling):
+    """The bf16 Llama checkpoint `base` with an adapter folded into its
+    weights offline: W + (B A) scaling in f32 on the card, rounded to bf16."""
+    from scalellm_tpu_torch.model_loader.loader import read_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    for name in ("config.json", "tokenizer.json"):
+        shutil.copy(os.path.join(base, name), os.path.join(path, name))
+    tensors = dict(read_safetensors(os.path.join(base, "model.safetensors")))
+    for (layer, t), (A, B) in mats.items():
+        key = f"model.layers.{layer}.{lora_group(t)}.{t}.weight"
+        w = tensors[key].to(DEVICE).float()
+        tensors[key] = (w + (B.to(DEVICE) @ A.to(DEVICE)) * scaling).to(torch.bfloat16).cpu()
+    write_safetensors(torch, os.path.join(path, "model.safetensors"), tensors)
+
+
+def lora_kernel_check(torch, card, tag, model, ids, slots, quant):
+    """A prefill batch of three sequences under the adapter `slots`, and the
+    decode step after it, through the model's kernels, then through the
+    plain versions (K1's; with quant, also the quantized matmuls'): each
+    within LOGITS_TOL (`{tag}_logits` lines). Then the kernels again with
+    every sequence on the base: returns the largest change of the slot-1
+    sequence's logits (the delta applied)."""
+    from scalellm_tpu_torch.ops import attention
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+    from scalellm_tpu_torch.ops.attention import plain_ragged_paged_attention
+
+    n_tok = sum(len(t) for t in ids)
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "plain", "base"):
+            plain = impl == "plain"
+            lora = [0] * len(ids) if impl == "base" else slots
+            prefill, n_pages = batch_inputs(torch, [(t, 0, len(t) + 1) for t in ids], lora=lora)
+            decode, _ = batch_inputs(torch, [([7 + i], len(t), len(t) + 1) for i, t in enumerate(ids)], lora=lora)
+            model.attn_impl = plain_ragged_paged_attention if plain else attention.ragged_paged_attention
+            if quant:
+                model.quant_impl = Q.plain_quant_matmul if plain else Q.quant_matmul
+            kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.dtype, device=DEVICE)
+            a = model.logits(model(kv, prefill.to(DEVICE), all_hidden=True)[:n_tok])
+            b = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[: len(ids)])
+            logits[impl] = (a, b)
+            del kv
+    model.attn_impl = attention.ragged_paged_attention
+    if quant:
+        model.quant_impl = Q.quant_matmul
+    for which, i in (("prefill", 0), ("decode", 1)):
+        got, want = logits["kernel"][i], logits["plain"][i]
+        diff = (got - want).abs()
+        err = diff.max().item()
+        emit(dict(phase=f"{tag}_logits", batch=which, rows=got.shape[0], slots=slots, max_abs_err=err,
+                  mean_abs_err=diff.mean().item(), logits_std=want.std().item(),
+                  argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(), tol=LOGITS_TOL))
+        if not torch.isfinite(got).all() or not err <= LOGITS_TOL:
+            fail(f"{tag} {which}: kernel logits differ from plain logits by {err} > {LOGITS_TOL}")
+    j = slots.index(1)
+    first = sum(len(t) for t in ids[:j])
+    rows = slice(first, first + len(ids[j]))
+    return max((logits["kernel"][0][rows] - logits["base"][0][rows]).abs().max().item(),
+               (logits["kernel"][1][j] - logits["base"][1][j]).abs().max().item())
+
+
+def lora_figures(run):
+    f = run["figures"]
+    return {k: f[k] for k in ("output_tok_per_s", "mean_ttft_s", "decode_step_ms", "idle_share", "engine_steps")}
+
+
+def phase_lora(torch, card, int4_layers):
+    """Phase 20 (see the module docstring). Returns the launches of its main
+    paths by wrapper name: the LoRA serves with graphs."""
+    import scalellm_tpu_torch.models.common as common
+    from scalellm_tpu_torch import SamplingParams
+    from scalellm_tpu_torch.ops import attention
+    from scalellm_tpu_torch.ops import quant_matmul as Q
+
+    root = tempfile.mkdtemp(prefix="scalellm_lora_")
+    llm = None
+    engine = model = None
+    greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    k1 = attention.ragged_paged_attention_cuda
+    slot_of = {name: i + 1 for i, name in enumerate(LORA_ADAPTERS)}
+    ps = prompts()
+    slots = {p: slot_of.get(n, 0) for p, n in zip(ps, LORA_OF_REQUEST)}
+    slots.update({p: slot_of.get(n, 0) for p, n in zip(prompts(SEED + 1), LORA_OF_REQUEST)})
+    try:
+        # bf16 TinyLlama-1.1B at full width and depth.
+        t0 = time.monotonic()
+        tiny = os.path.join(root, "tinyllama")
+        os.makedirs(tiny)
+        write_checkpoint(torch, tiny, TINYLLAMA)
+        adapters, mats, adapter_bytes = write_lora_adapters(torch, root, TINYLLAMA)
+        one = LORA_ADAPTERS["one"]
+        merged = os.path.join(root, "tinyllama_merged_one")
+        write_merged_checkpoint(torch, merged, tiny, mats["one"], one["alpha"] / one["r"])
+        mats = None
+        emit(dict(phase="lora_checkpoints", model="tinyllama", write_s=time.monotonic() - t0,
+                  adapter_bytes=adapter_bytes, adapters={n: {k: v for k, v in a.items() if k != "seed"}
+                                                         for n, a in LORA_ADAPTERS.items()}))
+        L = TINYLLAMA["num_hidden_layers"]
+        runs, modes = {}, {}
+        # The base model (async, graphs: what LoRA costs), then with both
+        # adapters: sync with graphs, async (the default), 4-step decode,
+        # and eager; each on a fresh engine. K1 exactly once a layer a step.
+        for mode in ("base", "sync", "async", "ms4", "eager"):
+            graphs = mode != "eager"
+            step = {"base": "async", "eager": "sync"}.get(mode, mode)
+            extra = {} if mode == "base" else dict(lora_modules=adapters)
+            tag = "lora_base" if mode == "base" else "lora"
+            t0 = time.monotonic()
+            llm = serving_llm(tiny, graphs, step, **extra)
+            torch.cuda.synchronize()
+            engine = llm._handler.engine
+            emit(dict(phase=serve_setup(tag, step if graphs else "eager"), graphs=graphs,
+                      load_s=time.monotonic() - t0, kv_blocks=engine.block_manager.options.num_blocks,
+                      lora_adapters=list(adapters) if extra else [], **graph_stats(engine)))
+            runs[mode] = serve(torch, card, tag, llm, (k1,), lambda T, S, decode_only: {k1.__name__: L}, graphs,
+                               step, lora=None if mode == "base" else LORA_OF_REQUEST)
+            if mode in ("async", "ms4"):
+                modes[mode] = check_mode(torch, "lora", mode, engine.model, runs["sync"], runs[mode], slots=slots)
+            if graphs:
+                engine = None
+                close_llm(torch, card, serve_name(tag, step), llm)
+                llm = None
+        compare_serves(card, "lora", runs["sync"], runs["eager"])
+        emit_modes(card, "lora", runs, modes)
+        launches = main_path_launches(runs)
+
+        # The checkpoint merged offline with "one": each "one" request gets
+        # the runtime serve's ids, or differs by tokens that are greedy
+        # choices of the LoRA model up to kernel rounding.
+        model, tok = engine.model, llm._handler.tokenizer
+        engine = None
+        close_llm(torch, card, "lora_eager", llm)
+        llm = serving_llm(merged, True, "sync")
+        ids = record_outputs(llm)
+        outs = llm.generate(ps, greedy)
+        close_llm(torch, card, "lora_merged", llm)
+        llm = None
+        if not all(o.finished and o.usage.num_generated_tokens == 32 for o in outs):
+            fail("lora_merged: a request did not finish with 32 tokens")
+        gaps = {}
+        for p, name in zip(ps, LORA_OF_REQUEST):
+            if name == "one" and ids[p][1] != runs["sync"]["ids"][p][1]:
+                gaps[p] = teacher_forced_gap(torch, model, ids[p][0], ids[p][1], lora=slot_of["one"])
+        emit(dict(phase="lora_merged", requests=LORA_OF_REQUEST.count("one"), requests_differing=len(gaps),
+                  largest_gap=max(gaps.values(), default=0.0), tol=LOGITS_TOL, card=card["nvidia_smi"]))
+        if any(not g <= LOGITS_TOL for g in gaps.values()):
+            fail(f"lora_merged: a 'one' request of the merged checkpoint differs from the runtime adapter's by more "
+                 f"than kernel rounding (largest gap {max(gaps.values())} > {LOGITS_TOL})")
+        seqs = [tok.encode(ps[0])[:200], tok.encode(ps[5]), tok.encode(ps[3])]
+        moved = lora_kernel_check(torch, card, "lora", model, seqs, [0, 1, 2], quant=False)
+        emit(dict(phase="lora_delta", model="tinyllama", one_vs_base_max_abs=moved, min=LORA_MOVE_MIN))
+        if not moved > LORA_MOVE_MIN:
+            fail(f"lora: adapter 'one' moved the logits by {moved} only: the delta was not applied")
+        model = None
+        torch.cuda.empty_cache()
+        shutil.rmtree(tiny, ignore_errors=True)
+        shutil.rmtree(merged, ignore_errors=True)
+
+        # INT4 Llama-3.1-8B widths (GPTQ, phase 5's depth) with both adapters:
+        # sync with graphs and eagerly, beside the base; no quantized matmul
+        # may get the RMSNorm prologue (rms_gamma) with adapters loaded.
+        t0 = time.monotonic()
+        cfg = dict(LLAMA31_8B_INT4, num_hidden_layers=int4_layers)
+        path = os.path.join(root, "llama8b_int4")
+        os.makedirs(path)
+        write_gptq_checkpoint(torch, path, cfg)
+        adapters8, _, adapter_bytes8 = write_lora_adapters(torch, os.path.join(root, "llama8b"), cfg)
+        emit(dict(phase="lora_checkpoints", model="llama8b_int4", layers=int4_layers,
+                  write_s=time.monotonic() - t0, adapter_bytes=adapter_bytes8))
+        w4a8, group, dequant = Q.quant_matmul_w4a8_cuda, Q.quant_matmul_group_cuda, Q.quant_matmul_dequant_cuda
+        counters = (k1, w4a8, group, dequant, Q.quant_gemv_cuda, Q.quant_w4a8_gemv_cuda)
+        L = int4_layers
+
+        def want(T, S, decode_only):  # phase 5's
+            out = {k1.__name__: L, w4a8.__name__: 0, dequant.__name__: 0}
+            out[(dequant if T > 64 else w4a8).__name__] += 4 * L
+            out[(dequant if S > 64 else w4a8).__name__] += 1
+            return out
+
+        prologue = {"base": [0, 0], "lora": [0, 0]}  # [calls with rms_gamma, calls]
+        real = common.quant_matmul
+        runs8 = {}
+        for mode in ("base", "sync", "eager"):
+            graphs = mode != "eager"
+            who = "base" if mode == "base" else "lora"
+
+            def recorded(*args, who=who, **kw):
+                prologue[who][0] += kw.get("rms_gamma") is not None
+                prologue[who][1] += 1
+                return real(*args, **kw)
+
+            extra = {} if mode == "base" else dict(lora_modules=adapters8)
+            tag = "lora_int4_base" if mode == "base" else "lora_int4"
+            t0 = time.monotonic()
+            common.quant_matmul = recorded  # what every new model binds as its quant_impl
+            try:
+                llm = serving_llm(path, graphs, "sync", quantize_lm_head=True, **extra)
+            finally:
+                common.quant_matmul = real
+            torch.cuda.synchronize()
+            engine = llm._handler.engine
+            emit(dict(phase=serve_setup(tag, "sync" if graphs else "eager"), graphs=graphs,
+                      load_s=time.monotonic() - t0, kv_blocks=engine.block_manager.options.num_blocks,
+                      lora_adapters=list(adapters8) if extra else [], **graph_stats(engine)))
+            runs8[mode] = serve(torch, card, tag, llm, counters, want, graphs, "sync",
+                                lora=None if mode == "base" else LORA_OF_REQUEST)
+            if graphs:
+                engine = None
+                close_llm(torch, card, serve_name(tag, "sync"), llm)
+                llm = None
+        compare_serves(card, "lora_int4", runs8["sync"], runs8["eager"])
+        for k, v in main_path_launches({"sync": runs8["sync"]}).items():
+            launches[k] = launches.get(k, 0) + v
+        emit(dict(phase="lora_int4_prologue", lora_rms_calls=prologue["lora"][0], lora_calls=prologue["lora"][1],
+                  base_rms_calls=prologue["base"][0], base_calls=prologue["base"][1]))
+        if prologue["lora"][0] or not prologue["lora"][1] or not prologue["base"][0]:
+            fail(f"lora_int4: {prologue['lora'][0]} of {prologue['lora'][1]} quantized matmuls got the RMSNorm "
+                 f"prologue with adapters (the base's: {prologue['base'][0]} of {prologue['base'][1]})")
+        model, tok = engine.model, llm._handler.tokenizer
+        engine = None
+        close_llm(torch, card, "lora_int4_eager", llm)
+        llm = None
+        model.quant_impl = Q.quant_matmul
+        seqs = [tok.encode(ps[0])[:200], tok.encode(ps[5]), tok.encode(ps[3])]
+        moved8 = lora_kernel_check(torch, card, "lora_int4", model, seqs, [0, 1, 2], quant=True)
+        emit(dict(phase="lora_delta", model="llama8b_int4", one_vs_base_max_abs=moved8, min=LORA_MOVE_MIN))
+        if not moved8 > LORA_MOVE_MIN:
+            fail(f"lora_int4: adapter 'one' moved the logits by {moved8} only: the delta was not applied")
+        model = None
+        emit(dict(phase="lora_cost", tinyllama={m: lora_figures(runs[m]) for m in ("base", "sync", "async", "ms4",
+                                                                                    "eager")},
+                  llama8b_int4={m: lora_figures(runs8[m]) for m in ("base", "sync", "eager")},
+                  adapter_bytes={"tinyllama": adapter_bytes, "llama8b_int4": adapter_bytes8},
+                  card=card["nvidia_smi"]))
+        return launches
+    finally:
+        engine = model = None
+        if llm is not None:
+            llm.close()
+        shutil.rmtree(root, ignore_errors=True)
+
 # ------------------------------------------------------------------ main
 
 
@@ -4009,7 +4357,9 @@ def main() -> None:
         moe_launches[(model, "int8kv")] = run
     timed("18", phase_kv_swap, torch, card)
     spec_k1 = timed("19", phase_speculative, torch, card)
-    new_k1 = sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values()) + spec_k1
+    lora_launches = timed("20", phase_lora, torch, card, opts.int4_layers)
+    new_k1 = (sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values()) + spec_k1
+              + lora_launches.get("ragged_paged_attention_cuda", 0))
 
     # Each kernel's launches on the main paths (the sync, async and ms4
     # serves with graphs; K1's f32 kernel apart from the bf16 one: counts set to 0 before each timed generate and
@@ -4018,7 +4368,8 @@ def main() -> None:
     # beside the graph ones, launch outside that window; phase 5's variant
     # serves run on its eager engine; phase 19's K1 launches those of its
     # draft-model and n-gram serves with graphs, each round's as its graph
-    # counted at its capture), summed over the paths
+    # counted at its capture; phase 20's those of its LoRA serves with
+    # graphs: TinyLlama's sync, async and ms4, INT4's sync), summed over the paths
     # that run it, and its timing at a shape the main
     # path gives it: attention at the 8-sequence decode batch, w4a8 at the
     # decode step's gate_up projection (T = 16), dequant and group at the
@@ -4032,7 +4383,7 @@ def main() -> None:
     # the 8B MLP, M = 16, launched by its own path (its entry point at M =
     # 1, 8, 16, 32, 64: no model calls it).
     def launched(name):
-        return sum(run.get(name, 0) for run in (int4_launches, *moe_launches.values()))
+        return sum(run.get(name, 0) for run in (int4_launches, lora_launches, *moe_launches.values()))
 
     source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
     moe_source = "scalellm_tpu_torch/csrc/moe_quant.cu"

@@ -68,6 +68,10 @@ class Batch:
     score_targets: Optional[np.ndarray] = field(default=None, init=False, repr=False)
     score_top_k: Optional[int] = field(default=None, init=False, repr=False)
     _score_spans: list = field(default_factory=list, init=False, repr=False)
+    # [S] int32 each sequence's LoRA adapter slot (padding rows: 0), set by
+    # prepare_model_inputs; the engine passes it as ModelInputs.lora_ids
+    # when adapters are loaded.
+    lora_slots: Optional[np.ndarray] = field(default=None, init=False, repr=False)
 
     def add(self, seq: Sequence, num_tokens: int) -> None:
         cached = seq.num_kv_cache_tokens()
@@ -112,6 +116,7 @@ class Batch:
         selected_idxes = np.zeros(S, dtype=np.int32)
         seq_mask = np.zeros(S, dtype=np.float32)
         needs_sample = np.zeros(S, dtype=bool)
+        self.lora_slots = np.zeros(S, dtype=np.int32)
 
         temperatures = np.zeros(S, dtype=np.float32)
         top_ks = np.zeros(S, dtype=np.int32)
@@ -173,6 +178,7 @@ class Batch:
             selected_idxes[s] = t + e.num_tokens - 1
             seq_mask[s] = 1.0
             needs_sample[s] = e.needs_sample
+            self.lora_slots[s] = seq.lora_slot
 
             sp = seq.sampling_params
             temperatures[s] = sp.temperature

@@ -44,6 +44,7 @@ logprob and the top-k run over the rows in chunks of 128.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import logging
 import time
 from collections import Counter
@@ -109,7 +110,8 @@ def envelope_words(block_size: int, max_tokens: int, max_seqs: int, max_context_
 def minimal_inputs(T: int, S: int, MAXP: int) -> ModelInputs:
     """The reference's warmup batch for a bucket: one sequence of one token
     with its KV on the reserved page 0 (not all zeros: a kernel must see a
-    valid batch). Shapes alone decide what is captured."""
+    valid batch), every LoRA slot the base's. Shapes alone decide what is
+    captured."""
     kv_lens = np.zeros(S, np.int32)
     kv_lens[0] = 1
     cu_q_lens = np.ones(S + 1, np.int32)
@@ -119,7 +121,7 @@ def minimal_inputs(T: int, S: int, MAXP: int) -> ModelInputs:
         token_seg=np.zeros(T, np.int32), new_kv_slot_ids=np.zeros(T, np.int32),
         block_tables=np.zeros((S, MAXP), np.int32), kv_lens=kv_lens, cu_q_lens=cu_q_lens,
         num_seqs=np.ones(1, np.int32), selected_idxes=np.zeros(S, np.int32),
-        seq_mask=np.zeros(S, np.float32),
+        seq_mask=np.zeros(S, np.float32), lora_ids=np.zeros(S, np.int32),
     )
 
 
@@ -358,10 +360,20 @@ class StepGraphs:
     def record(self, step: _Captured) -> None:
         """Capture the step's function (forward + logits, or N micro-steps
         with their sampler) into a CUDA graph (nothing runs on the
-        device)."""
+        device). Python's cyclic garbage collector stays off while the
+        stream captures: a collection there that drops another engine's
+        graphs destroys them, which a capturing stream does not permit (the
+        capture is invalidated); torch.cuda.graph collects before it
+        begins."""
         step.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(step.graph, pool=self._pool):
-            step.logits = step.fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(step.graph, pool=self._pool):
+                step.logits = step.fn()
+        finally:
+            if collecting:
+                gc.enable()
 
     def _replay(self, step: _Captured) -> None:
         if self.cuda:

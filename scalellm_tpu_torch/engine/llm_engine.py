@@ -3,11 +3,13 @@
 
 Init: load the model onto the device (a quantized checkpoint as it is; a
 dense one quantized on the device when `quantize` asks; kv_cache_dtype
-"int8" gives it int8 KV pages) -> size the KV cache from the device memory
-that is free once the weights are in place (an int8 slot is one byte an
-element) -> allocate blocks -> with host_swap_bytes, the KV swapper of
-preemption (memory/kv_swap.py) -> with CUDA graphs on, size the step buffer
-for the serving envelope and capture the warmup buckets
+"int8" gives it int8 KV pages) -> with lora_modules, load the LoRA adapters
+onto it (lora/; not on MoE or MLA models, as in the reference) -> size the
+KV cache from the device memory that is free once the weights and adapters
+are in place (an int8 slot is one byte an element) -> allocate blocks ->
+with host_swap_bytes, the KV swapper of preemption (memory/kv_swap.py) ->
+with CUDA graphs on, size the step buffer for the serving envelope and
+capture the warmup buckets
 (engine/executor.py), with num_decode_steps > 1 the multi-step graphs of the
 decode buckets too.
 
@@ -20,7 +22,8 @@ A step runs synchronously (execute_model; a batch that scores its prompt
 takes the executor's eager score step), as N decode micro-steps in one
 dispatch (execute_model_multi), or split in two for async stepping:
 dispatch_model enqueues it and returns, finalize_model waits for its outputs
-alone and resolves its pending tokens.
+alone and resolves its pending tokens. With adapters, every kind of step
+carries each sequence's adapter slot (ModelInputs.lora_ids).
 """
 
 from __future__ import annotations
@@ -86,6 +89,8 @@ class EngineOptions:
     # tokens a round proposes (k > 0 without a draft: prompt lookup).
     draft_model_path: str = ""
     num_speculative_tokens: int = 0
+    # Multi-LoRA: {adapter name: HF PEFT adapter directory} (lora/).
+    lora_modules: "dict | None" = None
 
 
 class LLMEngine:
@@ -129,6 +134,9 @@ class LLMEngine:
             self.model = quantize_model(self.model, qargs)
             self.model_args = self.model.args
             logger.info("runtime-quantized dense checkpoint to %s", options.quantize)
+        self.lora_meta = None
+        if options.lora_modules:
+            self._load_lora(options.lora_modules)
         self.executor = Executor(self.model, self.device, options.max_top_logprobs)
         logger.info(
             "model %s loaded in %.1fs", self.model_args.model_type, time.monotonic() - t0
@@ -166,6 +174,20 @@ class LLMEngine:
                                  **envelope)
         self._step_counter = 0
 
+    def _load_lora(self, modules: dict) -> None:
+        """Load the adapters onto the model's device, before the KV cache
+        is sized from what is left free (the reference's rules and words)."""
+        from scalellm_tpu_torch.lora import load_lora_adapters
+
+        if self.model_args.n_experts > 0:
+            raise ValueError("LoRA on MoE models is not supported")
+        if not hasattr(self.model, "lora_meta"):
+            raise ValueError(f"model family {self.model_args.model_type!r} does not support LoRA adapters")
+        stacks, meta = load_lora_adapters(modules, self.model)
+        self.model.set_lora(meta, stacks)
+        self.lora_meta = meta
+        logger.info("loaded %d LoRA adapter(s): %s", len(meta.names), meta.names)
+
     def kv_cache_slot_size_in_bytes(self) -> int:
         """Bytes per KV slot across all layers (one an element of int8
         pages)."""
@@ -191,6 +213,8 @@ class LLMEngine:
     def _prepare(self, batch: Batch):
         self._step_counter += 1
         mi, si, _ = batch.prepare_model_inputs(self.options.block_size, self._step_counter)
+        if self.lora_meta is not None:
+            mi.lora_ids = batch.lora_slots
         want_lp = any(e.seq.sampling_params.logprobs for e in batch.entries)
         return mi, si, want_lp
 

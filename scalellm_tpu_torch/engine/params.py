@@ -60,7 +60,9 @@ class ModelInputs:
     selected_idxes: torch.Tensor
     # [S] 1.0 for real sequences, 0.0 for padding
     seq_mask: torch.Tensor
-    # [S] LoRA adapter slot per sequence; LoRA is not ported, always None
+    # [S] LoRA adapter slot per sequence (0 = the base model; padding: 0);
+    # set by the engine when adapters are loaded, else None (the step
+    # buffer then holds zeros)
     lora_ids: "torch.Tensor | None" = None
 
     def to(self, device) -> "ModelInputs":
@@ -106,7 +108,8 @@ class ModelOutputs:
 
 # ModelInputs' fields in the order StepInputs lays them out, each with its
 # length as a function of the bucket (T, S, MAXP); seq_mask (f32) is kept as
-# its bits. lora_ids is not ported.
+# its bits. lora_ids is always there (zeros without adapters), so every step
+# graph, the N-step ones included, reads the step's adapter slots on replay.
 MODEL_FIELDS = (
     ("token_ids", lambda T, S, P: T),
     ("positions", lambda T, S, P: T),
@@ -118,6 +121,7 @@ MODEL_FIELDS = (
     ("num_seqs", lambda T, S, P: 1),
     ("selected_idxes", lambda T, S, P: S),
     ("seq_mask", lambda T, S, P: S),
+    ("lora_ids", lambda T, S, P: S),
 )
 # What a step reads beside ModelInputs, after it: the pending-token merge of
 # async stepping (a row's mask, 1 where the token is the previous step's
@@ -193,9 +197,10 @@ class StepInputs:
     def fill(self, mi: ModelInputs, si: "SamplingInputs | None" = None,
              pending: "tuple | None" = None) -> None:
         """Write the padded numpy arrays of one step into the buffer's
-        front with one host-to-device copy: `mi`, the per-row sampler
-        inputs of `si` (zeros without it: greedy), and the pending-token
-        merge's (mask [T] bool, gather [T] int32) (zeros without it)."""
+        front with one host-to-device copy: `mi` (lora_ids zeros where it is
+        None), the per-row sampler inputs of `si` (zeros without it:
+        greedy), and the pending-token merge's (mask [T] bool, gather [T]
+        int32) (zeros without it)."""
         T, (S, MAXP) = mi.token_ids.shape[0], mi.block_tables.shape
         words = self._words(T, S, MAXP)
         turn = self._turn
@@ -203,7 +208,7 @@ class StepInputs:
         if self._sent[turn] is not None:
             self._sent[turn].synchronize()
         host = self._staging[turn].numpy()
-        arrays = {name: getattr(mi, name) for name, _ in MODEL_FIELDS}
+        arrays = {name: getattr(mi, name) for name, _ in MODEL_FIELDS if getattr(mi, name) is not None}
         if pending is not None:
             arrays["pending_mask"], arrays["pending_gather"] = pending
         if si is not None:

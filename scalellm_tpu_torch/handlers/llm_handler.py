@@ -13,12 +13,16 @@ step a dispatch (num_decode_steps; N > 1 runs N micro-steps in one graph).
 kv_cache_dtype="int8" serves int8 KV pages, host_swap_bytes > 0 stages
 preempted sequences' KV pages in host memory. draft_model_path with
 num_speculative_tokens = k serves draft-model speculative decoding
-(SpeculativeEngine), k > 0 alone prompt lookup (NgramSpeculativeEngine); LoRA
-with either is a ValueError, as in the reference. Those that ask for a
-feature this package has not ported yet (tensor or sequence parallelism,
-multi-host serving, LoRA, model-args overrides) raise NotImplementedError;
-none is silently ignored. Per request, guided decoding is refused with an
-UNIMPLEMENTED status.
+(SpeculativeEngine), k > 0 alone prompt lookup (NgramSpeculativeEngine).
+lora_modules ({name: HF PEFT adapter directory}) serves LoRA adapters on one
+engine, each request picking its adapter by name (`lora`; an unknown name is
+an INVALID_ARGUMENT status), a batch mixing the base model and several
+adapters; LoRA with speculative decoding or multi-host serving is a
+ValueError, as in the reference, and so is LoRA on an MoE or MLA model. Those
+that ask for a feature this package has not ported yet (tensor or sequence
+parallelism, multi-host serving, model-args overrides) raise
+NotImplementedError; none is silently ignored. Per request, guided decoding
+is refused with an UNIMPLEMENTED status.
 """
 
 from __future__ import annotations
@@ -100,7 +104,6 @@ class LLMHandlerOptions:
             "tp_size (tensor parallelism)": self.tp_size != 1,
             "sequence_parallel": self.sequence_parallel,
             "distributed (multi-host serving)": self.distributed,
-            "lora_modules (LoRA)": bool(self.lora_modules),
             "model_args_overrides": bool(self.model_args_overrides),
         }
         asked = [name for name, on in asks.items() if on]
@@ -132,6 +135,7 @@ class LLMHandler:
             host_swap_bytes=options.host_swap_bytes,
             draft_model_path=options.draft_model_path or "",
             num_speculative_tokens=options.num_speculative_tokens,
+            lora_modules=options.lora_modules,
         )
         if options.draft_model_path:
             from scalellm_tpu_torch.speculative.speculative_engine import SpeculativeEngine
@@ -179,9 +183,11 @@ class LLMHandler:
         priority: Priority = Priority.NORMAL,
         stream: bool = False,
         callback: OnOutput = lambda out: True,
+        lora: Optional[str] = None,
     ) -> None:
-        """Validate, tokenize and enqueue, off the caller's thread."""
-        self._pool.submit(self._handle, prompt, None, sp, priority, stream, callback)
+        """Validate, tokenize and enqueue, off the caller's thread; `lora`
+        names the request's adapter (None: the base model)."""
+        self._pool.submit(self._handle, prompt, None, sp, priority, stream, callback, lora)
 
     def schedule_chat_async(
         self,
@@ -190,12 +196,13 @@ class LLMHandler:
         priority: Priority = Priority.NORMAL,
         stream: bool = False,
         callback: OnOutput = lambda out: True,
+        lora: Optional[str] = None,
     ) -> None:
         self._pool.submit(
-            self._handle, None, list(messages), sp, priority, stream, callback
+            self._handle, None, list(messages), sp, priority, stream, callback, lora
         )
 
-    def _handle(self, prompt, messages, sp, priority, stream, callback) -> None:
+    def _handle(self, prompt, messages, sp, priority, stream, callback, lora=None) -> None:
         t0 = time.monotonic()
         try:
             sp.verify()
@@ -223,6 +230,12 @@ class LLMHandler:
                     f"prompt + max_tokens ({len(prompt_tokens) + sp.max_tokens}"
                     f" tokens) exceeds KV cache capacity ({kv_capacity})",
                 )
+            lora_slot = 0
+            if lora:
+                meta = getattr(self.engine, "lora_meta", None)
+                if meta is None or lora not in meta.names:
+                    raise ValidationError(StatusCode.INVALID_ARGUMENT, f"unknown LoRA adapter {lora!r}")
+                lora_slot = meta.slot_of(lora)
             request = Request(
                 prompt=prompt,
                 prompt_tokens=prompt_tokens,
@@ -232,6 +245,7 @@ class LLMHandler:
                 stream=stream,
                 priority=priority,
                 enable_prefix_cache=self.options.enable_prefix_cache,
+                lora_slot=lora_slot,
             )
             if not self.scheduler.schedule(request):
                 raise ValidationError(StatusCode.RESOURCE_EXHAUSTED, "request queue is full")

@@ -6,8 +6,10 @@ the scheduler with run_until_complete. Chunked prefill is off by default (a
 huge max_tokens_per_batch), as in the reference package, CUDA graphs are on
 (one per step bucket, the two "fast" warmup buckets captured at init) and so
 is async scheduling (one step in flight); num_decode_steps > 1 runs that many
-decode micro-steps a dispatch. The model runs on the CUDA device unless `devices` names another
-("cpu" in the tests).
+decode micro-steps a dispatch. lora_modules ({name: HF PEFT adapter
+directory}) loads LoRA adapters, and generate's `lora` picks them by name.
+The model runs on the CUDA device unless `devices` names another ("cpu" in
+the tests).
 """
 
 from __future__ import annotations
@@ -75,7 +77,10 @@ class LLM:
         prompts: Union[str, Sequence[str]],
         sampling_params: Union[SamplingParams, Sequence[SamplingParams], None] = None,
         priority: Priority = Priority.NORMAL,
+        lora: "str | Sequence[str] | None" = None,
     ) -> List[RequestOutput]:
+        """Generate for every prompt; `lora` names the LoRA adapter of all
+        prompts, or one name (or None: the base model) a prompt."""
         if isinstance(prompts, str):
             prompts = [prompts]
         if sampling_params is None:
@@ -105,8 +110,11 @@ class LLM:
 
             return cb
 
+        loras = [lora] * len(prompts) if lora is None or isinstance(lora, str) else list(lora)
+        if len(loras) != len(prompts):
+            raise ValueError("one LoRA adapter name per prompt, or one for all")
         for i, (p, sp) in enumerate(zip(prompts, sps)):
-            self._handler.schedule_async(p, sp, priority, False, make_cb(i))
+            self._handler.schedule_async(p, sp, priority, False, make_cb(i), lora=loras[i])
         self._handler.run_until_complete()
         done.wait(timeout=60)
         return [o for o in outputs if o is not None]

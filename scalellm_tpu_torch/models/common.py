@@ -78,13 +78,28 @@ linear in k) and rounded to q's type, the kernel reads the pages at a scale
 of 1.0 (int8 values are exact in bf16), and the output is multiplied by the
 layer's v_scale and rounded.
 
+Multi-LoRA (the reference's lora_add; lora/loader.py loads HF PEFT
+adapters, set_lora carries them): q/k/v/o/gate/up/down of a dense layer take
+a per-token delta x @ A_s @ B_s of the token's adapter slot s
+(mi.lora_ids[mi.token_seg]; slot 0, the base, is zeros), computed as the
+reference computes it: the f32 rank intermediates of every slot, masked by a
+one-hot over the slots, then expanded, so every adapter mix has the same
+shapes and one captured graph serves them all. Targets that read the same
+input (q/k/v; gate/up) share one shrink product over their A's concatenated
+along the rank (LORA_GROUPS). A target's projection keeps its f32 product,
+the delta is added in f32 (q/k/v after the qkv bias, before the clip; o
+before its bias), and the result is rounded where the reference rounds.
+With adapters no RMSNorm folds into a quantized prologue (the deltas read
+the normed x). TF32 stays off for the delta's products.
+
 Features of the reference's DecoderModel that this subset does not carry
-(LoRA, tensor/sequence/expert parallelism, MLA on this class) raise
+(tensor/sequence/expert parallelism, MLA on this class) raise
 NotImplementedError when the model args ask for them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -99,6 +114,7 @@ from scalellm_tpu_torch.layers.alibi import alibi_slopes
 from scalellm_tpu_torch.layers.moe import quant_expert_ffn, routed_experts, softmax_topk
 from scalellm_tpu_torch.layers.norms import layer_norm, rms_norm
 from scalellm_tpu_torch.layers.rope import apply_rope, compute_inv_freq, cos_sin, inv_freq_buffer
+from scalellm_tpu_torch.lora.loader import lora_dims
 from scalellm_tpu_torch.ops.attention import ragged_paged_attention
 from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul
 from scalellm_tpu_torch.ops.kv_update import set_kv_cache
@@ -118,6 +134,16 @@ FUSED_PROJECTIONS = {
     "gate_up_proj": ("gate_proj", "up_proj"),
     "qkv_bias": ("q_bias", "k_bias", "v_bias"),
     "gate_up_bias": ("gate_bias", "up_bias"),
+}
+
+# LoRA targets by the input they read (the normed x of attention, attention's
+# output, the MLP's normed x, the activation): one shrink product a group,
+# over the group's targets' A concatenated along the rank.
+LORA_GROUPS = {
+    "qkv": ("q_proj", "k_proj", "v_proj"),
+    "o": ("o_proj",),
+    "mlp": ("gate_proj", "up_proj"),
+    "down": ("down_proj",),
 }
 
 
@@ -142,6 +168,39 @@ def dense_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return x.float() @ w.float().T
     return torch.mm(x, w.T, out_dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Products of f32 operands in full f32 (no TF32) on the card, as the
+    reference's f32 einsums of the LoRA delta."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def lora_layer_tensors(stacks: Dict[str, tuple], layer: int) -> Dict[str, torch.Tensor]:
+    """One layer's LoRA buffers from the stacked adapters {"lora_<target>":
+    (A [L, n_slots, K, r], B [L, n_slots, r, N])} (lora/loader.py, or the
+    reference's parameter tree): lora_A_<group> [K, n * n_slots * r] f32,
+    the group's n targets' A in LORA_GROUPS order, each [K, (slot, rank)];
+    lora_B_<target> [n_slots * r, N] f32."""
+    out = {}
+    for group, targets in LORA_GROUPS.items():
+        shrink = []
+        for t in targets:
+            if f"lora_{t}" not in stacks:
+                continue
+            A, B = (torch.as_tensor(x[layer]).float() for x in stacks[f"lora_{t}"])
+            S, K, r = A.shape
+            shrink.append(A.permute(1, 0, 2).reshape(K, S * r))
+            out[f"lora_B_{t}"] = B.reshape(S * r, B.shape[-1]).contiguous()
+        if shrink:
+            out[f"lora_A_{group}"] = torch.cat(shrink, dim=1).contiguous()
+    return out
 
 
 def _unsupported(args: ModelArgs) -> List[str]:
@@ -336,6 +395,9 @@ class DecoderModel(nn.Module):
         self.quant_impl = quant_matmul
         self.gmm_impl = grouped_matmul
         self.qexperts_impl = quant_expert_ffn
+        # Multi-LoRA (lora/loader.py): set by set_lora; the step's
+        # ModelInputs.lora_ids then selects each sequence's adapter slot.
+        self.lora_meta = None
         self.quant = active_quant(args)
         if self.quant is not None and self.quant.bits not in (4, 8):
             raise ValueError(f"quantization to {self.quant.bits} bits is not supported")
@@ -396,6 +458,52 @@ class DecoderModel(nn.Module):
     def _lm_head_bits(self) -> int:
         """quantize_lm_head: truthy -> int8; the string "int4" -> int4."""
         return 4 if self.quant.quantize_lm_head == "int4" else 8
+
+    # ------------------------------------------------------------ LoRA
+
+    def set_lora(self, meta, stacks: Optional[Dict[str, tuple]] = None) -> None:
+        """Carry the adapters of `meta` (a lora/loader.py LoraMeta): each
+        layer gets the buffers of lora_layer_tensors on the model's device,
+        from `stacks` (load_lora_adapters' output) or zeros for a state dict
+        to fill (convert_params). The base model is slot 0."""
+        L, S, r = self.args.n_layers, meta.n_slots, meta.r_max
+        device = self.embed_tokens.device
+        if stacks is None:
+            dims = lora_dims(self.args)
+            stacks = {f"lora_{t}": (torch.zeros(L, S, dims[t][0], r), torch.zeros(L, S, r, dims[t][1]))
+                      for t in meta.targets}
+        for li, layer in enumerate(self.layers):
+            # Each target's place among its group's targets in lora_A_<group>.
+            layer.lora_cols = {t: j for targets in LORA_GROUPS.values()
+                               for j, t in enumerate(t for t in targets if t in meta.targets)}
+            for name, t in lora_layer_tensors(stacks, li).items():
+                layer.register_buffer(name, t.to(device))
+        self.register_buffer("lora_slot_ids", torch.arange(S, dtype=torch.int32, device=device), persistent=False)
+        self.lora_meta = meta
+
+    def _lora_mask(self, mi: ModelInputs) -> Optional[torch.Tensor]:
+        """[T, n_slots * r_max] f32: ones over the rank columns of each
+        token's adapter slot (mi.lora_ids[mi.token_seg]), zeros elsewhere;
+        None without adapters."""
+        if self.lora_meta is None or mi.lora_ids is None:
+            return None
+        slot = mi.lora_ids[mi.token_seg]
+        onehot = (slot[:, None] == self.lora_slot_ids).float()  # [T, S]
+        T, S = onehot.shape
+        return onehot[:, :, None].expand(T, S, self.lora_meta.r_max).reshape(T, -1)
+
+    def _lora_shrink(self, layer: DecoderLayer, group: str, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """[T, n, n_slots * r] the masked f32 rank intermediates of the
+        group's n targets: x @ A of every slot (one product), each token's
+        own slot kept."""
+        with _full_f32_matmul():
+            za = x.float() @ getattr(layer, f"lora_A_{group}")
+        return za.view(za.shape[0], -1, mask.shape[1]) * mask[:, None, :]
+
+    def _lora_delta(self, layer: DecoderLayer, target: str, za: torch.Tensor) -> torch.Tensor:
+        """[T, N] f32: the target's delta from its group's intermediates."""
+        with _full_f32_matmul():
+            return za[:, layer.lora_cols[target]] @ getattr(layer, f"lora_B_{target}")
 
     # ------------------------------------------------------------ kv cache
 
@@ -463,13 +571,14 @@ class DecoderModel(nn.Module):
         matmul's prologue (a fused quantized projection without a row
         permutation; never the post-attention norm of an MoE layer), else
         None: the reference's _can_fuse (an RMSNorm without a bias, no
-        parallel residual). A qkv bias does not stop it: it is added to the
+        parallel residual, no LoRA adapters: their deltas read the normed x).
+        A qkv bias does not stop it: it is added to the
         matmul's output. Gemma2's pre-feedforward norm (the
         post_norm slot) folds as 1 + w in f32; the post-block norms follow
         a projection and never fold."""
         a = self.args
         if (layer.moe and proj == "gate_up_proj") or a.norm_type != "rms_norm" or a.norm_bias \
-                or a.parallel_residual:
+                or a.parallel_residual or self.lora_meta is not None:
             return None
         w = getattr(layer, proj, None)
         if not isinstance(w, QuantLinear) or "perm" in w._buffers:
@@ -507,8 +616,13 @@ class DecoderModel(nn.Module):
         # int8 pages: the kernel reads them at a scale of 1.0; the layer's
         # scales act on q and o below.
         unit = {"k_scale": 1.0, "v_scale": 1.0} if self.kv_quant else {}
-        # The qkv product stays f32 where a bias or the clip works on it.
-        qkv_f32 = a.qkv_bias or a.qkv_clip > 0
+        # LoRA: the targets' products stay f32 until their deltas are added.
+        lora = self._lora_mask(mi)
+        targets = self.lora_meta.targets if lora is not None else ()
+        lora_qkv = [t for t in LORA_GROUPS["qkv"] if t in targets]
+        lora_o = "o_proj" in targets
+        # The qkv product stays f32 where a bias, the clip or a delta works on it.
+        qkv_f32 = a.qkv_bias or a.qkv_clip > 0 or bool(lora_qkv)
         T = h.shape[0]
 
         for li, (layer, kvc, window) in enumerate(zip(self.layers, kv_cache, self._layer_windows())):
@@ -523,6 +637,10 @@ class DecoderModel(nn.Module):
                 q, k, v = (self._proj(x, w, f32=qkv_f32) for w in (layer.q_proj, layer.k_proj, layer.v_proj))
                 if a.qkv_bias:
                     q, k, v = (t + b.float() for t, b in zip((q, k, v), (layer.q_bias, layer.k_bias, layer.v_bias)))
+            if lora_qkv:
+                za = self._lora_shrink(layer, "qkv", x, lora)
+                q, k, v = (t + self._lora_delta(layer, name, za) if name in lora_qkv else t
+                           for t, name in zip((q, k, v), LORA_GROUPS["qkv"]))
             if a.qkv_clip > 0:  # MPT's clip_qkv, in f32 before the cast
                 q, k, v = (t.clamp(-a.qkv_clip, a.qkv_clip) for t in (q, k, v))
             q, k, v = (t.to(h.dtype) for t in (q, k, v))
@@ -546,11 +664,14 @@ class DecoderModel(nn.Module):
             )
             if self.kv_quant:
                 o = (o.float() * vs).to(o.dtype)
-            o = self._proj(o.reshape(T, q_n), layer.o_proj, f32=a.o_proj_bias)
+            o_in = o.reshape(T, q_n)
+            o = self._proj(o_in, layer.o_proj, f32=a.o_proj_bias or lora_o)
+            if lora_o:
+                o = o + self._lora_delta(layer, "o_proj", self._lora_shrink(layer, "o", o_in, lora))
             if a.o_proj_bias:
                 o = o + layer.o_bias.float()
             if a.parallel_residual:  # Phi: the MLP reads the same normed x
-                m = self._mlp(layer, x)
+                m = self._mlp(layer, x, lora=lora)
                 h = h + o.to(h.dtype) + m.to(h.dtype)
                 continue
             if a.residual_post_layernorm:
@@ -559,7 +680,7 @@ class DecoderModel(nn.Module):
 
             rms = self._fused_norm(layer, "gate_up_proj", layer.post_norm)
             x = h if rms else self._norm(h, layer.post_norm, getattr(layer, "post_norm_bias", None))
-            m = self._mlp(layer, x, rms)
+            m = self._mlp(layer, x, rms, lora)
             if a.residual_post_layernorm:
                 m = rms_norm(m.to(h.dtype), layer.post_ffw_norm, a.rms_norm_eps, a.zero_centered_norm)
             h = h + m.to(h.dtype)
@@ -569,25 +690,36 @@ class DecoderModel(nn.Module):
             return h
         return h[mi.selected_idxes]
 
-    def _mlp(self, layer: DecoderLayer, x: torch.Tensor, rms=None) -> torch.Tensor:
-        """The layer's FFN: the MoE block (f32), or the dense FFN in x's type,
-        f32 with its down bias added."""
+    def _mlp(self, layer: DecoderLayer, x: torch.Tensor, rms=None, lora=None) -> torch.Tensor:
+        """The layer's FFN: the MoE block (f32), or the dense FFN in x's type
+        (f32 with a down_proj LoRA delta), f32 with its down bias added;
+        lora: the step's _lora_mask or None."""
         if layer.moe:
             return self._moe(layer, x)
         if not self.args.mlp_bias:
-            return self._dense_ffn(layer, x, rms)
-        return self._dense_ffn(layer, x, rms, f32=True) + layer.down_bias.float()
+            return self._dense_ffn(layer, x, rms, lora=lora)
+        return self._dense_ffn(layer, x, rms, f32=True, lora=lora) + layer.down_bias.float()
 
-    def _dense_ffn(self, layer: DecoderLayer, x: torch.Tensor, rms=None, f32: bool = False) -> torch.Tensor:
+    def _dense_ffn(self, layer: DecoderLayer, x: torch.Tensor, rms=None, f32: bool = False,
+                   lora=None) -> torch.Tensor:
         """The FFN (a dense layer's, or an MoE layer's shared expert) without
         its down bias, in x's type or f32; rms as in _proj. The gate and up
-        products stay f32, with their biases, through the activation."""
+        products stay f32, with their biases and LoRA deltas, through the
+        activation; with a down_proj delta the output is f32."""
         a = self.args
+        targets = self.lora_meta.targets if lora is not None else ()
+        za = None
+        if any(t in targets for t in LORA_GROUPS["mlp"]):
+            za = self._lora_shrink(layer, "mlp", x, lora)
+
+        def delta(y, target):
+            return y + self._lora_delta(layer, target, za) if target in targets else y
+
         if not a.mlp_gated:
             u = self._proj(x, layer.up_proj, f32=True)
             if a.mlp_bias:
                 u = u + layer.up_bias.float()
-            m = ACT2FN[a.hidden_act](u)
+            m = ACT2FN[a.hidden_act](delta(u, "up_proj"))
         else:
             if hasattr(layer, "gate_up_proj"):
                 g, u = self._proj(x, layer.gate_up_proj, rms, f32=True).chunk(2, dim=-1)
@@ -598,8 +730,12 @@ class DecoderModel(nn.Module):
                 g, u = self._proj(x, layer.gate_proj, f32=True), self._proj(x, layer.up_proj, f32=True)
                 if a.mlp_bias:
                     g, u = g + layer.gate_bias.float(), u + layer.up_bias.float()
-            m = act_with_mul(a.hidden_act, g, u)
-        return self._proj(m.to(x.dtype), layer.down_proj, f32=f32)
+            m = act_with_mul(a.hidden_act, delta(g, "gate_proj"), delta(u, "up_proj"))
+        m = m.to(x.dtype)
+        if "down_proj" not in targets:
+            return self._proj(m, layer.down_proj, f32=f32)
+        d = self._proj(m, layer.down_proj, f32=True)
+        return d + self._lora_delta(layer, "down_proj", self._lora_shrink(layer, "down", m, lora))
 
     def _router(self, x: torch.Tensor, router_w: torch.Tensor):
         """Routing weights and experts [T, k] (the reference moe_mlp's: f32
@@ -648,7 +784,9 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
     (qkv, o, MLP, norms, lm_head), the qk norms, the post-block norms, the
     embedding norm and the learned positions carry over as they are, and so
     do an int8-KV model's per-layer scales (layers.kv_scales [L, 2], this
-    model's kv_scales)."""
+    model's kv_scales). LoRA adapters (layers.lora_<target>: (A [L, slots,
+    K, r], B [L, slots, r, N])) go to each layer's lora_layer_tensors, for a
+    model whose set_lora was given the same LoraMeta."""
     import numpy as np
 
     def tensor(x) -> torch.Tensor:
@@ -682,6 +820,7 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
             sd[f"{prefix}.{key}"] = t.T.contiguous() if key == "qweight" else t.contiguous()
 
     layers = jax_params["layers"]
+    lora = {k: tuple(np.asarray(x, np.float32) for x in v) for k, v in layers.items() if k.startswith("lora_")}
     sd = {name: tensor(jax_params[name]) for name in (
         "embed_tokens", "final_norm", "final_norm_bias", "embed_norm", "embed_norm_bias", "embed_positions",
         "lm_head_bias") if name in jax_params}
@@ -719,4 +858,6 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
                           {k: np.asarray(v)[l] for k, v in node.items()}, n, symmetric)
             else:
                 sd[f"layers.{l}.{name}"] = tensor(np.asarray(node)[l]).T.contiguous()
+        for name, t in lora_layer_tensors(lora, l).items():
+            sd[f"layers.{l}.{name}"] = t
     return sd

@@ -51,6 +51,7 @@ class Request:
         priority: Priority = Priority.NORMAL,
         request_id: Optional[str] = None,
         enable_prefix_cache: bool = True,
+        lora_slot: int = 0,  # LoRA adapter slot (0 = base model)
     ):
         self.id = request_id or _gen_request_id()
         self.prompt = prompt
@@ -64,6 +65,7 @@ class Request:
         self.arrival_seq = next(_req_counter)  # FCFS tiebreaker
         self._cancelled = False
         self._enable_prefix_cache = enable_prefix_cache
+        self.lora_slot = lora_slot
 
         n = sampling_params.n
         best_of = sampling_params.best_of or n
@@ -88,6 +90,7 @@ class Request:
             echo=self.sampling_params.echo,
         )
         seq.request = self  # backref for O(1) scheduler lookups
+        seq.lora_slot = self.lora_slot
         return seq
 
     # ------------------------------------------------------------- expansion

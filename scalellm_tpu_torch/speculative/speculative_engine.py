@@ -147,9 +147,7 @@ class SpeculativeEngine:
                 catch_up.add(seq, lag)
                 catch_up.entries[-1].needs_sample = False
         if catch_up.entries:
-            t0 = time.monotonic()
             self.draft.execute_model(catch_up)
-            HISTOGRAMS.observe("draft_execution_latency_seconds", time.monotonic() - t0)
         for seq in seqs:
             seq.engine_type = EngineType.LLM
 

@@ -20,7 +20,7 @@ sync serve:
 
 import pytest
 
-from tests.torch_port_util import tiny_llama
+from tests.torch_port_util import generate_within, tiny_llama
 
 PROMPTS = ["hello world", "abcdef", "xyz xyz xyz", "q"]
 
@@ -39,7 +39,7 @@ def _generate(model_dir, prompts, sps, async_on, **kw):
     try:
         if len(sps) == 1:
             sps = sps * len(prompts)
-        outs = llm.generate(prompts, sps)
+        outs = generate_within(llm, prompts, sps)
         return [[(so.token_ids, so.text, so.finish_reason) for so in o.outputs] for o in outs]
     finally:
         llm.close()
@@ -100,7 +100,7 @@ def test_async_with_logprobs(model_dir):
     for async_on in (False, True):
         with LLM(model_dir, devices="cpu", num_blocks=256, block_size=4,
                  enable_async_scheduling=async_on) as llm:
-            so = llm.generate(["logprob run"], [sp])[0].outputs[0]
+            so = generate_within(llm, ["logprob run"], [sp])[0].outputs[0]
         assert so.logprobs and len(so.logprobs) == 6
         assert all(lp.top_logprobs and len(lp.top_logprobs) == 3 for lp in so.logprobs)
         got[async_on] = [(lp.token_id, lp.logprob, [(t.token_id, t.logprob) for t in lp.top_logprobs])
@@ -115,10 +115,10 @@ def test_async_stop_token_hidden(model_dir):
     from scalellm_tpu_torch.request.output import FinishReason
 
     with LLM(model_dir, devices="cpu", num_blocks=256, block_size=4) as llm:
-        probe = llm.generate(["stop probe"], [SamplingParams(max_tokens=6, temperature=0.0,
+        probe = generate_within(llm, ["stop probe"], [SamplingParams(max_tokens=6, temperature=0.0,
                                                              ignore_eos=True)])[0].outputs[0]
         stop_tok = probe.token_ids[2]
-        so = llm.generate(["stop probe"], [SamplingParams(max_tokens=6, temperature=0.0,
+        so = generate_within(llm, ["stop probe"], [SamplingParams(max_tokens=6, temperature=0.0,
                                                           stop_token_ids=[stop_tok])])[0].outputs[0]
     assert so.finish_reason == FinishReason.STOP
     assert so.token_ids == probe.token_ids[:2]
@@ -149,7 +149,7 @@ def test_async_n_expansion(model_dir):
     from scalellm_tpu_torch import LLM, SamplingParams
 
     with LLM(model_dir, devices="cpu", num_blocks=256, block_size=4) as llm:
-        out = llm.generate(["expand me"], [SamplingParams(max_tokens=5, n=3, temperature=0.7, seed=7,
+        out = generate_within(llm, ["expand me"], [SamplingParams(max_tokens=5, n=3, temperature=0.7, seed=7,
                                                           ignore_eos=True)])[0]
     assert len(out.outputs) == 3
     assert all(so.finish_reason is not None and so.text for so in out.outputs)
@@ -178,7 +178,7 @@ def jax_async(model_dir):
     with LLM(model_dir, block_size=4, num_blocks=128, max_tokens_per_batch=16, enable_cuda_graph=False,
              enable_async_scheduling=True) as llm:
         return [o.outputs[0].token_ids
-                for o in llm.generate(PROMPTS, SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))]
+                for o in generate_within(llm, PROMPTS, SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))]
 
 
 def test_async_greedy_matches_jax(model_dir, jax_async):
@@ -188,6 +188,6 @@ def test_async_greedy_matches_jax(model_dir, jax_async):
     with LLM(model_dir, devices="cpu", block_size=4, num_blocks=128, max_tokens_per_batch=16,
              num_handling_threads=1) as llm:
         got = [o.outputs[0].token_ids
-               for o in llm.generate(PROMPTS, SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))]
+               for o in generate_within(llm, PROMPTS, SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))]
     assert _counters()["num_async_steps"] > before["num_async_steps"]
     assert got == jax_async

@@ -34,7 +34,7 @@ import torch
 
 import tests.fixtures as fixtures
 from tests.test_torch_model import _inputs
-from tests.torch_port_util import shared_checkpoint, tiny_llama
+from tests.torch_port_util import generate_within, shared_checkpoint, tiny_llama
 
 PROMPTS = [
     "the quick brown fox jumps over",
@@ -87,7 +87,7 @@ def _generate(path, graphs, **kw):
         sp = SamplingParams(max_tokens=6, temperature=0.0, ignore_eos=True, logprobs=True,
                             top_logprobs=2)
         # The second pass re-reads the shared prompt blocks from the prefix cache.
-        outs = [llm.generate(PROMPTS, sp) for _ in range(2)]
+        outs = [generate_within(llm, PROMPTS, sp) for _ in range(2)]
         graphs_made = len(llm._handler.engine.executor.graphs.graphs) if graphs else 0
         return [[(o.outputs[0].token_ids, o.outputs[0].text, o.outputs[0].logprobs,
                   o.usage.num_generated_tokens) for o in p] for p in outs], graphs_made
@@ -255,7 +255,9 @@ def test_handler_takes_graphs_and_warmup_and_refuses_the_rest():
     # Speculative decoding: ported (LoRA with it is the reference's ValueError).
     for ported in (dict(num_speculative_tokens=2), dict(draft_model_path="draft", num_speculative_tokens=2)):
         LLMHandlerOptions(**ported).check_ported()
-    for unported in (dict(distributed=True), dict(tp_size=2), dict(lora_modules={"a": "b"})):
+    # LoRA: ported (refused with speculation, as above).
+    LLMHandlerOptions(lora_modules={"a": "b"}).check_ported()
+    for unported in (dict(distributed=True), dict(tp_size=2)):
         with pytest.raises(NotImplementedError):
             LLMHandlerOptions(**unported).check_ported()
 

@@ -24,6 +24,7 @@ import torch
 
 import tests.fixtures as fixtures
 from tests.test_torch_model import _inputs
+from tests.torch_port_util import generate_within
 
 TOL = 1e-4
 PAGE = 4
@@ -187,7 +188,7 @@ def _generate(llm_cls, sp_cls, path, watch=None, **kw):
             watch(llm._handler.engine)
         sp = sp_cls(max_tokens=6, temperature=0.0, ignore_eos=True)
         # The second pass re-reads the shared prompt blocks from the prefix cache.
-        return [[o.outputs[0].token_ids for o in llm.generate(PROMPTS, sp)] for _ in range(2)]
+        return [[o.outputs[0].token_ids for o in generate_within(llm, PROMPTS, sp)] for _ in range(2)]
     finally:
         llm.close()
 

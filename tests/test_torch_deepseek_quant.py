@@ -38,6 +38,7 @@ import torch
 
 import tests.fixtures as fixtures
 from tests.test_torch_model import _inputs
+from tests.torch_port_util import generate_within
 
 TOL_REF = 1e-4
 TOL_DISPATCH = 0.02
@@ -227,7 +228,7 @@ def _generate(llm_cls, sp_cls, path, ref=False, **kw):
             model.quant_impl = functools.partial(quant_matmul, variant="ref")
             model.qexperts_impl = functools.partial(quant_expert_ffn, variant="ref")
         sp = sp_cls(max_tokens=6, temperature=0.0, ignore_eos=True)
-        return [o.outputs[0].token_ids for o in llm.generate(PROMPTS, sp)]
+        return [o.outputs[0].token_ids for o in generate_within(llm, PROMPTS, sp)]
     finally:
         llm.close()
 

@@ -52,7 +52,7 @@ from tests.test_torch_moe_models import (
     _port_loaded,
     _run_steps,
 )
-from tests.torch_port_util import ragged_batch, shared_checkpoint
+from tests.torch_port_util import generate_within, ragged_batch, shared_checkpoint
 
 HF_FAMILIES = ("gemma", "gemma2", "qwen3")
 FAMILY_NAMES = HF_FAMILIES + ("qwen",)
@@ -244,7 +244,7 @@ def _generate(llm_cls, sp_cls, path, **kw):
     llm = llm_cls(path, block_size=4, num_blocks=128, max_tokens_per_batch=16, **kw)
     try:
         sp = sp_cls(max_tokens=6, temperature=0.0, ignore_eos=True)
-        return [o.outputs[0].token_ids for o in llm.generate(GENERATE_PROMPTS, sp)]
+        return [o.outputs[0].token_ids for o in generate_within(llm, GENERATE_PROMPTS, sp)]
     finally:
         llm.close()
 

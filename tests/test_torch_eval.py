@@ -1,6 +1,6 @@
 """The port's accuracy harness (eval/ppl.py, eval/kv_calibration.py) against
 the JAX package's, on the CPU, on the tiny char-level Llama TRAINED on
-tests/data/corpus.txt (tests/fixtures.trained_tiny_llama_cached, float32),
+tests/data/corpus.txt (tests/torch_port_util.trained_tiny_llama, float32),
 after tests/test_eval.py:
 
 - calibrate_kv_scales: the same per-layer [k_scale, v_scale] as the JAX
@@ -21,7 +21,7 @@ import shutil
 import numpy as np
 import pytest
 
-import tests.fixtures as fixtures
+from tests.torch_port_util import trained_tiny_llama
 
 WINDOW = 256
 CONFIGS = {
@@ -33,7 +33,7 @@ CONFIGS = {
 
 @pytest.fixture(scope="module")
 def trained_dir():
-    return fixtures.trained_tiny_llama_cached()
+    return trained_tiny_llama()
 
 
 @pytest.fixture(scope="module")

@@ -2452,3 +2452,58 @@ def test_round_graph_replayed_at_other_kv_lens_gives_the_eager_round(cuda, kind)
         np.testing.assert_array_equal(a, b)
         assert ((a[:3, : k + 1] >= 0).sum(1) >= 1).all()  # every row keeps a token
     assert torch.equal(_bits(kv_t[:, 1:]), _bits(kv_te[:, 1:])) and torch.equal(_bits(kv_d[:, 1:]), _bits(kv_de[:, 1:]))
+
+
+# Multi-LoRA: an engine with two random adapters (chip_smoke's, in the HF
+# PEFT layout) serves a batch that mixes the base and both adapters with
+# graphs and eagerly, the same ids; a prefill and a decode batch with all
+# three slots through the kernels (K1; INT4: K2/K4 without the RMSNorm
+# prologue) and the plain versions, within chip_smoke.LOGITS_TOL, the
+# adapter moving the logits from the base's.
+
+
+@pytest.mark.parametrize("quantize", ["", "int4"])
+def test_lora_engine_with_graphs_gives_the_eager_ids(cuda, quantize, tmp_path):
+    import chip_smoke
+    from scalellm_tpu_torch import LLM, SamplingParams
+
+    cfg = dict(TINY_LLAMA_CFG, vocab_size=256, architectures=["LlamaForCausalLM"], tie_word_embeddings=False,
+               bos_token_id=1, eos_token_id=2)
+    chip_smoke.write_checkpoint(torch, str(tmp_path), cfg)
+    adapters, _, _ = chip_smoke.write_lora_adapters(torch, str(tmp_path / "adapters"), cfg)
+    prompts = ["the quick brown fox", "paged attention kernel", "abc", "decode and prefill " * 3]
+    loras = [None, "one", "two", "one"]
+    sp = SamplingParams(max_tokens=13, temperature=0.0, ignore_eos=True)
+    got = {}
+    for graphs in (True, False):
+        with LLM(str(tmp_path), devices="cuda", num_blocks=64, num_handling_threads=1, quantize=quantize,
+                 enable_cuda_graph=graphs, enable_async_scheduling=False, lora_modules=adapters) as llm:
+            outs = llm.generate(prompts, sp, lora=loras)
+            assert all(o.status.ok and o.usage.num_generated_tokens == 13 for o in outs)
+            got[graphs] = [o.outputs[0].token_ids for o in outs]
+    assert got[True] == got[False]
+
+
+@pytest.mark.parametrize("quantize", ["", "int4"])
+def test_lora_kernel_path_matches_plain_versions(cuda, quantize):
+    import chip_smoke
+    from scalellm_tpu_torch.lora import LoraMeta
+
+    model = _random_model(cuda, TINY_LLAMA_CFG, quantize=quantize)
+    L = model.args.n_layers
+    dims = chip_smoke.lora_dims(TINY_LLAMA_CFG)
+    meta = LoraMeta(names=["one", "two"], targets=tuple(sorted(dims)), n_slots=3, r_max=8)
+    g = torch.Generator().manual_seed(5)
+    stacks = {}
+    for t, (K, N) in dims.items():
+        A, B = torch.randn(L, 3, K, 8, generator=g) * 0.05, torch.randn(L, 3, 8, N, generator=g) * 0.05
+        A[:, 0] = 0
+        B[:, 0] = 0
+        stacks[f"lora_{t}"] = (A, B)
+    model.set_lora(meta, stacks)
+    assert model._fused_norm(model.layers[0], "qkv_proj", model.layers[0].input_norm) is None
+    rng = np.random.default_rng(6)
+    ids = [rng.integers(1, 512, n).tolist() for n in (150, 61, 9)]
+    moved = chip_smoke.lora_kernel_check(torch, {"nvidia_smi": ""}, f"test_lora{quantize}", model, ids, [0, 1, 2],
+                                         quant=bool(quantize))
+    assert moved > chip_smoke.LORA_MOVE_MIN

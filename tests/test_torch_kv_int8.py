@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from tests.test_torch_model import _inputs
-from tests.torch_port_util import latent_batch, ragged_batch, shared_checkpoint, tiny_llama
+from tests.torch_port_util import generate_within, latent_batch, ragged_batch, shared_checkpoint, tiny_llama
 
 TOL = 1e-5
 PAGE = 4
@@ -280,7 +280,7 @@ def _generate(llm_cls, sp_cls, path, **kw):
     try:
         engine = llm._handler.engine if hasattr(llm._handler, "engine") else None
         sp = sp_cls(max_tokens=8, temperature=0.0, ignore_eos=True)
-        return [o.outputs[0].token_ids for o in llm.generate(PROMPTS, sp)], engine
+        return [o.outputs[0].token_ids for o in generate_within(llm, PROMPTS, sp)], engine
     finally:
         llm.close()
 

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import tiny_llama
+from tests.torch_port_util import generate_within, tiny_llama
 
 
 def _entry(nbytes: int):
@@ -78,7 +78,7 @@ def _generate(llm_cls, sp_cls, host_swap_bytes, num_blocks, **kw):
     llm = llm_cls(tiny_llama(), block_size=4, num_blocks=num_blocks, enable_prefix_cache=False,
                   host_swap_bytes=host_swap_bytes, max_seqs_per_batch=8, **kw)
     try:
-        outs = llm.generate(PROMPTS, sp_cls(temperature=0.0, max_tokens=16, ignore_eos=True))
+        outs = generate_within(llm, PROMPTS, sp_cls(temperature=0.0, max_tokens=16, ignore_eos=True))
         return [tuple(o.outputs[0].token_ids) for o in outs]
     finally:
         llm.close()

@@ -56,7 +56,7 @@ from tests.test_torch_moe_models import (
     _run_steps,
 )
 from tests.test_torch_moe_models import checkpoint as moe_slice_checkpoint
-from tests.torch_port_util import ragged_batch, shared_checkpoint
+from tests.torch_port_util import generate_within, ragged_batch, shared_checkpoint
 
 FAMILY_NAMES = ("gpt2", "phi", "mpt", "bloom")
 
@@ -202,7 +202,7 @@ def _generate(llm_cls, sp_cls, path, **kw):
     llm = llm_cls(path, block_size=4, num_blocks=128, max_tokens_per_batch=16, **kw)
     try:
         sp = sp_cls(max_tokens=6, temperature=0.0, ignore_eos=True)
-        return [o.outputs[0].token_ids for o in llm.generate(GENERATE_PROMPTS, sp)]
+        return [o.outputs[0].token_ids for o in generate_within(llm, GENERATE_PROMPTS, sp)]
     finally:
         llm.close()
 

@@ -6,7 +6,7 @@ ids and texts must be equal."""
 
 import pytest
 
-from tests.torch_port_util import tiny_llama
+from tests.torch_port_util import generate_within, tiny_llama
 
 PROMPTS = [
     "the quick brown fox jumps over",
@@ -26,7 +26,7 @@ def _run(llm_cls, sp_cls, path, **kw):
     try:
         sp = sp_cls(max_tokens=6, temperature=0.0, ignore_eos=True)
         # The second pass re-reads the shared prompt blocks from the prefix cache.
-        return [llm.generate(PROMPTS, sp) for _ in range(2)]
+        return [generate_within(llm, PROMPTS, sp) for _ in range(2)]
     finally:
         llm.close()
 

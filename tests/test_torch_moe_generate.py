@@ -15,6 +15,7 @@ import functools
 import pytest
 
 from tests.test_torch_moe_models import trained_mixtral
+from tests.torch_port_util import generate_within
 
 PROMPTS = ["the quick brown fox jumps over", "the quick brown fox sleeps", "once upon a time"]
 MODES = {
@@ -35,7 +36,7 @@ def _generate(llm_cls, sp_cls, path, ref=False, **kw):
             model.quant_impl = functools.partial(quant_matmul, variant="ref")
             model.qexperts_impl = functools.partial(quant_expert_ffn, variant="ref")
         sp = sp_cls(max_tokens=8, temperature=0.0, ignore_eos=True)
-        return [o.outputs[0].token_ids for o in llm.generate(PROMPTS, sp)]
+        return [o.outputs[0].token_ids for o in generate_within(llm, PROMPTS, sp)]
     finally:
         llm.close()
 

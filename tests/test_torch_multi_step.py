@@ -20,7 +20,7 @@ N = 1 tokens:
 
 import pytest
 
-from tests.torch_port_util import tiny_llama
+from tests.torch_port_util import generate_within, tiny_llama
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +42,7 @@ def _generate(path, n, prompts, sps, **kw):
     if isinstance(sps, int):
         sps = SamplingParams(max_tokens=sps, temperature=0.0)
     with _llm(path, n, **kw) as llm:
-        return [(o.outputs[0].token_ids, o.outputs[0].text) for o in llm.generate(prompts, sps)]
+        return [(o.outputs[0].token_ids, o.outputs[0].text) for o in generate_within(llm, prompts, sps)]
 
 
 def _multi_steps():
@@ -80,7 +80,7 @@ def test_multi_step_with_logprobs(model_dir):
     got = {}
     for n in (1, 4):
         with _llm(model_dir, n) as llm:
-            so = llm.generate(["the quick"], SamplingParams(max_tokens=12, temperature=0.0, logprobs=True,
+            so = generate_within(llm, ["the quick"], SamplingParams(max_tokens=12, temperature=0.0, logprobs=True,
                                                             top_logprobs=2))[0].outputs[0]
         got[n] = [(lp.token_id, lp.logprob, [(t.token_id, t.logprob) for t in lp.top_logprobs])
                   for lp in so.logprobs]
@@ -134,7 +134,7 @@ def test_padding_page_zero_stays_reserved(model_dir):
             return real(mi, si, n, page_size)
 
         llm._handler.engine.executor.execute_multi = execute_multi
-        llm.generate(["the quick brown", "once"], SamplingParams(max_tokens=21, temperature=0.0))
+        generate_within(llm, ["the quick brown", "once"], SamplingParams(max_tokens=21, temperature=0.0))
         assert mgr._padding_block.ref_count >= 1
         assert mgr.num_free_blocks < 64
     assert tables and all((t[:, 0] > 0).all() for t in tables)
@@ -200,7 +200,7 @@ def jax_multi(model_dir):
 
     with LLM(model=model_dir, num_blocks=128, block_size=16, enable_prefix_cache=False,
              enable_cuda_graph=False, num_decode_steps=4) as llm:
-        outs = llm.generate(["the quick brown ", "once upon", "a"], SamplingParams(max_tokens=18, temperature=0.0))
+        outs = generate_within(llm, ["the quick brown ", "once upon", "a"], SamplingParams(max_tokens=18, temperature=0.0))
         return [o.outputs[0].token_ids for o in outs]
 
 

@@ -16,7 +16,7 @@ targets and write-back (Batch.process_prompt_scores).
 import numpy as np
 import pytest
 
-from tests.torch_port_util import tiny_llama
+from tests.torch_port_util import generate_within, tiny_llama
 
 PROMPTS = ["hello world", "the quick brown fox jumps over the lazy dog " * 3, "abc"]
 TOL = 1e-4
@@ -35,7 +35,7 @@ def _scores(llm_cls, sp_cls, path, top=3, passes=1, **kw):
         out = []
         for _ in range(passes):
             got = []
-            for o in llm.generate(PROMPTS, sp):
+            for o in generate_within(llm, PROMPTS, sp):
                 assert o.status.ok and o.finished
                 got.append([None if lp is None else (lp.token_id, lp.logprob, [d.token_id for d in lp.top_logprobs])
                             for lp in o.prompt_logprobs])

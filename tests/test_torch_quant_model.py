@@ -26,14 +26,13 @@ import numpy as np
 import pytest
 import torch
 
-import tests.fixtures as fixtures
 from scalellm_tpu.engine.params import ModelInputs as JaxModelInputs
 from scalellm_tpu_torch.engine.params import ModelInputs
 from scalellm_tpu_torch.models.common import QuantLinear
 from scalellm_tpu_torch.ops import quant_matmul as TQ
 from tests.test_torch_model import PAGE, _inputs
 from tests.test_torch_quantization import CHECKPOINTS, _jax_params, _torch_state
-from tests.torch_port_util import quantize_checkpoint, tiny_llama
+from tests.torch_port_util import generate_within, quantize_checkpoint, tiny_llama, trained_tiny_llama
 
 TOL_REF = 1e-4
 TOL_DISPATCH = 0.02
@@ -146,7 +145,7 @@ def _generate(llm_cls, sp_cls, path, variant=None, **kw):
         if variant is not None:
             llm._handler.engine.model.quant_impl = functools.partial(TQ.quant_matmul, variant=variant)
         sp = sp_cls(max_tokens=6, temperature=0.0, ignore_eos=True)
-        return [o.outputs[0].token_ids for o in llm.generate(PROMPTS, sp)]
+        return [o.outputs[0].token_ids for o in generate_within(llm, PROMPTS, sp)]
     finally:
         llm.close()
 
@@ -178,7 +177,7 @@ def trained_jax_tokens():
     from scalellm_tpu import LLM as JaxLLM
     from scalellm_tpu import SamplingParams as JaxSamplingParams
 
-    path = fixtures.trained_tiny_llama_cached()
+    path = trained_tiny_llama()
     return path, _generate(JaxLLM, JaxSamplingParams, path, enable_cuda_graph=False, **TRAINED_OPTS)
 
 

@@ -15,7 +15,9 @@ the JAX package's, on the CPU:
   serve and to scalellm_tpu.LLM's with the same options, with chunked
   prefill, four concurrent requests, graphs on and off, and the counters;
   the irregular-lag fallback; sampled speculation repeatable from its
-  seeds; the refusals (LoRA with speculation, a draft of another vocab).
+  seeds; the refusals (LoRA with speculation, a draft of another vocab);
+- the draft latency histogram: as many samples as the reference's for the
+  same traffic (no sample for a catch-up step).
 """
 
 import os
@@ -25,7 +27,7 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from tests.torch_port_util import tiny_llama
+from tests.torch_port_util import generate_within, tiny_llama
 
 PROMPTS = ["hello world", "abc", "the quick brown fox jumps over", "hello world, hello world"]
 
@@ -171,7 +173,7 @@ def _ids(llm_cls, sp_cls, path, prompts=PROMPTS, max_tokens=10, chunk=16, **kw):
     the longest prompt: chunked prefill)."""
     llm = llm_cls(path, block_size=4, num_blocks=256, max_tokens_per_batch=chunk, **kw)
     try:
-        outs = llm.generate(prompts, sp_cls(max_tokens=max_tokens, temperature=0.0, ignore_eos=True))
+        outs = generate_within(llm, prompts, sp_cls(max_tokens=max_tokens, temperature=0.0, ignore_eos=True))
         for o in outs:
             assert o.status.ok and o.finished and o.usage.num_generated_tokens == max_tokens
         return [o.outputs[0].token_ids for o in outs]
@@ -207,8 +209,30 @@ def plain_ids(tiny_model):
     return _ids(LLM, SamplingParams, tiny_model, devices="cpu")
 
 
+def _draft_latency_samples(histograms) -> int:
+    h = histograms.get("draft_execution_latency_seconds")
+    return h.count if h is not None else 0
+
+
+@pytest.fixture(scope="module")
+def self_draft_unchunked(tiny_model):
+    """The fixture as its own draft, k = 3, without chunked prefill, through
+    both packages: each one's greedy ids and the samples its
+    draft_execution_latency_seconds histogram gained."""
+    from scalellm_tpu.utils.metrics import HISTOGRAMS as JAX_HISTOGRAMS
+    from scalellm_tpu_torch.utils.metrics import HISTOGRAMS
+
+    spec = dict(draft_model=tiny_model, num_speculative_tokens=3)
+    out = {}
+    for name, run, hist in (("port", lambda: _port_ids(tiny_model, chunk=512, **spec), HISTOGRAMS),
+                            ("jax", lambda: _jax_ids(tiny_model, **spec), JAX_HISTOGRAMS)):
+        n0 = _draft_latency_samples(hist)
+        out[name] = run(), _draft_latency_samples(hist) - n0
+    return out
+
+
 @pytest.mark.parametrize("graphs", [True, False])
-def test_draft_model_greedy_matches_plain_and_jax(tiny_model, plain_ids, graphs, monkeypatch):
+def test_draft_model_greedy_matches_plain_and_jax(tiny_model, plain_ids, self_draft_unchunked, graphs, monkeypatch):
     """The fixture as its own draft, k = 3, chunked prefill (16-token
     budget), four concurrent requests: every round keeps all k drafts and
     the bonus token."""
@@ -232,9 +256,19 @@ def test_draft_model_greedy_matches_plain_and_jax(tiny_model, plain_ids, graphs,
     assert drafted - drafted0 == 3 * sum(len(r) for r in rows)
     assert acc > acc0
     if graphs:
-        spec = dict(draft_model=tiny_model, num_speculative_tokens=3)
-        got = _port_ids(tiny_model, chunk=512, **spec)
-        assert got == _port_ids(tiny_model, chunk=512) == _jax_ids(tiny_model, **spec)
+        got, want = self_draft_unchunked["port"][0], self_draft_unchunked["jax"][0]
+        assert got == _port_ids(tiny_model, chunk=512) == want
+
+
+def test_draft_latency_histogram_counts_what_the_reference_counts(self_draft_unchunked):
+    """The same greedy traffic through both packages, the fixture as its own
+    draft (every draft kept, so a catch-up step follows every round): the
+    draft_execution_latency_seconds histogram gains as many samples in the
+    port as in the reference, which observes it only around the draft's KV
+    build in a step with a prefill chunk, never around a catch-up."""
+    (got, port_samples), (want, jax_samples) = self_draft_unchunked["port"], self_draft_unchunked["jax"]
+    assert got == want
+    assert port_samples == jax_samples > 0
 
 
 def test_another_draft_model_greedy_matches_plain_and_jax():
@@ -329,7 +363,7 @@ def test_sampled_speculation_is_repeatable(tiny_model):
     for _ in range(2):
         llm = LLM(tiny_model, devices="cpu", block_size=4, num_blocks=256, draft_model=tiny_llama(128),
                   num_speculative_tokens=3)
-        outs = llm.generate(PROMPTS, sps)
+        outs = generate_within(llm, PROMPTS, sps)
         llm.close()
         assert all(o.finished and o.usage.num_generated_tokens == 12 for o in outs)
         runs.append([o.outputs[0].token_ids for o in outs])

@@ -1,6 +1,16 @@
-"""Shared helpers of the tests that hold the PyTorch port to the JAX package."""
+"""Shared helpers of the tests that hold the PyTorch port to the JAX package.
+
+Importing it sets torch's intra-op pool to one thread: every test process
+imports it while it collects the port's tests, before any test runs. With
+several test processes on the machine's cores, a pool of all the cores
+stalls at each of torch's many small parallel regions (a training build
+took minutes where it takes about 30 s alone); the JAX package's thread
+pools are left as they are."""
 
 import numpy as np
+import torch
+
+torch.set_num_threads(1)
 
 
 def ragged_batch(rng, *, q_lens, kv_lens, S, T, n_heads, n_kv_heads, head_dim,
@@ -146,11 +156,13 @@ def shared_checkpoint(name: str, build) -> str:
     build(dirpath) under a file lock (later callers wait for it, then reuse
     the result) and the finished directory is renamed into place, so no
     caller sees half of it. The name carries everything the build depends
-    on."""
+    on. A caller waits for another's build at most LOCK_LIMIT_S, then
+    fails."""
     import fcntl
     import os
     import shutil
     import tempfile
+    import time
 
     root = os.path.join(tempfile.gettempdir(), "scalellm_torch_port_checkpoints")
     os.makedirs(root, exist_ok=True)
@@ -158,7 +170,17 @@ def shared_checkpoint(name: str, build) -> str:
     if os.path.isdir(final):
         return final
     with open(final + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+        # The lock, waited for at most LOCK_LIMIT_S: a build that another
+        # process never finishes fails here instead of holding the run.
+        deadline = time.monotonic() + LOCK_LIMIT_S
+        while True:
+            try:
+                fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{name}: another process held the build lock for {LOCK_LIMIT_S} s")
+                time.sleep(0.5)
         if not os.path.isdir(final):
             tmp = f"{final}.building-{os.getpid()}"
             shutil.rmtree(tmp, ignore_errors=True)
@@ -178,3 +200,117 @@ def tiny_llama(hidden_size: int = 64) -> str:
         f"tiny_llama_h{hidden_size}_f{2 * hidden_size}_seed0_tok",
         lambda d: fixtures.make_tiny_llama(d, tokenizer=True, hidden_size=hidden_size,
                                            intermediate_size=2 * hidden_size))
+
+
+# ------------------------------------------------------- LoRA adapters
+
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def lora_dims(args) -> dict:
+    """target -> (K, N) of a model's projections, from its ModelArgs (either
+    package's)."""
+    q_n, kv_n = args.n_heads * args.head_dim, args.n_kv_heads * args.head_dim
+    D, F = args.hidden_size, args.intermediate_size
+    return {"q_proj": (D, q_n), "k_proj": (D, kv_n), "v_proj": (D, kv_n), "o_proj": (q_n, D),
+            "gate_proj": (D, F), "up_proj": (D, F), "down_proj": (F, D)}
+
+
+def make_lora_adapter(dirpath, dims, n_layers, r=4, alpha=8, seed=0, targets=LORA_TARGETS, scale=0.02,
+                      extra=None, config=None):
+    """A random LoRA adapter in the HF PEFT layout (tests/test_lora.py's
+    _make_adapter) at the widths `dims` (lora_dims): adapter_model.safetensors
+    with A [r, K] and B [N, r] f32 for every layer and target, and
+    adapter_config.json. `extra` adds tensors as they are, `config` updates
+    the config (the loader's refusals). Returns ({(layer, target): (A, B)},
+    alpha / r)."""
+    import json
+    import os
+
+    from safetensors.numpy import save_file
+
+    rng = np.random.RandomState(seed)
+    tensors, mats = {}, {}
+    for layer in range(n_layers):
+        for t in targets:
+            K, N = dims[t]
+            A = (rng.randn(r, K) * scale).astype(np.float32)
+            B = (rng.randn(N, r) * scale).astype(np.float32)
+            grp = "self_attn" if t in ("q_proj", "k_proj", "v_proj", "o_proj") else "mlp"
+            prefix = f"base_model.model.model.layers.{layer}.{grp}.{t}"
+            tensors[f"{prefix}.lora_A.weight"] = A
+            tensors[f"{prefix}.lora_B.weight"] = B
+            mats[(layer, t)] = (A, B)
+    tensors.update(extra or {})
+    os.makedirs(dirpath, exist_ok=True)
+    save_file(tensors, os.path.join(dirpath, "adapter_model.safetensors"))
+    with open(os.path.join(dirpath, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": r, "lora_alpha": alpha, "target_modules": list(targets),
+                   **(config or {})}, f)
+    return mats, alpha / r
+
+
+def merge_lora(dirpath, base_dir, mats, scaling):
+    """A dense Llama checkpoint with the adapter folded into its weights
+    offline (W + B A alpha / r, in the checkpoint's type): tests/test_lora.py's
+    _make_merged."""
+    import os
+    import shutil
+
+    from safetensors.numpy import load_file, save_file
+
+    os.makedirs(dirpath, exist_ok=True)
+    for name in os.listdir(base_dir):
+        if not name.endswith(".safetensors"):
+            shutil.copy(os.path.join(base_dir, name), os.path.join(dirpath, name))
+    src = [f for f in os.listdir(base_dir) if f.endswith(".safetensors")]
+    assert len(src) == 1
+    weights = dict(load_file(os.path.join(base_dir, src[0])))
+    for (layer, t), (A, B) in mats.items():
+        grp = "self_attn" if t in ("q_proj", "k_proj", "v_proj", "o_proj") else "mlp"
+        key = f"model.layers.{layer}.{grp}.{t}.weight"
+        w = weights[key].astype(np.float32)  # torch layout [N, K]
+        weights[key] = (w + (B @ A) * scaling).astype(weights[key].dtype)
+    save_file(weights, os.path.join(dirpath, src[0]))
+    return dirpath
+
+
+# ------------------------------------------------------- bounded waits
+
+GENERATE_LIMIT_S = 300
+LOCK_LIMIT_S = 600
+
+
+def generate_within(llm, *args, seconds=GENERATE_LIMIT_S, **kw):
+    """llm.generate(*args, **kw) (either package's LLM) on a daemon thread,
+    waited for at most `seconds`: a serve that never returns (a request that
+    never finishes, a handling thread that died) fails the test instead of
+    holding the whole run."""
+    import threading
+
+    import pytest
+
+    out, err = [], []
+
+    def run():
+        try:
+            out.append(llm.generate(*args, **kw))
+        except BaseException as e:  # re-raised on the test's thread
+            err.append(e)
+
+    t = threading.Thread(target=run, name="generate-within", daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        pytest.fail(f"LLM.generate did not return within {seconds} s")
+    if err:
+        raise err[0]
+    return out[0]
+
+
+def trained_tiny_llama() -> str:
+    """tests/fixtures.make_trained_tiny_llama (250 steps, seed 0, hidden 128,
+    the char tokenizer), built once for every port test process."""
+    import tests.fixtures as fixtures
+
+    return shared_checkpoint("trained_tiny_llama_s250_seed0_1thread", fixtures.make_trained_tiny_llama)
