@@ -271,7 +271,26 @@ Phases (any failure exits non-zero, and the result line is not printed):
      RMSNorm prologue, kernels against every plain version within
      LOGITS_TOL. The `lora_cost` line: tok/s and TTFT of the LoRA serves
      beside the base serves, and the adapters' bytes.
-  21. a line of the seconds each phase took, a `kernels` JSON line, then
+  21. guided decoding, tool calls and AsyncLLMEngine: TinyLlama-1.1B at
+     full width and depth (bf16, seed 0) with a tokenizer of 32000 ids
+     (guided_tokenizer_json: the char tokens and multi-character ones), 8
+     greedy requests (GUIDED_REQUESTS: two unconstrained, a forced call of
+     GUIDED_TOOL under the chat template, two choices, a regex,
+     GUIDED_SCHEMA, json_object) served with graphs (sync) beside an
+     unconstrained serve on the same engine, then eagerly: K1 exactly once
+     a layer a step, the same ids with graphs and without, each output in
+     its constraint's language (whole and parsed where it ended), and at
+     each guided request's first decode step the kernel path's masked
+     greedy choice the plain path's up to LOGITS_TOL; the vocabulary's
+     bytes and the schema's FSM (built, cached, first row) timed, and
+     Batch.prepare_model_inputs' host ms with and without guided rows. Then
+     AsyncLLMEngine on a fresh engine, stepping on its loop thread: 8
+     streamed requests at once (two chat requests with the tool), each
+     stream's deltas its final text, one stream cancelled and its blocks
+     returned, every await under a deadline, no failed step logged, K1
+     once a layer a step, TTFT per request from its first item, and stop()
+     giving the memory back.
+  22. a line of the seconds each phase took, a `kernels` JSON line, then
      the result line.
 
 It needs the repository (it fails in a directory that holds only this
@@ -2152,15 +2171,15 @@ def serving_llm(path, graphs, mode="sync", **kw):
 CLOSED_SLACK_BYTES = 2**30
 
 
-def close_llm(torch, card, tag, llm):
-    """Close `llm` and emit the device memory left after it: what live
+def close_llm(torch, card, tag, llm, close=None):
+    """Close `llm` (with `close`, by default llm.close) and emit the device memory left after it: what live
     tensors hold (allocated; a caller may keep the model), what the caching
     allocator reserves, what one more empty_cache hands back (released: the
     closed engine's blocks that its close kept cached) and what the device
     reports free. Fails if released exceeds CLOSED_SLACK_BYTES. What stays
     reserved beyond allocated after that is free space inside segments that
     hold live tensors (the kept model's), which no close can return."""
-    llm.close()
+    (close or llm.close)()
     torch.cuda.synchronize()
     allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     torch.cuda.empty_cache()
@@ -2283,9 +2302,12 @@ def record_outputs(llm):
     return ids
 
 
-def serve(torch, card, tag, llm, counters, want, graphs, mode="sync", lora=None):
+def serve(torch, card, tag, llm, counters, want, graphs, mode="sync", lora=None, traffic=None, profiled=True):
     """The phase's traffic through `llm`: a warm-up request, then one timed
-    generate of the 8 prompts (32 greedy tokens each) with every dispatch's
+    generate of the 8 prompts (32 greedy tokens each; `traffic(seed)`, when
+    given, returns other (prompts, SamplingParams list): a request without
+    ignore_eos then ends anywhere from 1 to its max_tokens; profiled=False
+    skips the profiled run and its line) with every dispatch's
     launches held to want(T, S, decode_only) (launches by wrapper name)
     times the dispatch's device runs of a step (micro-steps included), then
     the same traffic with other text under torch.profiler (the idle share is
@@ -2303,8 +2325,10 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync", lora=None)
     name = (tag if mode == "sync" else f"{tag}_{mode}") if graphs else f"{tag}_eager"
     engine = llm._handler.engine
     greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    traffic = traffic or (lambda seed: (prompts(seed), greedy))
     llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
-    ps = prompts()
+    ps, sps = traffic(SEED)
+    sp_of = dict(zip(ps, sps)) if isinstance(sps, list) else {p: sps for p in ps}
     ttft = HISTOGRAMS.get("time_to_first_token_latency_seconds")
     ttft_before = (ttft.total, ttft.count)
     steps_log, sampled, starts, micro = watch_steps(engine, counters)
@@ -2315,7 +2339,7 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync", lora=None)
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    outs = llm.generate(ps, greedy, lora=lora)
+    outs = llm.generate(ps, sps, lora=lora)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     compiles = COUNTERS.get("num_mid_serve_compiles") - compiles
@@ -2327,11 +2351,13 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync", lora=None)
     # Generated tokens are counted from usage: the char tokenizer names
     # ids below 256 only, and the output's token_ids hold only the ids
     # that decoded to text (the random model mostly picks higher ids).
-    for o in outs:
-        if not (o.finished and o.status.ok and o.usage.num_generated_tokens == 32):
-            fail(f"{name}: request did not finish with 32 tokens: {o.status}, {o.usage}")
-    if any(len(gen) != 32 or min(gen) < 0 for _, gen in ids.values()):
-        fail(f"{name}: a request's generated ids are not 32 resolved tokens")
+    for p, o in zip(ps, outs):
+        sp = sp_of[p]
+        n = o.usage.num_generated_tokens if o.usage else 0
+        if not (o.finished and o.status.ok and (n == sp.max_tokens if sp.ignore_eos else 1 <= n <= sp.max_tokens)):
+            fail(f"{name}: request did not finish with {sp.max_tokens} tokens: {o.status}, {o.usage}")
+        if len(ids[p][1]) != n or min(ids[p][1]) < 0:
+            fail(f"{name}: a request's generated ids are not {n} resolved tokens")
     if not steps_log:
         fail(f"{name}: no engine step ran")
     if graphs and compiles:
@@ -2369,19 +2395,23 @@ def serve(torch, card, tag, llm, counters, want, graphs, mode="sync", lora=None)
                 launches={k: v for k, v in launches.items() if v}, per_step=per_step)
 
     del steps_log[:], micro[:]
-    t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        llm.generate(prompts(SEED + 1), greedy, lora=lora)
-        torch.cuda.synchronize()
-    profiled_wall = time.monotonic() - t0
-    breakdown = device_breakdown(prof, wall, len(steps_log))
-    del prof
+    breakdown = dict(idle_share=None, kernels_per_step=None, device_busy_ms=None)
+    if profiled:
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            llm.generate(*traffic(SEED + 1), lora=lora)
+            torch.cuda.synchronize()
+        profiled_wall = time.monotonic() - t0
+        breakdown = device_breakdown(prof, wall, len(steps_log))
+        del prof
     unwatch_steps(engine)
+    llm._handler.scheduler.__dict__.pop("_finish_request", None)  # record_outputs' wrapper
     result.update(idle_share=breakdown["idle_share"], kernels_per_step=breakdown["kernels_per_step"],
                   device_busy_ms=breakdown["device_busy_ms"])
     emit(dict(line, **result, card=card["nvidia_smi"]))
-    emit(dict(phase=f"{name}_profile", graphs=graphs, mode=mode, engine_steps=len(steps_log),
-              profiled_wall_s=profiled_wall, unprofiled_wall_s=wall, **breakdown, card=card["nvidia_smi"]))
+    if profiled:
+        emit(dict(phase=f"{name}_profile", graphs=graphs, mode=mode, engine_steps=len(steps_log),
+                  profiled_wall_s=profiled_wall, unprofiled_wall_s=wall, **breakdown, card=card["nvidia_smi"]))
     return dict(outs=outs, tokens=tokens, ids=ids, launches=launches, figures=result)
 
 
@@ -4233,6 +4263,479 @@ def phase_lora(torch, card, int4_layers):
             llm.close()
         shutil.rmtree(root, ignore_errors=True)
 
+# ------------------------------------------------------------------ phase 21
+
+# tests/test_constrained.py:163-171's schema, and tests/test_tools.py's tool
+# with a bound on the city's length: a random model's string may otherwise
+# run to max_tokens, and the call would never close.
+GUIDED_SCHEMA = {"type": "object", "properties": {"name": {"type": "string", "maxLength": 8},
+                                                  "count": {"type": "integer"}}, "required": ["name", "count"]}
+GUIDED_TOOL = {"type": "function", "function": {
+    "name": "get_weather", "description": "Get weather",
+    "parameters": {"type": "object", "properties": {"city": {"type": "string", "maxLength": 24},
+                                                    "unit": {"type": "string", "enum": ["C", "F"]}},
+                   "required": ["city"]}}}
+GUIDED_CHOICES = ["yes", "no", "maybe"]
+GUIDED_WORDS = ["paged attention", "prefix cache", "decode step"]
+GUIDED_PHONE = r"[0-9]{3}-[0-9]{4}"
+GUIDED_MAX_TOKENS = 128
+# The phase's 8 greedy requests, one a prompt of prompts() (the tool's the
+# 16-char one, under the chat template and its tool block): (name, the
+# constraint's SamplingParams fields; "tool": the regex of a forced call of
+# GUIDED_TOOL, tool_choice "required").
+GUIDED_REQUESTS = (("free_0", {}), ("free_1", {}), ("tool", None), ("choice", dict(guided_choice=GUIDED_CHOICES)),
+                   ("choice_words", dict(guided_choice=GUIDED_WORDS)), ("regex", dict(guided_regex=GUIDED_PHONE)),
+                   ("schema", dict(guided_json=GUIDED_SCHEMA)), ("json_object", dict(guided_json="object")))
+GUIDED_AWAIT_S = 120  # every await of the AsyncLLMEngine serve
+GUIDED_CANCEL_AFTER = 3  # stream items before the cancelled stream is cancelled
+
+
+def guided_tokenizer_json(vocab_size):
+    """The char tokenizer's tokenizer.json (ids < 256 are their characters,
+    and encoding splits text into characters) with a vocabulary of
+    `vocab_size` ids: after the 256 char tokens, distinct strings of 2-6
+    printable ASCII characters drawn from SEED, none holding "▁" and none
+    both starting with "<" and ending with ">". token_vocab_bytes then takes
+    its plain UTF-8 branch, a mask row covers every id of the model, and the
+    FSM walks multi-character tokens as it would over a BPE vocabulary."""
+    import random
+
+    rng = random.Random(SEED)
+    spec = char_tokenizer_json()
+    vocab = spec["model"]["vocab"]
+    while len(vocab) < vocab_size:
+        w = "".join(chr(rng.randrange(32, 127)) for _ in range(rng.randint(2, 6)))
+        if w not in vocab and not (w.startswith("<") and w.endswith(">")):
+            vocab[w] = len(vocab)
+    return spec
+
+
+def tool_prompt(text):
+    """A user turn under TinyLlama's chat template (the llama family's coded
+    one: the checkpoint has no jinja template) with GUIDED_TOOL's block."""
+    from scalellm_tpu_torch import Message
+    from scalellm_tpu_torch.utils.chat import apply_chat_template
+
+    return apply_chat_template([Message("user", text)], model_type=TINYLLAMA["model_type"], tools=[GUIDED_TOOL])
+
+
+def guided_traffic(seed):
+    """traffic(seed) of serve(): GUIDED_REQUESTS on prompts(seed), greedy,
+    GUIDED_MAX_TOKENS each (ending at the model's end token)."""
+    from scalellm_tpu_torch import SamplingParams
+    from scalellm_tpu_torch.utils.tools import guided_regex_for_tools
+
+    ps, sps = [], []
+    for (name, guide), p in zip(GUIDED_REQUESTS, prompts(seed)):
+        if name == "tool":
+            p, guide = tool_prompt(p), dict(guided_regex=guided_regex_for_tools([GUIDED_TOOL]))
+        ps.append(p)
+        sps.append(SamplingParams(max_tokens=GUIDED_MAX_TOKENS, temperature=0.0, **guide))
+    return ps, sps
+
+
+def guided_valid(name, text):
+    """Whether an output that ended (STOP) meets request `name`'s
+    constraint by the repository's own parsers."""
+    import re
+
+    from scalellm_tpu_torch.utils.tools import parse_tool_calls
+
+    if name == "choice":
+        return text in GUIDED_CHOICES
+    if name == "choice_words":
+        return text in GUIDED_WORDS
+    if name == "regex":
+        return re.fullmatch(GUIDED_PHONE, text) is not None
+    try:
+        if name == "tool":
+            content, calls = parse_tool_calls(text)
+            return (content is None and len(calls) == 1 and calls[0].name == "get_weather"
+                    and isinstance(json.loads(calls[0].arguments).get("city"), str))
+        obj = json.loads(text)
+    except ValueError:
+        return False
+    if name == "schema":
+        return isinstance(obj, dict) and isinstance(obj.get("name"), str) and type(obj.get("count")) is int
+    return isinstance(obj, dict)
+
+
+def check_guided_outputs(card, tag, outs):
+    """Each guided output in its constraint's language: whole where it
+    ended (STOP), and then the choice in its set, the regex a full match,
+    the JSON parsed with the schema's types, the tool call parsed with the
+    tool's name and JSON arguments; a prefix of a word of it where
+    max_tokens cut it, which only an unbounded language (JSON, the schema's
+    unbounded integer) may. Emits the `{tag}_outputs` line."""
+    from scalellm_tpu_torch.constrained.fsm import DEAD, START, compile_regex
+    from scalellm_tpu_torch.constrained.guided import constraint_regex
+
+    rows = {}
+    for (name, _), sp, o in zip(GUIDED_REQUESTS, guided_traffic(SEED)[1], outs):
+        text, reason = o.outputs[0].text, o.outputs[0].finish_reason.name
+        row = rows[name] = dict(text=text[:160], finish=reason, tokens=o.usage.num_generated_tokens)
+        if not sp.has_guided:
+            continue
+        dfa = compile_regex(constraint_regex(sp))
+        st = dfa.walk(START, text.encode())
+        if reason == "STOP":
+            row["valid"] = bool(st != DEAD and dfa.accepting[st]) and guided_valid(name, text)
+        else:  # cut at max_tokens: a bounded language ends before it
+            row["valid"] = st != DEAD and name in ("schema", "json_object")
+    emit(dict(phase=f"{tag}_outputs", requests=rows, card=card["nvidia_smi"]))
+    bad = [n for n, r in rows.items() if r.get("valid") is False]
+    if bad:
+        fail(f"{tag}: outputs outside their constraint: {bad}")
+
+
+def guided_kernel_check(torch, card, model, masks):
+    """At each guided request's first decode step (its prompt prefilled,
+    then its first generated token as a decode batch), the greedy choice of
+    the kernel path under the request's mask at that step must be the plain
+    attention path's greedy choice up to LOGITS_TOL: the plain masked
+    logits' largest value less the plain logit of the kernel's choice. masks:
+    name -> (prompt ids, generated ids, packed mask row after the first
+    token)."""
+    from scalellm_tpu_torch.ops import attention
+    from scalellm_tpu_torch.ops.attention import plain_ragged_paged_attention
+    from scalellm_tpu_torch.sampling.sampler import apply_allowed_mask
+
+    import numpy as np
+
+    gaps, agree = {}, 0
+    with torch.inference_mode():
+        for name, (ids, gen, row) in masks.items():
+            prefill, n_pages = batch_inputs(torch, [(ids, 0, len(ids) + 1)])
+            decode, _ = batch_inputs(torch, [([gen[0]], len(ids), len(ids) + 1)])
+            mask = torch.from_numpy(np.asarray(row, np.uint32).astype(np.int64)[None]).to(DEVICE)
+            logits = {}
+            for impl in ("kernel", "plain"):
+                model.attn_impl = plain_ragged_paged_attention if impl == "plain" else attention.ragged_paged_attention
+                kv = torch.zeros(model.kv_cache_shape(n_pages, 16), dtype=model.kv_cache_dtype(), device=DEVICE)
+                model(kv, prefill.to(DEVICE))
+                out = model.logits(model(kv, decode.to(DEVICE), decode_only=True)[:1]).float()
+                logits[impl] = apply_allowed_mask(out, mask)[0]
+                del kv
+            model.attn_impl = attention.ragged_paged_attention
+            choice = int(logits["kernel"].argmax())
+            gaps[name] = (logits["plain"].max() - logits["plain"][choice]).item()
+            agree += choice == gen[1]
+            if not logits["kernel"][choice] > -1e29:
+                fail(f"guided {name}: the kernel path chose a token its mask bans")
+    emit(dict(phase="guided_logits", requests=len(masks), largest_gap=max(gaps.values()), gaps=gaps,
+              served_choice_agrees=agree, tol=LOGITS_TOL, card=card["nvidia_smi"]))
+    if not max(gaps.values()) <= LOGITS_TOL:
+        fail(f"guided: the kernel path's masked greedy choice is {max(gaps.values())} below the plain path's "
+             f"(> {LOGITS_TOL})")
+
+
+def time_prepare(log):
+    """Make Batch.prepare_model_inputs append (host ms, whether a row is
+    guided) to `log` for each call. Returns the unwrapped method."""
+    from scalellm_tpu_torch.engine.batch import Batch
+
+    real = Batch.prepare_model_inputs
+
+    def timed(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = real(self, *args, **kw)
+        log.append(((time.perf_counter() - t0) * 1e3, out[1].allowed_mask.shape[1] > 1))
+        return out
+
+    Batch.prepare_model_inputs = timed
+    return real
+
+
+async def guided_async_serve(engine, reqs, cancel):
+    """reqs: (prompt or chat messages, SamplingParams, tools) streamed at
+    once through `engine`; stream `cancel` is cancelled after
+    GUIDED_CANCEL_AFTER items. Every await has a deadline. Returns per
+    request its concatenated deltas, items, seconds to its first item and
+    last output."""
+    import asyncio
+
+    async def submit(msg, sp, tools):
+        t0 = time.monotonic()
+        if tools is None:
+            s = await asyncio.wait_for(engine.schedule_async(msg, sp, stream=True), GUIDED_AWAIT_S)
+        else:
+            s = await asyncio.wait_for(engine.schedule_chat_async(msg, sp, stream=True, tools=tools), GUIDED_AWAIT_S)
+        return t0, s
+
+    async def drain(i, t0, s):
+        texts, first, last = [], None, None
+        it = s.__aiter__()
+        while True:
+            try:
+                out = await asyncio.wait_for(it.__anext__(), GUIDED_AWAIT_S)
+            except StopAsyncIteration:
+                break
+            if first is None:
+                first = time.monotonic() - t0
+            if out.outputs:
+                texts.append(out.outputs[0].text)
+            last = out
+            if i == cancel and len(texts) == GUIDED_CANCEL_AFTER:
+                s.cancel()
+        return dict(text="".join(texts), items=len(texts), ttft_s=first, last=last)
+
+    streams = [await submit(*r) for r in reqs]
+    return await asyncio.wait_for(asyncio.gather(*(drain(i, t0, s) for i, (t0, s) in enumerate(streams))),
+                                  GUIDED_AWAIT_S)
+
+
+def guided_async_pass(torch, card, tag, engine, inner, done, ps, failed_steps):
+    """One AsyncLLMEngine serve of phase 21: GUIDED_REQUESTS on the prompts
+    `ps`, streamed at once (the tool's and the schema's as chat requests
+    with the tool: a forced call, and a free reply), the first,
+    unconstrained, cancelled after GUIDED_CANCEL_AFTER items. Fails unless
+    every other stream's deltas make its final text (`done`: request prompt
+    -> (cancelled, visible generated ids), noted by the scheduler), the
+    cancelled request is retired with its blocks back, no step failed, and
+    K1 ran once a layer a step. Returns its K1 launches."""
+    import asyncio
+
+    from scalellm_tpu_torch import Message, SamplingParams
+    from scalellm_tpu_torch.ops import attention
+    from scalellm_tpu_torch.utils.tools import guided_regex_for_tools
+
+    k1 = attention.ragged_paged_attention_cuda
+    L = TINYLLAMA["num_hidden_layers"]
+    tool_regex = guided_regex_for_tools([GUIDED_TOOL])
+    reqs, keys = [], []
+    for (name, guide), p in zip(GUIDED_REQUESTS, ps):
+        if name in ("tool", "schema"):
+            sp = SamplingParams(max_tokens=64, temperature=0.0, **(dict(guided_regex=tool_regex) if name == "tool" else {}))
+            reqs.append(([Message("user", p)], sp, [GUIDED_TOOL]))
+            keys.append(tool_prompt(p))
+        else:
+            sp = SamplingParams(max_tokens=64 if guide else 96, temperature=0.0, ignore_eos=not guide, **guide)
+            reqs.append((p, sp, None))
+            keys.append(p)
+    cancel = 0
+    sched, bm = engine._handler.scheduler, inner.block_manager
+    free_before = bm.num_free_blocks + bm.num_blocks_in_prefix_cache
+    steps_log, _, _, micro = watch_steps(inner, (k1,))
+    t0 = time.monotonic()
+    results = asyncio.run(guided_async_serve(engine, reqs, cancel))
+    wall = time.monotonic() - t0
+    deadline = time.monotonic() + GUIDED_AWAIT_S
+    while sched._requests or bm.num_free_blocks + bm.num_blocks_in_prefix_cache != free_before:
+        if time.monotonic() > deadline:
+            fail(f"{tag}: {len(sched._requests)} requests still held, "
+                 f"{free_before - bm.num_free_blocks - bm.num_blocks_in_prefix_cache} blocks not returned")
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    unwatch_steps(inner)
+    if failed_steps:
+        fail(f"{tag}: the loop logged {len(failed_steps)} failed steps: {failed_steps[0]}")
+    for (T, S, decode_only, runs, got), n in zip(steps_log, micro):
+        if got != runs * L:
+            fail(f"{tag}: a dispatch of T={T}, S={S} ({runs} device runs) launched K1 {got} times, "
+                 f"expected {runs * L}")
+    rows = []
+    for i, (key, r) in enumerate(zip(keys, results)):
+        cancelled, visible = done.get(key, (None, None))
+        final = inner.tokenizer.decode(visible) if visible is not None else None
+        row = dict(request=i, chat=reqs[i][2] is not None, guided=reqs[i][1].has_guided, items=r["items"],
+                   ttft_s=r["ttft_s"], cancelled=bool(cancelled), tokens=len(visible or ()))
+        if i == cancel:
+            ok = cancelled and r["items"] == GUIDED_CANCEL_AFTER and len(visible) < reqs[i][1].max_tokens
+        else:
+            ok = (not cancelled and r["last"] is not None and r["last"].finished and r["last"].status.ok
+                  and r["text"] == final)
+        row["ok"] = bool(ok)
+        rows.append(row)
+    tool_text = results[[n for n, _ in GUIDED_REQUESTS].index("tool")]["text"]
+    emit(dict(phase=f"{tag}_e2e", requests=rows, wall_s=wall, engine_steps=len(steps_log),
+              k1_launches=sum(st[4] for st in steps_log),
+              captured_in_serve=sum(1 for st, n in zip(steps_log, micro) if st[3] == 2 * n),
+              mean_ttft_s=statistics.fmean(r["ttft_s"] for r in rows), free_blocks_before=free_before,
+              tool_text=tool_text[:160], card=card["nvidia_smi"]))
+    bad = [r["request"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{tag}: requests {bad} did not stream their final text (or the cancel did not hold)")
+    return sum(st[4] for st in steps_log)
+
+
+def phase_guided(torch, card):
+    """Phase 21 (see the module docstring). Returns K1's launches on its
+    main paths: the guided and unconstrained serves with graphs, and the
+    AsyncLLMEngine serves."""
+    import logging
+
+    from scalellm_tpu_torch import AsyncLLMEngine, SamplingParams
+    from scalellm_tpu_torch.constrained.fsm import START
+    from scalellm_tpu_torch.constrained.guided import token_vocab_bytes
+    from scalellm_tpu_torch.constrained.tokenmap import GuidedState
+    from scalellm_tpu_torch.ops import attention
+
+    k1 = attention.ragged_paged_attention_cuda
+    L = TINYLLAMA["num_hidden_layers"]
+    want = lambda T, S, decode_only: {k1.__name__: L}  # noqa: E731  (K1 once a layer a step)
+    root = tempfile.mkdtemp(prefix="scalellm_guided_")
+    llm = engine = model = None
+    prep_log = []
+    real_prepare = time_prepare(prep_log)
+    failed_steps = []
+
+    class StepFailures(logging.Handler):
+        def emit(self, record):
+            if "scheduler step failed" in record.getMessage():
+                failed_steps.append(record.getMessage())
+
+    step_log = logging.getLogger("scalellm_tpu_torch.handlers.llm_handler")
+    watcher = StepFailures()
+    step_log.addHandler(watcher)
+    try:
+        t0 = time.monotonic()
+        write_checkpoint(torch, root, TINYLLAMA)
+        with open(os.path.join(root, "tokenizer.json"), "w") as f:
+            json.dump(guided_tokenizer_json(TINYLLAMA["vocab_size"]), f)
+        emit(dict(phase="guided_checkpoint", model="tinyllama", vocab=TINYLLAMA["vocab_size"],
+                  write_s=time.monotonic() - t0))
+
+        runs, prep = {}, {}
+        for mode in ("graphs", "eager"):
+            graphs = mode == "graphs"
+            t0 = time.monotonic()
+            llm = serving_llm(root, graphs, "sync")
+            torch.cuda.synchronize()
+            handler = llm._handler
+            engine = handler.engine
+            emit(dict(phase=serve_setup("guided", "sync" if graphs else "eager"), graphs=graphs,
+                      load_s=time.monotonic() - t0, kv_blocks=engine.block_manager.options.num_blocks,
+                      **graph_stats(engine)))
+            if graphs:
+                # The vocabulary's bytes, then the schema's FSM: built, then
+                # from the handler's cache, then its first mask row.
+                t0 = time.monotonic()
+                vocab = token_vocab_bytes(handler.tokenizer)
+                t_vocab = time.monotonic() - t0
+                sp = SamplingParams(guided_json=GUIDED_SCHEMA)
+                t0 = time.monotonic()
+                fsm = handler._guided_fsm(sp)
+                t_build = time.monotonic() - t0
+                t0 = time.monotonic()
+                cached = handler._guided_fsm(sp)
+                t_cached = time.monotonic() - t0
+                t0 = time.monotonic()
+                fsm.row(START)
+                t_row = time.monotonic() - t0
+                emit(dict(phase="guided_fsm", vocab_ids=len(vocab), mask_words=fsm.n_words,
+                          vocab_bytes_s=t_vocab, schema_build_s=t_build, schema_cached_s=t_cached,
+                          cache_hit=cached is fsm, first_row_s=t_row, dfa_states=int(fsm.dfa.trans.shape[0]),
+                          card=card["nvidia_smi"]))
+            # Every constraint of the traffic compiled before the timed serve,
+            # as a server that has seen it keeps it (the cold path is the
+            # async serve's first pass below); each first build timed.
+            builds = {}
+            for (name, _), sp in zip(GUIDED_REQUESTS, guided_traffic(SEED)[1]):
+                if sp.has_guided:
+                    t0 = time.monotonic()
+                    handler._guided_fsm(sp)
+                    builds[name] = time.monotonic() - t0
+            if graphs:
+                emit(dict(phase="guided_fsm_builds", seconds=builds, card=card["nvidia_smi"]))
+            del prep_log[:]
+            # The eager serve's figures are not compared: no profiled run.
+            runs[mode] = serve(torch, card, "guided", llm, (k1,), want, graphs, "sync", traffic=guided_traffic,
+                               profiled=graphs)
+            prep[mode] = list(prep_log)
+            if graphs:
+                check_guided_outputs(card, "guided", runs[mode]["outs"])
+                # The unconstrained sync serve on the same engine, after
+                # (the eager engine serves the guided traffic first too), on
+                # other prompts (no prefix-cache hits on the guided ones).
+                del prep_log[:]
+                runs["free"] = serve(torch, card, "guided_free", llm, (k1,), want, True, "sync",
+                                     traffic=lambda seed: (prompts(seed + 4), SamplingParams(
+                                         max_tokens=32, temperature=0.0, ignore_eos=True)))
+                prep["free"] = list(prep_log)
+                # Each guided request's mask at its first decode step.
+                masks = {}
+                for (name, _), p, sp in zip(GUIDED_REQUESTS, *guided_traffic(SEED)):
+                    ids, gen = runs[mode]["ids"][p]
+                    if sp.has_guided and len(gen) >= 2:
+                        g = GuidedState(handler._guided_fsm(sp))
+                        g.advance(gen[0])
+                        if not g.finished:
+                            masks[name] = (ids, gen, g.mask().copy())
+                engine = handler = None
+                close_llm(torch, card, "guided", llm)
+                llm = None
+        compare_serves(card, "guided", runs["graphs"], runs["eager"])
+        model = engine.model
+        engine = handler = None
+        close_llm(torch, card, "guided_eager", llm)
+        llm = None
+        guided_kernel_check(torch, card, model, masks)
+        model = None
+        torch.cuda.empty_cache()
+
+        def prep_ms(log, guided):
+            ms = [m for m, g in log if g == guided]
+            return dict(calls=len(ms), mean_ms=statistics.fmean(ms) if ms else None,
+                        median_ms=statistics.median(ms) if ms else None)
+
+        fig = lambda r: {k: r["figures"][k] for k in ("output_tok_per_s", "mean_ttft_s", "decode_step_ms",  # noqa: E731
+                                                      "idle_share", "engine_steps", "host_ms_per_dispatch",
+                                                      "wall_s", "device_busy_ms")}
+        emit(dict(phase="guided_cost", guided=fig(runs["graphs"]), unconstrained=fig(runs["free"]),
+                  guided_eager=fig(runs["eager"]),
+                  prepare_ms=dict(guided_rows=prep_ms(prep["graphs"], True),
+                                  no_guided_rows=prep_ms(prep["graphs"], False),
+                                  unconstrained_serve=prep_ms(prep["free"], False)),
+                  output_tokens=dict(guided=sum(o.usage.num_generated_tokens for o in runs["graphs"]["outs"]),
+                                     unconstrained=sum(o.usage.num_generated_tokens for o in runs["free"]["outs"])),
+                  card=card["nvidia_smi"]))
+        launches = runs["free"]["launches"][k1.__name__] + runs["graphs"]["launches"][k1.__name__]
+
+        # AsyncLLMEngine on a fresh engine (its defaults: graphs, async
+        # stepping, the "fast" warmup), stepping on the handler's loop
+        # thread (guided_async_pass).
+        t0 = time.monotonic()
+        engine = AsyncLLMEngine(root, devices=DEVICE)
+        torch.cuda.synchronize()
+        inner = engine._handler.engine
+        emit(dict(phase="guided_async_setup", load_s=time.monotonic() - t0,
+                  kv_blocks=inner.block_manager.options.num_blocks, **graph_stats(inner)))
+        sched = engine._handler.scheduler
+        done = {}
+        real_finish = sched._finish_request
+
+        def finish(request):
+            seq = request.sequences[0]
+            visible = seq.token_ids[seq.num_prompt_tokens : seq.num_resolved_tokens - seq._num_hidden_tail_tokens]
+            done[request.prompt] = (request.is_cancelled, list(visible))
+            real_finish(request)
+
+        sched._finish_request = finish
+        engine.start()
+        # Twice: "cold", each constraint compiled on first use inside the
+        # serve (on a handling thread, beside the loop), then "warm", new
+        # prompts under the same constraints (the handler's cache).
+        async_k1 = 0
+        for n_pass, tag in enumerate(("guided_async_cold", "guided_async_warm")):
+            async_k1 += guided_async_pass(torch, card, tag, engine, inner, done, prompts(SEED + 2 + n_pass),
+                                          failed_steps)
+        inner = sched = real_finish = finish = None
+        close_llm(torch, card, "guided_async", engine, close=engine.stop)
+        engine = None
+        return launches + async_k1
+    finally:
+        from scalellm_tpu_torch.engine.batch import Batch
+
+        Batch.prepare_model_inputs = real_prepare
+        step_log.removeHandler(watcher)
+        model = None
+        if llm is not None:
+            llm.close()
+        if isinstance(engine, AsyncLLMEngine):
+            engine.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -4358,8 +4861,9 @@ def main() -> None:
     timed("18", phase_kv_swap, torch, card)
     spec_k1 = timed("19", phase_speculative, torch, card)
     lora_launches = timed("20", phase_lora, torch, card, opts.int4_layers)
+    guided_k1 = timed("21", phase_guided, torch, card)
     new_k1 = (sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values()) + spec_k1
-              + lora_launches.get("ragged_paged_attention_cuda", 0))
+              + lora_launches.get("ragged_paged_attention_cuda", 0) + guided_k1)
 
     # Each kernel's launches on the main paths (the sync, async and ms4
     # serves with graphs; K1's f32 kernel apart from the bf16 one: counts set to 0 before each timed generate and
@@ -4369,7 +4873,9 @@ def main() -> None:
     # serves run on its eager engine; phase 19's K1 launches those of its
     # draft-model and n-gram serves with graphs, each round's as its graph
     # counted at its capture; phase 20's those of its LoRA serves with
-    # graphs: TinyLlama's sync, async and ms4, INT4's sync), summed over the paths
+    # graphs: TinyLlama's sync, async and ms4, INT4's sync; phase 21's those
+    # of its guided and unconstrained serves with graphs and of its
+    # AsyncLLMEngine serve), summed over the paths
     # that run it, and its timing at a shape the main
     # path gives it: attention at the 8-sequence decode batch, w4a8 at the
     # decode step's gate_up projection (T = 16), dequant and group at the

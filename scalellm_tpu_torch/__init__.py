@@ -8,6 +8,7 @@ names. It imports torch, and neither jax nor the scalellm_tpu package.
 
 Public API:
   - LLM: synchronous offline batch inference
+  - AsyncLLMEngine: async serving engine (OutputStream, OutputAsyncStream)
   - SamplingParams, Message, Priority, RequestOutput, ...
 """
 
@@ -35,12 +36,19 @@ def __getattr__(name):
         from scalellm_tpu_torch.llm import LLM
 
         return LLM
+    if name in ("AsyncLLMEngine", "OutputStream", "OutputAsyncStream"):
+        from scalellm_tpu_torch import llm_engine
+
+        return getattr(llm_engine, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [
     "__version__",
     "LLM",
+    "AsyncLLMEngine",
+    "OutputStream",
+    "OutputAsyncStream",
     "SamplingParams",
     "Message",
     "Priority",

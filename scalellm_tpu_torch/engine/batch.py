@@ -147,6 +147,23 @@ class Batch:
         bias_ids = np.zeros((S, max(B, 1)), dtype=np.int32)
         bias_vals = np.zeros((S, max(B, 1)), dtype=np.float32)
 
+        # Guided decoding: W = packed words (ceil(V/32)) when some sequence
+        # is constrained this step, else 1 (the sampler skips the stage).
+        # Unconstrained rows (padding rows too) are all ones.
+        W = 1
+        guided_rows = [
+            (s, e.seq.guided)
+            for s, e in enumerate(self.entries)
+            if e.seq.guided is not None and not e.seq.guided.finished
+        ]
+        if guided_rows:
+            W = guided_rows[0][1].fsm.n_words
+        allowed_mask = np.full((S, W), 0xFFFFFFFF, dtype=np.uint32)
+        for s, g in guided_rows:
+            row = g.mask()
+            if row is not None:
+                allowed_mask[s] = row
+
         # Async stepping: token rows whose value is still on the device (the
         # previous step's sample), with their row in that step's outputs.
         pending_rows: List[int] = []
@@ -239,7 +256,7 @@ class Batch:
             unique_token_counts=unique_counts,
             bias_token_ids=bias_ids,
             bias_values=bias_vals,
-            allowed_mask=np.full((S, 1), 0xFFFFFFFF, dtype=np.uint32),
+            allowed_mask=allowed_mask,
             seeds=seeds,
         )
         return mi, si, needs_sample

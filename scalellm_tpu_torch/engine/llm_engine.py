@@ -1,7 +1,9 @@
 """LLMEngine — owns the model executor, tokenizer and KV block manager
 (counterpart of scalellm_tpu/engine/llm_engine.py).
 
-Init: load the model onto the device (a quantized checkpoint as it is; a
+Init: apply the model-args overrides to the checkpoint's ModelArgs
+(utils/args_override.py; the list applied is applied_model_args_overrides)
+-> load the model onto the device (a quantized checkpoint as it is; a
 dense one quantized on the device when `quantize` asks; kv_cache_dtype
 "int8" gives it int8 KV pages) -> with lora_modules, load the LoRA adapters
 onto it (lora/; not on MoE or MLA models, as in the reference) -> size the
@@ -40,6 +42,7 @@ from scalellm_tpu_torch.memory.block_manager import BlockManager, BlockManagerOp
 from scalellm_tpu_torch.model_loader.loader import HFModelLoader
 from scalellm_tpu_torch.models.registry import ModelRegistry
 from scalellm_tpu_torch.tokenizer.tokenizer import load_tokenizer
+from scalellm_tpu_torch.utils.args_override import apply_overrides
 
 logger = logging.getLogger(__name__)
 
@@ -91,6 +94,9 @@ class EngineOptions:
     num_speculative_tokens: int = 0
     # Multi-LoRA: {adapter name: HF PEFT adapter directory} (lora/).
     lora_modules: "dict | None" = None
+    # `path=value` overrides applied to the loaded ModelArgs (dotted paths
+    # reach QuantArgs etc: "quant_args.bits=8", "rope_theta=1e6").
+    model_args_overrides: "list | None" = None
 
 
 class LLMEngine:
@@ -120,6 +126,8 @@ class LLMEngine:
             self.model_args.kv_cache_dtype = options.kv_cache_dtype
         if options.quantize_lm_head and self.model_args.quant_args:
             self.model_args.quant_args.quantize_lm_head = True
+        # Applied after the checkpoint's config, so the override wins.
+        self.applied_model_args_overrides = apply_overrides(self.model_args, options.model_args_overrides or [])
         self.model = loader.load_model(factory(self.model_args, device="meta"), self.device)
         if options.quantize and not self.model_args.quant_args:
             from scalellm_tpu_torch.config import QuantArgs

@@ -18,11 +18,17 @@ lora_modules ({name: HF PEFT adapter directory}) serves LoRA adapters on one
 engine, each request picking its adapter by name (`lora`; an unknown name is
 an INVALID_ARGUMENT status), a batch mixing the base model and several
 adapters; LoRA with speculative decoding or multi-host serving is a
-ValueError, as in the reference, and so is LoRA on an MoE or MLA model. Those
-that ask for a feature this package has not ported yet (tensor or sequence
-parallelism, multi-host serving, model-args overrides) raise
-NotImplementedError; none is silently ignored. Per request, guided decoding
-is refused with an UNIMPLEMENTED status.
+ValueError, as in the reference, and so is LoRA on an MoE or MLA model.
+model_args_overrides (`path=value` strings, utils/args_override.py) are
+applied to the checkpoint's ModelArgs before the model is built. Per
+request, guided decoding (guided_regex / guided_json / guided_choice)
+compiles its constraint once into a TokenFsm (the handler's FsmCache) that
+masks every step's logits; with speculative decoding it is an
+INVALID_ARGUMENT status, as in the reference. schedule_chat_async takes
+OpenAI tool definitions (`tools`) for the chat template. Those options that
+ask for a feature this package has not ported yet (tensor or sequence
+parallelism, multi-host serving) raise NotImplementedError; none is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 
+from scalellm_tpu_torch.constrained.guided import FsmCache, constraint_regex
 from scalellm_tpu_torch.engine.batch import TOKEN_BUCKETS
 from scalellm_tpu_torch.engine.executor import WARMUP_MODES
 from scalellm_tpu_torch.engine.llm_engine import KV_CACHE_DTYPES, EngineOptions, LLMEngine
@@ -84,6 +91,7 @@ class LLMHandlerOptions:
     # Decode micro-steps per dispatch (SchedulerOptions.num_decode_steps).
     num_decode_steps: int = 1
     lora_modules: "Optional[dict]" = None
+    # `path=value` ModelArgs overrides (utils/args_override.py).
     model_args_overrides: "Optional[list]" = None
 
     def device(self) -> str:
@@ -104,7 +112,6 @@ class LLMHandlerOptions:
             "tp_size (tensor parallelism)": self.tp_size != 1,
             "sequence_parallel": self.sequence_parallel,
             "distributed (multi-host serving)": self.distributed,
-            "model_args_overrides": bool(self.model_args_overrides),
         }
         asked = [name for name, on in asks.items() if on]
         if asked:
@@ -136,6 +143,7 @@ class LLMHandler:
             draft_model_path=options.draft_model_path or "",
             num_speculative_tokens=options.num_speculative_tokens,
             lora_modules=options.lora_modules,
+            model_args_overrides=options.model_args_overrides,
         )
         if options.draft_model_path:
             from scalellm_tpu_torch.speculative.speculative_engine import SpeculativeEngine
@@ -150,6 +158,8 @@ class LLMHandler:
             self.engine = LLMEngine(engine_opts)
         self.tokenizer = self.engine.tokenizer
         self.model_args = self.engine.model_args
+        # Compiled guided-decoding constraints, shared by the handling threads.
+        self._fsm_cache = FsmCache()
 
         self._response_handler = ResponseHandler(self.tokenizer, threaded=True)
         self.scheduler = ContinuousScheduler(
@@ -187,7 +197,7 @@ class LLMHandler:
     ) -> None:
         """Validate, tokenize and enqueue, off the caller's thread; `lora`
         names the request's adapter (None: the base model)."""
-        self._pool.submit(self._handle, prompt, None, sp, priority, stream, callback, lora)
+        self._pool.submit(self._handle, prompt, None, sp, priority, stream, callback, None, lora)
 
     def schedule_chat_async(
         self,
@@ -196,20 +206,21 @@ class LLMHandler:
         priority: Priority = Priority.NORMAL,
         stream: bool = False,
         callback: OnOutput = lambda out: True,
+        tools=None,
         lora: Optional[str] = None,
     ) -> None:
+        """Apply the chat template (with the OpenAI tool definitions
+        `tools`), then as schedule_async."""
         self._pool.submit(
-            self._handle, None, list(messages), sp, priority, stream, callback, lora
+            self._handle, None, list(messages), sp, priority, stream, callback, tools, lora
         )
 
-    def _handle(self, prompt, messages, sp, priority, stream, callback, lora=None) -> None:
+    def _handle(self, prompt, messages, sp, priority, stream, callback, tools=None, lora=None) -> None:
         t0 = time.monotonic()
         try:
             sp.verify()
-            if sp.has_guided:
-                raise ValidationError(StatusCode.UNIMPLEMENTED, "guided decoding is not ported yet")
             if messages is not None:
-                prompt = self.apply_chat_template(messages)
+                prompt = self.apply_chat_template(messages, tools=tools)
             prompt_tokens = self.tokenizer.encode(prompt)
             if not prompt_tokens:
                 raise ValidationError(StatusCode.INVALID_ARGUMENT, "empty prompt")
@@ -230,6 +241,7 @@ class LLMHandler:
                     f"prompt + max_tokens ({len(prompt_tokens) + sp.max_tokens}"
                     f" tokens) exceeds KV cache capacity ({kv_capacity})",
                 )
+            guided_fsm = self._guided_fsm(sp) if sp.has_guided else None
             lora_slot = 0
             if lora:
                 meta = getattr(self.engine, "lora_meta", None)
@@ -245,6 +257,7 @@ class LLMHandler:
                 stream=stream,
                 priority=priority,
                 enable_prefix_cache=self.options.enable_prefix_cache,
+                guided_fsm=guided_fsm,
                 lora_slot=lora_slot,
             )
             if not self.scheduler.schedule(request):
@@ -256,6 +269,26 @@ class LLMHandler:
         except Exception as e:  # report, don't kill the pool thread
             logger.exception("request handling failed")
             callback(RequestOutput(status=Status(StatusCode.UNKNOWN, str(e)), finished=True))
+
+    def _guided_fsm(self, sp: SamplingParams):
+        """The request's compiled constraint (FsmCache: once per regex and
+        set of end ids). Refused with speculative decoding: draft proposals
+        bypass the mask."""
+        if self.options.num_speculative_tokens > 0:
+            raise ValidationError(
+                StatusCode.INVALID_ARGUMENT,
+                "guided decoding is not supported with speculative "
+                "decoding (draft proposals bypass the grammar mask)",
+            )
+        eos_ids = tuple(
+            {self.model_args.eos_token_id}
+            | set(self.model_args.stop_token_ids)
+            | set(sp.stop_token_ids or [])
+        )
+        try:
+            return self._fsm_cache.get(constraint_regex(sp), self.tokenizer, eos_ids)
+        except ValueError as e:
+            raise ValidationError(StatusCode.INVALID_ARGUMENT, f"invalid guided constraint: {e}")
 
     def _build_stopping_criteria(self, sp: SamplingParams) -> StoppingCriteria:
         stop_sequences = [
@@ -272,11 +305,12 @@ class LLMHandler:
             stop_sequences=stop_sequences,
         )
 
-    def apply_chat_template(self, messages: Sequence[Message]) -> str:
+    def apply_chat_template(self, messages: Sequence[Message], tools=None) -> str:
         return apply_chat_template(
             messages,
             jinja_template=getattr(self.tokenizer, "chat_template", None),
             model_type=self.model_args.model_type,
+            tools=tools,
         )
 
     def encode(self, text: str) -> List[int]:

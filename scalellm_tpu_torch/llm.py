@@ -7,7 +7,9 @@ huge max_tokens_per_batch), as in the reference package, CUDA graphs are on
 (one per step bucket, the two "fast" warmup buckets captured at init) and so
 is async scheduling (one step in flight); num_decode_steps > 1 runs that many
 decode micro-steps a dispatch. lora_modules ({name: HF PEFT adapter
-directory}) loads LoRA adapters, and generate's `lora` picks them by name.
+directory}) loads LoRA adapters, and generate's `lora` picks them by name;
+model_args_overrides (`path=value` strings) changes the checkpoint's
+ModelArgs before the model is built.
 The model runs on the CUDA device unless `devices` names another ("cpu" in
 the tests).
 """
@@ -46,6 +48,7 @@ class LLM:
         enable_async_scheduling: bool = True,
         num_decode_steps: int = 1,
         lora_modules=None,
+        model_args_overrides=None,
     ) -> None:
         options = LLMHandlerOptions(
             model_path=model,
@@ -69,6 +72,7 @@ class LLM:
             enable_async_scheduling=enable_async_scheduling,
             num_decode_steps=num_decode_steps,
             lora_modules=lora_modules,
+            model_args_overrides=model_args_overrides,
         )
         self._handler = LLMHandler(options)
 

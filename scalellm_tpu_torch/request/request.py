@@ -51,8 +51,10 @@ class Request:
         priority: Priority = Priority.NORMAL,
         request_id: Optional[str] = None,
         enable_prefix_cache: bool = True,
+        guided_fsm=None,  # Optional[constrained.TokenFsm], shared by sequences
         lora_slot: int = 0,  # LoRA adapter slot (0 = base model)
     ):
+        self.guided_fsm = guided_fsm
         self.id = request_id or _gen_request_id()
         self.prompt = prompt
         self.prompt_tokens = list(prompt_tokens)
@@ -81,6 +83,11 @@ class Request:
             self.sequences.append(self._make_sequence(i))
 
     def _make_sequence(self, index: int) -> Sequence:
+        guided = None
+        if self.guided_fsm is not None:
+            from scalellm_tpu_torch.constrained.tokenmap import GuidedState
+
+            guided = GuidedState(self.guided_fsm)  # one cursor per sequence
         seq = Sequence(
             index=index,
             token_ids=self.prompt_tokens,
@@ -88,6 +95,7 @@ class Request:
             stopping_criteria=self.stopping_criteria,
             prompt=self.prompt,
             echo=self.sampling_params.echo,
+            guided=guided,
         )
         seq.request = self  # backref for O(1) scheduler lookups
         seq.lora_slot = self.lora_slot

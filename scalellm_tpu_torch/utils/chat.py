@@ -1,10 +1,12 @@
-"""Chat messages and template application — the parts of
-scalellm_tpu/utils/chat.py that the handler needs (tool definitions are not
-ported).
+"""Chat messages and template application
+(counterpart of scalellm_tpu/utils/chat.py).
 
 A jinja chat_template from tokenizer_config.json runs in a sandboxed jinja2
 environment (jinja2 is imported only then); otherwise the model family's
-coded template applies.
+coded template applies. Tool definitions pass through to jinja templates
+that accept ``tools=`` (the HF convention); the coded templates get a
+generated system block (utils/tools.py), and tool calls and results become
+text turns.
 """
 
 from __future__ import annotations
@@ -48,10 +50,11 @@ def apply_chat_template(
     messages: Sequence[Message],
     jinja_template: Optional[str] = None,
     model_type: str = "",
+    tools: Optional[Sequence[Dict[str, Any]]] = None,
 ) -> str:
     if jinja_template:
         try:
-            return _render_jinja(jinja_template, messages)
+            return _render_jinja(jinja_template, messages, tools)
         except Exception:
             pass  # fall through to the coded template
     from scalellm_tpu_torch.models.registry import ModelRegistry
@@ -59,10 +62,37 @@ def apply_chat_template(
     coded = ModelRegistry.get_default_chat_template(model_type)
     if coded is None:
         raise ValueError(f"no chat template available for model type {model_type!r}")
-    return coded([Message(m.role, m.content or "") for m in messages])
+    return coded(_flatten_for_coded(messages, tools))
 
 
-def _render_jinja(template: str, messages: Sequence[Message]) -> str:
+def _flatten_for_coded(
+    messages: Sequence[Message], tools: Optional[Sequence[Dict[str, Any]]]
+) -> List[Message]:
+    """Coded templates know only system/user/assistant text turns: tool
+    definitions become a system block, tool calls/results become text."""
+    import json
+
+    out: List[Message] = []
+    if tools:
+        from scalellm_tpu_torch.utils.tools import render_tools_block
+
+        out.append(Message("system", render_tools_block(tools)))
+    for m in messages:
+        if m.role == "tool":
+            out.append(Message("user", f"<tool_response>{m.content}</tool_response>"))
+        elif m.tool_calls:
+            calls = "\n".join(json.dumps(tc.get("function", tc)) for tc in m.tool_calls)
+            out.append(Message("assistant", (m.content or "") + calls))
+        else:
+            out.append(Message(m.role, m.content or ""))
+    return out
+
+
+def _render_jinja(
+    template: str,
+    messages: Sequence[Message],
+    tools: Optional[Sequence[Dict[str, Any]]] = None,
+) -> str:
     import jinja2
     from jinja2.sandbox import ImmutableSandboxedEnvironment
 
@@ -73,7 +103,9 @@ def _render_jinja(template: str, messages: Sequence[Message]) -> str:
     env.globals["raise_exception"] = _raise_exception
     env.filters["tojson"] = _tojson
     return env.from_string(template).render(
-        messages=[m.to_dict() for m in messages], tools=None, add_generation_prompt=True
+        messages=[m.to_dict() for m in messages],
+        tools=list(tools) if tools else None,
+        add_generation_prompt=True,
     )
 
 

@@ -30,6 +30,12 @@ def test_import_loads_no_jax():
         "import scalellm_tpu_torch.ops.quant_mlp, scalellm_tpu_torch.ops._build\n"
         "import scalellm_tpu_torch.models.mixtral, scalellm_tpu_torch.models.qwen2_moe\n"
         "import scalellm_tpu_torch.models.qwen2, scalellm_tpu_torch.models.mistral\n"
+        "import scalellm_tpu_torch.constrained, scalellm_tpu_torch.constrained.fsm\n"
+        "import scalellm_tpu_torch.constrained.guided, scalellm_tpu_torch.constrained.json_schema\n"
+        "import scalellm_tpu_torch.constrained.tokenmap, scalellm_tpu_torch.utils.tools\n"
+        "import scalellm_tpu_torch.utils.args_override, scalellm_tpu_torch.utils.collect_env\n"
+        "import scalellm_tpu_torch.llm_engine\n"
+        "from scalellm_tpu_torch import AsyncLLMEngine, OutputStream, OutputAsyncStream\n"
         f"banned = {BANNED!r}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(json.dumps(bad))\n"
@@ -58,7 +64,16 @@ def test_sources_name_no_jax_import():
             "scalellm_tpu_torch/models/mixtral.py",
             "scalellm_tpu_torch/models/qwen2_moe.py",
             "scalellm_tpu_torch/models/qwen2.py",
-            "scalellm_tpu_torch/models/mistral.py"} <= names
+            "scalellm_tpu_torch/models/mistral.py",
+            "scalellm_tpu_torch/constrained/__init__.py",
+            "scalellm_tpu_torch/constrained/fsm.py",
+            "scalellm_tpu_torch/constrained/guided.py",
+            "scalellm_tpu_torch/constrained/json_schema.py",
+            "scalellm_tpu_torch/constrained/tokenmap.py",
+            "scalellm_tpu_torch/utils/tools.py",
+            "scalellm_tpu_torch/utils/args_override.py",
+            "scalellm_tpu_torch/utils/collect_env.py",
+            "scalellm_tpu_torch/llm_engine.py"} <= names
     banned = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(BANNED) + r")\b", re.M)
     for path in sources:
         text = path.read_text()

@@ -2507,3 +2507,72 @@ def test_lora_kernel_path_matches_plain_versions(cuda, quantize):
     moved = chip_smoke.lora_kernel_check(torch, {"nvidia_smi": ""}, f"test_lora{quantize}", model, ids, [0, 1, 2],
                                          quant=bool(quantize))
     assert moved > chip_smoke.LORA_MOVE_MIN
+
+
+# Guided decoding: the allowed-mask stage on the card (the mask rides to the
+# card as int64 words, SamplingInputs.to) gives the CPU's masked logits bit
+# for bit at TinyLlama's and Llama-3's vocabularies, and the greedy ids under
+# the mask; a guided serve with graphs gives the eager serve's ids (the
+# sampler, mask included, runs eagerly after each replay).
+
+
+@pytest.mark.parametrize("V", [32000, 128256])
+def test_allowed_mask_on_the_card_gives_the_cpu_bits(cuda, V):
+    import dataclasses
+
+    from scalellm_tpu_torch.constrained.tokenmap import pack_bool_mask
+    from scalellm_tpu_torch.engine.executor import minimal_sampling_inputs
+    from scalellm_tpu_torch.sampling.sampler import SamplingPlan, apply_allowed_mask, sample_tokens
+
+    rng = np.random.default_rng(V)
+    S, W = 8, -(-V // 32)
+    logits = torch.from_numpy((rng.standard_normal((S, V)) * 4).astype(np.float32))
+    # Rows: half the ids, 1%, every id, one id (the last), none past V's
+    # last word, a word boundary's ids, 20 ids, all but the first.
+    rows = [rng.random(V) < 0.5, rng.random(V) < 0.01, np.ones(V, bool), np.arange(V) == V - 1,
+            np.arange(V) < V - 7, (np.arange(V) % 32) == 31, np.isin(np.arange(V), rng.choice(V, 20)),
+            np.arange(V) > 0]
+    packed = np.stack([pack_bool_mask(r) for r in rows])
+    assert packed.shape == (S, W) and packed.dtype == np.uint32
+    si = dataclasses.replace(minimal_sampling_inputs(S), allowed_mask=packed)
+    want = apply_allowed_mask(logits, si.to("cpu").allowed_mask)
+    got = apply_allowed_mask(logits.to(cuda), si.to(cuda).allowed_mask)
+    assert si.to(cuda).allowed_mask.dtype == torch.int64
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(want > -1e29, torch.from_numpy(np.stack(rows)))
+    plan = SamplingPlan.of(si)
+    assert plan.allowed_mask
+    g = sample_tokens(logits.to(cuda), si.to(cuda), plan=plan).next_tokens.cpu()
+    w = sample_tokens(logits, si.to("cpu"), plan=plan).next_tokens
+    assert torch.equal(g, w)
+    assert all(rows[s][int(w[s])] for s in range(S))
+
+
+def test_guided_serve_with_graphs_gives_the_eager_ids(cuda, tmp_path):
+    import json
+
+    import chip_smoke
+    from scalellm_tpu_torch import LLM, SamplingParams
+    from scalellm_tpu_torch.utils.tools import guided_regex_for_tools
+
+    cfg = dict(TINY_LLAMA_CFG, vocab_size=2048, architectures=["LlamaForCausalLM"], tie_word_embeddings=False,
+               bos_token_id=1, eos_token_id=2)
+    chip_smoke.write_checkpoint(torch, str(tmp_path), cfg)
+    with open(tmp_path / "tokenizer.json", "w") as f:
+        json.dump(chip_smoke.guided_tokenizer_json(cfg["vocab_size"]), f)
+    guides = {"choice": dict(guided_choice=chip_smoke.GUIDED_CHOICES), "regex": dict(guided_regex=chip_smoke.GUIDED_PHONE),
+              "schema": dict(guided_json=chip_smoke.GUIDED_SCHEMA),
+              "tool": dict(guided_regex=guided_regex_for_tools([chip_smoke.GUIDED_TOOL])), "free": {}}
+    prompts = ["the quick brown fox", "paged attention kernel", "abc", chip_smoke.tool_prompt("weather?"), "decode"]
+    sps = [SamplingParams(max_tokens=64, temperature=0.0, **g) for g in guides.values()]
+    got = {}
+    for graphs in (True, False):
+        with LLM(str(tmp_path), devices="cuda", num_blocks=128, num_handling_threads=1, enable_cuda_graph=graphs,
+                 enable_async_scheduling=False) as llm:
+            outs = llm.generate(prompts, sps)
+            assert all(o.status.ok and o.finished for o in outs)
+            got[graphs] = [(o.outputs[0].token_ids, o.outputs[0].text, o.outputs[0].finish_reason.name) for o in outs]
+    assert got[True] == got[False]
+    for name, (_, text, reason) in zip(guides, got[True]):
+        if name in ("choice", "regex", "tool"):  # bounded languages end within max_tokens
+            assert reason == "STOP" and chip_smoke.guided_valid(name, text), (name, text)
