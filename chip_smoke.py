@@ -190,12 +190,14 @@ Phases (any failure exits non-zero, and the result line is not printed):
      each layer's four projections through K2 or K4 as plan() picks them.
   11. the same for Qwen3-8B at its published widths (qk norm, head dim
      128, GQA group 4; 14 of its 36 layers, --qwen3-layers sets the depth).
-  12. the same for Phi-2 at its published widths and depth (head dim 80:
-     K1 at D = 80, MHA; partial rotary 0.4, the parallel residual, LayerNorm
-     and biases everywhere, the untied lm_head with its bias; 5.6 GB bf16;
-     --phi2-layers cuts it), bf16 then runtime INT4.
+  12. the same for Phi-2 at its published widths (head dim 80: K1 at D =
+     80, MHA; partial rotary 0.4, the parallel residual, LayerNorm and
+     biases everywhere, the untied lm_head with its bias; 5.6 GB bf16 at its
+     32 layers; 16 of them, --phi2-layers sets the depth), bf16 then runtime
+     INT4.
   13. the same for MPT-7B (ALiBi at head dim 128, MHA; bias-free LayerNorm;
-     13.3 GB bf16; --mpt-layers cuts it), bf16 then runtime INT4.
+     13.3 GB bf16 at its 32 layers; 8 of them, --mpt-layers sets the
+     depth), bf16 then runtime INT4.
   14. BLOOM-560m at its published widths and depth (ALiBi at head dim 64,
      the embedding LayerNorm, the per-head interleaved query_key_value,
      vocab 250880), bf16 only.
@@ -290,7 +292,35 @@ Phases (any failure exits non-zero, and the result line is not printed):
      returned, every await under a deadline, no failed step logged, K1
      once a layer a step, TTFT per request from its first item, and stop()
      giving the memory back.
-  22. a line of the seconds each phase took, a `kernels` JSON line, then
+  22. the servers: TinyLlama-1.1B at full width and depth (bf16, seed 0,
+     phase 4's char tokenizer) in an AsyncLLMEngine built from
+     serve/api_server.py's flags as the CLI builds it (graphs, async
+     stepping, the "full" warmup), served by ApiServer on its own thread's
+     event loop on a free port of 127.0.0.1, its clients urllib threads of
+     this process. /health, /v1/models, /config and two invalid bodies
+     (SERVER_REFUSALS: the JAX package's statuses and messages); pass 1,
+     phase 4's 8 prompts one at a time through /v1/completions, each text
+     the one the same engine gives the prompt alone through
+     AsyncLLMEngine.schedule_async, and /metrics grown by its 8 requests;
+     pass 2, 8 clients at once (server_traffic: 4 completions, 4 chat
+     completions, 2 of each streamed, the last a forced call of GUIDED_TOOL
+     through tool_choice), three times: through the server with the tool
+     call's constraint compiled inside the pass (its first use), the same 8
+     requests straight to the engine, and through the server again with
+     the constraint cached: each unconstrained request's ids pass 1's (or
+     the straight pass's for a chat) or greedy choices up to kernel
+     rounding, each stream's deltas its text with one finish reason, the
+     call parsed as JSON of the tool's schema with finish_reason
+     "tool_calls"; every pass with K1 once a layer a step and no graph
+     captured, its client-side and engine TTFT and tok/s, the device's idle
+     share of the warm pass from a profiled repeat; /profile/start
+     and /profile/stop around two requests, the trace naming K1's kernel;
+     pass 1's prompts through the port's gRPC server on the same engine
+     and one through the port's gateway in front of it, the same texts;
+     then the CLI (python3 -m scalellm_tpu_torch.serve.api_server) in a
+     process of its own: /health within CLI_READY_S, pass 1's text for a
+     prompt, exit 0 within CLI_STOP_S of SIGTERM.
+  23. a line of the seconds each phase took, a `kernels` JSON line, then
      the result line.
 
 It needs the repository (it fails in a directory that holds only this
@@ -975,6 +1005,10 @@ MIXTRAL_LAYERS = 8
 # swings by up to 1.4x between calls: 643 and 907 s for the same tree).
 GEMMA2_LAYERS = 16
 QWEN3_LAYERS = 14
+# Phases 12 and 13's depths: cut (from 32 each) once phase 22 came in and the
+# whole script read 926.5 s of its 1200 (phase 13 51.2 s, phase 12 43.3 s).
+PHI2_LAYERS = 16
+MPT_LAYERS = 8
 # Qwen/Qwen1.5-MoE-A2.7B's widths (the reference loader's qwen2_moe
 # defaults), in bf16.
 QWEN15_MOE_A27B = dict(
@@ -4736,6 +4770,611 @@ def phase_guided(torch, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 22
+
+SERVER_AWAIT_S = 120  # every client request, await and wait of phase 22
+SERVER_MODEL = "tinyllama"  # the served model's name (--served-model-name)
+SERVER_TOOL_TOKENS = 192  # the forced tool call's max_tokens: its language ends within it
+CLI_READY_S = 180  # the CLI server's /health after its start: torch's import, the load, its warmup
+CLI_STOP_S = 30  # the CLI server's exit after SIGTERM
+# Phase 22's invalid bodies: the JAX package's server's status and message
+# for each (its api_protocol, SamplingParams.verify and handler).
+SERVER_REFUSALS = {
+    "negative_temperature": (dict(prompt="x", temperature=-1.0), 400, "temperature must be non-negative"),
+    "over_context": (dict(prompt="x" * 2100, max_tokens=4), 400,
+                     "prompt (2100 tokens) exceeds max context length 2048"),
+}
+
+
+class ServerLoop:
+    """An asyncio event loop on a thread of its own, which phase 22's HTTP
+    server (and gateway) run on, as in the server process."""
+
+    def __init__(self):
+        import asyncio
+        import threading
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="server-loop", daemon=True)
+        self.thread.start()
+
+    def run(self, coro):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(SERVER_AWAIT_S)
+
+    def close(self):
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(SERVER_AWAIT_S)
+        if self.thread.is_alive():
+            fail("phase 22: the server's event loop did not stop")
+        self.loop.close()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(url, body=None):
+    """One request to a server of phase 22 (GET without a body): (status,
+    JSON, or an SSE response's chunks up to [DONE], or text; seconds to the
+    whole response or to the first SSE chunk; seconds to the end)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=SERVER_AWAIT_S) as r:
+            kind = r.headers.get("Content-Type", "")
+            if kind.startswith("text/event-stream"):
+                chunks, first = [], None
+                for raw in r:
+                    line = raw.decode().strip()
+                    if not line.startswith("data: "):
+                        continue
+                    first = time.monotonic() - t0 if first is None else first
+                    if line == "data: [DONE]":
+                        break
+                    chunks.append(json.loads(line[len("data: "):]))
+                return r.status, chunks, first, time.monotonic() - t0
+            raw = r.read()
+            out = json.loads(raw) if kind.startswith("application/json") else raw.decode()
+            return r.status, out, time.monotonic() - t0, time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.monotonic() - t0, time.monotonic() - t0
+
+
+def prometheus_values(text):
+    """{metric line name: value} of a /metrics payload."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def server_traffic(ps):
+    """Pass 2's 8 requests on the prompts `ps`, each (path, body): 4
+    completions, the last two streamed, then 4 chat completions, the last
+    two streamed and the last a forced call of GUIDED_TOOL (tool_choice
+    names it); greedy, 32 tokens (the tool call: up to
+    SERVER_TOOL_TOKENS, ending with the call)."""
+    greedy = dict(model=SERVER_MODEL, max_tokens=32, temperature=0.0, ignore_eos=True)
+    reqs = [("/v1/completions", dict(greedy, prompt=p, stream=i >= 2)) for i, p in enumerate(ps[:4])]
+    for i, p in enumerate(ps[4:8]):
+        body = dict(greedy, messages=[{"role": "user", "content": p}], stream=i >= 2)
+        if i == 3:
+            body.update(tools=[GUIDED_TOOL], tool_choice={"type": "function", "function": {"name": "get_weather"}},
+                        max_tokens=SERVER_TOOL_TOKENS, ignore_eos=False)
+        reqs.append(("/v1/chat/completions", body))
+    return reqs
+
+
+def tool_args_valid(arguments):
+    """Whether a call's arguments are JSON of GUIDED_TOOL's schema."""
+    try:
+        args = json.loads(arguments)
+    except ValueError:
+        return False
+    props = GUIDED_TOOL["function"]["parameters"]["properties"]
+    return (isinstance(args, dict) and set(args) <= set(props) and isinstance(args.get("city"), str)
+            and len(args["city"]) <= props["city"]["maxLength"] and args.get("unit", "C") in props["unit"]["enum"])
+
+
+def server_answer(path, body, out):
+    """What one answer of pass 2 says, whether through HTTP (`out` the JSON
+    or the SSE chunks) or straight from the engine (`out` the list of
+    RequestOutputs): the text (a stream's deltas put together), the finish
+    reasons in order, the tool calls, the completion tokens in the usage."""
+    if isinstance(out, list) and out and not isinstance(out[0], dict):  # RequestOutputs
+        from scalellm_tpu_torch.utils.tools import parse_tool_calls
+
+        text = "".join(so.text for o in out for so in o.outputs)
+        finishes = [so.finish_reason.to_api_string() for o in out for so in o.outputs if so.finish_reason]
+        calls = []
+        if body.get("tools"):
+            content, parsed = parse_tool_calls(text)
+            calls = [dict(name=c.name, arguments=c.arguments) for c in parsed]
+            finishes = ["tool_calls" if parsed and f == "stop" else f for f in finishes]
+        return dict(text=text, finishes=finishes, calls=calls, tokens=out[-1].usage.num_generated_tokens)
+    if body.get("stream"):
+        key = "text" if path == "/v1/completions" else "content"
+        deltas = [c["choices"][0] if path == "/v1/completions" else c["choices"][0]["delta"] for c in out]
+        calls = [dict(name=tc["function"]["name"], arguments=tc["function"]["arguments"])
+                 for d in deltas for tc in d.get("tool_calls", [])]
+        return dict(text="".join(d.get(key) or "" for d in deltas),
+                    finishes=[c["choices"][0]["finish_reason"] for c in out if c["choices"][0]["finish_reason"]],
+                    calls=calls, tokens=None)
+    choice = out["choices"][0]
+    msg = choice.get("message", {})
+    calls = [dict(name=tc["function"]["name"], arguments=tc["function"]["arguments"])
+             for tc in msg.get("tool_calls", [])]
+    return dict(text=choice["text"] if path == "/v1/completions" else msg.get("content") or "",
+                finishes=[choice["finish_reason"]], calls=calls, tokens=out["usage"]["completion_tokens"])
+
+
+class ServerWatch:
+    """Phase 22's view of the served engine: each finished request's prompt
+    ids and generated ids (all, and those that decode to text) by prompt
+    text, noted by the scheduler (`take()` hands them over and starts
+    afresh), and `quiesce()`, which waits for the engine to go idle."""
+
+    def __init__(self, engine):
+        self.inner, self.sched = engine._handler.engine, engine._handler.scheduler
+        bm = self.inner.block_manager
+        self.idle = bm.num_free_blocks + bm.num_blocks_in_prefix_cache
+        self._real, self.ids = self.sched._finish_request, {}
+        self.sched._finish_request = self._finish
+
+    def _finish(self, request):
+        seq = request.sequences[0]
+        n = seq.num_prompt_tokens
+        self.ids[request.prompt] = (list(seq.token_ids[:n]), list(seq.token_ids[n: seq.num_resolved_tokens]),
+                                    list(seq.token_ids[n: seq.num_resolved_tokens - seq._num_hidden_tail_tokens]))
+        self._real(request)
+
+    def take(self):
+        ids, self.ids = self.ids, {}
+        return ids
+
+    def quiesce(self, cold=False):
+        """Wait until the engine holds no request and every block is free
+        or cached; with cold, evict the prefix cache, so that the next pass
+        builds the same steps as a first serve of its prompts."""
+        bm = self.inner.block_manager
+        deadline = time.monotonic() + SERVER_AWAIT_S
+        while self.sched._requests or bm.num_free_blocks + bm.num_blocks_in_prefix_cache != self.idle:
+            if time.monotonic() > deadline:
+                fail(f"phase 22: {len(self.sched._requests)} requests still held, "
+                     f"{self.idle - bm.num_free_blocks - bm.num_blocks_in_prefix_cache} blocks not returned")
+            time.sleep(0.01)
+        if cold and bm._prefix_cache is not None:
+            bm._prefix_cache.evict(bm.num_blocks_in_prefix_cache)
+            if bm.num_blocks_in_prefix_cache or bm.num_free_blocks != self.idle:
+                fail("phase 22: the prefix cache kept blocks")
+
+    def remove(self):
+        self.sched.__dict__.pop("_finish_request", None)
+
+
+def held_launches(tag, steps_log, micro, L):
+    """Fail unless every dispatch of a pass launched K1 once a layer a
+    step (a replayed step counted as its graph counted at its capture).
+    Returns (K1 launches, dispatches that captured a graph)."""
+    if not steps_log:
+        fail(f"{tag}: no engine step ran")
+    for T, S, decode_only, runs, got in steps_log:
+        if got != runs * L:
+            fail(f"{tag}: a dispatch of T={T}, S={S} ({runs} device runs) launched K1 {got} times, "
+                 f"expected {runs * L}")
+    return sum(st[4] for st in steps_log), sum(1 for st, n in zip(steps_log, micro) if st[3] == 2 * n)
+
+
+def near_ties(torch, tag, model, ref, got):
+    """Hold each request's generated ids (`got`: prompt -> ids of
+    ServerWatch) to `ref`'s for the same prompt: the same ids, or each
+    differing token a greedy choice up to kernel rounding
+    (teacher_forced_gap within LOGITS_TOL). Returns (requests differing,
+    largest gap)."""
+    gaps = []
+    for prompt, (prompt_ids, gen, _) in got.items():
+        if gen != ref[prompt][1]:
+            gaps.append(teacher_forced_gap(torch, model, prompt_ids, gen))
+    if any(not g <= LOGITS_TOL for g in gaps):
+        fail(f"{tag}: a request's tokens differ from its reference's by more than kernel rounding "
+             f"(largest gap {max(gaps)} > {LOGITS_TOL})")
+    return len(gaps), max(gaps, default=0.0)
+
+
+def server_pass(torch, tag, watch, L, run, reqs):
+    """One timed pass: run(reqs) sends the requests and returns
+    [(answer, seconds to the first chunk or to the whole answer)] in order.
+    Returns the answers, the ids noted and the pass's figures (K1's
+    launches among them); fails unless K1 ran once a layer a step and no
+    graph was captured."""
+    from scalellm_tpu_torch.ops import attention
+    from scalellm_tpu_torch.utils.metrics import COUNTERS, HISTOGRAMS
+
+    compiles = COUNTERS.get("num_mid_serve_compiles")
+    ttft_hist = HISTOGRAMS.get("time_to_first_token_latency_seconds")
+    ttft_before = (ttft_hist.total, ttft_hist.count)
+    steps_log, _, _, micro = watch_steps(watch.inner, (attention.ragged_paged_attention_cuda,))
+    t0 = time.monotonic()
+    results = run(reqs)
+    wall = time.monotonic() - t0
+    watch.quiesce()
+    torch.cuda.synchronize()
+    unwatch_steps(watch.inner)
+    launches, captured = held_launches(tag, steps_log, micro, L)
+    compiles = COUNTERS.get("num_mid_serve_compiles") - compiles
+    if compiles or captured:
+        fail(f"{tag}: {compiles} graphs were captured inside the timed pass ({captured} dispatches)")
+    ids = watch.take()
+    tokens = sum(len(gen) for _, gen, _ in ids.values())
+    ttft = [first for _, first in results]
+    # The engine's own TTFT (its histogram: request arrival to first token).
+    server_ttft = (ttft_hist.total - ttft_before[0]) / max(ttft_hist.count - ttft_before[1], 1)
+    figures = dict(wall_s=wall, output_tokens=tokens, output_tok_per_s=tokens / wall, ttft_s=ttft,
+                   mean_ttft_s=statistics.fmean(ttft), server_mean_ttft_s=server_ttft, engine_steps=len(steps_log),
+                   k1_launches=launches, mid_serve_compiles=compiles)
+    return [a for a, _ in results], ids, figures
+
+
+def server_call(url, body=None):
+    """http_call that fails unless the answer is 200: (answer, seconds to
+    the first chunk or to the whole answer)."""
+    status, out, first, _ = http_call(url, body)
+    if status != 200:
+        fail(f"phase 22: {url} answered {status}: {out}")
+    return out, first
+
+
+def phase_servers(torch, card):
+    """Phase 22 (see the module docstring). Returns K1's launches on its
+    main paths: the two passes through the HTTP server, the gRPC pass and
+    the gateway's completion."""
+    import asyncio
+    import concurrent.futures
+    import signal
+
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+
+    from scalellm_tpu_torch import Message
+    from scalellm_tpu_torch.serve.api_protocol import ChatCompletionRequest, CompletionRequest
+    from scalellm_tpu_torch.serve.api_server import ApiServer, build_arg_parser, engine_from_args
+    from scalellm_tpu_torch.serve.gateway import Gateway
+
+    L = TINYLLAMA["num_hidden_layers"]
+    root = tempfile.mkdtemp(prefix="scalellm_servers_")
+    engine = watch = server_loop = api = gw = grpc_srv = channel = pool = cli = None
+    try:
+        t0 = time.monotonic()
+        write_checkpoint(torch, root, TINYLLAMA)
+        emit(dict(phase="serve_checkpoint", model="tinyllama", write_s=time.monotonic() - t0))
+
+        # The engine as the CLI builds it from its flags (graphs, async
+        # stepping, the "full" warmup), served by ApiServer on its own
+        # thread's event loop, bound to a free port.
+        port = free_port()
+        flags = ["--model", root, "--served-model-name", SERVER_MODEL, "--host", "127.0.0.1", "--port", str(port),
+                 "--devices", DEVICE]
+        args = build_arg_parser().parse_args(flags)
+        t0 = time.monotonic()
+        engine = engine_from_args(args)
+        torch.cuda.synchronize()
+        inner = engine._handler.engine
+        emit(dict(phase="serve_setup", warmup_mode=args.warmup_mode, max_seqs_per_batch=args.max_seqs_per_batch,
+                  max_tokens_per_batch=args.max_tokens_per_batch, load_s=time.monotonic() - t0,
+                  kv_blocks=inner.block_manager.options.num_blocks, **graph_stats(inner), card=card["nvidia_smi"]))
+        watch = ServerWatch(engine)
+        server_loop = ServerLoop()
+        api = ApiServer(engine, SERVER_MODEL)
+        engine.start()
+        server_loop.run(api.http.start("127.0.0.1", port))
+        base = f"http://127.0.0.1:{port}"
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=8, thread_name_prefix="client")
+        ps = prompts()
+        greedy = dict(model=SERVER_MODEL, max_tokens=32, temperature=0.0, ignore_eos=True)
+
+        # Endpoints.
+        health = http_call(base + "/health")[:2]
+        models = server_call(base + "/v1/models")[0]
+        config = server_call(base + "/config")[0]
+        refusals = {name: http_call(base + "/v1/completions", body)[:2]
+                    for name, (body, _, _) in SERVER_REFUSALS.items()}
+        refusals = {n: (status, out["error"]["message"]) for n, (status, out) in refusals.items()}
+        emit(dict(phase="serve_endpoints", health=health, models=models["data"], config_devices=config["devices"],
+                  config_model_args=config["model_args"], refusals=refusals,
+                  expected_refusals={n: r[1:] for n, r in SERVER_REFUSALS.items()}, card=card["nvidia_smi"]))
+        if (health != (200, "OK") or [m["id"] for m in models["data"]] != [SERVER_MODEL]
+                or config["devices"] != DEVICE or config["model_args"]["n_layers"] != L
+                or config["model_args"]["hidden_size"] != TINYLLAMA["hidden_size"]
+                or any(refusals[n] != r[1:] for n, r in SERVER_REFUSALS.items())):
+            fail("serve_endpoints: an endpoint answered otherwise than expected")
+
+        # The reference texts: each prompt alone, straight to the engine.
+        async def alone(p):
+            sp = CompletionRequest.from_json(dict(greedy, prompt=p)).to_sampling_params()
+            return [o async for o in await engine.schedule_async(p, sp)]
+
+        watch.quiesce(cold=True)
+        direct = {}
+        for p in ps:
+            direct[p] = asyncio.run(asyncio.wait_for(alone(p), SERVER_AWAIT_S))[-1].outputs[0].text
+            watch.quiesce()
+        direct_ids = watch.take()
+
+        # Pass 1: the 8 prompts one at a time through /v1/completions, on a
+        # cold prefix cache as the reference texts were.
+        metrics_before = prometheus_values(server_call(base + "/metrics")[0])
+        watch.quiesce(cold=True)
+        pass1_reqs = [("/v1/completions", dict(greedy, prompt=p)) for p in ps]
+        answers, pass1_ids, fig1 = server_pass(
+            torch, "serve_pass1", watch, L, lambda reqs: [server_call(base + path, b) for path, b in reqs], pass1_reqs)
+        metrics_after = prometheus_values(server_call(base + "/metrics")[0])
+        texts = [a["choices"][0]["text"] for a in answers]
+        grown = {k: metrics_after.get(k, 0) - metrics_before.get(k, 0)
+                 for k in ("request_handling_total", "time_to_first_token_latency_seconds_count",
+                           "time_to_first_token_latency_seconds_sum")}
+        differing, gap = near_ties(torch, "serve_pass1", inner.model, direct_ids, pass1_ids)
+        emit(dict(phase="serve_pass1_e2e", requests=len(texts), texts_equal=texts == [direct[p] for p in ps],
+                  ids_differing=differing, largest_gap=gap, metrics_grown=grown, **fig1,
+                  card=card["nvidia_smi"]))
+        if texts != [direct[p] for p in ps]:
+            fail("serve_pass1: a text through the server differs from the same engine's for the prompt alone: "
+                 f"{[i for i, p in enumerate(ps) if texts[i] != direct[p]]}")
+        if (any(a["usage"]["completion_tokens"] != 32 or a["choices"][0]["finish_reason"] != "length"
+                for a in answers) or grown["request_handling_total"] != 8
+                or grown["time_to_first_token_latency_seconds_count"] != 8):
+            fail(f"serve_pass1: a request did not finish with 32 tokens, or /metrics grew by {grown}")
+
+        # Pass 2: 8 clients at once, then the same 8 requests straight to
+        # the engine, each on a cold prefix cache.
+        def concurrent_http(reqs):
+            return list(pool.map(lambda r: server_call(base + r[0], r[1]), reqs))
+
+        def engine_args(path, body):
+            """((prompt or messages, SamplingParams), tools) of a request,
+            as the server's handlers build them."""
+            if path == "/v1/completions":
+                req = CompletionRequest.from_json(body)
+                return (req.prompt, req.to_sampling_params()), None
+            req = ChatCompletionRequest.from_json(body)
+            return ([Message.from_dict(m) for m in req.messages], req.to_sampling_params()), (
+                req.tools if req.tools_active else None)
+
+        def prompt_of(path, body):
+            (msg, _), tools = engine_args(path, body)
+            return msg if path == "/v1/completions" else engine._handler.apply_chat_template(msg, tools=tools)
+
+        def concurrent_direct(reqs):
+            async def one(path, body):
+                (msg, sp), tools = engine_args(path, body)
+                t0 = time.monotonic()
+                if path == "/v1/completions":
+                    stream = await engine.schedule_async(msg, sp, stream=body["stream"])
+                else:
+                    stream = await engine.schedule_chat_async(msg, sp, stream=body["stream"], tools=tools)
+                outs, first = [], None
+                async for o in stream:
+                    first = time.monotonic() - t0 if first is None else first
+                    outs.append(o)
+                return outs, first
+
+            async def run_all():
+                return await asyncio.gather(*(one(*r) for r in reqs))
+
+            return asyncio.run(asyncio.wait_for(run_all(), SERVER_AWAIT_S))
+
+        # Pass 2 three times, each on a cold prefix cache: through the
+        # server with the tool call's constraint compiled inside the pass
+        # (its first use: "cold"), straight to the engine, and through the
+        # server again with the constraint cached ("warm"; the HTTP layer's
+        # cost is warm against straight).
+        reqs2 = server_traffic(ps)
+        keys = [prompt_of(*r) for r in reqs2]
+        free = [k for k, (_, body) in zip(keys, reqs2) if not body.get("tools")]
+        runs = {}
+        for name, run in (("cold", concurrent_http), ("direct", concurrent_direct), ("warm", concurrent_http)):
+            watch.quiesce(cold=True)
+            runs[name] = server_pass(torch, f"serve_pass2_{name}", watch, L, run, reqs2)
+        # The unconstrained requests' ids: the completions' against pass 1's
+        # (the same prompts), the chats' against the straight pass's.
+        ref = {k: pass1_ids.get(k, runs["direct"][1][k]) for k in free}
+        summary, faults = {}, []
+        for name, (answers2, ids2, fig) in runs.items():
+            rows = []
+            for i, ((path, body), key, a) in enumerate(zip(reqs2, keys, answers2)):
+                _, gen, visible = ids2[key]
+                got = server_answer(path, body, a)
+                rows.append(dict(request=i, path=path, stream=body["stream"], tool=bool(body.get("tools")),
+                                 tokens=len(gen), text=got["text"][:80], finishes=got["finishes"], calls=got["calls"],
+                                 ttft_s=fig["ttft_s"][i]))
+                if body.get("tools"):
+                    ok = (got["finishes"] == ["tool_calls"] and len(got["calls"]) == 1
+                          and got["calls"][0]["name"] == "get_weather" and tool_args_valid(got["calls"][0]["arguments"]))
+                else:
+                    ok = (got["finishes"] == ["length"] and len(gen) == 32 and got["tokens"] in (None, 32)
+                          and got["text"] == inner.tokenizer.decode(visible))
+                if not ok:
+                    faults.append((name, i))
+            differing, gap = near_ties(torch, f"serve_pass2_{name}", inner.model, ref,
+                                       {k: ids2[k] for k in free if name != "direct" or k in pass1_ids})
+            summary[name] = dict(requests=rows, ids_differing=differing, largest_gap=gap, **fig)
+        emit(dict(phase="serve_pass2_e2e", **summary,
+                  http_over_direct_tok_per_s=runs["warm"][2]["output_tok_per_s"] / runs["direct"][2]["output_tok_per_s"],
+                  cold_over_warm_wall=runs["cold"][2]["wall_s"] / runs["warm"][2]["wall_s"], card=card["nvidia_smi"]))
+        if faults:
+            fail(f"serve_pass2: requests {faults} did not answer as expected (the serve_pass2_e2e line's rows)")
+        fig2 = runs["warm"][2]
+        launches = fig1["k1_launches"] + runs["cold"][2]["k1_launches"] + fig2["k1_launches"]
+
+        # The device's idle share of pass 2: a profiled repeat on other text
+        # (every thread traced: the engine steps on its loop thread), its
+        # device time against the warm pass's wall.
+        watch.quiesce(cold=True)
+        steps_log, _, _, _ = watch_steps(inner, ())
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+            concurrent_http(server_traffic(prompts(SEED + 1)))
+            watch.quiesce()
+            torch.cuda.synchronize()
+        profiled_wall = time.monotonic() - t0
+        unwatch_steps(inner)
+        watch.take()
+        breakdown = device_breakdown(prof, fig2["wall_s"], max(len(steps_log), 1))
+        del prof
+        emit(dict(phase="serve_pass2_profile", engine_steps=len(steps_log), profiled_wall_s=profiled_wall,
+                  unprofiled_wall_s=fig2["wall_s"], **breakdown, card=card["nvidia_smi"]))
+
+        # /profile: a torch.profiler trace of two requests, written when it
+        # stops; it must name K1's kernel.
+        started = server_call(base + "/profile/start", dict(log_dir=os.path.join(root, "profile")))[0]
+        for p in ps[2:4]:
+            server_call(base + "/v1/completions", dict(greedy, prompt=p, max_tokens=8))
+        stopped = server_call(base + "/profile/stop", {})[0]
+        with open(stopped["trace"]) as f:
+            trace = f.read()
+        emit(dict(phase="serve_profile_endpoint", started=started, stopped=stopped, trace_bytes=len(trace),
+                  names_k1="ragged_paged_attention" in trace, card=card["nvidia_smi"]))
+        if "ragged_paged_attention" not in trace:
+            fail("serve_profile_endpoint: the trace names no K1 kernel")
+        del trace
+        watch.quiesce()
+        watch.take()
+
+        # gRPC (grpc and protobuf are on the card's machine): pass 1's
+        # prompts through the port's gRPC server on the same engine, then
+        # one through the port's gateway in front of it.
+        import grpc
+
+        from scalellm_tpu_torch.serve import grpc_server
+        from scalellm_tpu_torch.serve.pb import llm_pb2
+
+        gport = free_port()
+        grpc_srv = grpc_server.serve(engine._handler, SERVER_MODEL, "127.0.0.1", gport)
+        channel = grpc.insecure_channel(f"127.0.0.1:{gport}")
+        complete = channel.unary_stream("/scalellm_tpu.Completion/Complete",
+                                        request_serializer=llm_pb2.CompletionRequest.SerializeToString,
+                                        response_deserializer=llm_pb2.CompletionResponse.FromString)
+
+        def grpc_sequential(reqs):
+            out = []
+            for _, body in reqs:
+                t0 = time.monotonic()
+                resp = list(complete(llm_pb2.CompletionRequest(
+                    model=SERVER_MODEL, prompt=body["prompt"], sampling=llm_pb2.SamplingParams(
+                        max_tokens=32, temperature=0.0, ignore_eos=True)), timeout=SERVER_AWAIT_S))
+                out.append((resp[-1].choices[0].text, time.monotonic() - t0))
+            return out
+
+        watch.quiesce(cold=True)
+        grpc_texts, _, fig_grpc = server_pass(torch, "serve_grpc", watch, L, grpc_sequential, pass1_reqs)
+
+        async def start_gateway(gw_port):
+            g = Gateway([f"127.0.0.1:{gport}"])
+            await g.http.start("127.0.0.1", gw_port)
+            return g
+
+        gw_port = free_port()
+        gw = server_loop.run(start_gateway(gw_port))
+        watch.quiesce(cold=True)
+        gw_answers, _, fig_gw = server_pass(
+            torch, "serve_gateway", watch, L,
+            lambda reqs: [server_call(f"http://127.0.0.1:{gw_port}{path}", b) for path, b in reqs], pass1_reqs[3:4])
+        gw_text = gw_answers[0]["choices"][0]["text"]
+        emit(dict(phase="serve_grpc_e2e", texts_equal=grpc_texts == texts, gateway_text_equal=gw_text == texts[3],
+                  **{k: fig_grpc[k] for k in ("wall_s", "output_tok_per_s", "mean_ttft_s", "k1_launches")},
+                  gateway_ttft_s=fig_gw["mean_ttft_s"], gateway_k1_launches=fig_gw["k1_launches"],
+                  card=card["nvidia_smi"]))
+        if grpc_texts != texts or gw_text != texts[3]:
+            fail("serve_grpc: a text through the gRPC server or the gateway differs from pass 1's")
+        launches += fig_grpc["k1_launches"] + fig_gw["k1_launches"]
+        server_loop.run(gw.close())
+        gw = None
+        channel.close()
+        channel = None
+        grpc_srv.stop(None).wait(SERVER_AWAIT_S)
+        grpc_srv = None
+        server_loop.run(api.http.stop())
+        server_loop.close()
+        server_loop = None
+        pool.shutdown()
+        pool = None
+        watch.remove()
+        watch = inner = None
+        close_llm(torch, card, "serve", engine, close=engine.stop)
+        engine = None
+
+        # The CLI as users run it, in a process of its own: /health within
+        # CLI_READY_S, pass 1's text for one prompt, exit 0 after SIGTERM.
+        cli_port = free_port()
+        cmd = [sys.executable, "-m", "scalellm_tpu_torch.serve.api_server", "--model", root, "--host", "127.0.0.1",
+               "--port", str(cli_port), "--warmup-mode", "fast"] + (["--devices", DEVICE] if DEVICE != "cuda" else [])
+        cli_log = os.path.join(root, "cli.log")
+        t0 = time.monotonic()
+        with open(cli_log, "w") as log:
+            cli = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                                   stderr=subprocess.STDOUT)
+        cli_base = f"http://127.0.0.1:{cli_port}"
+        ready = None
+        while time.monotonic() - t0 < CLI_READY_S and cli.poll() is None:
+            try:
+                if http_call(cli_base + "/health")[:2] == (200, "OK"):
+                    ready = time.monotonic() - t0
+                    break
+            except OSError:
+                time.sleep(0.25)
+        answer = http_call(cli_base + "/v1/completions", dict(greedy, prompt=ps[3])) if ready else None
+        cli.send_signal(signal.SIGTERM)
+        t_term = time.monotonic()
+        try:
+            code = cli.wait(CLI_STOP_S)
+        except subprocess.TimeoutExpired:
+            code = None
+        stop_s = time.monotonic() - t_term
+        cli_text = answer[1]["choices"][0]["text"] if answer and answer[0] == 200 else None
+        emit(dict(phase="serve_cli", args=cmd[3:], ready_s=ready, ready_limit_s=CLI_READY_S,
+                  text_equal=cli_text == texts[3], exit_code=code, stop_s=stop_s, stop_limit_s=CLI_STOP_S,
+                  card=card["nvidia_smi"]))
+        if ready is None or cli_text != texts[3] or code != 0:
+            with open(cli_log) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+            fail(f"serve_cli: ready after {ready} s (limit {CLI_READY_S}), text equal {cli_text == texts[3]}, "
+                 f"exit code {code} after SIGTERM")
+        cli = None
+        return launches
+    finally:
+        if cli is not None and cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        if gw is not None:
+            server_loop.run(gw.close())
+        if channel is not None:
+            channel.close()
+        if grpc_srv is not None:
+            grpc_srv.stop(None)
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+        if server_loop is not None:
+            if api is not None:
+                server_loop.run(api.http.stop())
+            server_loop.close()
+        if watch is not None:
+            watch.remove()
+        if engine is not None:
+            engine.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -4768,9 +5407,9 @@ def main() -> None:
                              "global layers both run; the widths are never cut)")
     parser.add_argument("--qwen3-layers", type=int, default=QWEN3_LAYERS,
                         help="depth of the Qwen3-8B runs, bf16 and INT4 (of 36; the widths are never cut)")
-    parser.add_argument("--phi2-layers", type=int, default=layers_of(PHI2),
+    parser.add_argument("--phi2-layers", type=int, default=PHI2_LAYERS,
                         help="depth of the Phi-2 runs, bf16 and INT4 (of 32; the widths are never cut)")
-    parser.add_argument("--mpt-layers", type=int, default=layers_of(MPT_7B),
+    parser.add_argument("--mpt-layers", type=int, default=MPT_LAYERS,
                         help="depth of the MPT-7B runs, bf16 and INT4 (of 32; the widths are never cut)")
     opts = parser.parse_args()
     if opts.gemma2_layers % 2:
@@ -4862,8 +5501,9 @@ def main() -> None:
     spec_k1 = timed("19", phase_speculative, torch, card)
     lora_launches = timed("20", phase_lora, torch, card, opts.int4_layers)
     guided_k1 = timed("21", phase_guided, torch, card)
+    serve_k1 = timed("22", phase_servers, torch, card)
     new_k1 = (sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values()) + spec_k1
-              + lora_launches.get("ragged_paged_attention_cuda", 0) + guided_k1)
+              + lora_launches.get("ragged_paged_attention_cuda", 0) + guided_k1 + serve_k1)
 
     # Each kernel's launches on the main paths (the sync, async and ms4
     # serves with graphs; K1's f32 kernel apart from the bf16 one: counts set to 0 before each timed generate and
@@ -4875,7 +5515,9 @@ def main() -> None:
     # counted at its capture; phase 20's those of its LoRA serves with
     # graphs: TinyLlama's sync, async and ms4, INT4's sync; phase 21's those
     # of its guided and unconstrained serves with graphs and of its
-    # AsyncLLMEngine serve), summed over the paths
+    # AsyncLLMEngine serve; phase 22's those of its two passes through the
+    # HTTP server, its gRPC pass and its gateway request), summed over the
+    # paths
     # that run it, and its timing at a shape the main
     # path gives it: attention at the 8-sequence decode batch, w4a8 at the
     # decode step's gate_up projection (T = 16), dequant and group at the

@@ -95,9 +95,11 @@ class Batch:
         return sum(e.num_tokens for e in self.entries)
 
     def prepare_model_inputs(
-        self, block_size: int, step_counter: int = 0
+        self, block_size: int, step_counter: int = 0, vocab_size: int = 0
     ) -> Tuple[ModelInputs, SamplingInputs, np.ndarray]:
-        """Flatten the batch into padded numpy arrays.
+        """Flatten the batch into padded numpy arrays. vocab_size: the
+        model's logits width, which the allowed mask covers on steps with a
+        guided row (0: the tokenizer's, the reference's width).
 
         Returns (model_inputs, sampling_inputs, needs_sample_mask[S] bool)."""
         S_real = len(self.entries)
@@ -147,9 +149,12 @@ class Batch:
         bias_ids = np.zeros((S, max(B, 1)), dtype=np.int32)
         bias_vals = np.zeros((S, max(B, 1)), dtype=np.float32)
 
-        # Guided decoding: W = packed words (ceil(V/32)) when some sequence
-        # is constrained this step, else 1 (the sampler skips the stage).
-        # Unconstrained rows (padding rows too) are all ones.
+        # Guided decoding: W = packed words of the model's vocab_size (at
+        # least the tokenizer's) when some sequence is constrained this step,
+        # else 1 (the sampler skips the stage). Unconstrained rows (padding
+        # rows too) are all ones: the sampler bans ids past W * 32, which
+        # must not narrow a row that shares the step with a guided one. A
+        # guided row bans the ids its tokenizer has no text for.
         W = 1
         guided_rows = [
             (s, e.seq.guided)
@@ -157,12 +162,13 @@ class Batch:
             if e.seq.guided is not None and not e.seq.guided.finished
         ]
         if guided_rows:
-            W = guided_rows[0][1].fsm.n_words
+            W = max(guided_rows[0][1].fsm.n_words, -(-vocab_size // 32))
         allowed_mask = np.full((S, W), 0xFFFFFFFF, dtype=np.uint32)
         for s, g in guided_rows:
             row = g.mask()
             if row is not None:
-                allowed_mask[s] = row
+                allowed_mask[s, : len(row)] = row
+                allowed_mask[s, len(row):] = 0
 
         # Async stepping: token rows whose value is still on the device (the
         # previous step's sample), with their row in that step's outputs.

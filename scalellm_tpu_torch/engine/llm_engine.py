@@ -220,7 +220,8 @@ class LLMEngine:
 
     def _prepare(self, batch: Batch):
         self._step_counter += 1
-        mi, si, _ = batch.prepare_model_inputs(self.options.block_size, self._step_counter)
+        mi, si, _ = batch.prepare_model_inputs(self.options.block_size, self._step_counter,
+                                               vocab_size=self.model_args.vocab_size)
         if self.lora_meta is not None:
             mi.lora_ids = batch.lora_slots
         want_lp = any(e.seq.sampling_params.logprobs for e in batch.entries)

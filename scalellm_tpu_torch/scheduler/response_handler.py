@@ -94,7 +94,12 @@ class ResponseHandler:
         outputs = []
         for seq in request.sequences:
             delta = seq.build_delta_output(self._tokenizer)
-            if delta is not None and (delta.text or delta.finish_reason):
+            if delta is not None and delta.text:
+                # The finish reason goes out once, in _do_finish's terminal
+                # chunk: the scheduler may finish the sequence between this
+                # job's queueing and its run, and the reference's copy then
+                # sends it in both chunks.
+                delta.finish_reason = None
                 outputs.append(delta)
         if not outputs:
             return

@@ -17,7 +17,10 @@ package, on the CPU, after tests/test_constrained.py:
   under tight KV (re-prefilled, or swapped out to host memory) gives the
   ample serve's ids;
 - refusals: an invalid regex, and guided decoding with speculative
-  decoding, are INVALID_ARGUMENT statuses in both packages.
+  decoding, are INVALID_ARGUMENT statuses in both packages;
+- the mask spans the model's vocabulary where it is wider than the
+  tokenizer's, so an unconstrained request keeps its ids beside a guided
+  one (the reference's mask bans its ids past the tokenizer's).
 """
 
 import json
@@ -277,6 +280,54 @@ def test_batch_mask_rows_follow_each_guided_state():
     assert np.array_equal(si.allowed_mask[2], fsm.allowed_packed(g.state))
     assert (si.allowed_mask[1] == 0xFFFFFFFF).all() and (si.allowed_mask[3:] == 0xFFFFFFFF).all()
 
+
+
+def test_batch_mask_covers_the_models_vocab():
+    """With the model's vocab_size wider than the tokenizer's, the mask
+    spans the model's ids: an unconstrained row keeps every id (the sampler
+    bans ids past the mask), a guided row bans the ids past its
+    tokenizer's."""
+    from scalellm_tpu_torch.constrained.fsm import START, compile_regex
+    from scalellm_tpu_torch.constrained.tokenmap import GuidedState, TokenFsm
+    from scalellm_tpu_torch.engine.batch import Batch
+    from scalellm_tpu_torch.memory.block_manager import BlockManager, BlockManagerOptions
+    from scalellm_tpu_torch.request.sequence import Sequence
+    from scalellm_tpu_torch.request.stopping import StoppingCriteria
+    from scalellm_tpu_torch.sampling.params import SamplingParams
+
+    fsm = TokenFsm(compile_regex("ab+"), [bytes([i]) for i in range(256)], (2,))
+    bm = BlockManager(BlockManagerOptions(num_blocks=16, block_size=4, enable_prefix_cache=False))
+    b = Batch()
+    for guided in (GuidedState(fsm), None):
+        s = Sequence(index=0, token_ids=[5, 6, 7], sampling_params=SamplingParams(),
+                     stopping_criteria=StoppingCriteria(max_tokens=4), prompt="x", guided=guided)
+        assert bm.allocate_blocks_for(s, 3)
+        b.add(s, 3)
+    _, si, _ = b.prepare_model_inputs(4, vocab_size=1000)
+    assert si.allowed_mask.shape[1] == 32  # ceil(1000 / 32) words, past the tokenizer's 8
+    assert np.array_equal(si.allowed_mask[0, :8], fsm.allowed_packed(START)) and (si.allowed_mask[0, 8:] == 0).all()
+    assert (si.allowed_mask[1:] == 0xFFFFFFFF).all()
+
+
+def test_unconstrained_request_beside_a_guided_one_keeps_its_ids():
+    """A model of 512 ids behind the 256-char tokenizer: an unconstrained
+    greedy request gives the same output alone and in one generate with a
+    guided request (the reference's mask, as wide as the tokenizer, banned
+    its ids past 256 on the steps they shared)."""
+    import tests.fixtures as fixtures
+    from scalellm_tpu_torch import LLM, SamplingParams
+    from tests.torch_port_util import shared_checkpoint
+
+    path = shared_checkpoint("tiny_llama_v512_seed0_tok",
+                             lambda d: fixtures.make_tiny_llama(d, tokenizer=True, vocab_size=512))
+    free = SamplingParams(max_tokens=24, temperature=0.0, ignore_eos=True)
+    guided = SamplingParams(max_tokens=24, temperature=0.0, guided_regex="[a-z]{20}")
+    with LLM(path, devices="cpu", block_size=4, num_blocks=128, num_handling_threads=1) as llm:
+        alone = generate_within(llm, ["the free one"], free)[0]
+        beside = generate_within(llm, ["the free one", "the guided one"], [free, guided])
+    assert re.fullmatch("[a-z]{20}", beside[1].outputs[0].text)
+    got, want = beside[0].outputs[0], alone.outputs[0]
+    assert (got.token_ids, got.text, beside[0].usage) == (want.token_ids, want.text, alone.usage)
 
 # ------------------------------------------------------------------ e2e
 

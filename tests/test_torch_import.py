@@ -1,6 +1,9 @@
 """The port imports torch and never jax, the JAX package, ml_dtypes or
-safetensors (the card's machine has none of them): checked in a fresh
-interpreter, and on the package's sources."""
+safetensors: checked in a fresh interpreter, and on the package's sources.
+Its sources name no module of the JAX package; the proto package
+`scalellm_tpu` of the gRPC wire (serve/pb, grpc_server, gateway and
+chip_smoke.py's gRPC client) is the one place where that name is followed
+by a dot, and there only by a message or service name. The HTTP server loads no grpc and no protobuf."""
 
 import json
 import pathlib
@@ -36,6 +39,10 @@ def test_import_loads_no_jax():
         "import scalellm_tpu_torch.utils.args_override, scalellm_tpu_torch.utils.collect_env\n"
         "import scalellm_tpu_torch.llm_engine\n"
         "from scalellm_tpu_torch import AsyncLLMEngine, OutputStream, OutputAsyncStream\n"
+        "import scalellm_tpu_torch.serve, scalellm_tpu_torch.serve.http, scalellm_tpu_torch.serve.api_protocol\n"
+        "import scalellm_tpu_torch.serve.completion_handler, scalellm_tpu_torch.serve.chat_handler\n"
+        "import scalellm_tpu_torch.serve.api_server, scalellm_tpu_torch.serve.pb.llm_pb2\n"
+        "import scalellm_tpu_torch.serve.grpc_server, scalellm_tpu_torch.serve.gateway\n"
         f"banned = {BANNED!r}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(json.dumps(bad))\n"
@@ -73,9 +80,40 @@ def test_sources_name_no_jax_import():
             "scalellm_tpu_torch/utils/tools.py",
             "scalellm_tpu_torch/utils/args_override.py",
             "scalellm_tpu_torch/utils/collect_env.py",
-            "scalellm_tpu_torch/llm_engine.py"} <= names
+            "scalellm_tpu_torch/llm_engine.py",
+            "scalellm_tpu_torch/serve/__init__.py",
+            "scalellm_tpu_torch/serve/http.py",
+            "scalellm_tpu_torch/serve/api_protocol.py",
+            "scalellm_tpu_torch/serve/completion_handler.py",
+            "scalellm_tpu_torch/serve/chat_handler.py",
+            "scalellm_tpu_torch/serve/api_server.py",
+            "scalellm_tpu_torch/serve/pb/__init__.py",
+            "scalellm_tpu_torch/serve/pb/llm_pb2.py",
+            "scalellm_tpu_torch/serve/grpc_server.py",
+            "scalellm_tpu_torch/serve/gateway.py"} <= names
     banned = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(BANNED) + r")\b", re.M)
+    # A JAX package module's dotted name: "scalellm_tpu." and a lowercase
+    # module name (the wire's names start upper case: scalellm_tpu.Chat).
+    module_path = re.compile(r"scalellm_tpu\.(?![A-Z])")
     for path in sources:
         text = path.read_text()
         assert banned.search(text) is None, path
-        assert "scalellm_tpu." not in text, path
+        assert module_path.search(text) is None, path
+    wire = {p.relative_to(REPO).as_posix() for p in sources if "scalellm_tpu." in p.read_text()}
+    assert wire == {"scalellm_tpu_torch/serve/pb/llm_pb2.py", "scalellm_tpu_torch/serve/grpc_server.py",
+                    "scalellm_tpu_torch/serve/gateway.py", "chip_smoke.py"}
+
+
+def test_http_server_loads_no_grpc():
+    """The card's HTTP path needs neither grpc nor protobuf."""
+    code = (
+        "import json, sys\n"
+        "import scalellm_tpu_torch.serve.api_server\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'grpc' or m.startswith('google.protobuf')]\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -2576,3 +2576,60 @@ def test_guided_serve_with_graphs_gives_the_eager_ids(cuda, tmp_path):
     for name, (_, text, reason) in zip(guides, got[True]):
         if name in ("choice", "regex", "tool"):  # bounded languages end within max_tokens
             assert reason == "STOP" and chip_smoke.guided_valid(name, text), (name, text)
+
+
+# The servers: an in-process ApiServer on the card over a real socket.
+
+
+def test_api_server_answers_a_greedy_completion_on_the_card(cuda, tmp_path):
+    """serve/api_server.py's ApiServer on its own thread's event loop, its
+    engine built from the CLI's flags (graphs, async stepping) on a tiny
+    random-weight Llama on the card: one greedy /v1/completions over a
+    socket of 127.0.0.1 gives the text the engine gives the prompt
+    straight, with K1 launched once a layer a step (a replayed step
+    counted as its graph counted at its capture)."""
+    import asyncio
+    import json
+    import urllib.request
+
+    import chip_smoke
+    from scalellm_tpu_torch import SamplingParams
+    from scalellm_tpu_torch.serve.api_server import ApiServer, build_arg_parser, engine_from_args
+
+    chip_smoke.count_captured_launches()
+    cfg = dict(TINY_LLAMA_CFG, architectures=["LlamaForCausalLM"], tie_word_embeddings=False, bos_token_id=1,
+               eos_token_id=2)
+    chip_smoke.write_checkpoint(torch, str(tmp_path), cfg)
+    port = chip_smoke.free_port()
+    # No prefix cache: the straight request then builds the server's steps.
+    args = build_arg_parser().parse_args(["--model", str(tmp_path), "--devices", "cuda", "--num-blocks", "256",
+                                          "--warmup-mode", "fast", "--port", str(port), "--disable-prefix-cache"])
+    engine = engine_from_args(args)
+    inner = engine._handler.engine
+    L = cfg["num_hidden_layers"]
+    loop = chip_smoke.ServerLoop()
+    api = ApiServer(engine, "tiny")
+    try:
+        engine.start()
+        loop.run(api.http.start("127.0.0.1", port))
+        steps_log, _, _, micro = chip_smoke.watch_steps(inner, (attention.ragged_paged_attention_cuda,))
+        body = dict(prompt="paged attention on the card", max_tokens=24, temperature=0.0, ignore_eos=True)
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            answer = json.loads(r.read())
+        chip_smoke.unwatch_steps(inner)
+        launches, _ = chip_smoke.held_launches("test", steps_log, micro, L)
+        assert launches >= 24 * L
+        sp = SamplingParams(max_tokens=24, temperature=0.0, ignore_eos=True)
+
+        async def straight():
+            return [o async for o in await engine.schedule_async(body["prompt"], sp)][-1]
+
+        want = asyncio.run(asyncio.wait_for(straight(), 120))
+    finally:
+        loop.run(api.http.stop())
+        loop.close()
+        engine.stop()
+    assert answer["usage"]["completion_tokens"] == 24 and answer["choices"][0]["finish_reason"] == "length"
+    assert answer["choices"][0]["text"] == want.outputs[0].text

@@ -314,3 +314,86 @@ def trained_tiny_llama() -> str:
     import tests.fixtures as fixtures
 
     return shared_checkpoint("trained_tiny_llama_s250_seed0_1thread", fixtures.make_trained_tiny_llama)
+
+
+# ------------------------------------------------------- server processes
+
+REPO = __import__("pathlib").Path(__file__).resolve().parents[1]
+SERVER_READY_S = 120
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn(module: str, *args: str):
+    """`python -m module args` from the repository root, with one intra-op
+    thread (OMP_NUM_THREADS=1) and JAX on the CPU, its output in a
+    temporary file (a pipe nobody reads could fill and block it; output()
+    reads the file)."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+
+    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    log = tempfile.TemporaryFile()
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], env=env, cwd=str(REPO), stdout=log,
+                            stderr=subprocess.STDOUT)
+    proc.log = log
+    return proc
+
+
+def output(proc) -> str:
+    """What a process of spawn() has written so far."""
+    proc.log.seek(0)
+    return proc.log.read().decode(errors="replace")
+
+
+def wait_ready(procs, ready, what: str, seconds: float = SERVER_READY_S) -> None:
+    """Poll ready() (True once the server answers) until `seconds` pass;
+    fails if one of `procs` exits first, with its output."""
+    import time
+
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        for proc in procs:
+            if proc.poll() is not None:
+                raise RuntimeError(f"{what}: a process exited with {proc.returncode}:\n{output(proc)}")
+        try:
+            if ready():
+                return
+        except Exception:
+            pass
+        time.sleep(0.25)
+    raise RuntimeError(f"{what} not ready within {seconds} s")
+
+
+def http_ok(url: str) -> bool:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=2) as r:
+        return r.status == 200
+
+
+def stop_all(procs, seconds: float = 10) -> list:
+    """SIGTERM each process, kill it after `seconds`; their return codes."""
+    import subprocess
+
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    codes = []
+    for proc in procs:
+        try:
+            codes.append(proc.wait(timeout=seconds))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            codes.append(proc.wait())
+    return codes
