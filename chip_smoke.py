@@ -320,7 +320,29 @@ Phases (any failure exits non-zero, and the result line is not printed):
      then the CLI (python3 -m scalellm_tpu_torch.serve.api_server) in a
      process of its own: /health within CLI_READY_S, pass 1's text for a
      prompt, exit 0 within CLI_STOP_S of SIGTERM.
-  23. a line of the seconds each phase took, a `kernels` JSON line, then
+  23. tensor parallelism (engine/distributed.py): two ranks on the one
+     card over gloo (TP_DEVICES; NCCL refuses two ranks on one device),
+     each a process, serving phase 4's traffic synchronously and eagerly
+     (tp_serve), every dispatch's launches on rank 0 held to
+     moe_step_launches and every rank's read back (rank_launches) and held
+     equal to rank 0's, against the tp 1 serve of the same checkpoint in
+     the same call (tp_compare: the same ids, or tp 2's differing tokens
+     within LOGITS_TOL of the tp 1 model's largest logit; the first step's
+     and the first decode step's logits within LOGITS_TOL). (a) INT4
+     Llama-3.1-8B on phase 5's GPTQ checkpoint at phase 5's depth (kept for
+     it), each rank launching K1, K2, K4 and K5 at its shapes; (b)
+     TinyLlama-1.1B, full width and depth, bf16, at tp 2 without and with
+     sequence parallelism, each held to tp 1 and the SP serve to the other
+     tp 2 serve bit for bit; (c) Mixtral-8x7B bf16 on phase 8's checkpoint while it
+     exists (run inside phase 8), 4 experts a rank, K6 on each rank, the
+     tp 1 serve replaying tp 2's routing with its own router's choices
+     held to it (route_gaps); (d) moe_mlp_a2a across two ranks, each a
+     spawned process, at Mixtral's widths against the single-rank moe_mlp
+     (tp_a2a_rank); (e) (a) over NCCL, one card a rank, where the machine
+     has two cards, else a line that says it did not run. Each serve's line
+     carries the backend, the world size, the decode step's milliseconds
+     and its share in the collectives (torch.profiler, collective_share).
+  24. a line of the seconds each phase took, a `kernels` JSON line, then
      the result line.
 
 It needs the repository (it fails in a directory that holds only this
@@ -2586,7 +2608,10 @@ def main_path_launches(runs):
     return out
 
 
-def phase_end_to_end_int4(torch, card, n_layers):
+def phase_end_to_end_int4(torch, card, n_layers, keep=False):
+    """Phase 5. Returns the launches on its main paths and, with keep, the
+    GPTQ checkpoint's directory, left for phase 23 (the caller removes it;
+    else None)."""
     from scalellm_tpu_torch import SamplingParams
     from scalellm_tpu_torch.ops import attention
     from scalellm_tpu_torch.ops import quant_matmul as Q
@@ -2759,11 +2784,12 @@ def phase_end_to_end_int4(torch, card, n_layers):
         model.attn_impl, model.quant_impl = attention.ragged_paged_attention, Q.quant_matmul
 
         launches[probe.__name__] = phase_stream_probe_in_model(torch, card, model, prefill, decode, n_pages)
-        return launches
+        return launches, tmp if keep else None
     finally:
         if llm is not None:
             llm.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def device_ms(prof, *names):
@@ -5375,6 +5401,473 @@ def phase_servers(torch, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 23
+
+# Tensor parallelism: two ranks share the one card, so NCCL (which refuses
+# two ranks on one device) gives way to gloo, and every rank's device is the
+# card. Both ranks' KV caches get TP_BLOCKS blocks of 16 slots (no sizing
+# from free memory: the other rank's weights are not there yet when one
+# rank looks); the serves run eagerly and synchronously, as tensor
+# parallelism does in this slice.
+TP_DEVICES = "cuda:0,cuda:0"
+TP_BLOCKS = 2048
+TP_OPTIONS = dict(enable_cuda_graph=False, enable_async_scheduling=False, warmup_mode="off")
+# The a2a check's tokens (phase 23d), split over the two ranks, and how
+# long the driver waits for the ranks' results.
+A2A_TOKENS = 256
+A2A_TIMEOUT_S = 300
+
+
+def rank_launches(engine, reset=False):
+    """Every rank's kernel launch counts (ops.kernel_counters) by rank:
+    DistributedLLMEngine.rank_launches, or this process's for the one engine
+    of a tp 1 serve; `reset` sets them to 0 after reading. Each rank's
+    "rms_prologue" is its launches with the RMSNorm prologue (K5, inside
+    K2's pre-pass or K4's)."""
+    from scalellm_tpu_torch.ops import kernel_counters
+
+    if hasattr(engine, "rank_launches"):
+        ranks = engine.rank_launches(reset)
+    else:
+        counters = kernel_counters()
+        ranks = [{name: c.launches for name, c in counters.items()}]
+        if reset:
+            for c in counters.values():
+                c.launches = 0
+    for counts in ranks:
+        counts["rms_prologue"] = sum(v for k, v in counts.items() if k.endswith("_prologue"))
+    return ranks
+
+
+def tp_a2a_rank(rank, coordinator, tokens, results):
+    """A rank of phase 23 (d), in a process of its own (the spawn start
+    method): layers/moe.py's moe_mlp_a2a over two gloo ranks on TP_DEVICES at
+    Mixtral-8x7B's widths, on a random router and 8 random experts (N(0,
+    0.02), the same on both ranks, from SEED) of which the rank holds 4, and
+    this rank's half of `tokens` random hidden states; then the single-rank
+    moe_mlp on all the tokens and every expert. Puts on `results` the
+    largest error of the gathered a2a rows, the reference's largest
+    magnitude and the a2a's milliseconds (host clock, the card
+    synchronised)."""
+    import torch
+
+    from scalellm_tpu_torch.engine.distributed import rank_devices
+    from scalellm_tpu_torch.layers.moe import moe_mlp, moe_mlp_a2a
+    from scalellm_tpu_torch.parallel import collectives as C
+    from scalellm_tpu_torch.parallel import multihost
+
+    device = torch.device(rank_devices(TP_DEVICES, 2)[rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    multihost.init_distributed(coordinator, 2, rank, "gloo")
+    try:
+        mesh = multihost.make_pod_mesh(tp=2, device=device)
+        c = MIXTRAL_8X7B
+        D, F, E, k = c["hidden_size"], c["intermediate_size"], c["num_local_experts"], c["num_experts_per_tok"]
+        gen = torch.Generator(device=device).manual_seed(SEED)
+
+        def rand(*shape, scale=0.02):
+            return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+        x, router = rand(tokens, D, scale=1.0), rand(E, D)
+        experts = (rand(E, F, D), rand(E, F, D), rand(E, D, F))
+        n, e = tokens // 2, E // 2
+        with torch.inference_mode():
+            sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+            sync()
+            t0 = time.monotonic()
+            y = moe_mlp_a2a(x[rank * n: (rank + 1) * n], router, *(w[rank * e: (rank + 1) * e] for w in experts), k,
+                            True, c["hidden_act"], mesh=mesh)
+            sync()
+            ms = (time.monotonic() - t0) * 1e3
+            got = C.all_gather(y, 0, mesh)
+            want = moe_mlp(x, router, *experts, k, True, c["hidden_act"])
+        results.put(dict(rank=rank, local_experts=e, rows=y.shape[0], ms=ms,
+                         max_abs_err=(got - want).abs().max().item(), ref_max=want.abs().max().item(),
+                         finite=bool(torch.isfinite(got).all())))
+    finally:
+        multihost.shutdown_distributed()
+
+
+def phase_tp_a2a(torch, card):
+    """Phase 23 (d): moe_mlp_a2a across two ranks, each a spawned process on
+    the card (tp_a2a_rank), against the single-rank moe_mlp, within
+    QUANT_TOL_MAX of the output's largest magnitude (bf16 products, f32
+    sums)."""
+    import multiprocessing
+    import queue
+
+    from scalellm_tpu_torch.engine.distributed import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=tp_a2a_rank, args=(r, coordinator, A2A_TOKENS, results), daemon=True)
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        try:
+            ranks = sorted((results.get(timeout=A2A_TIMEOUT_S) for _ in procs), key=lambda r: r["rank"])
+        except queue.Empty:
+            fail(f"tp a2a: no result within {A2A_TIMEOUT_S} s (exit codes {[p.exitcode for p in procs]})")
+        for p in procs:
+            p.join(60)
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"tp a2a: the ranks exited with {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(60)
+    emit(dict(phase="tp_a2a", tokens=A2A_TOKENS, ranks=ranks, tol=QUANT_TOL_MAX, card=card["nvidia_smi"]))
+    for r in ranks:
+        if not r["finite"] or not r["max_abs_err"] <= QUANT_TOL_MAX * r["ref_max"]:
+            fail(f"tp a2a: rank {r['rank']}'s rows differ from moe_mlp by {r['max_abs_err']}")
+
+
+def collective_share(prof):
+    """From a profiled serve's raw events: the decode steps' mean host
+    milliseconds (their "tp_step_decode" ranges on the driver) and the
+    share of that time inside the collectives' ranges (collectives.RANGES;
+    on gloo with CUDA tensors they hold the copies through the host and the
+    wait for the card's queued work)."""
+    from torch.autograd import DeviceType
+
+    from scalellm_tpu_torch.parallel.collectives import RANGES
+
+    steps, exchange = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            continue
+        span = (e.start_ns() / 1e3, e.end_ns() / 1e3)
+        name = e.name()
+        if name == "tp_step_decode":
+            steps.append(span)
+        elif name in RANGES:
+            exchange.append(span)
+
+    def inside(spans):
+        return union_ms([(max(a, s0), min(b, s1)) for a, b in spans for s0, s1 in steps
+                         if min(b, s1) > max(a, s0)])
+
+    total = union_ms(steps)
+    if not steps:
+        return dict(decode_steps=0, decode_step_ms=None, collective_share=None)
+    return dict(decode_steps=len(steps), decode_step_ms=total / len(steps),
+                collective_share=inside(exchange) / total)
+
+
+def route_gaps(x, router_w, own_e, replayed_e, rows):
+    """For a replayed routing: the (token, slot) choices of `replayed_e`
+    that the serve's own router (`own_e`, on the same x) did not pick, on
+    the token rows where `rows` (bool [T]) is true, and for each how far its
+    router logit lies below the least logit the own router picked (f32, as
+    softmax_topk computes them). Device tensors: the number of choices
+    looked at, the number that differ and the largest gap (0 where none
+    differs)."""
+    import torch
+
+    logits = x.float() @ router_w.float().T
+    missed = ~(replayed_e[:, :, None] == own_e[:, None, :]).any(-1) & rows[:, None]
+    cutoff = logits.gather(1, own_e).min(dim=1, keepdim=True).values
+    gaps = torch.where(missed, cutoff - logits.gather(1, replayed_e), torch.zeros((), device=x.device))
+    return rows.sum() * own_e.shape[1], missed.sum(), gaps.max()
+
+
+def step_history(batch):
+    """Each entry of a step: its sequence's tokens up to the last of this
+    step's chunk (what every row of the chunk has seen), and the chunk's
+    rows; the rows follow the entries in order."""
+    return [(tuple(e.seq.token_ids[: e.seq.num_kv_cache_tokens() + e.num_tokens]), e.num_tokens)
+            for e in batch.entries]
+
+
+def tp_serve(torch, card, tag, path, tp, sp=False, routes=None, history=None, **kw):
+    """Phase 4's traffic (8 prompts, 32 greedy tokens, after a warm-up
+    request) through an LLM over `tp` ranks on the card (TP_DEVICES; tp 1:
+    the card alone), synchronous and eager, one request-handling thread (so
+    two serves build the same batches). Each dispatch's launches on the
+    driver held to moe_step_launches; every rank's launches read back
+    (rank_launches) and held equal to the driver's; the first step's and
+    the first decode-only step's logits kept, and each request's logits
+    rows of the steps that sampled its tokens, in order. An MoE model's
+    routing during the timed serve: with tp 2 recorded into `routes` (a
+    list; every rank routes the same replicated hidden states the same
+    way), with tp 1 replayed from it, call by call (a near-tie in a router
+    would otherwise send a token to another expert under the other serve's
+    rounding, and the serves would part); the tp 1 serve's own router still
+    runs on each call's hidden states, and every replayed choice it would
+    not have made is counted with its router gap (route_gaps), which
+    tp_compare holds within LOGITS_TOL: a fault of tp 2's routing cannot
+    hide behind the replay. The gaps are taken on the rows whose sequence
+    has seen the same tokens in both serves (`history`: each step's
+    step_history, recorded with the routing and compared when it is
+    replayed): a request whose greedy ids parted at a near tie feeds each
+    serve another token from there, and its rows' routings part with it. Then 2 other prompts (16 tokens) under
+    torch.profiler for the decode step's time and its share in collectives.
+    Emits `{tag}_tp{tp}`. Returns the engine's LLM (open) and what it
+    measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scalellm_tpu_torch import LLM, SamplingParams
+    from scalellm_tpu_torch.handlers.llm_handler import LLMHandler, LLMHandlerOptions
+
+    t0 = time.monotonic()
+    llm = LLM.__new__(LLM)
+    llm._handler = LLMHandler(LLMHandlerOptions(
+        model_path=path, devices=TP_DEVICES if tp > 1 else DEVICE, tp_size=tp, sequence_parallel=sp,
+        num_blocks=TP_BLOCKS, num_handling_threads=1, **SERVE_ENVELOPE, **TP_OPTIONS, **kw))
+    torch.cuda.synchronize()
+    t_load = time.monotonic() - t0
+    engine = llm._handler.engine
+    model = engine.model
+    llm.generate(["warm up the engine"], SamplingParams(max_tokens=2, temperature=0.0))
+    logits, rows, entries = {}, {}, []
+    real_forward, real_execute = engine.executor._forward, engine.execute_model
+
+    def execute(batch):
+        entries[:] = [(tuple(e.seq.token_ids[: e.seq.num_prompt_tokens]), e.needs_sample) for e in batch.entries]
+        if replaying:
+            seen, theirs = step_history(batch), history.pop(0)
+            same[:] = [mine == other for mine, other in zip(seen, theirs) for _ in range(mine[1])]
+        elif recording:
+            history.append(step_history(batch))
+        return real_execute(batch)
+
+    def forward(mi, decode_only):
+        out = real_forward(mi, decode_only)
+        key = "decode" if decode_only else "prefill"
+        n = int(mi.num_seqs[0])
+        if key not in logits:
+            logits[key] = (out[:n].float().cpu(), mi.token_ids[:n].cpu() if decode_only else None)
+        for (prompt, samples), row in zip(entries, out[:n].float().cpu()):
+            if samples:
+                rows.setdefault(prompt, []).append(row)
+        return out
+
+    engine.execute_model = execute
+    engine.executor._forward = forward
+    checks, same = [], []
+    recording = replaying = False
+    if routes is not None and model.args.n_experts:
+        real_router = model._router
+        if tp > 1:
+            recording = True
+            model._router = lambda x, w: routes.append(real_router(x, w)) or routes[-1]
+        else:
+            replaying = True
+
+            def replay(x, w):
+                replayed = routes.pop(0)
+                rows = torch.zeros(x.shape[0], dtype=torch.bool)
+                rows[: len(same)] = torch.tensor(same, dtype=torch.bool)
+                checks.append(route_gaps(x, w, real_router(x, w)[1], replayed[1], rows.to(x.device)))
+                return replayed
+
+            model._router = replay
+    counters = all_counters()
+    steps_log, _, starts, _ = watch_steps(engine, counters)
+    ids = record_outputs(llm)
+    rank_launches(engine, reset=True)
+    ps = prompts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    outs = llm.generate(ps, SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    ranks = rank_launches(engine)
+    routing = None
+    if checks:
+        routing = dict(choices=int(sum(n.item() for n, _, _ in checks)),
+                       differing=int(sum(c.item() for _, c, _ in checks)),
+                       largest_gap=max(g.item() for _, _, g in checks))
+    for obj, name in ((engine.executor, "_forward"), (engine, "execute_model"), (model, "_router")):
+        obj.__dict__.pop(name, None)
+    name = f"{tag}_tp{tp}"
+    if len(outs) != len(ps) or not all(o.finished and o.status.ok and o.usage.num_generated_tokens == 32
+                                       for o in outs):
+        fail(f"{name}: a request did not finish with 32 tokens")
+    names = [c.__name__ for c in counters]
+    for T, S, decode_only, runs, *got in steps_log:
+        want = moe_step_launches(model, T, S, decode_only)
+        expected = [runs * want.get(k, 0) for k in names]
+        if got != expected:
+            fail(f"{name}: a step of T={T}, S={S}, decode_only={decode_only} launched {dict(zip(names, got))} on "
+                 f"rank 0, expected {dict(zip(names, expected))}")
+    driver = {k: sum(st[4 + i] for st in steps_log) for i, k in enumerate(names)}
+    for r, counts in enumerate(ranks):
+        if any(counts.get(k, 0) != v for k, v in driver.items()):
+            fail(f"{name}: rank {r} launched {counts}, rank 0's steps {driver}")
+    spans = [(b - a) * 1e3 for a, b in zip(starts, starts[1:] + [t0 + wall])]
+    decode_ms = [ms for ms, st in zip(spans, steps_log) if st[2]]
+    del steps_log[:]
+    unwatch_steps(engine)
+    llm._handler.scheduler.__dict__.pop("_finish_request", None)
+
+    real_execute = engine.execute_model
+
+    def traced(batch):
+        with torch.profiler.record_function("tp_step_decode" if batch.is_decode_only else "tp_step_other"):
+            return real_execute(batch)
+
+    engine.execute_model = traced
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        llm.generate(prompts(SEED + 1)[:2], SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True))
+        torch.cuda.synchronize()
+    engine.__dict__.pop("execute_model", None)
+    share = collective_share(prof)
+    del prof
+    mesh = getattr(engine, "mesh", None)
+    figures = dict(tp=tp, sequence_parallel=sp, backend=mesh.backend if tp > 1 else "none",
+                   routings=len(routes) if routes is not None and tp > 1 and model.args.n_experts else 0,
+                   world_size=mesh.world_size if mesh is not None else 1, load_s=t_load, wall_s=wall,
+                   output_tok_per_s=32 * len(ps) / wall, kv_blocks=engine.block_manager.options.num_blocks,
+                   unprofiled_decode_step_ms=statistics.median(decode_ms) if decode_ms else None,
+                   **{f"profiled_{k}" if k == "decode_step_ms" else k: v for k, v in share.items()})
+    emit(dict(phase=name, **figures, own_router=routing, rank_launches=ranks, card=card["nvidia_smi"]))
+    return llm, dict(ids=ids, logits=logits, rows=rows, ranks=ranks, driver=driver, figures=figures,
+                     own_router=routing)
+
+
+def tp_compare(torch, card, tag, one, two, exact=False):
+    """Hold a tp 2 serve (`two`) to a serve of the same traffic (`one`: tp
+    1, or tp 2 without sequence parallelism): the same generated ids,
+    request by request, or, where a request's ids differ, `two`'s token at
+    the first differing position within LOGITS_TOL of the largest logit of
+    `one`'s own logits there (up to that position both serves fed the
+    request the same tokens: a near tie that the ranks' f32 sums in another
+    order can flip); the first step's logits, and the first decode-only
+    step's on its rows whose input token agrees, within LOGITS_TOL (the
+    same rounding of different f32 sums through every layer). Where `one`
+    replayed `two`'s routing, every replayed choice its own router would
+    not have made within LOGITS_TOL of its router's cutoff. `exact`: the
+    same ids and logits, bit for bit (two serves whose sums are the same).
+    Emits `{tag}_compare`."""
+    differing, gaps = [], []
+    for p, (prompt_ids, gen) in one["ids"].items():
+        got = two["ids"][p][1]
+        if got != gen:
+            differing.append(p)
+            j = next(i for i, (a, b) in enumerate(zip(gen, got)) if a != b)
+            row = one["rows"][tuple(prompt_ids)][j]
+            gaps.append((row.max() - row[got[j]]).item())
+    errs, rows = {}, {}
+    for step in ("prefill", "decode"):
+        (a, ta), (b, tb) = one["logits"][step], two["logits"][step]
+        keep = torch.ones(a.shape[0], dtype=torch.bool) if ta is None else ta == tb
+        rows[step] = int(keep.sum())
+        errs[step] = (a[keep] - b[keep]).abs().max().item() if rows[step] else 0.0
+    line = dict(phase=f"{tag}_compare", requests=len(one["ids"]), differing_requests=len(differing),
+                routing_pinned=bool(two["figures"].get("routings")), own_router=one["own_router"],
+                largest_gap=max(gaps) if gaps else 0.0, prefill_logits_err=errs["prefill"],
+                decode_logits_err=errs["decode"], decode_rows=rows["decode"], tol=0.0 if exact else LOGITS_TOL,
+                one=one["figures"], two=two["figures"], card=card["nvidia_smi"])
+    emit(line)
+    if exact and (differing or errs["prefill"] or errs["decode"]):
+        fail(f"{tag}: {len(differing)} requests' ids differ and the logits by {errs}, where they must be the same bits")
+    if line["routing_pinned"] and not one["own_router"]:
+        fail(f"{tag}: the routing was replayed and not held to the serve's own router")
+    if one["own_router"] and not one["own_router"]["choices"]:
+        fail(f"{tag}: the tp 1 router was held to the replayed routing on no row")
+    if one["own_router"] and one["own_router"]["largest_gap"] > LOGITS_TOL:
+        fail(f"{tag}: {one['own_router']['differing']} replayed routing choices differ from the tp 1 router's, "
+             f"one by {one['own_router']['largest_gap']} > {LOGITS_TOL} below its cutoff")
+    if any(g > LOGITS_TOL for g in gaps):
+        fail(f"{tag}: tp 2's ids differ from tp 1's past a near tie (gap {max(gaps)} > {LOGITS_TOL})")
+    if not (errs["prefill"] <= LOGITS_TOL and errs["decode"] <= LOGITS_TOL) or not rows["decode"]:
+        fail(f"{tag}: tp 2's logits differ from tp 1's by {errs} (tol {LOGITS_TOL}, {rows['decode']} decode rows)")
+    return line
+
+
+def tp_phase(torch, card, tag, path, must_launch, sps=(False,), **kw):
+    """One sub-phase of phase 23: a tp 2 serve for each sequence-parallel
+    setting of `sps`, each closed (its followers joined) before the next,
+    then the tp 1 serve of the same checkpoint and traffic (an MoE model's
+    routing replayed from the first tp 2 serve), each tp 2 serve held to it
+    (tp_compare, `{tag}[_sp]_tp_compare`) and, with both settings, the SP
+    serve held to the one without bit for bit (`{tag}_sp_over_tp2_compare`:
+    the same ranks, products and two-rank sums, with the norms and residual
+    adds run row by row, so a difference there is SP's fault); each rank must have
+    launched every wrapper of `must_launch`. Returns the tp 2 serves'
+    driver launches, summed."""
+    routes, history, twos, launches = [], [], {}, {}
+    for sp in sps:
+        name = f"{tag}_sp" if sp else tag
+        two_llm, two = tp_serve(torch, card, name, path, 2, sp, *((routes, history) if not twos else ()), **kw)
+        try:
+            for r, counts in enumerate(two["ranks"]):
+                missing = [k for k in must_launch if not counts.get(k, 0) > 0]
+                if missing:
+                    fail(f"{name}: rank {r} of tp 2 never launched {missing}")
+        finally:
+            close_llm(torch, card, f"{name}_tp2", two_llm)
+        twos[sp] = two
+        for k, v in two["driver"].items():
+            launches[k] = launches.get(k, 0) + v
+    one_llm, one = tp_serve(torch, card, tag, path, 1, routes=routes, history=history, **kw)
+    close_llm(torch, card, f"{tag}_tp1", one_llm)
+    if routes or (one["own_router"] and history):
+        fail(f"{tag}: the tp 1 serve replayed {len(routes)} routings and {len(history)} steps fewer than the "
+             "tp 2 serve recorded")
+    for sp, two in twos.items():
+        tp_compare(torch, card, f"{tag}_sp_tp" if sp else f"{tag}_tp", one, two)
+    if len(twos) == 2:
+        tp_compare(torch, card, f"{tag}_sp_over_tp2", twos[False], twos[True], exact=True)
+    return launches
+
+
+def phase_tp_dense(torch, card, int4_path):
+    """Phase 23 (a) and (b): INT4 Llama-3.1-8B on phase 5's GPTQ checkpoint
+    (`int4_path`, phase 5's depth) at tp 2 against tp 1, each rank running
+    K1, K2, K4 and K5 at its shapes (16 q heads over 4 KV heads, qkv N 3072,
+    gate_up N 14336, down K 7168); TinyLlama-1.1B at full width and depth,
+    bf16, tp 2 with sequence parallelism against tp 1; then (e): a line that
+    says whether NCCL ran (it needs a card a rank). Returns the launches of
+    the tp 2 serves on the driver."""
+    launches = tp_phase(torch, card, "tp_int4", int4_path, (
+        "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda", "rms_prologue"),
+        quantize_lm_head=True)
+    tmp = tempfile.mkdtemp(prefix="scalellm_tp_tinyllama_")
+    try:
+        write_checkpoint(torch, tmp, TINYLLAMA)
+        for k, v in tp_phase(torch, card, "tp_tinyllama", tmp, ("ragged_paged_attention_cuda",),
+                             sps=(False, True)).items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cards = torch.cuda.device_count()
+    emit(dict(phase="tp_nccl", ran=False, cards=cards, card=card["nvidia_smi"],
+              note="NCCL needs a card a rank; one card is visible, so the NCCL path (the same code with "
+                   "backend nccl) did not run" if cards < 2 else "more than one card is visible"))
+    if cards > 1:
+        tp_nccl(torch, card, int4_path)
+    return launches
+
+
+def tp_nccl(torch, card, int4_path):
+    """Phase 23 (e) where the machine has two cards: (a)'s serve over NCCL,
+    one card a rank, against tp 1."""
+    global TP_DEVICES
+    saved, TP_DEVICES = TP_DEVICES, "cuda:0,cuda:1"
+    try:
+        tp_phase(torch, card, "tp_int4_nccl", int4_path, (
+            "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda"),
+            quantize_lm_head=True)
+    finally:
+        TP_DEVICES = saved
+
+
+def phase_tp_moe(torch, card, path):
+    """Phase 23 (c) and (d), on phase 8's Mixtral checkpoint while it
+    exists: bf16 at tp 2, 4 experts a rank (K6 on each rank), against tp 1;
+    then moe_mlp_a2a across two ranks (phase_tp_a2a). Returns the tp 2
+    serve's driver launches."""
+    launches = tp_phase(torch, card, "tp_mixtral", path, ("ragged_paged_attention_cuda", "grouped_matmul_cuda"))
+    phase_tp_a2a(torch, card)
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -5441,69 +5934,81 @@ def main() -> None:
     small_m_results, mlp_launches = timed("3e", phase_small_m_kernels, torch, card)
     count_captured_launches()
     bf16_launches, bf16_blocks = timed("4", phase_end_to_end, torch, card)
-    int4_launches = timed("5", phase_end_to_end_int4, torch, card, opts.int4_layers)
-    # Phases 6-15: each checkpoint written once, served in bf16 and then
-    # with runtime INT4 (phases 14 and 15: bf16 and f32 alone), and removed.
-    moe_launches = {}
-    both = ("", "int4")
-    for phase, name, base, tensors_of, flag, layers, serves, quantizes in (
-            ("6-7", "deepseek", DEEPSEEK_V2_LITE, deepseek_checkpoint_tensors, "--deepseek-layers",
-             opts.deepseek_layers, SERVES, both),
-            ("8", "mixtral", MIXTRAL_8X7B, mixtral_checkpoint_tensors, "--mixtral-layers", opts.mixtral_layers,
-             MOE_SERVES, both),
-            ("9", "qwen2_moe", QWEN15_MOE_A27B, qwen2_moe_checkpoint_tensors, None,
-             QWEN15_MOE_A27B["num_hidden_layers"], MOE_SERVES, both),
-            ("10", "gemma2", GEMMA2_9B, gemma2_checkpoint_tensors, "--gemma2-layers", opts.gemma2_layers,
-             MOE_SERVES, both),
-            ("11", "qwen3", QWEN3_8B, qwen3_checkpoint_tensors, "--qwen3-layers", opts.qwen3_layers, MOE_SERVES,
-             both),
-            ("12", "phi2", PHI2, phi_checkpoint_tensors, "--phi2-layers", opts.phi2_layers, MOE_SERVES, both),
-            ("13", "mpt7b", MPT_7B, mpt_checkpoint_tensors, "--mpt-layers", opts.mpt_layers, MOE_SERVES, both),
-            ("14", "bloom560m", BLOOM_560M, bloom_checkpoint_tensors, None, layers_of(BLOOM_560M), MOE_SERVES,
-             ("",)),
-            ("15", "gpt2", GPT2, gpt2_checkpoint_tensors, None, layers_of(GPT2), MOE_SERVES, ("",))):
-        t0 = time.monotonic()
-        cfg = with_layers(base, layers)
-        path, nbytes, t_write = write_temp_checkpoint(torch, name, cfg, tensors_of(cfg), flag,
-                                                      None if phase in ("6-7", "8", "9") else scaled_init(cfg))
-        try:
-            emit(dict(phase=f"{name}_checkpoint", layers=layers, checkpoint_bytes=nbytes, write_s=t_write))
-            for quantize in quantizes:
-                moe_launches[(name, quantize)] = phase_end_to_end_moe(
-                    torch, card, name, path, layers, layers_of(base), nbytes, quantize, serves)
-            if name == "deepseek":
-                # Phase 17: the same checkpoint over int8 latent pages.
-                t17 = time.monotonic()
-                moe_launches[(name, "int8kv")] = phase_end_to_end_moe(
-                    torch, card, name, path, layers, layers_of(base), nbytes, "", MOE_SERVES, kv_cache_dtype="int8")
-                phase_seconds["17"] = time.monotonic() - t17
-                t0 += phase_seconds["17"]
-        finally:
-            shutil.rmtree(path, ignore_errors=True)
-        phase_seconds[phase] = time.monotonic() - t0
-    for phases, names, wrappers in (
-            ("8 and 9", ("mixtral", "qwen2_moe"), (
-                "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda",
-                "grouped_matmul_cuda", "expert_dequant_cuda", "grouped_quant_matmul_cuda",
-                "grouped_quant_matmul_pair_cuda")),
-            ("10 and 11", ("gemma2", "qwen3"), (
-                "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda")),
-            ("12-15", ("phi2", "mpt7b", "bloom560m", "gpt2"), (
-                "ragged_paged_attention_alibi", "ragged_paged_attention_d80", "ragged_paged_attention_f32",
-                "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda"))):
-        runs = [run for (name, _), run in moe_launches.items() if name in names]
-        for wrapper in wrappers:
-            if not sum(run.get(wrapper, 0) for run in runs) > 0:
-                fail(f"phases {phases} never launched {wrapper}")
-    for model, run in timed("16", phase_kv_int8, torch, card, bf16_blocks).items():
-        moe_launches[(model, "int8kv")] = run
-    timed("18", phase_kv_swap, torch, card)
-    spec_k1 = timed("19", phase_speculative, torch, card)
-    lora_launches = timed("20", phase_lora, torch, card, opts.int4_layers)
-    guided_k1 = timed("21", phase_guided, torch, card)
-    serve_k1 = timed("22", phase_servers, torch, card)
-    new_k1 = (sum(run.get("ragged_paged_attention_cuda", 0) for run in moe_launches.values()) + spec_k1
-              + lora_launches.get("ragged_paged_attention_cuda", 0) + guided_k1 + serve_k1)
+    # Phase 5's checkpoint is kept for phase 23 (a).
+    int4_launches, int4_path = timed("5", phase_end_to_end_int4, torch, card, opts.int4_layers, True)
+    # From here to phase 23 (a), which reads it, phase 5's checkpoint stays on disk.
+    try:
+        # Phases 6-15: each checkpoint written once, served in bf16 and then
+        # with runtime INT4 (phases 14 and 15: bf16 and f32 alone), and removed.
+        moe_launches, tp_launches = {}, {}
+        both = ("", "int4")
+        for phase, name, base, tensors_of, flag, layers, serves, quantizes in (
+                ("6-7", "deepseek", DEEPSEEK_V2_LITE, deepseek_checkpoint_tensors, "--deepseek-layers",
+                 opts.deepseek_layers, SERVES, both),
+                ("8", "mixtral", MIXTRAL_8X7B, mixtral_checkpoint_tensors, "--mixtral-layers", opts.mixtral_layers,
+                 MOE_SERVES, both),
+                ("9", "qwen2_moe", QWEN15_MOE_A27B, qwen2_moe_checkpoint_tensors, None,
+                 QWEN15_MOE_A27B["num_hidden_layers"], MOE_SERVES, both),
+                ("10", "gemma2", GEMMA2_9B, gemma2_checkpoint_tensors, "--gemma2-layers", opts.gemma2_layers,
+                 MOE_SERVES, both),
+                ("11", "qwen3", QWEN3_8B, qwen3_checkpoint_tensors, "--qwen3-layers", opts.qwen3_layers, MOE_SERVES,
+                 both),
+                ("12", "phi2", PHI2, phi_checkpoint_tensors, "--phi2-layers", opts.phi2_layers, MOE_SERVES, both),
+                ("13", "mpt7b", MPT_7B, mpt_checkpoint_tensors, "--mpt-layers", opts.mpt_layers, MOE_SERVES, both),
+                ("14", "bloom560m", BLOOM_560M, bloom_checkpoint_tensors, None, layers_of(BLOOM_560M), MOE_SERVES,
+                 ("",)),
+                ("15", "gpt2", GPT2, gpt2_checkpoint_tensors, None, layers_of(GPT2), MOE_SERVES, ("",))):
+            t0 = time.monotonic()
+            cfg = with_layers(base, layers)
+            path, nbytes, t_write = write_temp_checkpoint(torch, name, cfg, tensors_of(cfg), flag,
+                                                          None if phase in ("6-7", "8", "9") else scaled_init(cfg))
+            try:
+                emit(dict(phase=f"{name}_checkpoint", layers=layers, checkpoint_bytes=nbytes, write_s=t_write))
+                for quantize in quantizes:
+                    moe_launches[(name, quantize)] = phase_end_to_end_moe(
+                        torch, card, name, path, layers, layers_of(base), nbytes, quantize, serves)
+                if name == "mixtral":
+                    # Phase 23 (c) and (d): tensor parallelism on the same checkpoint.
+                    t23 = time.monotonic()
+                    tp_launches["mixtral"] = phase_tp_moe(torch, card, path)
+                    phase_seconds["23cd"] = time.monotonic() - t23
+                    t0 += phase_seconds["23cd"]
+                if name == "deepseek":
+                    # Phase 17: the same checkpoint over int8 latent pages.
+                    t17 = time.monotonic()
+                    moe_launches[(name, "int8kv")] = phase_end_to_end_moe(
+                        torch, card, name, path, layers, layers_of(base), nbytes, "", MOE_SERVES, kv_cache_dtype="int8")
+                    phase_seconds["17"] = time.monotonic() - t17
+                    t0 += phase_seconds["17"]
+            finally:
+                shutil.rmtree(path, ignore_errors=True)
+            phase_seconds[phase] = time.monotonic() - t0
+        for phases, names, wrappers in (
+                ("8 and 9", ("mixtral", "qwen2_moe"), (
+                    "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda",
+                    "grouped_matmul_cuda", "expert_dequant_cuda", "grouped_quant_matmul_cuda",
+                    "grouped_quant_matmul_pair_cuda")),
+                ("10 and 11", ("gemma2", "qwen3"), (
+                    "ragged_paged_attention_cuda", "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda")),
+                ("12-15", ("phi2", "mpt7b", "bloom560m", "gpt2"), (
+                    "ragged_paged_attention_alibi", "ragged_paged_attention_d80", "ragged_paged_attention_f32",
+                    "quant_matmul_w4a8_cuda", "quant_matmul_dequant_cuda"))):
+            runs = [run for (name, _), run in moe_launches.items() if name in names]
+            for wrapper in wrappers:
+                if not sum(run.get(wrapper, 0) for run in runs) > 0:
+                    fail(f"phases {phases} never launched {wrapper}")
+        for model, run in timed("16", phase_kv_int8, torch, card, bf16_blocks).items():
+            moe_launches[(model, "int8kv")] = run
+        timed("18", phase_kv_swap, torch, card)
+        spec_k1 = timed("19", phase_speculative, torch, card)
+        lora_launches = timed("20", phase_lora, torch, card, opts.int4_layers)
+        guided_k1 = timed("21", phase_guided, torch, card)
+        serve_k1 = timed("22", phase_servers, torch, card)
+        tp_launches["dense"] = timed("23abe", phase_tp_dense, torch, card, int4_path)
+    finally:
+        shutil.rmtree(int4_path, ignore_errors=True)
+    new_k1 = (sum(run.get("ragged_paged_attention_cuda", 0) for run in (*moe_launches.values(), *tp_launches.values()))
+              + spec_k1 + lora_launches.get("ragged_paged_attention_cuda", 0) + guided_k1 + serve_k1)
 
     # Each kernel's launches on the main paths (the sync, async and ms4
     # serves with graphs; K1's f32 kernel apart from the bf16 one: counts set to 0 before each timed generate and
@@ -5516,8 +6021,9 @@ def main() -> None:
     # graphs: TinyLlama's sync, async and ms4, INT4's sync; phase 21's those
     # of its guided and unconstrained serves with graphs and of its
     # AsyncLLMEngine serve; phase 22's those of its two passes through the
-    # HTTP server, its gRPC pass and its gateway request), summed over the
-    # paths
+    # HTTP server, its gRPC pass and its gateway request; phase 23's those
+    # of rank 0 in its tp 2 serves, each rank's read back and held equal),
+    # summed over the paths
     # that run it, and its timing at a shape the main
     # path gives it: attention at the 8-sequence decode batch, w4a8 at the
     # decode step's gate_up projection (T = 16), dequant and group at the
@@ -5531,7 +6037,8 @@ def main() -> None:
     # the 8B MLP, M = 16, launched by its own path (its entry point at M =
     # 1, 8, 16, 32, 64: no model calls it).
     def launched(name):
-        return sum(run.get(name, 0) for run in (int4_launches, lora_launches, *moe_launches.values()))
+        return sum(run.get(name, 0) for run in (int4_launches, lora_launches, *moe_launches.values(),
+                                                 *tp_launches.values()))
 
     source = "scalellm_tpu_torch/csrc/quant_matmul.cu"
     moe_source = "scalellm_tpu_torch/csrc/moe_quant.cu"

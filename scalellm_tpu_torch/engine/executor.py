@@ -1,5 +1,7 @@
 """Executor — runs the per-step model program
-(counterpart of scalellm_tpu/engine/executor.py, single device).
+(counterpart of scalellm_tpu/engine/executor.py, one device a process:
+under tensor parallelism every rank runs its own Executor on the same step
+inputs, engine/distributed.py, and the model's collectives join them).
 
 One step is forward -> logits -> sample_tokens, run under
 torch.inference_mode. The paged KV cache is one persistent tensor

@@ -1,6 +1,13 @@
 """LLMEngine — owns the model executor, tokenizer and KV block manager
 (counterpart of scalellm_tpu/engine/llm_engine.py).
 
+Under tensor parallelism (a mesh of tp > 1 ranks; DistributedLLMEngine of
+engine/distributed.py runs one engine a rank) the model is built with the
+ParallelConfig of the options (tp from the mesh, sequence_parallel), as
+the reference builds it (scalellm_tpu/engine/llm_engine.py:161-168), each
+rank loads and quantizes its slice, sizes its KV cache at its local KV
+heads, and the ranks agree on one block count, the least of theirs.
+
 Init: apply the model-args overrides to the checkpoint's ModelArgs
 (utils/args_override.py; the list applied is applied_model_args_overrides)
 -> load the model onto the device (a quantized checkpoint as it is; a
@@ -97,13 +104,24 @@ class EngineOptions:
     # `path=value` overrides applied to the loaded ModelArgs (dotted paths
     # reach QuantArgs etc: "quant_args.bits=8", "rope_theta=1e6").
     model_args_overrides: "list | None" = None
+    # Megatron sequence parallelism over the ranks of tensor parallelism
+    # (their number is the tp size of the mesh the engine is given:
+    # engine/distributed.py builds it).
+    sequence_parallel: bool = False
 
 
 class LLMEngine:
-    def __init__(self, options: EngineOptions, extra_kv_slot_bytes: int = 0, shared_block_manager=None):
+    def __init__(self, options: EngineOptions, extra_kv_slot_bytes: int = 0, shared_block_manager=None,
+                 mesh=None):
         import scalellm_tpu_torch.models  # noqa: F401  (registers the models)
+        from scalellm_tpu_torch.parallel import ParallelConfig, single_mesh
 
         self.options = options
+        # This rank's process groups (parallel/mesh.py); one process: none.
+        self.mesh = mesh if mesh is not None else single_mesh(options.device)
+        tp = self.mesh.tp_size
+        self.parallel = ParallelConfig(tp_axis="tp" if tp > 1 else None, tp_size=tp,
+                                       sp=options.sequence_parallel)
         self._extra_kv_slot_bytes = extra_kv_slot_bytes
         self.device = torch.device(options.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -128,7 +146,8 @@ class LLMEngine:
             self.model_args.quant_args.quantize_lm_head = True
         # Applied after the checkpoint's config, so the override wins.
         self.applied_model_args_overrides = apply_overrides(self.model_args, options.model_args_overrides or [])
-        self.model = loader.load_model(factory(self.model_args, device="meta"), self.device)
+        parallel_kw = {"parallel": self.parallel, "mesh": self.mesh} if tp > 1 else {}
+        self.model = loader.load_model(factory(self.model_args, device="meta", **parallel_kw), self.device)
         if options.quantize and not self.model_args.quant_args:
             from scalellm_tpu_torch.config import QuantArgs
             from scalellm_tpu_torch.quantization.runtime import quantize_model
@@ -154,7 +173,7 @@ class LLMEngine:
             num_blocks = shared_block_manager.options.num_blocks
             self.block_manager = shared_block_manager
         else:
-            num_blocks = options.num_blocks or self._profile_num_blocks()
+            num_blocks = self._agree_num_blocks(options.num_blocks or self._profile_num_blocks())
             self.block_manager = BlockManager(
                 BlockManagerOptions(
                     num_blocks=num_blocks,
@@ -217,6 +236,18 @@ class LLMEngine:
         else:
             cache_bytes = 256 * 2**20
         return int(max(cache_bytes // block_bytes, 16))
+
+    def _agree_num_blocks(self, num_blocks: int) -> int:
+        """One block count on every rank: the least any rank can hold (an
+        all_reduce MIN over the world's CPU group), since rank 0's scheduler
+        hands out block ids that every rank's cache must have."""
+        if self.mesh.world_size == 1:
+            return num_blocks
+        import torch.distributed as dist
+
+        n = torch.tensor([num_blocks], dtype=torch.int64)
+        dist.all_reduce(n, op=dist.ReduceOp.MIN, group=self.mesh.cpu_group)
+        return int(n.item())
 
     def _prepare(self, batch: Batch):
         self._step_counter += 1

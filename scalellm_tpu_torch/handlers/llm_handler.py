@@ -18,17 +18,30 @@ lora_modules ({name: HF PEFT adapter directory}) serves LoRA adapters on one
 engine, each request picking its adapter by name (`lora`; an unknown name is
 an INVALID_ARGUMENT status), a batch mixing the base model and several
 adapters; LoRA with speculative decoding or multi-host serving is a
-ValueError, as in the reference, and so is LoRA on an MoE or MLA model.
+ValueError, as in the reference, and so is LoRA on an MoE or MLA model
+(and LoRA with tp_size > 1).
 model_args_overrides (`path=value` strings, utils/args_override.py) are
 applied to the checkpoint's ModelArgs before the model is built. Per
 request, guided decoding (guided_regex / guided_json / guided_choice)
 compiles its constraint once into a TokenFsm (the handler's FsmCache) that
 masks every step's logits; with speculative decoding it is an
 INVALID_ARGUMENT status, as in the reference. schedule_chat_async takes
-OpenAI tool definitions (`tools`) for the chat template. Those options that
-ask for a feature this package has not ported yet (tensor or sequence
-parallelism, multi-host serving) raise NotImplementedError; none is
-silently ignored.
+OpenAI tool definitions (`tools`) for the chat template.
+
+Tensor parallelism: tp_size = N > 1 builds a DistributedLLMEngine
+(engine/distributed.py) over N ranks: this process is rank 0 on the first
+of `devices` ("auto": cuda:0 ... cuda:N-1; "cpu"; or one device a rank,
+"cuda:0,cuda:0" to share a card), and it spawns the other ranks;
+sequence_parallel adds Megatron SP. distributed=True serves on a world that
+the caller has joined (parallel/multihost.py's init_distributed, one
+process a host: api_server's --coordinator), rank 0 serving and the others
+following. With either, the options this slice does not carry raise
+NotImplementedError naming the option to turn off (CUDA graphs, async
+scheduling, num_decode_steps > 1, speculative decoding, host_swap_bytes;
+DeepSeek-V2's MLA model refuses tp itself), and a request with
+prompt_logprobs is an INVALID_ARGUMENT status: its scoring step is one the
+followers do not run. Nothing falls back to one rank. stop() also closes
+the engine: the followers get the stop header and are joined.
 """
 
 from __future__ import annotations
@@ -106,46 +119,74 @@ class LLMHandlerOptions:
             raise ValueError(f"warmup_mode must be one of {WARMUP_MODES}, got {self.warmup_mode!r}")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of {KV_CACHE_DTYPES}, got {self.kv_cache_dtype!r}")
-        if self.lora_modules and (self.draft_model_path or self.num_speculative_tokens > 0 or self.distributed):
-            raise ValueError("LoRA adapters are not supported with speculative decoding or multi-host serving")
+        if self.tp_size < 1:
+            raise ValueError(f"tp_size must be >= 1, got {self.tp_size}")
+        if self.lora_modules and (self.draft_model_path or self.num_speculative_tokens > 0 or self.distributed
+                                  or self.tp_size > 1):
+            raise ValueError("LoRA adapters are not supported with speculative decoding, multi-host serving "
+                             "or tp_size > 1")
+        if not self.parallel:
+            return
         asks = {
-            "tp_size (tensor parallelism)": self.tp_size != 1,
-            "sequence_parallel": self.sequence_parallel,
-            "distributed (multi-host serving)": self.distributed,
+            "enable_cuda_graph (set enable_cuda_graph=False)": self.enable_cuda_graph,
+            "enable_async_scheduling (set enable_async_scheduling=False)": self.enable_async_scheduling,
+            "num_decode_steps > 1 (set num_decode_steps=1)": self.num_decode_steps > 1,
+            "speculative decoding (drop draft_model_path / num_speculative_tokens)":
+                bool(self.draft_model_path) or self.num_speculative_tokens > 0,
+            "host_swap_bytes (set host_swap_bytes=0)": self.host_swap_bytes > 0,
         }
         asked = [name for name, on in asks.items() if on]
         if asked:
-            raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+            raise NotImplementedError(f"not ported with tp_size > 1 or distributed serving: {', '.join(asked)}")
+
+    def engine_options(self) -> EngineOptions:
+        """The EngineOptions of these options (one rank's; each rank's own
+        device is set where the ranks are started)."""
+        return EngineOptions(
+            model_path=self.model_path,
+            device=self.device(),
+            block_size=self.block_size,
+            max_cache_size=self.max_cache_size,
+            max_memory_utilization=self.max_memory_utilization,
+            enable_prefix_cache=self.enable_prefix_cache,
+            num_blocks=self.num_blocks,
+            quantize=self.quantize,
+            quantize_lm_head=self.quantize_lm_head,
+            enable_cuda_graph=self.enable_cuda_graph,
+            warmup_mode=self.warmup_mode,
+            max_tokens_per_batch=self.max_tokens_per_batch,
+            max_seqs_per_batch=self.max_seqs_per_batch,
+            max_context_len=self.max_context_len,
+            num_decode_steps=self.num_decode_steps,
+            kv_cache_dtype=self.kv_cache_dtype,
+            host_swap_bytes=self.host_swap_bytes,
+            draft_model_path=self.draft_model_path or "",
+            num_speculative_tokens=self.num_speculative_tokens,
+            lora_modules=self.lora_modules,
+            model_args_overrides=self.model_args_overrides,
+            sequence_parallel=self.sequence_parallel,
+        )
+
+    @property
+    def parallel(self) -> bool:
+        """Whether the engine runs over several ranks."""
+        return self.tp_size > 1 or self.distributed
 
 
 class LLMHandler:
     def __init__(self, options: LLMHandlerOptions):
         options.check_ported()
         self.options = options
-        engine_opts = EngineOptions(
-            model_path=options.model_path,
-            device=options.device(),
-            block_size=options.block_size,
-            max_cache_size=options.max_cache_size,
-            max_memory_utilization=options.max_memory_utilization,
-            enable_prefix_cache=options.enable_prefix_cache,
-            num_blocks=options.num_blocks,
-            quantize=options.quantize,
-            quantize_lm_head=options.quantize_lm_head,
-            enable_cuda_graph=options.enable_cuda_graph,
-            warmup_mode=options.warmup_mode,
-            max_tokens_per_batch=options.max_tokens_per_batch,
-            max_seqs_per_batch=options.max_seqs_per_batch,
-            max_context_len=options.max_context_len,
-            num_decode_steps=options.num_decode_steps,
-            kv_cache_dtype=options.kv_cache_dtype,
-            host_swap_bytes=options.host_swap_bytes,
-            draft_model_path=options.draft_model_path or "",
-            num_speculative_tokens=options.num_speculative_tokens,
-            lora_modules=options.lora_modules,
-            model_args_overrides=options.model_args_overrides,
-        )
-        if options.draft_model_path:
+        engine_opts = options.engine_options()
+        if options.parallel:
+            from scalellm_tpu_torch.engine.distributed import DistributedLLMEngine, rank_devices
+
+            if options.distributed:  # a world the caller has joined
+                self.engine = DistributedLLMEngine(engine_opts)
+            else:
+                self.engine = DistributedLLMEngine.launch(engine_opts, rank_devices(options.devices,
+                                                                                    options.tp_size))
+        elif options.draft_model_path:
             from scalellm_tpu_torch.speculative.speculative_engine import SpeculativeEngine
 
             self.engine = SpeculativeEngine(engine_opts)
@@ -241,6 +282,9 @@ class LLMHandler:
                     f"prompt + max_tokens ({len(prompt_tokens) + sp.max_tokens}"
                     f" tokens) exceeds KV cache capacity ({kv_capacity})",
                 )
+            if sp.prompt_logprobs is not None and self.options.parallel:
+                raise ValidationError(StatusCode.INVALID_ARGUMENT,
+                                      "prompt_logprobs is not supported with tensor parallelism")
             guided_fsm = self._guided_fsm(sp) if sp.has_guided else None
             lora_slot = 0
             if lora:
@@ -339,13 +383,18 @@ class LLMHandler:
         self._loop_thread.start()
 
     def stop(self) -> None:
-        """Stop the scheduler loop and release the handler's threads."""
+        """Stop the scheduler loop and release the handler's threads; a
+        distributed engine's followers get the stop header and are joined
+        (RuntimeError if one failed)."""
         if self._loop_thread is not None:
             self._stop_event.set()
             self._loop_thread.join(timeout=10)
             self._loop_thread = None
         self._pool.shutdown(wait=False, cancel_futures=True)
         self._response_handler.shutdown()
+        close = getattr(self.engine, "close", None)
+        if close is not None:
+            close()
 
     def run_until_complete(self) -> None:
         """Drain all scheduled work (offline batch mode)."""

@@ -23,7 +23,14 @@ routed_experts is the routed part of every MoE model's layer (DecoderModel's
 Mixtral and Qwen2-MoE, MLADecoderModel's DeepSeek-V2): given the router's
 top-k, it dispatches, runs the experts (dense or quantized) and combines.
 
-Not ported yet: expert parallelism (ep_axis, moe_mlp_a2a).
+Expert parallelism: DecoderModel shards the experts over its tp ranks
+where tp divides E (the reference's replicated dispatch, moe_mlp's
+ep_axis): each rank remaps the routed ids to its own E / tp experts, sends
+the others' pairs to the overflow group E / tp with weight 0, and the
+layer's all_reduce adds the ranks' outputs. moe_mlp_a2a is the reference's
+all-to-all dispatcher for tokens sharded over the expert ranks, on
+parallel/collectives.py's all_to_all with uneven splits; as in the
+reference, no model calls it.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from scalellm_tpu_torch.layers.activations import act_with_mul
 from scalellm_tpu_torch.ops.grouped_matmul import grouped_matmul
+from scalellm_tpu_torch.parallel import collectives as C
 from scalellm_tpu_torch.ops.moe_quant import (
     active_experts,
     expert_starts,
@@ -170,3 +178,47 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor, up_w:
     then the experts' gated FFNs."""
     topk_w, topk_e = softmax_topk(x, router_w, top_k, norm_topk_prob)
     return routed_experts(x, topk_w, topk_e, gate_w, up_w, down_w, act, gmm=gmm)
+
+
+def moe_mlp_a2a(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,
+                down_w: torch.Tensor, top_k: int, norm_topk_prob: bool = False, act: str = "silu", mesh=None,
+                gmm: Callable = grouped_matmul) -> torch.Tensor:
+    """All-to-all expert-parallel MoE (the reference's moe_mlp_a2a,
+    scalellm_tpu/layers/moe.py:144-230) over the tp ranks of `mesh`: x
+    [T_local, D] this rank's tokens, router_w [E, D] whole, gate_w / up_w
+    [E_local, F, D] and down_w [E_local, D, F] this rank's experts (expert e
+    lives on rank e // E_local). Returns this rank's f32 [T_local, D],
+    final (no all_reduce after it).
+
+    The (token, slot) pairs sorted by global expert id are grouped by owner
+    rank and expert-sorted within each rank's chunk; the ranks' send counts
+    (an all_gather, read on the host: the splits of all_to_all are host
+    integers) give both exchanges' uneven splits. After the forward
+    exchange the received chunks are re-sorted by local expert for the
+    grouped matmul; both sorts are inverted on the way back."""
+    T_l, D = x.shape
+    E, E_l = router_w.shape[0], gate_w.shape[0]
+    if E % E_l:
+        raise ValueError(f"{E} experts do not split into ranks of {E_l}")
+    ep = E // E_l
+    if ep != (mesh.tp_size if mesh is not None else 1):
+        raise ValueError(f"{E} experts of {E_l} a rank need {ep} ranks")
+    me = mesh.tp_rank if mesh is not None else 0
+    topk_w, topk_e = softmax_topk(x, router_w, top_k, norm_topk_prob)
+    flat_e = topk_e.reshape(-1)
+    e_sorted, order1 = torch.sort(flat_e, stable=True)
+    send = torch.bincount(flat_e // E_l, minlength=ep)
+    counts = C.all_gather(send[None], 0, mesh).tolist()  # [src][dst]
+    in_splits = counts[me]
+    out_splits = [counts[src][me] for src in range(ep)]
+    recv_x = C.all_to_all(x[order1 // top_k], in_splits, out_splits, mesh)
+    recv_e = C.all_to_all(e_sorted[:, None], in_splits, out_splits, mesh)[:, 0]
+    local_e, order2 = torch.sort(recv_e - me * E_l, stable=True)
+    group_sizes = torch.bincount(local_e, minlength=E_l).to(torch.int32)
+    y = expert_ffn(recv_x[order2], gate_w, up_w, down_w, group_sizes, act, gmm)
+    y_recv = torch.empty_like(y)
+    y_recv[order2] = y
+    y_back = C.all_to_all(y_recv, out_splits, in_splits, mesh)
+    y_flat = torch.empty_like(y_back)
+    y_flat[order1] = y_back
+    return (y_flat.view(T_l, top_k, D) * topk_w.float()[..., None]).sum(dim=1)

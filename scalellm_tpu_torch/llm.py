@@ -11,7 +11,12 @@ directory}) loads LoRA adapters, and generate's `lora` picks them by name;
 model_args_overrides (`path=value` strings) changes the checkpoint's
 ModelArgs before the model is built.
 The model runs on the CUDA device unless `devices` names another ("cpu" in
-the tests).
+the tests). tp_size = N > 1 runs tensor parallelism over N ranks: this
+process is rank 0 and starts the others (engine/distributed.py); `devices`
+then names each rank's device ("auto": cuda:0 ... cuda:N-1; "cpu"; or a
+comma list such as "cuda:0,cuda:0"), sequence_parallel adds Megatron SP, and
+CUDA graphs, async scheduling and multi-step decode must be off. close()
+stops the other ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ class LLM:
         num_handling_threads: int = 4,
         draft_model: Optional[str] = None,
         tp_size: int = 1,
+        sequence_parallel: bool = False,
         num_blocks: int = 0,
         kv_cache_dtype: str = "auto",
         quantize: str = "",
@@ -64,6 +70,7 @@ class LLM:
             num_speculative_tokens=num_speculative_tokens,
             num_handling_threads=num_handling_threads,
             tp_size=tp_size,
+            sequence_parallel=sequence_parallel,
             num_blocks=num_blocks,
             kv_cache_dtype=kv_cache_dtype,
             quantize=quantize,
@@ -143,8 +150,11 @@ class LLM:
 
         import torch
 
-        self._handler.stop()
-        self._handler = None
+        handler, self._handler = self._handler, None
+        if handler is None:
+            return
+        handler.stop()
+        del handler  # the engine's last reference, before the cache is emptied
         gc.collect()
         if torch.cuda.is_initialized():
             torch.cuda.empty_cache()

@@ -14,7 +14,11 @@ The engine takes the port's LLM options (devices "auto" is the card,
 quantize_lm_head, host_swap_bytes, lora_modules). Unlike the reference's,
 stop() also drops the engine and gives its device memory back, as
 LLM.close does: a process that builds a second engine needs the memory.
-A mesh (parallelism) is not ported and raises NotImplementedError.
+tp_size > 1 serves over that many ranks, as LLM does (engine/distributed.py;
+stop() stops the other ranks), and distributed=True on a world the caller
+has joined. The reference's `mesh` argument (a jax Mesh) has no counterpart:
+the ranks are processes, so a mesh raises NotImplementedError that names
+tp_size and devices instead.
 """
 
 from __future__ import annotations
@@ -132,7 +136,8 @@ class AsyncLLMEngine:
         mesh=None,
     ) -> None:
         if mesh is not None:
-            raise NotImplementedError("not ported yet: mesh (parallelism)")
+            raise NotImplementedError("a mesh is not taken: tensor parallelism runs one process a rank; pass "
+                                      "tp_size and devices (engine/distributed.py)")
         options = LLMHandlerOptions(
             model_path=model,
             devices=devices,
@@ -237,8 +242,9 @@ class AsyncLLMEngine:
 
         import torch
 
-        self._handler.stop()
-        self._handler = None
+        handler, self._handler = self._handler, None
+        handler.stop()
+        del handler  # the engine's last reference, before the cache is emptied
         gc.collect()
         if torch.cuda.is_initialized():
             torch.cuda.empty_cache()

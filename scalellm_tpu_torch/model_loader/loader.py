@@ -24,6 +24,14 @@ more index than a parameter of the model (the experts of an MoE layer,
 "layers.{}.experts_gate.{}") fills that slot of the stacked parameter; a
 slot the checkpoint lacks is a load error.
 
+Under tensor parallelism (a model with tp_size > 1) each rank keeps only its
+slice of every tensor (the model's shard_weight / shard_expert): a tensor
+that needs no transform is cut from the memory map before it is copied, so
+the rank reads only its bytes; a transformed one (a quantized format's
+unpacking, GPT-2's transpose, BLOOM's reorder) is cut after its transform.
+A fused projection's parts are cut part by part before they are
+concatenated, and another rank's experts are skipped.
+
 An int8-KV model's per-layer KV scales (kv_scales [L, 2]) are no checkpoint
 tensor: they come from a kv_scales.json sidecar beside the checkpoint
 ({"k": [...], "v": [...]}, written by eval/kv_calibration.py), else from
@@ -153,6 +161,10 @@ class HFModelLoader:
         rules = [(re.compile(rx + r"$"), target, fn, (rx, target, fn) in dense) for rx, target, fn in rules]
         expected = dict(model.state_dict(keep_vars=True))
         dtype = model.dtype
+        # Tensor parallelism: this rank's slice of each tensor (the model's
+        # shard_weight), cut from the memory map before the copy where the
+        # tensor needs no transform, else after it.
+        shard = model.shard_weight if getattr(model, "tp_size", 1) > 1 else None
         parts: Dict[str, torch.Tensor] = {}
         sd: Dict[str, torch.Tensor] = {}
         stacked: Dict[str, set] = {}  # stacked parameter -> the slots filled
@@ -168,14 +180,19 @@ class HFModelLoader:
                         stack, _, slot = name.rpartition(".")
                         if transform is None and name not in expected and stack in expected:
                             # One expert of an [E, ...] parameter, copied into its slot.
-                            self._fill_slot(sd, stacked, stack, int(slot), expected[stack], raw, device)
+                            self._fill_slot(sd, stacked, stack, int(slot), expected[stack], raw, device, model)
                             break
                         if cast:
-                            t = raw.to(device=device, dtype=dtype, copy=True)
+                            t = (shard(name, raw) if shard and transform is None else raw).to(
+                                device=device, dtype=dtype, copy=True)
                             if transform is not None:
                                 t = transform(t).contiguous()
+                                if shard:
+                                    t = shard(name, t).contiguous()
                         else:
                             t = transform(raw.to(device=device, copy=True))
+                            if shard:
+                                t = shard(name, t).contiguous()
                         (sd if name in expected else parts)[name] = t
                         break
                 else:
@@ -246,9 +263,15 @@ class HFModelLoader:
         return scales
 
     @staticmethod
-    def _fill_slot(sd, stacked, stack, slot, param, raw, device) -> None:
+    def _fill_slot(sd, stacked, stack, slot, param, raw, device, model=None) -> None:
         """Copy one checkpoint tensor into slot `slot` of the stacked
-        parameter `stack` (allocated on the device at its first slot)."""
+        parameter `stack` (allocated on the device at its first slot); under
+        tensor parallelism the rank's slot and slice of it (the model's
+        shard_expert), nothing for another rank's expert."""
+        if getattr(model, "tp_size", 1) > 1:
+            slot, raw = model.shard_expert(stack, slot, raw)
+            if slot is None:
+                return
         if stack not in sd:
             sd[stack] = torch.empty(param.shape, dtype=param.dtype, device=device)
             stacked[stack] = set()

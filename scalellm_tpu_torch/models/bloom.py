@@ -63,8 +63,8 @@ def _uninterleave(n_heads: int, head_dim: int):
 
 
 @ModelRegistry.register_causal_lm("bloom")
-def create_bloom(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_bloom(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     P = r"(?:transformer\.)?"
     H = P + r"h\.(\d+)\."
     qkv = _uninterleave(args.n_heads, args.head_dim)

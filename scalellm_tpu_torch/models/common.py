@@ -92,15 +92,42 @@ before its bias), and the result is rounded where the reference rounds.
 With adapters no RMSNorm folds into a quantized prologue (the deltas read
 the normed x). TF32 stays off for the delta's products.
 
+Tensor parallelism (parallel=ParallelConfig(tp_size=N), mesh=this rank's
+parallel/mesh.py Mesh; the reference's shard_map over its "tp" axis, here one
+process a rank): each rank holds its slice of the Megatron layout and the
+model calls the collectives of parallel/collectives.py where the reference
+calls lax.psum / all_gather / psum_scatter. Local q heads H / tp; local KV
+heads Hkv / tp, or, where Hkv < tp, one KV head a rank (rank r holds head
+r // (tp / Hkv): the reference's replication). qkv_proj and gate_up_proj are
+column-parallel, each rank's slice [q_r | k_r | v_r] and [gate_r | up_r];
+o_proj and down_proj row-parallel, their f32 partials summed by an
+all_reduce, and a row-parallel bias added once, after it. The embedding is
+vocab-parallel when the vocabulary divides by tp (ids outside the rank's
+rows give zeros, one all_reduce assembles the rows), else replicated; the
+lm_head is column-parallel the same way and its logits are gathered. ALiBi
+slopes are sliced per rank. MoE layers: experts sharded over the ranks where
+tp divides n_experts (each rank runs the (token, slot) pairs of its E / tp
+experts; the others' go to an ignored overflow group, the reference's
+replicated dispatch), else each expert's FFN width is sharded; the routed
+output plus the gated shared expert is all_reduced once. Megatron sequence
+parallelism (parallel.sp) behind the reference's gate (dense, no LoRA, T
+divisible by tp): the residual stream, norms and embedding hold T / tp
+tokens, an all_gather precedes each column-parallel projection and a
+reduce_scatter follows each row-parallel one; the final hidden states are
+gathered back to T. shard_weight / shard_expert give the loader each
+rank's slice of a checkpoint tensor. Not with tp > 1: GPTQ desc_act (the
+reference asserts) and LoRA adapters (a ValueError, as the reference's).
+
 Features of the reference's DecoderModel that this subset does not carry
-(tensor/sequence/expert parallelism, MLA on this class) raise
-NotImplementedError when the model args ask for them.
+(MLA on this class) raise NotImplementedError when the model args ask for
+them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -126,6 +153,8 @@ from scalellm_tpu_torch.ops.quant_matmul import (
     quantize_linear,
     untile_quant_layout,
 )
+from scalellm_tpu_torch.parallel import collectives as C
+from scalellm_tpu_torch.parallel.config import ParallelConfig
 
 # Fused weight -> the checkpoint projections concatenated (in order) along
 # the output dim.
@@ -203,9 +232,11 @@ def lora_layer_tensors(stacks: Dict[str, tuple], layer: int) -> Dict[str, torch.
     return out
 
 
-def _unsupported(args: ModelArgs) -> List[str]:
+def _unsupported(args: ModelArgs, tp: int = 1) -> List[str]:
+    quant = active_quant(args)
     checks = {
         "MLA": args.kv_lora_rank > 0,
+        "GPTQ desc_act with tp_size > 1": tp > 1 and quant is not None and quant.desc_act,
     }
     return [name for name, on in checks.items() if on]
 
@@ -293,15 +324,55 @@ def expert_quant(args: ModelArgs) -> Tuple[int, int]:
     return 8, 0
 
 
+@dataclass(frozen=True)
+class Shard:
+    """One rank's widths under tensor parallelism over tp ranks (tp 1: the
+    whole model): q heads, KV heads (one where Hkv < tp), the dense FFN's or
+    shared expert's width, the experts held and each one's width."""
+    tp: int
+    rank: int
+    heads: int
+    kv_heads: int
+    ffn: int
+    experts: int
+    expert_ffn: int
+    experts_sharded: bool
+    vocab: int
+    vocab_sharded: bool
+
+
+def shard_of(args: ModelArgs, tp: int = 1, rank: int = 0) -> Shard:
+    """The widths rank `rank` of tp holds (the reference's DecoderModel
+    setup, scalellm_tpu/models/common.py:60-107); ValueError where a width
+    does not split."""
+    H, Hkv, E = args.n_heads, args.n_kv_heads, args.n_experts
+    F_ = args.moe_shared_intermediate if E > 0 else args.intermediate_size
+    bad = [f"{name} {n}" for name, n in (("n_heads", H), ("ffn width", F_)) if n % tp]
+    if Hkv % tp and tp % Hkv:
+        bad.append(f"n_kv_heads {Hkv}")
+    experts_sharded = E > 0 and tp > 1 and E % tp == 0
+    if E > 0 and not experts_sharded and args.moe_intermediate_size % tp:
+        bad.append(f"moe_intermediate_size {args.moe_intermediate_size}")
+    if bad:
+        raise ValueError(f"{args.model_type}: tp_size {tp} does not divide {', '.join(bad)}")
+    vocab_sharded = tp > 1 and args.vocab_size % tp == 0
+    return Shard(tp=tp, rank=rank, heads=H // tp, kv_heads=max(1, Hkv // tp), ffn=F_ // tp,
+                 experts=E // tp if experts_sharded else E,
+                 expert_ffn=args.moe_intermediate_size // (1 if experts_sharded else tp),
+                 experts_sharded=experts_sharded,
+                 vocab=args.vocab_size // tp if vocab_sharded else args.vocab_size, vocab_sharded=vocab_sharded)
+
+
 class DecoderLayer(nn.Module):
-    def __init__(self, args: ModelArgs, dtype: torch.dtype, device):
+    def __init__(self, args: ModelArgs, dtype: torch.dtype, device, shard: Optional[Shard] = None):
         super().__init__()
+        shard = shard or shard_of(args)
         D, Dh = args.hidden_size, args.head_dim
-        H, Hkv = args.n_heads, args.n_kv_heads
+        H, Hkv = shard.heads, shard.kv_heads
         quant = active_quant(args)
         self.moe = args.n_experts > 0
         # A dense layer's FFN, or an MoE layer's shared expert (width 0: none).
-        F_ = args.moe_shared_intermediate if self.moe else args.intermediate_size
+        F_ = shard.ffn
 
         def proj(k: int, n: int):
             if quant is None:
@@ -346,8 +417,8 @@ class DecoderLayer(nn.Module):
             vec("post_attn_norm", D)
             vec("post_ffw_norm", D)
         if self.moe:
-            E, Fm = args.n_experts, args.moe_intermediate_size
-            self.router = _param(E, D, dtype=dtype, device=device)
+            E, Fm = shard.experts, shard.expert_ffn
+            self.router = _param(args.n_experts, D, dtype=dtype, device=device)
             bits, G = expert_quant(args)
             if bits:
                 self.experts_gate = QuantExperts(E, D, Fm, bits=bits, group_size=G, device=device)
@@ -383,13 +454,21 @@ class DecoderLayer(nn.Module):
 class DecoderModel(nn.Module):
     """A causal LM: embedding -> decoder layers -> norm -> lm_head."""
 
-    def __init__(self, args: ModelArgs, attn_impl=None, device="cpu"):
+    def __init__(self, args: ModelArgs, attn_impl=None, device="cpu", parallel: Optional[ParallelConfig] = None,
+                 mesh=None):
         super().__init__()
-        missing = _unsupported(args)
+        self.parallel = parallel or ParallelConfig()
+        tp = self.parallel.tp_size
+        missing = _unsupported(args, tp)
         if missing:
             raise NotImplementedError(
                 f"{args.model_type}: not ported: {', '.join(missing)}"
             )
+        if tp > 1 and (mesh is None or mesh.tp_size != tp):
+            raise ValueError(f"tp_size {tp} needs the mesh of this rank (parallel/mesh.py) with tp_size {tp}")
+        # This rank's mesh (None: one process) and the widths it holds.
+        self.mesh = mesh if tp > 1 else None
+        self.shard = shard_of(args, tp, mesh.tp_rank if tp > 1 else 0)
         self.args = args
         self.attn_impl = attn_impl or ragged_paged_attention
         self.quant_impl = quant_matmul
@@ -401,6 +480,15 @@ class DecoderModel(nn.Module):
         self.quant = active_quant(args)
         if self.quant is not None and self.quant.bits not in (4, 8):
             raise ValueError(f"quantization to {self.quant.bits} bits is not supported")
+        if self.quant is not None and tp > 1 and self.quant.group_size > 0:
+            for name, k in (("o_proj", self.shard.heads * args.head_dim), ("down_proj", self.shard.ffn)):
+                if k % self.quant.group_size:
+                    raise ValueError(f"{args.model_type}: {name}'s K slice {k} under tp_size {tp} is no multiple "
+                                     f"of the group size {self.quant.group_size}")
+        if self.quant is not None and args.n_experts > 0 and tp > 1 and not self.shard.experts_sharded:
+            raise NotImplementedError(
+                f"{args.model_type}: quantized experts under tp_size {tp} need tp to divide n_experts "
+                f"({args.n_experts}): the reference shards them over the expert dim only")
         if self.quant is not None and args.n_experts > 0 and self.quant.quant_method != "internal":
             raise NotImplementedError(
                 f"{args.model_type}: {self.quant.quant_method} MoE checkpoints are not supported (nor by the "
@@ -413,10 +501,10 @@ class DecoderModel(nn.Module):
         if self.kv_quant:
             self.register_buffer("kv_scales", torch.full((args.n_layers, 2), args.kv_scale, dtype=torch.float32,
                                                          device=device))
-        D, V = args.hidden_size, args.vocab_size
+        D, V = args.hidden_size, self.shard.vocab
         self.embed_tokens = _param(V, D, dtype=self.dtype, device=device)
         self.layers = nn.ModuleList(
-            DecoderLayer(args, self.dtype, device) for _ in range(args.n_layers)
+            DecoderLayer(args, self.dtype, device, self.shard) for _ in range(args.n_layers)
         )
         self.final_norm = _param(D, dtype=self.dtype, device=device)
         if args.norm_bias:
@@ -433,8 +521,10 @@ class DecoderModel(nn.Module):
         elif args.pos_embedding_type == "alibi":
             # Built on the CPU for a meta-device model; the loader moves it.
             on = "cpu" if torch.device(device).type == "meta" else device
-            self.register_buffer("alibi_slopes", torch.tensor(alibi_slopes(args.n_heads), dtype=torch.float32,
-                                                              device=on), persistent=False)
+            H = self.shard.heads  # this rank's heads' slopes
+            slopes = alibi_slopes(args.n_heads)[self.shard.rank * H:(self.shard.rank + 1) * H]
+            self.register_buffer("alibi_slopes", torch.tensor(slopes, dtype=torch.float32, device=on),
+                                 persistent=False)
         elif args.pos_embedding_type not in ("learned", "none"):
             raise ValueError(f"{args.model_type}: unknown pos_embedding_type {args.pos_embedding_type!r}")
         if not args.tie_word_embeddings:
@@ -448,6 +538,16 @@ class DecoderModel(nn.Module):
             if args.lm_head_bias:
                 self.lm_head_bias = _param(V, dtype=self.dtype, device=device)
 
+    @property
+    def tp_size(self) -> int:
+        return self.parallel.tp_size
+
+    @property
+    def parallel_kw(self) -> dict:
+        """The keyword arguments that build another model of this rank's
+        slice (runtime quantization)."""
+        return {"parallel": self.parallel, "mesh": self.mesh}
+
     def _lm_head_quant(self) -> bool:
         return bool(
             self.quant is not None
@@ -459,6 +559,92 @@ class DecoderModel(nn.Module):
         """quantize_lm_head: truthy -> int8; the string "int4" -> int4."""
         return 4 if self.quant.quantize_lm_head == "int4" else 8
 
+    # ------------------------------------------------------------ shards
+
+    def _cut(self, kind: str) -> slice:
+        """This rank's part of a full width of `kind`: "q" the q heads'
+        H * Dh, "kv" the KV heads' Hkv * Dh (where Hkv < tp the one head
+        r // (tp / Hkv)), "f" the FFN's (or shared expert's) width, "v" the
+        vocabulary."""
+        sh, Dh = self.shard, self.args.head_dim
+        if kind == "kv" and self.args.n_kv_heads < sh.tp:
+            head = sh.rank // (sh.tp // self.args.n_kv_heads)
+            return slice(head * Dh, (head + 1) * Dh)
+        n = {"q": sh.heads * Dh, "kv": sh.kv_heads * Dh, "f": sh.ffn, "v": sh.vocab}[kind]
+        return slice(sh.rank * n, (sh.rank + 1) * n)
+
+    def _part_widths(self, kinds) -> List[int]:
+        a = self.args
+        full = {"q": a.n_heads * a.head_dim, "kv": a.n_kv_heads * a.head_dim,
+                "f": self.shard.ffn * self.shard.tp}
+        return [full[k] for k in kinds]
+
+    def shard_weight(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the full checkpoint tensor `name` (a state
+        dict name, or a part the loader fuses: layers.N.q_proj[.qweight]),
+        in the model's layout: dense weights [out, in], the kernel layout of
+        quantized ones (qweight [N, K/2 or K], scales and zeros [K/G, N]).
+        Column-parallel tensors are cut along N, the fused ones part by part
+        ([q_r | k_r | v_r], [gate_r | up_r]); row-parallel ones along K (a
+        quantized one at a multiple of its group); the embedding, lm_head
+        and its bias along the vocabulary where it is sharded; everything
+        else is whole. Identity with tp 1."""
+        if self.tp_size == 1:
+            return t
+        prefix, _, leaf = name.rpartition(".")
+        quant_leaf = leaf in ("qweight", "scales", "zeros", "g_idx")
+        module = prefix.rpartition(".")[2] if quant_leaf else leaf
+        if module in ("embed_tokens", "lm_head", "lm_head_bias"):
+            if not self.shard.vocab_sharded:
+                return t
+            dim = 1 if leaf in ("scales", "zeros") else 0
+            return t.narrow(dim, self._cut("v").start, self.shard.vocab)
+        column = {"q_proj": ("q",), "k_proj": ("kv",), "v_proj": ("kv",), "q_bias": ("q",), "k_bias": ("kv",),
+                  "v_bias": ("kv",), "gate_proj": ("f",), "up_proj": ("f",), "gate_bias": ("f",),
+                  "up_bias": ("f",), "qkv_proj": ("q", "kv", "kv"), "qkv_bias": ("q", "kv", "kv"),
+                  "gate_up_proj": ("f", "f"), "gate_up_bias": ("f", "f")}
+        row = {"o_proj": "q", "down_proj": "f"}
+        if module in column:
+            dim = 1 if leaf in ("scales", "zeros") else 0
+            kinds = column[module]
+            parts = t.split(self._part_widths(kinds), dim=dim) if len(kinds) > 1 else (t,)
+            cuts = [p.narrow(dim, self._cut(k).start, self._cut(k).stop - self._cut(k).start)
+                    for p, k in zip(parts, kinds)]
+            return cuts[0] if len(cuts) == 1 else torch.cat(cuts, dim=dim)
+        if module in row:
+            cut = self._cut(row[module])
+            if not quant_leaf:
+                return t.narrow(t.dim() - 1, cut.start, cut.stop - cut.start)
+            if leaf == "g_idx":
+                raise NotImplementedError("GPTQ desc_act with tp_size > 1")
+            K = self._part_widths(row[module])[0]
+            if leaf == "qweight":  # [N, K / pack]
+                pack = K // t.shape[1]
+                return t.narrow(1, cut.start // pack, (cut.stop - cut.start) // pack)
+            G = K // t.shape[0]  # scales / zeros [K / G, N]
+            if (cut.stop - cut.start) % G:
+                raise ValueError(f"{name}: the rank's K slice {cut.stop - cut.start} is no multiple of the "
+                                 f"group size {G}")
+            return t.narrow(0, cut.start // G, (cut.stop - cut.start) // G)
+        return t
+
+    def shard_expert(self, stack: str, slot: int, t: torch.Tensor) -> Tuple[Optional[int], torch.Tensor]:
+        """(this rank's slot, its slice) of expert `slot`'s checkpoint tensor
+        of the stacked parameter `stack` (layers.N.experts_{gate,up,down}, a
+        dense [N, K] a slot): with the experts sharded, slot - rank * E / tp
+        and the tensor whole, or None for another rank's expert; otherwise
+        the slot, and the expert's width cut (gate/up along N, down along
+        K). Identity with tp 1."""
+        sh = self.shard
+        if sh.tp == 1:
+            return slot, t
+        if sh.experts_sharded:
+            local = slot - sh.rank * sh.experts
+            return (local, t) if 0 <= local < sh.experts else (None, t)
+        n = sh.expert_ffn
+        dim = 1 if stack.endswith("experts_down") else 0
+        return slot, t.narrow(dim, sh.rank * n, n)
+
     # ------------------------------------------------------------ LoRA
 
     def set_lora(self, meta, stacks: Optional[Dict[str, tuple]] = None) -> None:
@@ -466,6 +652,8 @@ class DecoderModel(nn.Module):
         layer gets the buffers of lora_layer_tensors on the model's device,
         from `stacks` (load_lora_adapters' output) or zeros for a state dict
         to fill (convert_params). The base model is slot 0."""
+        if self.tp_size > 1:  # the reference's rule (scalellm_tpu/lora/loader.py:112)
+            raise ValueError("LoRA adapters require tp_size == 1")
         L, S, r = self.args.n_layers, meta.n_slots, meta.r_max
         device = self.embed_tokens.device
         if stacks is None:
@@ -508,9 +696,10 @@ class DecoderModel(nn.Module):
     # ------------------------------------------------------------ kv cache
 
     def kv_cache_shape(self, num_pages: int, page_size: int):
-        """[L, P, page, 2 * Hkv, Dh], K at even and V at odd combined heads."""
+        """[L, P, page, 2 * Hkv, Dh], K at even and V at odd combined heads;
+        Hkv this rank's KV heads."""
         a = self.args
-        return (a.n_layers, num_pages, page_size, 2 * a.n_kv_heads, a.head_dim)
+        return (a.n_layers, num_pages, page_size, 2 * self.shard.kv_heads, a.head_dim)
 
     def kv_cache_dtype(self) -> torch.dtype:
         """The KV pages' type: int8 with kv_quant, else the model's dtype."""
@@ -597,18 +786,23 @@ class DecoderModel(nn.Module):
         """Returns the final hidden states of the selected rows [S, D] (all
         rows [T, D] with all_hidden). The KV cache is written in place."""
         a = self.args
-        H, Hkv, Dh = a.n_heads, a.n_kv_heads, a.head_dim
+        H, Hkv, Dh = self.shard.heads, self.shard.kv_heads, a.head_dim
         q_n, kv_n = H * Dh, Hkv * Dh
         sm_scale = self._sm_scale()
         soft_cap = a.attn_logit_soft_cap if a.attn_logit_soft_cap > 0 else None
+        T = mi.token_ids.shape[0]
+        sp = self._sp(T)
+        # Under SP this rank's token rows of the residual stream.
+        rows = slice(self.shard.rank * T // self.shard.tp, (self.shard.rank + 1) * T // self.shard.tp) \
+            if sp else slice(None)
 
-        h = self.embed_tokens[mi.token_ids]  # [T, D]
+        h = self._embed(mi.token_ids, rows)  # [T, D] ([T / tp, D] under SP)
         if a.normalize_embedding:
             h = (h.float() * math.sqrt(a.hidden_size)).to(h.dtype)
         if a.embedding_norm:
             h = self._norm(h, self.embed_norm, getattr(self, "embed_norm_bias", None))
         if a.pos_embedding_type == "learned":
-            h = h + self.embed_positions[mi.positions]
+            h = h + self.embed_positions[mi.positions[rows]]
         rope = a.pos_embedding_type == "rope"
         if rope:
             cos, sin = cos_sin(self.rope_inv_freq, mi.positions)
@@ -623,11 +817,13 @@ class DecoderModel(nn.Module):
         lora_o = "o_proj" in targets
         # The qkv product stays f32 where a bias, the clip or a delta works on it.
         qkv_f32 = a.qkv_bias or a.qkv_clip > 0 or bool(lora_qkv)
-        T = h.shape[0]
+        # Row-parallel partials are summed in f32.
+        tp = self.tp_size > 1
 
         for li, (layer, kvc, window) in enumerate(zip(self.layers, kv_cache, self._layer_windows())):
             rms = self._fused_norm(layer, "qkv_proj", layer.input_norm)
             x = h if rms else self._norm(h, layer.input_norm, getattr(layer, "input_norm_bias", None))
+            x = self._gather(x, sp)  # SP: the column-parallel qkv reads all T tokens
             if hasattr(layer, "qkv_proj"):
                 qkv = self._proj(x, layer.qkv_proj, rms, f32=qkv_f32)
                 if a.qkv_bias:
@@ -665,13 +861,14 @@ class DecoderModel(nn.Module):
             if self.kv_quant:
                 o = (o.float() * vs).to(o.dtype)
             o_in = o.reshape(T, q_n)
-            o = self._proj(o_in, layer.o_proj, f32=a.o_proj_bias or lora_o)
+            o = self._proj(o_in, layer.o_proj, f32=a.o_proj_bias or lora_o or tp)
             if lora_o:
                 o = o + self._lora_delta(layer, "o_proj", self._lora_shrink(layer, "o", o_in, lora))
+            o = self._combine(o, sp)
             if a.o_proj_bias:
                 o = o + layer.o_bias.float()
             if a.parallel_residual:  # Phi: the MLP reads the same normed x
-                m = self._mlp(layer, x, lora=lora)
+                m = self._mlp(layer, x, lora=lora, sp=sp)
                 h = h + o.to(h.dtype) + m.to(h.dtype)
                 continue
             if a.residual_post_layernorm:
@@ -680,25 +877,65 @@ class DecoderModel(nn.Module):
 
             rms = self._fused_norm(layer, "gate_up_proj", layer.post_norm)
             x = h if rms else self._norm(h, layer.post_norm, getattr(layer, "post_norm_bias", None))
-            m = self._mlp(layer, x, rms, lora)
+            m = self._mlp(layer, self._gather(x, sp), rms, lora, sp)
             if a.residual_post_layernorm:
                 m = rms_norm(m.to(h.dtype), layer.post_ffw_norm, a.rms_norm_eps, a.zero_centered_norm)
             h = h + m.to(h.dtype)
 
-        h = self._norm(h, self.final_norm, getattr(self, "final_norm_bias", None))
+        h = self._gather(self._norm(h, self.final_norm, getattr(self, "final_norm_bias", None)), sp)
         if all_hidden:
             return h
         return h[mi.selected_idxes]
 
-    def _mlp(self, layer: DecoderLayer, x: torch.Tensor, rms=None, lora=None) -> torch.Tensor:
+    # ------------------------------------------------------------ parallel
+
+    def _sp(self, T: int) -> bool:
+        """Whether this step runs sequence parallel: the reference's static
+        gate (scalellm_tpu/models/common.py:786-792): SP asked for, tp > 1,
+        a dense model without LoRA, T divisible by tp."""
+        a = self.args
+        return (self.parallel.sp and self.tp_size > 1 and a.n_experts == 0 and self.lora_meta is None
+                and T % self.tp_size == 0)
+
+    def _gather(self, x: torch.Tensor, sp: bool) -> torch.Tensor:
+        """SP: the token shard gathered to all T rows (before a
+        column-parallel projection); otherwise x."""
+        return C.all_gather(x, 0, self.mesh) if sp else x
+
+    def _combine(self, y: torch.Tensor, sp: bool) -> torch.Tensor:
+        """A row-parallel projection's partials summed over the ranks: an
+        all_reduce of the f32 partials, or under SP a reduce_scatter that
+        leaves this rank its token rows. Identity on one rank."""
+        if self.mesh is None:
+            return y
+        return C.reduce_scatter(y.float(), 0, self.mesh) if sp else C.all_reduce(y.float(), self.mesh)
+
+    def _embed(self, token_ids: torch.Tensor, rows: slice) -> torch.Tensor:
+        """Embedding rows of token_ids[rows]. Vocab-parallel (the reference's
+        VocabParallelEmbedding): each rank looks up the ids inside its rows
+        of the table, zeros elsewhere, and an all_reduce of all T ids
+        assembles them (one rank is nonzero a row, so the f32 sum is
+        exact); the rows are sliced after it."""
+        if not self.shard.vocab_sharded:
+            return self.embed_tokens[token_ids[rows]]
+        v = self.shard.vocab
+        local = token_ids.long() - self.shard.rank * v
+        inside = (local >= 0) & (local < v)
+        found = self.embed_tokens[local.clamp(0, v - 1)].float() * inside[:, None]
+        return C.all_reduce(found, self.mesh)[rows].to(self.dtype)
+
+    def _mlp(self, layer: DecoderLayer, x: torch.Tensor, rms=None, lora=None, sp: bool = False) -> torch.Tensor:
         """The layer's FFN: the MoE block (f32), or the dense FFN in x's type
-        (f32 with a down_proj LoRA delta), f32 with its down bias added;
-        lora: the step's _lora_mask or None."""
+        (f32 with a down_proj LoRA delta, a down bias or tp > 1), with its
+        partials combined over the ranks (_combine; the MoE block's by one
+        all_reduce) and then its down bias added; lora: the step's _lora_mask
+        or None."""
         if layer.moe:
-            return self._moe(layer, x)
-        if not self.args.mlp_bias:
+            return C.all_reduce(self._moe(layer, x), self.mesh)
+        if not self.args.mlp_bias and self.mesh is None:
             return self._dense_ffn(layer, x, rms, lora=lora)
-        return self._dense_ffn(layer, x, rms, f32=True, lora=lora) + layer.down_bias.float()
+        m = self._combine(self._dense_ffn(layer, x, rms, f32=True, lora=lora), sp)
+        return m + layer.down_bias.float() if self.args.mlp_bias else m
 
     def _dense_ffn(self, layer: DecoderLayer, x: torch.Tensor, rms=None, f32: bool = False,
                    lora=None) -> torch.Tensor:
@@ -744,29 +981,69 @@ class DecoderModel(nn.Module):
         return softmax_topk(x, router_w, a.n_experts_per_token, a.norm_topk_prob)
 
     def _moe(self, layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
-        """The routed experts plus the gated shared expert, f32 [T, D]."""
+        """The routed experts plus the gated shared expert, f32 [T, D] (this
+        rank's part under tp). With the experts sharded, this rank's E / tp
+        experts take their pairs and the other pairs go to the overflow
+        group E / tp with weight 0 (the reference's ep_axis remap,
+        scalellm_tpu/layers/moe.py:270-280); the T=1 layout is not used
+        then (it needs the token's k experts held)."""
         topk_w, topk_e = self._router(x, layer.router)
+        t1_fits = None
+        if self.shard.experts_sharded:
+            n = self.shard.experts
+            local = topk_e - self.shard.rank * n
+            held = (local >= 0) & (local < n)
+            topk_e = torch.where(held, local, n)
+            topk_w = torch.where(held, topk_w, 0.0)
+            t1_fits = _never
         out = routed_experts(x, topk_w, topk_e, layer.experts_gate, layer.experts_up, layer.experts_down,
-                             self.args.hidden_act, gmm=self.gmm_impl, qexperts=self.qexperts_impl)
+                             self.args.hidden_act, gmm=self.gmm_impl, qexperts=self.qexperts_impl,
+                             t1_fits=t1_fits)
         if hasattr(layer, "shared_gate"):
             gate = torch.sigmoid(x.float() @ layer.shared_gate.float().T)  # [T, 1]
             out = out + self._dense_ffn(layer, x, f32=True) * gate
         return out
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """[S, D] -> [S, V] float32 logits."""
+        """[S, D] -> [S, V] float32 logits (a vocab-parallel lm_head's
+        gathered over the ranks, the bias added before the gather)."""
         a = self.args
         w = self.embed_tokens if a.tie_word_embeddings else self.lm_head
         logits = self._proj(hidden, w, f32=True)
         if a.lm_head_bias and not a.tie_word_embeddings:
             logits = logits + self.lm_head_bias.float()
+        if self.shard.vocab_sharded:
+            logits = C.all_gather(logits, 1, self.mesh)
         if a.final_logit_soft_cap > 0.0:
             cap = a.final_logit_soft_cap
             logits = cap * torch.tanh(logits / cap)
         return logits
 
 
-def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]:
+def _never() -> bool:
+    return False
+
+
+def shard_state_dict(sd: Dict[str, torch.Tensor], model) -> Dict[str, torch.Tensor]:
+    """This rank's state dict from the whole (tp 1) one of the same model:
+    every tensor through the rank model's shard_weight, stacked experts [E,
+    ...] (dense or quantized) through shard_expert slot by slot. Identity
+    for a model of tp 1."""
+    if model.tp_size == 1:
+        return sd
+    out = {}
+    for name, t in sd.items():
+        prefix, _, leaf = name.rpartition(".")
+        stack = prefix if leaf in ("qweight", "scales") else name
+        if stack.rpartition(".")[2].startswith("experts_"):
+            slots = [model.shard_expert(stack, e, t[e]) for e in range(t.shape[0])]
+            out[name] = torch.stack([x for slot, x in slots if slot is not None]).contiguous()
+        else:
+            out[name] = model.shard_weight(name, t).contiguous()
+    return out
+
+
+def convert_params(jax_params: Dict, args: ModelArgs, model=None) -> Dict[str, torch.Tensor]:
     """The reference package's numpy parameter tree (fused layout, per-layer
     tensors stacked over L, projections [in, out]) -> this model's
     state_dict (per-layer tensors, projections [out, in]), on the CPU.
@@ -786,8 +1063,15 @@ def convert_params(jax_params: Dict, args: ModelArgs) -> Dict[str, torch.Tensor]
     do an int8-KV model's per-layer scales (layers.kv_scales [L, 2], this
     model's kv_scales). LoRA adapters (layers.lora_<target>: (A [L, slots,
     K, r], B [L, slots, r, N])) go to each layer's lora_layer_tensors, for a
-    model whose set_lora was given the same LoraMeta."""
+    model whose set_lora was given the same LoraMeta.
+
+    The per-rank form: with `model`, a DecoderModel of tp > 1, the rank's
+    slice of that state dict (shard_state_dict), so that the reference's
+    parameters of one device can be fed to each rank."""
     import numpy as np
+
+    if model is not None and model.tp_size > 1:
+        return shard_state_dict(convert_params(jax_params, args), model)
 
     def tensor(x) -> torch.Tensor:
         arr = np.asarray(x)

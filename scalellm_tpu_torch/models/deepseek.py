@@ -259,8 +259,11 @@ class MLADecoderModel(nn.Module):
     # executor keeps a decode-only step program apart from the mixed one.
     mla = True
 
-    def __init__(self, args: ModelArgs, attn_impl=None, device="cpu"):
+    def __init__(self, args: ModelArgs, attn_impl=None, device="cpu", parallel=None, mesh=None):
         super().__init__()
+        if parallel is not None and parallel.tp_size > 1:
+            raise NotImplementedError("deepseek_v2: not ported: tensor and expert parallelism (tp_size > 1) of the "
+                                      "MLA model; serve it with tp_size=1")
         quant = active_quant(args)
         if quant is not None and quant.quant_method != "internal":
             raise NotImplementedError(
@@ -504,8 +507,8 @@ def deepseek_weight_rules(q_lora_rank: Optional[int]) -> List[tuple]:
 
 
 @ModelRegistry.register_causal_lm("deepseek_v2")
-def create_deepseek_v2(args: ModelArgs, attn_impl=None, device="cpu") -> MLADecoderModel:
-    model = MLADecoderModel(args, attn_impl, device=device)
+def create_deepseek_v2(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> MLADecoderModel:
+    model = MLADecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = deepseek_weight_rules(args.q_lora_rank)
     return model
 

@@ -78,7 +78,7 @@ def load_gpt2_model_args(cfg: Dict[str, Any]) -> ModelArgs:
 
 
 @ModelRegistry.register_causal_lm("gpt2")
-def create_gpt2(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_gpt2(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = GPT2_WEIGHT_RULES
     return model

@@ -72,8 +72,8 @@ LLAMA_WEIGHT_RULES: List[tuple] = [
 
 
 @ModelRegistry.register_causal_lm("llama", "llama2", "llama3", "Yi")
-def create_llama(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_llama(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = LLAMA_WEIGHT_RULES
     return model
 

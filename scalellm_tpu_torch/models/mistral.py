@@ -41,8 +41,8 @@ def load_mistral_model_args(cfg: Dict[str, Any]) -> ModelArgs:
 
 
 @ModelRegistry.register_causal_lm("mistral")
-def create_mistral(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_mistral(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = LLAMA_WEIGHT_RULES
     return model
 

@@ -72,7 +72,7 @@ MPT_WEIGHT_RULES: List[tuple] = [
 
 
 @ModelRegistry.register_causal_lm("mpt")
-def create_mpt(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_mpt(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = MPT_WEIGHT_RULES
     return model

@@ -59,7 +59,7 @@ def load_qwen_model_args(cfg: Dict[str, Any]) -> ModelArgs:
 
 
 @ModelRegistry.register_causal_lm("qwen")
-def create_qwen(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_qwen(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = QWEN_WEIGHT_RULES
     return model

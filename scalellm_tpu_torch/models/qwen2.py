@@ -58,15 +58,15 @@ def load_qwen3_model_args(cfg: Dict[str, Any]) -> ModelArgs:
 
 
 @ModelRegistry.register_causal_lm("qwen2")
-def create_qwen2(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_qwen2(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = LLAMA_WEIGHT_RULES
     return model
 
 
 @ModelRegistry.register_causal_lm("qwen3")
-def create_qwen3(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_qwen3(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = LLAMA_WEIGHT_RULES + QWEN3_EXTRA_RULES
     return model
 

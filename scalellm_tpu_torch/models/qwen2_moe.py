@@ -70,7 +70,7 @@ def load_qwen2_moe_model_args(cfg: Dict[str, Any]) -> ModelArgs:
 
 
 @ModelRegistry.register_causal_lm("qwen2_moe")
-def create_qwen2_moe(args: ModelArgs, attn_impl=None, device="cpu") -> DecoderModel:
-    model = DecoderModel(args, attn_impl, device=device)
+def create_qwen2_moe(args: ModelArgs, attn_impl=None, device="cpu", **parallel) -> DecoderModel:
+    model = DecoderModel(args, attn_impl, device=device, **parallel)
     model.hf_weight_rules = QWEN2_MOE_WEIGHT_RULES
     return model

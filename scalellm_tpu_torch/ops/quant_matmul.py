@@ -52,6 +52,7 @@ from typing import Optional, Tuple
 import torch
 
 from scalellm_tpu_torch.ops import _build
+from scalellm_tpu_torch.ops.attention import LaunchCount
 
 # The reference's stored tile widths. Its block_k choice, which is part of
 # the W4A8 numerics, depends on them.
@@ -539,14 +540,16 @@ def quant_matmul_w4a8_cuda(x, qweight, scales, zeros, bits, block_k,
     """Launch the W4A8 kernel (K2: activation quantization, then the int8
     matmul on the integer small-M mainloop, one C call) on the current
     stream; returns bf16 [M, N]. `quant_matmul_w4a8_cuda.launches` counts the
-    launches."""
+    launches, `.prologue` those with the RMSNorm prologue (K5)."""
     out = _w4a8_cuda(_library, "scalellm_quant_matmul_w4a8", "w4a8", x, qweight, scales, zeros, bits,
                      block_k, rms_gamma, rms_eps)
     quant_matmul_w4a8_cuda.launches += 1
+    quant_matmul_w4a8_cuda.prologue.launches += rms_gamma is not None
     return out
 
 
 quant_matmul_w4a8_cuda.launches = 0
+quant_matmul_w4a8_cuda.prologue = LaunchCount("quant_matmul_w4a8_prologue")
 
 
 # The tile kernel's block shapes, (weight rows, tokens), in the order of
@@ -608,25 +611,31 @@ def _tile_cuda(entry: str, x, qweight, scales, zeros, bits, rms_gamma, rms_eps):
 def quant_matmul_group_cuda(x, qweight, scales, zeros, bits,
                             rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
     """Launch the group kernel on the current stream; returns bf16 [M, N].
-    `quant_matmul_group_cuda.launches` counts the launches."""
+    `quant_matmul_group_cuda.launches` counts the launches, `.prologue` those
+    with the RMSNorm prologue (K5)."""
     out = _tile_cuda("group", x, qweight, scales, zeros, bits, rms_gamma, rms_eps)
     quant_matmul_group_cuda.launches += 1
+    quant_matmul_group_cuda.prologue.launches += rms_gamma is not None
     return out
 
 
 quant_matmul_group_cuda.launches = 0
+quant_matmul_group_cuda.prologue = LaunchCount("quant_matmul_group_prologue")
 
 
 def quant_matmul_dequant_cuda(x, qweight, scales, zeros, bits,
                               rms_gamma=None, rms_eps=1e-6) -> torch.Tensor:
     """Launch the dequant kernel on the current stream; returns bf16 [M, N].
-    `quant_matmul_dequant_cuda.launches` counts the launches."""
+    `quant_matmul_dequant_cuda.launches` counts the launches, `.prologue` those
+    with the RMSNorm prologue (K5)."""
     out = _tile_cuda("dequant", x, qweight, scales, zeros, bits, rms_gamma, rms_eps)
     quant_matmul_dequant_cuda.launches += 1
+    quant_matmul_dequant_cuda.prologue.launches += rms_gamma is not None
     return out
 
 
 quant_matmul_dequant_cuda.launches = 0
+quant_matmul_dequant_cuda.prologue = LaunchCount("quant_matmul_dequant_prologue")
 
 
 # ---------------------------------------------------------------- small-M variants and the probe

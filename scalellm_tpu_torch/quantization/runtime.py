@@ -25,7 +25,11 @@ def quantize_model(dense_model, quant: QuantArgs):
     projections); the caller frees the rest by dropping the dense model."""
     args = copy.copy(dense_model.args)
     args.quant_args = quant
-    qmodel = type(dense_model)(args, dense_model.attn_impl, device="meta")
+    # Under tensor parallelism the dense model holds this rank's slice, and
+    # quantizing the slice gives the slice of the quantized model: groups run
+    # along K within a column, and a row-parallel slice starts at a multiple
+    # of the group (shard_weight refuses other cuts).
+    qmodel = type(dense_model)(args, dense_model.attn_impl, device="meta", **getattr(dense_model, "parallel_kw", {}))
     qmodel.hf_weight_rules = getattr(dense_model, "hf_weight_rules", None)
 
     dense = dense_model.state_dict()

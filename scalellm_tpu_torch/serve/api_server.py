@@ -11,10 +11,16 @@ by the asyncio HttpServer of serve/http.py. It imports no grpc.
 
 Run: python -m scalellm_tpu_torch.serve.api_server --model <path> --port 8080
 (--devices auto, the default, serves on the card; --devices cpu on the
-CPU). Options that ask for parallelism (--tp-size above 1,
---sequence-parallel, --coordinator) are refused by
-LLMHandlerOptions.check_ported before the model loads. SIGINT and SIGTERM
-stop the loop; engine.stop() then gives the device memory back.
+CPU). --tp-size N serves tensor parallel over N ranks that this process
+starts (engine/distributed.py; --devices then names each rank's device, or
+"cpu"), --sequence-parallel adds Megatron SP. Multi-host serving:
+--coordinator host:port --num-hosts N --host-id R on each of N processes
+(one a host or a card); each joins the world (parallel/multihost.py), host 0
+serves HTTP and the others run the follower loop and serve nothing, as in
+the reference. The options are checked (LLMHandlerOptions.check_ported)
+before any process joins a world or loads the model. SIGINT and SIGTERM stop
+the loop; engine.stop() then stops the followers and gives the device memory
+back.
 """
 
 from __future__ import annotations
@@ -238,7 +244,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-handling-threads", type=int, default=4)
     p.add_argument("--tp-size", type=int, default=1)
     p.add_argument("--sequence-parallel", action="store_true", default=False,
-                   help="sequence parallelism over the tp axis (not ported: refused)")
+                   help="Megatron sequence parallelism over the tp ranks")
     p.add_argument("--num-blocks", type=int, default=0)
     p.add_argument("--kv-cache-dtype", type=str, default="auto", choices=["auto", "int8"])
     p.add_argument("--quantize", type=str, default="", choices=["", "int4", "int8"],
@@ -250,17 +256,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    metavar="FIELD=VALUE",
                    help="override a loaded ModelArgs field (dotted paths "
                    "reach QuantArgs: quant_args.bits=8); repeatable; shown at /config")
-    # Multi-host serving: not ported, so a coordinator is refused.
+    # Multi-host serving: every process joins the world at the coordinator.
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-host coordinator address host:port (not ported: refused)")
+                   help="multi-host coordinator address host:port (served by host 0)")
     p.add_argument("--num-hosts", type=int, default=None)
     p.add_argument("--host-id", type=int, default=None)
     return p
 
 
-def engine_from_args(args: argparse.Namespace) -> AsyncLLMEngine:
-    """The AsyncLLMEngine that the flags `args` ask for."""
-    return AsyncLLMEngine(
+def _engine_kwargs(args: argparse.Namespace) -> dict:
+    """AsyncLLMEngine's keyword arguments from the flags."""
+    return dict(
         model=args.model,
         devices=args.devices,
         block_size=args.block_size,
@@ -288,6 +294,47 @@ def engine_from_args(args: argparse.Namespace) -> AsyncLLMEngine:
     )
 
 
+def engine_from_args(args: argparse.Namespace) -> AsyncLLMEngine:
+    """The AsyncLLMEngine that the flags `args` ask for."""
+    return AsyncLLMEngine(**_engine_kwargs(args))
+
+
+def handler_options(args: argparse.Namespace):
+    """The LLMHandlerOptions that the flags `args` ask for."""
+    from scalellm_tpu_torch.handlers.llm_handler import LLMHandlerOptions
+
+    kw = _engine_kwargs(args)
+    return LLMHandlerOptions(model_path=kw.pop("model"), draft_model_path=kw.pop("draft_model"), **kw)
+
+
+def join_world(args: argparse.Namespace) -> bool:
+    """Check the options; with --coordinator, join the world of --num-hosts
+    processes as --host-id (gloo for --devices cpu, else nccl). A follower
+    (host id > 0) then builds its rank's engine and follows host 0 until its
+    stop header: True, serve nothing. False: this process serves."""
+    options = handler_options(args)
+    options.check_ported()
+    if not args.coordinator:
+        return False
+    from scalellm_tpu_torch.engine.distributed import DistributedLLMEngine
+    from scalellm_tpu_torch.parallel import multihost
+
+    if args.tp_size not in (1, args.num_hosts):
+        raise ValueError(f"--tp-size {args.tp_size} with --num-hosts {args.num_hosts}: one rank a host")
+    engine_opts = options.engine_options()
+    backend = "gloo" if engine_opts.device == "cpu" else "nccl"
+    multihost.init_distributed(args.coordinator, args.num_hosts, args.host_id, backend)
+    if multihost.is_driver():
+        return False
+    try:
+        engine = DistributedLLMEngine(engine_opts, mesh=multihost.make_pod_mesh(device=engine_opts.device))
+        logger.info("host %d: entering follower loop", args.host_id)
+        engine.run_follower()
+    finally:
+        multihost.shutdown_distributed()
+    return True
+
+
 def served_model_name(args: argparse.Namespace) -> str:
     return args.model_id or args.model.rstrip("/").split("/")[-1]
 
@@ -295,6 +342,8 @@ def served_model_name(args: argparse.Namespace) -> str:
 def main(argv: Optional[list] = None):
     logging.basicConfig(level=logging.INFO)
     args = build_arg_parser().parse_args(argv)
+    if join_world(args):
+        return
     engine = engine_from_args(args)
     server = ApiServer(engine, served_model_name(args))
 

@@ -351,9 +351,11 @@ def serve(handler: LLMHandler, model_name: str, host: str, port: int,
 
 def main(argv: Optional[list] = None):
     logging.basicConfig(level=logging.INFO)
-    from scalellm_tpu_torch.serve.api_server import build_arg_parser, engine_from_args, served_model_name
+    from scalellm_tpu_torch.serve.api_server import build_arg_parser, engine_from_args, join_world, served_model_name
 
     args = build_arg_parser().parse_args(argv)
+    if join_world(args):  # a follower host: no server
+        return
     engine = engine_from_args(args)
     engine.start()
     server = serve(engine._handler, served_model_name(args), args.host, args.port)

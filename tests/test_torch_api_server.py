@@ -8,8 +8,10 @@ tests mirrored against it, then what the port adds to hold:
   to the JAX package's loader's;
 - /profile/start and /profile/stop write a torch.profiler trace of the
   engine's steps;
-- --tp-size 2, --sequence-parallel and --coordinator refused before the
-  model loads, with a non-zero exit and the refusal's message;
+- --tp-size 2 (with --sequence-parallel) and --coordinator without
+  --disable-async-scheduling refused before the model loads or a world is
+  joined, with a non-zero exit and the refusal's message naming the option
+  (tests/test_torch_distributed.py serves with them);
 - SIGTERM stops the server with exit code 0.
 """
 
@@ -270,19 +272,25 @@ def test_profile_writes_a_trace_of_the_steps(server, tmp_path):
     assert e.value.code == 500
 
 
+ASYNC_REFUSED = "enable_async_scheduling (set enable_async_scheduling=False)"
+
+
 @pytest.mark.parametrize("flags,asked", [
-    (("--tp-size", "2"), "tp_size (tensor parallelism)"),
-    (("--sequence-parallel",), "sequence_parallel"),
-    (("--coordinator", "127.0.0.1:1234", "--num-hosts", "2", "--host-id", "0"), "distributed (multi-host serving)"),
+    (("--tp-size", "2"), ASYNC_REFUSED),
+    (("--tp-size", "2", "--sequence-parallel"), ASYNC_REFUSED),
+    (("--coordinator", "127.0.0.1:1234", "--num-hosts", "2", "--host-id", "0"), ASYNC_REFUSED),
 ])
 def test_parallel_flags_are_refused(flags, asked):
+    """Parallel serving runs synchronously: with async scheduling left on
+    (the default) the server refuses before it loads the model or joins a
+    world (host 0 would otherwise wait for host 1 at the coordinator)."""
     proc = spawn(MODULE, "--model", tiny_llama(), "--port", str(free_port()), *FLAGS, *flags)
     try:
         code = proc.wait(timeout=120)
     finally:
         stop_all([proc])
     assert code != 0
-    assert f"NotImplementedError: not ported yet: {asked}" in output(proc)
+    assert f"NotImplementedError: not ported with tp_size > 1 or distributed serving: {asked}" in output(proc)
 
 
 def test_sigterm_stops_the_server():

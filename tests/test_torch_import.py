@@ -43,6 +43,9 @@ def test_import_loads_no_jax():
         "import scalellm_tpu_torch.serve.completion_handler, scalellm_tpu_torch.serve.chat_handler\n"
         "import scalellm_tpu_torch.serve.api_server, scalellm_tpu_torch.serve.pb.llm_pb2\n"
         "import scalellm_tpu_torch.serve.grpc_server, scalellm_tpu_torch.serve.gateway\n"
+        "import scalellm_tpu_torch.parallel, scalellm_tpu_torch.parallel.config, scalellm_tpu_torch.parallel.mesh\n"
+        "import scalellm_tpu_torch.parallel.multihost, scalellm_tpu_torch.parallel.collectives\n"
+        "import scalellm_tpu_torch.engine.distributed\n"
         f"banned = {BANNED!r}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(json.dumps(bad))\n"
@@ -90,7 +93,13 @@ def test_sources_name_no_jax_import():
             "scalellm_tpu_torch/serve/pb/__init__.py",
             "scalellm_tpu_torch/serve/pb/llm_pb2.py",
             "scalellm_tpu_torch/serve/grpc_server.py",
-            "scalellm_tpu_torch/serve/gateway.py"} <= names
+            "scalellm_tpu_torch/serve/gateway.py",
+            "scalellm_tpu_torch/parallel/__init__.py",
+            "scalellm_tpu_torch/parallel/config.py",
+            "scalellm_tpu_torch/parallel/mesh.py",
+            "scalellm_tpu_torch/parallel/multihost.py",
+            "scalellm_tpu_torch/parallel/collectives.py",
+            "scalellm_tpu_torch/engine/distributed.py"} <= names
     banned = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(BANNED) + r")\b", re.M)
     # A JAX package module's dotted name: "scalellm_tpu." and a lowercase
     # module name (the wire's names start upper case: scalellm_tpu.Chat).

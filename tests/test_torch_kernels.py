@@ -2633,3 +2633,44 @@ def test_api_server_answers_a_greedy_completion_on_the_card(cuda, tmp_path):
         engine.stop()
     assert answer["usage"]["completion_tokens"] == 24 and answer["choices"][0]["finish_reason"] == "length"
     assert answer["choices"][0]["text"] == want.outputs[0].text
+
+
+def test_tp_two_ranks_on_one_card_give_the_tp1_ids(cuda, tmp_path):
+    """LLM(tp_size=2, devices="cuda:0,cuda:0"): two ranks, each a process
+    on the card, over gloo (which takes the collectives' CUDA tensors
+    through host memory), serve a tiny random-weight Llama eagerly and synchronously
+    with the ids of tp 1 (near-ties excepted, held by the tp 1 model's
+    logits within chip_smoke.LOGITS_TOL), and each rank launches K1 once a
+    layer a step; with sequence parallelism the same."""
+    import chip_smoke
+    from scalellm_tpu_torch import LLM, SamplingParams
+
+    cfg = dict(TINY_LLAMA_CFG, architectures=["LlamaForCausalLM"], tie_word_embeddings=False, bos_token_id=1,
+               eos_token_id=2)
+    chip_smoke.write_checkpoint(torch, str(tmp_path), cfg)
+    kw = dict(enable_cuda_graph=False, enable_async_scheduling=False, num_blocks=256)
+    sp = SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True)
+    prompts = chip_smoke.prompts()[:4]
+    one = LLM(str(tmp_path), devices="cuda", **kw)
+    try:
+        want = [o.outputs[0].token_ids for o in one.generate(prompts, sp)]
+        model = one._handler.engine.model
+        for sequence_parallel in (False, True):
+            two = LLM(str(tmp_path), devices="cuda:0,cuda:0", tp_size=2, sequence_parallel=sequence_parallel, **kw)
+            try:
+                engine = two._handler.engine
+                assert engine.mesh.backend == "gloo" and engine.mesh.world_size == 2
+                engine.rank_launches(reset=True)
+                got = [o.outputs[0].token_ids for o in two.generate(prompts, sp)]
+                counts = engine.rank_launches()
+            finally:
+                two.close()
+            assert counts[0]["ragged_paged_attention_cuda"] == counts[1]["ragged_paged_attention_cuda"] > 0
+            assert counts[0]["ragged_paged_attention_cuda"] % cfg["num_hidden_layers"] == 0
+            tok = one._handler.tokenizer
+            for p, g, w in zip(prompts, got, want):
+                if g != w:
+                    ids = tok.encode(p)
+                    assert chip_smoke.teacher_forced_gap(torch, model, ids, g) <= chip_smoke.LOGITS_TOL
+    finally:
+        one.close()

@@ -438,5 +438,5 @@ def test_check_ported_lets_lora_through_but_not_with_speculation():
                  dict(distributed=True)):
         with pytest.raises(ValueError, match="LoRA"):
             LLMHandlerOptions(lora_modules={"a": "b"}, **spec).check_ported()
-    with pytest.raises(NotImplementedError, match="tp_size"):
+    with pytest.raises(ValueError, match="LoRA"):  # the reference's rule (lora/loader.py:112)
         LLMHandlerOptions(lora_modules={"a": "b"}, tp_size=2).check_ported()
